@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Where the port's SOCP solve spends its time on one GPU, and what the
+band's compaction depth costs.
+
+    python3 profile_port.py [--out report.json]
+
+For each instance of ``chip_smoke.py`` (Manhattan-4, robot20):
+
+1. host assembly times (``build_conic_problem``, ``build_chain_arrow``);
+2. three unprofiled warm solves (host clock around ``solve_score`` and a
+   device sync), then one warm solve under ``torch.profiler``: device busy
+   time (self device time of all kernels), kernel launches, the ops with
+   the most device time, and the band kernels' device time and launches;
+3. the band alone at the instance's band shape, for every compaction
+   depth from 0 to log2(Tp): median ms of a factor, a panel solve
+   (K = arrow width) and a direction solve (K = 1) by CUDA events, and
+   the kernel launches each takes;
+4. warm solves with the band forced to depth 0, depth 1, the default
+   depth and the deepest depth, taking turns.
+
+Prints a summary, and with ``--out`` writes everything as JSON. Needs a
+CUDA card; imports nothing of jax or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+
+def _log(*a):
+    print(*a, flush=True)
+
+
+def _event_ms(fn, reps=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _launches(fn):
+    """Band kernel launches made by one call of fn."""
+    from score_tpu_torch.ops import band
+
+    band.reset_launch_counts()
+    fn()
+    return sum(k.launches for k in band.KERNELS)
+
+
+def _warm_walls(fg, n=3):
+    import torch
+    from score_tpu_torch import ScoreSolverParams, solve_score
+
+    params = ScoreSolverParams(device="cuda")
+    solve_score(fg, "SOCP", params)  # warm-up
+    walls, res = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        res = solve_score(fg, "SOCP", params)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    relgap = res.gap / max(1.0, abs(res.primal_objective))
+    return dict(walls_s=walls, iterations=res.iterations, solved=res.solved,
+                relgap=relgap)
+
+
+def _profile_solve(fg, top=12):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from score_tpu_torch import ScoreSolverParams, solve_score
+
+    params = ScoreSolverParams(device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve_score(fg, "SOCP", params)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)[:top]
+    band = {}
+    for e in kernels:
+        for name in ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel",
+                     "cr_backsub_kernel", "pcr_level_kernel", "block_inv_kernel",
+                     "pcr_solve_kernel"):
+            if "::" + name in e.key:
+                band[name] = dict(device_ms=e.self_device_time_total / 1e3,
+                                  launches=e.count)
+    return dict(
+        device_busy_ms=busy_us / 1e3,
+        kernel_launches=n_launch,
+        top_ops=[dict(op=e.key, device_ms=e.self_device_time_total / 1e3,
+                      calls=e.count) for e in ops],
+        band_kernels=band,
+    )
+
+
+def _random_band(C, Tp, Db, seed, device):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((C, Tp, Db, Db))
+    D = M @ np.swapaxes(M, -1, -2) + (2.0 + 4.0 * Db) * np.eye(Db)
+    U = 0.3 * rng.standard_normal((C, Tp, Db, Db))
+    U[:, -1] = 0.0
+    f = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
+    return f(D), f(U)
+
+
+def _depth_sweep(C, Tp, K, device):
+    import torch
+    from score_tpu_torch.ops import band
+
+    D, U = _random_band(C, Tp, 6, seed=Tp, device=device)
+    rng = np.random.default_rng(0)
+    bK = torch.tensor(rng.standard_normal((C, Tp, 6, K)), device=device)
+    b1 = torch.tensor(rng.standard_normal((C, Tp, 6, 1)), device=device)
+    rows = []
+    for n in range(band.num_levels(Tp) + 1):
+        f = band.band_factor(D, U, n_cr=n)
+        rows.append(dict(
+            n_cr=n,
+            factor_ms=_event_ms(lambda: band.band_factor(D, U, n_cr=n)),
+            panel_ms=_event_ms(lambda: band.band_solve(f, bK)),
+            direction_ms=_event_ms(lambda: band.band_solve(f, b1)),
+            factor_launches=_launches(lambda: band.band_factor(D, U, n_cr=n)),
+            solve_launches=_launches(lambda: band.band_solve(f, b1)),
+        ))
+    return rows
+
+
+def _forced_depth_walls(fg, Tp, rounds=4):
+    """Warm solves at depth 0, 1, the default depth and the deepest depth,
+    by moving ``band.CR_BASE_LENGTH``; the depths take turns, one solve
+    each per round, so a drift of the host clock hits all of them."""
+    import torch
+    from score_tpu_torch import ScoreSolverParams, solve_score
+    from score_tpu_torch.ops import band
+
+    default = band.CR_BASE_LENGTH
+    bases = sorted({Tp, Tp // 2, default, 1}, reverse=True)
+    params = ScoreSolverParams(device="cuda")
+    out = {}
+    try:
+        for r in range(rounds + 1):  # round 0 warms up
+            for base in bases:
+                band.CR_BASE_LENGTH = base
+                t0 = time.perf_counter()
+                res = solve_score(fg, "SOCP", params)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                row = out.setdefault(band.cr_depth(Tp), dict(
+                    walls_s=[], iterations=res.iterations, solved=res.solved,
+                    relgap=res.gap / max(1.0, abs(res.primal_objective))))
+                if r:
+                    row["walls_s"].append(wall)
+    finally:
+        band.CR_BASE_LENGTH = default
+    for row in out.values():
+        row["median_s"] = statistics.median(row["walls_s"])
+    return out
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="write the full report as JSON to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    _log(smi)
+
+    from chip_smoke import _cells
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.assembly.normalize import normalize_factor_graph
+    from score_tpu_torch.ops import band
+    from score_tpu_torch.solver.chain_arrow import build_chain_arrow
+
+    report = dict(card=smi, torch=torch.__version__, cells={})
+    dev = torch.device("cuda")
+    for label, fg in _cells():
+        t0 = time.perf_counter()
+        problem, idx = build_conic_problem(normalize_factor_graph(fg)[0], "SOCP",
+                                           device=dev)
+        t1 = time.perf_counter()
+        st = build_chain_arrow(problem, idx)
+        t2 = time.perf_counter()
+        C, Tp, K = st.C, band.pad_length(st.T), st.A
+        cell = dict(C=C, Tp=Tp, arrow_width=K, cr_depth=band.cr_depth(Tp),
+                    build_conic_s=t1 - t0, build_chain_arrow_s=t2 - t1)
+        cell["warm"] = _warm_walls(fg)
+        cell["profile"] = _profile_solve(fg)
+        cell["depth_sweep"] = _depth_sweep(C, Tp, K, dev)
+        cell["forced_depth_warm"] = _forced_depth_walls(fg, Tp)
+        report["cells"][label] = cell
+
+        p = cell["profile"]
+        _log(f"{label}: C={C} Tp={Tp} A={K} default CR depth {cell['cr_depth']}; "
+             f"build_conic {cell['build_conic_s']:.4f} s, build_chain_arrow "
+             f"{cell['build_chain_arrow_s']:.4f} s")
+        _log(f"{label}: warm {cell['warm']}")
+        _log(f"{label}: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
+             f"{p['kernel_launches']} kernel launches")
+        for o in p["top_ops"]:
+            _log(f"  {o['op']:<40} {o['device_ms']:9.3f} ms {o['calls']:7d} calls")
+        for name, b in p["band_kernels"].items():
+            _log(f"  band {name:<22} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+        for r in cell["depth_sweep"]:
+            _log(f"  depth {r['n_cr']}: factor {r['factor_ms']:.4f} ms "
+                 f"({r['factor_launches']} launches), panel {r['panel_ms']:.4f} ms, "
+                 f"direction {r['direction_ms']:.4f} ms ({r['solve_launches']} launches)")
+        for n, w in cell["forced_depth_warm"].items():
+            _log(f"  solve at depth {n}: {w}")
+
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=1))
+        _log(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

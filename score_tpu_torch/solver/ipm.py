@@ -1,0 +1,445 @@
+"""Primal-dual interior-point solver for conic QPs.
+
+Port of :mod:`score_tpu.solver.ipm`. Solves
+
+    minimize    0.5 x^T P x + q^T x
+    subject to  G x + s = h,   s in K = SOC(k)^N
+
+with a Mehrotra predictor-corrector method under Nesterov-Todd scaling,
+Gondzio centrality correctors, gated residual-guarded direction
+refinement, a wide-neighbourhood step safeguard with centering recovery,
+best-iterate tracking and stall detection. Each direction is one reduced
+SPD solve (P + G^T W^{-2} G) dx = ... through the KKT backend.
+
+The JAX version is one jit-compiled `lax.while_loop`; here the loop runs
+on the host and every branch that was a `lax.cond` (or the loop
+condition) is decided from one synchronised scalar. Selections that were
+`jnp.where` stay `torch.where` on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from score_tpu_torch.assembly.conic import ConicProblem
+from score_tpu_torch.solver import cones
+from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+
+__all__ = ["IPMParams", "IPMResult", "solve_conic"]
+
+# Status codes (same values as the JAX package).
+RUNNING = 0
+OPTIMAL = 1
+MAX_ITER = 2
+NUMERICAL_ERROR = 3
+OPTIMAL_INACCURATE = 4  # stopped early but meets the reduced tolerances
+PRIMAL_INFEASIBLE = 5  # certificate z: z in K*, G'z ~ 0, h'z < 0
+DUAL_INFEASIBLE = 6  # certificate x: P x ~ 0, q'x < 0, -G x in K
+SOLVED_STATUSES = (OPTIMAL, OPTIMAL_INACCURATE)
+INFEASIBLE_STATUSES = (PRIMAL_INFEASIBLE, DUAL_INFEASIBLE)
+
+
+@dataclasses.dataclass(frozen=True)
+class IPMParams:
+    """Interior-point controls (meanings and defaults as in
+    :class:`score_tpu.solver.ipm.IPMParams`)."""
+
+    max_iter: int = 50
+    tol_feas: float = 1e-8
+    tol_gap_abs: float = 1e-8
+    tol_gap_rel: float = 1e-6
+    step_fraction: float = 0.99
+    kkt_refine_steps: int = 0  # iterative-refinement passes per K solve
+    # refinement passes of each search direction against the full Newton
+    # system (removes the W^{-2} roundoff floor of the condensed solve)
+    dir_refine_steps: int = 1
+    # refine only once the best-iterate metric is below this (0: always)
+    dir_refine_gate: float = 1e-3
+    # static diagonal regularization of K, relative to max|diag(K)|
+    static_reg: float = 1e-11
+    # escalation factor of the retry factorization after a breakdown
+    reg_escalation: float = 1e5
+    # reduced tolerances applied when the iteration stops early
+    tol_feas_reduced: float = 1e-6
+    tol_gap_reduced: float = 1e-5
+    # stop after this many iterations without improving the best iterate
+    stall_limit: int = 5
+    gondzio_correctors: int = 2
+    gondzio_beta_min: float = 0.1
+    gondzio_beta_max: float = 10.0
+    # Farkas certificates, tested once the iterate diverges
+    tol_infeas: float = 1e-8
+    infeas_norm_gate: float = 100.0
+    # wide-neighbourhood safeguard: every cone keeps rho_s rho_z >= gamma^4 mu^2
+    nbhd_gamma: float = 0.1
+    # refine the affine (predictor) direction too
+    refine_affine: bool = False
+
+
+class IPMResult(NamedTuple):
+    x: torch.Tensor
+    s: torch.Tensor
+    z: torch.Tensor
+    iterations: int
+    status: int
+    pobj: float  # 0.5 x'Px + q'x + const (true relaxation objective)
+    gap: float  # s'z
+    pres: float
+    dres: float
+
+
+@dataclasses.dataclass
+class _State:
+    x: torch.Tensor
+    s: torch.Tensor
+    z: torch.Tensor
+    it: int
+    status: int
+    # best-iterate tracking (by max of scaled residuals and relative gap)
+    best_x: torch.Tensor
+    best_s: torch.Tensor
+    best_z: torch.Tensor
+    best_metric: float
+    stall: int
+
+
+def _convergence_full(backend, problem, ops, params: IPMParams, x, s, z):
+    # residuals scaled by the magnitude of their constituent terms
+    Px = backend.P_matvec(ops, x)
+    Gtz = backend.GT(problem, ops, z)
+    Gx = backend.G(problem, ops, x)
+    rx = ops.mask * (Px + ops.q + Gtz)
+    rz = Gx + s - problem.cone_h
+    norm = torch.linalg.vector_norm
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    dscale = torch.maximum(one, torch.maximum(norm(Px), torch.maximum(norm(Gtz), ops.qnorm)))
+    pscale = torch.maximum(one, torch.maximum(norm(Gx), torch.maximum(norm(s), ops.hnorm)))
+    pres = norm(rz) / pscale
+    dres = norm(rx) / dscale
+    gap = cones.inner(s, z)
+    pq = 0.5 * x @ Px + ops.q @ x
+    # gap relative to the TRUE objective value (pq + const)
+    relgap = gap / torch.maximum(one, torch.abs(pq + ops.const))
+    ok = (pres < params.tol_feas) & (dres < params.tol_feas) & (
+        (gap < params.tol_gap_abs) | (relgap < params.tol_gap_rel)
+    )
+    bad = ~(torch.isfinite(pres) & torch.isfinite(dres) & torch.isfinite(gap))
+    return ok, bad, pres, dres, gap, pq, rx, rz, Px, Gtz, Gx
+
+
+def _metric(pres, dres, gap, pobj):
+    one = torch.ones_like(gap)
+    relgap = torch.abs(gap) / torch.maximum(one, torch.abs(pobj))
+    m = torch.maximum(torch.maximum(pres, dres), relgap)
+    return torch.where(torch.isfinite(m), m, torch.full_like(m, float("inf")))
+
+
+def _advance(backend, problem, ops, params, st: _State) -> None:
+    """One loop trip: convergence bookkeeping (best iterate, stall,
+    infeasibility certificates, status), then a step unless terminal.
+    The residuals of the convergence test are reused by the step."""
+    ok, bad, pres, dres, gap, pq, rx, rz, Px, Gtz, Gx = _convergence_full(
+        backend, problem, ops, params, st.x, st.s, st.z
+    )
+    m = _metric(pres, dres, gap, pq + ops.const)
+
+    tol_i = params.tol_infeas
+    norm = torch.linalg.vector_norm
+    znorm = norm(st.z)
+    # Farkas: on the free subspace the effective rhs is h - G xpin
+    hz = torch.sum(problem.cone_h * st.z) - ops.xpin @ Gtz
+    pinf = (znorm > params.infeas_norm_gate) & (hz < -tol_i * znorm) & (
+        norm(ops.mask * Gtz) < tol_i * znorm
+    )
+    xnorm = norm(st.x)
+    ray_in_cone = torch.min(cones.min_eig(-Gx)) > -tol_i * xnorm
+    dinf = (
+        (xnorm > params.infeas_norm_gate)
+        & (ops.q @ st.x < -tol_i * xnorm)
+        & (norm(ops.mask * Px) < tol_i * xnorm)
+        & ray_in_cone
+    )
+    # one synchronisation for every decision of the bookkeeping
+    m_f, ok_f, bad_f, pinf_f, dinf_f = torch.stack(
+        [m, ok.to(m.dtype), bad.to(m.dtype), pinf.to(m.dtype), dinf.to(m.dtype)]
+    ).tolist()
+
+    if m_f < st.best_metric:
+        st.best_x, st.best_s, st.best_z = st.x, st.s, st.z
+        st.best_metric = m_f
+        st.stall = 0
+    else:
+        st.stall += 1
+    stalled = st.stall >= params.stall_limit
+    if ok_f:
+        st.status = OPTIMAL
+    elif pinf_f:
+        st.status = PRIMAL_INFEASIBLE
+    elif dinf_f:
+        st.status = DUAL_INFEASIBLE
+    elif bad_f:
+        st.status = NUMERICAL_ERROR
+    elif stalled:
+        st.status = MAX_ITER
+    if st.status == RUNNING:
+        _step(backend, problem, ops, params, st, rx, rz)
+
+
+def _step(backend, problem: ConicProblem, ops, params: IPMParams, st: _State,
+          rx, rz) -> None:
+    x, s, z = st.x, st.s, st.z
+    N = problem.num_cones
+    dtype, dev = x.dtype, x.device
+    norm = torch.linalg.vector_norm
+
+    nt = cones.nt_scaling(s, z)
+    lam = cones.apply_W(nt, z)
+    Winv2 = cones.winv2_matrices(nt)
+    factors = backend.factor(problem, ops, Winv2, params)
+
+    gap = cones.inner(s, z)
+    mu = gap / N
+
+    def _condensed(rx_, rz_, d):
+        """One condensed Newton solve: P dx + G' dz = -rx_,
+        G dx + ds = -rz_, lambda o (W^{-1} ds + W dz) = d, with W^{-2}
+        applied in operator form."""
+        v = cones.apply_W(nt, cones.jordan_solve(lam, d))  # W (lambda \ d)
+        rzv = rz_ + v
+        wrz = cones.apply_Winv2(nt, rzv)
+        rhs = ops.mask * (-rx_ - backend.GT(problem, ops, wrz))
+        dx = backend.solve(problem, ops, factors, rhs, params)
+        Gdx = backend.G(problem, ops, dx)
+        dz = cones.apply_Winv2(nt, Gdx + rzv)
+        ds = -rz_ - Gdx
+        return dx, ds, dz
+
+    def _newton_resid(rx_, rz_, d, dx, ds, dz):
+        f1 = ops.mask * (-rx_ - backend.P_matvec(ops, dx) - backend.GT(problem, ops, dz))
+        f2 = -rz_ - backend.G(problem, ops, dx) - ds
+        f3 = d - cones.jordan_mul(lam, cones.apply_Winv(nt, ds) + cones.apply_W(nt, dz))
+        return f1, f2, f3
+
+    def refine_dirs(rx_, rz_, d, dirs):
+        """Full-system iterative refinement of computed directions; a
+        correction is accepted only when it reduces the full residual."""
+        if params.dir_refine_steps == 0:
+            return dirs
+        # refinement only matters near convergence (IPMParams.dir_refine_gate)
+        if params.dir_refine_gate > 0.0 and not st.best_metric < params.dir_refine_gate:
+            return dirs
+        dx, ds, dz = dirs
+        for _ in range(params.dir_refine_steps):
+            f1, f2, f3 = _newton_resid(rx_, rz_, d, dx, ds, dz)
+            r0 = norm(f1) + norm(f2) + norm(f3)
+            cx, cs, cz = _condensed(-f1, -f2, f3)
+            nx, ns, nz = dx + cx, ds + cs, dz + cz
+            g1, g2, g3 = _newton_resid(rx_, rz_, d, nx, ns, nz)
+            better = (norm(g1) + norm(g2) + norm(g3)) < r0
+            dx = torch.where(better, nx, dx)
+            ds = torch.where(better, ns, ds)
+            dz = torch.where(better, nz, dz)
+        return dx, ds, dz
+
+    def kkt_dirs(d):
+        return refine_dirs(rx, rz, d, _condensed(rx, rz, d))
+
+    def kkt_dirs_correction(d):
+        # pure-centrality correction: zero primal/dual residual rows, no
+        # refinement (correctors are accepted only when alpha improves)
+        return _condensed(torch.zeros_like(rx), torch.zeros_like(rz), d)
+
+    def step_len(ds_, dz_):
+        return torch.clamp(
+            params.step_fraction
+            * torch.minimum(cones.max_step(s, ds_), cones.max_step(z, dz_)),
+            max=1.0,
+        )
+
+    # --- affine (predictor) direction ---
+    d_aff = -cones.jordan_mul(lam, lam)
+    if params.refine_affine:
+        dx_a, ds_a, dz_a = kkt_dirs(d_aff)
+    else:
+        dx_a, ds_a, dz_a = _condensed(rx, rz, d_aff)
+    alpha_a = torch.clamp(
+        torch.minimum(cones.max_step(s, ds_a), cones.max_step(z, dz_a)), max=1.0
+    )
+    gap_a = cones.inner(s + alpha_a * ds_a, z + alpha_a * dz_a)
+    sigma = torch.clamp((torch.clamp(gap_a, min=0.0) / gap) ** 3, 0.0, 1.0)
+
+    # --- combined (corrector) direction ---
+    e = cones.soc_identity(N, problem.k, dtype, dev)
+    correction = cones.jordan_mul(cones.apply_Winv(nt, ds_a), cones.apply_W(nt, dz_a))
+    d_comb = d_aff - correction + sigma * mu * e
+    dx, ds, dz = kkt_dirs(d_comb)
+    alpha = step_len(ds, dz)
+
+    # --- Gondzio multiple centrality correctors ---
+    mu_t = sigma * mu
+    lo = params.gondzio_beta_min * mu_t
+    hi = params.gondzio_beta_max * mu_t
+    for _ in range(params.gondzio_correctors):
+        a_trial = torch.clamp(1.1 * alpha + 0.1, max=1.0)
+        prod = cones.jordan_mul(
+            cones.apply_Winv(nt, s + a_trial * ds), cones.apply_W(nt, z + a_trial * dz)
+        )
+        head = prod[:, :1]
+        d_extra = torch.cat([torch.clamp(head, lo, hi) - head, -prod[:, 1:]], dim=1)
+        # only correct meaningfully off-center cones
+        off = (head < lo) | (head > hi)
+        d_extra = torch.where(off, d_extra, torch.zeros_like(d_extra))
+        dx_c, ds_c, dz_c = kkt_dirs_correction(d_extra)
+        dx_n, ds_n, dz_n = dx + dx_c, ds + ds_c, dz + dz_c
+        alpha_n = step_len(ds_n, dz_n)
+        accept = alpha_n > alpha * 1.01
+        dx = torch.where(accept, dx_n, dx)
+        ds = torch.where(accept, ds_n, ds)
+        dz = torch.where(accept, dz_n, dz)
+        alpha = torch.where(accept, alpha_n, alpha)
+
+    # --- wide-neighbourhood safeguard ---
+    g4 = params.nbhd_gamma ** 4
+    fracs = torch.tensor([1.0, 0.5, 0.25, 0.1, 0.05, 0.02, 0.01], dtype=dtype, device=dev)
+
+    def largest_ok_frac(dsx, dzx, a0, gap_cap):
+        """Largest fraction f of step a0 that keeps every cone in the
+        neighbourhood and the gap <= gap_cap; 0 if none does."""
+        oks = []
+        for f in fracs:
+            a = a0 * f
+            s_t = s + a * dsx
+            z_t = z + a * dzx
+            gap_t = cones.inner(s_t, z_t)
+            mu_t_ = gap_t / N
+            det = cones.soc_residual(s_t) * cones.soc_residual(z_t)
+            oks.append((gap_t > 0.0) & (gap_t <= gap_cap) & torch.all(det >= g4 * mu_t_ ** 2))
+        ok = torch.stack(oks)
+        return torch.max(torch.where(ok, fracs, torch.zeros_like(fracs)))
+
+    # a gap increase means the direction is roundoff-dominated: reject
+    frac = largest_ok_frac(ds, dz, alpha, gap)
+
+    # --- centering recovery ---
+    # frac == 0: take a safeguarded pure-centering step (sigma = 1) that
+    # keeps the gap but restores centrality
+    if float(frac.item()) == 0.0:
+        d_c = mu * e - cones.jordan_mul(lam, lam)
+        dx, ds, dz = kkt_dirs_correction(d_c)
+        a_c = step_len(ds, dz)
+        alpha = a_c * largest_ok_frac(ds, dz, a_c, gap * 1.01)
+    else:
+        alpha = alpha * frac
+
+    x_new = x + alpha * dx
+    s_new = s + alpha * ds
+    z_new = z + alpha * dz
+    finite = (
+        torch.isfinite(x_new).all() & torch.isfinite(s_new).all() & torch.isfinite(z_new).all()
+    )
+    if bool(finite.item()):
+        st.x, st.s, st.z = x_new, s_new, z_new
+    else:
+        st.status = NUMERICAL_ERROR
+    st.it += 1
+
+
+def _initial_point(backend, problem: ConicProblem, ops, params: IPMParams):
+    """CVXOPT-coneqp-style start: solve the W = I KKT system, then shift
+    s, z to the cone interior."""
+    N, k = problem.num_cones, problem.k
+    eyes = torch.eye(k, dtype=ops.q.dtype, device=ops.q.device).expand(N, k, k)
+    factors0 = backend.factor(problem, ops, eyes, params)
+    rhs0 = -ops.q + backend.GT(problem, ops, problem.cone_h)
+    pin_contrib = backend.P_matvec(ops, ops.xpin) + backend.GT(
+        problem, ops, backend.G(problem, ops, ops.xpin)
+    )
+    dx0 = backend.solve(problem, ops, factors0, ops.mask * (rhs0 - pin_contrib), params)
+    x0 = ops.xpin + dx0
+    z_raw = backend.G(problem, ops, x0) - problem.cone_h
+    return x0, cones.shift_to_interior(-z_raw), cones.shift_to_interior(z_raw)
+
+
+def _degenerate_no_cones(backend, problem, ops, params) -> IPMResult:
+    """No cones: an equality-pinned unconstrained QP, one factor+solve."""
+    N, k = problem.num_cones, problem.k
+    eyes = torch.zeros((N, k, k), dtype=ops.q.dtype, device=ops.q.device)
+    factors = backend.factor(problem, ops, eyes, params)
+    x = ops.xpin + backend.solve(
+        problem, ops, factors,
+        ops.mask * (-ops.q - backend.P_matvec(ops, ops.xpin)), params,
+    )
+    zero = x.new_zeros((0, k))
+    pobj = 0.5 * x @ backend.P_matvec(ops, x) + ops.q @ x + ops.const
+    return IPMResult(x=x, s=zero, z=zero, iterations=0, status=OPTIMAL,
+                     pobj=float(pobj.item()), gap=0.0, pres=0.0, dres=0.0)
+
+
+def _finalize(backend, problem, ops, params, st: _State) -> IPMResult:
+    """Evaluate the best iterate seen (folding in the final iterate in
+    case the loop exited before bookkeeping saw it) and set the status."""
+    conv = _convergence_full(backend, problem, ops, params, st.x, st.s, st.z)
+    mf = _metric(conv[2], conv[3], conv[4], conv[5] + ops.const)
+    if float(mf.item()) < st.best_metric:
+        x, s, z = st.x, st.s, st.z
+    else:
+        x, s, z = st.best_x, st.best_s, st.best_z
+        conv = _convergence_full(backend, problem, ops, params, x, s, z)
+    ok, bad, pres, dres, gap, pq = conv[:6]
+    one = torch.ones_like(gap)
+    relgap = gap / torch.maximum(one, torch.abs(pq + ops.const))
+    ok_reduced = (
+        (pres < params.tol_feas_reduced)
+        & (dres < params.tol_feas_reduced)
+        & ((gap < params.tol_gap_reduced) | (relgap < params.tol_gap_reduced))
+        & torch.isfinite(gap)
+    )
+    vals = torch.stack([
+        ok.to(gap.dtype), ok_reduced.to(gap.dtype), bad.to(gap.dtype),
+        pq + ops.const, gap, pres, dres,
+    ]).tolist()
+    ok_f, okr_f, bad_f, pobj, gap_f, pres_f, dres_f = vals
+    if st.status in INFEASIBLE_STATUSES:
+        status = st.status
+    elif ok_f:
+        status = OPTIMAL
+    elif okr_f:
+        status = OPTIMAL_INACCURATE
+    elif st.status == NUMERICAL_ERROR or bad_f:
+        status = NUMERICAL_ERROR
+    else:
+        status = MAX_ITER
+    return IPMResult(x=x, s=s, z=z, iterations=st.it, status=status,
+                     pobj=pobj, gap=gap_f, pres=pres_f, dres=dres_f)
+
+
+def solve_conic(
+    problem: ConicProblem,
+    params: IPMParams = IPMParams(),
+    backend=ChainArrowBackend,
+    backend_aux=None,
+    warm_start: Optional[tuple] = None,
+    prepared=None,
+) -> IPMResult:
+    """Solve a ConicProblem on its device. ``backend_aux`` carries the
+    backend's static structure (the chain-arrow layout); ``warm_start``
+    may be an (x, s, z) triple used instead of the cold start (s, z are
+    shifted to the cone interior); ``prepared`` may carry a precomputed
+    ``backend.prepare(problem, backend_aux)``."""
+    ops = prepared if prepared is not None else backend.prepare(problem, backend_aux)
+    if problem.num_cones == 0:
+        return _degenerate_no_cones(backend, problem, ops, params)
+    if warm_start is not None:
+        x0, s0, z0 = warm_start
+        s0 = cones.shift_to_interior(s0)
+        z0 = cones.shift_to_interior(z0)
+    else:
+        x0, s0, z0 = _initial_point(backend, problem, ops, params)
+    st = _State(x=x0, s=s0, z=z0, it=0, status=RUNNING, best_x=x0, best_s=s0,
+                best_z=z0, best_metric=float("inf"), stall=0)
+    while st.status == RUNNING and st.it < params.max_iter:
+        _advance(backend, problem, ops, params, st)
+    return _finalize(backend, problem, ops, params, st)

@@ -1,0 +1,74 @@
+"""Host-side SE(d) helpers (numpy) used by the trajectory export.
+
+Port of the subset of ``score_tpu.utils.matrix`` that the factor-graph
+modules call; the device-side batched rounding lives in
+:mod:`score_tpu_torch.ops.rounding`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = [
+    "get_quat_from_rotation_matrix",
+    "get_rotation_from_transformation_matrix",
+    "get_translation_from_transformation_matrix",
+]
+
+
+def _check_square(mat: np.ndarray) -> None:
+    assert mat.ndim == 2 and mat.shape[0] == mat.shape[1], f"not square: {mat.shape}"
+
+
+def get_quat_from_rotation_matrix(mat: np.ndarray) -> np.ndarray:
+    """Rotation matrix (2x2 embedded into 3D, or 3x3) -> quaternion
+    (qx, qy, qz, qw), scalar-last like scipy."""
+    mat = np.asarray(mat, dtype=np.float64)
+    if mat.shape == (2, 2):
+        R = np.eye(3)
+        R[:2, :2] = mat
+    else:
+        R = mat
+    assert R.shape == (3, 3)
+    # Shepperd's method (numerically stable branch selection).
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2.0
+        qw = 0.25 * s
+        qx = (R[2, 1] - R[1, 2]) / s
+        qy = (R[0, 2] - R[2, 0]) / s
+        qz = (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2.0
+        qw = (R[2, 1] - R[1, 2]) / s
+        qx = 0.25 * s
+        qy = (R[0, 1] + R[1, 0]) / s
+        qz = (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2.0
+        qw = (R[0, 2] - R[2, 0]) / s
+        qx = (R[0, 1] + R[1, 0]) / s
+        qy = 0.25 * s
+        qz = (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2.0
+        qw = (R[1, 0] - R[0, 1]) / s
+        qx = (R[0, 2] + R[2, 0]) / s
+        qy = (R[1, 2] + R[2, 1]) / s
+        qz = 0.25 * s
+    q = np.array([qx, qy, qz, qw])
+    return q / np.linalg.norm(q)
+
+
+def get_rotation_from_transformation_matrix(T: np.ndarray) -> np.ndarray:
+    T = np.asarray(T)
+    _check_square(T)
+    d = T.shape[0] - 1
+    return T[:d, :d]
+
+
+def get_translation_from_transformation_matrix(T: np.ndarray) -> np.ndarray:
+    T = np.asarray(T)
+    _check_square(T)
+    d = T.shape[0] - 1
+    return T[:d, d]

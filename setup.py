@@ -10,5 +10,11 @@ setup(
     packages=find_packages(exclude=("tests", "examples")),
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
-    package_data={"score_tpu": ["py.typed"]},
+    # the PyTorch/CUDA port (score_tpu_torch) needs torch, and nvcc on the
+    # machine with the card to build its band kernels at first use
+    extras_require={"torch": ["torch"]},
+    package_data={
+        "score_tpu": ["py.typed"],
+        "score_tpu_torch": ["ops/csrc/*.cu"],
+    },
 )
