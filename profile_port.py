@@ -18,6 +18,10 @@ For each instance of ``chip_smoke.py`` (Manhattan-4, robot20):
 4. warm solves with the band forced to depth 0, depth 1, the default
    depth and the deepest depth, taking turns.
 
+Then the f32 fast mode (``precision="f32"``) on Manhattan-4, SOCP: three
+unprofiled warm solves and one profiled warm solve, with the block
+kernels' device time and launches.
+
 Prints a summary, and with ``--out`` writes everything as JSON. Needs a
 CUDA card; imports nothing of jax or of the JAX package.
 """
@@ -66,11 +70,11 @@ def _launches(fn):
     return sum(k.launches for k in band.KERNELS)
 
 
-def _warm_walls(fg, n=3):
+def _warm_walls(fg, n=3, precision="f64"):
     import torch
     from score_tpu_torch import ScoreSolverParams, solve_score
 
-    params = ScoreSolverParams(device="cuda")
+    params = ScoreSolverParams(device="cuda", precision=precision)
     solve_score(fg, "SOCP", params)  # warm-up
     walls, res = [], None
     for _ in range(n):
@@ -83,13 +87,19 @@ def _warm_walls(fg, n=3):
                 relgap=relgap)
 
 
-def _profile_solve(fg, top=12):
+# device-side names of the port's hand-written kernels (band.cu, blocks.cu)
+_KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
+                 "pcr_level_kernel", "block_inv_kernel", "pcr_solve_kernel",
+                 "chol_kernel", "tri_lower_kernel")
+
+
+def _profile_solve(fg, top=12, precision="f64"):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from score_tpu_torch import ScoreSolverParams, solve_score
 
-    params = ScoreSolverParams(device="cuda")
+    params = ScoreSolverParams(device="cuda", precision=precision)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         solve_score(fg, "SOCP", params)
         torch.cuda.synchronize()
@@ -101,9 +111,7 @@ def _profile_solve(fg, top=12):
                  key=lambda e: -e.self_device_time_total)[:top]
     band = {}
     for e in kernels:
-        for name in ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel",
-                     "cr_backsub_kernel", "pcr_level_kernel", "block_inv_kernel",
-                     "pcr_solve_kernel"):
+        for name in _KERNEL_NAMES:
             if "::" + name in e.key:
                 band[name] = dict(device_ms=e.self_device_time_total / 1e3,
                                   launches=e.count)
@@ -112,7 +120,7 @@ def _profile_solve(fg, top=12):
         kernel_launches=n_launch,
         top_ops=[dict(op=e.key, device_ms=e.self_device_time_total / 1e3,
                       calls=e.count) for e in ops],
-        band_kernels=band,
+        hand_kernels=band,
     )
 
 
@@ -230,7 +238,7 @@ def main() -> int:
              f"{p['kernel_launches']} kernel launches")
         for o in p["top_ops"]:
             _log(f"  {o['op']:<40} {o['device_ms']:9.3f} ms {o['calls']:7d} calls")
-        for name, b in p["band_kernels"].items():
+        for name, b in p["hand_kernels"].items():
             _log(f"  band {name:<22} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
         for r in cell["depth_sweep"]:
             _log(f"  depth {r['n_cr']}: factor {r['factor_ms']:.4f} ms "
@@ -238,6 +246,20 @@ def main() -> int:
                  f"direction {r['direction_ms']:.4f} ms ({r['solve_launches']} launches)")
         for n, w in cell["forced_depth_warm"].items():
             _log(f"  solve at depth {n}: {w}")
+
+    # the f32 fast mode on Manhattan-4
+    label, fg = _cells()[0]
+    cell = dict(precision="f32", warm=_warm_walls(fg, precision="f32"),
+                profile=_profile_solve(fg, precision="f32"))
+    report["cells"][label + "-f32"] = cell
+    p = cell["profile"]
+    _log(f"{label}-f32: warm {cell['warm']}")
+    _log(f"{label}-f32: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
+         f"{p['kernel_launches']} kernel launches")
+    for o in p["top_ops"]:
+        _log(f"  {o['op']:<40} {o['device_ms']:9.3f} ms {o['calls']:7d} calls")
+    for name, b in p["hand_kernels"].items():
+        _log(f"  kernel {name:<20} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
 
     if args.out:
         out = Path(args.out)

@@ -2,9 +2,11 @@
 
 Port of :mod:`score_tpu.api`: ``solve_score(data, relaxation_type,
 params)`` normalizes the factor graph, assembles the conic program on
-``params.device``, runs the interior-point solver through the chain+arrow
-backend, rounds every rotation block onto SO(d) and returns a
-:class:`SolverResults` in the caller's units.
+``params.device`` (the card by default), runs the interior-point solver
+through the chain+arrow backend, rounds every rotation block onto SO(d)
+and returns a :class:`SolverResults` in the caller's units. With
+``precision="f32"`` the conic problem is cast to float32 after assembly
+and the whole solve runs in f32.
 """
 
 from __future__ import annotations
@@ -87,17 +89,22 @@ def _values_from_host(xnp: np.ndarray, T: np.ndarray, idx: VariableIndex) -> Var
 
 
 def _round_and_fetch(x: torch.Tensor, idx: VariableIndex):
-    """SVD rounding on the solve's device, then ONE transfer of the flat
-    solution and the rounded poses to the host."""
+    """SVD rounding on the solve's device and in its dtype, then ONE
+    transfer of the flat solution and the rounded poses to the host, as
+    float64."""
     T = homogenize_batched(extract_pose_matrices(x, idx.num_poses, idx.dim))
-    buf = torch.cat([x, T.reshape(-1)]).cpu().numpy()
+    buf = torch.cat([x, T.reshape(-1)]).to(torch.float64).cpu().numpy()
     n = x.shape[0]
     return buf[:n], buf[n:].reshape(idx.num_poses, idx.dim + 1, idx.dim + 1)
 
 
-def variable_values_from_x(x, idx: VariableIndex, device="cpu") -> VariableValues:
+def variable_values_from_x(x, idx: VariableIndex, device=None) -> VariableValues:
     """Named variable values from a flat solution vector: batched SVD
-    rounding of every rotation block, landmark and distance extraction."""
+    rounding of every rotation block, landmark and distance extraction.
+    The rounding runs on ``device``; by default on the device of a tensor
+    ``x``, and on the card for a host array."""
+    if device is None:
+        device = x.device if torch.is_tensor(x) else "cuda"
     xt = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
                          dtype=torch.float64, device=device)
     xnp, T = _round_and_fetch(xt, idx)
@@ -142,6 +149,8 @@ def solve_score(
         normalize_factor_graph(data) if params.normalize else (data, 1.0)
     )
     problem, idx = build_conic_problem(scaled_data, relaxation_type, device=device)
+    if params.precision == "f32":
+        problem = problem.cast(torch.float32)
     backend, aux = _select_backend(problem, idx)
     result = solve_conic(problem, ipm_params, backend=backend, backend_aux=aux)
     # the rounding's device-to-host copy is the sync point of the solve

@@ -174,7 +174,8 @@ class ConicProblem:
            and every s[m] in SOC(k).
 
     Column index ``n`` is a padding slot (reads as 0, writes discarded).
-    Index tensors are int64, value tensors float64.
+    Index tensors are int64; value tensors float64, or float32 after
+    :meth:`cast` (the f32 fast mode).
     """
 
     cost_cols: torch.Tensor  # (R, NNZ) int64, padded with n
@@ -204,22 +205,35 @@ class ConicProblem:
     def device(self) -> torch.device:
         return self.cost_coefs.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.cost_coefs.dtype
+
     @classmethod
     def from_arrays(cls, arrays, n: int, k: int, dim: int, relaxation: str,
                     device) -> "ConicProblem":
         """Build from host arrays: ``arrays`` maps every field name to
-        anything ``np.asarray`` accepts."""
+        anything ``np.asarray`` accepts. Value arrays keep a float32 or
+        float64 dtype; anything else becomes float64."""
         vals = {}
         for name in _INT_FIELDS:
             vals[name] = torch.as_tensor(
                 np.asarray(arrays[name], dtype=np.int64), device=device
             )
         for name in _FLOAT_FIELDS:
-            vals[name] = torch.as_tensor(
-                np.asarray(arrays[name], dtype=np.float64), device=device
-            )
+            a = np.array(arrays[name])  # a writable copy
+            if a.dtype not in (np.float32, np.float64):
+                a = a.astype(np.float64)
+            vals[name] = torch.as_tensor(a, device=device)
         return cls(n=int(n), k=int(k), dim=int(dim), relaxation=relaxation,
                    **vals)
+
+    def cast(self, dtype: torch.dtype) -> "ConicProblem":
+        """The same problem with every value tensor in ``dtype`` (the
+        counterpart of ``score_tpu.api._cast_problem``)."""
+        return dataclasses.replace(
+            self, **{name: getattr(self, name).to(dtype) for name in _FLOAT_FIELDS}
+        )
 
 
 def _flatten_pose_measurements(fg: FactorGraphData):
@@ -235,10 +249,11 @@ def _flatten_pose_measurements(fg: FactorGraphData):
 def build_conic_problem(
     fg: FactorGraphData,
     relaxation: str = SOCP_RELAXATION,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[ConicProblem, VariableIndex]:
-    """Host-side compilation of a factor graph into a ConicProblem whose
-    tensors live on ``device``."""
+    """Host-side compilation of a factor graph into a float64 ConicProblem
+    whose tensors live on ``device`` (the card unless the caller names
+    another)."""
     _check_valid_relaxation(relaxation)
     dtype = np.float64
     d = fg.dimension

@@ -31,10 +31,11 @@ _CLASSES = {
 }
 
 
-def problem_from_reference(ref, device="cpu") -> ConicProblem:
-    """The port's ConicProblem from a reference ConicProblem (any object
-    with the same array attributes and ``n``, ``k``, ``dim``,
-    ``relaxation``)."""
+def problem_from_reference(ref, device="cuda") -> ConicProblem:
+    """The port's ConicProblem on ``device`` from a reference ConicProblem
+    (any object with the same array attributes and ``n``, ``k``, ``dim``,
+    ``relaxation``). Float arrays keep their dtype, so a float32 reference
+    problem gives a float32 port problem."""
     arrays = {name: np.asarray(getattr(ref, name)) for name in _PROBLEM_FIELDS}
     return ConicProblem.from_arrays(arrays, n=ref.n, k=ref.k, dim=ref.dim,
                                     relaxation=ref.relaxation, device=device)

@@ -11,10 +11,14 @@ backend). The range-SLAM KKT matrix K = P + G'W^{-2}G has a fixed pattern:
     the full pose blocks of a vertex cover of the loop-closure graph form a
     dense "arrow" block coupled to the chains.
 
-Per iteration: the chain band is factored and solved by the band
-kernels (:mod:`score_tpu_torch.ops.band`), the arrow panel Z = T^{-1}B
-goes through the same band solve, and the dense arrow Schur complement
-S - B'Z is a plain f64 matmul followed by an f64 Cholesky.
+Per iteration: the chain band is factored and solved, the arrow panel
+Z = T^{-1}B goes through the same band solve, and the dense arrow Schur
+complement S - B'Z is a plain matmul followed by a Cholesky, all in the
+problem's dtype. A float64 problem's band runs the f64 band kernels
+(:mod:`score_tpu_torch.ops.band`: compacting CR, then PCR); a float32
+problem's (``precision="f32"``) runs cyclic reduction all the way down
+(:mod:`score_tpu_torch.solver.pcr`) over the f32 block kernels, as the
+JAX backend's non-two-float branch does.
 
 Arrow column layout (host-chosen, static):
 
@@ -42,6 +46,7 @@ from score_tpu_torch.assembly.conic import (
 )
 from score_tpu_torch.ops.band import BandFactors, band_factor, band_solve, pad_length
 from score_tpu_torch.solver.linops import G_apply
+from score_tpu_torch.solver.pcr import PCRFactors, pcr_factor, pcr_solve
 from score_tpu_torch.solver.smallblocks import inv_small_spd
 
 __all__ = [
@@ -52,9 +57,6 @@ __all__ = [
     "CAFactors",
 ]
 
-F64 = torch.float64
-
-
 # ------------------------------------------------------------------ #
 # Host-side structure analysis
 # ------------------------------------------------------------------ #
@@ -63,8 +65,8 @@ F64 = torch.float64
 @dataclasses.dataclass(frozen=True)
 class ChainArrowStructure:
     """Static structure (index maps, masks) for the backend, on the
-    problem's device. Canonical "struct" layout of x: [pose slots (C*T*D)
-    | landmarks (NL*d) | distances (NR*ds)]."""
+    problem's device, the masks in its dtype. Canonical "struct" layout of
+    x: [pose slots (C*T*D) | landmarks (NL*d) | distances (NR*ds)]."""
 
     cm: torch.Tensor  # (C, T, D) chain-active column mask
     av: torch.Tensor  # (C, T, D) arrow-resident column mask
@@ -155,7 +157,7 @@ def _pack_incidence(rows, vals, n_rows, pad, extra=None, extra_pad=0):
 
 def build_chain_arrow(problem: ConicProblem, idx: VariableIndex) -> ChainArrowStructure:
     """Host-side (numpy) structure analysis; the result lives on the
-    problem's device."""
+    problem's device, its float masks in the problem's dtype."""
     d = idx.dim
     D = idx.pose_block
     C = len(idx.chain_lengths)
@@ -407,7 +409,7 @@ def build_chain_arrow(problem: ConicProblem, idx: VariableIndex) -> ChainArrowSt
     dev = problem.device
 
     def farr(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev).to(problem.dtype)
 
     def iarr(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
@@ -464,7 +466,9 @@ class CAState:
 
 
 class CAFactors(NamedTuple):
-    band: BandFactors  # CR + PCR factors of the padded chain band
+    # factors of the padded chain band: BandFactors (CR + PCR kernels) for
+    # f64, PCRFactors (cyclic reduction) for f32
+    band: BandFactors | PCRFactors
     B: torch.Tensor  # (C, Tp, D, A) masked chain-arrow coupling
     Z: torch.Tensor  # (C, Tp, D, A) = T^{-1} B
     LS: torch.Tensor  # (A, A) arrow Schur Cholesky
@@ -546,15 +550,16 @@ class ChainArrowBackend:
         dev = problem.device
         C, T, D, d, A = st.C, st.T, st.D, st.d, st.A
         n = problem.n
+        dt = problem.dtype
 
-        q = torch.zeros(n + 1, dtype=F64, device=dev)
+        q = torch.zeros(n + 1, dtype=dt, device=dev)
         contrib = -2.0 * (problem.cost_w * problem.cost_b)[:, None] * problem.cost_coefs
         _scatter_add(q, (problem.cost_cols,), contrib)
         q = q[:n]
         const = problem.c0 + torch.sum(problem.cost_w * problem.cost_b ** 2)
-        mask = torch.ones(n, dtype=F64, device=dev)
+        mask = torch.ones(n, dtype=dt, device=dev)
         mask[problem.pin_idx] = 0.0
-        xpin = torch.zeros(n, dtype=F64, device=dev)
+        xpin = torch.zeros(n, dtype=dt, device=dev)
         xpin[problem.pin_idx] = problem.pin_val
 
         # odometry edge blocks (batched matmuls)
@@ -567,7 +572,7 @@ class ChainArrowBackend:
                 problem, st, st.loop_row_base
             )
         else:
-            loop_ii = loop_ij = loop_jj = torch.zeros((0, D, D), dtype=F64, device=dev)
+            loop_ii = loop_ij = loop_jj = torch.zeros((0, D, D), dtype=dt, device=dev)
 
         cm_f = st.cm.reshape(C * T, D)
         av_f = st.av.reshape(C * T, D)
@@ -575,15 +580,15 @@ class ChainArrowBackend:
 
         # chain-band pieces
         cm_i, cm_j = st.cm[:, :-1], st.cm[:, 1:]
-        D0 = torch.zeros((C, T, D, D), dtype=F64, device=dev)
+        D0 = torch.zeros((C, T, D, D), dtype=dt, device=dev)
         D0[:, :-1] += edge_ii[:, : T - 1] * cm_i[..., :, None] * cm_i[..., None, :]
         D0[:, 1:] += edge_jj[:, : T - 1] * cm_j[..., :, None] * cm_j[..., None, :]
         U0 = edge_ij[:, : T - 1] * cm_i[..., :, None] * cm_j[..., None, :]
 
         # static arrow couplings, scattered once per solve. B0 has a pad
         # column (index A) and S0 a pad row/col for non-arrow entries.
-        B0p = torch.zeros((C * T, D, A + 1), dtype=F64, device=dev)
-        S0p = torch.zeros((A + 1, A + 1), dtype=F64, device=dev)
+        B0p = torch.zeros((C * T, D, A + 1), dtype=dt, device=dev)
+        S0p = torch.zeros((A + 1, A + 1), dtype=dt, device=dev)
         l_idx = torch.arange(D, device=dev)[None, :, None]
 
         def add_coupling(D0f, blk, su, sv):
@@ -629,12 +634,12 @@ class ChainArrowBackend:
         S0 = S0p[:A, :A].clone()
 
         # landmark priors on the arrow diagonal (landmark sites lead)
-        prior_diag = torch.zeros(st.NL * d, dtype=F64, device=dev)
+        prior_diag = torch.zeros(st.NL * d, dtype=dt, device=dev)
         if st.prior_row_base.shape[0] > 0:
             pw = 2.0 * problem.cost_w[st.prior_row_base]
             site_oh = (
                 st.prior_diag_sites[:, None] == torch.arange(st.NL, device=dev)[None, :]
-            ).to(F64)
+            ).to(dt)
             per_lm = torch.einsum("pl,p->l", site_oh, pw)
             prior_diag = torch.repeat_interleave(per_lm, d)
             S0 = S0 + torch.diag(
@@ -649,9 +654,9 @@ class ChainArrowBackend:
             else:
                 rng_dist = -problem.cost_coefs[st.range_row_base, 2]
         else:
-            rng_prec = rng_dist = torch.zeros(0, dtype=F64, device=dev)
+            rng_prec = rng_dist = torch.zeros(0, dtype=dt, device=dev)
 
-        one = torch.ones((), dtype=F64, device=dev)
+        one = torch.ones((), dtype=dt, device=dev)
         return CAState(
             structure=st, q=q, const=const, mask=mask, xpin=xpin,
             hnorm=torch.maximum(one, torch.linalg.vector_norm(problem.cone_h)),
@@ -669,29 +674,35 @@ class ChainArrowBackend:
         st = state.structure
         d = st.d
         vc, vl, vd = ChainArrowBackend._gather(state, v)
+        # The relative-pose blocks carry the large rotation weights: their
+        # two products per edge are orders of magnitude larger than their
+        # sum, and an f32 evaluation leaves the dual residual at the f32
+        # mode's reduced tolerance (1e-2). So the edge products accumulate
+        # in f64 and round once to the problem's dtype (a no-op for f64).
+        wide = torch.float64
 
         # odometry
-        vi, vj = vc[:, :-1], vc[:, 1:]
-        ei, ej, ejj = state.edge_ii[:, : st.T - 1], state.edge_ij[:, : st.T - 1], state.edge_jj[:, : st.T - 1]
+        vi, vj = vc[:, :-1].to(wide), vc[:, 1:].to(wide)
+        ei, ej, ejj = (e[:, : st.T - 1].to(wide)
+                       for e in (state.edge_ii, state.edge_ij, state.edge_jj))
         oi = torch.einsum("ctlm,ctm->ctl", ei, vi) + torch.einsum("ctlm,ctm->ctl", ej, vj)
         oj = torch.einsum("ctml,ctm->ctl", ej, vi) + torch.einsum("ctlm,ctm->ctl", ejj, vj)
         out_c = torch.zeros_like(vc)
-        out_c[:, :-1] += oi
-        out_c[:, 1:] += oj
+        out_c[:, :-1] += oi.to(vc.dtype)
+        out_c[:, 1:] += oj.to(vc.dtype)
 
         # loop closures (few edges: gather endpoints, blocked matvecs,
         # small scatter-add back)
         if st.NLC:
             vflat = vc.reshape(st.C * st.T, st.D)
-            li = vflat[st.loop_slot_i]
-            lj = vflat[st.loop_slot_j]
-            gi = torch.einsum("elm,em->el", state.loop_ii, li) + torch.einsum(
-                "elm,em->el", state.loop_ij, lj)
-            gj = torch.einsum("eml,em->el", state.loop_ij, li) + torch.einsum(
-                "elm,em->el", state.loop_jj, lj)
+            li = vflat[st.loop_slot_i].to(wide)
+            lj = vflat[st.loop_slot_j].to(wide)
+            lii, lij, ljj = (e.to(wide) for e in (state.loop_ii, state.loop_ij, state.loop_jj))
+            gi = torch.einsum("elm,em->el", lii, li) + torch.einsum("elm,em->el", lij, lj)
+            gj = torch.einsum("eml,em->el", lij, li) + torch.einsum("elm,em->el", ljj, lj)
             oflat = torch.zeros_like(vflat)
-            _scatter_add(oflat, (st.loop_slot_i,), gi)
-            _scatter_add(oflat, (st.loop_slot_j,), gj)
+            _scatter_add(oflat, (st.loop_slot_i,), gi.to(vc.dtype))
+            _scatter_add(oflat, (st.loop_slot_j,), gj.to(vc.dtype))
             out_c = out_c + oflat.reshape(st.C, st.T, st.D)
 
         # ranges
@@ -746,7 +757,7 @@ class ChainArrowBackend:
             kdd = 2.0 * prec + w00
             Hhat = Mtt - wv[:, :, None] * wv[:, None, :] / kdd[:, None, None]
             return kdd, wv, Hhat
-        eye = torch.eye(d, dtype=F64, device=Winv2.device)
+        eye = torch.eye(d, dtype=Winv2.dtype, device=Winv2.device)
         Kdd = 2.0 * (prec * dist ** 2)[:, None, None] * eye + Winv2[:, 1:, 1:]
         Kdd_inv = inv_small_spd(Kdd)
         c = 2.0 * prec * dist
@@ -814,21 +825,26 @@ class ChainArrowBackend:
 
     @staticmethod
     def _factor_band(st, Dg, Ug, Bg, Sg, delta, params):
-        """Chain band factorization through the band kernels, the arrow
-        panel Z = T^{-1} B, and the dense arrow Schur complement with its
-        f64 Cholesky (escalated regularization on breakdown)."""
+        """Chain band factorization (the f64 band kernels, or cyclic
+        reduction for f32), the arrow panel Z = T^{-1} B, and the dense
+        arrow Schur complement with its Cholesky (escalated regularization
+        on breakdown), all in the problem's dtype."""
         C, T, D, A = st.C, st.T, st.D, st.A
-        dev = Dg.device
+        dev, dt = Dg.device, Dg.dtype
         Tp = pad_length(T)
-        Dp = torch.eye(D, dtype=F64, device=dev).expand(C, Tp, D, D).clone()
+        Dp = torch.eye(D, dtype=dt, device=dev).expand(C, Tp, D, D).clone()
         Dp[:, :T] = Dg
-        Up = torch.zeros((C, Tp, D, D), dtype=F64, device=dev)
+        Up = torch.zeros((C, Tp, D, D), dtype=dt, device=dev)
         if T > 1:
             Up[:, : T - 1] = Ug
-        Bp = torch.zeros((C, Tp, D, A), dtype=F64, device=dev)
+        Bp = torch.zeros((C, Tp, D, A), dtype=dt, device=dev)
         Bp[:, :T] = Bg
-        bf = band_factor(Dp, Up)
-        Z = band_solve(bf, Bp)
+        if dt == torch.float32:
+            bf = pcr_factor(Dp, Up)
+            Z = pcr_solve(bf, Bp)
+        else:
+            bf = band_factor(Dp, Up)
+            Z = band_solve(bf, Bp)
         Kc = C * Tp * D
         Sg = Sg - Bp.reshape(Kc, A).T @ Z.reshape(Kc, A)
         LS = _cholesky_escalated(Sg, params.reg_escalation * delta)
@@ -868,9 +884,10 @@ class ChainArrowBackend:
             w = T^{-1} rc,  u = Stilde^{-1}(ra - B' w),  x = w - T^{-1}B u."""
         C, T, D, A = st.C, st.T, st.D, st.A
         Tp = factors.B.shape[1]
-        rp = torch.zeros((C, Tp, D, 1), dtype=F64, device=rc.device)
+        rp = torch.zeros((C, Tp, D, 1), dtype=rc.dtype, device=rc.device)
         rp[:, :T, :, 0] = rc
-        w = band_solve(factors.band, rp)[..., 0]  # (C, Tp, D)
+        solve = pcr_solve if isinstance(factors.band, PCRFactors) else band_solve
+        w = solve(factors.band, rp)[..., 0]  # (C, Tp, D)
         Kc = C * Tp * D
         ra_schur = ra - factors.B.reshape(Kc, A).T @ w.reshape(Kc)
         y = torch.linalg.solve_triangular(factors.LS, ra_schur[:, None], upper=False)

@@ -14,12 +14,18 @@ multiply-add contraction), which is what the transformations need.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["two_sum", "two_prod", "signed_sumsq", "jdot", "dot"]
 
-# Veltkamp splitting constant 2^ceil(53/2) + 1 for f64
-_SPLIT = float(2 ** 27 + 1)
+
+def _split_factor(dtype) -> float:
+    """Veltkamp splitting constant 2^((p + 2) // 2) + 1 for p explicit
+    mantissa bits: 2^27 + 1 for f64, 2^12 + 1 for f32."""
+    p = round(-math.log2(torch.finfo(dtype).eps))
+    return float(2 ** ((p + 2) // 2) + 1)
 
 
 def two_sum(a, b):
@@ -31,7 +37,7 @@ def two_sum(a, b):
 
 
 def _split(a):
-    c = _SPLIT * a
+    c = _split_factor(a.dtype) * a
     hi = c - (c - a)
     return hi, a - hi
 

@@ -38,13 +38,13 @@ def GT_apply(problem: ConicProblem, z: torch.Tensor) -> torch.Tensor:
 
 def free_mask(problem: ConicProblem) -> torch.Tensor:
     """(n,) mask: 1 on free coordinates, 0 on pinned ones."""
-    mask = torch.ones(problem.n, dtype=torch.float64, device=problem.device)
+    mask = torch.ones(problem.n, dtype=problem.dtype, device=problem.device)
     mask[problem.pin_idx] = 0.0
     return mask
 
 
 def pin_vector(problem: ConicProblem) -> torch.Tensor:
     """(n,) vector with the pinned values at pinned slots, 0 elsewhere."""
-    x = torch.zeros(problem.n, dtype=torch.float64, device=problem.device)
+    x = torch.zeros(problem.n, dtype=problem.dtype, device=problem.device)
     x[problem.pin_idx] = problem.pin_val
     return x

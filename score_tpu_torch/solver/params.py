@@ -18,9 +18,10 @@ __all__ = ["ScoreSolverParams"]
 class ScoreSolverParams:
     """Configuration for :func:`score_tpu_torch.api.solve_score`."""
 
-    # device every tensor of the solve is created on ("cpu", "cuda",
-    # "cuda:1", ...). "cuda" without a card raises; nothing falls back.
-    device: str = "cpu"
+    # device every tensor of the solve is created on ("cuda", "cuda:1",
+    # "cpu", ...). The card by default: "cuda" without a card raises, and
+    # nothing falls back to the CPU.
+    device: str = "cuda"
 
     verbose: bool = False
     save_results: bool = False
@@ -39,7 +40,9 @@ class ScoreSolverParams:
 
     # "auto", "mixed" and "f64" all run in f64 here: the card has native
     # IEEE f64, so the JAX package's two-float band has no counterpart.
-    # "f32" is not ported.
+    # "f32" is the initializer-grade fast mode: the whole solve in f32,
+    # the chain band by cyclic reduction (solver/pcr.py) over the batched
+    # block kernels of ops/blocks.py, at reduced tolerances.
     precision: str = "auto"
     kkt_refine_steps: int = 0
     dir_refine_steps: int = 1
@@ -50,8 +53,25 @@ class ScoreSolverParams:
 
     def ipm_params(self) -> IPMParams:
         if self.precision == "f32":
-            raise NotImplementedError(
-                'precision="f32" is not ported; "auto", "mixed" and "f64" run in f64'
+            # f32 reaches ~1e-3..1e-4 relative accuracy: tolerances no
+            # tighter than 1e-5, one KKT refinement pass, 1e-2 reduced
+            # acceptance and a larger static regularization
+            return IPMParams(
+                max_iter=self.max_iter,
+                tol_feas=max(self.tol_feas, 1e-5),
+                tol_gap_abs=max(self.tol_gap_abs, 1e-5),
+                tol_gap_rel=max(self.tol_gap_rel, 1e-5),
+                step_fraction=self.step_fraction,
+                kkt_refine_steps=max(self.kkt_refine_steps, 1),
+                dir_refine_steps=self.dir_refine_steps,
+                gondzio_correctors=self.gondzio_correctors,
+                tol_feas_reduced=(
+                    1e-2 if self.tol_feas_reduced is None else self.tol_feas_reduced
+                ),
+                tol_gap_reduced=(
+                    1e-2 if self.tol_gap_reduced is None else self.tol_gap_reduced
+                ),
+                static_reg=1e-7,
             )
         if self.precision not in ("auto", "mixed", "f64"):
             raise ValueError(f"Unknown precision {self.precision!r}")

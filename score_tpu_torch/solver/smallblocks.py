@@ -1,45 +1,48 @@
-"""Unrolled small-block linear algebra (plain PyTorch).
+"""Small-block linear algebra over arbitrary leading batch dimensions.
 
-Port of the plain parts of :mod:`score_tpu.solver.smallblocks`. These are
-the plain versions of the per-block device functions inside the band
-kernels (``ops/csrc/band.cu``: ``chol``, ``tri_lower``, ``tri_upper``):
-the CUDA code runs the same left-looking column Cholesky and the same
-substitution order, one block per thread.
+Port of :mod:`score_tpu.solver.smallblocks` (the unrolled block routines).
+A float32 batch on the card (ndim >= 3) goes through the hand-written
+block kernels of :mod:`score_tpu_torch.ops.blocks`, as the JAX package
+routes f32 batches into its Pallas kernels; everything else (CPU tensors,
+float64 anywhere) takes the plain unrolled versions, which are those
+kernels' twins. float64 on the card stays on the plain path, as the JAX
+package keeps f64 on its unrolled jnp path. The f64 band kernels
+(``ops/csrc/band.cu``: ``chol``, ``tri_lower``, ``tri_upper``) run the
+same left-looking column Cholesky and substitution order inside their
+threads.
 """
 
 from __future__ import annotations
 
 import torch
 
+from score_tpu_torch.ops import blocks
+
 __all__ = ["chol_small", "tri_lower_solve", "tri_upper_solve", "inv_small_spd"]
 
 
+def _use_kernel(a: torch.Tensor) -> bool:
+    return a.device.type == "cuda" and a.dtype == torch.float32 and a.dim() >= 3
+
+
 def chol_small(A: torch.Tensor) -> torch.Tensor:
-    """Cholesky of (..., m, m) SPD matrices, unrolled over the static m
-    (left-looking column algorithm; every step is a batched vector op)."""
-    m = A.shape[-1]
-    cols = []
-    for j in range(m):
-        c = A[..., :, j]
-        for k in range(j):
-            c = c - cols[k] * cols[k][..., j : j + 1]
-        col = c / torch.sqrt(c[..., j : j + 1])
-        # zero the strictly-upper part of this column
-        col = col * (torch.arange(m, device=A.device) >= j).to(A.dtype)
-        cols.append(col)
-    return torch.stack(cols, dim=-1)
+    """Cholesky of (..., m, m) SPD matrices (left-looking column order,
+    zero strictly-upper triangle)."""
+    if _use_kernel(A):
+        m = A.shape[-1]
+        return blocks.block_chol(A.reshape(-1, m, m).contiguous()).reshape(A.shape)
+    return blocks.block_chol_plain(A)
 
 
 def tri_lower_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve L Y = B with L (..., m, m) lower-triangular and B (..., m, K)."""
-    m = L.shape[-1]
-    rows = []
-    for i in range(m):
-        r = B[..., i, :]
-        for k in range(i):
-            r = r - L[..., i, k : k + 1] * rows[k]
-        rows.append(r / L[..., i, i : i + 1])
-    return torch.stack(rows, dim=-2)
+    if _use_kernel(L):
+        m, K = L.shape[-1], B.shape[-1]
+        Y = blocks.block_tri_lower_solve(
+            L.reshape(-1, m, m).contiguous(), B.reshape(-1, m, K).contiguous()
+        )
+        return Y.reshape(B.shape)
+    return blocks.block_tri_lower_solve_plain(L, B)
 
 
 def tri_upper_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -55,7 +58,7 @@ def tri_upper_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def inv_small_spd(A: torch.Tensor) -> torch.Tensor:
-    """Inverse of small SPD matrices via the unrolled Cholesky."""
+    """Inverse of small SPD matrices via the Cholesky factor."""
     m = A.shape[-1]
     L = chol_small(A)
     eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(A.shape)

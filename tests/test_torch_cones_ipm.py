@@ -114,7 +114,7 @@ def small_problem(request):
         inter_robot_measure_prob=0.5, seed=7,
     ))
     rp, ridx = ref_build(fg, request.param)
-    return rp, ridx, problem_from_reference(rp)
+    return rp, ridx, problem_from_reference(rp, device="cpu")
 
 
 def test_operators_match_reference(small_problem):

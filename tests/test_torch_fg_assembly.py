@@ -78,7 +78,7 @@ def test_conic_problem_matches_reference(relaxation):
     sport, scale = normalize_factor_graph(factor_graph_from_reference(ref_fg))
     assert scale == scale_ref
     rp, ridx = ref_build(sref, relaxation)
-    pp, pidx = build_conic_problem(sport, relaxation)
+    pp, pidx = build_conic_problem(sport, relaxation, device="cpu")
     assert (pp.n, pp.k, pp.dim, pp.relaxation) == (rp.n, rp.k, rp.dim, rp.relaxation)
     assert dataclasses.asdict(pidx) == dataclasses.asdict(ridx)
     for name in INT_FIELDS:
@@ -88,6 +88,6 @@ def test_conic_problem_matches_reference(relaxation):
                                    rtol=1e-14, atol=0)
     # the conversion path used by the solver parity tests carries the
     # reference problem across unchanged
-    cp = problem_from_reference(rp)
+    cp = problem_from_reference(rp, device="cpu")
     for name in INT_FIELDS + FLOAT_FIELDS:
         np.testing.assert_array_equal(getattr(cp, name).numpy(), np.asarray(getattr(rp, name)))

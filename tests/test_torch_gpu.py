@@ -1,5 +1,6 @@
-"""The port's CUDA path on the card: each band kernel against its plain
-PyTorch version, and a solve on the card against the port's CPU path.
+"""The port's CUDA path on the card: each band kernel and each block
+kernel against its plain PyTorch version, and f64 and f32 solves on the
+card against the port's CPU path.
 
 Every test here carries the ``gpu`` marker and skips without a card. The
 file imports neither jax nor the JAX package, so on a machine with a card
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from score_tpu_torch import ScoreSolverParams, solve_score
-from score_tpu_torch.ops import band
+from score_tpu_torch.ops import band, blocks
+from score_tpu_torch.solver.pcr import pcr_factor, pcr_solve
 from score_tpu_torch.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
 
 pytestmark = pytest.mark.gpu
@@ -108,3 +110,59 @@ def test_cuda_solve_matches_cpu(cuda, monkeypatch):
     assert abs(gpu.primal_objective - cpu.primal_objective) <= 1e-9 * abs(cpu.primal_objective)
     for name, T in cpu.poses.items():
         np.testing.assert_allclose(gpu.poses[name], T, atol=1e-5, rtol=0)
+
+
+def _spd32(M, D, seed, device):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, D, D))
+    A = A @ np.swapaxes(A, -1, -2) + (2.0 + 4.0 * D) * np.eye(D)
+    return torch.tensor(A, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("D,M,K", [(6, 1024, 1), (6, 1024, 6), (6, 1024, 138), (2, 2070, 2)])
+def test_block_kernels_match_plain(cuda, D, M, K):
+    """Max relative difference 1e-5 (f32; the kernels contract to FMAs,
+    the plain versions round each PyTorch op) and reconstruction
+    residuals ||L L^T - A|| / ||A|| and ||L Y - B|| / ||B|| <= 1e-5."""
+    blocks.reset_launch_counts()
+    A = _spd32(M, D, M + D, cuda)
+    L = blocks.block_chol(A)
+    assert _rel(L, blocks.block_chol_plain(A)) <= 1e-5
+    assert torch.equal(torch.triu(L, diagonal=1), torch.zeros_like(L))
+    assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
+    B = torch.randn(M, D, K, device=cuda)
+    Y = blocks.block_tri_lower_solve(L, B)
+    assert _rel(Y, blocks.block_tri_lower_solve_plain(L, B)) <= 1e-5
+    assert _rel(L @ Y, B) <= 1e-5
+    torch.cuda.synchronize()
+    assert [k.launches for k in blocks.KERNELS] == [1, 1]
+    with pytest.raises(TypeError):
+        blocks.block_chol(A.double())  # the kernels are f32 only
+
+
+def test_f32_band_matches_f64_band(cuda):
+    """Cyclic reduction in f32 over the block kernels against the f64
+    band kernels on the same well-conditioned chains: 1e-4 relative."""
+    D, U = _band(3, 64, 6, 62, (64, 40, 7), cuda)
+    b = torch.randn(3, 64, 6, 5, dtype=torch.float64, device=cuda)
+    blocks.reset_launch_counts()
+    x32 = pcr_solve(pcr_factor(D.float(), U.float()), b.float())
+    assert all(k.launches > 0 for k in blocks.KERNELS)
+    x64 = band.band_solve(band.band_factor(D, U), b)
+    assert _rel(x32.double(), x64) <= 1e-4
+
+
+def test_f32_cuda_solve_matches_cpu(cuda):
+    """The f32 fast mode on the card against the port's f32 CPU path: both
+    solved, iterations within 3, objectives within 2e-2."""
+    fg = simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=12,
+        range_measure_prob=0.4, seed=3,
+    ))
+    blocks.reset_launch_counts()
+    gpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))
+    assert all(k.launches > 0 for k in blocks.KERNELS)
+    cpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cpu", precision="f32"))
+    assert gpu.solved and cpu.solved
+    assert abs(gpu.iterations - cpu.iterations) <= 3
+    assert abs(gpu.primal_objective - cpu.primal_objective) <= 2e-2 * abs(cpu.primal_objective)
