@@ -9,8 +9,10 @@ without printing a result line:
 1. require a CUDA device; print the card's name and power limit;
 2. build both kernel libraries (``score_tpu_torch/ops/csrc/band.cu``, the
    f64 band kernels, and ``csrc/blocks.cu``, the f32 block kernels) with
-   one nvcc each, started together; print the build times and ptxas'
-   register and spill lines;
+   one nvcc each, started together; print the build times, ptxas'
+   register and spill lines, and one line each with the registers and
+   spill bytes of ``band_pcr_level`` and ``band_pcr_solve`` (a spill
+   fails the run);
 3. every band kernel against its plain PyTorch version on the card, at
    the band shapes of both instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
@@ -19,7 +21,11 @@ without printing a result line:
    level's kernel outputs: the max relative difference
    (max |kernel - plain| / max |plain|) must be <= 1e-12 and the band
    residual <= 1e-10; median times of both at each kernel's first call
-   (CUDA events, after warm-up); then each block kernel against its
+   (CUDA events around the wrapper, after warm-up) and the kernel's
+   device time (a CUDA graph of 20 launches replayed between events), for
+   ``band_pcr_solve`` at K = 1 beside the panel; ``band_pcr_level`` and
+   ``band_pcr_solve`` again at edge shapes (one and two blocks per chain,
+   one chain, rhs widths off the column tiles); then each block kernel against its
    plain version in f32 at the shapes of the f32 path (max relative
    difference <= 1e-5, and reconstruction residuals ||L L^T - A|| / ||A||,
    ||L Y - B|| / ||B|| <= 1e-5), with its time, its plain version's and a
@@ -41,11 +47,13 @@ without printing a result line:
    (for QCQP also at D = 2, the distance pivots);
 8. a 4 x 50 world in f32 on the card against the port's f32 CPU path:
    both solved, iterations within 3, objectives within 2e-2;
-9. one JSON line describing the kernels (time, plain time, the bound
-   from bytes and operations, and a PyTorch call computing the same
-   function where one exists), then the result line.
+9. one JSON line describing the kernels (event time, device time, plain
+   time, the bound from bytes and operations, and a PyTorch call
+   computing the same function where one exists), then the result line.
 
-Imports nothing of jax or of the JAX package.
+``python3 chip_smoke.py --kernels`` stops after the band kernels' checks
+of phase 3 (a short first run after a kernel changed) and prints no
+result line. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -101,6 +109,34 @@ def _time_ms(fn, reps=20, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_us(fn, launches=20, replays=5):
+    """Device time of one call of ``fn`` in microseconds, without the
+    wrapper's host time: ``launches`` calls are captured into one CUDA
+    graph, the graph is replayed between two events, and the median replay
+    is divided by ``launches``. Kernels inside a graph run back to back,
+    so the time holds a launch's device-side latency but no Python."""
+    import torch
+
+    fn()  # builds, and sets function attributes, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times) * 1e3 / launches
 
 
 def _random_band(C, Tp, Db, seed, device):
@@ -191,8 +227,9 @@ def _band_cost(name, *args):
     if name == "band_pcr_level":
         D = args[0]
         n = D.shape[-1]
-        # invD of every position, E, F, two products into D', A', C', two adds
-        return 8 * D.numel() * f8, D.numel() // n ** 2 * (_inv_flops(n) + 12 * n ** 3 + 2 * n * n)
+        # reads D, A, C, invD; writes E, F, D', A', C', invD'. One inverse per
+        # position, E, F, two products into D', A', C', two adds
+        return 10 * D.numel() * f8, D.numel() // n ** 2 * (_inv_flops(n) + 12 * n ** 3 + 2 * n * n)
     if name == "band_cr_level":
         D = args[0]
         n = D.shape[-1]
@@ -244,8 +281,10 @@ def _bound(nbytes, flops, precision):
 
 class _KernelCheck:
     """Running max error of each kernel against its plain twin, and, at the
-    first call of each kernel, the kernel, plain and library times and the
-    bound from the call's bytes and operations."""
+    first call of each kernel, the kernel, plain and library times by
+    events around the call (wrapper included), the kernel's device time
+    (:func:`_device_us`) and the bound from the call's bytes and
+    operations."""
 
     def __init__(self, tol=REL_TOL, precision="f64"):
         self.rows = {}
@@ -257,11 +296,12 @@ class _KernelCheck:
         abs_err, rel_err = _compare(name, out, plain(), self.tol)
         row = self.rows.get(name)
         if row is None:
-            ms, plain_ms = _time_ms(kern), _time_ms(plain)
+            ms, plain_ms, device_us = _time_ms(kern), _time_ms(plain), _device_us(kern)
             library_ms = _time_ms(library) if library is not None else None
             bound_ms, bound_by = _bound(*cost, self.precision)
             row = self.rows[name] = dict(max_abs_err=0.0, max_rel=0.0, calls=0,
                                          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                         device_us=device_us,
                                          bound_ms=bound_ms, bound_by=bound_by,
                                          bytes=cost[0], flops=cost[1])
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
@@ -301,16 +341,16 @@ def phase_kernels(label, C, Tp, K, device):
         levels.append(out[:5])
         Dl, Al, Cl = out[5:]
     Es, Fs = [], []
-    for lev in range(band.num_levels(Tp >> n_cr)):
-        args = (Dl, Al, Cl, 1 << lev)
-        E, F, Dl, Al, Cl = chk("band_pcr_level", lambda: band.band_pcr_level(*args),
-                               lambda: band.band_pcr_level_plain(*args),
-                               _band_cost("band_pcr_level", *args))
-        Es.append(E)
-        Fs.append(F)
     invD = chk("band_block_inv", lambda: band.band_block_inv(Dl),
                lambda: band.band_block_inv_plain(Dl), _band_cost("band_block_inv", Dl),
                library=lambda: torch.linalg.inv(Dl))
+    for lev in range(band.num_levels(Tp >> n_cr)):
+        args = (Dl, Al, Cl, invD, 1 << lev)
+        E, F, Dl, Al, Cl, invD = chk("band_pcr_level", lambda: band.band_pcr_level(*args),
+                                     lambda: band.band_pcr_level_plain(*args),
+                                     _band_cost("band_pcr_level", *args))
+        Es.append(E)
+        Fs.append(F)
     E, F = torch.stack(Es), torch.stack(Fs)
     rng = np.random.default_rng(Tp)
     resid = {}
@@ -327,6 +367,13 @@ def phase_kernels(label, C, Tp, K, device):
         x = chk("band_pcr_solve", lambda: band.band_pcr_solve(E, F, invD, bb),
                 lambda: band.band_pcr_solve_plain(E, F, invD, bb),
                 _band_cost("band_pcr_solve", E, F, invD, bb))
+        if k == 1:  # a direction solve's times beside the panel's
+            kern = lambda: band.band_pcr_solve(E, F, invD, bb)
+            bound_ms, bound_by = _bound(*_band_cost("band_pcr_solve", E, F, invD, bb), "f64")
+            chk.rows["band_pcr_solve"].update(
+                k1_ms=_time_ms(kern), k1_device_us=_device_us(kern),
+                k1_plain_ms=_time_ms(lambda: band.band_pcr_solve_plain(E, F, invD, bb)),
+                k1_bound_ms=bound_ms, k1_bound_by=bound_by)
         for (_, _, iv, Ao, Co), bf in zip(reversed(levels), reversed(fine)):
             xe = x
             x = chk("band_cr_backsub", lambda: band.band_cr_backsub(iv, Ao, Co, bf, xe),
@@ -338,6 +385,11 @@ def phase_kernels(label, C, Tp, K, device):
     _log(f"{label} band: C={C} Tp={Tp} Db={Db} CR levels={n_cr} panel K={K} "
          f"residual K={K} {resid[K]:.3e} K=1 {resid[1]:.3e}")
     _log_rows(label, chk.rows)
+    r = chk.rows["band_pcr_solve"]
+    _log(f"{label} kernel band_pcr_solve at K=1: kernel_ms={r['k1_ms']:.4f} "
+         f"device_us={r['k1_device_us']:.2f} plain_ms={r['k1_plain_ms']:.4f} "
+         f"bound_ms={r['k1_bound_ms']:.6f} ({r['k1_bound_by']}); at the panel K={K}: "
+         f"kernel_ms={r['ms']:.4f} device_us={r['device_us']:.2f}")
     missing = [k for k in _path_kernels(Tp) if k not in chk.rows]
     if missing:
         raise AssertionError(f"{label}: kernels not checked: {missing}")
@@ -349,8 +401,69 @@ def _log_rows(label, rows):
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         _log(f"{label} kernel {name}: calls={r['calls']} max_rel_diff={r['max_rel']:.3e} "
              f"max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
+             f"device_us={r['device_us']:.2f} "
              f"plain_ms={r['plain_ms']:.4f} library_ms={lib} bound_ms={r['bound_ms']:.6f} "
              f"({r['bound_by']}: {r['bytes']} bytes, {r['flops']} flops)")
+
+
+def phase_edge_shapes(device):
+    """The two redesigned kernels, ``band_pcr_level`` at every level and
+    ``band_pcr_solve``, against their plain versions at shapes off the two
+    cells' that the main path can reach: a single block per chain (no
+    level), two blocks, one chain, rhs widths that are no multiple of a
+    column tile (K = 3, 139) and that meet the tiles' edges (4, 5, 8), and
+    a chain longer than the wide solve kernel takes (Tp = 512)."""
+    import torch
+    from score_tpu_torch.ops import band
+
+    Db, worst = 6, 0.0
+    rng = np.random.default_rng(5)
+    for C, Tp, Ks in [(3, 1, (1, 3)), (2, 2, (1, 3, 139)), (1, 256, (1, 2, 4, 5, 139)),
+                      (4, 256, (3, 8, 139)), (20, 128, (3, 139)), (5, 32, (7,)),
+                      (2, 512, (1, 3, 9))]:
+        D, U = _random_band(C, Tp, Db, seed=7 * Tp + C, device=device)
+        A = band.band_init_a(U)
+        Cl, invD = U, band.band_block_inv(D)
+        Es, Fs = [], []
+        for lev in range(band.num_levels(Tp)):
+            args = (D, A, Cl, invD, 1 << lev)
+            out = band.band_pcr_level(*args)
+            worst = max(worst, _compare(f"band_pcr_level C={C} Tp={Tp} s={1 << lev}", out,
+                                        band.band_pcr_level_plain(*args))[1])
+            E, F, D, A, Cl, invD = out
+            Es.append(E)
+            Fs.append(F)
+        E = torch.stack(Es) if Es else D.new_zeros((0, C, Tp, Db, Db))
+        F = torch.stack(Fs) if Fs else E
+        for K in Ks:
+            b = torch.tensor(rng.standard_normal((C, Tp, Db, K)), device=device)
+            worst = max(worst, _compare(f"band_pcr_solve C={C} Tp={Tp} K={K}",
+                                        band.band_pcr_solve(E, F, invD, b),
+                                        band.band_pcr_solve_plain(E, F, invD, b))[1])
+    torch.cuda.synchronize()
+    _log(f"edge shapes: band_pcr_level and band_pcr_solve max_rel_diff={worst:.3e} "
+         f"(bound {REL_TOL})")
+
+
+def _ptxas_report(log, kernel):
+    """(registers, spill store bytes, spill load bytes), the worst over the
+    instantiations of ``kernel`` in nvcc's ptxas output."""
+    import re
+
+    regs = stores = loads = 0
+    found = False
+    lines = log.splitlines()
+    for n, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            found = True
+            for nxt in lines[n + 1:n + 4]:
+                if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt):
+                    stores, loads = max(stores, int(m[1])), max(loads, int(m[2]))
+                if m := re.search(r"Used (\d+) registers", nxt):
+                    regs = max(regs, int(m[1]))
+    if not found:
+        raise AssertionError(f"ptxas output names no kernel {kernel}")
+    return regs, stores, loads
 
 
 def _random_blocks(M, n, seed, device):
@@ -589,11 +702,24 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 _log("  ptxas:", line.strip())
 
+    # registers and spills of the two redesigned band kernels' device functions
+    for wrapper, kern in (("band_pcr_level", "pcr_level_kernel"),
+                          ("band_pcr_solve", "pcr_solve_wide_kernel"),
+                          ("band_pcr_solve", "pcr_solve_narrow_kernel")):
+        regs, stores, loads = _ptxas_report(built["band"][2], kern)
+        _log(f"ptxas {wrapper} ({kern}): registers={regs} spill_store_bytes={stores} "
+             f"spill_load_bytes={loads}")
+        if stores or loads:
+            raise AssertionError(f"{kern}: ptxas reports spills")
+
     dev = torch.device("cuda")
     cells = [(label, fg, _band_shape(fg)) for label, fg in _cells()]
     rows = {}
     for label, fg, shape in cells:
         rows[label] = phase_kernels(label, *shape, dev)
+    phase_edge_shapes(dev)
+    if "--kernels" in sys.argv[1:]:  # stop after the band kernels' checks
+        return 0
     block_rows = phase_blocks(dev)
     phase_f32_band(dev)
     phase_small_reference()
@@ -620,6 +746,7 @@ def main() -> int:
              launches=launches["manhattan4-f32" if name.startswith("block_") else
                                "manhattan4"][name],
              max_abs_err=timed[name]["max_abs_err"], ms=timed[name]["ms"],
+             device_us=timed[name]["device_us"],
              plain_ms=timed[name]["plain_ms"], bound_ms=timed[name]["bound_ms"],
              bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"])
         for name in REPLACES

@@ -24,6 +24,23 @@ kernels' device time and launches.
 
 Prints a summary, and with ``--out`` writes everything as JSON. Needs a
 CUDA card; imports nothing of jax or of the JAX package.
+
+    python3 profile_port.py --kernels [--root DIR]
+
+times only the two PCR kernels of the f64 band, ``band_pcr_level`` (first
+and last level) and ``band_pcr_solve`` (a direction, K = 1, and the arrow
+panel), at the PCR remainder's shape of both instances: device time per
+launch from a replayed CUDA graph (``chip_smoke._device_us``) and event
+time around the wrapper. ``--root DIR`` imports ``score_tpu_torch`` from
+another checkout, so that two commits are timed on one card in one call.
+
+    python3 profile_port.py --ablate
+
+prices the parts of ``band_pcr_solve`` at the same shapes: it builds
+``csrc/band.cu`` again with the level loop's reads of E, F compiled out
+(``-DBAND_NO_STAGING``), with the wide kernel's products compiled out
+(``-DBAND_NO_PRODUCT``) and with both, and times each build with all levels
+and with none (what a launch costs before and after its levels).
 """
 
 from __future__ import annotations
@@ -89,8 +106,8 @@ def _warm_walls(fg, n=3, precision="f64"):
 
 # device-side names of the port's hand-written kernels (band.cu, blocks.cu)
 _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
-                 "pcr_level_kernel", "block_inv_kernel", "pcr_solve_kernel",
-                 "chol_kernel", "tri_lower_kernel")
+                 "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
+                 "pcr_solve_narrow_kernel", "chol_kernel", "tri_lower_kernel")
 
 
 def _profile_solve(fg, top=12, precision="f64"):
@@ -190,12 +207,99 @@ def _forced_depth_walls(fg, Tp, rounds=4):
     return out
 
 
-def main() -> int:
-    import torch
+# PCR remainder of each instance's band: chains, length after the default
+# compaction, arrow width (chip_smoke.py prints them)
+_REMAINDERS = {"manhattan4": (4, 256, 138), "robot20": (20, 128, 258)}
 
+
+def _pcr_kernel_times(device):
+    """Device us and event ms of band_pcr_level and band_pcr_solve at the
+    shapes of ``_REMAINDERS``. Serves both signatures of band_pcr_level:
+    with the carried inverse (D, A, C, invD, s) and without (D, A, C, s)."""
+    import inspect
+
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band
+
+    carried = len(inspect.signature(band.band_pcr_level).parameters) == 5
+    rows = []
+    for label, (C, Tp, K) in _REMAINDERS.items():
+        D, U = _random_band(C, Tp, 6, seed=Tp + C, device=device)
+        A = band.band_init_a(U)
+        f = band.band_factor(D, U, n_cr=0)
+        invD = band.band_block_inv(D)
+        rng = np.random.default_rng(Tp)
+        for s in (1, Tp // 2):
+            args = (D, A, U, invD, s) if carried else (D, A, U, s)
+            fn = lambda: band.band_pcr_level(*args)
+            rows.append(dict(cell=label, kernel="band_pcr_level", shape=f"C={C} Tp={Tp} s={s}",
+                             device_us=_device_us(fn), event_ms=_event_ms(fn)))
+        for k in (1, K):
+            b = torch.tensor(rng.standard_normal((C, Tp, 6, k)), device=device)
+            fn = lambda: band.band_pcr_solve(f.E, f.F, f.invD, b)
+            rows.append(dict(cell=label, kernel="band_pcr_solve", shape=f"C={C} Tp={Tp} K={k}",
+                             device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    return rows
+
+
+def _solve_ablation(device):
+    """Device us of band_pcr_solve built whole and with parts of its level
+    loop compiled out, with all levels and with no level, at the shapes of
+    ``_REMAINDERS`` (a direction and the panel)."""
+    import ctypes
+
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band, build
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    rows = []
+    for flags in ((), ("-DBAND_NO_STAGING",), ("-DBAND_NO_PRODUCT",),
+                  ("-DBAND_NO_STAGING", "-DBAND_NO_PRODUCT")):
+        so = build.BUILD_DIR / ("ablate" + "".join(f[2:] for f in flags) + ".so")
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(so),
+                        str(build.SOURCES["band"])], check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+        lib.band_pcr_solve.restype = i32
+        for label, (C, Tp, K) in _REMAINDERS.items():
+            D, U = _random_band(C, Tp, 6, seed=Tp + C, device=device)
+            f = band.band_factor(D, U, n_cr=0)
+            for k in (1, K):
+                b = torch.randn(C, Tp, 6, k, dtype=torch.float64, device=device)
+                x = torch.empty_like(b)
+                ct = band._solve_tile_columns(Tp, 6, k)
+                groups = band._solve_groups(Tp, 6, k, C) if ct == 8 else 1
+                for L in (band.num_levels(Tp), 0):
+                    def fn():
+                        err = lib.band_pcr_solve(
+                            f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(),
+                            x.data_ptr(), C, Tp, 6, L, k, ct, groups,
+                            torch.cuda.current_stream().cuda_stream)
+                        if err:
+                            raise RuntimeError(f"band_pcr_solve: CUDA error {err}")
+                    rows.append(dict(cell=label, build=" ".join(flags) or "whole",
+                                     shape=f"C={C} Tp={Tp} K={k}", levels=L,
+                                     device_us=_device_us(fn)))
+    return rows
+
+
+def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full report as JSON to this file")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time only band_pcr_level and band_pcr_solve")
+    ap.add_argument("--ablate", action="store_true",
+                    help="time band_pcr_solve with parts of its level loop compiled out")
+    ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import torch
+
     if not torch.cuda.is_available():
         print("profile_port: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -204,6 +308,30 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     _log(smi)
+
+    if args.ablate:
+        rows = _solve_ablation(torch.device("cuda"))
+        for r in rows:
+            _log(f"  {r['cell']:<11} {r['shape']:<20} {r['build']:<38} "
+                 f"levels={r['levels']}  device {r['device_us']:9.2f} us")
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(dict(card=smi, ablation=rows), indent=1))
+        return 0
+    if args.kernels:
+        import score_tpu_torch
+
+        rows = _pcr_kernel_times(torch.device("cuda"))
+        _log(f"package: {Path(score_tpu_torch.__file__).parent}")
+        for r in rows:
+            _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<22} "
+                 f"device {r['device_us']:9.2f} us   events {r['event_ms']:.4f} ms")
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(dict(card=smi, kernels=rows), indent=1))
+        return 0
 
     from chip_smoke import _cells
     from score_tpu_torch.assembly.conic import build_conic_problem

@@ -11,7 +11,10 @@ a PCR level computes, for every position i of every chain at once,
     D'_i = D_i + E_i C_{i-s} + F_i A_{i+s}
     A'_i = E_i A_{i-s}             C'_i = F_i C_{i+s}
 
-(neighbours outside [0, Tp) read as zero), and a solve replays
+(neighbours outside [0, Tp) read as zero). A level takes invD = D^-1 of
+its input and returns invD' = D'^-1 of its output, so each block is
+inverted once: one block inversion opens the PCR levels and the last
+level's invD' is the factor's. A solve replays
 b'_i = b_i + E_i b_{i-s} + F_i b_{i+s} through the stored (E, F) and
 finishes with x_i = invD_i b_i on the decoupled final system.
 
@@ -44,7 +47,8 @@ Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
     _factor_level_kernel    :312  -> band_pcr_level
     _factor_level2_kernel   :338  -> band_pcr_level, launched twice
                                      (two levels per launch only saved
-                                     TPU launch overhead)
+                                     TPU launch overhead); invD is
+                                     carried from level to level
     _block_inv_kernel       :423  -> band_block_inv
     _solve_kernel           :433  -> band_pcr_solve
     _cr_level_kernel        :362  -> band_cr_level (also does the TPU
@@ -57,6 +61,7 @@ Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -84,15 +89,24 @@ __all__ = [
 
 # Block sizes the CUDA kernels are instantiated for (2D pose blocks).
 CUDA_BLOCK_SIZES = (6,)
-# Shared-memory budget per band_pcr_solve block: two (Tp, Db, Kc) f64
-# buffers. 96 KB leaves room for two resident blocks per SM.
-_SOLVE_SMEM_BUDGET = 96 * 1024
-_SMEM_MAX = 227 * 1024
+# Dynamic shared memory a thread block may use on sm_90 (227 KB).
+_SMEM_MAX = 232448
+# band_pcr_solve: the wide kernel (a thread holds all Db rows by
+# _WIDE_COLUMNS rhs columns of a position in registers; at most
+# _WIDE_MAX_LENGTH threads, 1 to _WIDE_MAX_GROUPS per position) serves
+# chains up to _WIDE_MAX_LENGTH; the narrow kernel (one thread per position
+# and row, 1, 2 or 4 columns) holds _NARROW_ACCUMULATORS outputs per thread
+# in at most _NARROW_THREADS threads. The same constants stand in
+# csrc/band.cu.
+_WIDE_COLUMNS = 8
+_WIDE_MAX_LENGTH = 256
+_WIDE_MAX_GROUPS = 8
+_WIDE_RING = 3  # half-block tiles of E, F in flight or in use
+_SM_COUNT = 132  # H100 SXM; the wrapper asks the device
+_NARROW_THREADS = 512
+_NARROW_ACCUMULATORS = 24
 # CR compacts while the chain is longer than this; PCR factors the rest.
-# Chosen from a depth sweep on an H100: at 512 one level halves the
-# panel solve (the PCR solve fits only two rhs columns per block at that
-# length) and costs the direction solves two short launches; at 128 and
-# below the extra launches cost more than the panel saves.
+# Chosen from depth sweeps on an H100 (profile_port.py; PERF.md has them).
 CR_BASE_LENGTH = 256
 
 
@@ -170,15 +184,15 @@ def band_block_inv_plain(D: torch.Tensor) -> torch.Tensor:
     return inv_small_spd(D)
 
 
-def band_pcr_level_plain(D, A, C, s: int):
-    """One PCR level at shift s: returns (E, F, D', A', C')."""
-    invD = band_block_inv_plain(D)
+def band_pcr_level_plain(D, A, C, invD, s: int):
+    """One PCR level at shift s on the band (D, A, C) with invD = D^-1:
+    returns (E, F, D', A', C', invD') with invD' = D'^-1."""
     E = -(A @ _shift_down(invD, s))
     F = -(C @ _shift_up(invD, s))
     D2 = D + (E @ _shift_down(C, s) + F @ _shift_up(A, s))
     A2 = E @ _shift_down(A, s)
     C2 = F @ _shift_up(C, s)
-    return E, F, D2, A2, C2
+    return E, F, D2, A2, C2, band_block_inv_plain(D2)
 
 
 def band_pcr_solve_plain(E, F, invD, b):
@@ -259,6 +273,18 @@ def _route(name: str, *ts) -> bool:
     return True
 
 
+def _check_aligned(name: str, *ts) -> None:
+    """The kernels move blocks as 16-byte vectors."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a block array is not 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -312,49 +338,108 @@ def band_block_inv(D: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def band_pcr_level(D, A, C, s: int):
-    """One PCR elimination level at shift s over all chains: returns
-    (E, F, D', A', C'), each (C, Tp, Db, Db).
+def band_pcr_level(D, A, C, invD, s: int):
+    """One PCR elimination level at shift s over all chains, from the band
+    (D, A, C) and invD = D^-1: returns (E, F, D', A', C', invD'), each
+    (C, Tp, Db, Db), with invD' = D'^-1 for the next level (or, after the
+    last level, the factor's invD).
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_factor_level_kernel`` and, by
     two launches at s and 2s, ``_factor_level2_kernel``. The TPU reached
-    the neighbours i-s, i+s with masked lane rolls; here thread (c, i)
+    the neighbours i-s, i+s with masked lane rolls; here position (c, i)
     reads blocks i-s and i+s of chain c directly (zero outside the chain).
-    Each thread recomputes the two neighbour inverses it needs instead of
-    reading a shared invD: that keeps a level one launch with no grid-wide
-    barrier, at about twice the inversion work. Bound by f64 latency per
-    thread (2 inversions + 6 block products with the blocks in registers;
-    ptxas reports 255 registers and some spill at Db = 6) and by
-    occupancy: one thread per position gives C*Tp threads, 16 blocks of
-    128 at Manhattan-4 size, so most SMs idle. A row-per-thread layout is
-    the next step; this first version is the simple one."""
-    for name, t in (("D", D), ("A", A), ("C", C)):
+
+    What bounds it on the card: the traffic is 10 blocks per position
+    (2.9 MB at Manhattan-4's remainder, under a microsecond of HBM time),
+    so a launch is bound by latency, of the launch itself and of the
+    dependent f64 chain of six 6x6 products, a Cholesky and two
+    substitutions. The design keeps that chain short and the accesses
+    wide: a group of 8 lanes owns a position and lanes 0..5 each hold one
+    row of every block in registers (C*Tp*8 threads in flight, 8192 at
+    Manhattan-4's remainder; no local-memory arrays, no spill); the nine
+    input blocks of a position are staged in shared memory by 16-byte
+    cp.async copies on neighbouring addresses, the six outputs leave by
+    16-byte stores; products read the other block's rows as shared-memory
+    broadcasts; the Cholesky of D' runs across the group by shuffles, and
+    lane c then solves column c of the inverse. Each block is inverted
+    once per level (the level before this design inverted both neighbours
+    of every position, twice the work). The sums run in the plain
+    version's order; only nvcc's contraction to FMAs differs."""
+    for name, t in (("D", D), ("A", A), ("C", C), ("invD", invD)):
         _check(f"band_pcr_level.{name}", t, D.shape)
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
         raise ValueError(f"band_pcr_level: expected (C, Tp, Db, Db), got {tuple(D.shape)}")
-    if not _route("band_pcr_level", D, A, C):
-        return band_pcr_level_plain(D, A, C, s)
+    if not _route("band_pcr_level", D, A, C, invD):
+        return band_pcr_level_plain(D, A, C, invD, s)
     nC, Tp, Db, _ = D.shape
-    outs = [torch.empty_like(D) for _ in range(5)]
+    outs = [torch.empty_like(D) for _ in range(6)]
+    _check_aligned("band_pcr_level", D, A, C, invD)
     err = _lib().band_pcr_level(
-        D.data_ptr(), A.data_ptr(), C.data_ptr(), *[o.data_ptr() for o in outs],
-        nC, Tp, Db, int(s), _stream(),
+        D.data_ptr(), A.data_ptr(), C.data_ptr(), invD.data_ptr(),
+        *[o.data_ptr() for o in outs], nC, Tp, Db, int(s), _stream(),
     )
     _raise_on("band_pcr_level", err)
     band_pcr_level.launches += 1
     return tuple(outs)
 
 
-def _solve_chunk_columns(Tp: int, Db: int, K: int) -> int:
-    """rhs columns per band_pcr_solve block: two (Tp, Db, Kc) f64 buffers
-    within the shared-memory budget."""
-    per_col = 2 * Tp * Db * 8
-    if per_col > _SMEM_MAX:
-        raise ValueError(
-            f"band_pcr_solve: chain length {Tp} with {Db}-blocks needs "
-            f"{per_col} bytes of shared memory per column (max {_SMEM_MAX})"
-        )
-    return max(1, min(K, _SOLVE_SMEM_BUDGET // per_col))
+def _solve_tile_columns(Tp: int, Db: int, K: int) -> int:
+    """Columns of the register tile of band_pcr_solve, which names the
+    kernel: ``_WIDE_COLUMNS`` is the wide kernel, 1, 2 or 4 the narrow
+    one. The rule is on the shape alone: the wide kernel takes chains up
+    to ``_WIDE_MAX_LENGTH`` blocks with more than 4 rhs columns; the narrow
+    kernel takes the rest with the widest tile that K fills and that its
+    threads' accumulators and the shared memory hold. Raises when not
+    even one column fits."""
+    if Tp <= _WIDE_MAX_LENGTH and K > 4:
+        return _WIDE_COLUMNS
+    for ct in (4, 2, 1):
+        if (ct < 2 * K and Tp * Db * ct <= _NARROW_ACCUMULATORS * _NARROW_THREADS
+                and _solve_smem_bytes(Tp, Db, ct) <= _SMEM_MAX):
+            return ct
+    raise ValueError(
+        f"band_pcr_solve: chain length {Tp} with {Db}-blocks does not fit a "
+        f"thread block: one rhs column needs {Tp * Db} outputs in registers "
+        f"(max {_NARROW_ACCUMULATORS * _NARROW_THREADS}) and "
+        f"{_solve_smem_bytes(Tp, Db, 1)} bytes of shared memory (max {_SMEM_MAX})"
+    )
+
+
+def _solve_groups(Tp: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_COUNT) -> int:
+    """Threads per position of the wide kernel (each holds 8 columns, so a
+    block holds 8 * groups columns and re-reads of E, F fall by that
+    factor): the largest power of two that the block's threads and K
+    allow, halved while the grid would leave SMs without a block."""
+    g = 1
+    while (2 * g <= _WIDE_MAX_GROUPS and 2 * g * Tp <= _WIDE_MAX_LENGTH
+           and g * _WIDE_COLUMNS < K):
+        g *= 2
+    while g > 1 and C * -(-K // (g * _WIDE_COLUMNS)) < n_sm:
+        g //= 2
+    return g
+
+
+def _solve_smem_bytes(Tp: int, Db: int, ct: int, groups: int = 1) -> int:
+    """Shared memory of one band_pcr_solve block: one (Tp, Db, columns)
+    f64 rhs buffer, updated in place. The wide kernel (ct = 8, columns =
+    8 * groups) pads each position by two doubles against bank conflicts
+    and adds its ring of ``_WIDE_RING`` tiles of (Tp, Db / 2, Db) half
+    blocks of E, F."""
+    if ct == _WIDE_COLUMNS:
+        return (_WIDE_RING * Tp * (Db // 2) * Db + Tp * (Db * ct * groups + 2)) * 8
+    return Tp * Db * ct * 8
+
+
+def _solve_chunk_columns(Tp: int, Db: int, K: int, C: int = 1,
+                         n_sm: int = _SM_COUNT) -> int:
+    """rhs columns that one band_pcr_solve block holds for C chains on a
+    card of n_sm SMs: its threads' tiles (:func:`_solve_tile_columns`,
+    times :func:`_solve_groups` for the wide kernel), or all K where K is
+    less."""
+    ct = _solve_tile_columns(Tp, Db, K)
+    if ct == _WIDE_COLUMNS:
+        ct *= _solve_groups(Tp, Db, K, C, n_sm)
+    return min(K, ct)
 
 
 def band_pcr_solve(E, F, invD, b):
@@ -362,16 +447,32 @@ def band_pcr_solve(E, F, invD, b):
     the same shape.
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_solve_kernel``. All levels
-    run in ONE launch: one thread block per (chain, chunk of Kc rhs
-    columns) keeps its rhs slice in shared memory (double-buffered,
-    2*Tp*Db*Kc*8 bytes) and separates levels with a block barrier; this
-    replaces the TPU's VMEM chunking over chains and columns by a launch
-    grid. Bound by the reads of E and F: every block re-reads all
-    2*L*Tp*Db^2 doubles of its chain (from L2, which holds them), so a
-    wide panel (K = arrow width, C*ceil(K/Kc) blocks) moves ~K/Kc times
-    the factor; a single direction (K = 1) runs only C blocks and is
-    latency-bound. Register-blocking more columns per block is the next
-    step."""
+    run in ONE launch: one thread block per (chain, chunk of rhs columns)
+    keeps its rhs slice in shared memory in a single buffer updated in
+    place (a thread holds a level's outputs in registers across the
+    barrier that ends the level's reads), which replaces the TPU's VMEM
+    chunking over chains and columns by a launch grid.
+
+    What bounds it on the card (measured, PERF.md): the reads of E and F,
+    which every block of a chain repeats from L2, for the panel (K =
+    arrow width) together with its products' shared-memory reads; a
+    direction (K = 1) runs one block per chain, whose SM pulls each
+    level's 147 KB (Tp = 256) in ~1.2 us. The design: for the panel a thread owns a position and a
+    register tile of all Db rows by 8 columns, so an element of E, F is
+    read once for 8 columns and an element of b once for 6 rows, where
+    the kernel before it loaded one element per multiply-add. A level's
+    E and F pass through shared memory as four tiles of half blocks in a
+    ring of three, filled by 16-byte cp.async copies on neighbouring
+    addresses while the tile before is used. One in-place buffer and the
+    card's 227 KB leave room for 8 columns at Manhattan-4's remainder
+    (4 fitted two buffers) and, with two threads per position sharing
+    the staged E, F, 16 at robot20's: the re-reads of E, F fall by those
+    factors. For K <= 4 the narrow kernel spreads the Db rows of a
+    position over neighbouring lanes, whose loads of E, F rows are
+    contiguous across the warp, all of a level's loads in flight at
+    once. The shared-memory attribute is set once per kernel. The
+    sums of a level run over E's terms then F's in one accumulator, an
+    order that differs from the plain version's (E b + F b)."""
     if E.dim() != 5 or invD.dim() != 4 or b.dim() != 4:
         raise ValueError("band_pcr_solve: expected E, F (L, C, Tp, Db, Db), "
                          "invD (C, Tp, Db, Db), b (C, Tp, Db, K)")
@@ -383,11 +484,17 @@ def band_pcr_solve(E, F, invD, b):
     _check("band_pcr_solve.b", b)
     if not _route("band_pcr_solve", invD, E, F, b):
         return band_pcr_solve_plain(E, F, invD, b)
-    Kc = _solve_chunk_columns(Tp, Db, K)
     x = torch.empty_like(b)
+    if K == 0:
+        return x
+    ct = _solve_tile_columns(Tp, Db, K)
+    groups = 1
+    if ct == _WIDE_COLUMNS:
+        groups = _solve_groups(Tp, Db, K, nC, _sm_count(b.device))
+    _check_aligned("band_pcr_solve", E, F, invD)
     err = _lib().band_pcr_solve(
         E.data_ptr(), F.data_ptr(), invD.data_ptr(), b.data_ptr(), x.data_ptr(),
-        nC, Tp, Db, L, K, Kc, _stream(),
+        nC, Tp, Db, L, K, ct, groups, _stream(),
     )
     _raise_on("band_pcr_solve", err)
     band_pcr_solve.launches += 1
@@ -525,11 +632,11 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
         levels.append(CRLevel(E=E, F=F, invD=invD, A=Ao, C=Co))
     Tb = Tp >> n_cr
     Es, Fs = [], []
+    invD = band_block_inv(D)
     for lev in range(num_levels(Tb)):
-        E, F, D, A, Cc = band_pcr_level(D, A, Cc, 1 << lev)
+        E, F, D, A, Cc, invD = band_pcr_level(D, A, Cc, invD, 1 << lev)
         Es.append(E)
         Fs.append(F)
-    invD = band_block_inv(D)
     if Es:
         E, F = torch.stack(Es), torch.stack(Fs)
     else:

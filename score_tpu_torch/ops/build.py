@@ -118,9 +118,9 @@ def band_library() -> ctypes.CDLL:
     lib.band_init_a.restype = i32
     lib.band_block_inv.argtypes = [vp, vp, i64, i32, vp]
     lib.band_block_inv.restype = i32
-    lib.band_pcr_level.argtypes = [vp] * 8 + [i32, i32, i32, i32, vp]
+    lib.band_pcr_level.argtypes = [vp] * 10 + [i32, i32, i32, i32, vp]
     lib.band_pcr_level.restype = i32
-    lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     lib.band_pcr_solve.restype = i32
     lib.band_cr_level.argtypes = [vp] * 11 + [i32, i32, i32, vp]
     lib.band_cr_level.restype = i32

@@ -150,8 +150,9 @@ def test_cpu_tensors_take_the_plain_versions():
     A = band.band_init_a(U)
     assert torch.equal(A, band.band_init_a_plain(U))
     assert torch.equal(band.band_block_inv(D), band.band_block_inv_plain(D))
-    for got, want in zip(band.band_pcr_level(D, A, U, 2),
-                         band.band_pcr_level_plain(D, A, U, 2)):
+    invD = band.band_block_inv(D)
+    for got, want in zip(band.band_pcr_level(D, A, U, invD, 2),
+                         band.band_pcr_level_plain(D, A, U, invD, 2)):
         assert torch.equal(got, want)
     f = band.band_factor(D, U)
     b = torch.randn(2, 8, 6, 3, dtype=torch.float64)
@@ -184,3 +185,139 @@ def test_wrappers_reject_bad_inputs():
         band.band_cr_level(D[:, :3], A[:, :3], U[:, :3])  # odd chain length
     with pytest.raises(ValueError):
         band.band_factor(D, U, n_cr=3)  # deeper than log2(T) = 2
+
+
+# ------------------------------------------------------------------ #
+# The PCR level with the carried inverse (invD in, invD' out), level by
+# level on a Tp = 16 chain
+# ------------------------------------------------------------------ #
+
+_LEVEL_SHAPE = (2, 16, 2)  # C, T, Db: small blocks keep the interpreter short
+
+
+def _level_inputs():
+    C, T, Db = _LEVEL_SHAPE
+    return _chains(C, T, Db, 70)
+
+
+def _port_levels():
+    """Every level's inputs and outputs of the port's PCR factor:
+    [(D, A, C, invD, s, outputs)], each level fed the one before."""
+    D, U = (torch.tensor(a) for a in _level_inputs())
+    A, Cc, invD = band.band_init_a(U), U, band.band_block_inv(D)
+    levels = []
+    for lev in range(band.num_levels(D.shape[1])):
+        out = band.band_pcr_level(D, A, Cc, invD, 1 << lev)
+        levels.append((D, A, Cc, invD, 1 << lev, out))
+        _, _, D, A, Cc, invD = out
+    return levels
+
+
+@pytest.fixture(scope="module")
+def pallas_pcr_only():
+    """The Pallas factor of the same chains without compaction, in
+    interpret mode: base.E, base.F hold every PCR level."""
+    from score_tpu.ops.pallas_pcr import _ppcr_factor_impl
+
+    D, U = _level_inputs()
+    return _ppcr_factor_impl(tfm.from_f64(jnp.asarray(D)), tfm.from_f64(jnp.asarray(U)),
+                             interpret=True, compact=False)
+
+
+def _jnp_shift(x, s, down):
+    z = jnp.zeros_like(x)
+    T = x.shape[1]
+    if s >= T:
+        return z
+    return z.at[:, s:].set(x[:, : T - s]) if down else z.at[:, : T - s].set(x[:, s:])
+
+
+@pytest.mark.parametrize("lev", range(4))
+def test_pcr_level_carries_the_inverse(lev, pallas_pcr_only):
+    """Level s = 2^lev of a Tp = 16 chain: the plain level that takes invD
+    and returns invD' against the formulas it replaced (which inverted D
+    inside the level: bit-identical E, F, D', A', C'), against the same
+    level written in jnp f64 (1e-12) and against the Pallas kernels'
+    stored E, F of that level and, at the last level, invD (1e-6)."""
+    C, T, Db = _LEVEL_SHAPE
+    D, A, Cc, invD, s, out = _port_levels()[lev]
+    E, F, D2, A2, C2, invD2 = out
+    assert s == 1 << lev
+    # the formulas before the inverse was carried
+    iv = band.band_block_inv_plain(D)
+    assert torch.equal(iv, invD)
+    Eo = -(A @ band._shift_down(iv, s))
+    Fo = -(Cc @ band._shift_up(iv, s))
+    old = (Eo, Fo, D + (Eo @ band._shift_down(Cc, s) + Fo @ band._shift_up(A, s)),
+           Eo @ band._shift_down(A, s), Fo @ band._shift_up(Cc, s))
+    for got, want in zip(out, old):
+        assert torch.equal(got, want)
+    eye = torch.eye(Db, dtype=torch.float64).expand(C, T, Db, Db)
+    assert _rel(invD2 @ D2, eye) <= 1e-12
+    # the same level in jnp f64
+    Dj, Aj, Cj = (jnp.asarray(t.numpy()) for t in (D, A, Cc))
+    ivj = jnp.linalg.inv(Dj)
+    Ej = -(Aj @ _jnp_shift(ivj, s, True))
+    Fj = -(Cj @ _jnp_shift(ivj, s, False))
+    ref = (Ej, Fj, Dj + Ej @ _jnp_shift(Cj, s, True) + Fj @ _jnp_shift(Aj, s, False),
+           Ej @ _jnp_shift(Aj, s, True), Fj @ _jnp_shift(Cj, s, False))
+    ref += (jnp.linalg.inv(ref[2]),)
+    for got, want in zip(out, ref):
+        assert np.max(np.abs(got.numpy() - np.asarray(want))) <= 1e-12 * max(
+            1.0, float(jnp.max(jnp.abs(want))))
+    # the Pallas kernels, interpret mode
+    L = band.num_levels(T)
+    pE = _lanes_to_chains(pallas_pcr_only.E, C, T, Db, L)[lev]
+    pF = _lanes_to_chains(pallas_pcr_only.F, C, T, Db, L)[lev]
+    scale = max(np.max(np.abs(pE)), np.max(np.abs(pF)), 1e-300)
+    assert np.max(np.abs(E.numpy() - pE)) <= 1e-6 * scale
+    assert np.max(np.abs(F.numpy() - pF)) <= 1e-6 * scale
+    if lev == L - 1:
+        assert _rel(invD2.numpy(), _lanes_to_chains(pallas_pcr_only.invD, C, T, Db)) <= 1e-6
+
+
+@pytest.mark.parametrize(
+    "T,n_cr",
+    [(1, 0), (2, 0), (2, 1), (4, 0), (4, 2), (16, 0), (16, 4)],
+)
+def test_band_at_the_ends_of_the_schedule(T, n_cr):
+    """band_factor + band_solve against a dense solve on the shortest
+    chains and with no compacting level or only compacting levels."""
+    C, Db, K = 2, 6, 3
+    D, U = _chains(C, T, Db, 80)
+    rhs = np.random.default_rng(4).standard_normal((C, T, Db, K))
+    f, x = _port_solve(D, U, rhs, n_cr)
+    assert len(f.levels) == n_cr and f.E.shape[0] == band.num_levels(T >> n_cr)
+    assert f.invD.shape == (C, T >> n_cr, Db, Db)
+    for c in range(C):
+        xref = np.linalg.solve(_dense(D[c], U[c]), rhs[c].reshape(T * Db, K))
+        assert _rel(x[c].reshape(T * Db, K), xref) <= 1e-11
+
+
+@pytest.mark.parametrize("K", [1, 3, 138, 258])
+@pytest.mark.parametrize("Tp", [1, 2, 128, 256, 1024])
+def test_solve_chunk_columns(Tp, K):
+    """The rhs columns of one band_pcr_solve block: between 1 and K, its
+    tile one the kernels are built for, and its single in-place buffer
+    within the card's 232,448 bytes of shared memory per block."""
+    ct = band._solve_tile_columns(Tp, 6, K)
+    assert ct in (1, 2, 4, 8)
+    assert (ct == 8) == (Tp <= 256 and K > 4)
+    for C in (1, 4, 20, 400):
+        Kc = band._solve_chunk_columns(Tp, 6, K, C)
+        groups = band._solve_groups(Tp, 6, K, C) if ct == 8 else 1
+        assert 1 <= Kc <= K and Kc <= ct * groups
+        assert groups * max(Tp, 1) <= 256 or groups == 1
+        assert band._solve_smem_bytes(Tp, 6, ct, groups) <= 232448
+    # robot20's panel: two threads per position; Manhattan-4's: one
+    assert band._solve_groups(128, 6, 258, 20) == 2
+    assert band._solve_groups(256, 6, 138, 4) == 1
+    if ct != 8:  # the narrow kernel's accumulators: 24 per thread, 512 threads
+        assert Tp * 6 * ct <= 24 * 512
+
+
+@pytest.mark.parametrize("Tp", [4096, 8192])
+def test_solve_chunk_columns_raises_when_a_column_does_not_fit(Tp):
+    assert band._solve_chunk_columns(2048, 6, 7) == 1  # the longest chain that fits
+    with pytest.raises(ValueError):
+        band._solve_chunk_columns(Tp, 6, 1)

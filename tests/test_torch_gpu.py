@@ -29,7 +29,9 @@ def cuda():
 
 
 def _rel(a, b):
-    return ((a - b).abs().max() / b.abs().max()).item()
+    """max |a - b| / max |b|; the absolute difference where b is all zero
+    (the couplings A', C' after a chain's last PCR level)."""
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
 
 
 def _band(C, T, Db, seed, active, device):
@@ -53,10 +55,11 @@ def test_kernels_match_plain(cuda, K):
     band.reset_launch_counts()
     A = band.band_init_a(U)
     assert _rel(A, band.band_init_a_plain(U)) == 0.0
-    assert _rel(band.band_block_inv(D), band.band_block_inv_plain(D)) <= 1e-12
+    invD = band.band_block_inv(D)
+    assert _rel(invD, band.band_block_inv_plain(D)) <= 1e-12
     for s in (1, 8, 32):
-        for got, want in zip(band.band_pcr_level(D, A, U, s),
-                             band.band_pcr_level_plain(D, A, U, s)):
+        for got, want in zip(band.band_pcr_level(D, A, U, invD, s),
+                             band.band_pcr_level_plain(D, A, U, invD, s)):
             assert _rel(got, want) <= 1e-12
     f = band.band_factor(D, U, n_cr=0)
     b = torch.randn(3, 64, 6, K, dtype=torch.float64, device=cuda)
@@ -77,6 +80,63 @@ def test_kernels_match_plain(cuda, K):
         bl = red
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in band.KERNELS)
+
+
+@pytest.mark.parametrize(
+    "C,Tp,Ks",
+    [
+        (4, 256, (1, 138)),  # Manhattan-4's PCR remainder, a direction and the panel
+        (20, 128, (1, 258)),  # robot20's band
+        (3, 1, (1, 3)),  # a single block per chain: no level
+        (2, 2, (1, 3, 139)),
+        (1, 256, (1, 2, 4, 5, 139)),  # one chain; widths at the tiles' edges
+        (5, 32, (3, 7, 8, 139)),
+        (2, 512, (1, 3, 9)),  # longer than the wide solve kernel takes
+    ],
+)
+def test_pcr_kernels_match_plain_at_every_level(cuda, C, Tp, Ks):
+    """band_pcr_level at every level of a factor, each fed the kernel's
+    outputs of the level before, and band_pcr_solve for every width, at
+    the main path's shapes and at the edges of what it can reach: 1e-12
+    relative (another summation order inside the products, and FMAs)."""
+    D, U = _band(C, Tp, 6, 63, (Tp,) * C, cuda)
+    A, Cl, invD = band.band_init_a(U), U, band.band_block_inv(D)
+    Es, Fs = [], []
+    for lev in range(band.num_levels(Tp)):
+        out = band.band_pcr_level(D, A, Cl, invD, 1 << lev)
+        for got, want in zip(out, band.band_pcr_level_plain(D, A, Cl, invD, 1 << lev)):
+            assert _rel(got, want) <= 1e-12
+        E, F, D, A, Cl, invD = out
+        Es.append(E)
+        Fs.append(F)
+    E = torch.stack(Es) if Es else D.new_zeros((0, C, Tp, 6, 6))
+    F = torch.stack(Fs) if Fs else E
+    for K in Ks:
+        b = torch.randn(C, Tp, 6, K, dtype=torch.float64, device=cuda)
+        x = band.band_pcr_solve(E, F, invD, b)
+        assert _rel(x, band.band_pcr_solve_plain(E, F, invD, b)) <= 1e-12
+    torch.cuda.synchronize()
+
+
+def test_robot20_band_shape_launches_the_pcr_kernels(cuda):
+    """A factor and two solves at robot20's band shape (20 chains of 128,
+    panel width 258) run PCR only: both redesigned kernels launch, no
+    compacting kernel does, and the solution satisfies the band."""
+    C, Tp, K = 20, 128, 258
+    D, U = _band(C, Tp, 6, 64, (100,) * C, cuda)
+    band.reset_launch_counts()
+    f = band.band_factor(D, U)
+    assert band.band_pcr_level.launches == band.num_levels(Tp)
+    for k in (1, K):
+        b = torch.randn(C, Tp, 6, k, dtype=torch.float64, device=cuda)
+        x = band.band_solve(f, b)
+        Tx = D @ x
+        Tx[:, 1:] += U[:, :-1].transpose(-1, -2) @ x[:, :-1]
+        Tx[:, :-1] += U[:, :-1] @ x[:, 1:]
+        assert (Tx - b).abs().max() <= 1e-10 * b.abs().max()
+    assert band.band_pcr_solve.launches == 2
+    assert band.band_block_inv.launches == 1
+    assert band.band_cr_level.launches == band.band_cr_reduce.launches == 0
 
 
 def test_compacted_band_solves(cuda):
