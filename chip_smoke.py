@@ -11,8 +11,8 @@ without printing a result line:
    f64 band kernels, and ``csrc/blocks.cu``, the f32 block kernels) with
    one nvcc each, started together; print the build times, ptxas'
    register and spill lines, and one line each with the registers and
-   spill bytes of ``band_pcr_level`` and ``band_pcr_solve`` (a spill
-   fails the run);
+   spill bytes of ``band_pcr_level``, ``band_cr_level`` and
+   ``band_pcr_solve`` (a spill fails the run);
 3. every band kernel against its plain PyTorch version on the card, at
    the band shapes of both instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
@@ -25,11 +25,13 @@ without printing a result line:
    device time (a CUDA graph of 20 launches replayed between events), for
    ``band_pcr_solve`` at K = 1 beside the panel; ``band_pcr_level`` and
    ``band_pcr_solve`` again at edge shapes (one and two blocks per chain,
-   one chain, rhs widths off the column tiles); then each block kernel against its
+   one chain, rhs widths off the column tiles), ``band_cr_level`` at chain
+   lengths that put a thread block's edge inside a chain, on a chain's
+   first position and past the last; then each block kernel against its
    plain version in f32 at the shapes of the f32 path (max relative
    difference <= 1e-5, and reconstruction residuals ||L L^T - A|| / ||A||,
-   ||L Y - B|| / ||B|| <= 1e-5), with its time, its plain version's and a
-   library call's; the f32 band (cyclic reduction over the block kernels)
+   ||L Y - B|| / ||B||, ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its
+   plain version's and a library call's; the f32 band (cyclic reduction over the block kernels)
    against the f64 band at Manhattan-4's band shape (<= 1e-4); then a
    small instance solved on the card against the port's plain CPU path;
 4. Manhattan-4 (4 robots x 400 poses, 6 landmarks, inter-robot ranges,
@@ -43,8 +45,10 @@ without printing a result line:
 7. the f32 fast mode (``precision="f32"``) on Manhattan-4, SOCP and QCQP,
    cold and warm: solved, relative gap <= 1e-2 (the mode's reduced
    tolerance), objective within 1e-2 relative of the f64 solve of the same
-   relaxation, det(R) = +1 within 1e-5, and both block kernels launched
-   (for QCQP also at D = 2, the distance pivots);
+   relaxation, det(R) = +1 within 1e-5, ``block_chol`` and the fused
+   ``block_chol_solve`` launched (for QCQP also at D = 2, the distance
+   pivots), and neither the forward-only ``block_tri_lower_solve`` nor a
+   plain back substitution on f32 tensors of the card;
 8. a 4 x 50 world in f32 on the card against the port's f32 CPU path:
    both solved, iterations within 3, objectives within 2e-2;
 9. one JSON line describing the kernels (event time, device time, plain
@@ -82,6 +86,7 @@ REPLACES = {
     "band_cr_backsub": "score_tpu/ops/pallas_pcr.py:405",
     "block_chol": "score_tpu/ops/pallas_blocks.py:36",
     "block_tri_lower_solve": "score_tpu/ops/pallas_blocks.py:79",
+    "block_chol_solve": "score_tpu/ops/pallas_blocks.py:79",
 }
 # H100 SXM data sheet: HBM3 bandwidth, and the FP64 and FP32 peaks outside
 # the tensor cores (the band kernels run f64, the block kernels f32)
@@ -268,6 +273,10 @@ def _blocks_cost(name, *args):
         L, B = args
         n, K = B.shape[-2], B.shape[-1]
         return (L.numel() + 2 * B.numel()) * f4, B.shape[0] * K * n * n
+    if name == "block_chol_solve":  # forward, then back substitution
+        L, B = args
+        n, K = B.shape[-2], B.shape[-1]
+        return (L.numel() + 2 * B.numel()) * f4, B.shape[0] * K * 2 * n * n
     raise KeyError(name)
 
 
@@ -440,9 +449,19 @@ def phase_edge_shapes(device):
             worst = max(worst, _compare(f"band_pcr_solve C={C} Tp={Tp} K={K}",
                                         band.band_pcr_solve(E, F, invD, b),
                                         band.band_pcr_solve_plain(E, F, invD, b))[1])
+    # band_cr_level: a thread block holds 15 coarse positions. Fine lengths
+    # 2 and 4 start chains inside a thread block, 30 on its first position,
+    # 512 and 2048 cut chains at its edge
+    worst_cr = 0.0
+    for C, T in [(1, 2), (4, 2), (20, 4), (4, 30), (1, 512), (4, 512), (20, 512), (1, 2048)]:
+        D, U = _random_band(C, T, Db, seed=11 * T + C, device=device)
+        args = (D, band.band_init_a(U), U)
+        worst_cr = max(worst_cr, _compare(f"band_cr_level C={C} T={T}",
+                                          band.band_cr_level(*args),
+                                          band.band_cr_level_plain(*args))[1])
     torch.cuda.synchronize()
-    _log(f"edge shapes: band_pcr_level and band_pcr_solve max_rel_diff={worst:.3e} "
-         f"(bound {REL_TOL})")
+    _log(f"edge shapes: band_pcr_level and band_pcr_solve max_rel_diff={worst:.3e}, "
+         f"band_cr_level max_rel_diff={worst_cr:.3e} (bound {REL_TOL})")
 
 
 def _ptxas_report(log, kernel):
@@ -486,9 +505,11 @@ def phase_blocks(device):
     the f32 path: the Cholesky of every cyclic-reduction level's odd
     blocks (D = 6: M = 1024 at Manhattan-4's first level, 1280 at
     robot20's) and of QCQP's distance pivots (D = 2, M = 2070); forward
-    substitution of the arrow panel (K = 138), of a level's couplings
-    (K = 6), of a direction (K = 1), and of the pivots' identity (D = 2,
-    K = 2). Times, bound and library call at each kernel's first shape."""
+    substitution, and the fused forward and back substitution, of the
+    arrow panel (K = 138), of a level's couplings (K = 6), of a direction
+    (K = 1), and of the pivots' identity (D = 2, K = 2). Times, bound and
+    library call at each kernel's first shape; the fused kernel's device
+    time at every shape."""
     import torch
     from score_tpu_torch.ops import blocks
 
@@ -513,6 +534,16 @@ def phase_blocks(device):
             _log(f"block_tri_lower_solve D={n} M={M} K={K}: ||L Y - B||/||B|| = {r:.3e}")
             if not r <= 1e-5:
                 raise AssertionError(f"block_tri_lower_solve D={n} M={M} K={K}: residual {r:.3e}")
+            X = chk("block_chol_solve", lambda: blocks.block_chol_solve(L, B),
+                    lambda: blocks.block_chol_solve_plain(L, B),
+                    _blocks_cost("block_chol_solve", L, B),
+                    library=lambda: torch.cholesky_solve(B, L))
+            r = _resid(L @ (L.transpose(-1, -2) @ X), B)
+            us = _device_us(lambda: blocks.block_chol_solve(L, B))
+            _log(f"block_chol_solve D={n} M={M} K={K}: ||L L^T X - B||/||B|| = {r:.3e} "
+                 f"device_us={us:.2f}")
+            if not r <= 1e-5:
+                raise AssertionError(f"block_chol_solve D={n} M={M} K={K}: residual {r:.3e}")
     _log_rows("f32", chk.rows)
     return chk.rows
 
@@ -617,6 +648,30 @@ def _reset_counts():
     blocks.reset_launch_counts()
 
 
+class _PlainBackSubstitutions:
+    """Counts, while active, the plain back substitutions that run on f32
+    tensors of the card (the fused ``block_chol_solve`` replaces them)."""
+
+    def __enter__(self):
+        import torch
+        from score_tpu_torch.ops import blocks
+
+        self.calls = 0
+        self._plain = blocks.block_tri_upper_solve_plain
+
+        def counting(L, B):
+            self.calls += L.is_cuda and L.dtype == torch.float32
+            return self._plain(L, B)
+
+        blocks.block_tri_upper_solve_plain = counting
+        return self
+
+    def __exit__(self, *exc):
+        from score_tpu_torch.ops import blocks
+
+        blocks.block_tri_upper_solve_plain = self._plain
+
+
 def _counts():
     """Launches of every kernel since the last reset, and the block kernels'
     launches per block size."""
@@ -630,26 +685,32 @@ def _counts():
 
 def phase_solve(label, fg, Tp, relaxation="SOCP", precision="f64", reference=None):
     """Cold and warm solves on the card with launch counting. f64 runs the
-    band kernels of its path; f32 the block kernels (at D = 2 too for
-    QCQP), held to the f32 mode's reduced tolerance and, with
+    band kernels of its path; f32 ``block_chol`` and the fused
+    ``block_chol_solve`` (at D = 2 too for QCQP) and neither the
+    forward-only kernel nor a plain back substitution on the card's f32
+    tensors, held to the f32 mode's reduced tolerance and, with
     ``reference`` (the f64 result of the same relaxation), to its
     objective within 1e-2."""
     import torch
     from score_tpu_torch import ScoreSolverParams, solve_score
-    from score_tpu_torch.ops import blocks
 
     params = ScoreSolverParams(device="cuda", precision=precision)
     f32 = precision == "f32"
     _reset_counts()
     t0 = time.perf_counter()
-    res = solve_score(fg, relaxation, params)
+    with _PlainBackSubstitutions() as plain_back:
+        res = solve_score(fg, relaxation, params)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches, by_size = _counts()
     if f32:
-        expected = [k.__name__ for k in blocks.KERNELS]
+        expected = ["block_chol", "block_chol_solve"]
         if relaxation == "QCQP":
-            expected += [f"{k.__name__}[D=2]" for k in blocks.KERNELS]
+            expected += [f"{k}[D=2]" for k in expected]
+        if launches["block_tri_lower_solve"] or plain_back.calls:
+            raise AssertionError(
+                f"{label}: {launches['block_tri_lower_solve']} forward-only launches and "
+                f"{plain_back.calls} plain back substitutions on the f32 path")
     else:
         expected = _path_kernels(Tp)
     got = {**launches, **by_size}
@@ -702,8 +763,9 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 _log("  ptxas:", line.strip())
 
-    # registers and spills of the two redesigned band kernels' device functions
+    # registers and spills of the redesigned band kernels' device functions
     for wrapper, kern in (("band_pcr_level", "pcr_level_kernel"),
+                          ("band_cr_level", "cr_level_kernel"),
                           ("band_pcr_solve", "pcr_solve_wide_kernel"),
                           ("band_pcr_solve", "pcr_solve_narrow_kernel")):
         regs, stores, loads = _ptxas_report(built["band"][2], kern)
@@ -737,7 +799,8 @@ def main() -> int:
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
     # its band shape; block kernels: launches from the f32 Manhattan-4 SOCP
-    # solve, times at its first level's shapes
+    # solve (none of the forward-only block_tri_lower_solve, whose callers
+    # all run the fused block_chol_solve), times at its first level's shapes
     timed = {**rows["manhattan4"], **block_rows}
     kernels = [
         dict(name=name, route="cuda",

@@ -27,12 +27,23 @@ CUDA card; imports nothing of jax or of the JAX package.
 
     python3 profile_port.py --kernels [--root DIR]
 
-times only the two PCR kernels of the f64 band, ``band_pcr_level`` (first
-and last level) and ``band_pcr_solve`` (a direction, K = 1, and the arrow
-panel), at the PCR remainder's shape of both instances: device time per
-launch from a replayed CUDA graph (``chip_smoke._device_us``) and event
-time around the wrapper. ``--root DIR`` imports ``score_tpu_torch`` from
-another checkout, so that two commits are timed on one card in one call.
+times only the redesigned kernels: of the f64 band ``band_pcr_level``
+(first and last level) and ``band_pcr_solve`` (a direction, K = 1, and the
+arrow panel) at the PCR remainder's shape of both instances, and
+``band_cr_level`` at Manhattan-4's first level and at the deeper levels'
+and robot20's shapes of the depth sweep; of the f32 band its Cholesky solve
+``solver.pcr._dinv`` (one launch of ``block_chol_solve``; in a checkout
+from before that kernel, the forward kernel and the plain back
+substitution) at the first level's shapes. Device time per launch from a
+replayed CUDA graph (``chip_smoke._device_us``) and event time around the
+call. ``--root DIR`` imports ``score_tpu_torch`` from another checkout, so
+that two commits are timed on one card in one call.
+
+    python3 profile_port.py --walls [--root DIR]
+
+five warm Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
+profiled f32 solve: kernel launches, device busy time and the hand-written
+kernels' share. With ``--root`` for two commits in turns in one call.
 
     python3 profile_port.py --ablate
 
@@ -104,10 +115,13 @@ def _warm_walls(fg, n=3, precision="f64"):
                 relgap=relgap)
 
 
-# device-side names of the port's hand-written kernels (band.cu, blocks.cu)
+# device-side names of the port's hand-written kernels (band.cu, blocks.cu);
+# tri_lower_kernel is the forward-only kernel of a --root checkout from
+# before tri_solve_kernel
 _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
                  "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
-                 "pcr_solve_narrow_kernel", "chol_kernel", "tri_lower_kernel")
+                 "pcr_solve_narrow_kernel", "chol_kernel", "tri_solve_kernel",
+                 "tri_lower_kernel")
 
 
 def _profile_solve(fg, top=12, precision="f64"):
@@ -127,11 +141,12 @@ def _profile_solve(fg, top=12, precision="f64"):
     ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)[:top]
     band = {}
-    for e in kernels:
+    for e in kernels:  # one entry per template instantiation: summed by name
         for name in _KERNEL_NAMES:
             if "::" + name in e.key:
-                band[name] = dict(device_ms=e.self_device_time_total / 1e3,
-                                  launches=e.count)
+                row = band.setdefault(name, dict(device_ms=0.0, launches=0))
+                row["device_ms"] += e.self_device_time_total / 1e3
+                row["launches"] += e.count
     return dict(
         device_busy_ms=busy_us / 1e3,
         kernel_launches=n_launch,
@@ -212,15 +227,27 @@ def _forced_depth_walls(fg, Tp, rounds=4):
 _REMAINDERS = {"manhattan4": (4, 256, 138), "robot20": (20, 128, 258)}
 
 
-def _pcr_kernel_times(device):
+# band_cr_level: (chains, fine chain length) of Manhattan-4's first level,
+# of its second and third at one chain's worth of positions, and of a
+# forced level on robot20; the f32 band's _dinv: (blocks, rhs columns) of a
+# direction, a level's couplings and the arrow panel at Manhattan-4's first
+# level, and robot20's panel
+_CR_LEVEL_SHAPES = ((4, 512), (1, 1024), (1, 2048), (20, 128))
+_DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
+
+
+def _kernel_times(device):
     """Device us and event ms of band_pcr_level and band_pcr_solve at the
-    shapes of ``_REMAINDERS``. Serves both signatures of band_pcr_level:
-    with the carried inverse (D, A, C, invD, s) and without (D, A, C, s)."""
+    shapes of ``_REMAINDERS``, of band_cr_level at ``_CR_LEVEL_SHAPES`` and
+    of the f32 band's ``_dinv`` at ``_DINV_SHAPES``. Serves both signatures
+    of band_pcr_level: with the carried inverse (D, A, C, invD, s) and
+    without (D, A, C, s)."""
     import inspect
 
     import torch
-    from chip_smoke import _device_us
+    from chip_smoke import _device_us, _random_blocks
     from score_tpu_torch.ops import band
+    from score_tpu_torch.solver import pcr, smallblocks
 
     carried = len(inspect.signature(band.band_pcr_level).parameters) == 5
     rows = []
@@ -240,6 +267,18 @@ def _pcr_kernel_times(device):
             fn = lambda: band.band_pcr_solve(f.E, f.F, f.invD, b)
             rows.append(dict(cell=label, kernel="band_pcr_solve", shape=f"C={C} Tp={Tp} K={k}",
                              device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    for C, T in _CR_LEVEL_SHAPES:
+        D, U = _random_band(C, T, 6, seed=T + C, device=device)
+        A = band.band_init_a(U)
+        fn = lambda: band.band_cr_level(D, A, U)
+        rows.append(dict(cell="f64 band", kernel="band_cr_level", shape=f"C={C} T={T}",
+                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    for M, K in _DINV_SHAPES:
+        L = smallblocks.chol_small(_random_blocks(M, 6, seed=M, device=device))
+        B = torch.randn(M, 6, K, device=device)
+        fn = lambda: pcr._dinv(L, B)
+        rows.append(dict(cell="f32 band", kernel="pcr._dinv", shape=f"M={M} D=6 K={K}",
+                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
     return rows
 
 
@@ -290,7 +329,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full report as JSON to this file")
     ap.add_argument("--kernels", action="store_true",
-                    help="time only band_pcr_level and band_pcr_solve")
+                    help="time only the redesigned kernels")
+    ap.add_argument("--walls", action="store_true",
+                    help="warm Manhattan-4 walls in f32 and f64, and the f32 launch count")
     ap.add_argument("--ablate", action="store_true",
                     help="time band_pcr_solve with parts of its level loop compiled out")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
@@ -322,7 +363,7 @@ def main() -> int:
     if args.kernels:
         import score_tpu_torch
 
-        rows = _pcr_kernel_times(torch.device("cuda"))
+        rows = _kernel_times(torch.device("cuda"))
         _log(f"package: {Path(score_tpu_torch.__file__).parent}")
         for r in rows:
             _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<22} "
@@ -334,6 +375,27 @@ def main() -> int:
         return 0
 
     from chip_smoke import _cells
+
+    if args.walls:
+        import score_tpu_torch
+
+        _log(f"package: {Path(score_tpu_torch.__file__).parent}")
+        label, fg = _cells()[0]
+        report = dict(card=smi)
+        for precision in ("f32", "f64"):
+            report[precision] = _warm_walls(fg, n=5, precision=precision)
+            _log(f"{label}-{precision}: warm {report[precision]}")
+        p = report["f32_profile"] = _profile_solve(fg, precision="f32")
+        _log(f"{label}-f32: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
+             f"{p['kernel_launches']} kernel launches")
+        for name, b in p["hand_kernels"].items():
+            _log(f"  kernel {name:<20} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1))
+        return 0
+
     from score_tpu_torch.assembly.conic import build_conic_problem
     from score_tpu_torch.assembly.normalize import normalize_factor_graph
     from score_tpu_torch.ops import band

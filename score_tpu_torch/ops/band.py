@@ -514,18 +514,36 @@ def band_cr_level(D, A, C):
     each (C, T/2, Db, Db) (see :func:`band_cr_level_plain`).
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_level_kernel`` together
-    with its caller's even/odd lane slices (:606-620): thread (c, j) reads
-    fine rows 2j and 2j +- 1 by index and writes the coarse row j, so no
-    gather runs between levels. It computes only the kept rows, where the
-    TPU kernel computed every row and the caller dropped half. Bound like
-    ``band_pcr_level`` by f64 latency per thread (two 6x6 inversions and
-    six block products in registers) and by occupancy: C*T/2 threads,
-    1024 at Manhattan-4's first level."""
+    with its caller's even/odd lane slices (:606-620): the group of coarse
+    position (c, j) reads fine rows 2j and 2j +- 1 by index and writes the
+    coarse row j, so no gather runs between levels. It computes only the
+    kept rows, where the TPU kernel computed every row and the caller
+    dropped half.
+
+    What bounds it on the card: 7 blocks of traffic per pair of fine rows
+    (1.6 MB at Manhattan-4's first level, half a microsecond of HBM
+    time), so a launch is bound by latency, of the launch and of the
+    dependent f64 chain of a Cholesky, two substitutions and two
+    row-times-block products. The design is ``band_pcr_level``'s: a group
+    of 8 lanes per coarse position, lanes 0..5 one row of every block
+    each, inputs staged in shared memory by 16-byte cp.async, products
+    against shared-memory broadcasts, outputs by 16-byte stores, and the
+    group inversion (Cholesky by shuffles, lane c solves column c) is the
+    device function that ``band_pcr_level`` calls. Every group inverts
+    the ONE odd block 2j + 1 it owns and leaves it in shared memory; after
+    a block barrier F_j takes it and E_{j+1} of the next group takes it
+    too, so an odd block is inverted once where a thread of the kernel
+    before this design inverted both its neighbours one after the other.
+    A thread block is 15 positions and one more group that inverts the
+    odd block before the first position (1 inversion in 16 is repeated;
+    all 16 run side by side). Sums run in the plain version's order;
+    only nvcc's contraction to FMAs differs."""
     _check_fine_band("band_cr_level", D, A, C)
     if not _route("band_cr_level", D, A, C):
         return band_cr_level_plain(D, A, C)
     nC, T, Db, _ = D.shape
     outs = [D.new_empty((nC, T // 2, Db, Db)) for _ in range(8)]
+    _check_aligned("band_cr_level", D, A, C)
     err = _lib().band_cr_level(
         D.data_ptr(), A.data_ptr(), C.data_ptr(), *[o.data_ptr() for o in outs],
         nC, T // 2, Db, _stream(),

@@ -1,4 +1,4 @@
-"""Batched small-block Cholesky and forward substitution in float32.
+"""Batched small-block Cholesky and triangular substitutions in float32.
 
 Port of :mod:`score_tpu.ops.pallas_blocks`. The f32 band (cyclic reduction,
 :mod:`score_tpu_torch.solver.pcr`) and the QCQP range elimination spend
@@ -8,7 +8,15 @@ hand in CUDA C++ (``csrc/blocks.cu``, built for sm_90a by
 :mod:`score_tpu_torch.ops.build`), do that work on the card:
 
     _chol_kernel       pallas_blocks.py:36  -> block_chol
-    _tri_solve_kernel  pallas_blocks.py:79  -> block_tri_lower_solve
+    _tri_solve_kernel  pallas_blocks.py:79  -> block_chol_solve, the
+                                               forward substitution fused
+                                               with the back substitution
+                                               that follows it in every
+                                               caller (L L^T X = B in one
+                                               launch), and
+                                               block_tri_lower_solve, the
+                                               same kernel without the
+                                               back substitution
 
 The TPU kernels put the batch on the 128 lanes, (D, D, M); here blocks
 keep the port's (M, D, D) row-major layout. Each kernel has a plain
@@ -30,6 +38,9 @@ __all__ = [
     "block_chol_plain",
     "block_tri_lower_solve",
     "block_tri_lower_solve_plain",
+    "block_tri_upper_solve_plain",
+    "block_chol_solve",
+    "block_chol_solve_plain",
     "KERNELS",
     "reset_launch_counts",
 ]
@@ -74,6 +85,25 @@ def block_tri_lower_solve_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tenso
     return torch.stack(rows, dim=-2)
 
 
+def block_tri_upper_solve_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L^T X = B (L lower-triangular) by back substitution, from
+    the last row up, dividing by the diagonal."""
+    m = L.shape[-1]
+    rows = [None] * m
+    for i in reversed(range(m)):
+        r = B[..., i, :]
+        for k in range(i + 1, m):
+            r = r - L[..., k, i : i + 1] * rows[k]
+        rows[i] = r / L[..., i, i : i + 1]
+    return torch.stack(rows, dim=-2)
+
+
+def block_chol_solve_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L L^T X = B for the Cholesky factor L (..., m, m) and B
+    (..., m, K): forward, then back substitution."""
+    return block_tri_upper_solve_plain(L, block_tri_lower_solve_plain(L, B))
+
+
 # ------------------------------------------------------------------ #
 # Kernel wrappers
 # ------------------------------------------------------------------ #
@@ -85,12 +115,12 @@ def _lib():
     return blocks_library()
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
+def _check(name: str, t: torch.Tensor, shape, contiguous: bool = True) -> None:
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
@@ -144,37 +174,63 @@ def block_chol(A: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def block_tri_lower_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Y (M, D, K) with L_m Y_m = B_m for lower-triangular L (M, D, D)
-    and B (M, D, K), float32.
-
-    Replaces ``score_tpu/ops/pallas_blocks.py:_tri_solve_kernel``. One
-    thread per (block, rhs column); a thread block of 128 consecutive
-    (block, column) pairs stages the L blocks it touches in shared memory
-    with coalesced loads, so a wide panel (K in the hundreds) reads each L
-    once per thread block. Memory bounds it for a wide panel (B in, Y out)
-    and launch latency for a few columns."""
+def _solve(wrapper, plain, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Checks, routing, launch and launch count shared by the two
+    substitution wrappers; the C entry point carries the wrapper's name.
+    B may have any strides (the kernel reads it through them)."""
+    name = wrapper.__name__
     if L.dim() != 3 or B.dim() != 3 or L.shape[-1] != L.shape[-2]:
-        raise ValueError("block_tri_lower_solve: expected L (M, D, D), B (M, D, K), "
+        raise ValueError(f"{name}: expected L (M, D, D), B (M, D, K), "
                          f"got {tuple(L.shape)}, {tuple(B.shape)}")
     M, D, _ = L.shape
     K = B.shape[-1]
-    _check("block_tri_lower_solve.L", L, (M, D, D))
-    _check("block_tri_lower_solve.B", B, (M, D, K))
-    if not _route("block_tri_lower_solve", D, L, B):
-        return block_tri_lower_solve_plain(L, B)
-    Y = torch.empty_like(B)
-    if Y.numel() == 0:
-        return Y
-    err = _lib().block_tri_lower_solve(L.data_ptr(), B.data_ptr(), Y.data_ptr(), M, D, K,
-                                       torch.cuda.current_stream(L.device).cuda_stream)
-    _raise_on("block_tri_lower_solve", err)
-    block_tri_lower_solve.launches += 1
-    block_tri_lower_solve.launches_by_size[D] += 1
-    return Y
+    _check(f"{name}.L", L, (M, D, D))
+    _check(f"{name}.B", B, (M, D, K), contiguous=False)
+    if not _route(name, D, L, B):
+        return plain(L, B)
+    X = torch.empty((M, D, K), dtype=B.dtype, device=B.device)
+    if X.numel() == 0:
+        return X
+    if L.data_ptr() % 16:
+        raise ValueError(f"{name}: L is not 16-byte aligned")
+    err = getattr(_lib(), name)(L.data_ptr(), B.data_ptr(), X.data_ptr(), M, D, K,
+                                *B.stride(),
+                                torch.cuda.current_stream(L.device).cuda_stream)
+    _raise_on(name, err)
+    wrapper.launches += 1
+    wrapper.launches_by_size[D] += 1
+    return X
 
 
-KERNELS = (block_chol, block_tri_lower_solve)
+def block_tri_lower_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Y (M, D, K) with L_m Y_m = B_m for lower-triangular L (M, D, D)
+    and B (M, D, K), float32: the kernel of :func:`block_chol_solve`
+    with the back substitution compiled out."""
+    return _solve(block_tri_lower_solve, block_tri_lower_solve_plain, L, B)
+
+
+def block_chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """X (M, D, K) with L_m L_m^T X_m = B_m for Cholesky factors L
+    (M, D, D), contiguous, and B (M, D, K) of any strides, float32.
+
+    Replaces ``score_tpu/ops/pallas_blocks.py:_tri_solve_kernel`` and the
+    ~37 elementwise launches of the back substitution that followed it in
+    every caller (``pcr._dinv``, ``inv_small_spd``). A thread owns 4, 2 or
+    1 neighbouring rhs columns of one block (the widest vector that K,
+    B's strides and the addresses keep aligned), loads them once,
+    substitutes forward and back in registers in the plain version's
+    order, and stores X once: B in and X out is all the traffic. The
+    thread block is (column vectors, blocks) and the grid (block ranges,
+    column tiles), so no thread divides by K; the L blocks of a thread
+    block are staged once in shared memory with the reciprocals of their
+    diagonals. Memory bounds the arrow panel (K = 138..258; blocks of 256
+    threads), launch latency the K = 1 and K = 6 solves (blocks of 64
+    threads, to spread 1024 to 3072 threads of work over the SMs). A
+    transposed or stepped B costs no copy."""
+    return _solve(block_chol_solve, block_chol_solve_plain, L, B)
+
+
+KERNELS = (block_chol, block_tri_lower_solve, block_chol_solve)
 
 
 def reset_launch_counts() -> None:

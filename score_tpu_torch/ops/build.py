@@ -138,6 +138,8 @@ def blocks_library() -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.block_chol.argtypes = [vp, vp, i64, i32, vp]
     lib.block_chol.restype = i32
-    lib.block_tri_lower_solve.argtypes = [vp, vp, vp, i64, i32, i32, vp]
-    lib.block_tri_lower_solve.restype = i32
+    for solve in (lib.block_tri_lower_solve, lib.block_chol_solve):
+        # L, B, out, M, D, K, B's three element strides, stream
+        solve.argtypes = [vp, vp, vp, i64, i32, i32, i64, i64, i64, vp]
+        solve.restype = i32
     return lib

@@ -95,38 +95,6 @@ __device__ __forceinline__ void store_block(double* __restrict__ dst,
   for (int e = 0; e < Db * Db; ++e) dst[e] = src[e];
 }
 
-// out = sign * (P @ Q)
-template <int Db>
-__device__ __forceinline__ void matmul(const double* P, const double* Q,
-                                       double* out, double sign) {
-#pragma unroll
-  for (int r = 0; r < Db; ++r) {
-#pragma unroll
-    for (int c = 0; c < Db; ++c) {
-      double acc = 0.0;
-#pragma unroll
-      for (int k = 0; k < Db; ++k) acc += P[r * Db + k] * Q[k * Db + c];
-      out[r * Db + c] = sign * acc;
-    }
-  }
-}
-
-// out += P @ Q
-template <int Db>
-__device__ __forceinline__ void matmul_acc(const double* P, const double* Q,
-                                           double* out) {
-#pragma unroll
-  for (int r = 0; r < Db; ++r) {
-#pragma unroll
-    for (int c = 0; c < Db; ++c) {
-      double acc = 0.0;
-#pragma unroll
-      for (int k = 0; k < Db; ++k) acc += P[r * Db + k] * Q[k * Db + c];
-      out[r * Db + c] += acc;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------
 // Kernels
 // ---------------------------------------------------------------------
@@ -214,6 +182,55 @@ __device__ __forceinline__ void row_times_block(const double* p,
   }
 }
 
+// Inverse of an SPD block across a lane group, called by every lane of the
+// warp: lane r < Db of the group holds row r of the block in Dv (a group
+// with no block, and lanes Db..7, pass rows of the identity). Cholesky by
+// width-8 shuffles (lane r ends with row r of L), L through the shared
+// block Lm, then lane c solves column c of L Y = I, L^T X = Y and writes it
+// to the shared block inv. Lm and inv may be blocks whose reads by the
+// group precede the call. The caller synchronises before inv is read.
+template <int Db>
+__device__ __forceinline__ void group_inv_spd(const double* Dv, double* Lm,
+                                              double* inv, int r, bool row) {
+  double Lr[Db];
+#pragma unroll
+  for (int j = 0; j < Db; ++j) {
+    double cj = Dv[j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) {
+      const double ljk = __shfl_sync(0xffffffffu, Lr[k], j, kGroupLanes);
+      cj = cj - Lr[k] * ljk;
+    }
+    const double piv = sqrt(__shfl_sync(0xffffffffu, cj, j, kGroupLanes));
+    Lr[j] = (r >= j) ? cj / piv : 0.0;
+  }
+  __syncwarp();  // every lane has finished reading what Lm and inv held
+  if (row) {
+#pragma unroll
+    for (int c = 0; c < Db; ++c) Lm[r * Db + c] = Lr[c];
+  }
+  __syncwarp();
+  if (row) {
+    double y[Db], x[Db];
+#pragma unroll
+    for (int q = 0; q < Db; ++q) {
+      double v = (q == r) ? 1.0 : 0.0;
+#pragma unroll
+      for (int k = 0; k < q; ++k) v = v - Lm[q * Db + k] * y[k];
+      y[q] = v / Lm[q * Db + q];
+    }
+#pragma unroll
+    for (int q = Db - 1; q >= 0; --q) {
+      double v = y[q];
+#pragma unroll
+      for (int k = q + 1; k < Db; ++k) v = v - Lm[k * Db + q] * x[k];
+      x[q] = v / Lm[q * Db + q];
+    }
+#pragma unroll
+    for (int q = 0; q < Db; ++q) inv[q * Db + r] = x[q];
+  }
+}
+
 template <int Db>
 __global__ void __launch_bounds__(kLevelWarps * 32)
 pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
@@ -296,20 +313,6 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
     for (int c = 0; c < Db; ++c) Dv[c] = (c == r) ? 1.0 : 0.0;
   }
 
-  // Cholesky of D' across the group: lane r ends with row r of L.
-  double Lr[Db];
-#pragma unroll
-  for (int j = 0; j < Db; ++j) {
-    double cj = Dv[j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) {
-      const double ljk = __shfl_sync(0xffffffffu, Lr[k], j, kGroupLanes);
-      cj = cj - Lr[k] * ljk;
-    }
-    const double piv = sqrt(__shfl_sync(0xffffffffu, cj, j, kGroupLanes));
-    Lr[j] = (r >= j) ? cj / piv : 0.0;
-  }
-
   __syncwarp();  // every lane has finished reading the staged inputs
   if (row) {
 #pragma unroll
@@ -319,31 +322,10 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
       my[2][g][r * Db + c] = Dv[c];
       my[3][g][r * Db + c] = Av[c];
       my[4][g][r * Db + c] = Cv[c];
-      my[5][g][r * Db + c] = Lr[c];
     }
   }
-  __syncwarp();
-  if (row) {
-    // column r of inv(D'): L y = e_r, then L^T x = y
-    const double* Lm = my[5][g];
-    double y[Db], x[Db];
-#pragma unroll
-    for (int q = 0; q < Db; ++q) {
-      double v = (q == r) ? 1.0 : 0.0;
-#pragma unroll
-      for (int k = 0; k < q; ++k) v = v - Lm[q * Db + k] * y[k];
-      y[q] = v / Lm[q * Db + q];
-    }
-#pragma unroll
-    for (int q = Db - 1; q >= 0; --q) {
-      double v = y[q];
-#pragma unroll
-      for (int k = q + 1; k < Db; ++k) v = v - Lm[k * Db + q] * x[k];
-      x[q] = v / Lm[q * Db + q];
-    }
-#pragma unroll
-    for (int q = 0; q < Db; ++q) my[6][g][q * Db + r] = x[q];
-  }
+  // inv(D') across the group: L through slot 5, the inverse into slot 6
+  group_inv_spd<Db>(Dv, my[5][g], my[6][g], r, row);
   __syncwarp();
   if (valid) {
     double* dst[6] = {E + t * BS,  F + t * BS,  D2 + t * BS,
@@ -359,76 +341,149 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
   }
 }
 
-// One compacting cyclic-reduction (CR) level. One thread per (chain, coarse
-// position j): fine row 2j is kept and reduced exactly as a PCR level at
-// s = 1 reduces it; the odd neighbours 2j -+ 1 are eliminated. The thread
-// also stores what the solve's back-substitution needs for odd row 2j + 1
-// (its inverse, and its input couplings A, C). Inputs are at the fine
-// length 2*Th, outputs at the coarse length Th; fine row 2j of chain c is
-// block 2*t for t = c*Th + j, so the compaction costs no gather.
+// ---------------------------------------------------------------------
+// band_cr_level: one compacting cyclic-reduction (CR) level. Coarse
+// position j of a chain keeps fine row 2j, reduced exactly as a PCR level
+// at s = 1 reduces it, and eliminates the odd rows 2j -+ 1; it also stores
+// what the solve's back-substitution needs for odd row 2j + 1 (its inverse
+// and its input couplings A, C). Inputs are at the fine length 2*Th,
+// outputs at the coarse length Th; fine row 2j of chain c is block 2*t for
+// t = c*Th + j, so the compaction costs no gather.
+//
+// Mapping: the lane-group layout of band_pcr_level. A thread block has 16
+// groups of 8 lanes: groups 1..15 own 15 consecutive coarse positions, and
+// group 0 stands in for the position before them. Every group owns ONE odd
+// row, 2t + 1 for its position t: it stages that row's D, A, C (and, groups
+// 1..15, the even row's) in shared memory by 16-byte cp.async, inverts the
+// odd D with the group inversion it shares with band_pcr_level, and leaves
+// the inverse in shared memory. After one block barrier a group takes
+// F = -C_{2j} invD_{2j+1} from its own odd row and E = -A_{2j} invD_{2j-1}
+// from the group before it, whose staged A, C it multiplies as well: every
+// odd block is inverted once per thread block that uses it, all inversions
+// of a thread block side by side, where a thread of the kernel before this
+// one inverted both neighbours in its own dependent chain. Group 0 exists
+// so that the first position's halo inverse does not double that position's
+// chain (one inversion in 16 is repeated). The outputs leave through
+// shared memory as 16-byte stores; Ao, Co are the staged copies.
+// Arithmetic order is that of the plain PyTorch version.
+// Bound: 7 blocks of traffic per fine position pair (1.6 MB at
+// Manhattan-4's first level, half a microsecond of HBM time), so latency
+// bounds a launch: the dependent f64 chain of a Cholesky, two
+// substitutions and two row-times-block products.
+// ---------------------------------------------------------------------
+
+constexpr int kCrGroups = kLevelWarps * kPosPerWarp;  // 16 lane groups
+constexpr int kCrPositions = kCrGroups - 1;           // and one is the halo
+
 template <int Db>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kLevelWarps * 32)
 cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
                 const double* __restrict__ Cc, double* __restrict__ E,
                 double* __restrict__ F, double* __restrict__ invDo,
                 double* __restrict__ Ao, double* __restrict__ Co,
                 double* __restrict__ D2, double* __restrict__ A2,
                 double* __restrict__ C2, int nC, int Th) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)nC * Th) return;
-  const int j = (int)(t % Th);
-  const long long bs = (long long)Db * Db;
-  const long long f = 2 * t;       // kept fine row 2j
-  const long long up = f + 1;      // odd row 2j + 1: always inside the chain
-  const bool has_dn = j > 0;       // odd row 2j - 1
+  static_assert(Db % 2 == 0 && Db <= kGroupLanes, "row-per-lane layout");
+  constexpr int BS = Db * Db;
+  constexpr int V = BS / 2;  // double2 per block
+  // [group][block slot][BS]; slots: 0 D_odd, then L; 1 A_odd; 2 C_odd;
+  // 3 D_even, then D'; 4 A_even, then E; 5 C_even, then F; 6 invD_odd;
+  // 7 A'; 8 C'. The next group reads slots 6, 1, 2, which stay as they are.
+  __shared__ __align__(16) double sm[kCrGroups][9][BS];
 
-  double Ev[Db * Db], Fv[Db * Db], X[Db * Db], Y[Db * Db];
-  // F = -C_{2j} invD_{2j+1}; invD_{2j+1}, A_{2j+1}, C_{2j+1} kept
-  load_block<Db>(D + up * bs, Y);
-  inv_spd<Db>(Y, X);
-  store_block<Db>(invDo + t * bs, X);
-  load_block<Db>(Cc + f * bs, Y);
-  matmul<Db>(Y, X, Fv, -1.0);
-  store_block<Db>(F + t * bs, Fv);
-  load_block<Db>(A + up * bs, Y);
-  store_block<Db>(Ao + t * bs, Y);
-  load_block<Db>(Cc + up * bs, Y);
-  store_block<Db>(Co + t * bs, Y);
-  // E = -A_{2j} invD_{2j-1}
-  if (has_dn) {
-    load_block<Db>(D + (f - 1) * bs, Y);
-    inv_spd<Db>(Y, X);
-    load_block<Db>(A + f * bs, Y);
-    matmul<Db>(Y, X, Ev, -1.0);
-  } else {
-#pragma unroll
-    for (int e = 0; e < Db * Db; ++e) Ev[e] = 0.0;
-  }
-  store_block<Db>(E + t * bs, Ev);
+  const int q = threadIdx.x / kGroupLanes;        // group of the block
+  const int r = threadIdx.x & (kGroupLanes - 1);  // row held by this lane
+  const int n = nC * Th;
+  // group 0: the position before the block's first, for its odd row only
+  const int t = (int)blockIdx.x * kCrPositions + q - 1;
+  const bool pos = q > 0 && t < n;  // owns coarse position t
+  // odd row 2t + 1 is wanted: by its owner, or by the block's first
+  // position when that has a lower neighbour in its chain
+  const bool odd = q > 0 ? pos : (t >= 0 && t + 1 < n && (t + 1) % Th != 0);
+  const bool has_dn = pos && t % Th != 0;  // odd row 2j - 1, group q - 1's
+  const bool row = r < Db;
+  double(*my)[BS] = sm[q];
 
-  // D' = D_{2j} + (E C_{2j-1} + F A_{2j+1});  A' = E A_{2j-1};  C' = F C_{2j+1}
-  double S[Db * Db];
+  if (odd) {
+    const long long o = (2LL * t + 1) * BS;  // odd row; the even row is before
+    const double* src[6] = {D + o,      A + o,      Cc + o,
+                            D + o - BS, A + o - BS, Cc + o - BS};
 #pragma unroll
-  for (int e = 0; e < Db * Db; ++e) S[e] = 0.0;
-  if (has_dn) {
-    load_block<Db>(Cc + (f - 1) * bs, Y);
-    matmul_acc<Db>(Ev, Y, S);
-    load_block<Db>(A + (f - 1) * bs, Y);
-    matmul<Db>(Ev, Y, X, 1.0);
-  } else {
+    for (int b = 0; b < 6; ++b) {
+      if (b < 3 || pos) {
 #pragma unroll
-    for (int e = 0; e < Db * Db; ++e) X[e] = 0.0;
+        for (int v = r; v < V; v += kGroupLanes)
+          cp_async16(&my[b][2 * v], src[b] + 2 * v);
+      }
+    }
   }
-  store_block<Db>(A2 + t * bs, X);
-  load_block<Db>(A + up * bs, Y);
-  matmul_acc<Db>(Fv, Y, S);
-  load_block<Db>(Cc + up * bs, Y);
-  matmul<Db>(Fv, Y, X, 1.0);
-  store_block<Db>(C2 + t * bs, X);
-  load_block<Db>(D + f * bs, Y);
+  cp_async_wait_all();
+  __syncwarp();
+
+  double Dv[Db];
 #pragma unroll
-  for (int e = 0; e < Db * Db; ++e) Y[e] = Y[e] + S[e];
-  store_block<Db>(D2 + t * bs, Y);
+  for (int c = 0; c < Db; ++c)
+    Dv[c] = (odd && row) ? my[0][r * Db + c] : ((c == r) ? 1.0 : 0.0);
+  group_inv_spd<Db>(Dv, my[0], my[6], r, row);
+  __syncthreads();  // the group before has its inverse and A, C in place
+
+  if (pos && row) {
+    // A lane overwrites only rows it alone has read (row r of slots 3, 4,
+    // 5) and slots nobody reads (7, 8), each result as soon as it is
+    // complete: few rows are live at a time.
+    double p[Db], Xv[Db], out[Db], acc[Db];
+    // F = -C_{2j} invD_{2j+1};  C' = F C_{2j+1};  D' gets F A_{2j+1}
+#pragma unroll
+    for (int c = 0; c < Db; ++c) p[c] = my[5][r * Db + c];
+    row_times_block<Db>(p, my[6], Xv);
+#pragma unroll
+    for (int c = 0; c < Db; ++c) {
+      Xv[c] = -Xv[c];
+      my[5][r * Db + c] = Xv[c];
+    }
+    row_times_block<Db>(Xv, my[2], out);
+#pragma unroll
+    for (int c = 0; c < Db; ++c) my[8][r * Db + c] = out[c];
+    row_times_block<Db>(Xv, my[1], acc);
+    // E = -A_{2j} invD_{2j-1};  A' = E A_{2j-1};  D' gets E C_{2j-1}
+    if (has_dn) {
+      const double(*dn)[BS] = sm[q - 1];
+#pragma unroll
+      for (int c = 0; c < Db; ++c) p[c] = my[4][r * Db + c];
+      row_times_block<Db>(p, dn[6], Xv);
+#pragma unroll
+      for (int c = 0; c < Db; ++c) {
+        Xv[c] = -Xv[c];
+        my[4][r * Db + c] = Xv[c];
+      }
+      row_times_block<Db>(Xv, dn[1], out);
+#pragma unroll
+      for (int c = 0; c < Db; ++c) my[7][r * Db + c] = out[c];
+      row_times_block<Db>(Xv, dn[2], out);
+    } else {
+#pragma unroll
+      for (int c = 0; c < Db; ++c)
+        my[4][r * Db + c] = my[7][r * Db + c] = out[c] = 0.0;
+    }
+    // D' = D_{2j} + (E C_{2j-1} + F A_{2j+1})
+#pragma unroll
+    for (int c = 0; c < Db; ++c)
+      my[3][r * Db + c] = my[3][r * Db + c] + (out[c] + acc[c]);
+  }
+  __syncwarp();
+  if (pos) {
+    const long long o = (long long)t * BS;
+    double* dst[8] = {E + o,  F + o,  invDo + o, Ao + o,
+                      Co + o, D2 + o, A2 + o,    C2 + o};
+    const int slot[8] = {4, 5, 6, 1, 2, 3, 7, 8};
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+#pragma unroll
+      for (int v = r; v < V; v += kGroupLanes)
+        *reinterpret_cast<double2*>(dst[b] + 2 * v) =
+            *reinterpret_cast<const double2*>(&my[slot[b]][2 * v]);
+    }
+  }
 }
 
 // CR rhs reduction onto the kept rows:
@@ -1056,10 +1111,11 @@ int band_cr_level(const double* D, const double* A, const double* Cc,
                   void* stream) {
   const long long n = (long long)nC * Th;
   if (n == 0) return 0;
+  if (n > 0x3fffffff) return (int)cudaErrorInvalidValue;  // 2t + 1 as an int
   cudaStream_t st = (cudaStream_t)stream;
   switch (Db) {
     case 6:
-      cr_level_kernel<6><<<grid_for(n, 128), 128, 0, st>>>(
+      cr_level_kernel<6><<<grid_for(n, kCrPositions), kLevelWarps * 32, 0, st>>>(
           D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
       break;
     default:

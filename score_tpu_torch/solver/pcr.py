@@ -12,10 +12,10 @@ split computes
 and halves the chain; a solve folds the odd right-hand sides into the even
 system on the way down and back-substitutes the odd blocks on the way up.
 
-Each level's block Cholesky and forward substitutions go through
+Each level's block Cholesky and Cholesky solves go through
 :mod:`score_tpu_torch.solver.smallblocks`, which launches the batched block
 kernels of :mod:`score_tpu_torch.ops.blocks` for float32 tensors on the
-card. The 6x6 block products stay ``torch.matmul``.
+card (a solve is one launch, forward and back substitution fused). The 6x6 block products stay ``torch.matmul``.
 
 Level loop and shapes: the JAX version runs the levels as a ``lax.scan``
 over a fixed-shape state, refilling the dropped half with decoupled
@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from score_tpu_torch.solver.smallblocks import chol_small, tri_lower_solve, tri_upper_solve
+from score_tpu_torch.solver.smallblocks import chol_small, chol_solve
 
 __all__ = ["PCRFactors", "pcr_pad_length", "pcr_factor", "pcr_solve"]
 
@@ -56,7 +56,8 @@ def pcr_pad_length(T: int) -> int:
 
 
 def _dinv(L, M):
-    return tri_upper_solve(L, tri_lower_solve(L, M))
+    """(L L^T)^-1 M: one fused kernel launch for float32 on the card."""
+    return chol_solve(L, M)
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:

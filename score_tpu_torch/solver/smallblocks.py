@@ -6,7 +6,9 @@ block kernels of :mod:`score_tpu_torch.ops.blocks`, as the JAX package
 routes f32 batches into its Pallas kernels; everything else (CPU tensors,
 float64 anywhere) takes the plain unrolled versions, which are those
 kernels' twins. float64 on the card stays on the plain path, as the JAX
-package keeps f64 on its unrolled jnp path. The f64 band kernels
+package keeps f64 on its unrolled jnp path. :func:`chol_solve` (forward
+then back substitution, L L^T X = B) is one fused kernel launch on that
+route: ``inv_small_spd`` and the f32 band's ``_dinv`` go through it. The f64 band kernels
 (``ops/csrc/band.cu``: ``chol``, ``tri_lower``, ``tri_upper``) run the
 same left-looking column Cholesky and substitution order inside their
 threads.
@@ -18,7 +20,7 @@ import torch
 
 from score_tpu_torch.ops import blocks
 
-__all__ = ["chol_small", "tri_lower_solve", "tri_upper_solve", "inv_small_spd"]
+__all__ = ["chol_small", "tri_lower_solve", "tri_upper_solve", "chol_solve", "inv_small_spd"]
 
 
 def _use_kernel(a: torch.Tensor) -> bool:
@@ -34,32 +36,36 @@ def chol_small(A: torch.Tensor) -> torch.Tensor:
     return blocks.block_chol_plain(A)
 
 
+def _blocks(L: torch.Tensor, B: torch.Tensor):
+    """L as contiguous (M, m, m) and B as (M, m, K), a view where B's
+    strides allow: the substitution kernels read B through its strides."""
+    m, K = L.shape[-1], B.shape[-1]
+    return L.reshape(-1, m, m).contiguous(), B.reshape(-1, m, K)
+
+
 def tri_lower_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve L Y = B with L (..., m, m) lower-triangular and B (..., m, K)."""
     if _use_kernel(L):
-        m, K = L.shape[-1], B.shape[-1]
-        Y = blocks.block_tri_lower_solve(
-            L.reshape(-1, m, m).contiguous(), B.reshape(-1, m, K).contiguous()
-        )
-        return Y.reshape(B.shape)
+        return blocks.block_tri_lower_solve(*_blocks(L, B)).reshape(B.shape)
     return blocks.block_tri_lower_solve_plain(L, B)
 
 
 def tri_upper_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve L^T Y = B (L lower-triangular) by back substitution."""
-    m = L.shape[-1]
-    rows = [None] * m
-    for i in reversed(range(m)):
-        r = B[..., i, :]
-        for k in range(i + 1, m):
-            r = r - L[..., k, i : i + 1] * rows[k]
-        rows[i] = r / L[..., i, i : i + 1]
-    return torch.stack(rows, dim=-2)
+    return blocks.block_tri_upper_solve_plain(L, B)
+
+
+def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve L L^T X = B for the Cholesky factor L (..., m, m) and B
+    (..., m, K): one kernel launch for a float32 batch on the card, the
+    two plain substitutions everywhere else."""
+    if _use_kernel(L):
+        return blocks.block_chol_solve(*_blocks(L, B)).reshape(B.shape)
+    return tri_upper_solve(L, tri_lower_solve(L, B))
 
 
 def inv_small_spd(A: torch.Tensor) -> torch.Tensor:
     """Inverse of small SPD matrices via the Cholesky factor."""
     m = A.shape[-1]
-    L = chol_small(A)
     eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(A.shape)
-    return tri_upper_solve(L, tri_lower_solve(L, eye))
+    return chol_solve(chol_small(A), eye)

@@ -1,8 +1,9 @@
 """The port's batched block kernels' plain twins (ops/blocks.py) and the
 small-block routing (solver/smallblocks.py) against the JAX package.
 
-On CPU tensors ``block_chol`` and ``block_tri_lower_solve`` compute their
-plain twins; the JAX side runs its Pallas kernels in interpret mode.
+On CPU tensors ``block_chol``, ``block_tri_lower_solve`` and
+``block_chol_solve`` compute their plain twins; the JAX side runs its
+Pallas kernels in interpret mode.
 Tolerances: 1e-5 relative (to the largest reference entry) in f32 against
 the Pallas kernels, which multiply by a reciprocal of the pivot where the
 twins divide and which XLA contracts into FMAs; 1e-12 in f64 against the
@@ -17,6 +18,7 @@ import jax.numpy as jnp
 
 from score_tpu.ops.pallas_blocks import chol_blocks_pallas, tri_lower_solve_blocks_pallas
 from score_tpu.solver import smallblocks as rsb
+from score_tpu.solver.pcr import _dinv as ref_dinv
 
 from score_tpu_torch.ops import blocks
 from score_tpu_torch.solver import smallblocks as psb
@@ -87,7 +89,15 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(psb.chol_small(A4), blocks.block_chol_plain(A4))
     assert torch.equal(psb.tri_lower_solve(L, B), blocks.block_tri_lower_solve_plain(L, B))
     assert torch.equal(psb.chol_small(A.double()), blocks.block_chol_plain(A.double()))
-    assert [k.launches for k in blocks.KERNELS] == [0, 0]
+    X = blocks.block_chol_solve_plain(L, B)
+    assert torch.equal(blocks.block_chol_solve(L, B), X)
+    assert torch.equal(psb.chol_solve(L, B), X)
+    assert torch.equal(psb.inv_small_spd(A4), blocks.block_chol_solve_plain(
+        blocks.block_chol_plain(A4), torch.eye(6).expand(2, 4, 6, 6)))
+    assert [k.__name__ for k in blocks.KERNELS] == [
+        "block_chol", "block_tri_lower_solve", "block_chol_solve"]
+    assert [k.launches for k in blocks.KERNELS] == [0, 0, 0]
+    assert all(not any(k.launches_by_size.values()) for k in blocks.KERNELS)
 
 
 def test_wrappers_reject_bad_inputs():
@@ -103,3 +113,90 @@ def test_wrappers_reject_bad_inputs():
         blocks.block_tri_lower_solve(L, torch.zeros(3, 6, 2))  # batch mismatch
     with pytest.raises(RuntimeError):
         blocks.block_chol(A.to("meta"))  # neither CPU nor CUDA: no kernel
+
+
+SOLVE_CASES = [(2, 2), (6, 1), (6, 6), (6, 40)]
+
+
+def _factor_and_rhs(D, K, seed, dtype):
+    A = _spd(16, D, seed, np.float64)
+    L = np.linalg.cholesky(A).astype(dtype)
+    B = np.random.default_rng(seed + K).standard_normal((16, D, K)).astype(dtype)
+    return A, L, B
+
+
+@pytest.mark.parametrize("D,K", SOLVE_CASES)
+def test_chol_solve_matches_jax_dinv_f64(D, K):
+    """Forward then back substitution against the JAX band's ``_dinv``:
+    1e-12 (same formulas, same order), and L L^T X = B to 1e-12."""
+    A, L, B = _factor_and_rhs(D, K, 70 + D, np.float64)
+    want = ref_dinv(jnp.asarray(L), jnp.asarray(B))
+    Lt, Bt = torch.tensor(L), torch.tensor(B)
+    X = blocks.block_chol_solve_plain(Lt, Bt)
+    assert X.dtype == torch.float64 and X.shape == B.shape
+    assert _rel(X, want) <= 1e-12
+    assert _rel(A @ X.numpy(), B) <= 1e-12
+    # the routing, on a batch with two leading dimensions: the same bits
+    X4 = psb.chol_solve(Lt.reshape(4, 4, D, D), Bt.reshape(4, 4, D, K))
+    assert torch.equal(X4.reshape(X.shape), X)
+    assert torch.equal(X, psb.tri_upper_solve(Lt, psb.tri_lower_solve(Lt, Bt)))
+
+
+@pytest.mark.parametrize("D,K", SOLVE_CASES)
+def test_chol_solve_matches_jax_dinv_f32(D, K):
+    """f32: 1e-5 relative against the JAX ``_dinv`` with its forward
+    substitution through the Pallas kernel in interpret mode (a reciprocal
+    multiply where the twin divides) and against its unrolled route; the
+    residual of L L^T X = B to 1e-5."""
+    A, L, B = _factor_and_rhs(D, K, 80 + D, np.float32)
+    Lj, Bj = jnp.asarray(L), jnp.asarray(B)
+    pallas = rsb.tri_upper_solve(Lj, tri_lower_solve_blocks_pallas(Lj, Bj, interpret=True))
+    Lt, Bt = torch.tensor(L), torch.tensor(B)
+    for X in (blocks.block_chol_solve(Lt, Bt), psb.chol_solve(Lt, Bt)):
+        assert X.dtype == torch.float32
+        assert _rel(X, pallas) <= 1e-5
+        assert _rel(X, ref_dinv(Lj, Bj)) <= 1e-5
+        assert _rel(A @ X.double().numpy(), B) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_solve_takes_strided_rhs(dtype):
+    """The rhs views the f32 band hands over (every second block of a
+    chain, transposed; a broadcast identity) give the bits of their
+    contiguous copies."""
+    A = torch.tensor(_spd(8, 6, 90, np.float64)).to(dtype)
+    L = blocks.block_chol_plain(A)
+    U = torch.randn(2, 8, 6, 6, dtype=dtype)
+    view = U[:, 0::2].transpose(-1, -2)
+    assert not view.is_contiguous()
+    L4 = L.reshape(2, 4, 6, 6)
+    assert torch.equal(psb.chol_solve(L4, view), psb.chol_solve(L4, view.contiguous()))
+    eye = torch.eye(6, dtype=dtype).expand(8, 6, 6)
+    if dtype == torch.float32:
+        assert torch.equal(blocks.block_chol_solve(L, eye),
+                           blocks.block_chol_solve(L, eye.contiguous()))
+        assert torch.equal(blocks.block_tri_lower_solve(L, view.reshape(8, 6, 6)),
+                           blocks.block_tri_lower_solve_plain(L, view.reshape(8, 6, 6)))
+    assert _rel(A @ psb.chol_solve(L, eye), torch.eye(6, dtype=dtype).expand(8, 6, 6)) <= (
+        1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def test_chol_solve_rejects_bad_inputs():
+    L = blocks.block_chol(torch.tensor(_spd(4, 6, 61)))
+    B = torch.zeros(4, 6, 3)
+    with pytest.raises(TypeError):
+        blocks.block_chol_solve(L.double(), B.double())  # the kernel is f32 only
+    with pytest.raises(TypeError):
+        blocks.block_chol_solve(L, B.double())
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, torch.zeros(3, 6, 3))  # batch mismatch
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, torch.zeros(4, 5, 3))  # row mismatch
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L.transpose(-1, -2), B)  # L not contiguous
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L[0], B[0])  # not batched
+    with pytest.raises(RuntimeError):
+        blocks.block_chol_solve(L.to("meta"), B.to("meta"))  # no kernel there
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, B.to("meta"))  # two devices

@@ -194,10 +194,66 @@ def test_block_kernels_match_plain(cuda, D, M, K):
     Y = blocks.block_tri_lower_solve(L, B)
     assert _rel(Y, blocks.block_tri_lower_solve_plain(L, B)) <= 1e-5
     assert _rel(L @ Y, B) <= 1e-5
+    X = blocks.block_chol_solve(L, B)
+    assert _rel(X, blocks.block_chol_solve_plain(L, B)) <= 1e-5
+    assert _rel(A @ X, B) <= 1e-5
     torch.cuda.synchronize()
-    assert [k.launches for k in blocks.KERNELS] == [1, 1]
+    assert [k.launches for k in blocks.KERNELS] == [1, 1, 1]
     with pytest.raises(TypeError):
         blocks.block_chol(A.double())  # the kernels are f32 only
+
+
+@pytest.mark.parametrize("K", [1, 2, 5, 6, 138, 139, 258])
+@pytest.mark.parametrize("D,M", [(6, 1), (6, 3), (6, 1024), (6, 1280), (2, 2070)])
+def test_substitution_kernels_match_plain(cuda, D, M, K):
+    """block_chol_solve and the forward-only block_tri_lower_solve against
+    their plain versions, 1e-5 (f32; FMAs, and a reciprocal multiply where
+    the plain version divides): rhs widths that take the 16-byte (K = 2 at
+    D = 2, where whole blocks stay aligned), the 8-byte and the scalar
+    route, a last thread block that is not full, and rhs views read
+    through their strides (transposed; every second block; a broadcast
+    identity)."""
+    L = blocks.block_chol(_spd32(M, D, M + D + K, cuda))
+    B = torch.randn(M, D, K, device=cuda)
+    views = [B, torch.randn(M, K, D, device=cuda).transpose(-1, -2),
+             torch.randn(2 * M, D, K, device=cuda)[1::2]]
+    if K == D:
+        views.append(torch.eye(D, device=cuda).expand(M, D, D))
+    blocks.reset_launch_counts()
+    for rhs in views:
+        assert _rel(blocks.block_chol_solve(L, rhs),
+                    blocks.block_chol_solve_plain(L, rhs)) <= 1e-5
+        assert _rel(blocks.block_tri_lower_solve(L, rhs),
+                    blocks.block_tri_lower_solve_plain(L, rhs)) <= 1e-5
+    torch.cuda.synchronize()
+    assert blocks.block_chol_solve.launches == len(views)
+    assert blocks.block_chol_solve.launches_by_size[D] == len(views)
+
+
+@pytest.mark.parametrize("C", [1, 4, 20])
+@pytest.mark.parametrize("T", [2, 4, 30, 512, 2048])
+def test_cr_level_matches_plain(cuda, C, T):
+    """band_cr_level against its plain version, 1e-12, where a thread block
+    (15 coarse positions and the lane group that inverts the odd block
+    before them) meets the chains every way: chains that start inside a
+    thread block (T = 2, 4: no lower neighbour beside a neighbour group),
+    on its first position (T = 30: no halo inverse), and chains cut by its
+    edge (T = 512, 2048); the last thread block is not full."""
+    D, U = _band(C, T, 6, 65 + T, (T,) * C, cuda)
+    A = band.band_init_a(U)
+    band.reset_launch_counts()
+    for got, want in zip(band.band_cr_level(D, A, U), band.band_cr_level_plain(D, A, U)):
+        assert got.shape == (C, T // 2, 6, 6)
+        assert _rel(got, want) <= 1e-12
+    torch.cuda.synchronize()
+    assert band.band_cr_level.launches == 1
+
+
+def _assert_fused_path():
+    """The f32 band launched the Cholesky and the fused solve, and never
+    the forward-only kernel."""
+    assert blocks.block_chol.launches > 0 and blocks.block_chol_solve.launches > 0
+    assert blocks.block_tri_lower_solve.launches == 0
 
 
 def test_f32_band_matches_f64_band(cuda):
@@ -207,7 +263,7 @@ def test_f32_band_matches_f64_band(cuda):
     b = torch.randn(3, 64, 6, 5, dtype=torch.float64, device=cuda)
     blocks.reset_launch_counts()
     x32 = pcr_solve(pcr_factor(D.float(), U.float()), b.float())
-    assert all(k.launches > 0 for k in blocks.KERNELS)
+    _assert_fused_path()
     x64 = band.band_solve(band.band_factor(D, U), b)
     assert _rel(x32.double(), x64) <= 1e-4
 
@@ -221,7 +277,7 @@ def test_f32_cuda_solve_matches_cpu(cuda):
     ))
     blocks.reset_launch_counts()
     gpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))
-    assert all(k.launches > 0 for k in blocks.KERNELS)
+    _assert_fused_path()
     cpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cpu", precision="f32"))
     assert gpu.solved and cpu.solved
     assert abs(gpu.iterations - cpu.iterations) <= 3

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 from score_tpu.solver.pcr import pcr_factor as ref_factor, pcr_solve as ref_solve
 from tests.test_pcr_tf import _block_tridiag, _dense
 
+from score_tpu_torch.solver import pcr as port_pcr
+from score_tpu_torch.solver import smallblocks as psb
 from score_tpu_torch.solver.pcr import pcr_factor, pcr_pad_length, pcr_solve
 
 
@@ -84,3 +86,19 @@ def test_pcr_rejects_unpadded_chains():
     assert [pcr_pad_length(t) for t in (1, 5, 8, 400)] == [1, 8, 8, 512]
     with pytest.raises(ValueError):
         pcr_factor(torch.tensor(D[:, :6]), torch.tensor(U[:, :6]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K,transposed", [(1, False), (6, False), (6, True)])
+def test_dinv_is_the_two_substitutions_bit_for_bit(dtype, K, transposed):
+    """Off the card ``_dinv`` is forward then back substitution exactly as
+    before the fused kernel took its place on the card: the same bits, for
+    the rhs views a factor and a solve hand it (every second block of a
+    chain, transposed for W2)."""
+    D, _ = _chains(2, 16, 6, 11, (16, 9))
+    L = psb.chol_small(torch.tensor(D).to(dtype)[:, 1::2])
+    rhs = torch.tensor(np.random.default_rng(K).standard_normal((2, 16, 6, K))).to(dtype)
+    M = rhs[:, 0::2].transpose(-1, -2) if transposed else rhs[:, 1::2]
+    want = psb.tri_upper_solve(L, psb.tri_lower_solve(L, M))
+    assert torch.equal(port_pcr._dinv(L, M), want)
+    assert torch.equal(psb.chol_solve(L, M), want)
