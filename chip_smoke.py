@@ -11,8 +11,9 @@ without printing a result line:
    f64 band kernels, and ``csrc/blocks.cu``, the f32 block kernels) with
    one nvcc each, started together; print the build times, ptxas'
    register and spill lines, and one line each with the registers and
-   spill bytes of ``band_pcr_level``, ``band_cr_level`` and
-   ``band_pcr_solve`` (a spill fails the run);
+   spill bytes of the redesigned kernels (``band_pcr_level``,
+   ``band_cr_level``, ``band_pcr_solve``, ``band_cr_backsub``,
+   ``block_chol``; a spill fails the run);
 3. every band kernel against its plain PyTorch version on the card, at
    the band shapes of both instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
@@ -23,15 +24,20 @@ without printing a result line:
    residual <= 1e-10; median times of both at each kernel's first call
    (CUDA events around the wrapper, after warm-up) and the kernel's
    device time (a CUDA graph of 20 launches replayed between events), for
-   ``band_pcr_solve`` at K = 1 beside the panel; ``band_pcr_level`` and
+   the three solve kernels (``band_cr_reduce``, ``band_pcr_solve``,
+   ``band_cr_backsub``) at K = 1 beside the panel; ``band_pcr_level`` and
    ``band_pcr_solve`` again at edge shapes (one and two blocks per chain,
    one chain, rhs widths off the column tiles), ``band_cr_level`` at chain
    lengths that put a thread block's edge inside a chain, on a chain's
-   first position and past the last; then each block kernel against its
-   plain version in f32 at the shapes of the f32 path (max relative
-   difference <= 1e-5, and reconstruction residuals ||L L^T - A|| / ||A||,
-   ||L Y - B|| / ||B||, ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its
-   plain version's and a library call's; the f32 band (cyclic reduction over the block kernels)
+   first position and past the last, ``band_cr_backsub`` at C = 1, 4, 20,
+   coarse lengths 1, 2, 256, 1024 and K = 1, 2, 4, 5, 138, 258 (both of its
+   kernels); then each block kernel against its plain version in f32 at
+   the shapes of the f32 path (max relative difference <= 1e-5, and
+   reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
+   ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
+   a library call's, ``block_chol`` also at D = 2, 6 and M = 1 to 2070 on
+   contiguous and strided blocks, and its device time at every Cholesky of
+   a Manhattan-4 f32 factor; the f32 band (cyclic reduction over the block kernels)
    against the f64 band at Manhattan-4's band shape (<= 1e-4); then a
    small instance solved on the card against the port's plain CPU path;
 4. Manhattan-4 (4 robots x 400 poses, 6 landmarks, inter-robot ranges,
@@ -55,9 +61,9 @@ without printing a result line:
    time, the bound from bytes and operations, and a PyTorch call
    computing the same function where one exists), then the result line.
 
-``python3 chip_smoke.py --kernels`` stops after the band kernels' checks
-of phase 3 (a short first run after a kernel changed) and prints no
-result line. Imports nothing of jax or of the JAX package.
+``python3 chip_smoke.py --kernels`` stops after the band and block
+kernels' checks of phase 3 (a short first run after a kernel changed) and
+prints no result line. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -363,42 +369,50 @@ def phase_kernels(label, C, Tp, K, device):
     E, F = torch.stack(Es), torch.stack(Fs)
     rng = np.random.default_rng(Tp)
     resid = {}
+
+    def solve_chk(name, kern, plain, cost):
+        """chk for the solve kernels; at K = 1, a direction's times beside
+        the panel's on the kernel's row, at the kernel's first such call."""
+        out = chk(name, kern, plain, cost)
+        row = chk.rows[name]
+        if k == 1 and "k1_ms" not in row:
+            bound_ms, bound_by = _bound(*cost, "f64")
+            row.update(k1_ms=_time_ms(kern), k1_device_us=_device_us(kern),
+                       k1_plain_ms=_time_ms(plain), k1_bound_ms=bound_ms, k1_bound_by=bound_by)
+        return out
+
     for k in (K, 1):  # the panel first: its times are the ones reported
         b0 = torch.tensor(rng.standard_normal((C, Tp, Db, k)), device=device)
         b, fine = b0, []
         for lE, lF, *_ in levels:
             fine.append(b)
             bb = b
-            b = chk("band_cr_reduce", lambda: band.band_cr_reduce(lE, lF, bb),
-                    lambda: band.band_cr_reduce_plain(lE, lF, bb),
-                    _band_cost("band_cr_reduce", lE, lF, bb))
+            b = solve_chk("band_cr_reduce", lambda: band.band_cr_reduce(lE, lF, bb),
+                          lambda: band.band_cr_reduce_plain(lE, lF, bb),
+                          _band_cost("band_cr_reduce", lE, lF, bb))
         bb = b
-        x = chk("band_pcr_solve", lambda: band.band_pcr_solve(E, F, invD, bb),
-                lambda: band.band_pcr_solve_plain(E, F, invD, bb),
-                _band_cost("band_pcr_solve", E, F, invD, bb))
-        if k == 1:  # a direction solve's times beside the panel's
-            kern = lambda: band.band_pcr_solve(E, F, invD, bb)
-            bound_ms, bound_by = _bound(*_band_cost("band_pcr_solve", E, F, invD, bb), "f64")
-            chk.rows["band_pcr_solve"].update(
-                k1_ms=_time_ms(kern), k1_device_us=_device_us(kern),
-                k1_plain_ms=_time_ms(lambda: band.band_pcr_solve_plain(E, F, invD, bb)),
-                k1_bound_ms=bound_ms, k1_bound_by=bound_by)
+        x = solve_chk("band_pcr_solve", lambda: band.band_pcr_solve(E, F, invD, bb),
+                      lambda: band.band_pcr_solve_plain(E, F, invD, bb),
+                      _band_cost("band_pcr_solve", E, F, invD, bb))
         for (_, _, iv, Ao, Co), bf in zip(reversed(levels), reversed(fine)):
             xe = x
-            x = chk("band_cr_backsub", lambda: band.band_cr_backsub(iv, Ao, Co, bf, xe),
-                    lambda: band.band_cr_backsub_plain(iv, Ao, Co, bf, xe),
-                    _band_cost("band_cr_backsub", iv, Ao, Co, bf, xe))
+            x = solve_chk("band_cr_backsub", lambda: band.band_cr_backsub(iv, Ao, Co, bf, xe),
+                          lambda: band.band_cr_backsub_plain(iv, Ao, Co, bf, xe),
+                          _band_cost("band_cr_backsub", iv, Ao, Co, bf, xe))
         resid[k] = _band_residual(D, U, x, b0)
         if not resid[k] <= 1e-10:
             raise AssertionError(f"{label}: band residual {resid[k]:.3e} at K={k}")
     _log(f"{label} band: C={C} Tp={Tp} Db={Db} CR levels={n_cr} panel K={K} "
          f"residual K={K} {resid[K]:.3e} K=1 {resid[1]:.3e}")
     _log_rows(label, chk.rows)
-    r = chk.rows["band_pcr_solve"]
-    _log(f"{label} kernel band_pcr_solve at K=1: kernel_ms={r['k1_ms']:.4f} "
-         f"device_us={r['k1_device_us']:.2f} plain_ms={r['k1_plain_ms']:.4f} "
-         f"bound_ms={r['k1_bound_ms']:.6f} ({r['k1_bound_by']}); at the panel K={K}: "
-         f"kernel_ms={r['ms']:.4f} device_us={r['device_us']:.2f}")
+    for name in ("band_cr_reduce", "band_pcr_solve", "band_cr_backsub"):
+        if name not in chk.rows:
+            continue
+        r = chk.rows[name]
+        _log(f"{label} kernel {name} at K=1: kernel_ms={r['k1_ms']:.4f} "
+             f"device_us={r['k1_device_us']:.2f} plain_ms={r['k1_plain_ms']:.4f} "
+             f"bound_ms={r['k1_bound_ms']:.6f} ({r['k1_bound_by']}); at the panel K={K}: "
+             f"kernel_ms={r['ms']:.4f} device_us={r['device_us']:.2f}")
     missing = [k for k in _path_kernels(Tp) if k not in chk.rows]
     if missing:
         raise AssertionError(f"{label}: kernels not checked: {missing}")
@@ -459,9 +473,29 @@ def phase_edge_shapes(device):
         worst_cr = max(worst_cr, _compare(f"band_cr_level C={C} T={T}",
                                           band.band_cr_level(*args),
                                           band.band_cr_level_plain(*args))[1])
+    # band_cr_backsub: both kernels (narrow K <= 4, wide K >= 5; odd and
+    # even K for the wide one's column pairs), a chain of one coarse position
+    # (no upper neighbour anywhere), thread blocks that cut chains, and
+    # robot20's panel width
+    worst_bs = 0.0
+    gen = torch.Generator(device=device).manual_seed(13)
+    for C in (1, 4, 20):
+        for Th in (1, 2, 256, 1024):
+            D, U = _random_band(C, 2 * Th, Db, seed=13 * Th + C, device=device)
+            _, _, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+            for K in (1, 2, 4, 5, 138, 258):
+                b = torch.randn((C, 2 * Th, Db, K), generator=gen, dtype=torch.float64,
+                                device=device)
+                xe = torch.randn((C, Th, Db, K), generator=gen, dtype=torch.float64,
+                                 device=device)
+                worst_bs = max(worst_bs, _compare(
+                    f"band_cr_backsub C={C} Th={Th} K={K}",
+                    band.band_cr_backsub(iv, Ao, Co, b, xe),
+                    band.band_cr_backsub_plain(iv, Ao, Co, b, xe))[1])
     torch.cuda.synchronize()
     _log(f"edge shapes: band_pcr_level and band_pcr_solve max_rel_diff={worst:.3e}, "
-         f"band_cr_level max_rel_diff={worst_cr:.3e} (bound {REL_TOL})")
+         f"band_cr_level max_rel_diff={worst_cr:.3e}, band_cr_backsub "
+         f"max_rel_diff={worst_bs:.3e} (bound {REL_TOL})")
 
 
 def _ptxas_report(log, kernel):
@@ -544,6 +578,41 @@ def phase_blocks(device):
                  f"device_us={us:.2f}")
             if not r <= 1e-5:
                 raise AssertionError(f"block_chol_solve D={n} M={M} K={K}: residual {r:.3e}")
+    # block_chol at every batch size and layout the f32 path can hand it:
+    # contiguous, every second block of a batch (the band's odd rows) and the
+    # first block of each of 3 (a chain's root), each against its plain
+    # version and by reconstruction
+    worst = 0.0
+    for n in (2, 6):
+        for M in (1, 3, 4, 128, 1024, 2070):
+            for what, A in (
+                    ("contiguous", _random_blocks(M, n, seed=5 * M + n, device=device)),
+                    ("odd blocks", _random_blocks(2 * M, n, seed=6 * M + n, device=device)[1::2]),
+                    ("first of 3", _random_blocks(3 * M, n, seed=7 * M + n,
+                                                  device=device).reshape(M, 3, n, n)[:, 0])):
+                label = f"block_chol D={n} M={M} {what}"
+                L = blocks.block_chol(A)
+                worst = max(worst, _compare(label, L, blocks.block_chol_plain(A), REL_TOL_F32)[1])
+                r = _resid(L @ L.transpose(-1, -2), A)
+                if not (r <= 1e-5 and torch.equal(torch.triu(L, 1), torch.zeros_like(L))):
+                    raise AssertionError(f"{label}: residual {r:.3e} or a non-zero upper triangle")
+    torch.cuda.synchronize()
+    _log(f"block_chol at D = 2, 6, M = 1..2070, three layouts: max_rel_diff={worst:.3e} "
+         f"(bound {REL_TOL_F32}), residuals <= 1e-5")
+    # its device time at every Cholesky of a Manhattan-4 f32 factor (C = 4
+    # chains of 512: the odd blocks of each level, then the root), on
+    # contiguous blocks and on the odd-row view the factor passes
+    C, T = 4, 512
+    while T >= 1:
+        M = C * max(T // 2, 1)
+        Dfull = _random_blocks(C * T, 6, seed=T, device=device).reshape(C, T, 6, 6)
+        view = (Dfull[:, 1::2] if T > 1 else Dfull[:, 0]).reshape(M, 6, 6)
+        contig = view.contiguous()
+        us = _device_us(lambda: blocks.block_chol(contig))
+        us_view = _device_us(lambda: blocks.block_chol(view))
+        _log(f"block_chol D=6 M={M} ({'level' if T > 1 else 'root'}): device_us={us:.2f} "
+             f"contiguous, {us_view:.2f} on the view (block stride {view.stride(0)})")
+        T //= 2
     _log_rows("f32", chk.rows)
     return chk.rows
 
@@ -763,12 +832,15 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 _log("  ptxas:", line.strip())
 
-    # registers and spills of the redesigned band kernels' device functions
-    for wrapper, kern in (("band_pcr_level", "pcr_level_kernel"),
-                          ("band_cr_level", "cr_level_kernel"),
-                          ("band_pcr_solve", "pcr_solve_wide_kernel"),
-                          ("band_pcr_solve", "pcr_solve_narrow_kernel")):
-        regs, stores, loads = _ptxas_report(built["band"][2], kern)
+    # registers and spills of the redesigned kernels
+    for lib, wrapper, kern in (("band", "band_pcr_level", "pcr_level_kernel"),
+                               ("band", "band_cr_level", "cr_level_kernel"),
+                               ("band", "band_pcr_solve", "pcr_solve_wide_kernel"),
+                               ("band", "band_pcr_solve", "pcr_solve_narrow_kernel"),
+                               ("band", "band_cr_backsub", "cr_backsub_narrow_kernel"),
+                               ("band", "band_cr_backsub", "cr_backsub_wide_kernel"),
+                               ("blocks", "block_chol", "chol_kernel")):
+        regs, stores, loads = _ptxas_report(built[lib][2], kern)
         _log(f"ptxas {wrapper} ({kern}): registers={regs} spill_store_bytes={stores} "
              f"spill_load_bytes={loads}")
         if stores or loads:
@@ -780,9 +852,9 @@ def main() -> int:
     for label, fg, shape in cells:
         rows[label] = phase_kernels(label, *shape, dev)
     phase_edge_shapes(dev)
-    if "--kernels" in sys.argv[1:]:  # stop after the band kernels' checks
-        return 0
     block_rows = phase_blocks(dev)
+    if "--kernels" in sys.argv[1:]:  # stop after the kernels' checks
+        return 0
     phase_f32_band(dev)
     phase_small_reference()
 
@@ -811,7 +883,8 @@ def main() -> int:
              max_abs_err=timed[name]["max_abs_err"], ms=timed[name]["ms"],
              device_us=timed[name]["device_us"],
              plain_ms=timed[name]["plain_ms"], bound_ms=timed[name]["bound_ms"],
-             bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"])
+             bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"],
+             **{k: v for k, v in timed[name].items() if k.startswith("k1_")})
         for name in REPLACES
     ]
     print(json.dumps({"kernels": kernels}))

@@ -29,12 +29,17 @@ CUDA card; imports nothing of jax or of the JAX package.
 
 times only the redesigned kernels: of the f64 band ``band_pcr_level``
 (first and last level) and ``band_pcr_solve`` (a direction, K = 1, and the
-arrow panel) at the PCR remainder's shape of both instances, and
+arrow panel) at the PCR remainder's shape of both instances,
 ``band_cr_level`` at Manhattan-4's first level and at the deeper levels'
-and robot20's shapes of the depth sweep; of the f32 band its Cholesky solve
+and robot20's shapes of the depth sweep, ``band_cr_reduce`` and
+``band_cr_backsub`` at Manhattan-4's direction and panel and at a forced
+level of robot20 and of a long chain; of the f32 band its Cholesky solve
 ``solver.pcr._dinv`` (one launch of ``block_chol_solve``; in a checkout
 from before that kernel, the forward kernel and the plain back
-substitution) at the first level's shapes. Device time per launch from a
+substitution) at the first level's shapes, and ``block_chol`` at every
+Cholesky of a Manhattan-4 factor (on contiguous blocks, and through
+``smallblocks.chol_small`` on the odd-row view the factor passes) and at
+QCQP's D = 2 pivots. Device time per launch from a
 replayed CUDA graph (``chip_smoke._device_us``) and event time around the
 call. ``--root DIR`` imports ``score_tpu_torch`` from another checkout, so
 that two commits are timed on one card in one call.
@@ -42,8 +47,9 @@ that two commits are timed on one card in one call.
     python3 profile_port.py --walls [--root DIR]
 
 five warm Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
-profiled f32 solve: kernel launches, device busy time and the hand-written
-kernels' share. With ``--root`` for two commits in turns in one call.
+profiled solve in each: kernel launches, device busy time and the
+hand-written kernels' device time and launches. With ``--root`` for two
+commits in turns in one call.
 
     python3 profile_port.py --ablate
 
@@ -116,9 +122,10 @@ def _warm_walls(fg, n=3, precision="f64"):
 
 
 # device-side names of the port's hand-written kernels (band.cu, blocks.cu);
-# tri_lower_kernel is the forward-only kernel of a --root checkout from
-# before tri_solve_kernel
+# tri_lower_kernel and cr_backsub_kernel are kernels of a --root checkout
+# from before tri_solve_kernel and the two cr_backsub kernels
 _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
+                 "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                  "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
                  "pcr_solve_narrow_kernel", "chol_kernel", "tri_solve_kernel",
                  "tri_lower_kernel")
@@ -234,13 +241,75 @@ _REMAINDERS = {"manhattan4": (4, 256, 138), "robot20": (20, 128, 258)}
 # level, and robot20's panel
 _CR_LEVEL_SHAPES = ((4, 512), (1, 1024), (1, 2048), (20, 128))
 _DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
+# band_cr_reduce and band_cr_backsub: (chains, coarse length, rhs columns) of
+# Manhattan-4's direction and panel, of one forced level on robot20, of a
+# long chain and of the narrow kernel's widest rhs
+_CR_SOLVE_SHAPES = ((4, 256, 1), (4, 256, 138), (4, 256, 4), (20, 64, 1), (20, 64, 258),
+                    (1, 1024, 1), (1, 1024, 5))
+# block_chol: the f32 factor of Manhattan-4 (C = 4 chains of 512) takes the
+# Cholesky of the odd blocks of chains of 512, 256, ..., 2 (M = 1024 ... 4)
+# and of the root (C = 4 blocks); QCQP's distance pivots are 2070 blocks of 2
+_CHOL_CHAINS = (4, 512)
+_CHOL_PIVOTS = 2070
+
+
+def _chol_times(device):
+    """block_chol at every Cholesky of a Manhattan-4 f32 factor: the kernel
+    on contiguous blocks, and ``smallblocks.chol_small`` on the odd-row view
+    the factor hands it (in a checkout that copies the view first, the copy
+    and the kernel); the D = 2 pivots."""
+    from chip_smoke import _device_us, _random_blocks
+    from score_tpu_torch.ops import blocks
+    from score_tpu_torch.solver import smallblocks
+
+    rows = []
+    C, T = _CHOL_CHAINS
+    while T >= 1:
+        M = C * max(T // 2, 1)
+        Dfull = _random_blocks(C * T, 6, seed=T, device=device).reshape(C, T, 6, 6)
+        view = Dfull[:, 1::2] if T > 1 else Dfull[:, 0]
+        what = "odd rows" if T > 1 else "root"
+        A = view.reshape(M, 6, 6).contiguous()
+        for name, fn in ((f"M={M} D=6 contiguous", lambda: blocks.block_chol(A)),
+                         (f"M={M} D=6 chol_small({what})", lambda: smallblocks.chol_small(view))):
+            rows.append(dict(cell="f32 band", kernel="block_chol", shape=name,
+                             device_us=_device_us(fn), event_ms=_event_ms(fn)))
+        T //= 2
+    A = _random_blocks(_CHOL_PIVOTS, 2, seed=2, device=device)
+    fn = lambda: blocks.block_chol(A)
+    rows.append(dict(cell="f32 QCQP", kernel="block_chol", shape=f"M={_CHOL_PIVOTS} D=2",
+                     device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    return rows
+
+
+def _cr_solve_times(device):
+    """band_cr_reduce and band_cr_backsub at ``_CR_SOLVE_SHAPES``, on the
+    blocks of a compacting level of a random band."""
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band
+
+    rows = []
+    rng = np.random.default_rng(1)
+    for C, Th, K in _CR_SOLVE_SHAPES:
+        D, U = _random_band(C, 2 * Th, 6, seed=Th + C, device=device)
+        E, F, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+        b = torch.tensor(rng.standard_normal((C, 2 * Th, 6, K)), device=device)
+        xe = torch.tensor(rng.standard_normal((C, Th, 6, K)), device=device)
+        for kernel, fn in (("band_cr_reduce", lambda: band.band_cr_reduce(E, F, b)),
+                           ("band_cr_backsub", lambda: band.band_cr_backsub(iv, Ao, Co, b, xe))):
+            rows.append(dict(cell="f64 band", kernel=kernel, shape=f"C={C} Th={Th} K={K}",
+                             device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    return rows
 
 
 def _kernel_times(device):
     """Device us and event ms of band_pcr_level and band_pcr_solve at the
-    shapes of ``_REMAINDERS``, of band_cr_level at ``_CR_LEVEL_SHAPES`` and
-    of the f32 band's ``_dinv`` at ``_DINV_SHAPES``. Serves both signatures
-    of band_pcr_level: with the carried inverse (D, A, C, invD, s) and
+    shapes of ``_REMAINDERS``, of band_cr_level at ``_CR_LEVEL_SHAPES``,
+    of band_cr_reduce and band_cr_backsub at ``_CR_SOLVE_SHAPES``, of the
+    f32 band's ``_dinv`` at ``_DINV_SHAPES`` and of block_chol at the f32
+    factor's shapes (:func:`_chol_times`). Serves both signatures of
+    band_pcr_level: with the carried inverse (D, A, C, invD, s) and
     without (D, A, C, s)."""
     import inspect
 
@@ -279,7 +348,7 @@ def _kernel_times(device):
         fn = lambda: pcr._dinv(L, B)
         rows.append(dict(cell="f32 band", kernel="pcr._dinv", shape=f"M={M} D=6 K={K}",
                          device_us=_device_us(fn), event_ms=_event_ms(fn)))
-    return rows
+    return rows + _cr_solve_times(device) + _chol_times(device)
 
 
 def _solve_ablation(device):
@@ -366,7 +435,7 @@ def main() -> int:
         rows = _kernel_times(torch.device("cuda"))
         _log(f"package: {Path(score_tpu_torch.__file__).parent}")
         for r in rows:
-            _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<22} "
+            _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<36} "
                  f"device {r['device_us']:9.2f} us   events {r['event_ms']:.4f} ms")
         if args.out:
             out = Path(args.out)
@@ -385,11 +454,12 @@ def main() -> int:
         for precision in ("f32", "f64"):
             report[precision] = _warm_walls(fg, n=5, precision=precision)
             _log(f"{label}-{precision}: warm {report[precision]}")
-        p = report["f32_profile"] = _profile_solve(fg, precision="f32")
-        _log(f"{label}-f32: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
-             f"{p['kernel_launches']} kernel launches")
-        for name, b in p["hand_kernels"].items():
-            _log(f"  kernel {name:<20} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+        for precision in ("f32", "f64"):
+            p = report[f"{precision}_profile"] = _profile_solve(fg, precision=precision)
+            _log(f"{label}-{precision}: profiled solve: device busy {p['device_busy_ms']:.3f} "
+                 f"ms, {p['kernel_launches']} kernel launches")
+            for name, b in p["hand_kernels"].items():
+                _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
         if args.out:
             out = Path(args.out)
             out.parent.mkdir(parents=True, exist_ok=True)

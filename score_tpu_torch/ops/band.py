@@ -105,6 +105,10 @@ _WIDE_RING = 3  # half-block tiles of E, F in flight or in use
 _SM_COUNT = 132  # H100 SXM; the wrapper asks the device
 _NARROW_THREADS = 512
 _NARROW_ACCUMULATORS = 24
+# band_cr_backsub: the narrow kernel (a lane group per position) takes up
+# to this many rhs columns, the wide one (a thread per column) the rest.
+# The same constant stands in csrc/band.cu.
+_BACKSUB_NARROW_MAX_K = 4
 # CR compacts while the chain is longer than this; PCR factors the rest.
 # Chosen from depth sweeps on an H100 (profile_port.py; PERF.md has them).
 CR_BASE_LENGTH = 256
@@ -581,6 +585,14 @@ def band_cr_reduce(E, F, b):
     return out
 
 
+def _backsub_narrow(K: int) -> bool:
+    """True for band_cr_backsub's narrow kernel, False for the wide one:
+    the rule is on the rhs width alone. Directions (K = 1) and any K up
+    to ``_BACKSUB_NARROW_MAX_K`` spread a position's rows over a lane
+    group; the arrow panel (K = arrow width) gives each thread columns."""
+    return K <= _BACKSUB_NARROW_MAX_K
+
+
 def band_cr_backsub(invD, A, C, b, xe):
     """Fine solution x (C, T, Db, K) of one CR level from the kept rows'
     solution xe (C, T/2, Db, K), the fine rhs b before this level's
@@ -588,9 +600,23 @@ def band_cr_backsub(invD, A, C, b, xe):
     (see :func:`band_cr_backsub_plain`).
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_backsub_kernel`` together
-    with the caller's re-interleaving of even and odd rows (:809-810): one
-    thread per (chain, j, column) writes both fine rows 2j and 2j+1 of its
-    column. Bound like ``band_cr_reduce``."""
+    with the caller's re-interleaving of even and odd rows (:809-810): the
+    work of coarse position (c, j) writes both fine rows 2j and 2j+1.
+
+    What bounds it on the card: bytes (the panel's rhs in and out, 28 MB
+    at Manhattan-4, 8.4 us of HBM time); a direction (K = 1, 1.1 MB) is
+    bound by a launch and one round trip to memory. Two kernels, chosen by
+    :func:`_backsub_narrow`: for K <= 4 a group of 8 lanes owns a position
+    and lane r one row, loads its rows of A, C, invD (16-byte loads,
+    coalesced across the group), b and xe before the first product, and
+    gathers the other rows of xe and of the intermediate by width-8
+    shuffles (8 threads per position in blocks of 64, where a thread per
+    position and column left 1024 threads on 4 SMs); for the panel a
+    thread owns one or two neighbouring columns of a position (double2
+    where K is even and the rhs is 16-byte aligned), the block rows are
+    broadcasts across a warp and the rhs rows coalesce along the columns.
+    Sums run in the plain version's order; only nvcc's contraction to FMAs
+    differs."""
     if invD.dim() != 4 or b.dim() != 4 or xe.dim() != 4:
         raise ValueError("band_cr_backsub: expected invD, A, C (C, T/2, Db, Db), "
                          "b (C, T, Db, K), xe (C, T/2, Db, K)")
@@ -604,9 +630,10 @@ def band_cr_backsub(invD, A, C, b, xe):
     if not _route("band_cr_backsub", invD, A, C, b, xe):
         return band_cr_backsub_plain(invD, A, C, b, xe)
     x = torch.empty_like(b)
+    _check_aligned("band_cr_backsub", invD, A, C)
     err = _lib().band_cr_backsub(
         invD.data_ptr(), A.data_ptr(), C.data_ptr(), b.data_ptr(), xe.data_ptr(),
-        x.data_ptr(), nC, T // 2, Db, K, _stream(),
+        x.data_ptr(), nC, T // 2, Db, K, int(_backsub_narrow(K)), _stream(),
     )
     _raise_on("band_cr_backsub", err)
     band_cr_backsub.launches += 1

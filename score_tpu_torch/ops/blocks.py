@@ -36,6 +36,7 @@ __all__ = [
     "CUDA_BLOCK_SIZES",
     "block_chol",
     "block_chol_plain",
+    "block_chol_reads",
     "block_tri_lower_solve",
     "block_tri_lower_solve_plain",
     "block_tri_upper_solve_plain",
@@ -148,25 +149,49 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
 
 
-def block_chol(A: torch.Tensor) -> torch.Tensor:
-    """Cholesky factors L (M, D, D) of M SPD blocks A (M, D, D), float32,
-    with the strictly-upper triangle zero.
+def _block_stride(A: torch.Tensor) -> int:
+    """Elements between neighbouring blocks of A (M, D, D)."""
+    return A.stride(0) if A.shape[0] > 1 else A.shape[-1] ** 2
 
-    Replaces ``score_tpu/ops/pallas_blocks.py:_chol_kernel``. One thread
-    per block with the block's lower triangle in registers, left-looking
-    column order. At the f32 path's sizes (M ~ 10^3 blocks, at most
+
+def block_chol_reads(A: torch.Tensor) -> bool:
+    """True when ``block_chol`` reads the blocks A (M, D, D) where they lie:
+    each block contiguous (unit column stride, row stride D) and every
+    block on a 16-byte boundary (A's address and its block stride). Holds
+    for contiguous batches and for the f32 band's views ``D[:, 1::2]`` and
+    ``D[:, 0]`` of a contiguous (C, T, D, D)."""
+    return (A.stride(-1) == 1 and A.stride(-2) == A.shape[-1]
+            and _block_stride(A) % 4 == 0 and A.data_ptr() % 16 == 0)
+
+
+def block_chol(A: torch.Tensor) -> torch.Tensor:
+    """Cholesky factors L (M, D, D), contiguous, of M SPD blocks A (M, D, D)
+    that :func:`block_chol_reads` accepts, float32, with the strictly-upper
+    triangle zero.
+
+    Replaces ``score_tpu/ops/pallas_blocks.py:_chol_kernel``. A thread owns
+    a block; a thread block's blocks are staged in shared memory by 16-byte
+    loads on neighbouring addresses, all in flight at once, read through
+    A's block stride (so the f32 band's odd-row view costs no copy); the
+    lower triangle is formed in registers in left-looking column order with
+    one rsqrt per column, multiplied where the plain twin divides by the
+    square root, as the TPU kernel does; L leaves through shared memory as
+    16-byte stores. At the f32 path's sizes (M = 4..2070 blocks, at most
     0.3 MB in and out) an H100's launch latency bounds it, not memory or
-    arithmetic."""
+    arithmetic; thread blocks of 32 threads spread M = 1024 over 32 SMs."""
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"block_chol: expected (M, D, D), got {tuple(A.shape)}")
     M, D, _ = A.shape
-    _check("block_chol", A, (M, D, D))
+    _check("block_chol", A, (M, D, D), contiguous=False)
+    if D in CUDA_BLOCK_SIZES and not block_chol_reads(A):
+        raise ValueError("block_chol: expected contiguous blocks on 16-byte boundaries, "
+                         f"got strides {A.stride()} at address {A.data_ptr():#x}")
     if not _route("block_chol", D, A):
         return block_chol_plain(A)
-    L = torch.empty_like(A)
+    L = torch.empty((M, D, D), dtype=A.dtype, device=A.device)
     if M == 0:
         return L
-    err = _lib().block_chol(A.data_ptr(), L.data_ptr(), M, D,
+    err = _lib().block_chol(A.data_ptr(), L.data_ptr(), M, D, _block_stride(A),
                             torch.cuda.current_stream(A.device).cuda_stream)
     _raise_on("block_chol", err)
     block_chol.launches += 1

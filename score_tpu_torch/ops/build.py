@@ -126,7 +126,8 @@ def band_library() -> ctypes.CDLL:
     lib.band_cr_level.restype = i32
     lib.band_cr_reduce.argtypes = [vp] * 4 + [i32] * 4 + [vp]
     lib.band_cr_reduce.restype = i32
-    lib.band_cr_backsub.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+    # invD, A, C, b, xe, x, nC, Th, Db, K, narrow, stream
+    lib.band_cr_backsub.argtypes = [vp] * 6 + [i32] * 5 + [vp]
     lib.band_cr_backsub.restype = i32
     return lib
 
@@ -136,7 +137,8 @@ def blocks_library() -> ctypes.CDLL:
     """The loaded block kernel library (built on first call)."""
     lib = _load("blocks")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.block_chol.argtypes = [vp, vp, i64, i32, vp]
+    # A, L, M, D, A's block stride, stream
+    lib.block_chol.argtypes = [vp, vp, i64, i32, i64, vp]
     lib.block_chol.restype = i32
     for solve in (lib.block_tri_lower_solve, lib.block_chol_solve):
         # L, B, out, M, D, K, B's three element strides, stream

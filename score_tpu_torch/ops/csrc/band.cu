@@ -163,6 +163,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
+__device__ __forceinline__ double2 ldg2(const double* p) {
+  return __ldg(reinterpret_cast<const double2*>(p));
+}
+
 // out[c] = sum_k p[k] * Q[k][c], Q row-major in shared memory (16-byte
 // aligned), k ascending from 0.0 as the plain version's matmul.
 template <int Db>
@@ -520,61 +524,211 @@ cr_reduce_kernel(const double* __restrict__ E, const double* __restrict__ F,
   out[e] = b[f * rs + (long long)r * K + k] + (ae + af);
 }
 
-// CR back-substitution of the eliminated rows, re-interleaving them with
-// the kept rows' solution:
+// ---------------------------------------------------------------------
+// band_cr_backsub: CR back-substitution of the eliminated rows,
+// re-interleaving them with the kept rows' solution:
 //   x[2j]   = x_ev[j]
 //   x[2j+1] = invD_j ((b[2j+1] - A_j x_ev[j]) - C_j x_ev[j+1])
-// (invD, A, C: the odd rows' blocks stored by cr_level_kernel). One thread
-// per (chain, j, rhs column) writes both fine rows of its column.
+// (invD, A, C: the odd rows' blocks stored by cr_level_kernel). Two kernels,
+// chosen by ops/band.py from K (band._backsub_narrow):
+//
+//   narrow (K <= 4: the directions, K = 1): the lane-group layout of the
+//          level kernels. A group of 8 lanes owns a coarse position; lane
+//          r < Db loads row r of A, C and invD (48 bytes each, three
+//          16-byte loads, neighbouring lanes on neighbouring addresses)
+//          and its rows of b[2j+1], x_ev[j] and x_ev[j+1], all before the
+//          first product. The products gather the other rows of x_ev and
+//          of the intermediate rv by width-8 shuffles, so a lane computes
+//          only its own row: C * Th * 8 threads in blocks of 64, where the
+//          kernel before this one ran a thread per position and column
+//          (1024 threads on 4 SMs at Manhattan-4's direction) through
+//          three dependent 6x6 products on 108 uncoalesced loads.
+//   wide   (K >= 5: the arrow panel): a thread per position and V
+//          neighbouring columns (V = 2 where K is even and the rhs arrays
+//          are 16-byte aligned, so b, x_ev and x move as double2; else 1).
+//          The threads of a warp share a position, so the block rows they
+//          read (double2) are broadcasts; b and x_ev rows are coalesced
+//          along the columns.
+//
+// Arithmetic order is the plain version's: each product summed over p
+// ascending from 0.0, then (b - A x_ev) - C x_ev[j+1]; only nvcc's
+// contraction to FMAs differs. No C term at a chain's last position.
+// Bound: bytes (Manhattan-4 panel 28 MB, 8.4 us at 3.35 TB/s; a direction
+// 1.1 MB, 0.3 us), so the panel is memory-bound and a direction is bound by
+// a launch and one round trip to memory.
+// ---------------------------------------------------------------------
+
+constexpr int kBacksubNarrowK = 4;         // most rhs columns of the narrow kernel
+constexpr int kBacksubNarrowThreads = 64;  // 8 positions per thread block
+constexpr int kBacksubWideThreads = 256;
+
 template <int Db>
-__global__ void __launch_bounds__(256)
-cr_backsub_kernel(const double* __restrict__ invDo,
-                  const double* __restrict__ Ao,
-                  const double* __restrict__ Co, const double* __restrict__ b,
-                  const double* __restrict__ xe, double* __restrict__ x,
-                  int nC, int Th, int K) {
-  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= (long long)nC * Th * K) return;
-  const int k = (int)(w % K);
-  const long long t = w / K;  // c * Th + j
-  const int j = (int)(t % Th);
-  const long long f = 2 * t;
-  const long long bs = (long long)Db * Db;
+__global__ void __launch_bounds__(kBacksubNarrowThreads)
+cr_backsub_narrow_kernel(const double* __restrict__ invDo,
+                         const double* __restrict__ Ao,
+                         const double* __restrict__ Co,
+                         const double* __restrict__ b,
+                         const double* __restrict__ xe,
+                         double* __restrict__ x, int n, int Th, int K) {
+  static_assert(Db % 2 == 0 && Db <= kGroupLanes, "row-per-lane layout");
+  constexpr int BS = Db * Db;
+  constexpr int KN = kBacksubNarrowK;
+  const int t = blockIdx.x * (kBacksubNarrowThreads / kGroupLanes) +
+                threadIdx.x / kGroupLanes;  // c * Th + j
+  const int r = threadIdx.x & (kGroupLanes - 1);
+  const bool row = t < n && r < Db;
+  const bool has_up = t < n && t % Th + 1 < Th;
   const long long rs = (long long)Db * K;
-  const double* xj = xe + t * rs + k;
-  double xv[Db], rv[Db];
+  double Ar[Db], Cr[Db], Vr[Db], xr[KN], ur[KN], br[KN];
 #pragma unroll
-  for (int p = 0; p < Db; ++p) xv[p] = xj[(long long)p * K];
-  const double* Aj = Ao + t * bs;
+  for (int p = 0; p < Db; ++p) Ar[p] = Cr[p] = Vr[p] = 0.0;
 #pragma unroll
-  for (int q = 0; q < Db; ++q) {
-    double a = 0.0;
+  for (int k = 0; k < KN; ++k) xr[k] = ur[k] = br[k] = 0.0;
+  // every load of the lane, before the first product
+  if (row) {
+    const long long o = (long long)t * BS + r * Db;
 #pragma unroll
-    for (int p = 0; p < Db; ++p) a += Aj[q * Db + p] * xv[p];
-    rv[q] = b[(f + 1) * rs + (long long)q * K + k] - a;
-  }
-  if (j + 1 < Th) {
-    const double* xn = xe + (t + 1) * rs + k;
-    double xu[Db];
+    for (int p = 0; p < Db; p += 2) {
+      const double2 a = ldg2(Ao + o + p);
+      const double2 v = ldg2(invDo + o + p);
+      Ar[p] = a.x;
+      Ar[p + 1] = a.y;
+      Vr[p] = v.x;
+      Vr[p + 1] = v.y;
+      if (has_up) {
+        const double2 c = ldg2(Co + o + p);
+        Cr[p] = c.x;
+        Cr[p + 1] = c.y;
+      }
+    }
+    const double* xs = xe + (long long)t * rs + (long long)r * K;
+    const double* bs = b + (2LL * t + 1) * rs + (long long)r * K;
 #pragma unroll
-    for (int p = 0; p < Db; ++p) xu[p] = xn[(long long)p * K];
-    const double* Cj = Co + t * bs;
-#pragma unroll
-    for (int q = 0; q < Db; ++q) {
-      double a = 0.0;
-#pragma unroll
-      for (int p = 0; p < Db; ++p) a += Cj[q * Db + p] * xu[p];
-      rv[q] = rv[q] - a;
+    for (int k = 0; k < KN; ++k) {
+      if (k < K) {
+        xr[k] = __ldg(xs + k);
+        br[k] = __ldg(bs + k);
+        if (has_up) ur[k] = __ldg(xs + rs + k);
+      }
     }
   }
-  const double* Vj = invDo + t * bs;
+  double* x0 = x + 2LL * t * rs + (long long)r * K;  // fine row 2j, row r
+  double* x1 = x0 + rs;                               // fine row 2j + 1
+#pragma unroll
+  for (int k = 0; k < KN; ++k) {
+    if (k < K) {  // K is the same for the whole grid: every lane shuffles
+      double a = 0.0;
+#pragma unroll
+      for (int p = 0; p < Db; ++p)
+        a += Ar[p] * __shfl_sync(0xffffffffu, xr[k], p, kGroupLanes);
+      double rv = br[k] - a;
+      a = 0.0;
+#pragma unroll
+      for (int p = 0; p < Db; ++p)
+        a += Cr[p] * __shfl_sync(0xffffffffu, ur[k], p, kGroupLanes);
+      if (has_up) rv = rv - a;
+      double out = 0.0;
+#pragma unroll
+      for (int q = 0; q < Db; ++q)
+        out += Vr[q] * __shfl_sync(0xffffffffu, rv, q, kGroupLanes);
+      if (row) {
+        x0[k] = xr[k];
+        x1[k] = out;
+      }
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_cols(const double* p, double* v) {
+  if constexpr (V == 2) {
+    const double2 t = ldg2(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_cols(double* p, const double* v) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// out[q][v] = sum_p M[q][p] * y[p][v], p ascending from 0.0; M's rows are
+// read as double2 (broadcast across the threads of a position).
+template <int Db, int V>
+__device__ __forceinline__ void block_times_cols(const double* __restrict__ M,
+                                                 double (*y)[V],
+                                                 double (*out)[V]) {
+#pragma unroll
+  for (int q = 0; q < Db; ++q) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[q][v] = 0.0;
+#pragma unroll
+    for (int p = 0; p < Db; p += 2) {
+      const double2 m = ldg2(M + q * Db + p);
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[q][v] += m.x * y[p][v];
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[q][v] += m.y * y[p + 1][v];
+    }
+  }
+}
+
+template <int Db, int V>
+__global__ void __launch_bounds__(kBacksubWideThreads)
+cr_backsub_wide_kernel(const double* __restrict__ invDo,
+                       const double* __restrict__ Ao,
+                       const double* __restrict__ Co,
+                       const double* __restrict__ b,
+                       const double* __restrict__ xe,
+                       double* __restrict__ x, int n, int Th, int K) {
+  constexpr int BS = Db * Db;
+  const int KV = K / V;
+  const int w = blockIdx.x * kBacksubWideThreads + threadIdx.x;
+  if (w >= n * KV) return;
+  const int t = w / KV;  // c * Th + j
+  const int k = (w - t * KV) * V;
+  const bool has_up = t % Th + 1 < Th;
+  const long long rs = (long long)Db * K;
+  const double* xj = xe + (long long)t * rs + k;
+  const double* bo = b + (2LL * t + 1) * rs + k;
+  double xv[Db][V], xu[Db][V], bv[Db][V];
+#pragma unroll
+  for (int p = 0; p < Db; ++p) {
+    load_cols<V>(xj + (long long)p * K, xv[p]);
+    load_cols<V>(bo + (long long)p * K, bv[p]);
+  }
+  if (has_up) {
+#pragma unroll
+    for (int p = 0; p < Db; ++p) load_cols<V>(xj + rs + (long long)p * K, xu[p]);
+  }
+  double rv[Db][V], a[Db][V];
+  block_times_cols<Db, V>(Ao + (long long)t * BS, xv, a);
+#pragma unroll
+  for (int q = 0; q < Db; ++q) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) rv[q][v] = bv[q][v] - a[q][v];
+  }
+  if (has_up) {
+    block_times_cols<Db, V>(Co + (long long)t * BS, xu, a);
+#pragma unroll
+    for (int q = 0; q < Db; ++q) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) rv[q][v] = rv[q][v] - a[q][v];
+    }
+  }
+  block_times_cols<Db, V>(invDo + (long long)t * BS, rv, a);
+  double* x0 = x + 2LL * t * rs + k;
 #pragma unroll
   for (int r = 0; r < Db; ++r) {
-    double a = 0.0;
-#pragma unroll
-    for (int q = 0; q < Db; ++q) a += Vj[r * Db + q] * rv[q];
-    x[f * rs + (long long)r * K + k] = xv[r];
-    x[(f + 1) * rs + (long long)r * K + k] = a;
+    store_cols<V>(x0 + (long long)r * K, xv[r]);
+    store_cols<V>(x0 + rs + (long long)r * K, a[r]);
   }
 }
 
@@ -626,10 +780,6 @@ constexpr int kWideMaxT = 256;     // also the most threads of a wide block
 constexpr int kWideRing = 3;
 constexpr int kNarrowThreads = 512;
 constexpr int kNarrowAcc = 24;  // accumulators per thread: IT * CT
-
-__device__ __forceinline__ double2 ldg2(const double* p) {
-  return __ldg(reinterpret_cast<const double2*>(p));
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -1140,19 +1290,34 @@ int band_cr_reduce(const double* E, const double* F, const double* b,
   return (int)cudaGetLastError();
 }
 
+// narrow: 1 for the lane-group kernel (K <= 4), 0 for the thread-per-
+// column kernel, as ops/band.py chose it.
 int band_cr_backsub(const double* invDo, const double* Ao, const double* Co,
                     const double* b, const double* xe, double* x, int nC,
-                    int Th, int Db, int K, void* stream) {
-  const long long n = (long long)nC * Th * K;
-  if (n == 0) return 0;
+                    int Th, int Db, int K, int narrow, void* stream) {
+  const long long n = (long long)nC * Th;
+  if (n == 0 || K == 0) return 0;
+  if (Db != 6) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Db) {
-    case 6:
-      cr_backsub_kernel<6><<<grid_for(n, 256), 256, 0, st>>>(
-          invDo, Ao, Co, b, xe, x, nC, Th, K);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (narrow) {
+    if (K > kBacksubNarrowK || n > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    constexpr int per_block = kBacksubNarrowThreads / kGroupLanes;
+    cr_backsub_narrow_kernel<6><<<grid_for(n, per_block), kBacksubNarrowThreads, 0, st>>>(
+        invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+    return (int)cudaGetLastError();
+  }
+  auto aligned16 = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const bool pairs = K % 2 == 0 && aligned16(b) && aligned16(xe) && aligned16(x);
+  const long long w = n * (pairs ? K / 2 : K);
+  if (w > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (pairs) {
+    cr_backsub_wide_kernel<6, 2><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
+                                   st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+  } else {
+    cr_backsub_wide_kernel<6, 1><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
+                                   st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
   }
   return (int)cudaGetLastError();
 }

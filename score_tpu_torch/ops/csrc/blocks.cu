@@ -7,8 +7,8 @@
 // score_tpu_torch/solver/pcr.py) at D = 6 and the QCQP range elimination's
 // pivot inverses at D = 2, through score_tpu_torch/solver/smallblocks.py.
 //
-// Layouts (row-major, f32; all contiguous but B, which is read through
-// its strides):
+// Layouts (row-major, f32; L, Y, X contiguous; A read through its block
+// stride, B through its three strides):
 //   A, L : (M, D, D)     B, Y, X : (M, D, K)
 // The TPU kernels put the batch on the 128 lanes, (D, D, M), so that every
 // step of the unrolled recurrence is one full-width vector op. On the card
@@ -24,45 +24,105 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
-// Replaces _chol_kernel (pallas_blocks.py:36). One thread per block: the
-// block's lower triangle lives in registers, columns are formed in the
-// left-looking order of the plain twin (column j = (A[:, j] - sum_{k<j}
-// L[:, k] L[j, k]) / sqrt(pivot)), and the strictly-upper triangle is
-// written as zero. A non-positive pivot gives NaN, as in the twin.
-// Bound: at the f32 path's sizes (M = 1024..2070 blocks, 66..295 KB read
-// and written) the traffic takes well under a microsecond at an H100
-// SXM's 3.35 TB/s (data sheet, 700 W), so the launch latency sets the
-// time; the design spends nothing on coalescing (each thread reads its
-// own 144-byte block through L1).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-chol_kernel(const float* __restrict__ A, float* __restrict__ L, long long M) {
-  const long long m = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (m >= M) return;
-  const float* a = A + m * D * D;
-  float* l = L + m * D * D;
-  float Lr[D][D];
+// Stages n blocks of D x D floats, block b at src + b * sbm (a multiple of 4
+// floats; 16-byte aligned; each block contiguous), into shared memory at a
+// padded stride of D * D + 1 floats, so that lanes working on different
+// blocks read distinct banks. The 16-byte unit q = tid + u * nthreads goes
+// to thread tid: neighbouring threads load neighbouring units, and a
+// thread's U loads are all issued before the first store. U must cover the
+// units: n * D * D / 4 <= U * nthreads.
+template <int D, int U>
+__device__ __forceinline__ void stage_blocks(const float* __restrict__ src,
+                                             long long sbm, int n, float* dst,
+                                             int tid, int nthreads) {
+  constexpr int Q = D * D / 4;  // 16-byte units per block
+  constexpr int LS = D * D + 1;
+  static_assert(D * D % 4 == 0, "a 16-byte unit stays inside one block");
+  float4 v[U];
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
-    float c[D];
-#pragma unroll
-    for (int i = j; i < D; ++i) c[i] = a[i * D + j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) {
-      const float ljk = Lr[j][k];
-#pragma unroll
-      for (int i = j; i < D; ++i) c[i] = c[i] - Lr[i][k] * ljk;
-    }
-    const float piv = sqrtf(c[j]);
-#pragma unroll
-    for (int i = j; i < D; ++i) Lr[i][j] = c[i] / piv;
+  for (int u = 0; u < U; ++u) {
+    const int q = tid + u * nthreads;
+    if (q < n * Q)
+      v[u] = __ldg(reinterpret_cast<const float4*>(src + (q / Q) * sbm + 4 * (q % Q)));
   }
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
+  for (int u = 0; u < U; ++u) {
+    const int q = tid + u * nthreads;
+    if (q < n * Q) {
+      float* d = dst + (q / Q) * LS + 4 * (q % Q);
+      d[0] = v[u].x;
+      d[1] = v[u].y;
+      d[2] = v[u].z;
+      d[3] = v[u].w;
+    }
+  }
+}
+
+// Replaces _chol_kernel (pallas_blocks.py:36). A thread owns one block: the
+// thread block's blocks are staged by stage_blocks (16-byte loads on
+// neighbouring addresses, all in flight together, A read through its block
+// stride so that the f32 band's odd-row view costs no copy), a thread reads
+// its block from shared memory, forms the lower triangle in registers in
+// the plain twin's left-looking column order (column j = (A[:, j] -
+// sum_{k<j} L[:, k] L[j, k]), k ascending) and, as the TPU kernel does,
+// multiplies by one rsqrt of the pivot per column where the twin divides by
+// its square root (one more rounding, inside the 1e-5 the f32 path is held
+// to; no IEEE division or square root on the chain). L goes back through the
+// same shared-memory slot, strictly-upper triangle zero, and leaves as
+// coalesced 16-byte stores. A non-positive pivot gives NaN, as in the twin.
+// Bound: at the f32 path's sizes (M = 4..2070 blocks, at most 0.3 MB read
+// and written) the traffic takes well under a microsecond at an H100 SXM's
+// 3.35 TB/s (data sheet, 700 W), so a launch's latency sets the time: one
+// round trip to memory, a barrier, six rsqrt and the column chain, the
+// stores. Thread blocks of 32 threads spread M = 1024 over 32 SMs.
+constexpr int kCholThreads = 32;
+
+template <int D>
+__global__ void __launch_bounds__(kCholThreads)
+chol_kernel(const float* __restrict__ A, float* __restrict__ L, int M,
+            long long sam) {
+  constexpr int DD = D * D;
+  constexpr int Q = DD / 4;
+  constexpr int LS = DD + 1;
+  __shared__ float sA[kCholThreads * LS];
+  const int m0 = blockIdx.x * kCholThreads;
+  const int n = min(kCholThreads, M - m0);
+  const int tid = threadIdx.x;
+  stage_blocks<D, Q>(A + (size_t)m0 * sam, sam, n, sA, tid, kCholThreads);
+  __syncthreads();
+  float* s = sA + tid * LS;
+  if (tid < n) {
+    float Lr[D][D];
 #pragma unroll
-    for (int j = 0; j < D; ++j) l[i * D + j] = (j <= i) ? Lr[i][j] : 0.0f;
+    for (int j = 0; j < D; ++j) {
+      float acc = s[j * D + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) acc = acc - Lr[j][k] * Lr[j][k];
+      const float piv = rsqrtf(acc);
+      Lr[j][j] = acc * piv;
+#pragma unroll
+      for (int i = j + 1; i < D; ++i) {
+        float v = s[i * D + j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) v = v - Lr[i][k] * Lr[j][k];
+        Lr[i][j] = v * piv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) s[i * D + j] = (j <= i) ? Lr[i][j] : 0.0f;
+    }
+  }
+  __syncthreads();
+  float4* out = reinterpret_cast<float4*>(L + (size_t)m0 * DD);
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    const int q = tid + u * kCholThreads;
+    if (q < n * Q) {
+      const float* d = sA + (q / Q) * LS + 4 * (q % Q);
+      out[q] = make_float4(d[0], d[1], d[2], d[3]);
+    }
   }
 }
 
@@ -79,7 +139,7 @@ chol_kernel(const float* __restrict__ A, float* __restrict__ L, long long M) {
 // The thread block is two-dimensional, (column vectors, blocks m), and the
 // grid is (block ranges, column tiles): no thread divides by K. The
 // blockDim.y blocks of L that a thread block touches are staged once into
-// shared memory by 16-byte loads, while the loads of B are in flight, each
+// shared memory by stage_blocks, while the loads of B are in flight, each
 // at a stride of D*D + 1 floats so that lanes on different blocks m read
 // distinct banks; where a block of L has more 16-byte units than the
 // thread block has columns (K = 1, K = 6), further layers of threads
@@ -169,14 +229,9 @@ tri_solve_kernel(const float* __restrict__ L, const float* __restrict__ B,
   const int tid = (threadIdx.z * TY + ml) * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * TY * blockDim.z;
   const float* Lsrc = L + (size_t)m0 * DD;
-  for (int q = tid; q < n * (DD / 4); q += nthreads) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(Lsrc) + q);
-    float* dst = sL + (q / (DD / 4)) * LS + 4 * (q % (DD / 4));
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
+  // one unit of L per thread: launch_tri_v gives the block at least
+  // D * D / 4 threads for each of its TY blocks
+  stage_blocks<D, 1>(Lsrc, DD, n, sL, tid, nthreads);
   for (int q = tid; q < n * D; q += nthreads)
     sR[q] = 1.0f / __ldg(Lsrc + (q / D) * DD + (q % D) * (D + 1));
   __syncthreads();
@@ -286,16 +341,22 @@ const char* blocks_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int block_chol(const float* A, float* L, long long M, int D, void* stream) {
+// A is read through its block stride sam (elements; a multiple of 4, each
+// block contiguous, A 16-byte aligned); L is contiguous (M, D, D).
+int block_chol(const float* A, float* L, long long M, int D, long long sam,
+               void* stream) {
   if (M == 0) return 0;
+  if (M > 0x7fffffff / (D * D) || sam % 4 || !aligned_to(A, 16) ||
+      !aligned_to(L, 16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int grid = grid_for(M, kThreads);
+  const int grid = grid_for(M, kCholThreads);
   switch (D) {
     case 2:
-      chol_kernel<2><<<grid, kThreads, 0, st>>>(A, L, M);
+      chol_kernel<2><<<grid, kCholThreads, 0, st>>>(A, L, (int)M, sam);
       break;
     case 6:
-      chol_kernel<6><<<grid, kThreads, 0, st>>>(A, L, M);
+      chol_kernel<6><<<grid, kCholThreads, 0, st>>>(A, L, (int)M, sam);
       break;
     default:
       return (int)cudaErrorInvalidValue;

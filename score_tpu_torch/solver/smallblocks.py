@@ -29,10 +29,15 @@ def _use_kernel(a: torch.Tensor) -> bool:
 
 def chol_small(A: torch.Tensor) -> torch.Tensor:
     """Cholesky of (..., m, m) SPD matrices (left-looking column order,
-    zero strictly-upper triangle)."""
+    zero strictly-upper triangle). The kernel reads a view such as the f32
+    band's odd rows ``D[:, 1::2]`` where it lies; other layouts are copied
+    first."""
     if _use_kernel(A):
         m = A.shape[-1]
-        return blocks.block_chol(A.reshape(-1, m, m).contiguous()).reshape(A.shape)
+        A2 = A.reshape(-1, m, m)
+        if not blocks.block_chol_reads(A2):
+            A2 = A2.contiguous()
+        return blocks.block_chol(A2).reshape(A.shape)
     return blocks.block_chol_plain(A)
 
 

@@ -316,6 +316,16 @@ def test_solve_chunk_columns(Tp, K):
         assert Tp * 6 * ct <= 24 * 512
 
 
+@pytest.mark.parametrize("K,narrow", [(1, True), (2, True), (3, True), (4, True),
+                                      (5, False), (6, False), (138, False), (258, False)])
+def test_backsub_kernel_rule(K, narrow):
+    """band_cr_backsub's kernel: narrow (a lane group per position) up to
+    4 rhs columns, wide (a thread per column) above. On the main path a
+    direction (K = 1) runs narrow, Manhattan-4's panel (138) and robot20's
+    (258) wide."""
+    assert band._backsub_narrow(K) is narrow
+
+
 @pytest.mark.parametrize("Tp", [4096, 8192])
 def test_solve_chunk_columns_raises_when_a_column_does_not_fit(Tp):
     assert band._solve_chunk_columns(2048, 6, 7) == 1  # the longest chain that fits

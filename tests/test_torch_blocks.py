@@ -200,3 +200,44 @@ def test_chol_solve_rejects_bad_inputs():
         blocks.block_chol_solve(L.to("meta"), B.to("meta"))  # no kernel there
     with pytest.raises(ValueError):
         blocks.block_chol_solve(L, B.to("meta"))  # two devices
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_small_takes_the_band_views(dtype):
+    """The views the f32 band hands ``chol_small`` (the odd rows ``D[:,
+    1::2]`` of a level, the root ``D[:, 0]``) give the bits of their
+    contiguous copies."""
+    D = torch.tensor(_spd(3 * 8, 6, 91, np.float64)).to(dtype).reshape(3, 8, 6, 6)
+    for view in (D[:, 1::2], D[:, 0]):
+        L = psb.chol_small(view)
+        assert L.shape == view.shape
+        assert torch.equal(L, psb.chol_small(view.contiguous()))
+
+
+def test_block_chol_reads_strided_blocks():
+    """The wrapper takes blocks through their block stride where each block
+    is contiguous and on a 16-byte boundary (the band's views, with the
+    plain version's bits), and rejects a non-unit column stride, a block
+    stride off 16 bytes and a misaligned address."""
+    D = torch.tensor(_spd(4 * 8, 6, 92)).reshape(4, 8, 6, 6)
+    for view in (D[:, 1::2].reshape(-1, 6, 6), D[:, 0]):
+        assert not view.is_contiguous() and blocks.block_chol_reads(view)
+        assert torch.equal(blocks.block_chol(view), blocks.block_chol_plain(view.contiguous()))
+    A = D.reshape(-1, 6, 6)
+    assert blocks.block_chol_reads(A)
+    padded = torch.zeros(32, 37)
+    padded[:, :36] = A.reshape(32, 36)
+    bad = {
+        "column stride": A.transpose(-1, -2),
+        "row stride": torch.zeros(32, 6, 8)[:, :, :6],
+        "block stride": padded[:, :36].reshape(32, 6, 6),
+        "address": torch.zeros(32 * 36 + 1)[1:].reshape(32, 6, 6),
+    }
+    for what, t in bad.items():
+        assert not blocks.block_chol_reads(t), what
+        with pytest.raises(ValueError):
+            blocks.block_chol(t)
+    # D = 2 pivots: a block is one 16-byte unit
+    P = torch.tensor(_spd(6, 2, 93))
+    assert blocks.block_chol_reads(P) and blocks.block_chol_reads(P[::2])
+    assert not blocks.block_chol_reads(torch.zeros(6 * 4 + 1)[1:].reshape(6, 2, 2))

@@ -15,6 +15,7 @@ import torch
 
 from score_tpu_torch import ScoreSolverParams, solve_score
 from score_tpu_torch.ops import band, blocks
+from score_tpu_torch.solver import smallblocks
 from score_tpu_torch.solver.pcr import pcr_factor, pcr_solve
 from score_tpu_torch.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
 
@@ -247,6 +248,59 @@ def test_cr_level_matches_plain(cuda, C, T):
         assert _rel(got, want) <= 1e-12
     torch.cuda.synchronize()
     assert band.band_cr_level.launches == 1
+
+
+@pytest.mark.parametrize("C", [1, 4, 20])
+@pytest.mark.parametrize("Th", [1, 2, 256, 1024])
+def test_cr_backsub_matches_plain(cuda, C, Th):
+    """band_cr_backsub against its plain version, 1e-12, through both of
+    its kernels (narrow for K <= 4, wide above; odd and even K for the
+    wide one's column pairs), on chains of one coarse position (no upper
+    neighbour), two, and lengths whose chains thread blocks cut."""
+    D, U = _band(C, 2 * Th, 6, 66 + Th, (2 * Th,) * C, cuda)
+    _, _, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+    band.reset_launch_counts()
+    Ks = (1, 2, 4, 5, 138, 258)
+    for K in Ks:
+        b = torch.randn(C, 2 * Th, 6, K, dtype=torch.float64, device=cuda)
+        xe = torch.randn(C, Th, 6, K, dtype=torch.float64, device=cuda)
+        x = band.band_cr_backsub(iv, Ao, Co, b, xe)
+        assert x.shape == b.shape
+        assert _rel(x, band.band_cr_backsub_plain(iv, Ao, Co, b, xe)) <= 1e-12
+    torch.cuda.synchronize()
+    assert band.band_cr_backsub.launches == len(Ks)
+
+
+@pytest.mark.parametrize("D", [2, 6])
+@pytest.mark.parametrize("M", [1, 3, 4, 128, 1024, 2070])
+def test_block_chol_matches_plain_in_every_layout(cuda, D, M):
+    """block_chol against its plain version, 1e-5 (f32; FMAs and an rsqrt
+    where the plain version divides by a square root), and ||L L^T - A||
+    / ||A|| <= 1e-5, on contiguous blocks and on blocks read through their
+    block stride: every second block (the f32 band's odd rows) and the
+    first of every three (a chain's root)."""
+    views = [_spd32(M, D, M + D, cuda), _spd32(2 * M, D, M + D + 1, cuda)[1::2],
+             _spd32(3 * M, D, M + D + 2, cuda).reshape(M, 3, D, D)[:, 0]]
+    blocks.reset_launch_counts()
+    for A in views:
+        L = blocks.block_chol(A)
+        assert L.is_contiguous() and L.shape == A.shape
+        assert _rel(L, blocks.block_chol_plain(A)) <= 1e-5
+        assert torch.equal(torch.triu(L, diagonal=1), torch.zeros_like(L))
+        assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
+    torch.cuda.synchronize()
+    assert blocks.block_chol.launches_by_size[D] == len(views)
+
+
+def test_chol_small_reads_the_odd_rows_in_place(cuda):
+    """The f32 band's odd-row view reaches the kernel without a copy: the
+    result equals the kernel's on the contiguous copy, bit for bit."""
+    A = _spd32(4 * 512, 6, 9, cuda).reshape(4, 512, 6, 6)
+    view = A[:, 1::2]
+    assert blocks.block_chol_reads(view.reshape(-1, 6, 6))
+    L = smallblocks.chol_small(view)
+    assert torch.equal(L, smallblocks.chol_small(view.contiguous()))
+    assert torch.equal(smallblocks.chol_small(A[:, 0]), blocks.block_chol(A[:, 0].contiguous()))
 
 
 def _assert_fused_path():
