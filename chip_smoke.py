@@ -11,27 +11,31 @@ without printing a result line:
    f64 band kernels, and ``csrc/blocks.cu``, the f32 block kernels) with
    one nvcc each, started together; print the build times, ptxas'
    register and spill lines, and one line each with the registers and
-   spill bytes of the redesigned kernels (``band_pcr_level``,
-   ``band_cr_level``, ``band_pcr_solve``, ``band_cr_backsub``,
-   ``block_chol``; a spill fails the run);
+   spill bytes of every band kernel at each block size (Db = 6 and 12)
+   and of ``block_chol`` (a spill fails the run);
 3. every band kernel against its plain PyTorch version on the card, at
-   the band shapes of both instances below (Manhattan-4: C = 4 chains
+   the band shapes of the four instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
-   PCR only; Db = 6; rhs K = 1 and K = the instance's arrow width), at
-   every level of a factor and two solves, each call fed the previous
+   PCR only; Db = 6; 3D 4x250: C = 4, Tp = 256, PCR only, and 3D 1x1000:
+   C = 1, Tp = 1024, two compacting levels, Db = 12; rhs K = 1 and K =
+   the instance's arrow width), at every level of a factor and two solves,
+   each call fed the previous
    level's kernel outputs: the max relative difference
    (max |kernel - plain| / max |plain|) must be <= 1e-12 and the band
    residual <= 1e-10; median times of both at each kernel's first call
    (CUDA events around the wrapper, after warm-up) and the kernel's
    device time (a CUDA graph of 20 launches replayed between events), for
    the three solve kernels (``band_cr_reduce``, ``band_pcr_solve``,
-   ``band_cr_backsub``) at K = 1 beside the panel; ``band_pcr_level`` and
-   ``band_pcr_solve`` again at edge shapes (one and two blocks per chain,
-   one chain, rhs widths off the column tiles), ``band_cr_level`` at chain
-   lengths that put a thread block's edge inside a chain, on a chain's
-   first position and past the last, ``band_cr_backsub`` at C = 1, 4, 20,
-   coarse lengths 1, 2, 256, 1024 and K = 1, 2, 4, 5, 138, 258 (both of its
-   kernels); then each block kernel against its plain version in f32 at
+   ``band_cr_backsub``) at K = 1 beside the panel; then every band kernel
+   at edge shapes of both block sizes: ``band_pcr_level`` and
+   ``band_pcr_solve`` at one and two blocks per chain, one chain and rhs
+   widths off the column tiles, ``band_cr_level`` at chain lengths that
+   put a thread block's edge inside a chain, on a chain's first position
+   and past the last, ``band_cr_backsub`` at C = 1, 4, 20, coarse lengths
+   1, 2, 256, 1024 and K = 1, 2, 4, 5, 138, 258 (both of its kernels; the
+   3D set is smaller), ``band_block_inv`` at block counts off its thread
+   blocks, ``band_init_a`` and ``band_cr_reduce`` at one and two
+   positions; then each block kernel against its plain version in f32 at
    the shapes of the f32 path (max relative difference <= 1e-5, and
    reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
    ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
@@ -39,7 +43,9 @@ without printing a result line:
    contiguous and strided blocks, and its device time at every Cholesky of
    a Manhattan-4 f32 factor; the f32 band (cyclic reduction over the block kernels)
    against the f64 band at Manhattan-4's band shape (<= 1e-4); then a
-   small instance solved on the card against the port's plain CPU path;
+   small 2D instance and a small 3D instance (2 x 30 poses, SOCP and
+   QCQP) solved on the card against the port's plain CPU path, and the f32
+   mode on a 3D graph refused (its block kernels exist for 2D blocks);
 4. Manhattan-4 (4 robots x 400 poses, 6 landmarks, inter-robot ranges,
    seed 0) solved as SOCP on the card: solved status, relative gap <=
    1e-6, det(R) = +1 for every rounded pose, and every band kernel of its
@@ -47,7 +53,12 @@ without printing a result line:
 5. the same for the 20-robot world (20 x 100 poses, 10 landmarks, seed 20),
    whose arrow panel runs K in the hundreds and whose band runs the four
    PCR kernels only;
-6. Manhattan-4 as QCQP in f64: the same checks;
+6. Manhattan-4 as QCQP in f64: the same checks; then the 3D instances of
+   the JAX package's bench (``bench.py:296``, ``:311``): 3D 4x250 (4 robots
+   x 250 poses, 6 landmarks, seed 3) as SOCP and QCQP and 3D 1x1000 (one
+   chain of 1000 poses) as SOCP, in f64: solved, relative gap <= 1e-6,
+   det(R) = +1 on the 3 x 3 rotations, and every band kernel of the path
+   launched at Db = 12 (the 1x1000 QCQP is left out for time);
 7. the f32 fast mode (``precision="f32"``) on Manhattan-4, SOCP and QCQP,
    cold and warm: solved, relative gap <= 1e-2 (the mode's reduced
    tolerance), objective within 1e-2 relative of the f64 solve of the same
@@ -59,7 +70,10 @@ without printing a result line:
    both solved, iterations within 3, objectives within 2e-2;
 9. one JSON line describing the kernels (event time, device time, plain
    time, the bound from bytes and operations, and a PyTorch call
-   computing the same function where one exists), then the result line.
+   computing the same function where one exists): a row per kernel at
+   the 2D shapes and, for the band kernels, a row ``<name>[Db=12]`` at
+   3D 1x1000's shapes (all seven run there) with its launches per 3D 1x1000
+   SOCP solve; then the result line.
 
 ``python3 chip_smoke.py --kernels`` stops after the band and block
 kernels' checks of phase 3 (a short first run after a kernel changed) and
@@ -195,8 +209,24 @@ def _cells():
     ]
 
 
+def _cells_3d():
+    """The 3D instances of the JAX package's bench (``bench.py:296`` and
+    ``:311``): (label, factor graph)."""
+    from score_tpu_torch.sim.world3d import World3DParams, simulate_3d_world
+
+    return [
+        ("3d-4x250", simulate_3d_world(World3DParams(
+            num_robots=4, num_poses_per_robot=250, num_landmarks=6,
+            range_measure_prob=0.4, seed=3))),
+        ("3d-1x1000", simulate_3d_world(World3DParams(
+            num_robots=1, num_poses_per_robot=1000, num_landmarks=6,
+            range_measure_prob=0.4, seed=3))),
+    ]
+
+
 def _band_shape(fg):
-    """(chains, padded chain length, arrow width) of the instance's band."""
+    """(chains, padded chain length, arrow width, block size) of the
+    instance's band."""
     from score_tpu_torch.assembly.conic import build_conic_problem
     from score_tpu_torch.assembly.normalize import normalize_factor_graph
     from score_tpu_torch.ops.band import pad_length
@@ -204,7 +234,7 @@ def _band_shape(fg):
 
     problem, idx = build_conic_problem(normalize_factor_graph(fg)[0], "SOCP", device="cpu")
     st = build_chain_arrow(problem, idx)
-    return st.C, pad_length(st.T), st.A
+    return st.C, pad_length(st.T), st.A, st.D
 
 
 # ------------------------------------------------------------------ #
@@ -327,13 +357,12 @@ class _KernelCheck:
 
 def _band_residual(D, U, x, b):
     """max |T x - b| / max |b| for the block-tridiagonal T of (D, U)."""
-    Tx = D @ x
-    Tx[:, 1:] += U[:, :-1].transpose(-1, -2) @ x[:, :-1]
-    Tx[:, :-1] += U[:, :-1] @ x[:, 1:]
-    return ((Tx - b).abs().max() / b.abs().max()).item()
+    from score_tpu_torch.ops.band import band_matvec
+
+    return ((band_matvec(D, U, x) - b).abs().max() / b.abs().max()).item()
 
 
-def phase_kernels(label, C, Tp, K, device):
+def phase_kernels(label, C, Tp, K, Db, device):
     """Phase 3 for one cell's band shape: every kernel against its plain
     version, at every level of a factor and of two solves (K = 1 and the
     cell's arrow width K), each call fed the kernels' outputs of the
@@ -341,7 +370,6 @@ def phase_kernels(label, C, Tp, K, device):
     import torch
     from score_tpu_torch.ops import band
 
-    Db = 6
     D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
     chk = _KernelCheck()
     n_cr = band.cr_depth(Tp)
@@ -429,30 +457,59 @@ def _log_rows(label, rows):
              f"({r['bound_by']}: {r['bytes']} bytes, {r['flops']} flops)")
 
 
-def phase_edge_shapes(device):
-    """The two redesigned kernels, ``band_pcr_level`` at every level and
-    ``band_pcr_solve``, against their plain versions at shapes off the two
-    cells' that the main path can reach: a single block per chain (no
-    level), two blocks, one chain, rhs widths that are no multiple of a
-    column tile (K = 3, 139) and that meet the tiles' edges (4, 5, 8), and
-    a chain longer than the wide solve kernel takes (Tp = 512)."""
+# Edge shapes of phase_edge_shapes, per block size. PCR: (chains, length,
+# rhs widths) with one and two blocks per chain, one chain, widths off the
+# column tiles (K = 3, 139; 3D: 2-9, its panel 18) and that meet their
+# edges (4, 5, 8), and chains longer than the wide solve kernel takes.
+# band_cr_level: (chains, fine length); a thread block holds 15 coarse
+# positions at Db = 6 and 3 at Db = 12, so fine lengths 2 and 4 start
+# chains inside a thread block, 30 (6) on its first position, 512 and 2048
+# cut chains at its edge. band_cr_backsub: chains, coarse lengths and rhs
+# widths (narrow K <= 4, wide K >= 5, odd and even K for the wide one's
+# column pairs, a chain of one coarse position, robot20's panel width).
+# band_block_inv: block counts off the thread blocks' 16 (8) blocks.
+_EDGE = {
+    6: dict(
+        pcr=[(3, 1, (1, 3)), (2, 2, (1, 3, 139)), (1, 256, (1, 2, 4, 5, 139)),
+             (4, 256, (3, 8, 139)), (20, 128, (3, 139)), (5, 32, (7,)), (2, 512, (1, 3, 9))],
+        cr=[(1, 2), (4, 2), (20, 4), (4, 30), (1, 512), (4, 512), (20, 512), (1, 2048)],
+        backsub=((1, 4, 20), (1, 2, 256, 1024), (1, 2, 4, 5, 138, 258)),
+        inv=(1, 7, 17, 1024, 2560),
+    ),
+    12: dict(
+        pcr=[(3, 1, (1, 3)), (2, 2, (1, 3, 18)), (1, 256, (1, 2, 4, 5, 9, 18)),
+             (4, 8, (2, 3, 4, 5, 6, 7, 8, 9)), (4, 4, (1, 18)), (1, 512, (1, 3))],
+        cr=[(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30), (1, 512), (4, 512), (1, 2048)],
+        backsub=((1, 4), (1, 2, 128, 512), (1, 2, 4, 5, 18)),
+        inv=(1, 7, 9, 1024, 1000),
+    ),
+}
+
+
+def phase_edge_shapes(Db, device):
+    """Every band kernel against its plain version at the edge shapes of
+    ``_EDGE[Db]``: ``band_pcr_level`` at every level and ``band_pcr_solve``,
+    ``band_cr_level``, ``band_cr_backsub`` (both of its kernels),
+    ``band_block_inv``, and ``band_init_a`` and ``band_cr_reduce`` at one
+    and two coarse positions."""
     import torch
     from score_tpu_torch.ops import band
 
-    Db, worst = 6, 0.0
+    edge = _EDGE[Db]
+    worst = 0.0
     rng = np.random.default_rng(5)
-    for C, Tp, Ks in [(3, 1, (1, 3)), (2, 2, (1, 3, 139)), (1, 256, (1, 2, 4, 5, 139)),
-                      (4, 256, (3, 8, 139)), (20, 128, (3, 139)), (5, 32, (7,)),
-                      (2, 512, (1, 3, 9))]:
+    for C, Tp, Ks in edge["pcr"]:
         D, U = _random_band(C, Tp, Db, seed=7 * Tp + C, device=device)
         A = band.band_init_a(U)
+        worst = max(worst, _compare(f"band_init_a Db={Db} C={C} Tp={Tp}", A,
+                                    band.band_init_a_plain(U))[1])
         Cl, invD = U, band.band_block_inv(D)
         Es, Fs = [], []
         for lev in range(band.num_levels(Tp)):
             args = (D, A, Cl, invD, 1 << lev)
             out = band.band_pcr_level(*args)
-            worst = max(worst, _compare(f"band_pcr_level C={C} Tp={Tp} s={1 << lev}", out,
-                                        band.band_pcr_level_plain(*args))[1])
+            worst = max(worst, _compare(f"band_pcr_level Db={Db} C={C} Tp={Tp} s={1 << lev}",
+                                        out, band.band_pcr_level_plain(*args))[1])
             E, F, D, A, Cl, invD = out
             Es.append(E)
             Fs.append(F)
@@ -460,54 +517,62 @@ def phase_edge_shapes(device):
         F = torch.stack(Fs) if Fs else E
         for K in Ks:
             b = torch.tensor(rng.standard_normal((C, Tp, Db, K)), device=device)
-            worst = max(worst, _compare(f"band_pcr_solve C={C} Tp={Tp} K={K}",
+            worst = max(worst, _compare(f"band_pcr_solve Db={Db} C={C} Tp={Tp} K={K}",
                                         band.band_pcr_solve(E, F, invD, b),
                                         band.band_pcr_solve_plain(E, F, invD, b))[1])
-    # band_cr_level: a thread block holds 15 coarse positions. Fine lengths
-    # 2 and 4 start chains inside a thread block, 30 on its first position,
-    # 512 and 2048 cut chains at its edge
     worst_cr = 0.0
-    for C, T in [(1, 2), (4, 2), (20, 4), (4, 30), (1, 512), (4, 512), (20, 512), (1, 2048)]:
+    for C, T in edge["cr"]:
         D, U = _random_band(C, T, Db, seed=11 * T + C, device=device)
         args = (D, band.band_init_a(U), U)
-        worst_cr = max(worst_cr, _compare(f"band_cr_level C={C} T={T}",
+        worst_cr = max(worst_cr, _compare(f"band_cr_level Db={Db} C={C} T={T}",
                                           band.band_cr_level(*args),
                                           band.band_cr_level_plain(*args))[1])
-    # band_cr_backsub: both kernels (narrow K <= 4, wide K >= 5; odd and
-    # even K for the wide one's column pairs), a chain of one coarse position
-    # (no upper neighbour anywhere), thread blocks that cut chains, and
-    # robot20's panel width
     worst_bs = 0.0
     gen = torch.Generator(device=device).manual_seed(13)
-    for C in (1, 4, 20):
-        for Th in (1, 2, 256, 1024):
+    chains, lengths, widths = edge["backsub"]
+    for C in chains:
+        for Th in lengths:
             D, U = _random_band(C, 2 * Th, Db, seed=13 * Th + C, device=device)
-            _, _, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
-            for K in (1, 2, 4, 5, 138, 258):
+            E, F, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+            for K in widths:
                 b = torch.randn((C, 2 * Th, Db, K), generator=gen, dtype=torch.float64,
                                 device=device)
                 xe = torch.randn((C, Th, Db, K), generator=gen, dtype=torch.float64,
                                  device=device)
                 worst_bs = max(worst_bs, _compare(
-                    f"band_cr_backsub C={C} Th={Th} K={K}",
+                    f"band_cr_backsub Db={Db} C={C} Th={Th} K={K}",
                     band.band_cr_backsub(iv, Ao, Co, b, xe),
                     band.band_cr_backsub_plain(iv, Ao, Co, b, xe))[1])
+                if Th <= 2:
+                    worst_bs = max(worst_bs, _compare(
+                        f"band_cr_reduce Db={Db} C={C} Th={Th} K={K}",
+                        band.band_cr_reduce(E, F, b), band.band_cr_reduce_plain(E, F, b))[1])
+    worst_inv = 0.0
+    for M in edge["inv"]:
+        D, _ = _random_band(1, M, Db, seed=17 * M, device=device)
+        worst_inv = max(worst_inv, _compare(f"band_block_inv Db={Db} M={M}",
+                                            band.band_block_inv(D),
+                                            band.band_block_inv_plain(D))[1])
     torch.cuda.synchronize()
-    _log(f"edge shapes: band_pcr_level and band_pcr_solve max_rel_diff={worst:.3e}, "
-         f"band_cr_level max_rel_diff={worst_cr:.3e}, band_cr_backsub "
-         f"max_rel_diff={worst_bs:.3e} (bound {REL_TOL})")
+    _log(f"edge shapes Db={Db}: band_init_a, band_pcr_level and band_pcr_solve "
+         f"max_rel_diff={worst:.3e}, band_cr_level max_rel_diff={worst_cr:.3e}, "
+         f"band_cr_backsub and band_cr_reduce max_rel_diff={worst_bs:.3e}, band_block_inv "
+         f"max_rel_diff={worst_inv:.3e} (bound {REL_TOL})")
 
 
-def _ptxas_report(log, kernel):
+def _ptxas_report(log, kernel, Db=None):
     """(registers, spill store bytes, spill load bytes), the worst over the
-    instantiations of ``kernel`` in nvcc's ptxas output."""
+    instantiations of ``kernel`` in nvcc's ptxas output (with ``Db``, over
+    those whose first template argument is Db: ``<kernel>ILi<Db>E`` in the
+    mangled name)."""
     import re
 
     regs = stores = loads = 0
     found = False
+    key = kernel if Db is None else f"{kernel}ILi{Db}E"
     lines = log.splitlines()
     for n, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        if "Compiling entry function" in line and key in line:
             found = True
             for nxt in lines[n + 1:n + 4]:
                 if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt):
@@ -515,7 +580,7 @@ def _ptxas_report(log, kernel):
                 if m := re.search(r"Used (\d+) registers", nxt):
                     regs = max(regs, int(m[1]))
     if not found:
-        raise AssertionError(f"ptxas output names no kernel {kernel}")
+        raise AssertionError(f"ptxas output names no kernel {key}")
     return regs, stores, loads
 
 
@@ -649,17 +714,18 @@ def _path_kernels(Tp):
     return [k.__name__ for k in band.KERNELS if band.cr_depth(Tp) or k not in cr]
 
 
-def _check_result(label, res, num_poses, relgap_tol=1e-6, det_tol=1e-9):
-    """Solved status, relative gap, finite rounded poses with det(R) = +1."""
+def _check_result(label, res, num_poses, d=2, relgap_tol=1e-6, det_tol=1e-9):
+    """Solved status, relative gap, finite rounded poses (d + 1) x (d + 1)
+    with det(R) = +1."""
     relgap = res.gap / max(1.0, abs(res.primal_objective))
     if not res.solved:
         raise AssertionError(f"{label}: not solved (iterations {res.iterations})")
     if not relgap <= relgap_tol:
         raise AssertionError(f"{label}: relgap {relgap:.3e} > {relgap_tol}")
     T = np.stack(list(res.poses.values()))
-    if T.shape != (num_poses, 3, 3) or not np.isfinite(T).all():
+    if T.shape != (num_poses, d + 1, d + 1) or not np.isfinite(T).all():
         raise AssertionError(f"{label}: bad pose array {T.shape}")
-    dets = np.linalg.det(T[:, :2, :2])
+    dets = np.linalg.det(T[:, :d, :d])
     if not np.all(np.abs(dets - 1.0) < det_tol):
         raise AssertionError(f"{label}: det(R) off +1 by {np.abs(dets - 1).max():.3e}")
     return relgap
@@ -685,6 +751,44 @@ def phase_small_reference():
         raise AssertionError("small: cuda and cpu disagree on status/iterations")
     if not (dobj <= 1e-7 and dpose <= 1e-4):
         raise AssertionError("small: cuda and cpu solutions disagree")
+
+
+def phase_small_reference_3d():
+    """A small 3D world (2 x 30 poses, 12 x 12 band blocks) as SOCP and
+    QCQP on the card against the port's plain CPU path: both solved,
+    iterations within 1, objectives within the larger final gap (these
+    relaxations fit their ranges to ~1e-10, so a relative difference would
+    compare roundoff), rounded poses within 1e-4; then the f32 mode on the
+    same graph, which the card refuses before any work (its block kernels
+    exist for 2D blocks only)."""
+    from score_tpu_torch import ScoreSolverParams, solve_score
+    from score_tpu_torch.sim.world3d import World3DParams, simulate_3d_world
+
+    fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=30,
+                                         num_landmarks=4, range_measure_prob=0.4, seed=3))
+    for relaxation in ("SOCP", "QCQP"):
+        gpu = solve_score(fg, relaxation, ScoreSolverParams(device="cuda"))
+        cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu"))
+        _check_result(f"small3d-{relaxation}[cuda]", gpu, fg.num_poses, d=3)
+        dobj = abs(gpu.primal_objective - cpu.primal_objective)
+        dpose = max(np.abs(gpu.poses[k] - cpu.poses[k]).max() for k in cpu.poses)
+        _log(f"small 3D 2x30 {relaxation}: cuda iters={gpu.iterations} cpu "
+             f"iters={cpu.iterations} objectives {gpu.primal_objective:.3e} / "
+             f"{cpu.primal_objective:.3e} (gaps {gpu.gap:.3e} / {cpu.gap:.3e}) "
+             f"max_pose_diff={dpose:.3e}")
+        if not cpu.solved or abs(gpu.iterations - cpu.iterations) > 1:
+            raise AssertionError(f"small3d {relaxation}: cuda and cpu disagree on "
+                                 "status/iterations")
+        if not (dobj <= max(gpu.gap, cpu.gap) and dpose <= 1e-4):
+            raise AssertionError(f"small3d {relaxation}: cuda and cpu solutions disagree")
+    try:
+        solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))
+    except NotImplementedError as e:
+        if "D = 12" not in str(e):
+            raise
+        _log(f"small 3D f32 on the card refused: {e}")
+    else:
+        raise AssertionError("small3d: precision='f32' on a 3D graph did not raise")
 
 
 def phase_small_f32_reference():
@@ -742,19 +846,22 @@ class _PlainBackSubstitutions:
 
 
 def _counts():
-    """Launches of every kernel since the last reset, and the block kernels'
-    launches per block size."""
+    """Launches of every kernel since the last reset, and each kernel's
+    launches per block size: ``<name>[Db=n]`` for the band kernels,
+    ``<name>[D=n]`` for the block kernels."""
     from score_tpu_torch.ops import band, blocks
 
     launches = {k.__name__: k.launches for k in band.KERNELS + blocks.KERNELS}
-    by_size = {f"{k.__name__}[D={n}]": c for k in blocks.KERNELS
-               for n, c in k.launches_by_size.items()}
+    by_size = {f"{k.__name__}[{key}={n}]": c
+               for key, kernels in (("Db", band.KERNELS), ("D", blocks.KERNELS))
+               for k in kernels for n, c in k.launches_by_size.items()}
     return launches, by_size
 
 
-def phase_solve(label, fg, Tp, relaxation="SOCP", precision="f64", reference=None):
+def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", reference=None):
     """Cold and warm solves on the card with launch counting. f64 runs the
-    band kernels of its path; f32 ``block_chol`` and the fused
+    band kernels of its path at the graph's block size Db; f32
+    ``block_chol`` and the fused
     ``block_chol_solve`` (at D = 2 too for QCQP) and neither the
     forward-only kernel nor a plain back substitution on the card's f32
     tensors, held to the f32 mode's reduced tolerance and, with
@@ -781,18 +888,19 @@ def phase_solve(label, fg, Tp, relaxation="SOCP", precision="f64", reference=Non
                 f"{label}: {launches['block_tri_lower_solve']} forward-only launches and "
                 f"{plain_back.calls} plain back substitutions on the f32 path")
     else:
-        expected = _path_kernels(Tp)
+        expected = [f"{k}[Db={Db}]" for k in _path_kernels(Tp)]
     got = {**launches, **by_size}
     missing = [k for k in expected if got[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
     tols = dict(relgap_tol=1e-2, det_tol=1e-5) if f32 else {}
-    relgap = _check_result(label, res, fg.num_poses, **tols)
+    d = fg.dimension
+    relgap = _check_result(label, res, fg.num_poses, d, **tols)
     t0 = time.perf_counter()
     warm_res = solve_score(fg, relaxation, params)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    _check_result(label + "[warm]", warm_res, fg.num_poses, **tols)
+    _check_result(label + "[warm]", warm_res, fg.num_poses, d, **tols)
     line = (f"{label}: solved={res.solved} iterations={res.iterations} relgap={relgap:.3e} "
             f"pres={res.primal_residual:.3e} dres={res.dual_residual:.3e} "
             f"objective={res.primal_objective:.6f} cold_s={cold:.3f} warm_s={warm:.3f}")
@@ -803,8 +911,8 @@ def phase_solve(label, fg, Tp, relaxation="SOCP", precision="f64", reference=Non
         if not dobj <= 1e-2:
             raise AssertionError(f"{label}: objective {dobj:.3e} from f64 > 1e-2")
     _log(f"{label}: {fg.summary()}")
-    _log(f"{line} launches={launches} block_launches_by_size={by_size}")
-    return launches, res
+    _log(f"{line} launches={launches} launches_by_size={by_size}")
+    return {**launches, **by_size}, res
 
 
 def main() -> int:
@@ -821,7 +929,7 @@ def main() -> int:
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
          f"{torch.cuda.get_device_name(0)}")
 
-    from score_tpu_torch.ops import build
+    from score_tpu_torch.ops import band, build
 
     t0 = time.perf_counter()
     built = build.compile_all(force=True)
@@ -832,61 +940,88 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 _log("  ptxas:", line.strip())
 
-    # registers and spills of the redesigned kernels
-    for lib, wrapper, kern in (("band", "band_pcr_level", "pcr_level_kernel"),
-                               ("band", "band_cr_level", "cr_level_kernel"),
-                               ("band", "band_pcr_solve", "pcr_solve_wide_kernel"),
-                               ("band", "band_pcr_solve", "pcr_solve_narrow_kernel"),
-                               ("band", "band_cr_backsub", "cr_backsub_narrow_kernel"),
-                               ("band", "band_cr_backsub", "cr_backsub_wide_kernel"),
-                               ("blocks", "block_chol", "chol_kernel")):
-        regs, stores, loads = _ptxas_report(built[lib][2], kern)
-        _log(f"ptxas {wrapper} ({kern}): registers={regs} spill_store_bytes={stores} "
+    # registers and spills of every band kernel at each block size (the
+    # wide band_pcr_solve exists at Db = 6 only) and of block_chol
+    checks = [("band", wrapper, kern, Db) for Db in (6, 12)
+              for wrapper, kern in (("band_init_a", "init_a_kernel"),
+                                    ("band_block_inv", "block_inv_kernel"),
+                                    ("band_pcr_level", "pcr_level_kernel"),
+                                    ("band_cr_level", "cr_level_kernel"),
+                                    ("band_cr_reduce", "cr_reduce_kernel"),
+                                    ("band_pcr_solve", "pcr_solve_wide_kernel"),
+                                    ("band_pcr_solve", "pcr_solve_narrow_kernel"),
+                                    ("band_cr_backsub", "cr_backsub_narrow_kernel"),
+                                    ("band_cr_backsub", "cr_backsub_wide_kernel"))
+              if Db == 6 or kern != "pcr_solve_wide_kernel"]
+    for lib, wrapper, kern, Db in checks + [("blocks", "block_chol", "chol_kernel", None)]:
+        regs, stores, loads = _ptxas_report(built[lib][2], kern, Db)
+        at = "" if Db is None else f", Db={Db}"
+        _log(f"ptxas {wrapper} ({kern}{at}): registers={regs} spill_store_bytes={stores} "
              f"spill_load_bytes={loads}")
         if stores or loads:
-            raise AssertionError(f"{kern}: ptxas reports spills")
+            raise AssertionError(f"{kern}{at}: ptxas reports spills")
 
     dev = torch.device("cuda")
     cells = [(label, fg, _band_shape(fg)) for label, fg in _cells()]
+    cells_3d = [(label, fg, _band_shape(fg)) for label, fg in _cells_3d()]
     rows = {}
-    for label, fg, shape in cells:
+    for label, fg, shape in cells + cells_3d:
         rows[label] = phase_kernels(label, *shape, dev)
-    phase_edge_shapes(dev)
+    for Db in (6, 12):
+        phase_edge_shapes(Db, dev)
     block_rows = phase_blocks(dev)
     if "--kernels" in sys.argv[1:]:  # stop after the kernels' checks
         return 0
     phase_f32_band(dev)
     phase_small_reference()
+    phase_small_reference_3d()
 
     launches, results = {}, {}
     for label, fg, shape in cells:
         launches[label], results[label] = phase_solve(label, fg, shape[1])
     m4_fg, m4_Tp = cells[0][1], cells[0][2][1]
-    _, results["manhattan4-qcqp"] = phase_solve("manhattan4-qcqp", m4_fg, m4_Tp, "QCQP")
+    _, results["manhattan4-qcqp"] = phase_solve("manhattan4-qcqp", m4_fg, m4_Tp,
+                                                relaxation="QCQP")
+    # 3D in f64: 4x250 as SOCP and QCQP, 1x1000 as SOCP (its QCQP is left
+    # out for time)
+    for (label, fg, shape), relaxations in zip(cells_3d, (("SOCP", "QCQP"), ("SOCP",))):
+        for relaxation in relaxations:
+            name = label if relaxation == "SOCP" else f"{label}-qcqp"
+            launches[name], results[name] = phase_solve(name, fg, shape[1], shape[3],
+                                                        relaxation=relaxation)
     launches["manhattan4-f32"], _ = phase_solve(
-        "manhattan4-f32", m4_fg, m4_Tp, "SOCP", "f32", reference=results["manhattan4"])
-    phase_solve("manhattan4-qcqp-f32", m4_fg, m4_Tp, "QCQP", "f32",
+        "manhattan4-f32", m4_fg, m4_Tp, relaxation="SOCP", precision="f32",
+        reference=results["manhattan4"])
+    phase_solve("manhattan4-qcqp-f32", m4_fg, m4_Tp, relaxation="QCQP", precision="f32",
                 reference=results["manhattan4-qcqp"])
     phase_small_f32_reference()
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
-    # its band shape; block kernels: launches from the f32 Manhattan-4 SOCP
-    # solve (none of the forward-only block_tri_lower_solve, whose callers
-    # all run the fused block_chol_solve), times at its first level's shapes
+    # its band shape, and at Db = 12 launches from the 3D 1x1000 SOCP solve,
+    # times at its band shape; block kernels: launches from the f32
+    # Manhattan-4 SOCP solve (none of the forward-only block_tri_lower_solve,
+    # whose callers all run the fused block_chol_solve), times at its first
+    # level's shapes
     timed = {**rows["manhattan4"], **block_rows}
-    kernels = [
-        dict(name=name, route="cuda",
-             source=BLOCKS_SOURCE if name.startswith("block_") else BAND_SOURCE,
-             replaces=REPLACES[name],
-             launches=launches["manhattan4-f32" if name.startswith("block_") else
-                               "manhattan4"][name],
-             max_abs_err=timed[name]["max_abs_err"], ms=timed[name]["ms"],
-             device_us=timed[name]["device_us"],
-             plain_ms=timed[name]["plain_ms"], bound_ms=timed[name]["bound_ms"],
-             bound_by=timed[name]["bound_by"], library_ms=timed[name]["library_ms"],
-             **{k: v for k, v in timed[name].items() if k.startswith("k1_")})
-        for name in REPLACES
-    ]
+    timed.update({f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
+    names = list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS]
+    kernels = []
+    for name in names:
+        base = name.split("[")[0]
+        row = timed[name]
+        if base.startswith("block_"):
+            source, launched = BLOCKS_SOURCE, launches["manhattan4-f32"][base]
+        elif name == base:
+            source, launched = BAND_SOURCE, launches["manhattan4"][f"{base}[Db=6]"]
+        else:
+            source, launched = BAND_SOURCE, launches["3d-1x1000"][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=REPLACES[base],
+            launches=launched, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            device_us=row["device_us"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+            **{k: v for k, v in row.items() if k.startswith("k1_")}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,9 +27,10 @@ CUDA card; imports nothing of jax or of the JAX package.
 
     python3 profile_port.py --kernels [--root DIR]
 
-times only the redesigned kernels: of the f64 band ``band_pcr_level``
-(first and last level) and ``band_pcr_solve`` (a direction, K = 1, and the
-arrow panel) at the PCR remainder's shape of both instances,
+times only the redesigned kernels: of the f64 band ``band_block_inv``,
+``band_pcr_level`` (first and last level) and ``band_pcr_solve`` (a
+direction, K = 1, and the arrow panel) at the PCR remainder's shape of
+both instances,
 ``band_cr_level`` at Manhattan-4's first level and at the deeper levels'
 and robot20's shapes of the depth sweep, ``band_cr_reduce`` and
 ``band_cr_backsub`` at Manhattan-4's direction and panel and at a forced
@@ -50,6 +51,18 @@ five warm Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
 profiled solve in each: kernel launches, device busy time and the
 hand-written kernels' device time and launches. With ``--root`` for two
 commits in turns in one call.
+
+    python3 profile_port.py --sweep3d [--out report.json]
+
+the 3D instances (12 x 12 blocks; ``chip_smoke._cells_3d``): the band
+alone at both 3D band shapes for every compaction floor from 1 to 256
+whose remainder the solve kernel takes (factor, panel and direction ms,
+launches, residual), ``band_pcr_solve``'s panel at each remainder with 1, 2
+and 4 columns a thread; warm 3D 4x250 QCQP and SOCP solves with the floor
+at 4, 16, 64 and 256, each with and without the band's refinement step, in
+turns (walls, iterations, relative gap, dual residual), and the QCQP at
+four of them by the port's CPU path; three warm solves and a profiled solve of each 3D instance; and
+3D 1x1000 SOCP solved by the port's plain path on the CPU.
 
     python3 profile_port.py --ablate
 
@@ -104,21 +117,21 @@ def _launches(fn):
     return sum(k.launches for k in band.KERNELS)
 
 
-def _warm_walls(fg, n=3, precision="f64"):
+def _warm_walls(fg, n=3, precision="f64", relaxation="SOCP"):
     import torch
     from score_tpu_torch import ScoreSolverParams, solve_score
 
     params = ScoreSolverParams(device="cuda", precision=precision)
-    solve_score(fg, "SOCP", params)  # warm-up
+    solve_score(fg, relaxation, params)  # warm-up
     walls, res = [], None
     for _ in range(n):
         t0 = time.perf_counter()
-        res = solve_score(fg, "SOCP", params)
+        res = solve_score(fg, relaxation, params)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     relgap = res.gap / max(1.0, abs(res.primal_objective))
     return dict(walls_s=walls, iterations=res.iterations, solved=res.solved,
-                relgap=relgap)
+                relgap=relgap, dres=res.dual_residual)
 
 
 # device-side names of the port's hand-written kernels (band.cu, blocks.cu);
@@ -131,7 +144,7 @@ _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_bac
                  "tri_lower_kernel")
 
 
-def _profile_solve(fg, top=12, precision="f64"):
+def _profile_solve(fg, top=12, precision="f64", relaxation="SOCP"):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -139,7 +152,7 @@ def _profile_solve(fg, top=12, precision="f64"):
 
     params = ScoreSolverParams(device="cuda", precision=precision)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solve_score(fg, "SOCP", params)
+        solve_score(fg, relaxation, params)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -304,8 +317,8 @@ def _cr_solve_times(device):
 
 
 def _kernel_times(device):
-    """Device us and event ms of band_pcr_level and band_pcr_solve at the
-    shapes of ``_REMAINDERS``, of band_cr_level at ``_CR_LEVEL_SHAPES``,
+    """Device us and event ms of band_block_inv, band_pcr_level and
+    band_pcr_solve at the shapes of ``_REMAINDERS``, of band_cr_level at ``_CR_LEVEL_SHAPES``,
     of band_cr_reduce and band_cr_backsub at ``_CR_SOLVE_SHAPES``, of the
     f32 band's ``_dinv`` at ``_DINV_SHAPES`` and of block_chol at the f32
     factor's shapes (:func:`_chol_times`). Serves both signatures of
@@ -325,6 +338,9 @@ def _kernel_times(device):
         A = band.band_init_a(U)
         f = band.band_factor(D, U, n_cr=0)
         invD = band.band_block_inv(D)
+        fn = lambda: band.band_block_inv(D)
+        rows.append(dict(cell=label, kernel="band_block_inv", shape=f"C={C} Tp={Tp}",
+                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
         rng = np.random.default_rng(Tp)
         for s in (1, Tp // 2):
             args = (D, A, U, invD, s) if carried else (D, A, U, s)
@@ -349,6 +365,163 @@ def _kernel_times(device):
         rows.append(dict(cell="f32 band", kernel="pcr._dinv", shape=f"M={M} D=6 K={K}",
                          device_us=_device_us(fn), event_ms=_event_ms(fn)))
     return rows + _cr_solve_times(device) + _chol_times(device)
+
+
+# the 3D instances' bands (chip_smoke._cells_3d): chains, padded chain
+# length, arrow width; 12 x 12 blocks. Compaction floors of the sweep.
+_BANDS_3D = {"3d-4x250": (4, 256, 18), "3d-1x1000": (1, 1024, 18)}
+_FLOORS_3D = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def _depth_sweep_3d(device):
+    """The Db = 12 band alone at both 3D shapes, for every compaction
+    floor whose PCR remainder the narrow solve kernel takes: event ms of a
+    factor, a panel solve (K = 18) and a direction (K = 1), launches, and
+    the panel solve's band residual; and, at each remainder, the panel's
+    band_pcr_solve with its tile forced to 1, 2 and 4 columns a thread
+    (device us; the shape rule picks one of them)."""
+    import torch
+    from chip_smoke import _band_residual, _device_us
+    from score_tpu_torch.ops import band
+
+    sweep, tiles = [], []
+    for label, (C, Tp, K) in _BANDS_3D.items():
+        D, U = _random_band(C, Tp, 12, seed=Tp + C, device=device)
+        rng = np.random.default_rng(0)
+        bK = torch.tensor(rng.standard_normal((C, Tp, 12, K)), device=device)
+        b1 = torch.tensor(rng.standard_normal((C, Tp, 12, 1)), device=device)
+        for floor in _FLOORS_3D:
+            n = band.num_levels(Tp) - band.num_levels(floor)
+            if n < 0:
+                continue
+            try:
+                band._solve_tile_columns(floor, 12, K)
+            except ValueError:  # the remainder does not fit the solve kernel
+                continue
+            f = band.band_factor(D, U, n_cr=n)
+            sweep.append(dict(
+                cell=label, floor=floor, n_cr=n,
+                factor_ms=_event_ms(lambda: band.band_factor(D, U, n_cr=n)),
+                panel_ms=_event_ms(lambda: band.band_solve(f, bK)),
+                direction_ms=_event_ms(lambda: band.band_solve(f, b1)),
+                factor_launches=_launches(lambda: band.band_factor(D, U, n_cr=n)),
+                solve_launches=_launches(lambda: band.band_solve(f, b1)),
+                panel_residual=_band_residual(D, U, band.band_solve(f, bK), bK)))
+            # the panel at this remainder, each tile forced
+            Db, L = 12, f.E.shape[0]
+            b = torch.tensor(rng.standard_normal((C, floor, Db, K)), device=device)
+            x = torch.empty_like(b)
+            for ct in (1, 2, 4):
+                if floor * Db * ct > band._narrow_accumulators(Db) * band._NARROW_THREADS:
+                    continue
+
+                def fn(ct=ct):
+                    band._raise_on("band_pcr_solve", band._lib().band_pcr_solve(
+                        f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(),
+                        x.data_ptr(), C, floor, Db, L, K, ct, 1, band._stream()))
+                tiles.append(dict(cell=label, floor=floor, K=K, ct=ct,
+                                  chosen=ct == band._solve_tile_columns(floor, Db, K),
+                                  device_us=_device_us(fn)))
+    return sweep, tiles
+
+
+def _floor_walls_3d(fg, relaxation, configs, device="cuda", rounds=2):
+    """Warm solves of a 3D graph for each (compaction floor, refinement
+    steps) of ``configs`` (``band.CR_BASE_LENGTH``,
+    ``band.REFINE_STEPS_3D``), taking turns: walls, iterations, relative gap
+    and dual residual, which both move (the band's explicit inverses of
+    12 x 12 blocks cost the dual residual digits)."""
+    import torch
+    from score_tpu_torch import ScoreSolverParams, solve_score
+    from score_tpu_torch.ops import band
+
+    default = band.CR_BASE_LENGTH, band.REFINE_STEPS_3D
+    params = ScoreSolverParams(device=device)
+    out = {}
+    try:
+        for r in range(rounds + 1):  # round 0 warms up
+            for floor, refine in configs:
+                band.CR_BASE_LENGTH, band.REFINE_STEPS_3D = floor, refine
+                t0 = time.perf_counter()
+                res = solve_score(fg, relaxation, params)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                row = out.setdefault(f"floor {floor} refine {refine}", dict(
+                    walls_s=[], iterations=res.iterations, solved=res.solved,
+                    relgap=res.gap / max(1.0, abs(res.primal_objective)),
+                    dres=res.dual_residual))
+                if r:
+                    row["walls_s"].append(wall)
+    finally:
+        band.CR_BASE_LENGTH, band.REFINE_STEPS_3D = default
+    return out
+
+
+def _sweep_3d(smi):
+    """--sweep3d: the Db = 12 depth and tile sweep, the floor's walls and
+    accuracy on 3D 4x250 QCQP and SOCP, warm walls and a profiled solve of
+    each 3D instance, and 3D 1x1000 SOCP on the CPU (the port's plain
+    path, against the JAX package's CPU run of the same graph)."""
+    import torch
+    from chip_smoke import _cells_3d
+    from score_tpu_torch import ScoreSolverParams, solve_score
+
+    dev = torch.device("cuda")
+    report = dict(card=smi)
+    sweep, tiles = _depth_sweep_3d(dev)
+    report.update(depth_sweep=sweep, tiles=tiles)
+    for r in sweep:
+        _log(f"  {r['cell']} floor {r['floor']:4d} (CR depth {r['n_cr']}): factor "
+             f"{r['factor_ms']:.4f} ms ({r['factor_launches']} launches), panel "
+             f"{r['panel_ms']:.4f} ms, direction {r['direction_ms']:.4f} ms "
+             f"({r['solve_launches']} launches), panel residual {r['panel_residual']:.2e}")
+    for r in tiles:
+        _log(f"  {r['cell']} remainder {r['floor']:4d} K={r['K']} ct={r['ct']}"
+             f"{' (rule)' if r['chosen'] else ''}: band_pcr_solve {r['device_us']:.2f} us")
+    cells = dict(_cells_3d())
+    report["floors"] = {}
+    configs = [(f, r) for f in (4, 16, 64, 256) for r in (0, 1)]
+    for relaxation in ("QCQP", "SOCP"):
+        rows = report["floors"][relaxation] = _floor_walls_3d(
+            cells["3d-4x250"], relaxation, configs)
+        for key, w in rows.items():
+            _log(f"  3d-4x250 {relaxation} {key}: {w}")
+    # the same QCQP by the port's plain path on the CPU, and with the chain
+    # band factored by solver/pcr.py in f64 instead (cyclic reduction with a
+    # Cholesky solve per block, the JAX package's f64 band algorithm): does
+    # the band's arithmetic set the QCQP's dual residual?
+    rows = report["floors"]["QCQP-cpu"] = _floor_walls_3d(
+        cells["3d-4x250"], "QCQP", [(4, 0), (4, 1), (256, 0), (256, 1)], "cpu", rounds=1)
+    from score_tpu_torch.solver import chain_arrow, pcr
+
+    saved = chain_arrow.band_factor, chain_arrow.band_solve
+    chain_arrow.band_factor, chain_arrow.band_solve = pcr.pcr_factor, pcr.pcr_solve
+    try:
+        rows["pcr.py band"] = _floor_walls_3d(
+            cells["3d-4x250"], "QCQP", [(4, 0)], "cpu", rounds=1)["floor 4 refine 0"]
+    finally:
+        chain_arrow.band_factor, chain_arrow.band_solve = saved
+    for key, w in rows.items():
+        _log(f"  3d-4x250 QCQP on the CPU {key}: {w}")
+    for label, fg in cells.items():
+        cell = report[label] = dict(warm=_warm_walls(fg), profile=_profile_solve(fg))
+        p = cell["profile"]
+        _log(f"{label}: warm {cell['warm']}")
+        _log(f"{label}: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
+             f"{p['kernel_launches']} kernel launches")
+        for o in p["top_ops"]:
+            _log(f"  {o['op']:<40} {o['device_ms']:9.3f} ms {o['calls']:7d} calls")
+        for name, b in p["hand_kernels"].items():
+            _log(f"  band {name:<22} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+    t0 = time.perf_counter()
+    res = solve_score(cells["3d-1x1000"], "SOCP", ScoreSolverParams(device="cpu"))
+    report["cpu_3d_1x1000"] = dict(
+        solved=res.solved, iterations=res.iterations, wall_s=time.perf_counter() - t0,
+        relgap=res.gap / max(1.0, abs(res.primal_objective)),
+        ranges=cells["3d-1x1000"].num_range_measurements)
+    _log(f"3d-1x1000 SOCP on the CPU: {report['cpu_3d_1x1000']}")
+    return report
 
 
 def _solve_ablation(device):
@@ -403,6 +576,8 @@ def main() -> int:
                     help="warm Manhattan-4 walls in f32 and f64, and the f32 launch count")
     ap.add_argument("--ablate", action="store_true",
                     help="time band_pcr_solve with parts of its level loop compiled out")
+    ap.add_argument("--sweep3d", action="store_true",
+                    help="3D: Db = 12 depth and tile sweep, floors, walls, CPU 1x1000")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
     if args.root:
@@ -419,6 +594,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _log(smi)
 
+    if args.sweep3d:
+        report = _sweep_3d(smi)
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1))
+        return 0
     if args.ablate:
         rows = _solve_ablation(torch.device("cuda"))
         for r in rows:

@@ -35,11 +35,13 @@ its coarse length Th, the PCR remainder's E, F as (L, C, Tb, Db, Db) and
 invD as (C, Tb, Db, Db), all contiguous f64.
 
 Seven kernels, written by hand in CUDA C++ (``csrc/band.cu``, built for
-sm_90a by :mod:`score_tpu_torch.ops.build`), do the work on the card. Each
-has a plain PyTorch twin here (``*_plain``) computing the same function.
-A wrapper runs the plain twin only for tensors on the CPU; for a CUDA
-tensor it launches its kernel or raises. Each wrapper counts its launches
-in its ``launches`` attribute.
+sm_90a by :mod:`score_tpu_torch.ops.build`), do the work on the card, at
+the block sizes of :data:`CUDA_BLOCK_SIZES`: Db = 6 (2D poses) and Db = 12
+(3D). Each has a plain PyTorch twin here (``*_plain``) computing the same
+function. A wrapper runs the plain twin only for tensors on the CPU; for
+a CUDA tensor it launches its kernel or raises. Each wrapper counts its
+launches in its ``launches`` attribute, and per block size Db in
+``launches_by_size``.
 
 Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
 
@@ -83,35 +85,56 @@ __all__ = [
     "band_cr_backsub",
     "band_factor",
     "band_solve",
+    "band_matvec",
     "KERNELS",
     "reset_launch_counts",
 ]
 
-# Block sizes the CUDA kernels are instantiated for (2D pose blocks).
-CUDA_BLOCK_SIZES = (6,)
+# Block sizes the CUDA kernels are instantiated for: 2D and 3D pose
+# blocks, Db = d (d + 1).
+CUDA_BLOCK_SIZES = (6, 12)
 # Dynamic shared memory a thread block may use on sm_90 (227 KB).
 _SMEM_MAX = 232448
 # band_pcr_solve: the wide kernel (a thread holds all Db rows by
 # _WIDE_COLUMNS rhs columns of a position in registers; at most
 # _WIDE_MAX_LENGTH threads, 1 to _WIDE_MAX_GROUPS per position) serves
-# chains up to _WIDE_MAX_LENGTH; the narrow kernel (one thread per position
-# and row, 1, 2 or 4 columns) holds _NARROW_ACCUMULATORS outputs per thread
-# in at most _NARROW_THREADS threads. The same constants stand in
-# csrc/band.cu.
+# chains up to _WIDE_MAX_LENGTH of blocks up to _WIDE_MAX_BLOCK (its 6 x 8
+# tile took 198 registers; a 12 x 8 tile would spill); the narrow kernel
+# (one thread per position and row, 1, 2 or 4 columns) holds
+# _narrow_accumulators(Db) outputs per thread in at most _NARROW_THREADS
+# threads. The same constants stand in csrc/band.cu.
 _WIDE_COLUMNS = 8
+_WIDE_MAX_BLOCK = 6
 _WIDE_MAX_LENGTH = 256
 _WIDE_MAX_GROUPS = 8
 _WIDE_RING = 3  # half-block tiles of E, F in flight or in use
 _SM_COUNT = 132  # H100 SXM; the wrapper asks the device
 _NARROW_THREADS = 512
-_NARROW_ACCUMULATORS = 24
+
+
+def _narrow_accumulators(Db: int) -> int:
+    """Outputs a thread of the narrow band_pcr_solve kernel holds: 24 at
+    Db = 6, 12 at Db = 12 (its rows of E, F take twice the registers, and
+    512 threads leave a thread 128)."""
+    return 24 if Db <= 6 else 12
+
+
 # band_cr_backsub: the narrow kernel (a lane group per position) takes up
 # to this many rhs columns, the wide one (a thread per column) the rest.
 # The same constant stands in csrc/band.cu.
 _BACKSUB_NARROW_MAX_K = 4
 # CR compacts while the chain is longer than this; PCR factors the rest.
-# Chosen from depth sweeps on an H100 (profile_port.py; PERF.md has them).
+# Chosen from depth sweeps on an H100 (profile_port.py; PERF.md has them),
+# for 3D blocks too (profile_port.py --sweep3d).
 CR_BASE_LENGTH = 256
+# Steps of iterative refinement that every 3D band solve (Db = 12) takes.
+# The band's explicit inverses of ill-conditioned 12 x 12 blocks (the
+# rotation rows weigh ~1e4 times the translation rows) leave a 3D solve's
+# residual large enough that the dual residual of a 3D QCQP stalls above
+# the interior-point method's 1e-8 tolerance, the longer the PCR remainder
+# the worse (PERF.md). One step (a band product and a second solve) brings
+# it back at any compaction depth.
+REFINE_STEPS_3D = 1
 
 
 class CRLevel(NamedTuple):
@@ -132,6 +155,8 @@ class BandFactors(NamedTuple):
     E: torch.Tensor  # (L, C, Tb, Db, Db) PCR elimination blocks of the remainder
     F: torch.Tensor  # (L, C, Tb, Db, Db)
     invD: torch.Tensor  # (C, Tb, Db, Db) inverses of the decoupled system
+    D: torch.Tensor  # (C, Tp, Db, Db) the band factored: refinement residuals
+    U: torch.Tensor  # (C, Tp, Db, Db)
 
 
 def pad_length(T: int) -> int:
@@ -146,6 +171,12 @@ def num_levels(Tp: int) -> int:
     while (1 << L) < Tp:
         L += 1
     return L
+
+
+def refine_steps(Db: int) -> int:
+    """Iterative-refinement steps of a band solve with Db-blocks: none up
+    to 2D blocks, ``REFINE_STEPS_3D`` above."""
+    return 0 if Db <= 6 else REFINE_STEPS_3D
 
 
 def cr_depth(Tp: int) -> int:
@@ -299,6 +330,11 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
 
 
+def _count(wrapper, Db: int) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_size[Db] += 1
+
+
 def band_init_a(U: torch.Tensor) -> torch.Tensor:
     """Sub-diagonal blocks A_i = U_{i-1}^T of the band (C, Tp, Db, Db).
 
@@ -316,7 +352,7 @@ def band_init_a(U: torch.Tensor) -> torch.Tensor:
     A = torch.empty_like(U)
     err = _lib().band_init_a(U.data_ptr(), A.data_ptr(), C, Tp, Db, _stream())
     _raise_on("band_init_a", err)
-    band_init_a.launches += 1
+    _count(band_init_a, Db)
     return A
 
 
@@ -324,11 +360,15 @@ def band_block_inv(D: torch.Tensor) -> torch.Tensor:
     """Inverse of every SPD block of D (C, Tp, Db, Db).
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_block_inv_kernel`` (body
-    ``_block_inv``). Bound on the card by f64 arithmetic latency per
-    thread (Cholesky plus 2 Db triangular solves, ~Db^3 dependent
-    operations); one thread per block with the block in registers and
-    local memory, so there is no cross-thread traffic at all and every
-    block of every chain is independent."""
+    ``_block_inv``). Bound on the card by latency: a launch, and the
+    dependent f64 chains of a Cholesky and two substitutions (two blocks
+    of traffic, ~0.2 us of HBM time at 1,024 blocks). The lane-group
+    layout of the level kernels: a group of 8 (Db = 6) or 16 (Db = 12)
+    lanes owns a block, lane r loads row r (16-byte loads, the group's
+    rows contiguous), the Cholesky runs across the group by shuffles and
+    lane c solves column c of the inverse (``group_inv_spd``, shared with
+    the level kernels), which leaves through shared memory as 16-byte
+    stores."""
     _check("band_block_inv", D)
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
         raise ValueError(f"band_block_inv: expected (C, Tp, Db, Db), got {tuple(D.shape)}")
@@ -336,9 +376,10 @@ def band_block_inv(D: torch.Tensor) -> torch.Tensor:
         return band_block_inv_plain(D)
     C, Tp, Db, _ = D.shape
     out = torch.empty_like(D)
+    _check_aligned("band_block_inv", D)
     err = _lib().band_block_inv(D.data_ptr(), out.data_ptr(), C * Tp, Db, _stream())
     _raise_on("band_block_inv", err)
-    band_block_inv.launches += 1
+    _count(band_block_inv, Db)
     return out
 
 
@@ -358,9 +399,10 @@ def band_pcr_level(D, A, C, invD, s: int):
     so a launch is bound by latency, of the launch itself and of the
     dependent f64 chain of six 6x6 products, a Cholesky and two
     substitutions. The design keeps that chain short and the accesses
-    wide: a group of 8 lanes owns a position and lanes 0..5 each hold one
-    row of every block in registers (C*Tp*8 threads in flight, 8192 at
-    Manhattan-4's remainder; no local-memory arrays, no spill); the nine
+    wide: a group of 8 lanes (16 at Db = 12) owns a position and lanes
+    0..Db-1 each hold one row of every block in registers (C*Tp*8 threads
+    in flight at Db = 6, 8192 at Manhattan-4's remainder; no local-memory
+    arrays, no spill); the nine
     input blocks of a position are staged in shared memory by 16-byte
     cp.async copies on neighbouring addresses, the six outputs leave by
     16-byte stores; products read the other block's rows as shared-memory
@@ -383,7 +425,7 @@ def band_pcr_level(D, A, C, invD, s: int):
         *[o.data_ptr() for o in outs], nC, Tp, Db, int(s), _stream(),
     )
     _raise_on("band_pcr_level", err)
-    band_pcr_level.launches += 1
+    _count(band_pcr_level, Db)
     return tuple(outs)
 
 
@@ -391,20 +433,23 @@ def _solve_tile_columns(Tp: int, Db: int, K: int) -> int:
     """Columns of the register tile of band_pcr_solve, which names the
     kernel: ``_WIDE_COLUMNS`` is the wide kernel, 1, 2 or 4 the narrow
     one. The rule is on the shape alone: the wide kernel takes chains up
-    to ``_WIDE_MAX_LENGTH`` blocks with more than 4 rhs columns; the narrow
-    kernel takes the rest with the widest tile that K fills and that its
-    threads' accumulators and the shared memory hold. Raises when not
+    to ``_WIDE_MAX_LENGTH`` blocks of at most ``_WIDE_MAX_BLOCK`` rows
+    with more than 4 rhs columns; the narrow kernel takes the rest with
+    the widest tile that K fills and that its threads' accumulators and
+    the shared memory hold, and 3D blocks with one column. Raises when not
     even one column fits."""
-    if Tp <= _WIDE_MAX_LENGTH and K > 4:
+    if Db <= _WIDE_MAX_BLOCK and Tp <= _WIDE_MAX_LENGTH and K > 4:
         return _WIDE_COLUMNS
-    for ct in (4, 2, 1):
-        if (ct < 2 * K and Tp * Db * ct <= _NARROW_ACCUMULATORS * _NARROW_THREADS
+    # 3D blocks: one column a thread, the fastest tile at every remainder
+    # of the 3D bands (the tile sweep of profile_port.py --sweep3d, PERF.md)
+    for ct in (4, 2, 1) if Db <= _WIDE_MAX_BLOCK else (1,):
+        if (ct < 2 * K and Tp * Db * ct <= _narrow_accumulators(Db) * _NARROW_THREADS
                 and _solve_smem_bytes(Tp, Db, ct) <= _SMEM_MAX):
             return ct
     raise ValueError(
         f"band_pcr_solve: chain length {Tp} with {Db}-blocks does not fit a "
         f"thread block: one rhs column needs {Tp * Db} outputs in registers "
-        f"(max {_NARROW_ACCUMULATORS * _NARROW_THREADS}) and "
+        f"(max {_narrow_accumulators(Db) * _NARROW_THREADS}) and "
         f"{_solve_smem_bytes(Tp, Db, 1)} bytes of shared memory (max {_SMEM_MAX})"
     )
 
@@ -501,7 +546,7 @@ def band_pcr_solve(E, F, invD, b):
         nC, Tp, Db, L, K, ct, groups, _stream(),
     )
     _raise_on("band_pcr_solve", err)
-    band_pcr_solve.launches += 1
+    _count(band_pcr_solve, Db)
     return x
 
 
@@ -529,8 +574,9 @@ def band_cr_level(D, A, C):
     time), so a launch is bound by latency, of the launch and of the
     dependent f64 chain of a Cholesky, two substitutions and two
     row-times-block products. The design is ``band_pcr_level``'s: a group
-    of 8 lanes per coarse position, lanes 0..5 one row of every block
-    each, inputs staged in shared memory by 16-byte cp.async, products
+    of 8 lanes (16 at Db = 12) per coarse position, lanes 0..Db-1 one row
+    of every block each, inputs staged in shared memory by 16-byte
+    cp.async, products
     against shared-memory broadcasts, outputs by 16-byte stores, and the
     group inversion (Cholesky by shuffles, lane c solves column c) is the
     device function that ``band_pcr_level`` calls. Every group inverts
@@ -538,8 +584,9 @@ def band_cr_level(D, A, C):
     a block barrier F_j takes it and E_{j+1} of the next group takes it
     too, so an odd block is inverted once where a thread of the kernel
     before this design inverted both its neighbours one after the other.
-    A thread block is 15 positions and one more group that inverts the
-    odd block before the first position (1 inversion in 16 is repeated;
+    A thread block is 15 positions (3 at Db = 12) and one more group that
+    inverts the odd block before the first position (1 inversion in 16,
+    or 4, is repeated;
     all 16 run side by side). Sums run in the plain version's order;
     only nvcc's contraction to FMAs differs."""
     _check_fine_band("band_cr_level", D, A, C)
@@ -553,7 +600,7 @@ def band_cr_level(D, A, C):
         nC, T // 2, Db, _stream(),
     )
     _raise_on("band_cr_level", err)
-    band_cr_level.launches += 1
+    _count(band_cr_level, Db)
     return tuple(outs)
 
 
@@ -581,7 +628,7 @@ def band_cr_reduce(E, F, b):
     err = _lib().band_cr_reduce(E.data_ptr(), F.data_ptr(), b.data_ptr(),
                                 out.data_ptr(), nC, T // 2, Db, K, _stream())
     _raise_on("band_cr_reduce", err)
-    band_cr_reduce.launches += 1
+    _count(band_cr_reduce, Db)
     return out
 
 
@@ -606,14 +653,14 @@ def band_cr_backsub(invD, A, C, b, xe):
     What bounds it on the card: bytes (the panel's rhs in and out, 28 MB
     at Manhattan-4, 8.4 us of HBM time); a direction (K = 1, 1.1 MB) is
     bound by a launch and one round trip to memory. Two kernels, chosen by
-    :func:`_backsub_narrow`: for K <= 4 a group of 8 lanes owns a position
-    and lane r one row, loads its rows of A, C, invD (16-byte loads,
+    :func:`_backsub_narrow`: for K <= 4 a group of 8 lanes (16 at Db = 12)
+    owns a position and lane r one row, loads its rows of A, C, invD (16-byte loads,
     coalesced across the group), b and xe before the first product, and
-    gathers the other rows of xe and of the intermediate by width-8
+    gathers the other rows of xe and of the intermediate by group-wide
     shuffles (8 threads per position in blocks of 64, where a thread per
     position and column left 1024 threads on 4 SMs); for the panel a
     thread owns one or two neighbouring columns of a position (double2
-    where K is even and the rhs is 16-byte aligned), the block rows are
+    where K is even, the rhs is 16-byte aligned and Db = 6), the block rows are
     broadcasts across a warp and the rhs rows coalesce along the columns.
     Sums run in the plain version's order; only nvcc's contraction to FMAs
     differs."""
@@ -636,7 +683,7 @@ def band_cr_backsub(invD, A, C, b, xe):
         x.data_ptr(), nC, T // 2, Db, K, int(_backsub_narrow(K)), _stream(),
     )
     _raise_on("band_cr_backsub", err)
-    band_cr_backsub.launches += 1
+    _count(band_cr_backsub, Db)
     return x
 
 
@@ -647,6 +694,7 @@ KERNELS = (band_init_a, band_pcr_level, band_block_inv, band_pcr_solve,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.launches_by_size = dict.fromkeys(CUDA_BLOCK_SIZES, 0)
 
 
 reset_launch_counts()
@@ -669,6 +717,7 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
         n_cr = cr_depth(Tp)
     if not 0 <= n_cr <= num_levels(Tp):
         raise ValueError(f"band_factor: {n_cr} compacting levels for chain length {Tp}")
+    D0 = D
     A = band_init_a(U)
     Cc = U
     levels = []
@@ -686,13 +735,30 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
         E, F = torch.stack(Es), torch.stack(Fs)
     else:
         E = F = D.new_zeros((0, nC, Tb, Db, Db))
-    return BandFactors(levels=tuple(levels), E=E, F=F, invD=invD)
+    return BandFactors(levels=tuple(levels), E=E, F=F, invD=invD, D=D0, U=U)
+
+
+def band_matvec(D: torch.Tensor, U: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """T x for the band (D, U) (module convention) and x (C, Tp, Db, K)."""
+    Tx = D @ x
+    Tx[:, 1:] += U[:, :-1].transpose(-1, -2) @ x[:, :-1]
+    Tx[:, :-1] += U[:, :-1] @ x[:, 1:]
+    return Tx
 
 
 def band_solve(factors: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
     """Solve the factored systems for rhs (C, Tp, Db, K): reduce through
-    the CR levels, PCR-solve the remainder, back-substitute upwards."""
+    the CR levels, PCR-solve the remainder, back-substitute upwards; then
+    :func:`refine_steps` steps of iterative refinement (3D blocks), each
+    solving for the residual of the band product."""
     b = rhs.contiguous()
+    x = _band_solve_once(factors, b)
+    for _ in range(refine_steps(b.shape[-2])):
+        x = x + _band_solve_once(factors, b - band_matvec(factors.D, factors.U, x))
+    return x
+
+
+def _band_solve_once(factors: BandFactors, b: torch.Tensor) -> torch.Tensor:
     fine = []
     for lv in factors.levels:
         fine.append(b)

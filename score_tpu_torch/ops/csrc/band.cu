@@ -18,82 +18,32 @@
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing, and returns the cudaError_t of the launch (0 = ok).
-// Kernels are templated on the block size Db; only Db = 6 (2D pose blocks)
-// is instantiated.
+// Kernels are templated on the block size Db and instantiated for Db = 6
+// (2D pose blocks, [R | t] with R 2 x 2) and Db = 12 (3D, R 3 x 3); any
+// other Db returns cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// ---------------------------------------------------------------------
-// Per-block device functions (one Db x Db block per thread, row-major in
-// local arrays). Same operation order as the plain PyTorch versions in
-// score_tpu_torch/solver/smallblocks.py.
-// ---------------------------------------------------------------------
-
-// Left-looking column Cholesky: L lower-triangular with A = L L^T.
+// The lane-group layout of the kernels that work on whole blocks
+// (band_block_inv, band_pcr_level, band_cr_level, the narrow
+// band_cr_backsub): a group of `group` neighbouring lanes owns one
+// position and lane r < Db of the group holds row r of every block. A
+// group is 8 lanes for Db = 6 (4 groups a warp) and 16 for Db = 12 (2 a
+// warp), so it stays inside a warp and its shuffles have a width of a
+// power of two. The level kernels stage nine blocks per group in static
+// shared memory, under 48 KB a thread block: 4 warps of 4 groups at
+// Db = 6, and at Db = 12 (a block is 4 times the bytes, a warp holds half
+// the groups) 2 warps of band_pcr_level and 4 groups of band_cr_level;
+// both are 41,472 bytes at either size.
 template <int Db>
-__device__ __forceinline__ void chol(const double* A, double* L) {
-#pragma unroll
-  for (int j = 0; j < Db; ++j) {
-    double c[Db];
-#pragma unroll
-    for (int i = 0; i < Db; ++i) c[i] = A[i * Db + j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) {
-      const double ljk = L[j * Db + k];
-#pragma unroll
-      for (int i = 0; i < Db; ++i) c[i] = c[i] - L[i * Db + k] * ljk;
-    }
-    const double piv = sqrt(c[j]);
-#pragma unroll
-    for (int i = 0; i < Db; ++i) L[i * Db + j] = (i >= j) ? c[i] / piv : 0.0;
-  }
-}
-
-// Inverse of an SPD block: Cholesky, then L Y = I and L^T X = Y.
-template <int Db>
-__device__ __forceinline__ void inv_spd(const double* A, double* X) {
-  double L[Db * Db];
-  double Y[Db * Db];
-  chol<Db>(A, L);
-  // forward substitution, all Db columns of the identity at once
-#pragma unroll
-  for (int i = 0; i < Db; ++i) {
-#pragma unroll
-    for (int col = 0; col < Db; ++col) {
-      double r = (i == col) ? 1.0 : 0.0;
-#pragma unroll
-      for (int k = 0; k < i; ++k) r = r - L[i * Db + k] * Y[k * Db + col];
-      Y[i * Db + col] = r / L[i * Db + i];
-    }
-  }
-  // back substitution with L^T
-#pragma unroll
-  for (int i = Db - 1; i >= 0; --i) {
-#pragma unroll
-    for (int col = 0; col < Db; ++col) {
-      double r = Y[i * Db + col];
-#pragma unroll
-      for (int k = i + 1; k < Db; ++k) r = r - L[k * Db + i] * X[k * Db + col];
-      X[i * Db + col] = r / L[i * Db + i];
-    }
-  }
-}
-
-template <int Db>
-__device__ __forceinline__ void load_block(const double* __restrict__ src,
-                                           double* dst) {
-#pragma unroll
-  for (int e = 0; e < Db * Db; ++e) dst[e] = src[e];
-}
-
-template <int Db>
-__device__ __forceinline__ void store_block(double* __restrict__ dst,
-                                            const double* src) {
-#pragma unroll
-  for (int e = 0; e < Db * Db; ++e) dst[e] = src[e];
-}
+struct Lanes {
+  static constexpr int group = Db <= 8 ? 8 : 16;   // lanes per position
+  static constexpr int per_warp = 32 / group;      // positions per warp
+  static constexpr int level_warps = Db <= 8 ? 4 : 2;
+  static constexpr int cr_groups = Db <= 8 ? 16 : 4;
+};
 
 // ---------------------------------------------------------------------
 // Kernels
@@ -113,29 +63,16 @@ __global__ void init_a_kernel(const double* __restrict__ U,
   A[e] = (i == 0) ? 0.0 : U[(blk - 1) * Db * Db + col * Db + row];
 }
 
-// invD[b] = D[b]^{-1} for every block b. One thread per block.
-template <int Db>
-__global__ void __launch_bounds__(128)
-block_inv_kernel(const double* __restrict__ D, double* __restrict__ invD,
-                 long long nblocks) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nblocks) return;
-  double M[Db * Db];
-  double X[Db * Db];
-  load_block<Db>(D + b * Db * Db, M);
-  inv_spd<Db>(M, X);
-  store_block<Db>(invD + b * Db * Db, X);
-}
-
 // ---------------------------------------------------------------------
 // band_pcr_level: one PCR level at shift s.
 //
-// Mapping: a group of 8 neighbouring lanes owns one position (4 positions
-// per warp); lanes 0..Db-1 of the group each hold ONE ROW of every block
-// in registers, lanes Db..7 only help to move data. 8 (not Db) lanes per
-// group keeps a group inside a warp, so the width-8 shuffles of the
-// Cholesky need no index arithmetic, and gives the 18 double2 of a block
-// to 8 lanes as three 16-byte accesses on neighbouring addresses. The
+// Mapping: a lane group (Lanes<Db>::group = 8 lanes at Db = 6, 16 at
+// Db = 12) owns one position; lanes 0..Db-1 of the group each hold ONE ROW
+// of every block in registers, the other lanes only help to move data. A
+// power-of-two group (not Db lanes) keeps a group inside a warp, so the
+// shuffles of the Cholesky need no index arithmetic, and gives the Db^2 / 2
+// double2 of a block to the group as 16-byte accesses on neighbouring
+// addresses (three per lane at Db = 6, four or five at Db = 12). The
 // nine input blocks of a position (its own A, C, D and invD, C, A of
 // i-s and invD, A, C of i+s) are staged in shared memory with cp.async,
 // all in flight at once; a row-times-block product then reads the other
@@ -145,12 +82,9 @@ block_inv_kernel(const double* __restrict__ D, double* __restrict__ invD,
 // solves column c of L Y = I, L^T X = Y. Outputs go back through shared
 // memory and leave as 16-byte coalesced stores. Arithmetic order is that
 // of the plain PyTorch version (left-looking column Cholesky, products
-// summed over k ascending).
+// summed over k ascending). A thread block is Lanes<Db>::level_warps
+// warps: 16 positions in 128 threads at Db = 6, 4 in 64 at Db = 12.
 // ---------------------------------------------------------------------
-
-constexpr int kGroupLanes = 8;                   // lanes per position
-constexpr int kPosPerWarp = 32 / kGroupLanes;    // 4
-constexpr int kLevelWarps = 4;                   // 128 threads, 16 positions
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
@@ -188,24 +122,26 @@ __device__ __forceinline__ void row_times_block(const double* p,
 
 // Inverse of an SPD block across a lane group, called by every lane of the
 // warp: lane r < Db of the group holds row r of the block in Dv (a group
-// with no block, and lanes Db..7, pass rows of the identity). Cholesky by
-// width-8 shuffles (lane r ends with row r of L), L through the shared
-// block Lm, then lane c solves column c of L Y = I, L^T X = Y and writes it
-// to the shared block inv. Lm and inv may be blocks whose reads by the
-// group precede the call. The caller synchronises before inv is read.
+// with no block, and lanes Db and up, pass rows of the identity). Cholesky
+// by shuffles of the group's width (lane r ends with row r of L), L
+// through the shared block Lm, then lane c solves column c of L Y = I,
+// L^T X = Y and writes it to the shared block inv. Lm and inv may be
+// blocks whose reads by the group precede the call. The caller
+// synchronises before inv is read.
 template <int Db>
 __device__ __forceinline__ void group_inv_spd(const double* Dv, double* Lm,
                                               double* inv, int r, bool row) {
+  constexpr int GL = Lanes<Db>::group;
   double Lr[Db];
 #pragma unroll
   for (int j = 0; j < Db; ++j) {
     double cj = Dv[j];
 #pragma unroll
     for (int k = 0; k < j; ++k) {
-      const double ljk = __shfl_sync(0xffffffffu, Lr[k], j, kGroupLanes);
+      const double ljk = __shfl_sync(0xffffffffu, Lr[k], j, GL);
       cj = cj - Lr[k] * ljk;
     }
-    const double piv = sqrt(__shfl_sync(0xffffffffu, cj, j, kGroupLanes));
+    const double piv = sqrt(__shfl_sync(0xffffffffu, cj, j, GL));
     Lr[j] = (r >= j) ? cj / piv : 0.0;
   }
   __syncwarp();  // every lane has finished reading what Lm and inv held
@@ -235,33 +171,91 @@ __device__ __forceinline__ void group_inv_spd(const double* Dv, double* Lm,
   }
 }
 
+// ---------------------------------------------------------------------
+// band_block_inv: invD[b] = D[b]^{-1} for every SPD block b.
+//
+// Mapping: the lane-group layout, a group per block (16 blocks in a thread
+// block of 128 threads at Db = 6, 8 at Db = 12): lane r < Db loads row r of
+// its block by 16-byte loads (the group's rows are the block, contiguous),
+// the group inverts it with group_inv_spd, and the inverse leaves through
+// shared memory as 16-byte stores. The kernel before this one gave a whole
+// block to one thread: at Db = 6, 72 doubles of local arrays and a
+// dependent chain of ~Db^3 operations per thread (14.2 us for 1,024 blocks
+// on an H100); at Db = 12, 576 doubles a thread, past the registers.
+// Bound: latency, of a launch and of the Cholesky's and substitutions'
+// dependent f64 chains (2 blocks of traffic per position: 0.6 MB at
+// Manhattan-4's 1,024 blocks, 0.2 us of HBM time).
+// ---------------------------------------------------------------------
+
+constexpr int kBlockInvThreads = 128;
+
 template <int Db>
-__global__ void __launch_bounds__(kLevelWarps * 32)
+__global__ void __launch_bounds__(kBlockInvThreads)
+block_inv_kernel(const double* __restrict__ D, double* __restrict__ invD,
+                 long long nblocks) {
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int NG = kBlockInvThreads / GL;  // blocks per thread block
+  constexpr int BS = Db * Db;
+  constexpr int V = BS / 2;  // double2 per block
+  static_assert(Db % 2 == 0 && Db <= GL, "row-per-lane layout");
+  __shared__ __align__(16) double sm[NG][2][BS];  // L, then the inverse
+  const int q = threadIdx.x / GL;
+  const int r = threadIdx.x & (GL - 1);
+  const long long b = (long long)blockIdx.x * NG + q;
+  const bool valid = b < nblocks;
+  const bool row = r < Db;
+  double Dv[Db];
+  if (valid && row) {
+    const double* src = D + b * BS + r * Db;
+#pragma unroll
+    for (int c = 0; c < Db; c += 2) {
+      const double2 v = __ldg(reinterpret_cast<const double2*>(src + c));
+      Dv[c] = v.x;
+      Dv[c + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < Db; ++c) Dv[c] = (c == r) ? 1.0 : 0.0;
+  }
+  group_inv_spd<Db>(Dv, sm[q][0], sm[q][1], r, row);
+  __syncwarp();
+  if (valid) {
+#pragma unroll
+    for (int v = r; v < V; v += GL)
+      *reinterpret_cast<double2*>(invD + b * BS + 2 * v) =
+          *reinterpret_cast<const double2*>(&sm[q][1][2 * v]);
+  }
+}
+
+template <int Db>
+__global__ void __launch_bounds__(Lanes<Db>::level_warps * 32)
 pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
                  const double* __restrict__ Cc,
                  const double* __restrict__ invD, double* __restrict__ E,
                  double* __restrict__ F, double* __restrict__ D2,
                  double* __restrict__ A2, double* __restrict__ C2,
                  double* __restrict__ invD2, int nC, int Tp, int s) {
-  static_assert(Db % 2 == 0 && Db <= kGroupLanes, "row-per-lane layout");
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int PW = Lanes<Db>::per_warp;
+  constexpr int NW = Lanes<Db>::level_warps;
+  static_assert(Db % 2 == 0 && Db <= GL, "row-per-lane layout");
   constexpr int BS = Db * Db;
   constexpr int V = BS / 2;  // double2 per block
   // [block slot][position of the warp][BS]; slots while reading:
   // 0 A_i, 1 C_i, 2 D_i, 3 invD_dn, 4 C_dn, 5 A_dn, 6 invD_up, 7 A_up,
   // 8 C_up; while writing: 0 E, 1 F, 2 D', 3 A', 4 C', 5 L, 6 invD'.
-  __shared__ __align__(16) double sm[kLevelWarps][9][kPosPerWarp][BS];
+  __shared__ __align__(16) double sm[NW][9][PW][BS];
 
   const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) / kGroupLanes;  // position of the warp
-  const int r = threadIdx.x & (kGroupLanes - 1);   // row held by this lane
-  const long long t =
-      (long long)blockIdx.x * (kLevelWarps * kPosPerWarp) + (threadIdx.x >> 3);
+  const int g = (threadIdx.x & 31) / GL;  // position of the warp
+  const int r = threadIdx.x & (GL - 1);   // row held by this lane
+  const long long t = (long long)blockIdx.x * (NW * PW) + threadIdx.x / GL;
   const bool valid = t < (long long)nC * Tp;
   const int i = valid ? (int)(t % Tp) : 0;
   const bool has_dn = valid && i - s >= 0;
   const bool has_up = valid && i + s < Tp;
   const bool row = r < Db;
-  double(*my)[kPosPerWarp][BS] = sm[warp];
+  double(*my)[PW][BS] = sm[warp];
 
   {
     const double* src[9] = {A + t * BS,          Cc + t * BS,
@@ -273,7 +267,7 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
     for (int b = 0; b < 9; ++b) {
       const bool on = b < 3 ? valid : (b < 6 ? has_dn : has_up);
 #pragma unroll
-      for (int v = r; v < V; v += kGroupLanes) {
+      for (int v = r; v < V; v += GL) {
         double* dst = &my[b][g][2 * v];
         if (on) {
           cp_async16(dst, src[b] + 2 * v);
@@ -287,29 +281,38 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
   }
   __syncwarp();
 
-  double Ev[Db], Fv[Db], Dv[Db], Av[Db], Cv[Db];
+  // Row r of slots 0, 1, 2 is read by lane r alone, so E and F go there as
+  // soon as their products are done: fewer rows live in registers (at
+  // Db = 12 a row is 24 registers).
+  double Dv[Db], Av[Db], Cv[Db];
   if (row) {
-    double p[Db], acc[Db];
+    double p[Db], X[Db], acc[Db];
     // E = -A_i invD_{i-s};  A' = E A_{i-s};  D' gets E C_{i-s}
 #pragma unroll
     for (int c = 0; c < Db; ++c) p[c] = my[0][g][r * Db + c];
-    row_times_block<Db>(p, my[3][g], Ev);
+    row_times_block<Db>(p, my[3][g], X);
 #pragma unroll
-    for (int c = 0; c < Db; ++c) Ev[c] = has_dn ? -Ev[c] : 0.0;
-    row_times_block<Db>(Ev, my[5][g], Av);
-    row_times_block<Db>(Ev, my[4][g], Dv);
+    for (int c = 0; c < Db; ++c) X[c] = has_dn ? -X[c] : 0.0;
+    row_times_block<Db>(X, my[5][g], Av);
+    row_times_block<Db>(X, my[4][g], Dv);
+#pragma unroll
+    for (int c = 0; c < Db; ++c) my[0][g][r * Db + c] = X[c];
     // F = -C_i invD_{i+s};  C' = F C_{i+s};  D' gets F A_{i+s}
 #pragma unroll
     for (int c = 0; c < Db; ++c) p[c] = my[1][g][r * Db + c];
-    row_times_block<Db>(p, my[6][g], Fv);
+    row_times_block<Db>(p, my[6][g], X);
 #pragma unroll
-    for (int c = 0; c < Db; ++c) Fv[c] = has_up ? -Fv[c] : 0.0;
-    row_times_block<Db>(Fv, my[8][g], Cv);
-    row_times_block<Db>(Fv, my[7][g], acc);
+    for (int c = 0; c < Db; ++c) X[c] = has_up ? -X[c] : 0.0;
+    row_times_block<Db>(X, my[8][g], Cv);
+    row_times_block<Db>(X, my[7][g], acc);
+#pragma unroll
+    for (int c = 0; c < Db; ++c) my[1][g][r * Db + c] = X[c];
     // D' = D_i + (E C_{i-s} + F A_{i+s})
 #pragma unroll
-    for (int c = 0; c < Db; ++c)
+    for (int c = 0; c < Db; ++c) {
       Dv[c] = my[2][g][r * Db + c] + (Dv[c] + acc[c]);
+      my[2][g][r * Db + c] = Dv[c];
+    }
   }
   if (!valid || !row) {
     // idle lanes take the identity through the shuffles below
@@ -321,9 +324,6 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
   if (row) {
 #pragma unroll
     for (int c = 0; c < Db; ++c) {
-      my[0][g][r * Db + c] = Ev[c];
-      my[1][g][r * Db + c] = Fv[c];
-      my[2][g][r * Db + c] = Dv[c];
       my[3][g][r * Db + c] = Av[c];
       my[4][g][r * Db + c] = Cv[c];
     }
@@ -338,7 +338,7 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 #pragma unroll
     for (int b = 0; b < 6; ++b) {
 #pragma unroll
-      for (int v = r; v < V; v += kGroupLanes)
+      for (int v = r; v < V; v += GL)
         *reinterpret_cast<double2*>(dst[b] + 2 * v) =
             *reinterpret_cast<const double2*>(&my[slot[b]][g][2 * v]);
     }
@@ -354,11 +354,13 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 // outputs at the coarse length Th; fine row 2j of chain c is block 2*t for
 // t = c*Th + j, so the compaction costs no gather.
 //
-// Mapping: the lane-group layout of band_pcr_level. A thread block has 16
-// groups of 8 lanes: groups 1..15 own 15 consecutive coarse positions, and
-// group 0 stands in for the position before them. Every group owns ONE odd
-// row, 2t + 1 for its position t: it stages that row's D, A, C (and, groups
-// 1..15, the even row's) in shared memory by 16-byte cp.async, inverts the
+// Mapping: the lane-group layout of band_pcr_level. A thread block has NG
+// lane groups (Lanes<Db>::cr_groups: 16 groups of 8 lanes at Db = 6, 4
+// groups of 16 at Db = 12): groups 1..NG-1 own consecutive coarse
+// positions, and group 0 stands in for the position before them. Every
+// group owns ONE odd row, 2t + 1 for its position t: it stages that row's
+// D, A, C (and, groups 1..NG-1, the even row's) in shared memory by 16-byte
+// cp.async, inverts the
 // odd D with the group inversion it shares with band_pcr_level, and leaves
 // the inverse in shared memory. After one block barrier a group takes
 // F = -C_{2j} invD_{2j+1} from its own odd row and E = -A_{2j} invD_{2j-1}
@@ -367,7 +369,7 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 // of a thread block side by side, where a thread of the kernel before this
 // one inverted both neighbours in its own dependent chain. Group 0 exists
 // so that the first position's halo inverse does not double that position's
-// chain (one inversion in 16 is repeated). The outputs leave through
+// chain (one inversion in NG is repeated). The outputs leave through
 // shared memory as 16-byte stores; Ao, Co are the staged copies.
 // Arithmetic order is that of the plain PyTorch version.
 // Bound: 7 blocks of traffic per fine position pair (1.6 MB at
@@ -376,30 +378,29 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 // substitutions and two row-times-block products.
 // ---------------------------------------------------------------------
 
-constexpr int kCrGroups = kLevelWarps * kPosPerWarp;  // 16 lane groups
-constexpr int kCrPositions = kCrGroups - 1;           // and one is the halo
-
 template <int Db>
-__global__ void __launch_bounds__(kLevelWarps * 32)
+__global__ void __launch_bounds__(Lanes<Db>::cr_groups * Lanes<Db>::group)
 cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
                 const double* __restrict__ Cc, double* __restrict__ E,
                 double* __restrict__ F, double* __restrict__ invDo,
                 double* __restrict__ Ao, double* __restrict__ Co,
                 double* __restrict__ D2, double* __restrict__ A2,
                 double* __restrict__ C2, int nC, int Th) {
-  static_assert(Db % 2 == 0 && Db <= kGroupLanes, "row-per-lane layout");
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int NG = Lanes<Db>::cr_groups;  // one of them is the halo
+  static_assert(Db % 2 == 0 && Db <= GL, "row-per-lane layout");
   constexpr int BS = Db * Db;
   constexpr int V = BS / 2;  // double2 per block
   // [group][block slot][BS]; slots: 0 D_odd, then L; 1 A_odd; 2 C_odd;
   // 3 D_even, then D'; 4 A_even, then E; 5 C_even, then F; 6 invD_odd;
   // 7 A'; 8 C'. The next group reads slots 6, 1, 2, which stay as they are.
-  __shared__ __align__(16) double sm[kCrGroups][9][BS];
+  __shared__ __align__(16) double sm[NG][9][BS];
 
-  const int q = threadIdx.x / kGroupLanes;        // group of the block
-  const int r = threadIdx.x & (kGroupLanes - 1);  // row held by this lane
+  const int q = threadIdx.x / GL;        // group of the block
+  const int r = threadIdx.x & (GL - 1);  // row held by this lane
   const int n = nC * Th;
   // group 0: the position before the block's first, for its odd row only
-  const int t = (int)blockIdx.x * kCrPositions + q - 1;
+  const int t = (int)blockIdx.x * (NG - 1) + q - 1;
   const bool pos = q > 0 && t < n;  // owns coarse position t
   // odd row 2t + 1 is wanted: by its owner, or by the block's first
   // position when that has a lower neighbour in its chain
@@ -416,7 +417,7 @@ cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
     for (int b = 0; b < 6; ++b) {
       if (b < 3 || pos) {
 #pragma unroll
-        for (int v = r; v < V; v += kGroupLanes)
+        for (int v = r; v < V; v += GL)
           cp_async16(&my[b][2 * v], src[b] + 2 * v);
       }
     }
@@ -483,7 +484,7 @@ cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 #pragma unroll
     for (int b = 0; b < 8; ++b) {
 #pragma unroll
-      for (int v = r; v < V; v += kGroupLanes)
+      for (int v = r; v < V; v += GL)
         *reinterpret_cast<double2*>(dst[b] + 2 * v) =
             *reinterpret_cast<const double2*>(&my[slot[b]][2 * v]);
     }
@@ -533,19 +534,22 @@ cr_reduce_kernel(const double* __restrict__ E, const double* __restrict__ F,
 // chosen by ops/band.py from K (band._backsub_narrow):
 //
 //   narrow (K <= 4: the directions, K = 1): the lane-group layout of the
-//          level kernels. A group of 8 lanes owns a coarse position; lane
-//          r < Db loads row r of A, C and invD (48 bytes each, three
-//          16-byte loads, neighbouring lanes on neighbouring addresses)
-//          and its rows of b[2j+1], x_ev[j] and x_ev[j+1], all before the
-//          first product. The products gather the other rows of x_ev and
-//          of the intermediate rv by width-8 shuffles, so a lane computes
-//          only its own row: C * Th * 8 threads in blocks of 64, where the
+//          level kernels. A group (8 lanes at Db = 6, 16 at Db = 12) owns
+//          a coarse position; lane r < Db loads row r of A, C and invD
+//          (8 * Db bytes each as 16-byte loads, neighbouring lanes on
+//          neighbouring addresses) and its rows of b[2j+1], x_ev[j] and
+//          x_ev[j+1], all before the first product. The products gather
+//          the other rows of x_ev and of the intermediate rv by shuffles
+//          of the group's width, so a lane computes only its own row:
+//          C * Th * 8 threads at Db = 6 in blocks of 64, where the
 //          kernel before this one ran a thread per position and column
 //          (1024 threads on 4 SMs at Manhattan-4's direction) through
 //          three dependent 6x6 products on 108 uncoalesced loads.
 //   wide   (K >= 5: the arrow panel): a thread per position and V
-//          neighbouring columns (V = 2 where K is even and the rhs arrays
-//          are 16-byte aligned, so b, x_ev and x move as double2; else 1).
+//          neighbouring columns (V = 2 where K is even, the rhs arrays
+//          are 16-byte aligned and Db = 6, so b, x_ev and x move as
+//          double2; else 1: at Db = 12 a pair of columns would hold 5 x 24
+//          doubles of rows in registers).
 //          The threads of a warp share a position, so the block rows they
 //          read (double2) are broadcasts; b and x_ev rows are coalesced
 //          along the columns.
@@ -559,7 +563,7 @@ cr_reduce_kernel(const double* __restrict__ E, const double* __restrict__ F,
 // ---------------------------------------------------------------------
 
 constexpr int kBacksubNarrowK = 4;         // most rhs columns of the narrow kernel
-constexpr int kBacksubNarrowThreads = 64;  // 8 positions per thread block
+constexpr int kBacksubNarrowThreads = 64;  // 8 positions (Db = 6) or 4 a block
 constexpr int kBacksubWideThreads = 256;
 
 template <int Db>
@@ -570,12 +574,13 @@ cr_backsub_narrow_kernel(const double* __restrict__ invDo,
                          const double* __restrict__ b,
                          const double* __restrict__ xe,
                          double* __restrict__ x, int n, int Th, int K) {
-  static_assert(Db % 2 == 0 && Db <= kGroupLanes, "row-per-lane layout");
+  constexpr int GL = Lanes<Db>::group;
+  static_assert(Db % 2 == 0 && Db <= GL, "row-per-lane layout");
   constexpr int BS = Db * Db;
   constexpr int KN = kBacksubNarrowK;
-  const int t = blockIdx.x * (kBacksubNarrowThreads / kGroupLanes) +
-                threadIdx.x / kGroupLanes;  // c * Th + j
-  const int r = threadIdx.x & (kGroupLanes - 1);
+  const int t = blockIdx.x * (kBacksubNarrowThreads / GL) +
+                threadIdx.x / GL;  // c * Th + j
+  const int r = threadIdx.x & (GL - 1);
   const bool row = t < n && r < Db;
   const bool has_up = t < n && t % Th + 1 < Th;
   const long long rs = (long long)Db * K;
@@ -620,17 +625,17 @@ cr_backsub_narrow_kernel(const double* __restrict__ invDo,
       double a = 0.0;
 #pragma unroll
       for (int p = 0; p < Db; ++p)
-        a += Ar[p] * __shfl_sync(0xffffffffu, xr[k], p, kGroupLanes);
+        a += Ar[p] * __shfl_sync(0xffffffffu, xr[k], p, GL);
       double rv = br[k] - a;
       a = 0.0;
 #pragma unroll
       for (int p = 0; p < Db; ++p)
-        a += Cr[p] * __shfl_sync(0xffffffffu, ur[k], p, kGroupLanes);
+        a += Cr[p] * __shfl_sync(0xffffffffu, ur[k], p, GL);
       if (has_up) rv = rv - a;
       double out = 0.0;
 #pragma unroll
       for (int q = 0; q < Db; ++q)
-        out += Vr[q] * __shfl_sync(0xffffffffu, rv, q, kGroupLanes);
+        out += Vr[q] * __shfl_sync(0xffffffffu, rv, q, GL);
       if (row) {
         x0[k] = xr[k];
         x1[k] = out;
@@ -753,13 +758,16 @@ cr_backsub_wide_kernel(const double* __restrict__ invDo,
 //          as 16-byte vectors; the half block's stride and the rhs
 //          buffer's padded position stride (an odd number of 16-byte
 //          units) keep a quarter warp on distinct banks.
-//   narrow (K <= 4, or any K on chains longer than 256): one thread per
-//          (position, row) and CT in {1, 2, 4} columns, IT items per
-//          thread; the Db rows of a position and its two neighbour
-//          products lie on neighbouring lanes, whose 16-byte loads of E, F
-//          rows (48 bytes a row) are contiguous across the warp, and for
-//          IT <= 4 all of a level's loads start, unconditionally,
-//          before the first is used.
+//   narrow (K <= 4, any K on chains longer than 256, and every K at
+//          Db = 12, where the wide kernel's Db x 8 tile would double its
+//          198 registers): one thread per (position, row) and CT in
+//          {1, 2, 4} columns (at Db = 12 one, the fastest tile at the 3D
+//          bands' remainders on an H100), IT items per thread; the Db rows of a
+//          position and its two neighbour products lie on neighbouring
+//          lanes, whose 16-byte loads of E, F rows (8 * Db bytes a row) are
+//          contiguous across the warp, and for IT * Db <= 24 all of a
+//          level's loads start, unconditionally, before the first is
+//          used.
 //
 // What bounds them on an H100 (profile_port.py --ablate, PERF.md): the E
 // and F of a level, which every block of a chain reads again from L2. One
@@ -779,7 +787,11 @@ constexpr int kWideCols = 8;
 constexpr int kWideMaxT = 256;     // also the most threads of a wide block
 constexpr int kWideRing = 3;
 constexpr int kNarrowThreads = 512;
-constexpr int kNarrowAcc = 24;  // accumulators per thread: IT * CT
+// Accumulators per thread of the narrow kernel, IT * CT: 24 at Db = 6; 12
+// at Db = 12, whose rows of E, F take twice the registers (24 spilled: 512
+// threads leave a thread 128 registers).
+template <int Db>
+constexpr int narrow_acc() { return Db <= 6 ? 24 : 12; }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -1000,7 +1012,9 @@ pcr_solve_narrow_kernel(const double* __restrict__ E,
                         int nC, int Tp, int L, int K) {
   constexpr int BS = Db * Db;
   constexpr int PS = Db * CT;
-  constexpr bool kPreload = IT <= 4;  // 2 * Db * IT doubles of E, F rows
+  // 2 * Db * IT doubles of E, F rows in registers: IT <= 4 at Db = 6,
+  // IT <= 2 at Db = 12
+  constexpr bool kPreload = IT * Db <= 24;
   extern __shared__ __align__(16) double smem[];
   const int c = blockIdx.x;
   const int k0 = blockIdx.y * CT;
@@ -1150,7 +1164,7 @@ template <int Db, int CT>
 cudaError_t launch_narrow(const double* E, const double* F,
                           const double* invD, const double* b, double* x,
                           int nC, int Tp, int L, int K, cudaStream_t st) {
-  constexpr int ITMAX = kNarrowAcc / CT;
+  constexpr int ITMAX = narrow_acc<Db>() / CT;
   const size_t smem = (size_t)Tp * Db * CT * sizeof(double);
   // the fewest rounds of items that 512 threads allow, spread evenly
   const int nitem = Tp * Db;
@@ -1198,7 +1212,123 @@ inline int grid_for(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
 
+// One launch of each kernel at block size Db (the C entries below pick Db).
+
+template <int Db>
+cudaError_t launch_init_a(const double* U, double* A, int nC, int Tp,
+                          cudaStream_t st) {
+  const long long n = (long long)nC * Tp * Db * Db;
+  init_a_kernel<Db><<<grid_for(n, 256), 256, 0, st>>>(U, A, nC, Tp);
+  return cudaGetLastError();
+}
+
+template <int Db>
+cudaError_t launch_block_inv(const double* D, double* invD, long long nblocks,
+                             cudaStream_t st) {
+  constexpr int per_block = kBlockInvThreads / Lanes<Db>::group;
+  block_inv_kernel<Db><<<grid_for(nblocks, per_block), kBlockInvThreads, 0, st>>>(
+      D, invD, nblocks);
+  return cudaGetLastError();
+}
+
+template <int Db>
+cudaError_t launch_pcr_level(const double* D, const double* A, const double* Cc,
+                             const double* invD, double* E, double* F,
+                             double* D2, double* A2, double* C2, double* invD2,
+                             int nC, int Tp, int s, cudaStream_t st) {
+  constexpr int warps = Lanes<Db>::level_warps;
+  constexpr int per_block = warps * Lanes<Db>::per_warp;
+  pcr_level_kernel<Db><<<grid_for((long long)nC * Tp, per_block), warps * 32, 0, st>>>(
+      D, A, Cc, invD, E, F, D2, A2, C2, invD2, nC, Tp, s);
+  return cudaGetLastError();
+}
+
+template <int Db>
+cudaError_t launch_cr_level(const double* D, const double* A, const double* Cc,
+                            double* E, double* F, double* invDo, double* Ao,
+                            double* Co, double* D2, double* A2, double* C2,
+                            int nC, int Th, cudaStream_t st) {
+  constexpr int groups = Lanes<Db>::cr_groups;
+  cr_level_kernel<Db><<<grid_for((long long)nC * Th, groups - 1),
+                        groups * Lanes<Db>::group, 0, st>>>(
+      D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
+  return cudaGetLastError();
+}
+
+template <int Db>
+cudaError_t launch_cr_reduce(const double* E, const double* F, const double* b,
+                             double* out, int nC, int Th, int K, cudaStream_t st) {
+  const long long n = (long long)nC * Th * Db * K;
+  cr_reduce_kernel<Db><<<grid_for(n, 256), 256, 0, st>>>(E, F, b, out, nC, Th, K);
+  return cudaGetLastError();
+}
+
+template <int Db>
+cudaError_t launch_cr_backsub(const double* invDo, const double* Ao,
+                              const double* Co, const double* b,
+                              const double* xe, double* x, long long n, int Th,
+                              int K, bool narrow, cudaStream_t st) {
+  if (narrow) {
+    if (K > kBacksubNarrowK || n > 0x7fffffff) return cudaErrorInvalidValue;
+    constexpr int per_block = kBacksubNarrowThreads / Lanes<Db>::group;
+    cr_backsub_narrow_kernel<Db><<<grid_for(n, per_block), kBacksubNarrowThreads, 0, st>>>(
+        invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+    return cudaGetLastError();
+  }
+  auto aligned16 = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  if constexpr (Db == 6) {  // column pairs: 2D only
+    if (K % 2 == 0 && aligned16(b) && aligned16(xe) && aligned16(x)) {
+      const long long w = n * (K / 2);
+      if (w > 0x7fffffff) return cudaErrorInvalidValue;
+      cr_backsub_wide_kernel<Db, 2><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads,
+                                      0, st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+      return cudaGetLastError();
+    }
+  }
+  const long long w = n * K;
+  if (w > 0x7fffffff) return cudaErrorInvalidValue;
+  cr_backsub_wide_kernel<Db, 1><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
+                                  st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+  return cudaGetLastError();
+}
+
+template <int Db>
+cudaError_t launch_pcr_solve(const double* E, const double* F, const double* invD,
+                             const double* b, double* x, int nC, int Tp, int L,
+                             int K, int ct, int groups, cudaStream_t st) {
+  switch (ct) {
+    case 8:  // the wide kernel's Db x 8 register tile: Db = 6 only
+      if constexpr (Db == 6)
+        return launch_wide<Db>(E, F, invD, b, x, nC, Tp, L, K, groups, st);
+      break;
+    case 4:
+      return launch_narrow<Db, 4>(E, F, invD, b, x, nC, Tp, L, K, st);
+    case 2:
+      return launch_narrow<Db, 2>(E, F, invD, b, x, nC, Tp, L, K, st);
+    case 1:
+      return launch_narrow<Db, 1>(E, F, invD, b, x, nC, Tp, L, K, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// The instantiated block sizes: 6 (2D) and 12 (3D).
+#define BAND_DISPATCH(Db, call)              \
+  switch (Db) {                              \
+    case 6: {                                \
+      constexpr int kDb = 6;                 \
+      return (int)call;                      \
+    }                                        \
+    case 12: {                               \
+      constexpr int kDb = 12;                \
+      return (int)call;                      \
+    }                                        \
+    default:                                 \
+      return (int)cudaErrorInvalidValue;     \
+  }
 
 extern "C" {
 
@@ -1208,51 +1338,26 @@ const char* band_error_string(int err) {
 
 int band_init_a(const double* U, double* A, int nC, int Tp, int Db,
                 void* stream) {
-  const long long n = (long long)nC * Tp * Db * Db;
-  if (n == 0) return 0;
+  if ((long long)nC * Tp == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Db) {
-    case 6:
-      init_a_kernel<6><<<grid_for(n, 256), 256, 0, st>>>(U, A, nC, Tp);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  BAND_DISPATCH(Db, launch_init_a<kDb>(U, A, nC, Tp, st))
 }
 
 int band_block_inv(const double* D, double* invD, long long nblocks, int Db,
                    void* stream) {
   if (nblocks == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Db) {
-    case 6:
-      block_inv_kernel<6><<<grid_for(nblocks, 128), 128, 0, st>>>(D, invD,
-                                                                  nblocks);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  BAND_DISPATCH(Db, launch_block_inv<kDb>(D, invD, nblocks, st))
 }
 
 int band_pcr_level(const double* D, const double* A, const double* Cc,
                    const double* invD, double* E, double* F, double* D2,
                    double* A2, double* C2, double* invD2, int nC, int Tp,
                    int Db, int s, void* stream) {
-  const long long n = (long long)nC * Tp;
-  if (n == 0) return 0;
+  if ((long long)nC * Tp == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  constexpr int per_block = kLevelWarps * kPosPerWarp;
-  switch (Db) {
-    case 6:
-      pcr_level_kernel<6><<<grid_for(n, per_block), kLevelWarps * 32, 0, st>>>(
-          D, A, Cc, invD, E, F, D2, A2, C2, invD2, nC, Tp, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  BAND_DISPATCH(Db, launch_pcr_level<kDb>(D, A, Cc, invD, E, F, D2, A2, C2, invD2,
+                                          nC, Tp, s, st))
 }
 
 int band_cr_level(const double* D, const double* A, const double* Cc,
@@ -1263,31 +1368,15 @@ int band_cr_level(const double* D, const double* A, const double* Cc,
   if (n == 0) return 0;
   if (n > 0x3fffffff) return (int)cudaErrorInvalidValue;  // 2t + 1 as an int
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Db) {
-    case 6:
-      cr_level_kernel<6><<<grid_for(n, kCrPositions), kLevelWarps * 32, 0, st>>>(
-          D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  BAND_DISPATCH(Db, launch_cr_level<kDb>(D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2,
+                                         nC, Th, st))
 }
 
 int band_cr_reduce(const double* E, const double* F, const double* b,
                    double* out, int nC, int Th, int Db, int K, void* stream) {
-  const long long n = (long long)nC * Th * Db * K;
-  if (n == 0) return 0;
+  if ((long long)nC * Th * K == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Db) {
-    case 6:
-      cr_reduce_kernel<6><<<grid_for(n, 256), 256, 0, st>>>(E, F, b, out, nC,
-                                                            Th, K);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  BAND_DISPATCH(Db, launch_cr_reduce<kDb>(E, F, b, out, nC, Th, K, st))
 }
 
 // narrow: 1 for the lane-group kernel (K <= 4), 0 for the thread-per-
@@ -1297,52 +1386,22 @@ int band_cr_backsub(const double* invDo, const double* Ao, const double* Co,
                     int Th, int Db, int K, int narrow, void* stream) {
   const long long n = (long long)nC * Th;
   if (n == 0 || K == 0) return 0;
-  if (Db != 6) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (narrow) {
-    if (K > kBacksubNarrowK || n > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    constexpr int per_block = kBacksubNarrowThreads / kGroupLanes;
-    cr_backsub_narrow_kernel<6><<<grid_for(n, per_block), kBacksubNarrowThreads, 0, st>>>(
-        invDo, Ao, Co, b, xe, x, (int)n, Th, K);
-    return (int)cudaGetLastError();
-  }
-  auto aligned16 = [](const void* p) {
-    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-  };
-  const bool pairs = K % 2 == 0 && aligned16(b) && aligned16(xe) && aligned16(x);
-  const long long w = n * (pairs ? K / 2 : K);
-  if (w > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (pairs) {
-    cr_backsub_wide_kernel<6, 2><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
-                                   st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
-  } else {
-    cr_backsub_wide_kernel<6, 1><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
-                                   st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
-  }
-  return (int)cudaGetLastError();
+  BAND_DISPATCH(Db, launch_cr_backsub<kDb>(invDo, Ao, Co, b, xe, x, n, Th, K,
+                                           narrow != 0, st))
 }
 
 // ct: columns of a thread's register tile, as ops/band.py chose them: 8
-// runs the wide kernel with `groups` threads per position (8 * groups
-// columns per block), 1, 2 or 4 the narrow one.
+// runs the wide kernel (Db = 6) with `groups` threads per position (8 *
+// groups columns per block), 1, 2 or 4 the narrow one (ops/band.py picks 1
+// at Db = 12; profile_port.py --sweep3d times all three).
 int band_pcr_solve(const double* E, const double* F, const double* invD,
                    const double* b, double* x, int nC, int Tp, int Db, int L,
                    int K, int ct, int groups, void* stream) {
   if (nC == 0 || K == 0 || Tp == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (Db != 6) return (int)cudaErrorInvalidValue;
-  switch (ct) {
-    case 8:
-      return (int)launch_wide<6>(E, F, invD, b, x, nC, Tp, L, K, groups, st);
-    case 4:
-      return (int)launch_narrow<6, 4>(E, F, invD, b, x, nC, Tp, L, K, st);
-    case 2:
-      return (int)launch_narrow<6, 2>(E, F, invD, b, x, nC, Tp, L, K, st);
-    case 1:
-      return (int)launch_narrow<6, 1>(E, F, invD, b, x, nC, Tp, L, K, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  BAND_DISPATCH(Db, launch_pcr_solve<kDb>(E, F, invD, b, x, nC, Tp, L, K, ct,
+                                          groups, st))
 }
 
 }  // extern "C"

@@ -480,10 +480,15 @@ class CAFactors(NamedTuple):
 
 def _scatter_add(out: torch.Tensor, index: tuple, values: torch.Tensor) -> None:
     """out[index] += values with repeated indices accumulating (the JAX
-    ``.at[index].add``), index tensors broadcast against each other."""
-    shape = torch.broadcast_shapes(*(i.shape for i in index), values.shape)
+    ``.at[index].add``): the index tensors broadcast against each other to
+    a shape S, and values broadcast to S + out.shape[len(index):], the
+    shape of ``out[index]``. (Index tensors for fewer dimensions than
+    ``out`` has select whole sub-blocks: the loop closures' D x D blocks
+    and D-vectors.)"""
+    shape = torch.broadcast_shapes(*(i.shape for i in index))
+    target = shape + out.shape[len(index):]
     out.index_put_(
-        tuple(i.expand(shape) for i in index), values.expand(shape),
+        tuple(i.expand(shape) for i in index), values.expand(target),
         accumulate=True,
     )
 

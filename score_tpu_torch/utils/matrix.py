@@ -1,7 +1,7 @@
 """Host-side SE(d) helpers (numpy) used by the trajectory export.
 
 Port of the subset of ``score_tpu.utils.matrix`` that the factor-graph
-modules call; the device-side batched rounding lives in
+modules and the 3D simulator call; the device-side batched rounding lives in
 :mod:`score_tpu_torch.ops.rounding`.
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
+    "round_to_special_orthogonal",
     "get_quat_from_rotation_matrix",
     "get_rotation_from_transformation_matrix",
     "get_translation_from_transformation_matrix",
@@ -18,6 +19,32 @@ __all__ = [
 
 def _check_square(mat: np.ndarray) -> None:
     assert mat.ndim == 2 and mat.shape[0] == mat.shape[1], f"not square: {mat.shape}"
+
+
+def _check_rotation_matrix(R: np.ndarray) -> None:
+    """Raise unless R is orthogonal with det +1 (to 1e-3)."""
+    d = R.shape[0]
+    if not np.allclose(R @ R.T, np.eye(d), rtol=1e-3, atol=1e-3):
+        raise ValueError(f"R is not orthogonal: R@R.T=\n{R @ R.T}")
+    if abs(np.linalg.det(R) - 1.0) >= 1e-3:
+        raise ValueError(f"det(R) != 1: {np.linalg.det(R)}")
+
+
+def round_to_special_orthogonal(mat: np.ndarray) -> np.ndarray:
+    """Project a (near-)rotation matrix onto SO(d): U @ Vh from the SVD,
+    with the last singular direction flipped if the determinant is
+    negative (the host twin of :mod:`score_tpu_torch.ops.rounding`)."""
+    mat = np.asarray(mat, dtype=np.float64)
+    _check_square(mat)
+    d = mat.shape[0]
+    U, _, Vh = np.linalg.svd(mat)
+    R = U @ Vh
+    if np.linalg.det(R) < 0:
+        flip = np.ones(d)
+        flip[-1] = -1.0
+        R = (U * flip) @ Vh
+    _check_rotation_matrix(R)
+    return R
 
 
 def get_quat_from_rotation_matrix(mat: np.ndarray) -> np.ndarray:

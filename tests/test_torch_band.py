@@ -24,6 +24,8 @@ from tests.test_pcr_tf import _block_tridiag, _dense
 
 from score_tpu_torch.ops import band
 
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     return np.max(np.abs(np.asarray(a) - np.asarray(b))) / np.max(np.abs(np.asarray(b)))
@@ -331,3 +333,104 @@ def test_solve_chunk_columns_raises_when_a_column_does_not_fit(Tp):
     assert band._solve_chunk_columns(2048, 6, 7) == 1  # the longest chain that fits
     with pytest.raises(ValueError):
         band._solve_chunk_columns(Tp, 6, 1)
+
+
+# ------------------------------------------------------------------ #
+# 3D blocks (Db = 12)
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.parametrize(
+    "C,T,K,active,n_cr",
+    [
+        (2, 16, 18, None, 2),  # 16 -> 8 -> 4, then PCR
+        (1, 32, 1, None, 0),  # PCR only
+        (3, 8, 3, (8, 5, 1), 3),  # padded chains, compacted to one block
+        (2, 4, 18, None, 1),
+        (2, 1, 2, None, None),  # one block per chain
+    ],
+)
+def test_band_3d_matches_dense(C, T, K, active, n_cr, monkeypatch):
+    """The band at 3D blocks against a dense solve, 1e-11, with each plain
+    twin seen to run: factor and solve reach all seven (the schedules with
+    both compacting and PCR levels)."""
+    calls = {}
+    for name in ("band_init_a", "band_block_inv", "band_pcr_level", "band_pcr_solve",
+                 "band_cr_level", "band_cr_reduce", "band_cr_backsub"):
+        plain = getattr(band, name + "_plain")
+
+        def spy(*a, _plain=plain, _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _plain(*a)
+
+        monkeypatch.setattr(band, name + "_plain", spy)
+    D, U = _chains(C, T, 12, 90, active)
+    rhs = np.random.default_rng(5).standard_normal((C, T, 12, K))
+    f, x = _port_solve(D, U, rhs, n_cr)
+    n = band.cr_depth(T) if n_cr is None else n_cr
+    assert len(f.levels) == n and f.invD.shape == (C, T >> n, 12, 12)
+    for c in range(C):
+        xref = np.linalg.solve(_dense(D[c], U[c]), rhs[c].reshape(T * 12, K))
+        assert _rel(x[c].reshape(T * 12, K), xref) <= 1e-11
+    if 0 < n < band.num_levels(T):
+        assert len(calls) == 7, calls
+
+
+def test_block_inv_plain_3d_is_the_inverse():
+    D, _ = _chains(2, 8, 12, 91)
+    inv = band.band_block_inv_plain(torch.tensor(D)).numpy()
+    assert _rel(inv, np.linalg.inv(D)) <= 1e-12
+
+
+def _odometry_band(C, T, Db, spread=4.0, delta=1e-3, seed=1):
+    """An odometry chain's band: D_i = 2 W + delta I, couplings -W, with W
+    SPD and its eigenvalues spread over ``spread`` decades (the rotation
+    rows of 3D pose blocks weigh ~1e4 times the translation rows)."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((Db, Db)))[0]
+    W = Q @ np.diag(np.logspace(0, spread, Db)) @ Q.T
+    D = np.broadcast_to(2 * W + delta * np.eye(Db), (C, T, Db, Db)).copy()
+    U = np.broadcast_to(-W, (C, T, Db, Db)).copy()
+    U[:, -1] = 0.0
+    return torch.tensor(D), torch.tensor(U)
+
+
+@pytest.mark.parametrize("T,n_cr", [(16, 0), (16, 4), (32, 0), (32, 2), (32, 5), (64, 3)])
+def test_band_3d_refinement(T, n_cr, monkeypatch):
+    """A 3D band solve takes one step of iterative refinement: on an
+    odometry chain's ill-conditioned 12 x 12 band the residual of the
+    solve falls from ~1e-9 to ~1e-11 relative (by 50 or more) at every
+    compaction depth; 2D solves take none."""
+    assert band.refine_steps(6) == 0 and band.refine_steps(12) == band.REFINE_STEPS_3D == 1
+    D, U = _odometry_band(2, T, 12)
+    b = torch.tensor(np.random.default_rng(2).standard_normal((2, T, 12, 3)))
+    f = band.band_factor(D, U, n_cr=n_cr)
+    resid = lambda x: ((band.band_matvec(D, U, x) - b).abs().max() / b.abs().max()).item()
+    refined = resid(band.band_solve(f, b))
+    monkeypatch.setattr(band, "REFINE_STEPS_3D", 0)
+    once = resid(band.band_solve(f, b))
+    assert once >= 1e-10  # what the explicit inverses lose
+    assert refined <= 1e-10 and refined <= once / 50
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 9, 18, 258])
+@pytest.mark.parametrize("Tp", [1, 2, 4, 8, 64, 128, 256, 512])
+def test_solve_tile_columns_3d(Tp, K):
+    """band_pcr_solve at Db = 12 always takes the narrow kernel with one
+    column a thread (the wide kernel's 12 x 8 register tile is not built;
+    one column was the fastest tile at every 3D remainder on the card),
+    within 512 threads of 12 accumulators: a (Tp, 12, K) solve never asks
+    for more than 232,448 bytes of shared memory."""
+    ct = band._solve_tile_columns(Tp, 12, K)
+    assert ct == 1
+    assert Tp * 12 * ct <= 12 * 512
+    assert band._solve_smem_bytes(Tp, 12, ct) <= band._SMEM_MAX
+    for C in (1, 4):
+        assert band._solve_chunk_columns(Tp, 12, K, C) == 1
+
+
+@pytest.mark.parametrize("Tp", [1024, 2048])
+def test_solve_tile_columns_3d_raises_past_a_column(Tp):
+    assert band._solve_tile_columns(512, 12, 18) == 1  # the longest chain that fits
+    with pytest.raises(ValueError):
+        band._solve_tile_columns(Tp, 12, 1)

@@ -23,6 +23,8 @@ from score_tpu.solver.pcr import _dinv as ref_dinv
 from score_tpu_torch.ops import blocks
 from score_tpu_torch.solver import smallblocks as psb
 
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)

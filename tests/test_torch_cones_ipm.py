@@ -4,8 +4,13 @@ same inputs made from a seed with numpy).
 
 Tolerance 1e-13 relative (to the largest entry of the reference) for the
 elementwise cone algebra: the same f64 formulas, summed in another order.
+
+The reference's KKT factor and solve run as one ``jax.jit`` of the JAX
+package's own functions: op by op, JAX's dispatch of each small operation
+cost several times the compiled run.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -27,6 +32,8 @@ from score_tpu_torch.solver import smallblocks as psb
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
 from score_tpu_torch.solver.ipm import IPMParams
 from score_tpu_torch.solver.linops import G_apply, GT_apply
+
+torch.set_num_threads(1)
 
 TOL = 1e-13
 
@@ -137,18 +144,50 @@ def test_chain_arrow_kkt_solve_matches_reference(small_problem):
     z = _interior(rng, rp.num_cones, rp.k, 0.5)
     rhs = rng.standard_normal(rp.n)
 
+    x = rng.standard_normal(rp.n)
     ref_st = RefBackend.prepare(rp, ref_build_ca(rp, ridx))
-    W_ref = rc.winv2_matrices(rc.nt_scaling(jnp.asarray(s), jnp.asarray(z)))
-    ref_f = RefBackend.factor(rp, ref_st, W_ref, RefIPMParams())
-    ref_dx = RefBackend.solve(rp, ref_st, ref_f, ref_st.mask * jnp.asarray(rhs),
-                              RefIPMParams())
+
+    @jax.jit
+    def reference(s, z, rhs, x):
+        W_ref = rc.winv2_matrices(rc.nt_scaling(s, z))
+        ref_f = RefBackend.factor(rp, ref_st, W_ref, RefIPMParams())
+        dx = RefBackend.solve(rp, ref_st, ref_f, ref_st.mask * rhs, RefIPMParams())
+        return ref_st.q, dx, RefBackend.P_matvec(ref_st, x)
+
+    ref_q, ref_dx, ref_Px = reference(*(jnp.asarray(a) for a in (s, z, rhs, x)))
 
     st = ChainArrowBackend.prepare(pp, build_chain_arrow(pp, ridx))
-    assert _rel(st.q, ref_st.q) <= TOL
+    assert _rel(st.q, ref_q) <= TOL
     W = pc.winv2_matrices(pc.nt_scaling(torch.tensor(s), torch.tensor(z)))
     f = ChainArrowBackend.factor(pp, st, W, IPMParams())
     dx = ChainArrowBackend.solve(pp, st, f, st.mask * torch.tensor(rhs), IPMParams())
     assert _rel(dx, ref_dx) <= 1e-9
-    x = torch.tensor(rng.standard_normal(rp.n))
-    assert _rel(ChainArrowBackend.P_matvec(st, x),
-                RefBackend.P_matvec(ref_st, jnp.asarray(x.numpy()))) <= 1e-12
+    assert _rel(ChainArrowBackend.P_matvec(st, torch.tensor(x)), ref_Px) <= 1e-12
+
+
+def test_loop_closure_blocks_match_reference():
+    """A 2D world with two loop closures: the chain+arrow backend's
+    prepared blocks (where a loop closure's D x D blocks are scattered onto
+    a chain slot) and P x against the reference, 1e-12. The port's scatter
+    once broadcast a slot index against a whole block, adding each loop
+    block D^2 times (D0 off by ~1e5 and P x by ~2.5e4 on such a world)."""
+    from score_tpu.fg.measurements import PoseMeasurement2D
+
+    fg = simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=2, num_poses_per_robot=25, num_landmarks=3, grid_size=8,
+        range_measure_prob=0.4, seed=1,
+    ))
+    fg.loop_closure_measurements += [
+        PoseMeasurement2D("A2", "A15", 1.0, -2.0, 0.3, 100.0, 1000.0),
+        PoseMeasurement2D("B4", "B20", -0.5, 1.5, -0.2, 50.0, 500.0),
+    ]
+    rp, ridx = ref_build(fg, "SOCP")
+    pp = problem_from_reference(rp, device="cpu")
+    ref_st = RefBackend.prepare(rp, ref_build_ca(rp, ridx))
+    st = ChainArrowBackend.prepare(pp, build_chain_arrow(pp, ridx))
+    assert st.structure.NLC == 2
+    for name in ("D0", "U0", "B0", "S0", "loop_ii", "loop_ij", "loop_jj"):
+        assert _rel(getattr(st, name), getattr(ref_st, name)) <= 1e-12, name
+    x = np.random.default_rng(5).standard_normal(rp.n)
+    assert _rel(ChainArrowBackend.P_matvec(st, torch.tensor(x)),
+                RefBackend.P_matvec(ref_st, jnp.asarray(x))) <= 1e-12

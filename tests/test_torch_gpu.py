@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from score_tpu_torch import ScoreSolverParams, solve_score
+from score_tpu_torch.fg.measurements import PoseMeasurement3D
 from score_tpu_torch.ops import band, blocks
 from score_tpu_torch.solver import smallblocks
 from score_tpu_torch.solver.pcr import pcr_factor, pcr_solve
 from score_tpu_torch.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
+from score_tpu_torch.sim.world3d import World3DParams, simulate_3d_world
 
 pytestmark = pytest.mark.gpu
 
@@ -336,3 +338,153 @@ def test_f32_cuda_solve_matches_cpu(cuda):
     assert gpu.solved and cpu.solved
     assert abs(gpu.iterations - cpu.iterations) <= 3
     assert abs(gpu.primal_objective - cpu.primal_objective) <= 2e-2 * abs(cpu.primal_objective)
+
+
+# ------------------------------------------------------------------ #
+# 3D blocks (Db = 12): the same kernels' other instantiation
+# ------------------------------------------------------------------ #
+
+
+@pytest.mark.parametrize("K", [1, 18])
+def test_kernels_match_plain_3d(cuda, K):
+    """Every band kernel at Db = 12 against its plain version, 1e-12, on
+    padded chains: the levels of a PCR factor, a PCR solve, and two
+    compacting levels with their rhs reduction and back substitution (K = 1,
+    a direction; K = 18, the 3D bench's panel). Launches count at Db = 12."""
+    D, U = _band(3, 32, 12, 70, (32, 20, 5), cuda)
+    band.reset_launch_counts()
+    A = band.band_init_a(U)
+    assert _rel(A, band.band_init_a_plain(U)) == 0.0
+    invD = band.band_block_inv(D)
+    assert _rel(invD, band.band_block_inv_plain(D)) <= 1e-12
+    for s in (1, 4, 16):
+        for got, want in zip(band.band_pcr_level(D, A, U, invD, s),
+                             band.band_pcr_level_plain(D, A, U, invD, s)):
+            assert _rel(got, want) <= 1e-12
+    f = band.band_factor(D, U, n_cr=0)
+    b = torch.randn(3, 32, 12, K, dtype=torch.float64, device=cuda)
+    x = band.band_pcr_solve(f.E, f.F, f.invD, b)
+    assert _rel(x, band.band_pcr_solve_plain(f.E, f.F, f.invD, b)) <= 1e-12
+    Dl, Al, Cl, bl = D, A, U, b
+    for _ in range(2):
+        lv = band.band_cr_level(Dl, Al, Cl)
+        for got, want in zip(lv, band.band_cr_level_plain(Dl, Al, Cl)):
+            assert _rel(got, want) <= 1e-12
+        E, F, iv, Ao, Co, Dl, Al, Cl = lv
+        red = band.band_cr_reduce(E, F, bl)
+        assert _rel(red, band.band_cr_reduce_plain(E, F, bl)) <= 1e-12
+        xe = torch.randn_like(red)
+        xb = band.band_cr_backsub(iv, Ao, Co, bl, xe)
+        assert _rel(xb, band.band_cr_backsub_plain(iv, Ao, Co, bl, xe)) <= 1e-12
+        bl = red
+    torch.cuda.synchronize()
+    assert all(k.launches_by_size[12] == k.launches > 0 for k in band.KERNELS)
+
+
+@pytest.mark.parametrize(
+    "C,Tp,Ks",
+    [
+        (4, 4, (1, 18)),  # 3D 4x250's PCR remainder after compaction
+        (1, 4, (1, 18)),  # 3D 1x1000's
+        (4, 256, (1, 18)),  # 3D 4x250 without compaction
+        (3, 1, (1, 3)),  # a single block per chain: no level
+        (2, 2, (1, 3, 18)),
+        (1, 256, (2, 4, 5, 9)),  # one chain; widths at the tiles' edges
+        (2, 512, (1, 3)),
+    ],
+)
+def test_pcr_kernels_match_plain_at_every_level_3d(cuda, C, Tp, Ks):
+    """band_pcr_level at every level and band_pcr_solve (the narrow kernel:
+    the wide one's 12 x 8 tile is not built) at Db = 12, 1e-12."""
+    D, U = _band(C, Tp, 12, 71, (Tp,) * C, cuda)
+    A, Cl, invD = band.band_init_a(U), U, band.band_block_inv(D)
+    Es, Fs = [], []
+    for lev in range(band.num_levels(Tp)):
+        out = band.band_pcr_level(D, A, Cl, invD, 1 << lev)
+        for got, want in zip(out, band.band_pcr_level_plain(D, A, Cl, invD, 1 << lev)):
+            assert _rel(got, want) <= 1e-12
+        E, F, D, A, Cl, invD = out
+        Es.append(E)
+        Fs.append(F)
+    E = torch.stack(Es) if Es else D.new_zeros((0, C, Tp, 12, 12))
+    F = torch.stack(Fs) if Fs else E
+    for K in Ks:
+        assert band._solve_tile_columns(Tp, 12, K) in (1, 2, 4)
+        b = torch.randn(C, Tp, 12, K, dtype=torch.float64, device=cuda)
+        x = band.band_pcr_solve(E, F, invD, b)
+        assert _rel(x, band.band_pcr_solve_plain(E, F, invD, b)) <= 1e-12
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C,T", [(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30),
+                                 (1, 512), (4, 512), (1, 2048)])
+def test_cr_level_matches_plain_3d(cuda, C, T):
+    """band_cr_level at Db = 12 (a thread block is 3 coarse positions and
+    the halo group) against its plain version, 1e-12."""
+    D, U = _band(C, T, 12, 72 + T, (T,) * C, cuda)
+    A = band.band_init_a(U)
+    for got, want in zip(band.band_cr_level(D, A, U), band.band_cr_level_plain(D, A, U)):
+        assert got.shape == (C, T // 2, 12, 12)
+        assert _rel(got, want) <= 1e-12
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("Th", [1, 2, 128, 512])
+def test_cr_backsub_matches_plain_3d(cuda, C, Th):
+    """band_cr_backsub at Db = 12 through both kernels (narrow, a group of
+    16 lanes per position, for K <= 4; wide, single columns, above), and
+    band_cr_reduce at the same widths, against their plain versions."""
+    D, U = _band(C, 2 * Th, 12, 73 + Th, (2 * Th,) * C, cuda)
+    E, F, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+    for K in (1, 2, 4, 5, 18):
+        b = torch.randn(C, 2 * Th, 12, K, dtype=torch.float64, device=cuda)
+        xe = torch.randn(C, Th, 12, K, dtype=torch.float64, device=cuda)
+        assert _rel(band.band_cr_backsub(iv, Ao, Co, b, xe),
+                    band.band_cr_backsub_plain(iv, Ao, Co, b, xe)) <= 1e-12
+        assert _rel(band.band_cr_reduce(E, F, b), band.band_cr_reduce_plain(E, F, b)) <= 1e-12
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("Db", [6, 12])
+@pytest.mark.parametrize("M", [1, 7, 17, 1024, 2560])
+def test_block_inv_matches_plain(cuda, Db, M):
+    """band_block_inv (a lane group per block, 16 blocks a thread block at
+    Db = 6, 8 at Db = 12) against its plain version, 1e-12, and as an
+    inverse; the last thread block is not full for most M."""
+    D, _ = _band(1, M, Db, 74 + M, (M,), cuda)
+    inv = band.band_block_inv(D)
+    assert _rel(inv, band.band_block_inv_plain(D)) <= 1e-12
+    eye = torch.eye(Db, dtype=torch.float64, device=cuda).expand_as(D)
+    assert _rel(inv @ D, eye) <= 1e-12
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("relaxation", ["SOCP", "QCQP"])
+def test_cuda_solve_3d_matches_cpu(cuda, relaxation, monkeypatch):
+    """A 2 x 30 3D world with a loop closure its odometry does not agree
+    with (a sharp optimum, objective ~5e3; without it the relaxation fits
+    every range and the rounded poses of two solves differ by ~3e-5), on
+    the card against the CPU path: the 3D band (chains of 32 compacted
+    twice, then PCR) launches all seven kernels at Db = 12; same iterations
+    within 1, objectives within 1e-9 relative, rounded poses within 1e-5."""
+    monkeypatch.setattr(band, "CR_BASE_LENGTH", 8)
+    fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=30,
+                                         num_landmarks=4, range_measure_prob=0.4, seed=3))
+    fg.loop_closure_measurements.append(PoseMeasurement3D(
+        "A3", "A25", np.array([1.0, -2.0, 0.5]), np.eye(3), 100.0, 1000.0, 0.0))
+    band.reset_launch_counts()
+    gpu = solve_score(fg, relaxation, ScoreSolverParams(device="cuda"))
+    assert all(k.launches_by_size[12] > 0 for k in band.KERNELS)
+    cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu"))
+    assert gpu.solved and cpu.solved and abs(gpu.iterations - cpu.iterations) <= 1
+    assert abs(gpu.primal_objective - cpu.primal_objective) <= 1e-9 * abs(cpu.primal_objective)
+    for name, T in cpu.poses.items():
+        assert gpu.poses[name].shape == (4, 4)
+        np.testing.assert_allclose(gpu.poses[name], T, atol=1e-5, rtol=0)
+
+
+def test_f32_3d_is_refused_on_the_card(cuda):
+    fg = simulate_3d_world(World3DParams(num_robots=1, num_poses_per_robot=10, seed=1))
+    with pytest.raises(NotImplementedError, match="D = 12"):
+        solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))

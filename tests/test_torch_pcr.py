@@ -23,6 +23,8 @@ from score_tpu_torch.solver import pcr as port_pcr
 from score_tpu_torch.solver import smallblocks as psb
 from score_tpu_torch.solver.pcr import pcr_factor, pcr_pad_length, pcr_solve
 
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)

@@ -1,0 +1,123 @@
+"""Outputs of the JAX package that the port's CPU tests are held to where a
+live JAX run would be the test's only cost: ``tests/data/torch_reference.npz``.
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py
+
+rebuilds the graphs below with the JAX package's simulators, solves them
+with the JAX package in f64 on the CPU, and rewrites the file. The tests
+build the same graphs through the functions here.
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py --qcqp3d-sizes
+
+writes nothing: it solves the 3D QCQP of 4-robot worlds of 30, 60 and 100
+poses a robot (6 landmarks, the 3D bench's settings) with the JAX package
+and with the port on the CPU, and prints each one's status, iterations and
+dual residual: where the JAX package's own solve ends OPTIMAL_INACCURATE
+as the worlds grow toward 3D 4x250. Entries of the file:
+
+- ``loop3d_qcqp_*``: ``solve_conic`` of the QCQP relaxation of the 3D loop
+  world (status, iterations, primal objective, gap, x), read by
+  ``tests/test_torch_3d.py::test_solve_score_3d_matches_reference[QCQP]``
+  (its SOCP case and the QCQP fault test solve live);
+- ``f32_4x50_socp_f64_objective``: ``solve_score`` of the f32 checks' 4 x 50
+  world as SOCP in f64, read by
+  ``tests/test_torch_api.py::test_f32_solve_matches_reference`` (its f32
+  reference solves live).
+"""
+
+from pathlib import Path
+
+import numpy as np
+
+PATH = Path(__file__).resolve().parent / "data" / "torch_reference.npz"
+
+# the 3D world of tests/test_torch_3d.py, and the loop closure A3 -> A25
+# (translation, translation and rotation precisions) its loop world adds
+WORLD_3D = dict(num_robots=2, num_poses_per_robot=30, num_landmarks=4,
+                range_measure_prob=0.4, seed=3)
+LOOP_3D = ("A3", "A25", (1.0, -2.0, 0.5), 100.0, 1000.0)
+# the f32 checks' world of tests/test_torch_api.py
+WORLD_4X50 = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=12,
+                  range_measure_prob=0.4, seed=3)
+
+
+def world_3d(loop: bool = False):
+    """The 3D world as the JAX package's FactorGraphData; with ``loop``,
+    plus the loop closure, which its odometry does not agree with."""
+    from score_tpu.fg.measurements import PoseMeasurement3D
+    from score_tpu.sim.world3d import World3DParams, simulate_3d_world
+
+    fg = simulate_3d_world(World3DParams(**WORLD_3D))
+    if loop:
+        a, b, t, tp, rp = LOOP_3D
+        fg.loop_closure_measurements.append(
+            PoseMeasurement3D(a, b, np.array(t), np.eye(3), tp, rp, 0.0))
+    return fg
+
+
+def graph_4x50():
+    from score_tpu.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
+
+    return simulate_manhattan_world(ManhattanWorldParams(**WORLD_4X50))
+
+
+def load() -> dict:
+    with np.load(PATH) as data:
+        return {k: data[k] for k in data.files}
+
+
+def main() -> None:
+    from score_tpu import solve_score
+    from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.assembly.normalize import normalize_factor_graph
+    from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu.solver.ipm import solve_conic
+    from score_tpu.solver.params import ScoreSolverParams
+
+    out = {}
+    rp, ridx = build_conic_problem(normalize_factor_graph(world_3d(loop=True))[0], "QCQP")
+    res = solve_conic(rp, ScoreSolverParams(precision="f64").ipm_params(),
+                      backend=ChainArrowBackend, backend_aux=build_chain_arrow(rp, ridx))
+    for name in ("status", "iterations", "pobj", "gap", "x"):
+        out[f"loop3d_qcqp_{name}"] = np.asarray(getattr(res, name))
+    ref64 = solve_score(graph_4x50(), "SOCP", ScoreSolverParams(precision="f64"))
+    out["f32_4x50_socp_f64_objective"] = np.asarray(ref64.primal_objective)
+    PATH.parent.mkdir(exist_ok=True)
+    np.savez_compressed(PATH, **out)
+    print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
+
+
+def qcqp3d_sizes(poses=(30, 60, 100)) -> None:
+    import torch
+
+    from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.assembly.normalize import normalize_factor_graph
+    from score_tpu.sim.world3d import World3DParams, simulate_3d_world
+    from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu.solver.ipm import solve_conic
+    from score_tpu.solver.params import ScoreSolverParams
+    from score_tpu_torch import ScoreSolverParams as PortParams
+    from score_tpu_torch.convert import problem_from_reference
+    from score_tpu_torch.solver.chain_arrow import build_chain_arrow as port_build_chain_arrow
+    from score_tpu_torch.solver.ipm import solve_conic as port_solve_conic
+
+    torch.set_num_threads(1)
+    for P in poses:
+        fg = simulate_3d_world(World3DParams(num_robots=4, num_poses_per_robot=P,
+                                             num_landmarks=6, range_measure_prob=0.4, seed=3))
+        rp, ridx = build_conic_problem(normalize_factor_graph(fg)[0], "QCQP")
+        ref = solve_conic(rp, ScoreSolverParams(precision="f64").ipm_params(),
+                          backend=ChainArrowBackend, backend_aux=build_chain_arrow(rp, ridx))
+        pp = problem_from_reference(rp, device="cpu")
+        port = port_solve_conic(pp, PortParams().ipm_params(),
+                                backend_aux=port_build_chain_arrow(pp, ridx))
+        print(f"3D 4x{P} QCQP, {fg.num_range_measurements} ranges: JAX package status "
+              f"{int(ref.status)} after {int(ref.iterations)} iterations, dres "
+              f"{float(ref.dres):.3e}; port status {port.status} after {port.iterations}, "
+              f"dres {float(port.dres):.3e}", flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    qcqp3d_sizes() if "--qcqp3d-sizes" in sys.argv[1:] else main()
