@@ -11,8 +11,9 @@ without printing a result line:
    f64 band kernels, and ``csrc/blocks.cu``, the f32 block kernels) with
    one nvcc each, started together; print the build times, ptxas'
    register and spill lines, and one line each with the registers and
-   spill bytes of every band kernel at each block size (Db = 6 and 12)
-   and of ``block_chol`` (a spill fails the run);
+   spill bytes of every band kernel at each block size (Db = 6 and 12),
+   of ``block_chol`` and of both block kernels at the 3D sizes D = 12 and
+   D = 3 (a spill fails the run);
 3. every band kernel against its plain PyTorch version on the card, at
    the band shapes of the four instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
@@ -39,13 +40,19 @@ without printing a result line:
    the shapes of the f32 path (max relative difference <= 1e-5, and
    reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
    ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
-   a library call's, ``block_chol`` also at D = 2, 6 and M = 1 to 2070 on
-   contiguous and strided blocks, and its device time at every Cholesky of
-   a Manhattan-4 f32 factor; the f32 band (cyclic reduction over the block kernels)
-   against the f64 band at Manhattan-4's band shape (<= 1e-4); then a
-   small 2D instance and a small 3D instance (2 x 30 poses, SOCP and
-   QCQP) solved on the card against the port's plain CPU path, and the f32
-   mode on a 3D graph refused (its block kernels exist for 2D blocks);
+   a library call's, at the 2D shapes and, in rows of their own, at the
+   3D ones (D = 12: M = 512 at K = 18, 12, 1 and the roots; D = 3: the
+   2348 and 2363 pivots), ``block_chol`` also at D = 2, 3, 6, 12 and M = 1
+   to 2363 on contiguous and strided blocks, and its device time at every
+   Cholesky of a Manhattan-4 and a 3D 4x250 f32 factor; the f32 band
+   (cyclic reduction over the block kernels) against the f64 band at
+   Manhattan-4's and 3D 4x250's band shapes (<= 1e-4); then a small 2D
+   instance and a small 3D instance (2 x 30 poses, SOCP and QCQP) solved
+   on the card against the port's plain CPU path, and the f32 mode on the
+   3D one with a loop closure, SOCP and QCQP, on the card against the
+   port's f32 CPU path (solved, iterations within 3, objectives within
+   2e-2) and within 1e-2 of the f64 objective, through the block kernels
+   at D = 12 and, for QCQP, D = 3;
 4. Manhattan-4 (4 robots x 400 poses, 6 landmarks, inter-robot ranges,
    seed 0) solved as SOCP on the card: solved status, relative gap <=
    1e-6, det(R) = +1 for every rounded pose, and every band kernel of its
@@ -65,15 +72,29 @@ without printing a result line:
    relaxation, det(R) = +1 within 1e-5, ``block_chol`` and the fused
    ``block_chol_solve`` launched (for QCQP also at D = 2, the distance
    pivots), and neither the forward-only ``block_tri_lower_solve`` nor a
-   plain back substitution on f32 tensors of the card;
+   plain back substitution on f32 tensors of the card; then the f32 mode
+   on the 3D bench worlds, 3D 4x250 as SOCP and QCQP and 3D 1x1000 as
+   SOCP, each beside the port's f32 CPU runs of the same world at 1, 2, 4
+   and 8 torch threads (their objectives are f32 roundoff around a ~0
+   optimum, and the relative gap's max(1, |objective|) makes their
+   iteration counts follow it): the same solved status, iterations within
+   3 of the CPU runs' range (or more, where the card escaped a stall the
+   CPU runs stopped in, at a relative gap below all of theirs), det(R) =
+   +1 within 1e-5, the block kernels launched at D = 12 (and D = 3 for
+   QCQP) and neither the forward-only kernel nor a plain back
+   substitution; the SOCPs solved with relgap <= 1e-2 (the 4x250 QCQP
+   ends unsolved in both packages); their objectives sit near 0 and are
+   printed beside the f64 ones;
 8. a 4 x 50 world in f32 on the card against the port's f32 CPU path:
    both solved, iterations within 3, objectives within 2e-2;
 9. one JSON line describing the kernels (event time, device time, plain
    time, the bound from bytes and operations, and a PyTorch call
    computing the same function where one exists): a row per kernel at
-   the 2D shapes and, for the band kernels, a row ``<name>[Db=12]`` at
-   3D 1x1000's shapes (all seven run there) with its launches per 3D 1x1000
-   SOCP solve; then the result line.
+   the 2D shapes; for the band kernels a row ``<name>[Db=12]`` at 3D
+   1x1000's shapes (all seven run there) with its launches per 3D 1x1000
+   SOCP solve; for the block kernels rows ``<name>[D=12]`` and
+   ``<name>[D=3]`` at 3D 4x250's shapes with their launches per 3D 4x250
+   f32 QCQP solve; then the result line.
 
 ``python3 chip_smoke.py --kernels`` stops after the band and block
 kernels' checks of phase 3 (a short first run after a kernel changed) and
@@ -108,6 +129,8 @@ REPLACES = {
     "block_tri_lower_solve": "score_tpu/ops/pallas_blocks.py:79",
     "block_chol_solve": "score_tpu/ops/pallas_blocks.py:79",
 }
+# torch thread counts of the CPU runs an f32 3D card solve is held to
+CPU_THREADS = (1, 2, 4, 8)
 # H100 SXM data sheet: HBM3 bandwidth, and the FP64 and FP32 peaks outside
 # the tensor cores (the band kernels run f64, the block kernels f32)
 HBM_BYTES_PER_S = 3.35e12
@@ -305,14 +328,14 @@ def _blocks_cost(name, *args):
         (A,) = args
         n = A.shape[-1]
         return 2 * A.numel() * f4, A.shape[0] * _chol_flops(n)
+    L, B = args
+    n, K = B.shape[-2], B.shape[-1]
+    # a rhs broadcast over the blocks (the pivots' identity) is read once
+    b_in = B[0].numel() if B.stride(0) == 0 else B.numel()
     if name == "block_tri_lower_solve":
-        L, B = args
-        n, K = B.shape[-2], B.shape[-1]
-        return (L.numel() + 2 * B.numel()) * f4, B.shape[0] * K * n * n
+        return (L.numel() + b_in + B.numel()) * f4, B.shape[0] * K * n * n
     if name == "block_chol_solve":  # forward, then back substitution
-        L, B = args
-        n, K = B.shape[-2], B.shape[-1]
-        return (L.numel() + 2 * B.numel()) * f4, B.shape[0] * K * 2 * n * n
+        return (L.numel() + b_in + B.numel()) * f4, B.shape[0] * K * 2 * n * n
     raise KeyError(name)
 
 
@@ -606,34 +629,52 @@ def phase_blocks(device):
     robot20's) and of QCQP's distance pivots (D = 2, M = 2070); forward
     substitution, and the fused forward and back substitution, of the
     arrow panel (K = 138), of a level's couplings (K = 6), of a direction
-    (K = 1), and of the pivots' identity (D = 2, K = 2). Times, bound and
-    library call at each kernel's first shape; the fused kernel's device
+    (K = 1), and of the pivots' identity (D = 2, K = 2). Then the 3D
+    shapes, in rows of their own (``<name>[D=n]``): D = 12 at 3D 4x250's
+    first level (M = 512; the panel K = 18, the couplings K = 12, a
+    direction K = 1) and its roots (M = 4; 3D 1x1000's, M = 1), and the
+    3 x 3 pivots (M = 2348 and 2363, K = 3, the identity read through a
+    block stride of 0 as ``inv_small_spd`` hands it). Times, bound and
+    library call at each row's first shape; the fused kernel's device
     time at every shape."""
     import torch
     from score_tpu_torch.ops import blocks
 
     chk = _KernelCheck(tol=REL_TOL_F32, precision="f32")
     rng = np.random.default_rng(7)
-    shapes = [(6, 1024, (138, 6, 1)), (6, 1280, ()), (2, 2070, (2,))]
-    for n, M, Ks in shapes:
+    # (row suffix, D, M, rhs widths, identity rhs)
+    shapes = [("", 6, 1024, (138, 6, 1), False), ("", 6, 1280, (), False),
+              ("", 2, 2070, (2,), False),
+              ("[D=12]", 12, 512, (18, 12, 1), False), ("[D=12]", 12, 4, (18, 12, 1), False),
+              ("[D=12]", 12, 1, (18, 1), False),
+              ("[D=3]", 3, 2348, (3,), True), ("[D=3]", 3, 2363, (3,), True)]
+    for tag, n, M, Ks, identity in shapes:
         A = _random_blocks(M, n, seed=M + n, device=device)
-        L = chk("block_chol", lambda: blocks.block_chol(A), lambda: blocks.block_chol_plain(A),
+        L = chk("block_chol" + tag, lambda: blocks.block_chol(A),
+                lambda: blocks.block_chol_plain(A),
                 _blocks_cost("block_chol", A), library=lambda: torch.linalg.cholesky_ex(A))
         r = _resid(L @ L.transpose(-1, -2), A)
         _log(f"block_chol D={n} M={M}: ||L L^T - A||/||A|| = {r:.3e}")
         if not r <= 1e-5:
             raise AssertionError(f"block_chol D={n} M={M}: residual {r:.3e}")
         for K in Ks:
-            B = torch.tensor(rng.standard_normal((M, n, K)), dtype=torch.float32, device=device)
-            Y = chk("block_tri_lower_solve", lambda: blocks.block_tri_lower_solve(L, B),
-                    lambda: blocks.block_tri_lower_solve_plain(L, B),
-                    _blocks_cost("block_tri_lower_solve", L, B),
-                    library=lambda: torch.linalg.solve_triangular(L, B, upper=False))
+            B = (torch.eye(n, device=device).expand(M, n, n) if identity else
+                 torch.tensor(rng.standard_normal((M, n, K)), dtype=torch.float32,
+                              device=device))
+            if tag:
+                Y = blocks.block_tri_lower_solve(L, B)
+                _compare(f"block_tri_lower_solve D={n} M={M} K={K}", Y,
+                         blocks.block_tri_lower_solve_plain(L, B), REL_TOL_F32)
+            else:
+                Y = chk("block_tri_lower_solve", lambda: blocks.block_tri_lower_solve(L, B),
+                        lambda: blocks.block_tri_lower_solve_plain(L, B),
+                        _blocks_cost("block_tri_lower_solve", L, B),
+                        library=lambda: torch.linalg.solve_triangular(L, B, upper=False))
             r = _resid(L @ Y, B)
             _log(f"block_tri_lower_solve D={n} M={M} K={K}: ||L Y - B||/||B|| = {r:.3e}")
             if not r <= 1e-5:
                 raise AssertionError(f"block_tri_lower_solve D={n} M={M} K={K}: residual {r:.3e}")
-            X = chk("block_chol_solve", lambda: blocks.block_chol_solve(L, B),
+            X = chk("block_chol_solve" + tag, lambda: blocks.block_chol_solve(L, B),
                     lambda: blocks.block_chol_solve_plain(L, B),
                     _blocks_cost("block_chol_solve", L, B),
                     library=lambda: torch.cholesky_solve(B, L))
@@ -648,8 +689,8 @@ def phase_blocks(device):
     # first block of each of 3 (a chain's root), each against its plain
     # version and by reconstruction
     worst = 0.0
-    for n in (2, 6):
-        for M in (1, 3, 4, 128, 1024, 2070):
+    for n in blocks.CUDA_BLOCK_SIZES:
+        for M in (1, 3, 4, 128, 512, 1024, 2070, 2363):
             for what, A in (
                     ("contiguous", _random_blocks(M, n, seed=5 * M + n, device=device)),
                     ("odd blocks", _random_blocks(2 * M, n, seed=6 * M + n, device=device)[1::2]),
@@ -662,47 +703,55 @@ def phase_blocks(device):
                 if not (r <= 1e-5 and torch.equal(torch.triu(L, 1), torch.zeros_like(L))):
                     raise AssertionError(f"{label}: residual {r:.3e} or a non-zero upper triangle")
     torch.cuda.synchronize()
-    _log(f"block_chol at D = 2, 6, M = 1..2070, three layouts: max_rel_diff={worst:.3e} "
-         f"(bound {REL_TOL_F32}), residuals <= 1e-5")
+    _log(f"block_chol at D = {blocks.CUDA_BLOCK_SIZES}, M = 1..2363, three layouts: "
+         f"max_rel_diff={worst:.3e} (bound {REL_TOL_F32}), residuals <= 1e-5")
     # its device time at every Cholesky of a Manhattan-4 f32 factor (C = 4
-    # chains of 512: the odd blocks of each level, then the root), on
-    # contiguous blocks and on the odd-row view the factor passes
-    C, T = 4, 512
-    while T >= 1:
-        M = C * max(T // 2, 1)
-        Dfull = _random_blocks(C * T, 6, seed=T, device=device).reshape(C, T, 6, 6)
-        view = (Dfull[:, 1::2] if T > 1 else Dfull[:, 0]).reshape(M, 6, 6)
-        contig = view.contiguous()
-        us = _device_us(lambda: blocks.block_chol(contig))
-        us_view = _device_us(lambda: blocks.block_chol(view))
-        _log(f"block_chol D=6 M={M} ({'level' if T > 1 else 'root'}): device_us={us:.2f} "
-             f"contiguous, {us_view:.2f} on the view (block stride {view.stride(0)})")
-        T //= 2
+    # chains of 512, D = 6) and of a 3D 4x250 one (C = 4 chains of 256,
+    # D = 12): the odd blocks of each level, then the root, on contiguous
+    # blocks and on the odd-row view the factor passes
+    for n, C, T in ((6, 4, 512), (12, 4, 256)):
+        while T >= 1:
+            M = C * max(T // 2, 1)
+            Dfull = _random_blocks(C * T, n, seed=T, device=device).reshape(C, T, n, n)
+            view = (Dfull[:, 1::2] if T > 1 else Dfull[:, 0]).reshape(M, n, n)
+            contig = view.contiguous()
+            us = _device_us(lambda: blocks.block_chol(contig))
+            us_view = _device_us(lambda: blocks.block_chol(view))
+            _log(f"block_chol D={n} M={M} ({'level' if T > 1 else 'root'}): device_us={us:.2f} "
+                 f"contiguous, {us_view:.2f} on the view (block stride {view.stride(0)})")
+            T //= 2
     _log_rows("f32", chk.rows)
     return chk.rows
 
 
-def phase_f32_band(device, C=4, Tp=512, K=138):
+def phase_f32_band(device, C, Tp, Db, K):
     """Cyclic reduction in f32 over the block kernels (the f32 fast mode's
-    band) against the f64 band kernels, same well-conditioned input at
-    Manhattan-4's band shape: relative difference of the solutions <= 1e-4
-    for a direction (K = 1) and the arrow panel."""
+    band) against the f64 band kernels, same well-conditioned input at one
+    instance's band shape (Manhattan-4: C = 4, Tp = 512, Db = 6, K = 138;
+    3D 4x250: C = 4, Tp = 256, Db = 12, K = 18): relative difference of the
+    solutions <= 1e-4 for a direction (K = 1) and the arrow panel. The
+    block kernels run at D = Db."""
     import torch
-    from score_tpu_torch.ops import band
+    from score_tpu_torch.ops import band, blocks
     from score_tpu_torch.solver.pcr import pcr_factor, pcr_solve
 
-    D, U = _random_band(C, Tp, 6, seed=Tp + C + 1, device=device)
+    D, U = _random_band(C, Tp, Db, seed=Tp + C + 1, device=device)
+    blocks.reset_launch_counts()
     f32 = pcr_factor(D.float(), U.float())
     f64 = band.band_factor(D, U)
     rng = np.random.default_rng(11)
     for k in (1, K):
-        b = torch.tensor(rng.standard_normal((C, Tp, 6, k)), device=device)
+        b = torch.tensor(rng.standard_normal((C, Tp, Db, k)), device=device)
         x32 = pcr_solve(f32, b.float()).double()
         x64 = band.band_solve(f64, b)
         rel = ((x32 - x64).abs().max() / x64.abs().max()).item()
-        _log(f"f32 band C={C} Tp={Tp} K={k}: max relative difference to the f64 band {rel:.3e}")
+        _log(f"f32 band C={C} Tp={Tp} Db={Db} K={k}: max relative difference to the f64 "
+             f"band {rel:.3e}")
         if not rel <= 1e-4:
-            raise AssertionError(f"f32 band K={k}: relative difference {rel:.3e} > 1e-4")
+            raise AssertionError(f"f32 band Db={Db} K={k}: relative difference {rel:.3e} > 1e-4")
+    if not (blocks.block_chol.launches_by_size[Db] and
+            blocks.block_chol_solve.launches_by_size[Db]):
+        raise AssertionError(f"f32 band Db={Db}: the block kernels were not launched at D={Db}")
 
 
 def _path_kernels(Tp):
@@ -722,13 +771,18 @@ def _check_result(label, res, num_poses, d=2, relgap_tol=1e-6, det_tol=1e-9):
         raise AssertionError(f"{label}: not solved (iterations {res.iterations})")
     if not relgap <= relgap_tol:
         raise AssertionError(f"{label}: relgap {relgap:.3e} > {relgap_tol}")
+    _check_poses(label, res, num_poses, d, det_tol)
+    return relgap
+
+
+def _check_poses(label, res, num_poses, d, det_tol):
+    """Finite rounded poses (d + 1) x (d + 1) with det(R) = +1."""
     T = np.stack(list(res.poses.values()))
     if T.shape != (num_poses, d + 1, d + 1) or not np.isfinite(T).all():
         raise AssertionError(f"{label}: bad pose array {T.shape}")
     dets = np.linalg.det(T[:, :d, :d])
     if not np.all(np.abs(dets - 1.0) < det_tol):
         raise AssertionError(f"{label}: det(R) off +1 by {np.abs(dets - 1).max():.3e}")
-    return relgap
 
 
 def phase_small_reference():
@@ -753,14 +807,31 @@ def phase_small_reference():
         raise AssertionError("small: cuda and cpu solutions disagree")
 
 
+def _loop_world_3d():
+    """The small 3D world (2 x 30 poses) with a loop closure A3 -> A25 that
+    its odometry does not agree with: a sharp optimum, objective ~5e3."""
+    from score_tpu_torch.fg.measurements import PoseMeasurement3D
+    from score_tpu_torch.sim.world3d import World3DParams, simulate_3d_world
+
+    fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=30,
+                                         num_landmarks=4, range_measure_prob=0.4, seed=3))
+    fg.loop_closure_measurements.append(PoseMeasurement3D(
+        "A3", "A25", np.array([1.0, -2.0, 0.5]), np.eye(3), 100.0, 1000.0, 0.0))
+    return fg
+
+
 def phase_small_reference_3d():
     """A small 3D world (2 x 30 poses, 12 x 12 band blocks) as SOCP and
     QCQP on the card against the port's plain CPU path: both solved,
     iterations within 1, objectives within the larger final gap (these
     relaxations fit their ranges to ~1e-10, so a relative difference would
     compare roundoff), rounded poses within 1e-4; then the f32 mode on the
-    same graph, which the card refuses before any work (its block kernels
-    exist for 2D blocks only)."""
+    same world with a loop closure (objective ~5e3; the plain world's f32
+    objective is off by 0.1-1 from its ~0 optimum in both packages), SOCP
+    and QCQP: on the card against the port's f32 CPU path (both solved,
+    iterations within 3, objectives within 2e-2 relative), against the f64
+    solve of the same relaxation (objective within 1e-2 relative), and
+    through the block kernels at D = 12 and, for QCQP, D = 3."""
     from score_tpu_torch import ScoreSolverParams, solve_score
     from score_tpu_torch.sim.world3d import World3DParams, simulate_3d_world
 
@@ -781,14 +852,45 @@ def phase_small_reference_3d():
                                  "status/iterations")
         if not (dobj <= max(gpu.gap, cpu.gap) and dpose <= 1e-4):
             raise AssertionError(f"small3d {relaxation}: cuda and cpu solutions disagree")
-    try:
-        solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))
-    except NotImplementedError as e:
-        if "D = 12" not in str(e):
-            raise
-        _log(f"small 3D f32 on the card refused: {e}")
-    else:
-        raise AssertionError("small3d: precision='f32' on a 3D graph did not raise")
+    loop = _loop_world_3d()
+    for relaxation in ("SOCP", "QCQP"):
+        f64 = solve_score(loop, relaxation, ScoreSolverParams(device="cuda"))
+        _reset_counts()
+        with _PlainBackSubstitutions() as plain_back:
+            gpu = solve_score(loop, relaxation, ScoreSolverParams(device="cuda", precision="f32"))
+        launches, by_size = _counts()
+        cpu = solve_score(loop, relaxation, ScoreSolverParams(device="cpu", precision="f32"))
+        _check_result(f"small3d-loop-{relaxation}-f32[cuda]", gpu, loop.num_poses, d=3,
+                      relgap_tol=1e-2, det_tol=1e-5)
+        dobj = abs(gpu.primal_objective - cpu.primal_objective) / abs(cpu.primal_objective)
+        d64 = abs(gpu.primal_objective - f64.primal_objective) / abs(f64.primal_objective)
+        _log(f"small 3D 2x30 loop {relaxation} f32: cuda solved={gpu.solved} "
+             f"iters={gpu.iterations} obj={gpu.primal_objective:.6f}; cpu solved={cpu.solved} "
+             f"iters={cpu.iterations} obj={cpu.primal_objective:.6f}; f64 obj "
+             f"{f64.primal_objective:.6f}; rel_obj_diff cuda/cpu {dobj:.3e}, to f64 {d64:.3e}; "
+             f"launches_by_size={by_size}")
+        if not (cpu.solved and abs(gpu.iterations - cpu.iterations) <= 3 and dobj <= 2e-2):
+            raise AssertionError(f"small3d loop {relaxation} f32: cuda and cpu disagree")
+        if not d64 <= 1e-2:
+            raise AssertionError(f"small3d loop {relaxation} f32: objective {d64:.3e} from f64")
+        _check_f32_launches(f"small3d loop {relaxation} f32", launches, by_size, plain_back,
+                            3, relaxation)
+
+
+def _check_f32_launches(label, launches, by_size, plain_back, d, relaxation):
+    """An f32 solve on a d-dimensional graph launched ``block_chol`` and the
+    fused ``block_chol_solve`` at the band's block size d (d + 1) and, for
+    QCQP, at the pivots' d; and neither the forward-only kernel nor a plain
+    back substitution on the card's f32 tensors."""
+    if launches["block_tri_lower_solve"] or plain_back.calls:
+        raise AssertionError(
+            f"{label}: {launches['block_tri_lower_solve']} forward-only launches and "
+            f"{plain_back.calls} plain back substitutions on the f32 path")
+    sizes = (d * (d + 1), d) if relaxation == "QCQP" else (d * (d + 1),)
+    expected = [f"{k}[D={n}]" for n in sizes for k in ("block_chol", "block_chol_solve")]
+    missing = [k for k in expected if by_size[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
 
 
 def phase_small_f32_reference():
@@ -858,20 +960,28 @@ def _counts():
     return launches, by_size
 
 
-def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", reference=None):
+def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", reference=None,
+                cpu_reference=False, must_solve=True):
     """Cold and warm solves on the card with launch counting. f64 runs the
     band kernels of its path at the graph's block size Db; f32
-    ``block_chol`` and the fused
-    ``block_chol_solve`` (at D = 2 too for QCQP) and neither the
-    forward-only kernel nor a plain back substitution on the card's f32
-    tensors, held to the f32 mode's reduced tolerance and, with
-    ``reference`` (the f64 result of the same relaxation), to its
-    objective within 1e-2."""
+    ``block_chol`` and the fused ``block_chol_solve`` at the band's block
+    size (and the pivots' for QCQP) and neither the forward-only kernel nor
+    a plain back substitution on the card's f32 tensors
+    (:func:`_check_f32_launches`), held to the f32 mode's reduced tolerance
+    and, with ``reference`` (the f64 result of the same relaxation), to its
+    objective within 1e-2. With ``cpu_reference``, the port's CPU runs of
+    the same world in the same precision beside it, one at each of
+    ``CPU_THREADS``: the same solved status, and iterations within 3 of
+    their range, or more with a relative gap below all of theirs. Without
+    ``must_solve`` (a solve that ends unsolved
+    in both packages) only that agreement and the rounded poses (finite,
+    det(R) = +1) are required."""
     import torch
     from score_tpu_torch import ScoreSolverParams, solve_score
 
     params = ScoreSolverParams(device="cuda", precision=precision)
     f32 = precision == "f32"
+    d = fg.dimension
     _reset_counts()
     t0 = time.perf_counter()
     with _PlainBackSubstitutions() as plain_back:
@@ -880,27 +990,26 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
     cold = time.perf_counter() - t0
     launches, by_size = _counts()
     if f32:
-        expected = ["block_chol", "block_chol_solve"]
-        if relaxation == "QCQP":
-            expected += [f"{k}[D=2]" for k in expected]
-        if launches["block_tri_lower_solve"] or plain_back.calls:
-            raise AssertionError(
-                f"{label}: {launches['block_tri_lower_solve']} forward-only launches and "
-                f"{plain_back.calls} plain back substitutions on the f32 path")
+        _check_f32_launches(label, launches, by_size, plain_back, d, relaxation)
     else:
         expected = [f"{k}[Db={Db}]" for k in _path_kernels(Tp)]
-    got = {**launches, **by_size}
-    missing = [k for k in expected if got[k] == 0]
-    if missing:
-        raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
+        missing = [k for k in expected if by_size[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
     tols = dict(relgap_tol=1e-2, det_tol=1e-5) if f32 else {}
-    d = fg.dimension
-    relgap = _check_result(label, res, fg.num_poses, d, **tols)
+
+    def check(tag, r):
+        if must_solve:
+            return _check_result(tag, r, fg.num_poses, d, **tols)
+        _check_poses(tag, r, fg.num_poses, d, tols.get("det_tol", 1e-9))
+        return r.gap / max(1.0, abs(r.primal_objective))
+
+    relgap = check(label, res)
     t0 = time.perf_counter()
     warm_res = solve_score(fg, relaxation, params)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    _check_result(label + "[warm]", warm_res, fg.num_poses, d, **tols)
+    check(label + "[warm]", warm_res)
     line = (f"{label}: solved={res.solved} iterations={res.iterations} relgap={relgap:.3e} "
             f"pres={res.primal_residual:.3e} dres={res.dual_residual:.3e} "
             f"objective={res.primal_objective:.6f} cold_s={cold:.3f} warm_s={warm:.3f}")
@@ -912,6 +1021,37 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
             raise AssertionError(f"{label}: objective {dobj:.3e} from f64 > 1e-2")
     _log(f"{label}: {fg.summary()}")
     _log(f"{line} launches={launches} launches_by_size={by_size}")
+    if cpu_reference:
+        # the CPU run at several torch thread counts: where the f64 objective
+        # is ~0 the f32 one is roundoff (3D 4x250 SOCP: 32, 16, -16, 0.0),
+        # and the stopping test's max(1, |objective|) makes the iteration
+        # count follow it (10-16 over thread counts on one CPU). A solve
+        # that ends by the stall detector can also escape a stall and stop
+        # later at a better gap (3D 1x1000 SOCP on the CPU: 12 iterations at
+        # relgap 2.4e-3, or 27 at 1.6e-4 after a 1e-6 move of its start):
+        # more iterations than the CPU runs are accepted only with a
+        # relative gap below all of theirs
+        threads = torch.get_num_threads()
+        its, relgaps = [], []
+        for n in CPU_THREADS:
+            torch.set_num_threads(n)
+            t0 = time.perf_counter()
+            cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu", precision=precision))
+            _log(f"{label}[cpu, {n} threads]: solved={cpu.solved} iterations={cpu.iterations} "
+                 f"relgap={cpu.gap / max(1.0, abs(cpu.primal_objective)):.3e} "
+                 f"pres={cpu.primal_residual:.3e} dres={cpu.dual_residual:.3e} "
+                 f"objective={cpu.primal_objective:.6f} wall_s={time.perf_counter() - t0:.3f}")
+            if cpu.solved != res.solved:
+                raise AssertionError(f"{label}: the card (solved={res.solved}) and the CPU "
+                                     f"at {n} threads (solved={cpu.solved}) disagree")
+            its.append(cpu.iterations)
+            relgaps.append(cpu.gap / max(1.0, abs(cpu.primal_objective)))
+        torch.set_num_threads(threads)
+        longer_and_better = res.iterations > max(its) and relgap < min(relgaps)
+        if not (min(its) - 3 <= res.iterations <= max(its) + 3 or longer_and_better):
+            raise AssertionError(f"{label}: {res.iterations} iterations on the card at relgap "
+                                 f"{relgap:.3e}, more than 3 from the CPU runs' {its} "
+                                 f"(relgaps {relgaps})")
     return {**launches, **by_size}, res
 
 
@@ -941,7 +1081,9 @@ def main() -> int:
                 _log("  ptxas:", line.strip())
 
     # registers and spills of every band kernel at each block size (the
-    # wide band_pcr_solve exists at Db = 6 only) and of block_chol
+    # wide band_pcr_solve exists at Db = 6 only), of block_chol, and of
+    # both block kernels at the 3D sizes (block_chol_solve's kernel is
+    # tri_solve_kernel<D, V, BACK>; the worst over its V and BACK)
     checks = [("band", wrapper, kern, Db) for Db in (6, 12)
               for wrapper, kern in (("band_init_a", "init_a_kernel"),
                                     ("band_block_inv", "block_inv_kernel"),
@@ -953,9 +1095,13 @@ def main() -> int:
                                     ("band_cr_backsub", "cr_backsub_narrow_kernel"),
                                     ("band_cr_backsub", "cr_backsub_wide_kernel"))
               if Db == 6 or kern != "pcr_solve_wide_kernel"]
-    for lib, wrapper, kern, Db in checks + [("blocks", "block_chol", "chol_kernel", None)]:
+    checks += [("blocks", "block_chol", "chol_kernel", None)]
+    checks += [("blocks", wrapper, kern, D) for D in (12, 3)
+               for wrapper, kern in (("block_chol", "chol_kernel"),
+                                     ("block_chol_solve", "tri_solve_kernel"))]
+    for lib, wrapper, kern, Db in checks:
         regs, stores, loads = _ptxas_report(built[lib][2], kern, Db)
-        at = "" if Db is None else f", Db={Db}"
+        at = "" if Db is None else f", {'Db' if lib == 'band' else 'D'}={Db}"
         _log(f"ptxas {wrapper} ({kern}{at}): registers={regs} spill_store_bytes={stores} "
              f"spill_load_bytes={loads}")
         if stores or loads:
@@ -972,7 +1118,8 @@ def main() -> int:
     block_rows = phase_blocks(dev)
     if "--kernels" in sys.argv[1:]:  # stop after the kernels' checks
         return 0
-    phase_f32_band(dev)
+    phase_f32_band(dev, 4, 512, 6, 138)  # Manhattan-4's band
+    phase_f32_band(dev, 4, 256, 12, 18)  # 3D 4x250's band
     phase_small_reference()
     phase_small_reference_3d()
 
@@ -994,6 +1141,19 @@ def main() -> int:
         reference=results["manhattan4"])
     phase_solve("manhattan4-qcqp-f32", m4_fg, m4_Tp, relaxation="QCQP", precision="f32",
                 reference=results["manhattan4-qcqp"])
+    # 3D in f32: 4x250 as SOCP and QCQP (which ends unsolved in both
+    # packages), 1x1000 as SOCP, each beside the port's CPU f32 run; the
+    # objectives of these worlds sit near 0, so the f64 one is printed
+    # beside and not compared
+    for (label, fg, shape), relaxations in zip(cells_3d, (("SOCP", "QCQP"), ("SOCP",))):
+        for relaxation in relaxations:
+            name = (label if relaxation == "SOCP" else f"{label}-qcqp") + "-f32"
+            launches[name], res = phase_solve(
+                name, fg, shape[1], relaxation=relaxation, precision="f32",
+                cpu_reference=True, must_solve=relaxation == "SOCP")
+            f64 = results[name[:-len("-f32")]]
+            _log(f"{name}: f32 objective {res.primal_objective:.6f} beside f64 "
+                 f"{f64.primal_objective:.6f}")
     phase_small_f32_reference()
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
@@ -1001,16 +1161,20 @@ def main() -> int:
     # times at its band shape; block kernels: launches from the f32
     # Manhattan-4 SOCP solve (none of the forward-only block_tri_lower_solve,
     # whose callers all run the fused block_chol_solve), times at its first
-    # level's shapes
+    # level's shapes, and at D = 12 and D = 3 launches from the f32 3D 4x250
+    # QCQP solve, times at its first level's and its pivots' shapes
     timed = {**rows["manhattan4"], **block_rows}
     timed.update({f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
-    names = list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS]
+    names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS]
+             + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)])
     kernels = []
     for name in names:
         base = name.split("[")[0]
         row = timed[name]
         if base.startswith("block_"):
-            source, launched = BLOCKS_SOURCE, launches["manhattan4-f32"][base]
+            source = BLOCKS_SOURCE
+            launched = (launches["manhattan4-f32"][base] if name == base
+                        else launches["3d-4x250-qcqp-f32"][name])
         elif name == base:
             source, launched = BAND_SOURCE, launches["manhattan4"][f"{base}[Db=6]"]
         else:

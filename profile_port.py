@@ -49,8 +49,11 @@ that two commits are timed on one card in one call.
 
 five warm Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
 profiled solve in each: kernel launches, device busy time and the
-hand-written kernels' device time and launches. With ``--root`` for two
-commits in turns in one call.
+hand-written kernels' device time and launches (also per template
+instantiation, ``chol_kernel<12>``); then the same in f32 for 3D 4x250
+(``chip_smoke._cells_3d``) as SOCP and as QCQP. With ``--root`` for two
+commits in turns in one call (a checkout from before the f32 3D path
+raises at the 3D step).
 
     python3 profile_port.py --sweep3d [--out report.json]
 
@@ -160,19 +163,24 @@ def _profile_solve(fg, top=12, precision="f64", relaxation="SOCP"):
     n_launch = sum(e.count for e in kernels)
     ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)[:top]
-    band = {}
+    band, by_instance = {}, {}
     for e in kernels:  # one entry per template instantiation: summed by name
         for name in _KERNEL_NAMES:
             if "::" + name in e.key:
-                row = band.setdefault(name, dict(device_ms=0.0, launches=0))
-                row["device_ms"] += e.self_device_time_total / 1e3
-                row["launches"] += e.count
+                # and kept apart by template arguments (name<D, ...>)
+                args = e.key.split("::" + name, 1)[1].split(">", 1)[0]
+                inst = name + (args + ">" if args.startswith("<") else "")
+                for table, key in ((band, name), (by_instance, inst)):
+                    row = table.setdefault(key, dict(device_ms=0.0, launches=0))
+                    row["device_ms"] += e.self_device_time_total / 1e3
+                    row["launches"] += e.count
     return dict(
         device_busy_ms=busy_us / 1e3,
         kernel_launches=n_launch,
         top_ops=[dict(op=e.key, device_ms=e.self_device_time_total / 1e3,
                       calls=e.count) for e in ops],
         hand_kernels=band,
+        hand_kernels_by_instance=by_instance,
     )
 
 
@@ -625,7 +633,7 @@ def main() -> int:
             out.write_text(json.dumps(dict(card=smi, kernels=rows), indent=1))
         return 0
 
-    from chip_smoke import _cells
+    from chip_smoke import _cells, _cells_3d
 
     if args.walls:
         import score_tpu_torch
@@ -641,6 +649,17 @@ def main() -> int:
             _log(f"{label}-{precision}: profiled solve: device busy {p['device_busy_ms']:.3f} "
                  f"ms, {p['kernel_launches']} kernel launches")
             for name, b in p["hand_kernels"].items():
+                _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+        label, fg = _cells_3d()[0]
+        for relaxation in ("SOCP", "QCQP"):
+            key = f"{label}-{relaxation.lower()}-f32"
+            report[key] = _warm_walls(fg, n=5, precision="f32", relaxation=relaxation)
+            _log(f"{key}: warm {report[key]}")
+            p = report[key + "_profile"] = _profile_solve(fg, precision="f32",
+                                                          relaxation=relaxation)
+            _log(f"{key}: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
+                 f"{p['kernel_launches']} kernel launches")
+            for name, b in p["hand_kernels_by_instance"].items():
                 _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
         if args.out:
             out = Path(args.out)

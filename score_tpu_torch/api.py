@@ -27,7 +27,6 @@ from score_tpu_torch.assembly.conic import (
 from score_tpu_torch.assembly.normalize import normalize_factor_graph, unscale_results
 from score_tpu_torch.fg.factor_graph import FactorGraphData
 from score_tpu_torch.fg.solver_utils import SolverResults, VariableValues, save_results_to_file
-from score_tpu_torch.ops import blocks
 from score_tpu_torch.ops.rounding import extract_pose_matrices, homogenize_batched
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
 from score_tpu_torch.solver.ipm import SOLVED_STATUSES, IPMResult, solve_conic
@@ -50,20 +49,6 @@ def _device(params: ScoreSolverParams) -> torch.device:
             f"device {params.device!r} requested but torch.cuda.is_available() is False"
         )
     return dev
-
-
-def _check_f32_blocks(data: FactorGraphData, device: torch.device) -> None:
-    """The f32 mode factors its band and the QCQP distance pivots with the
-    f32 block kernels, which the card has for 2D blocks only: a 3D graph
-    (band blocks D = 12, pivots D = 3) raises before any work."""
-    d = data.dimension
-    need = (d * (d + 1), d)
-    if device.type == "cuda" and any(D not in blocks.CUDA_BLOCK_SIZES for D in need):
-        raise NotImplementedError(
-            f"precision='f32' on {device}: the f32 block kernels are built for "
-            f"D in {blocks.CUDA_BLOCK_SIZES}, and a {d}D graph needs D = {need[0]} "
-            f"(band blocks) and D = {need[1]} (QCQP pivots); use precision='f64'"
-        )
 
 
 def _select_backend(problem: ConicProblem, idx: VariableIndex):
@@ -155,8 +140,6 @@ def solve_score(
     ``params.device`` and return the rounded initialization (default
     relaxation QCQP like the reference)."""
     params = params or ScoreSolverParams()
-    if params.precision == "f32":
-        _check_f32_blocks(data, torch.device(params.device))
     _check_factor_graph(data)
     device = _device(params)
     ipm_params = params.ipm_params()

@@ -2,8 +2,9 @@
 
 Port of :mod:`score_tpu.ops.pallas_blocks`. The f32 band (cyclic reduction,
 :mod:`score_tpu_torch.solver.pcr`) and the QCQP range elimination spend
-their block work on thousands of tiny (D = 6, or D = 2) Cholesky
-factorizations and triangular solves per level. Two kernels, written by
+their block work on thousands of tiny Cholesky factorizations and
+triangular solves per level: D = 6 band blocks and D = 2 distance pivots
+on a 2D graph, D = 12 and D = 3 on a 3D one. Two kernels, written by
 hand in CUDA C++ (``csrc/blocks.cu``, built for sm_90a by
 :mod:`score_tpu_torch.ops.build`), do that work on the card:
 
@@ -46,9 +47,9 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-# Block sizes the CUDA kernels are instantiated for: 2D pose blocks and
-# the 2D QCQP distance pivots. The 3D sizes (3, 12) come with 3D.
-CUDA_BLOCK_SIZES = (2, 6)
+# Block sizes the CUDA kernels are instantiated for: the QCQP distance
+# pivots (2D: 2, 3D: 3) and the pose blocks of the band (2D: 6, 3D: 12).
+CUDA_BLOCK_SIZES = (2, 3, 6, 12)
 
 
 # ------------------------------------------------------------------ #
@@ -154,14 +155,22 @@ def _block_stride(A: torch.Tensor) -> int:
     return A.stride(0) if A.shape[0] > 1 else A.shape[-1] ** 2
 
 
+def _units16(D: int) -> bool:
+    """True where the kernels move blocks of D x D floats in 16-byte units
+    (D * D a multiple of 4); otherwise (D = 3) in floats."""
+    return D * D % 4 == 0
+
+
 def block_chol_reads(A: torch.Tensor) -> bool:
     """True when ``block_chol`` reads the blocks A (M, D, D) where they lie:
-    each block contiguous (unit column stride, row stride D) and every
-    block on a 16-byte boundary (A's address and its block stride). Holds
-    for contiguous batches and for the f32 band's views ``D[:, 1::2]`` and
-    ``D[:, 0]`` of a contiguous (C, T, D, D)."""
-    return (A.stride(-1) == 1 and A.stride(-2) == A.shape[-1]
-            and _block_stride(A) % 4 == 0 and A.data_ptr() % 16 == 0)
+    each block contiguous (unit column stride, row stride D) and, where the
+    kernel stages 16-byte units (D = 2, 6, 12), every block on a 16-byte
+    boundary (A's address and its block stride). Holds for contiguous
+    batches and for the f32 band's views ``D[:, 1::2]`` and ``D[:, 0]`` of
+    a contiguous (C, T, D, D); at D = 3 for any block stride."""
+    n = A.shape[-1]
+    return (A.stride(-1) == 1 and A.stride(-2) == n
+            and (not _units16(n) or (_block_stride(A) % 4 == 0 and A.data_ptr() % 16 == 0)))
 
 
 def block_chol(A: torch.Tensor) -> torch.Tensor:
@@ -172,20 +181,22 @@ def block_chol(A: torch.Tensor) -> torch.Tensor:
     Replaces ``score_tpu/ops/pallas_blocks.py:_chol_kernel``. A thread owns
     a block; a thread block's blocks are staged in shared memory by 16-byte
     loads on neighbouring addresses, all in flight at once, read through
-    A's block stride (so the f32 band's odd-row view costs no copy); the
+    A's block stride (so the f32 band's odd-row view costs no copy; at
+    D = 3, whose 9-float blocks straddle 16-byte units, by float loads); the
     lower triangle is formed in registers in left-looking column order with
     one rsqrt per column, multiplied where the plain twin divides by the
     square root, as the TPU kernel does; L leaves through shared memory as
-    16-byte stores. At the f32 path's sizes (M = 4..2070 blocks, at most
-    0.3 MB in and out) an H100's launch latency bounds it, not memory or
+    16-byte stores. At the f32 path's sizes (M = 1..2363 blocks, at most
+    0.6 MB in and out) an H100's launch latency bounds it, not memory or
     arithmetic; thread blocks of 32 threads spread M = 1024 over 32 SMs."""
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"block_chol: expected (M, D, D), got {tuple(A.shape)}")
     M, D, _ = A.shape
     _check("block_chol", A, (M, D, D), contiguous=False)
     if D in CUDA_BLOCK_SIZES and not block_chol_reads(A):
-        raise ValueError("block_chol: expected contiguous blocks on 16-byte boundaries, "
-                         f"got strides {A.stride()} at address {A.data_ptr():#x}")
+        raise ValueError("block_chol: expected contiguous blocks (on 16-byte boundaries "
+                         f"at D = 2, 6, 12), got strides {A.stride()} at address "
+                         f"{A.data_ptr():#x}")
     if not _route("block_chol", D, A):
         return block_chol_plain(A)
     L = torch.empty((M, D, D), dtype=A.dtype, device=A.device)
@@ -216,7 +227,7 @@ def _solve(wrapper, plain, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     X = torch.empty((M, D, K), dtype=B.dtype, device=B.device)
     if X.numel() == 0:
         return X
-    if L.data_ptr() % 16:
+    if _units16(D) and L.data_ptr() % 16:
         raise ValueError(f"{name}: L is not 16-byte aligned")
     err = getattr(_lib(), name)(L.data_ptr(), B.data_ptr(), X.data_ptr(), M, D, K,
                                 *B.stride(),

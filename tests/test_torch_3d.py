@@ -18,6 +18,9 @@ world), shared through a module fixture, and reads the loop world's QCQP
 reference from ``tests/data/torch_reference.npz``, which
 ``tests/torch_reference_data.py`` writes with the JAX package.
 
+The f32 mode (``precision="f32"``) is held to the JAX package's f32
+solves of the loop world and the plain world, read from the npz.
+
 ``test_qcqp_3d_matches_reference`` holds the fault that 3D QCQP had: with
 all-positions PCR over the whole 32-block chains, the band's explicit
 inverses of fully reduced 12 x 12 blocks left the dual residual 20-100x
@@ -50,7 +53,7 @@ from score_tpu_torch.convert import factor_graph_from_reference, problem_from_re
 from score_tpu_torch.ops import band
 from score_tpu_torch.sim.world3d import World3DParams, simulate_3d_world
 from score_tpu_torch.solver.chain_arrow import build_chain_arrow
-from score_tpu_torch.solver.ipm import OPTIMAL, solve_conic
+from score_tpu_torch.solver.ipm import OPTIMAL, OPTIMAL_INACCURATE, solve_conic
 
 torch.set_num_threads(1)
 
@@ -199,9 +202,65 @@ def test_qcqp_3d_without_refinement_stalls(ref_graph, monkeypatch):
     assert port.status != OPTIMAL and port.iterations >= 8
 
 
-def test_f32_3d_on_the_card_raises(ref_graph):
-    """The f32 block kernels exist for 2D blocks only: a 3D f32 solve on
-    the card is refused before any work, naming the block sizes."""
-    fg = factor_graph_from_reference(ref_graph)
-    with pytest.raises(NotImplementedError, match=r"D = 12.*D = 3"):
-        solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))
+def _f32_reference(key):
+    """The JAX package's f32 ``solve_score`` of a 3D world, from the npz:
+    (solved, iterations, objective, gap)."""
+    data = torch_reference_data.load()
+    return tuple(data[f"{key}_{f}"].item() for f in ("solved", "iterations", "pobj", "gap"))
+
+
+@pytest.mark.parametrize("relaxation", ["SOCP", "QCQP"])
+def test_solve_score_3d_f32_matches_reference(loop_graph, relaxation):
+    """precision="f32" on the loop world, on the CPU (the plain versions of
+    the f32 block kernels at D = 12 and, for QCQP, D = 3) against the JAX
+    package's f32 solve of the same graph: the same solved status,
+    iterations within 3, objectives within 2e-2 relative (the 2D f32
+    checks' limits; measured: 2 against 2 and 11 against 13 iterations,
+    objectives 2.5e-5 and 2.6e-6 apart)."""
+    solved, iterations, pobj, _ = _f32_reference(f"loop3d_f32_{relaxation.lower()}")
+    port = solve_score(factor_graph_from_reference(loop_graph), relaxation,
+                       ScoreSolverParams(device="cpu", precision="f32"))
+    assert port.solved == solved is True
+    assert abs(port.iterations - iterations) <= 3
+    assert abs(port.primal_objective - pobj) <= 2e-2 * abs(pobj)
+    for P in port.poses.values():
+        assert abs(np.linalg.det(P[:3, :3]) - 1.0) < 1e-5
+
+
+def test_solve_score_3d_f32_socp_plain_world(ref_graph):
+    """precision="f32" SOCP on the plain 3D world: solved in both packages,
+    iterations within 3 of the JAX package's, relative gap <= 1e-2 (the
+    mode's reduced tolerance). Its objective sits at ~1e-10 in f64 and is
+    off by 0.1-0.3 in f32 in both packages, so it is not compared."""
+    solved, iterations, _, _ = _f32_reference("plain3d_f32_socp")
+    port = solve_score(factor_graph_from_reference(ref_graph), "SOCP",
+                       ScoreSolverParams(device="cpu", precision="f32"))
+    assert port.solved and solved
+    assert abs(port.iterations - iterations) <= 3
+    assert port.gap / max(1.0, abs(port.primal_objective)) <= 1e-2
+
+
+def test_stalled_qcqp_3d_matches_what_the_reference_shares():
+    """The 4 x 100 world's 3D QCQP in f64, where both packages stop on a
+    dual-residual floor (~2.2-2.4e-8) by the stall detector. Its iteration
+    count is roundoff: 13-29 in the JAX package under 1e-12 perturbations
+    of its initial point, 15-32 in the port with the torch thread count
+    and 13-20 under the same perturbations (ROADMAP, known departures).
+    What both share is held: OPTIMAL_INACCURATE as the reference (read
+    from the npz), the dual residual under the reduced tolerance and
+    within 1.5x the reference's floor, and the objective within 2e-8 of
+    the reference's: twice the spread of the reference's own objectives
+    under those perturbations (1.07e-8; its final gap, 2.8e-12, is far
+    below what the residual floor fixes)."""
+    data = torch_reference_data.load()
+    ref = {f: data[f"qcqp3d_4x100_{f}"].item()
+           for f in ("status", "iterations", "pobj", "gap", "dres")}
+    params = ScoreSolverParams(device="cpu").ipm_params()
+    scaled, _ = normalize_factor_graph(simulate_3d_world(World3DParams(
+        **torch_reference_data.WORLD_3D_4X100)))
+    pp, idx = build_conic_problem(scaled, "QCQP", device="cpu")
+    port = solve_conic(pp, params, backend_aux=build_chain_arrow(pp, idx))
+    assert ref["status"] == port.status == OPTIMAL_INACCURATE
+    assert port.dres < params.tol_feas_reduced
+    assert port.dres <= 1.5 * ref["dres"]
+    assert abs(port.pobj - ref["pobj"]) <= 2e-8

@@ -38,7 +38,7 @@ def _spd(M, D, seed, dtype=np.float32):
     return (A @ np.swapaxes(A, -1, -2) + (2.0 + 4.0 * D) * np.eye(D)).astype(dtype)
 
 
-@pytest.mark.parametrize("D", [2, 6])
+@pytest.mark.parametrize("D", [2, 3, 6, 12])
 def test_block_chol_matches_pallas_interpret(D):
     A = _spd(40, D, 10 + D)
     L = blocks.block_chol(torch.tensor(A))
@@ -47,7 +47,7 @@ def test_block_chol_matches_pallas_interpret(D):
     assert torch.equal(torch.triu(L, diagonal=1), torch.zeros_like(L))
 
 
-@pytest.mark.parametrize("D,K", [(2, 1), (2, 40), (6, 1), (6, 6)])
+@pytest.mark.parametrize("D,K", [(2, 1), (2, 40), (3, 3), (6, 1), (6, 6), (12, 1), (12, 18)])
 def test_block_tri_lower_solve_matches_pallas_interpret(D, K):
     A = _spd(24, D, 20 + D)
     L = np.linalg.cholesky(A.astype(np.float64)).astype(np.float32)
@@ -117,7 +117,10 @@ def test_wrappers_reject_bad_inputs():
         blocks.block_chol(A.to("meta"))  # neither CPU nor CUDA: no kernel
 
 
-SOLVE_CASES = [(2, 2), (6, 1), (6, 6), (6, 40)]
+# 2D: pivots (2, 2), a direction, a level's couplings, a panel; 3D: the
+# pivots' identity (3, 3), a direction, the couplings (12, 12) and the 3D
+# bench's arrow panel (12, 18)
+SOLVE_CASES = [(2, 2), (6, 1), (6, 6), (6, 40), (3, 3), (12, 1), (12, 12), (12, 18)]
 
 
 def _factor_and_rhs(D, K, seed, dtype):
@@ -243,3 +246,31 @@ def test_block_chol_reads_strided_blocks():
     P = torch.tensor(_spd(6, 2, 93))
     assert blocks.block_chol_reads(P) and blocks.block_chol_reads(P[::2])
     assert not blocks.block_chol_reads(torch.zeros(6 * 4 + 1)[1:].reshape(6, 2, 2))
+
+
+def test_block_chol_reads_3d_blocks():
+    """D = 12 band blocks keep the 16-byte conditions (the band's views
+    pass, a block stride or an address off 16 bytes does not); D = 3
+    pivots, 9 floats a block, are staged by float loads: any block stride
+    and address pass, a block that is not contiguous does not. Each
+    accepted layout gives the plain version's bits of its contiguous copy."""
+    D12 = torch.tensor(_spd(2 * 4, 12, 94)).reshape(2, 4, 12, 12)
+    for view in (D12[:, 1::2].reshape(-1, 12, 12), D12[:, 0]):
+        assert blocks.block_chol_reads(view)
+        assert torch.equal(blocks.block_chol(view), blocks.block_chol_plain(view.contiguous()))
+    padded = torch.zeros(8, 145)
+    padded[:, :144] = D12.reshape(8, 144)
+    for bad in (padded[:, :144].reshape(8, 12, 12),
+                torch.zeros(8 * 144 + 1)[1:].reshape(8, 12, 12)):
+        assert not blocks.block_chol_reads(bad)
+        with pytest.raises(ValueError):
+            blocks.block_chol(bad)
+    P = torch.tensor(_spd(7, 3, 95))
+    shifted = torch.zeros(7 * 9 + 1)
+    shifted[1:] = P.reshape(-1)
+    for view in (P, P[1::2], shifted[1:].reshape(7, 3, 3),
+                 torch.tensor(_spd(14, 3, 96)).reshape(7, 2, 3, 3)[:, 1]):
+        assert blocks.block_chol_reads(view)
+        assert torch.equal(blocks.block_chol(view), blocks.block_chol_plain(view.contiguous()))
+    assert not blocks.block_chol_reads(P.transpose(-1, -2))
+    assert blocks.CUDA_BLOCK_SIZES == (2, 3, 6, 12)

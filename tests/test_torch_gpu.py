@@ -182,7 +182,8 @@ def _spd32(M, D, seed, device):
     return torch.tensor(A, dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("D,M,K", [(6, 1024, 1), (6, 1024, 6), (6, 1024, 138), (2, 2070, 2)])
+@pytest.mark.parametrize("D,M,K", [(6, 1024, 1), (6, 1024, 6), (6, 1024, 138), (2, 2070, 2),
+                                   (12, 512, 1), (12, 512, 12), (12, 512, 18), (3, 2348, 3)])
 def test_block_kernels_match_plain(cuda, D, M, K):
     """Max relative difference 1e-5 (f32; the kernels contract to FMAs,
     the plain versions round each PyTorch op) and reconstruction
@@ -206,8 +207,17 @@ def test_block_kernels_match_plain(cuda, D, M, K):
         blocks.block_chol(A.double())  # the kernels are f32 only
 
 
-@pytest.mark.parametrize("K", [1, 2, 5, 6, 138, 139, 258])
-@pytest.mark.parametrize("D,M", [(6, 1), (6, 3), (6, 1024), (6, 1280), (2, 2070)])
+# 2D: the panel widths and the 16-, 8-byte and scalar routes; 3D: D = 12
+# band blocks (the 3D bench's panel K = 18, couplings K = 12, a direction
+# K = 1) and D = 3 pivots, at batch sizes off and on the thread blocks
+SUBSTITUTION_CASES = (
+    [(D, M, K) for D, M in [(6, 1), (6, 3), (6, 1024), (6, 1280), (2, 2070)]
+     for K in (1, 2, 5, 6, 138, 139, 258)]
+    + [(D, M, K) for D, M in [(12, 1), (12, 3), (12, 7), (12, 512), (3, 1), (3, 7), (3, 2348)]
+       for K in (1, 2, 3, 12, 18)])
+
+
+@pytest.mark.parametrize("D,M,K", SUBSTITUTION_CASES)
 def test_substitution_kernels_match_plain(cuda, D, M, K):
     """block_chol_solve and the forward-only block_tri_lower_solve against
     their plain versions, 1e-5 (f32; FMAs, and a reciprocal multiply where
@@ -215,7 +225,7 @@ def test_substitution_kernels_match_plain(cuda, D, M, K):
     D = 2, where whole blocks stay aligned), the 8-byte and the scalar
     route, a last thread block that is not full, and rhs views read
     through their strides (transposed; every second block; a broadcast
-    identity)."""
+    identity, block stride 0 as the pivots' inverse hands it)."""
     L = blocks.block_chol(_spd32(M, D, M + D + K, cuda))
     B = torch.randn(M, D, K, device=cuda)
     views = [B, torch.randn(M, K, D, device=cuda).transpose(-1, -2),
@@ -273,8 +283,8 @@ def test_cr_backsub_matches_plain(cuda, C, Th):
     assert band.band_cr_backsub.launches == len(Ks)
 
 
-@pytest.mark.parametrize("D", [2, 6])
-@pytest.mark.parametrize("M", [1, 3, 4, 128, 1024, 2070])
+@pytest.mark.parametrize("D", [2, 3, 6, 12])
+@pytest.mark.parametrize("M", [1, 3, 4, 7, 128, 512, 1024, 2070, 2348, 2363])
 def test_block_chol_matches_plain_in_every_layout(cuda, D, M):
     """block_chol against its plain version, 1e-5 (f32; FMAs and an rsqrt
     where the plain version divides by a square root), and ||L L^T - A||
@@ -292,6 +302,16 @@ def test_block_chol_matches_plain_in_every_layout(cuda, D, M):
         assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
     torch.cuda.synchronize()
     assert blocks.block_chol.launches_by_size[D] == len(views)
+
+
+def test_block_kernels_raise_on_other_sizes(cuda):
+    """A CUDA tensor of a block size the kernels are not built for raises;
+    nothing falls back to the plain version on the card."""
+    A = _spd32(4, 5, 1, cuda)
+    with pytest.raises(ValueError, match="block sizes"):
+        blocks.block_chol(A)
+    with pytest.raises(ValueError, match="block sizes"):
+        blocks.block_chol_solve(A, torch.zeros(4, 5, 2, device=cuda))
 
 
 def test_chol_small_reads_the_odd_rows_in_place(cuda):
@@ -312,14 +332,16 @@ def _assert_fused_path():
     assert blocks.block_tri_lower_solve.launches == 0
 
 
-def test_f32_band_matches_f64_band(cuda):
+@pytest.mark.parametrize("Db", [6, 12])
+def test_f32_band_matches_f64_band(cuda, Db):
     """Cyclic reduction in f32 over the block kernels against the f64
     band kernels on the same well-conditioned chains: 1e-4 relative."""
-    D, U = _band(3, 64, 6, 62, (64, 40, 7), cuda)
-    b = torch.randn(3, 64, 6, 5, dtype=torch.float64, device=cuda)
+    D, U = _band(3, 64, Db, 62, (64, 40, 7), cuda)
+    b = torch.randn(3, 64, Db, 5, dtype=torch.float64, device=cuda)
     blocks.reset_launch_counts()
     x32 = pcr_solve(pcr_factor(D.float(), U.float()), b.float())
     _assert_fused_path()
+    assert blocks.block_chol.launches_by_size[Db] > 0
     x64 = band.band_solve(band.band_factor(D, U), b)
     assert _rel(x32.double(), x64) <= 1e-4
 
@@ -484,7 +506,26 @@ def test_cuda_solve_3d_matches_cpu(cuda, relaxation, monkeypatch):
         np.testing.assert_allclose(gpu.poses[name], T, atol=1e-5, rtol=0)
 
 
-def test_f32_3d_is_refused_on_the_card(cuda):
-    fg = simulate_3d_world(World3DParams(num_robots=1, num_poses_per_robot=10, seed=1))
-    with pytest.raises(NotImplementedError, match="D = 12"):
-        solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", precision="f32"))
+@pytest.mark.parametrize("relaxation", ["SOCP", "QCQP"])
+def test_f32_cuda_solve_3d_matches_cpu(cuda, relaxation):
+    """precision="f32" on the 2 x 30 3D world with a loop closure, on the
+    card against the port's f32 CPU path: both solved, iterations within
+    3, objectives within 2e-2 relative; the block kernels launched at
+    D = 12 (the band) and, for QCQP, D = 3 (the distance pivots), and the
+    forward-only kernel never."""
+    fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=30,
+                                         num_landmarks=4, range_measure_prob=0.4, seed=3))
+    fg.loop_closure_measurements.append(PoseMeasurement3D(
+        "A3", "A25", np.array([1.0, -2.0, 0.5]), np.eye(3), 100.0, 1000.0, 0.0))
+    blocks.reset_launch_counts()
+    gpu = solve_score(fg, relaxation, ScoreSolverParams(device="cuda", precision="f32"))
+    _assert_fused_path()
+    sizes = (12, 3) if relaxation == "QCQP" else (12,)
+    for k in (blocks.block_chol, blocks.block_chol_solve):
+        assert all(k.launches_by_size[D] > 0 for D in sizes)
+    cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu", precision="f32"))
+    assert gpu.solved and cpu.solved
+    assert abs(gpu.iterations - cpu.iterations) <= 3
+    assert abs(gpu.primal_objective - cpu.primal_objective) <= 2e-2 * abs(cpu.primal_objective)
+    for P in gpu.poses.values():
+        assert abs(np.linalg.det(P[:3, :3]) - 1.0) < 1e-5

@@ -22,7 +22,16 @@ as the worlds grow toward 3D 4x250. Entries of the file:
 - ``f32_4x50_socp_f64_objective``: ``solve_score`` of the f32 checks' 4 x 50
   world as SOCP in f64, read by
   ``tests/test_torch_api.py::test_f32_solve_matches_reference`` (its f32
-  reference solves live).
+  reference solves live);
+- ``loop3d_f32_socp_*``, ``loop3d_f32_qcqp_*``, ``plain3d_f32_socp_*``:
+  ``solve_score`` with ``precision="f32"`` (the JAX package's unrolled f32
+  path) of the 3D loop world as SOCP and QCQP and of the plain 3D world as
+  SOCP (solved, iterations, primal objective, gap), read by the f32 cases
+  of ``tests/test_torch_3d.py``;
+- ``qcqp3d_4x100_*``: ``solve_conic`` of the QCQP relaxation of the 4 x 100
+  3D world (``WORLD_3D_4X100``) in f64 (status, iterations, primal
+  objective, gap, dual residual), read by
+  ``tests/test_torch_3d.py::test_stalled_qcqp_3d_matches_what_the_reference_shares``.
 """
 
 from pathlib import Path
@@ -36,6 +45,10 @@ PATH = Path(__file__).resolve().parent / "data" / "torch_reference.npz"
 WORLD_3D = dict(num_robots=2, num_poses_per_robot=30, num_landmarks=4,
                 range_measure_prob=0.4, seed=3)
 LOOP_3D = ("A3", "A25", (1.0, -2.0, 0.5), 100.0, 1000.0)
+# the 4-robot 3D world of 100 poses a robot (the 3D bench's settings) whose
+# QCQP both packages end OPTIMAL_INACCURATE, on a dual-residual floor
+WORLD_3D_4X100 = dict(num_robots=4, num_poses_per_robot=100, num_landmarks=6,
+                      range_measure_prob=0.4, seed=3)
 # the f32 checks' world of tests/test_torch_api.py
 WORLD_4X50 = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=12,
                   range_measure_prob=0.4, seed=3)
@@ -82,6 +95,21 @@ def main() -> None:
         out[f"loop3d_qcqp_{name}"] = np.asarray(getattr(res, name))
     ref64 = solve_score(graph_4x50(), "SOCP", ScoreSolverParams(precision="f64"))
     out["f32_4x50_socp_f64_objective"] = np.asarray(ref64.primal_objective)
+    for key, graph, relaxation in (("loop3d_f32_socp", world_3d(loop=True), "SOCP"),
+                                   ("loop3d_f32_qcqp", world_3d(loop=True), "QCQP"),
+                                   ("plain3d_f32_socp", world_3d(), "SOCP")):
+        r = solve_score(graph, relaxation, ScoreSolverParams(precision="f32"))
+        for name, value in (("solved", r.solved), ("iterations", r.iterations),
+                            ("pobj", r.primal_objective), ("gap", r.gap)):
+            out[f"{key}_{name}"] = np.asarray(value)
+    from score_tpu.sim.world3d import World3DParams, simulate_3d_world
+
+    fg = simulate_3d_world(World3DParams(**WORLD_3D_4X100))
+    rp, ridx = build_conic_problem(normalize_factor_graph(fg)[0], "QCQP")
+    res = solve_conic(rp, ScoreSolverParams(precision="f64").ipm_params(),
+                      backend=ChainArrowBackend, backend_aux=build_chain_arrow(rp, ridx))
+    for name in ("status", "iterations", "pobj", "gap", "dres"):
+        out[f"qcqp3d_4x100_{name}"] = np.asarray(getattr(res, name))
     PATH.parent.mkdir(exist_ok=True)
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
