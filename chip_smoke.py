@@ -30,7 +30,9 @@ without printing a result line:
    ``band_cr_backsub``) at K = 1 beside the panel; then every band kernel
    at edge shapes of both block sizes: ``band_pcr_level`` and
    ``band_pcr_solve`` at one and two blocks per chain, one chain and rhs
-   widths off the column tiles, ``band_cr_level`` at chain lengths that
+   widths off the column tiles (3D: Tp = 1, 2, 4, 32, 256 and 512 at C = 1
+   and 4, K = 1, 2, 12, 17, 18, 19 and 138, which takes several column
+   chunks of the cluster kernel), ``band_cr_level`` at chain lengths that
    put a thread block's edge inside a chain, on a chain's first position
    and past the last, ``band_cr_backsub`` at C = 1, 4, 20, coarse lengths
    1, 2, 256, 1024 and K = 1, 2, 4, 5, 138, 258 (both of its kernels; the
@@ -40,11 +42,15 @@ without printing a result line:
    the shapes of the f32 path (max relative difference <= 1e-5, and
    reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
    ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
-   a library call's, at the 2D shapes and, in rows of their own, at the
+   a library call's (events around the call, and its device time as the
+   kernel's: in a replayed graph, or back to back between events where the
+   call cannot be captured), at the 2D shapes and, in rows of their own, at the
    3D ones (D = 12: M = 512 at K = 18, 12, 1 and the roots; D = 3: the
    2348 and 2363 pivots), ``block_chol`` also at D = 2, 3, 6, 12 and M = 1
    to 2363 on contiguous and strided blocks, and its device time at every
-   Cholesky of a Manhattan-4 and a 3D 4x250 f32 factor; the f32 band
+   Cholesky of a Manhattan-4 and a 3D 4x250 f32 factor; the launch floor
+   (``launch_floor_us``: a one-element ``add_`` in the same graph
+   harness); the f32 band
    (cyclic reduction over the block kernels) against the f64 band at
    Manhattan-4's and 3D 4x250's band shapes (<= 1e-4); then a small 2D
    instance and a small 3D instance (2 x 30 poses, SOCP and QCQP) solved
@@ -87,9 +93,10 @@ without printing a result line:
    printed beside the f64 ones;
 8. a 4 x 50 world in f32 on the card against the port's f32 CPU path:
    both solved, iterations within 3, objectives within 2e-2;
-9. one JSON line describing the kernels (event time, device time, plain
-   time, the bound from bytes and operations, and a PyTorch call
-   computing the same function where one exists): a row per kernel at
+9. the launch floor again, and one JSON line describing the kernels
+   (event time, device time, plain time, the bound from bytes and
+   operations, and a PyTorch call computing the same function where one
+   exists, by events and in device time, ``library_us``): a row per kernel at
    the 2D shapes; for the band kernels a row ``<name>[Db=12]`` at 3D
    1x1000's shapes (all seven run there) with its launches per 3D 1x1000
    SOCP solve; for the block kernels rows ``<name>[D=12]`` and
@@ -185,6 +192,39 @@ def _device_us(fn, launches=20, replays=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times) * 1e3 / launches
+
+
+def _library_us(fn, launches=20, replays=5):
+    """(device us of one call, how it was timed) for a PyTorch library
+    call: "graph" as :func:`_device_us`; "back to back" where the call
+    cannot be captured into a CUDA graph, ``launches`` calls enqueued back
+    to back between two events (the host's enqueue time can then show)."""
+    import torch
+
+    try:
+        return _device_us(fn, launches, replays), "graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times) * 1e3 / launches, "back to back"
+
+
+def _launch_floor_us(device):
+    """Device time of a one-element PyTorch op in :func:`_device_us`'s
+    harness: what a launch costs inside a replayed graph, whatever it does."""
+    import torch
+
+    one = torch.zeros(1, dtype=torch.float64, device=device)
+    return _device_us(lambda: one.add_(1))
 
 
 def _random_band(C, Tp, Db, seed, device):
@@ -365,10 +405,15 @@ class _KernelCheck:
         row = self.rows.get(name)
         if row is None:
             ms, plain_ms, device_us = _time_ms(kern), _time_ms(plain), _device_us(kern)
-            library_ms = _time_ms(library) if library is not None else None
+            library_ms = library_us = library_timing = None
+            if library is not None:
+                library_ms = _time_ms(library)
+                library_us, library_timing = _library_us(library)
             bound_ms, bound_by = _bound(*cost, self.precision)
             row = self.rows[name] = dict(max_abs_err=0.0, max_rel=0.0, calls=0,
                                          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                         library_us=library_us,
+                                         library_timing=library_timing,
                                          device_us=device_us,
                                          bound_ms=bound_ms, bound_by=bound_by,
                                          bytes=cost[0], flops=cost[1])
@@ -409,7 +454,7 @@ def phase_kernels(label, C, Tp, K, Db, device):
     Es, Fs = [], []
     invD = chk("band_block_inv", lambda: band.band_block_inv(Dl),
                lambda: band.band_block_inv_plain(Dl), _band_cost("band_block_inv", Dl),
-               library=lambda: torch.linalg.inv(Dl))
+               library=lambda: torch.linalg.inv_ex(Dl))
     for lev in range(band.num_levels(Tp >> n_cr)):
         args = (Dl, Al, Cl, invD, 1 << lev)
         E, F, Dl, Al, Cl, invD = chk("band_pcr_level", lambda: band.band_pcr_level(*args),
@@ -472,7 +517,9 @@ def phase_kernels(label, C, Tp, K, Db, device):
 
 def _log_rows(label, rows):
     for name, r in rows.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        lib = ("none" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} library_us={r['library_us']:.2f} "
+               f"({r['library_timing']})")
         _log(f"{label} kernel {name}: calls={r['calls']} max_rel_diff={r['max_rel']:.3e} "
              f"max_abs_err={r['max_abs_err']:.3e} kernel_ms={r['ms']:.4f} "
              f"device_us={r['device_us']:.2f} "
@@ -482,8 +529,11 @@ def _log_rows(label, rows):
 
 # Edge shapes of phase_edge_shapes, per block size. PCR: (chains, length,
 # rhs widths) with one and two blocks per chain, one chain, widths off the
-# column tiles (K = 3, 139; 3D: 2-9, its panel 18) and that meet their
-# edges (4, 5, 8), and chains longer than the wide solve kernel takes.
+# column tiles (K = 3, 139) and that meet their edges (4, 5, 8), and chains
+# longer than the wide solve kernel takes; 3D: chains of 1, 2 and 4 (fewer
+# positions than a cluster's 16 blocks) up to 512 at C = 1 and 4, widths
+# 1, 2, 12, 17-19 (the panel 18) and 138 (two or more column chunks at
+# Tp = 256 and 512: band._solve_cluster_plan).
 # band_cr_level: (chains, fine length); a thread block holds 15 coarse
 # positions at Db = 6 and 3 at Db = 12, so fine lengths 2 and 4 start
 # chains inside a thread block, 30 (6) on its first position, 512 and 2048
@@ -500,8 +550,8 @@ _EDGE = {
         inv=(1, 7, 17, 1024, 2560),
     ),
     12: dict(
-        pcr=[(3, 1, (1, 3)), (2, 2, (1, 3, 18)), (1, 256, (1, 2, 4, 5, 9, 18)),
-             (4, 8, (2, 3, 4, 5, 6, 7, 8, 9)), (4, 4, (1, 18)), (1, 512, (1, 3))],
+        pcr=[(C, Tp, (1, 2, 12, 17, 18, 19, 138)) for Tp in (1, 2, 4, 32, 256, 512)
+             for C in (1, 4)] + [(3, 1, (3,)), (2, 2, (3,)), (4, 8, (3, 4, 5, 6, 7, 8, 9))],
         cr=[(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30), (1, 512), (4, 512), (1, 2048)],
         backsub=((1, 4), (1, 2, 128, 512), (1, 2, 4, 5, 18)),
         inv=(1, 7, 9, 1024, 1000),
@@ -652,7 +702,8 @@ def phase_blocks(device):
         A = _random_blocks(M, n, seed=M + n, device=device)
         L = chk("block_chol" + tag, lambda: blocks.block_chol(A),
                 lambda: blocks.block_chol_plain(A),
-                _blocks_cost("block_chol", A), library=lambda: torch.linalg.cholesky_ex(A))
+                _blocks_cost("block_chol", A),
+                library=lambda: torch.linalg.cholesky_ex(A, check_errors=False))
         r = _resid(L @ L.transpose(-1, -2), A)
         _log(f"block_chol D={n} M={M}: ||L L^T - A||/||A|| = {r:.3e}")
         if not r <= 1e-5:
@@ -1081,20 +1132,26 @@ def main() -> int:
                 _log("  ptxas:", line.strip())
 
     # registers and spills of every band kernel at each block size (the
-    # wide band_pcr_solve exists at Db = 6 only), of block_chol, and of
-    # both block kernels at the 3D sizes (block_chol_solve's kernel is
-    # tri_solve_kernel<D, V, BACK>; the worst over its V and BACK)
+    # wide and narrow band_pcr_solve and the lane-group band_pcr_level at
+    # Db = 6, the cluster band_pcr_solve and the element band_pcr_level at
+    # Db = 12), of block_chol, and of both block kernels at the 3D sizes
+    # (block_chol_solve's kernel is tri_solve_kernel<D, V, BACK>; the worst
+    # over its V and BACK)
+    only = {"pcr_solve_wide_kernel": 6, "pcr_solve_narrow_kernel": 6, "pcr_level_kernel": 6,
+            "pcr_solve_cluster_kernel": 12, "pcr_level_element_kernel": 12}
     checks = [("band", wrapper, kern, Db) for Db in (6, 12)
               for wrapper, kern in (("band_init_a", "init_a_kernel"),
                                     ("band_block_inv", "block_inv_kernel"),
                                     ("band_pcr_level", "pcr_level_kernel"),
+                                    ("band_pcr_level", "pcr_level_element_kernel"),
                                     ("band_cr_level", "cr_level_kernel"),
                                     ("band_cr_reduce", "cr_reduce_kernel"),
                                     ("band_pcr_solve", "pcr_solve_wide_kernel"),
                                     ("band_pcr_solve", "pcr_solve_narrow_kernel"),
+                                    ("band_pcr_solve", "pcr_solve_cluster_kernel"),
                                     ("band_cr_backsub", "cr_backsub_narrow_kernel"),
                                     ("band_cr_backsub", "cr_backsub_wide_kernel"))
-              if Db == 6 or kern != "pcr_solve_wide_kernel"]
+              if only.get(kern, Db) == Db]
     checks += [("blocks", "block_chol", "chol_kernel", None)]
     checks += [("blocks", wrapper, kern, D) for D in (12, 3)
                for wrapper, kern in (("block_chol", "chol_kernel"),
@@ -1116,6 +1173,9 @@ def main() -> int:
     for Db in (6, 12):
         phase_edge_shapes(Db, dev)
     block_rows = phase_blocks(dev)
+    launch_floor_us = _launch_floor_us(dev)
+    _log(f"launch_floor_us={launch_floor_us:.2f} (a one-element add_ in the device-time "
+         f"harness: 20 launches in a replayed CUDA graph)")
     if "--kernels" in sys.argv[1:]:  # stop after the kernels' checks
         return 0
     phase_f32_band(dev, 4, 512, 6, 138)  # Manhattan-4's band
@@ -1184,8 +1244,9 @@ def main() -> int:
             launches=launched, max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_us=row["device_us"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"],
+            library_ms=row["library_ms"], library_us=row["library_us"],
             **{k: v for k, v in row.items() if k.startswith("k1_")}))
+    _log(f"launch_floor_us={launch_floor_us:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,8 +60,10 @@ raises at the 3D step).
 the 3D instances (12 x 12 blocks; ``chip_smoke._cells_3d``): the band
 alone at both 3D band shapes for every compaction floor from 1 to 256
 whose remainder the solve kernel takes (factor, panel and direction ms,
-launches, residual), ``band_pcr_solve``'s panel at each remainder with 1, 2
-and 4 columns a thread; warm 3D 4x250 QCQP and SOCP solves with the floor
+launches, residual), ``band_pcr_solve``'s panel and a direction at each
+remainder with clusters of 4, 8 and 16 thread blocks; the two Db = 12 PCR
+kernels' parts (``band_pcr_level`` built without its inverse, the cluster
+``band_pcr_solve``'s clocks at each level's barrier, stage and products); warm 3D 4x250 QCQP and SOCP solves with the floor
 at 4, 16, 64 and 256, each with and without the band's refinement step, in
 turns (walls, iterations, relative gap, dual residual), and the QCQP at
 four of them by the port's CPU path; three warm solves and a profiled solve of each 3D instance; and
@@ -143,7 +145,8 @@ def _warm_walls(fg, n=3, precision="f64", relaxation="SOCP"):
 _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
                  "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                  "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
-                 "pcr_solve_narrow_kernel", "chol_kernel", "tri_solve_kernel",
+                 "pcr_solve_narrow_kernel", "pcr_level_element_kernel",
+                 "pcr_solve_cluster_kernel", "chol_kernel", "tri_solve_kernel",
                  "tri_lower_kernel")
 
 
@@ -383,16 +386,17 @@ _FLOORS_3D = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 def _depth_sweep_3d(device):
     """The Db = 12 band alone at both 3D shapes, for every compaction
-    floor whose PCR remainder the narrow solve kernel takes: event ms of a
-    factor, a panel solve (K = 18) and a direction (K = 1), launches, and
-    the panel solve's band residual; and, at each remainder, the panel's
-    band_pcr_solve with its tile forced to 1, 2 and 4 columns a thread
-    (device us; the shape rule picks one of them)."""
+    floor whose PCR remainder the cluster solve kernel takes: event ms of
+    a factor, a panel solve (K = 18) and a direction (K = 1), launches, and
+    the panel solve's band residual; and, at each remainder, band_pcr_solve
+    at the panel and a direction with its cluster size forced to P = 4, 8
+    and 16 (device us; P at most the remainder; the route takes
+    ``band._SOLVE_CLUSTER``)."""
     import torch
     from chip_smoke import _band_residual, _device_us
     from score_tpu_torch.ops import band
 
-    sweep, tiles = [], []
+    sweep, clusters = [], []
     for label, (C, Tp, K) in _BANDS_3D.items():
         D, U = _random_band(C, Tp, 12, seed=Tp + C, device=device)
         rng = np.random.default_rng(0)
@@ -403,7 +407,7 @@ def _depth_sweep_3d(device):
             if n < 0:
                 continue
             try:
-                band._solve_tile_columns(floor, 12, K)
+                band._solve_cluster_plan(floor, 12, K)
             except ValueError:  # the remainder does not fit the solve kernel
                 continue
             f = band.band_factor(D, U, n_cr=n)
@@ -415,22 +419,99 @@ def _depth_sweep_3d(device):
                 factor_launches=_launches(lambda: band.band_factor(D, U, n_cr=n)),
                 solve_launches=_launches(lambda: band.band_solve(f, b1)),
                 panel_residual=_band_residual(D, U, band.band_solve(f, bK), bK)))
-            # the panel at this remainder, each tile forced
+            # the solve at this remainder, each cluster size forced
             Db, L = 12, f.E.shape[0]
-            b = torch.tensor(rng.standard_normal((C, floor, Db, K)), device=device)
-            x = torch.empty_like(b)
-            for ct in (1, 2, 4):
-                if floor * Db * ct > band._narrow_accumulators(Db) * band._NARROW_THREADS:
-                    continue
+            for k in (K, 1):
+                b = torch.tensor(rng.standard_normal((C, floor, Db, k)), device=device)
+                x = torch.empty_like(b)
+                for P in (4, 8, 16):
+                    if P > floor:
+                        continue
+                    try:
+                        _, Kc = band._solve_cluster_plan(floor, Db, k, C, P=P)
+                    except ValueError:  # fewer positions than P, or past the shared memory
+                        continue
 
-                def fn(ct=ct):
-                    band._raise_on("band_pcr_solve", band._lib().band_pcr_solve(
-                        f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(),
-                        x.data_ptr(), C, floor, Db, L, K, ct, 1, band._stream()))
-                tiles.append(dict(cell=label, floor=floor, K=K, ct=ct,
-                                  chosen=ct == band._solve_tile_columns(floor, Db, K),
-                                  device_us=_device_us(fn)))
-    return sweep, tiles
+                    def fn(P=P, Kc=Kc):
+                        band._raise_on("band_pcr_solve", band._lib().band_pcr_solve(
+                            f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(),
+                            x.data_ptr(), C, floor, Db, L, k, P, Kc, band._stream()))
+                    fn()
+                    err = ((x - band.band_pcr_solve_plain(f.E, f.F, f.invD, b)).abs().max()
+                           / x.abs().max()).item()
+                    clusters.append(dict(cell=label, floor=floor, K=k, P=P, Kc=Kc,
+                                         chosen=(P, Kc) == band._solve_cluster_plan(floor, Db, k, C),
+                                         device_us=_device_us(fn), max_rel_diff=err))
+    return sweep, clusters
+def _pcr3d_ablation(device):
+    """What bounds the two Db = 12 PCR kernels at 3D 1x1000's remainder
+    (C = 1, Tp = 256): band_pcr_level's device us built whole and built
+    with -DBAND_LEVEL_NO_INVERSE (no inverse of D'), at the first and last
+    level; and, from a build with -DBAND_CLUSTER_CLOCKS, the cluster
+    band_pcr_solve's first worker's clock at each level's barrier, after
+    its stage wait and after its products, in three blocks of the cluster,
+    at K = 1 and at the panel's plan (K = 18)."""
+    import ctypes
+
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band, build
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = {}
+    procs = {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for flag in ("-DBAND_LEVEL_NO_INVERSE", "-DBAND_CLUSTER_CLOCKS"):
+        so = build.BUILD_DIR / ("sweep3d" + flag[2:] + ".so")
+        procs[flag] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, flag, "-o", str(so), str(build.SOURCES["band"])],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    for flag, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"nvcc {flag} failed")
+        lib = libs[flag] = ctypes.CDLL(str(so))
+        lib.band_pcr_level.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+        lib.band_pcr_level.restype = i32
+        lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+        lib.band_pcr_solve.restype = i32
+    C, Tp, Db = 1, 256, 12
+    D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+    f = band.band_factor(D, U, n_cr=0)
+    A, invD = band.band_init_a(U), band.band_block_inv(D)
+    outs = [torch.empty_like(D) for _ in range(6)]
+    rows = []
+    for s in (1, Tp // 2):
+        def level(lib=None):
+            if lib is None:
+                return band.band_pcr_level(D, A, U, invD, s)
+            band._raise_on("band_pcr_level", lib.band_pcr_level(
+                D.data_ptr(), A.data_ptr(), U.data_ptr(), invD.data_ptr(),
+                *[o.data_ptr() for o in outs], C, Tp, Db, s, band._stream()))
+        rows.append(dict(kernel="band_pcr_level", s=s, whole_us=_device_us(level),
+                         no_inverse_us=_device_us(
+                             lambda: level(libs["-DBAND_LEVEL_NO_INVERSE"]))))
+    lib = libs["-DBAND_CLUSTER_CLOCKS"]
+    L = band.num_levels(Tp)
+    clocks = []
+    for K in (1, 18):
+        P, Kc = band._solve_cluster_plan(Tp, Db, K, C)
+        b = torch.randn(C, Tp, Db, K, dtype=torch.float64, device=device)
+        x = torch.zeros_like(b)
+        for _ in range(3):
+            band._raise_on("band_pcr_solve", lib.band_pcr_solve(
+                f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(), x.data_ptr(),
+                C, Tp, Db, L, K, P, Kc, band._stream()))
+        torch.cuda.synchronize()
+        t = x.flatten().cpu()
+        for blk in (0, P // 2 - 1, P - 1):
+            T = [t[blk * 32 + m].item() for m in range(1 + 3 * L)]
+            levels, prev = [], 0.0
+            for lev in range(L):
+                levels.append(dict(barrier=T[1 + 3 * lev] - prev, stage=T[2 + 3 * lev] - T[1 + 3 * lev],
+                                   products=T[3 + 3 * lev] - T[2 + 3 * lev]))
+                prev = T[3 + 3 * lev]
+            clocks.append(dict(K=K, P=P, Kc=Kc, block=blk, levels=levels))
+    return rows, clocks
 
 
 def _floor_walls_3d(fg, relaxation, configs, device="cuda", rounds=2):
@@ -477,16 +558,30 @@ def _sweep_3d(smi):
 
     dev = torch.device("cuda")
     report = dict(card=smi)
-    sweep, tiles = _depth_sweep_3d(dev)
-    report.update(depth_sweep=sweep, tiles=tiles)
+    sweep, clusters = _depth_sweep_3d(dev)
+    report.update(depth_sweep=sweep, clusters=clusters)
+    smi_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    level_rows, clocks = _pcr3d_ablation(dev)
+    report.update(pcr3d_ablation=level_rows, cluster_clocks=clocks, sm_clock=smi_clock)
+    for r in level_rows:
+        _log(f"  band_pcr_level[Db=12] C=1 Tp=256 s={r['s']}: whole {r['whole_us']:.2f} us, "
+             f"without the inverse of D' {r['no_inverse_us']:.2f} us")
+    _log(f"  cluster band_pcr_solve clocks (SM clock {smi_clock}), barrier/stage/products "
+         f"cycles a level:")
+    for r in clocks:
+        _log(f"    K={r['K']} P={r['P']} Kc={r['Kc']} block {r['block']}: " + " ".join(
+            f"{v['barrier']:.0f}/{v['stage']:.0f}/{v['products']:.0f}" for v in r["levels"]))
     for r in sweep:
         _log(f"  {r['cell']} floor {r['floor']:4d} (CR depth {r['n_cr']}): factor "
              f"{r['factor_ms']:.4f} ms ({r['factor_launches']} launches), panel "
              f"{r['panel_ms']:.4f} ms, direction {r['direction_ms']:.4f} ms "
              f"({r['solve_launches']} launches), panel residual {r['panel_residual']:.2e}")
-    for r in tiles:
-        _log(f"  {r['cell']} remainder {r['floor']:4d} K={r['K']} ct={r['ct']}"
-             f"{' (rule)' if r['chosen'] else ''}: band_pcr_solve {r['device_us']:.2f} us")
+    for r in clusters:
+        _log(f"  {r['cell']} remainder {r['floor']:4d} K={r['K']} P={r['P']} Kc={r['Kc']}"
+             f"{' (route)' if r['chosen'] else ''}: band_pcr_solve {r['device_us']:.2f} us "
+             f"(max_rel_diff {r['max_rel_diff']:.2e})")
     cells = dict(_cells_3d())
     report["floors"] = {}
     configs = [(f, r) for f in (4, 16, 64, 256) for r in (0, 1)]

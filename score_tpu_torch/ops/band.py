@@ -95,14 +95,16 @@ __all__ = [
 CUDA_BLOCK_SIZES = (6, 12)
 # Dynamic shared memory a thread block may use on sm_90 (227 KB).
 _SMEM_MAX = 232448
-# band_pcr_solve: the wide kernel (a thread holds all Db rows by
+# band_pcr_solve at Db = 6: the wide kernel (a thread holds all Db rows by
 # _WIDE_COLUMNS rhs columns of a position in registers; at most
 # _WIDE_MAX_LENGTH threads, 1 to _WIDE_MAX_GROUPS per position) serves
 # chains up to _WIDE_MAX_LENGTH of blocks up to _WIDE_MAX_BLOCK (its 6 x 8
 # tile took 198 registers; a 12 x 8 tile would spill); the narrow kernel
 # (one thread per position and row, 1, 2 or 4 columns) holds
-# _narrow_accumulators(Db) outputs per thread in at most _NARROW_THREADS
-# threads. The same constants stand in csrc/band.cu.
+# _NARROW_ACCUMULATORS outputs per thread in at most _NARROW_THREADS
+# threads. At Db = 12 the cluster kernel: _SOLVE_CLUSTER thread blocks per
+# chain (at most _CLUSTER_MAX, a power of two; fewer on shorter chains).
+# The same constants stand in csrc/band.cu.
 _WIDE_COLUMNS = 8
 _WIDE_MAX_BLOCK = 6
 _WIDE_MAX_LENGTH = 256
@@ -110,13 +112,14 @@ _WIDE_MAX_GROUPS = 8
 _WIDE_RING = 3  # half-block tiles of E, F in flight or in use
 _SM_COUNT = 132  # H100 SXM; the wrapper asks the device
 _NARROW_THREADS = 512
-
-
-def _narrow_accumulators(Db: int) -> int:
-    """Outputs a thread of the narrow band_pcr_solve kernel holds: 24 at
-    Db = 6, 12 at Db = 12 (its rows of E, F take twice the registers, and
-    512 threads leave a thread 128)."""
-    return 24 if Db <= 6 else 12
+_NARROW_ACCUMULATORS = 24
+_CLUSTER_MAX = 16
+# dynamic shared memory of a cluster kernel's block: the card's 227 KB less
+# its ring's 2 mbarriers (static shared memory)
+_CLUSTER_SMEM_MAX = _SMEM_MAX - 16
+# cluster size of the 3D route: the fastest of P = 4, 8, 16 at both 3D
+# bands' remainders on an H100 (profile_port.py --sweep3d, PERF.md)
+_SOLVE_CLUSTER = 16
 
 
 # band_cr_backsub: the narrow kernel (a lane group per position) takes up
@@ -397,20 +400,25 @@ def band_pcr_level(D, A, C, invD, s: int):
     What bounds it on the card: the traffic is 10 blocks per position
     (2.9 MB at Manhattan-4's remainder, under a microsecond of HBM time),
     so a launch is bound by latency, of the launch itself and of the
-    dependent f64 chain of six 6x6 products, a Cholesky and two
-    substitutions. The design keeps that chain short and the accesses
-    wide: a group of 8 lanes (16 at Db = 12) owns a position and lanes
-    0..Db-1 each hold one row of every block in registers (C*Tp*8 threads
-    in flight at Db = 6, 8192 at Manhattan-4's remainder; no local-memory
-    arrays, no spill); the nine
-    input blocks of a position are staged in shared memory by 16-byte
-    cp.async copies on neighbouring addresses, the six outputs leave by
-    16-byte stores; products read the other block's rows as shared-memory
-    broadcasts; the Cholesky of D' runs across the group by shuffles, and
-    lane c then solves column c of the inverse. Each block is inverted
-    once per level (the level before this design inverted both neighbours
-    of every position, twice the work). The sums run in the plain
-    version's order; only nvcc's contraction to FMAs differs."""
+    dependent f64 chain of the products, a Cholesky and two
+    substitutions. In both designs the nine input blocks of a position
+    are staged in shared memory by 16-byte cp.async copies on
+    neighbouring addresses and the six outputs leave by 16-byte stores;
+    each block is inverted once per level. At Db = 6 a group of 8 lanes
+    owns a position and lanes 0..5 each hold one row of every block in
+    registers (C*Tp*8 threads in flight, 8192 at Manhattan-4's
+    remainder); products read the other block's rows as shared-memory
+    broadcasts, the Cholesky of D' runs across the group by shuffles, and
+    lane c then solves column c of the inverse. At Db = 12, where a lane
+    holding a row ran six products of 144 multiply-adds and a Cholesky of
+    66 dependent shuffles with 2 warps an SM, a thread owns one element
+    (r, c) of a position's 12 x 12 outputs (a thread block of 144
+    threads a position): each product element is one 12-term chain,
+    and the Cholesky runs a column per block barrier, each thread of the
+    column forming its pivot by the same operations as the diagonal's;
+    thread c then solves column c of the inverse. The sums run in the
+    plain version's order (products k ascending from 0.0; the Cholesky
+    left-looking, k ascending); only nvcc's contraction to FMAs differs."""
     for name, t in (("D", D), ("A", A), ("C", C), ("invD", invD)):
         _check(f"band_pcr_level.{name}", t, D.shape)
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
@@ -430,28 +438,67 @@ def band_pcr_level(D, A, C, invD, s: int):
 
 
 def _solve_tile_columns(Tp: int, Db: int, K: int) -> int:
-    """Columns of the register tile of band_pcr_solve, which names the
-    kernel: ``_WIDE_COLUMNS`` is the wide kernel, 1, 2 or 4 the narrow
-    one. The rule is on the shape alone: the wide kernel takes chains up
-    to ``_WIDE_MAX_LENGTH`` blocks of at most ``_WIDE_MAX_BLOCK`` rows
-    with more than 4 rhs columns; the narrow kernel takes the rest with
-    the widest tile that K fills and that its threads' accumulators and
-    the shared memory hold, and 3D blocks with one column. Raises when not
-    even one column fits."""
-    if Db <= _WIDE_MAX_BLOCK and Tp <= _WIDE_MAX_LENGTH and K > 4:
+    """Columns of the register tile of band_pcr_solve at Db = 6, which
+    names the kernel: ``_WIDE_COLUMNS`` is the wide kernel, 1, 2 or 4 the
+    narrow one. The rule is on the shape alone: the wide kernel takes
+    chains up to ``_WIDE_MAX_LENGTH`` blocks with more than 4 rhs columns;
+    the narrow kernel takes the rest with the widest tile that K fills and
+    that its threads' accumulators and the shared memory hold. Raises when
+    not even one column fits, and for 3D blocks (Db = 12), which take the
+    cluster kernel (:func:`_solve_cluster_plan`)."""
+    if Db > _WIDE_MAX_BLOCK:
+        raise ValueError(f"band_pcr_solve: {Db}-blocks take the cluster kernel, not a tile")
+    if Tp <= _WIDE_MAX_LENGTH and K > 4:
         return _WIDE_COLUMNS
-    # 3D blocks: one column a thread, the fastest tile at every remainder
-    # of the 3D bands (the tile sweep of profile_port.py --sweep3d, PERF.md)
-    for ct in (4, 2, 1) if Db <= _WIDE_MAX_BLOCK else (1,):
-        if (ct < 2 * K and Tp * Db * ct <= _narrow_accumulators(Db) * _NARROW_THREADS
+    for ct in (4, 2, 1):
+        if (ct < 2 * K and Tp * Db * ct <= _NARROW_ACCUMULATORS * _NARROW_THREADS
                 and _solve_smem_bytes(Tp, Db, ct) <= _SMEM_MAX):
             return ct
     raise ValueError(
         f"band_pcr_solve: chain length {Tp} with {Db}-blocks does not fit a "
         f"thread block: one rhs column needs {Tp * Db} outputs in registers "
-        f"(max {_narrow_accumulators(Db) * _NARROW_THREADS}) and "
+        f"(max {_NARROW_ACCUMULATORS * _NARROW_THREADS}) and "
         f"{_solve_smem_bytes(Tp, Db, 1)} bytes of shared memory (max {_SMEM_MAX})"
     )
+
+
+def _cluster_smem_bytes(Tp: int, Db: int, P: int, Kc: int) -> int:
+    """Shared memory the plan leaves one thread block of the cluster
+    kernel: its Tp / P positions' rhs rows in two (n, Db, Kc) f64 buffers
+    (one per level parity) and a two-stage ring of their E and F blocks
+    (the kernel deepens the ring into what is left, csrc/band.cu)."""
+    n = Tp // P
+    return (2 * n * Db * Kc + 2 * 2 * n * Db * Db) * 8
+
+
+def _solve_cluster_plan(Tp: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_COUNT,
+                        P: int | None = None) -> tuple:
+    """(P, Kc) of band_pcr_solve's cluster kernel (Db = 12) on C chains of
+    Tp blocks and K rhs columns, on a card of n_sm SMs: P thread blocks per
+    chain (``P``, default ``_SOLVE_CLUSTER``, cut to Tp), each holding
+    Tp / P positions, and Kc columns per cluster, evened out over the
+    chunks on the grid's second axis: as many chunks as the shared memory
+    needs (two rhs buffers and a ring of two E, F stages), or, where that
+    leaves SMs idle, as many as the card runs at once over the C chains (a
+    chain's clusters then share its E, F from L2 and each does 1 / chunks
+    of the products).
+    Raises when not even one column fits."""
+    P = min(_SOLVE_CLUSTER if P is None else P, Tp)
+    if P < 1 or P > _CLUSTER_MAX or P & (P - 1) or Tp % P:
+        raise ValueError(f"band_pcr_solve: cluster size {P} for chain length {Tp}")
+    per_column = _cluster_smem_bytes(Tp, Db, P, 1) - _cluster_smem_bytes(Tp, Db, P, 0)
+    most = (_CLUSTER_SMEM_MAX - _cluster_smem_bytes(Tp, Db, P, 0)) // per_column
+    if most < 1:
+        raise ValueError(
+            f"band_pcr_solve: chain length {Tp} with {Db}-blocks does not fit a "
+            f"cluster of {P}: one rhs column needs {_cluster_smem_bytes(Tp, Db, P, 1)} "
+            f"bytes of shared memory a thread block (max {_CLUSTER_SMEM_MAX})")
+    # clusters the columns are spread over: one fewer than n_sm / P, since
+    # clusters past what the card holds at once run in a second wave
+    budget = max(1, n_sm // P - 1)
+    K = max(K, 1)
+    chunks = max(-(-K // most), min(K, budget // C))
+    return P, -(-K // chunks)
 
 
 def _solve_groups(Tp: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_COUNT) -> int:
@@ -481,10 +528,12 @@ def _solve_smem_bytes(Tp: int, Db: int, ct: int, groups: int = 1) -> int:
 
 def _solve_chunk_columns(Tp: int, Db: int, K: int, C: int = 1,
                          n_sm: int = _SM_COUNT) -> int:
-    """rhs columns that one band_pcr_solve block holds for C chains on a
-    card of n_sm SMs: its threads' tiles (:func:`_solve_tile_columns`,
-    times :func:`_solve_groups` for the wide kernel), or all K where K is
-    less."""
+    """rhs columns that one band_pcr_solve block (a cluster at Db = 12)
+    holds for C chains on a card of n_sm SMs: its threads' tiles
+    (:func:`_solve_tile_columns`, times :func:`_solve_groups` for the wide
+    kernel), or all K where K is less; the cluster plan's Kc at Db = 12."""
+    if Db > _WIDE_MAX_BLOCK:
+        return _solve_cluster_plan(Tp, Db, K, C, n_sm)[1]
     ct = _solve_tile_columns(Tp, Db, K)
     if ct == _WIDE_COLUMNS:
         ct *= _solve_groups(Tp, Db, K, C, n_sm)
@@ -496,32 +545,47 @@ def band_pcr_solve(E, F, invD, b):
     the same shape.
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_solve_kernel``. All levels
-    run in ONE launch: one thread block per (chain, chunk of rhs columns)
-    keeps its rhs slice in shared memory in a single buffer updated in
-    place (a thread holds a level's outputs in registers across the
-    barrier that ends the level's reads), which replaces the TPU's VMEM
+    run in ONE launch: at Db = 6 one thread block per (chain, chunk of rhs
+    columns) keeps its rhs slice in shared memory in a single buffer
+    updated in place (a thread holds a level's outputs in registers
+    across the barrier that ends the level's reads); at Db = 12 one
+    thread-block cluster per (chain, chunk). This replaces the TPU's VMEM
     chunking over chains and columns by a launch grid.
 
-    What bounds it on the card (measured, PERF.md): the reads of E and F,
-    which every block of a chain repeats from L2, for the panel (K =
-    arrow width) together with its products' shared-memory reads; a
-    direction (K = 1) runs one block per chain, whose SM pulls each
-    level's 147 KB (Tp = 256) in ~1.2 us. The design: for the panel a thread owns a position and a
-    register tile of all Db rows by 8 columns, so an element of E, F is
-    read once for 8 columns and an element of b once for 6 rows, where
-    the kernel before it loaded one element per multiply-add. A level's
-    E and F pass through shared memory as four tiles of half blocks in a
-    ring of three, filled by 16-byte cp.async copies on neighbouring
-    addresses while the tile before is used. One in-place buffer and the
-    card's 227 KB leave room for 8 columns at Manhattan-4's remainder
-    (4 fitted two buffers) and, with two threads per position sharing
-    the staged E, F, 16 at robot20's: the re-reads of E, F fall by those
-    factors. For K <= 4 the narrow kernel spreads the Db rows of a
-    position over neighbouring lanes, whose loads of E, F rows are
-    contiguous across the warp, all of a level's loads in flight at
-    once. The shared-memory attribute is set once per kernel. The
-    sums of a level run over E's terms then F's in one accumulator, an
-    order that differs from the plain version's (E b + F b)."""
+    What bounds it on the card (measured, PERF.md). At Db = 6, the reads
+    of E and F, which every block of a chain repeats from L2, for the
+    panel (K = arrow width) together with its products' shared-memory
+    reads; a direction (K = 1) runs one block per chain, whose SM pulls
+    each level's 147 KB (Tp = 256) in ~1.2 us. The design: for the panel
+    a thread owns a position and a register tile of all Db rows by 8
+    columns, so an element of E, F is read once for 8 columns and an
+    element of b once for 6 rows. A level's E and F pass through shared
+    memory as four tiles of half blocks in a ring of three, filled by
+    16-byte cp.async copies on neighbouring addresses while the tile
+    before is used. One in-place buffer and the card's 227 KB leave room
+    for 8 columns at Manhattan-4's remainder and, with two threads per
+    position sharing the staged E, F, 16 at robot20's. For K <= 4 the
+    narrow kernel spreads the Db rows of a position over neighbouring
+    lanes, whose loads of E, F rows are contiguous across the warp, all
+    of a level's loads in flight at once.
+
+    At Db = 12 one SM per (chain, column) pulled all levels of E and F
+    (4.7 MB at a chain of 256) at ~67 GB/s: 70 us against a bound of 1.5.
+    The cluster kernel spreads a chain over a thread-block cluster of P
+    blocks (:func:`_solve_cluster_plan`), each owning Tp / P positions and
+    their rhs rows for a chunk of columns in two shared-memory buffers
+    (one per level parity); a position's neighbours at i -+ s are read
+    from their owner's shared memory across the cluster, one cluster
+    barrier a level, and a producer thread streams the block's E, F of the
+    next level into a two-stage ring by bulk copies while a level is
+    computed. Each block reads E, F and invD once per solve, whatever K
+    is; the cluster barrier and the dependent chain of a level's 24
+    multiply-adds are what bound it (PERF.md). A refused launch (a cluster
+    the card cannot place, or too much shared memory) raises.
+
+    Shared-memory attributes are set once per kernel. The sums of a level
+    run over E's terms then F's in one accumulator, an order that differs
+    from the plain version's (E b + F b)."""
     if E.dim() != 5 or invD.dim() != 4 or b.dim() != 4:
         raise ValueError("band_pcr_solve: expected E, F (L, C, Tp, Db, Db), "
                          "invD (C, Tp, Db, Db), b (C, Tp, Db, K)")
@@ -536,10 +600,13 @@ def band_pcr_solve(E, F, invD, b):
     x = torch.empty_like(b)
     if K == 0:
         return x
-    ct = _solve_tile_columns(Tp, Db, K)
-    groups = 1
-    if ct == _WIDE_COLUMNS:
-        groups = _solve_groups(Tp, Db, K, nC, _sm_count(b.device))
+    if Db > _WIDE_MAX_BLOCK:
+        ct, groups = _solve_cluster_plan(Tp, Db, K, nC, _sm_count(b.device))  # P, Kc
+    else:
+        ct = _solve_tile_columns(Tp, Db, K)
+        groups = 1
+        if ct == _WIDE_COLUMNS:
+            groups = _solve_groups(Tp, Db, K, nC, _sm_count(b.device))
     _check_aligned("band_pcr_solve", E, F, invD)
     err = _lib().band_pcr_solve(
         E.data_ptr(), F.data_ptr(), invD.data_ptr(), b.data_ptr(), x.data_ptr(),

@@ -22,26 +22,28 @@
 // (2D pose blocks, [R | t] with R 2 x 2) and Db = 12 (3D, R 3 x 3); any
 // other Db returns cudaErrorInvalidValue.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 // The lane-group layout of the kernels that work on whole blocks
-// (band_block_inv, band_pcr_level, band_cr_level, the narrow
+// (band_block_inv, band_pcr_level at Db = 6, band_cr_level, the narrow
 // band_cr_backsub): a group of `group` neighbouring lanes owns one
 // position and lane r < Db of the group holds row r of every block. A
 // group is 8 lanes for Db = 6 (4 groups a warp) and 16 for Db = 12 (2 a
 // warp), so it stays inside a warp and its shuffles have a width of a
 // power of two. The level kernels stage nine blocks per group in static
-// shared memory, under 48 KB a thread block: 4 warps of 4 groups at
-// Db = 6, and at Db = 12 (a block is 4 times the bytes, a warp holds half
-// the groups) 2 warps of band_pcr_level and 4 groups of band_cr_level;
-// both are 41,472 bytes at either size.
+// shared memory, under 48 KB a thread block: 4 warps of 4 groups in
+// band_pcr_level at Db = 6, and 16 groups of band_cr_level at Db = 6 or 4
+// at Db = 12 (a block is 4 times the bytes); 41,472 bytes each. At
+// Db = 12 band_pcr_level has a layout of its own (a thread per block
+// element, pcr_level_element_kernel).
 template <int Db>
 struct Lanes {
   static constexpr int group = Db <= 8 ? 8 : 16;   // lanes per position
   static constexpr int per_warp = 32 / group;      // positions per warp
-  static constexpr int level_warps = Db <= 8 ? 4 : 2;
+  static constexpr int level_warps = 4;            // band_pcr_level, Db = 6
   static constexpr int cr_groups = Db <= 8 ? 16 : 4;
 };
 
@@ -66,8 +68,8 @@ __global__ void init_a_kernel(const double* __restrict__ U,
 // ---------------------------------------------------------------------
 // band_pcr_level: one PCR level at shift s.
 //
-// Mapping: a lane group (Lanes<Db>::group = 8 lanes at Db = 6, 16 at
-// Db = 12) owns one position; lanes 0..Db-1 of the group each hold ONE ROW
+// Db = 6 (pcr_level_kernel). Mapping: a lane group of Lanes<Db>::group = 8
+// lanes owns one position; lanes 0..Db-1 of the group each hold ONE ROW
 // of every block in registers, the other lanes only help to move data. A
 // power-of-two group (not Db lanes) keeps a group inside a warp, so the
 // shuffles of the Cholesky need no index arithmetic, and gives the Db^2 / 2
@@ -83,7 +85,8 @@ __global__ void init_a_kernel(const double* __restrict__ U,
 // memory and leave as 16-byte coalesced stores. Arithmetic order is that
 // of the plain PyTorch version (left-looking column Cholesky, products
 // summed over k ascending). A thread block is Lanes<Db>::level_warps
-// warps: 16 positions in 128 threads at Db = 6, 4 in 64 at Db = 12.
+// warps: 16 positions in 128 threads. Db = 12 runs
+// pcr_level_element_kernel below.
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -343,6 +346,203 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
             *reinterpret_cast<const double2*>(&my[slot[b]][g][2 * v]);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// band_pcr_level at Db = 12: a thread per block element.
+//
+// Replaces pallas_pcr.py:_factor_level_kernel (:312) and, by two
+// launches, _factor_level2_kernel (:338) at 12 x 12 blocks. What bounds
+// it: latency. A level moves 10 blocks per position (0.9 us of HBM time
+// at 3D 1x1000's 256-block remainder) and its work is a dependent chain:
+// two products, two more that need their rows, a Cholesky and two
+// substitutions. The lane-group layout gave a lane a whole row, so a
+// lane ran six row-times-block products of 144 multiply-adds and a
+// Cholesky by 66 dependent shuffles, with 2 warps on each SM, and its
+// forward substitution also divided the exact zeros above each column's
+// diagonal.
+//
+// Mapping: a position has Db * Db = 144 threads, thread (r, c) owning
+// element (r, c) of every output; a thread block holds kLevelPositions = 1
+// position (256 thread blocks at one chain of 256), and a register cap
+// keeps kLevelBlocksPerSM of them on an SM. The nine input blocks of a
+// position are staged in shared memory by 16-byte cp.async, all in flight
+// at once. Each product element is one Db-term chain, k ascending from
+// 0.0 as the plain version's matmul: E and F, a barrier, then A', C' and
+// the two terms of D'. E, F, D', A' and C' leave from the registers that
+// hold them, a block's 144 elements on neighbouring addresses, while D' is
+// inverted. The Cholesky of D' makes group_inv_spd's operations in its
+// order: element (r, j), r >= j, is D'_rj minus L_rk L_jk for k
+// ascending, over the square root of the pivot D'_jj minus L_jk^2 for k
+// ascending. Thread (r, j) subtracts each term as column k lands
+// (right-looking) and keeps its own copy of the pivot, made by the same
+// operations as thread (j, j)'s, so a column takes one barrier over the
+// block and a square root and a division on the chain. Thread c < Db then
+// solves column c of L Y = I, L^T X = Y as group_inv_spd's lane c does,
+// from its diagonal on and with its quotients by markstein_div: the same
+// values, fewer dependent steps.
+// ---------------------------------------------------------------------
+
+// a / b, correctly rounded, from r = RN(1 / b) (a, b and the quotient
+// normal, as the band's pivots and their solves are): q0 = RN(a r) is
+// within 2 ulps; one correction RN(q + (a - b q) r), the remainder exact by
+// an FMA, makes it faithful, and a second, by Markstein's theorem (q
+// faithful, r within half an ulp of 1 / b), correctly rounded.
+__device__ __forceinline__ double markstein_div(double a, double b, double r) {
+  double q = __dmul_rn(a, r);
+  q = __fma_rn(__fma_rn(-b, q, a), r, q);
+  return __fma_rn(__fma_rn(-b, q, a), r, q);
+}
+
+constexpr int kLevelPositions = 1;
+// thread blocks an SM must hold: a register cap (uncapped, ptxas gave a
+// thread 206 registers and an SM one block)
+constexpr int kLevelBlocksPerSM = 4;
+
+template <int Db>
+__global__ void __launch_bounds__(kLevelPositions * Db * Db, kLevelBlocksPerSM)
+pcr_level_element_kernel(const double* __restrict__ D, const double* __restrict__ A,
+                         const double* __restrict__ Cc,
+                         const double* __restrict__ invD, double* __restrict__ E,
+                         double* __restrict__ F, double* __restrict__ D2,
+                         double* __restrict__ A2, double* __restrict__ C2,
+                         double* __restrict__ invD2, int nC, int Tp, int s) {
+  constexpr int BS = Db * Db;
+  constexpr int V = BS / 2;  // double2 per block
+  static_assert(BS % 2 == 0, "16-byte units, half a position's threads a block");
+  // [position][block slot][BS]; slots while reading: 0 A_i, 1 C_i, 2 D_i,
+  // 3 invD_dn, 4 C_dn, 5 A_dn, 6 invD_up, 7 A_up, 8 C_up; then 0 E, 1 F,
+  // 2 D', 4 L, 5 invD'.
+  __shared__ __align__(16) double sm[kLevelPositions][9][BS];
+
+  const int g = threadIdx.x / BS;  // position of the thread block
+  const int e = threadIdx.x - g * BS;
+  const int r = e / Db, col = e - r * Db;
+  const long long t = (long long)blockIdx.x * kLevelPositions + g;
+  const bool valid = t < (long long)nC * Tp;
+  const int i = valid ? (int)(t % Tp) : 0;
+  const bool has_dn = valid && i - s >= 0;
+  const bool has_up = valid && i + s < Tp;
+  double(*my)[BS] = sm[g];
+
+  {
+    // thread e moves unit v of block 2m + half for m = 0..4 (BS = 2V
+    // threads: a block's units to each half of the position's threads)
+    const int half = e >= V, v = e - half * V;
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      const int b = 2 * m + half;
+      if (b < 9) {
+        const bool on = b < 3 ? valid : (b < 6 ? has_dn : has_up);
+        const double* base = b == 2 ? D : (b == 3 || b == 6) ? invD
+                            : (b == 0 || b == 5 || b == 7) ? A : Cc;
+        const long long at = b < 3 ? t : (b < 6 ? t - s : t + s);
+        double* dst = &my[b][2 * v];
+        if (on) {
+          cp_async16(dst, base + at * BS + 2 * v);
+        } else {
+          dst[0] = 0.0;
+          dst[1] = 0.0;
+        }
+      }
+    }
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  // E = -A_i invD_{i-s};  F = -C_i invD_{i+s}
+  double ev = 0.0, fv = 0.0;
+#pragma unroll
+  for (int k = 0; k < Db; ++k) {
+    ev += my[0][r * Db + k] * my[3][k * Db + col];
+    fv += my[1][r * Db + k] * my[6][k * Db + col];
+  }
+  ev = has_dn ? -ev : 0.0;
+  fv = has_up ? -fv : 0.0;
+  if (valid) {  // thread e stores element e: a block's 144 threads, contiguous
+    E[t * BS + e] = ev;
+    F[t * BS + e] = fv;
+  }
+  __syncthreads();  // every read of A_i, C_i and the neighbours' inverses is done
+  my[0][e] = ev;
+  my[1][e] = fv;
+  __syncthreads();
+
+  // A' = E A_{i-s};  C' = F C_{i+s};  D' = D_i + (E C_{i-s} + F A_{i+s})
+  double a2 = 0.0, c2 = 0.0, d1 = 0.0, d2 = 0.0;
+#pragma unroll
+  for (int k = 0; k < Db; ++k) {
+    const double ek = my[0][r * Db + k], fk = my[1][r * Db + k];
+    a2 += ek * my[5][k * Db + col];
+    d1 += ek * my[4][k * Db + col];
+    c2 += fk * my[8][k * Db + col];
+    d2 += fk * my[7][k * Db + col];
+  }
+  // a position past the end inverts the identity
+  const double dp = valid ? my[2][e] + (d1 + d2) : (r == col ? 1.0 : 0.0);
+  if (valid) {
+    D2[t * BS + e] = dp;
+    A2[t * BS + e] = a2;
+    C2[t * BS + e] = c2;
+  }
+  my[2][e] = dp;    // slot 2 is read by thread e alone until this barrier
+  __syncthreads();  // D' is whole; the neighbours' A and C are read
+
+#ifndef BAND_LEVEL_NO_INVERSE
+  // Cholesky of D' into slot 4, a column a barrier. Thread (r, c), r >= c,
+  // holds a = D'_rc and its own copy p of the pivot D'_cc and subtracts
+  // L_rk L_ck and L_ck L_ck as column k < c lands: the operations of the
+  // left-looking order, k ascending, without its chain of j products
+  // between a column's barrier and its square root.
+  double* Lm = my[4];
+  double a = dp, piv = my[2][col * Db + col];
+#pragma unroll
+  for (int k = 0; k < Db; ++k) {
+    if (col == k && r >= k) Lm[r * Db + k] = a / sqrt(piv);
+    __syncthreads();
+    if (col > k && r >= col) {
+      const double lck = Lm[col * Db + k];
+      a = a - Lm[r * Db + k] * lck;
+      piv = piv - lck * lck;
+    }
+  }
+  // thread c < Db solves column c of L Y = I, L^T X = Y in column c of
+  // slot 5 (X over Y: x_q needs y_q and x_k, k > q), group_inv_spd's
+  // operations in its order. y_q = +0 for q < c exactly (0 - L_qk * 0 = +0,
+  // then +0 / L_qq), and a term L_qk y_k with y_k = +0 leaves v as it was,
+  // so the thread starts at its diagonal: fewer dependent steps. A quotient
+  // v / L_qq is v * r_q corrected twice, r_q = 1 / L_qq rounded to nearest
+  // (__drcp_rn, formed by the diagonal's thread off the chain): the
+  // correctly rounded quotient the division gives (markstein_div), in five
+  // dependent operations where the division refines a reciprocal first.
+  double* rcp = my[6];  // slot 6 is free after the products
+  if (e < Db) rcp[e] = __drcp_rn(Lm[e * Db + e]);
+  __syncthreads();
+  if (e < Db) {
+    double* Y = my[5] + e;
+#pragma unroll
+    for (int q = 0; q < Db; ++q) {
+      if (q < e) {
+        Y[q * Db] = 0.0;
+      } else {
+        double v = (q == e) ? 1.0 : 0.0;
+#pragma unroll
+        for (int k = 0; k < q; ++k)
+          if (k >= e) v = v - Lm[q * Db + k] * Y[k * Db];
+        Y[q * Db] = markstein_div(v, Lm[q * Db + q], rcp[q]);
+      }
+    }
+#pragma unroll
+    for (int q = Db - 1; q >= 0; --q) {
+      double v = Y[q * Db];
+#pragma unroll
+      for (int k = q + 1; k < Db; ++k) v = v - Lm[k * Db + q] * Y[k * Db];
+      Y[q * Db] = markstein_div(v, Lm[q * Db + q], rcp[q]);
+    }
+  }
+#endif
+  __syncthreads();
+  if (valid) invD2[t * BS + e] = my[5][e];
 }
 
 // ---------------------------------------------------------------------
@@ -739,11 +939,13 @@ cr_backsub_wide_kernel(const double* __restrict__ invDo,
 
 // ---------------------------------------------------------------------
 // band_pcr_solve: all PCR levels of the rhs replay plus x = invD b in one
-// launch. A thread block holds a chunk of the rhs columns of one chain in
+// launch. Three kernels, by block size and shape (ops/band.py picks):
+//
+// Db = 6: a thread block holds a chunk of the rhs columns of one chain in
 // shared memory, in ONE (Tp, Db, Kc) buffer updated in place: a thread
 // keeps a level's outputs in registers across the block barrier that ends
 // the level's reads, adds them into the buffer, and a second barrier opens
-// the next level. Two kernels share that scheme:
+// the next level.
 //
 //   wide   (Tp <= 256, K >= 5): a thread owns a position and a register
 //          tile of all Db rows by 8 columns (48 accumulators), so an
@@ -758,16 +960,13 @@ cr_backsub_wide_kernel(const double* __restrict__ invDo,
 //          as 16-byte vectors; the half block's stride and the rhs
 //          buffer's padded position stride (an odd number of 16-byte
 //          units) keep a quarter warp on distinct banks.
-//   narrow (K <= 4, any K on chains longer than 256, and every K at
-//          Db = 12, where the wide kernel's Db x 8 tile would double its
-//          198 registers): one thread per (position, row) and CT in
-//          {1, 2, 4} columns (at Db = 12 one, the fastest tile at the 3D
-//          bands' remainders on an H100), IT items per thread; the Db rows of a
-//          position and its two neighbour products lie on neighbouring
-//          lanes, whose 16-byte loads of E, F rows (8 * Db bytes a row) are
-//          contiguous across the warp, and for IT * Db <= 24 all of a
-//          level's loads start, unconditionally, before the first is
-//          used.
+//   narrow (K <= 4, and any K on chains longer than 256): one thread per
+//          (position, row) and CT in {1, 2, 4} columns, IT items per
+//          thread; the Db rows of a position and its two neighbour
+//          products lie on neighbouring lanes, whose 16-byte loads of E,
+//          F rows (8 * Db bytes a row) are contiguous across the warp,
+//          and for IT * Db <= 24 all of a level's loads start,
+//          unconditionally, before the first is used.
 //
 // What bounds them on an H100 (profile_port.py --ablate, PERF.md): the E
 // and F of a level, which every block of a chain reads again from L2. One
@@ -777,21 +976,23 @@ cr_backsub_wide_kernel(const double* __restrict__ invDo,
 // tiles a block keeps in flight do not hide that: a third of the panel's
 // time is these copies, a third the products (bound by shared-memory
 // reads), the rest the rhs in and out and the barriers.
+//
+// Db = 12: pcr_solve_cluster_kernel, below.
 // ---------------------------------------------------------------------
 
 // profile_port.py --ablate builds this file with -DBAND_NO_STAGING (the
 // level loop of band_pcr_solve moves no E, F) and -DBAND_NO_PRODUCT (the
-// wide kernel's level loop multiplies nothing) to price those parts; the
+// wide kernel's level loop multiplies nothing) to price those parts, and
+// profile_port.py --sweep3d with -DBAND_LEVEL_NO_INVERSE (the Db = 12
+// band_pcr_level forms no inverse of D') and -DBAND_CLUSTER_CLOCKS (the
+// cluster band_pcr_solve writes its first worker's clocks over x); the
 // results are then wrong, and no other build defines them.
 constexpr int kWideCols = 8;
 constexpr int kWideMaxT = 256;     // also the most threads of a wide block
 constexpr int kWideRing = 3;
 constexpr int kNarrowThreads = 512;
-// Accumulators per thread of the narrow kernel, IT * CT: 24 at Db = 6; 12
-// at Db = 12, whose rows of E, F take twice the registers (24 spilled: 512
-// threads leave a thread 128 registers).
-template <int Db>
-constexpr int narrow_acc() { return Db <= 6 ? 24 : 12; }
+// Accumulators per thread of the narrow kernel, IT * CT (Db = 6).
+constexpr int kNarrowAcc = 24;
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -1135,6 +1336,311 @@ pcr_solve_narrow_kernel(const double* __restrict__ E,
   }
 }
 
+// ---------------------------------------------------------------------
+// band_pcr_solve at Db = 12: one thread-block cluster per chain.
+//
+// Replaces pallas_pcr.py:_solve_kernel (:433) at 12 x 12 blocks. What
+// bounded the narrow kernel there: one SM per (chain, column) pulled all
+// levels of E and F (4.7 MB at a chain of 256) at ~67 GB/s, and the panel's
+// 18 thread blocks pulled them again each.
+//
+// Mapping: a cluster of P thread blocks (P a power of two up to 16, P
+// dividing Tp) serves one chain and a chunk of Kc rhs columns (grid: nC * P
+// by the chunks). Block p of the cluster owns positions [p n, (p + 1) n),
+// n = Tp / P, and keeps their rows of the rhs, all Kc columns, in its own
+// shared memory, in two (n, Db, Kc) buffers: level l reads buffer l % 2
+// and writes the other. The neighbours' rows at i -+ s are read from the
+// block that owns them through distributed shared memory (mapa, then
+// ld.shared::cluster), and one cluster barrier a level, split into its arrive (release, after
+// the block's writes) and its wait (acquire, before the next reads), orders
+// both the writes before the next level's reads and this level's reads
+// before the next level's writes. The barrier is about half of a level's
+// time at P = 16 on an H100; signals between the two partner blocks of a
+// level on mbarriers of their own took longer.
+// The owned positions' E and F rows of a level are contiguous (n * 1152
+// bytes each) and pass through a ring of two stages: the block's last
+// thread, in a warp of its own, starts the next level's stage as two 1D bulk
+// copies (cp.async.bulk) completing on the stage's mbarrier while a level
+// is computed; the last stage holds invD. (More stages in flight at the
+// start held up the first barrier behind their copies, and a computing
+// thread that starts them begins its level late.) So every block reads E,
+// F and invD once per solve, whatever K is, and a chain's blocks share
+// them P ways. A worker thread owns up to kClusterItems (position, column)
+// pairs and RG rows of each, their offsets worked out once: acc from 0.0,
+// E's terms then F's with j ascending, then b += acc, as the narrow
+// kernel; x = invD b with j ascending from 0.0. RG = 1 (a thread a row)
+// where the workers allow, for directions; 3 for up to kClusterWide
+// pairs; else 12, the whole strip, each neighbour element read once for
+// its 12 rows.
+// ---------------------------------------------------------------------
+
+constexpr int kClusterThreads = 384;
+constexpr int kClusterMax = 16;
+constexpr int kClusterWide = 96;
+// stages of the E, F ring: the next level's copies fly while a level is
+// computed (more in flight at the start held up the first barrier: an
+// SM's copies queue behind each other)
+constexpr int kClusterRing = 2;
+constexpr int kClusterItems = 4;  // (position, row group, column) a thread
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Stage `lev` of the ring (slot lev % R): the owned positions' E and F of
+// level lev, or after the last level their invD, as 1D bulk copies that
+// complete on the slot's mbarrier. Called by one thread.
+template <int Db>
+__device__ __forceinline__ void cluster_stage(double* ring, unsigned long long* bars,
+                                              const double* E, const double* F,
+                                              const double* invD, int lev, int L,
+                                              int R, int nC, int c, int Tp, int i0,
+                                              int n) {
+  constexpr int BS = Db * Db;
+  const int slot = lev % R;
+  double* dst = ring + (size_t)slot * 2 * n * BS;
+  const unsigned side = (unsigned)n * BS * sizeof(double);  // a multiple of 16
+  const unsigned bar = smem_addr(bars + slot);
+  const bool level = lev < L;
+  const long long o = (((long long)lev * nC + c) * Tp + i0) * BS;
+  const double* first = level ? E + o : invD + ((long long)c * Tp + i0) * BS;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(level ? 2 * side : side)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(first), "r"(side), "r"(bar)
+      : "memory");
+  if (level)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(dst + n * BS)),
+        "l"(F + o), "r"(side), "r"(bar)
+        : "memory");
+}
+
+// The address in the cluster's shared window of `p` (a location of this
+// block's shared memory) at the same offset in block `rank`, and a load
+// through it (the block's own rank included).
+__device__ __forceinline__ unsigned cluster_addr(const double* p, int rank) {
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(ra)
+               : "r"(smem_addr(p)), "r"(rank));
+  return ra;
+}
+
+__device__ __forceinline__ double ld_cluster(unsigned addr) {
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// The cluster-wide barrier in two halves: arrive (release: this thread's
+// writes before it are visible to the cluster after the wait) and wait
+// (acquire). Every thread of every block arrives and waits alternately.
+__device__ __forceinline__ void cluster_barrier_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_barrier_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Waits on an mbarrier's phase. A wait that has not ended after ~2^32
+// clocks (seconds) traps: a fault, never a hang.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  const long long t0 = clock64();
+  while (true) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+template <int Db, int RG>
+__global__ void __launch_bounds__(kClusterThreads)
+pcr_solve_cluster_kernel(const double* __restrict__ E,
+                         const double* __restrict__ F,
+                         const double* __restrict__ invD,
+                         const double* __restrict__ b, double* __restrict__ x,
+                         int nC, int Tp, int L, int K, int Kc, int R) {
+  namespace cg = cooperative_groups;
+  static_assert(Db % RG == 0 && Db % 2 == 0, "row groups of whole rows");
+  constexpr int BS = Db * Db;
+  constexpr int NG = Db / RG;  // row groups of a position
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int p = (int)cluster.block_rank();
+  const int c = blockIdx.x / P;
+  const int n = Tp / P;
+  const int i0 = p * n;
+  const int k0 = blockIdx.y * Kc;
+  const int kc = min(Kc, K - k0);
+  const int RS = n * Db * Kc;  // doubles of one rhs buffer
+  extern __shared__ __align__(16) double smem[];
+  __shared__ __align__(8) unsigned long long bars[kClusterRing];
+  double* rhs = smem;                 // [level parity][n][Db][Kc]
+  double* ring = smem + 2 * RS;       // [slot][E | F][n][BS]; invD in E's place
+  const int stages = max(1, min(R - 1, L + 1));  // started before the first level
+#ifdef BAND_CLUSTER_CLOCKS
+  long long clk[1 + 3 * 10];  // L <= 9
+  clk[0] = clock64();
+#endif
+
+  if (threadIdx.x == blockDim.x - 1) {
+    for (int m = 0; m < R; ++m) mbar_init(bars + m, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  {  // the owned rows of the rhs into buffer 0, before the ring's copies
+     // queue ahead of them
+    const double* src = b + ((long long)c * Tp + i0) * Db * K + k0;
+    for (int idx = threadIdx.x; idx < n * Db * kc; idx += blockDim.x) {
+      const int row = idx / kc, kk = idx - row * kc;
+      rhs[row * Kc + kk] = src[(long long)row * K + kk];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == blockDim.x - 1)
+    for (int lev = 0; lev < stages; ++lev)
+      cluster_stage<Db>(ring, bars, E, F, invD, lev, L, R, nC, c, Tp, i0, n);
+  // A thread's items (position j, row group g, column kk) are the same at
+  // every level: at most kClusterItems of them (the launch checks it),
+  // their offsets worked out once. The block's last warp has none: its
+  // last thread starts the ring's copies.
+  const int items = n * kc * NG;
+  const int workers = blockDim.x - 32;
+  const bool producer = threadIdx.x == blockDim.x - 1;
+  int off[kClusterItems], pos[kClusterItems];
+#pragma unroll
+  for (int m = 0; m < kClusterItems; ++m) {
+    const int item = threadIdx.x + m * workers;
+    const int kk = item % kc, rest = item / kc;
+    const int g = rest % NG, j = rest / NG;
+    pos[m] = threadIdx.x < workers && item < items ? j : -1;
+    off[m] = (j * Db + g * RG) * Kc + kk;  // of row g RG of the rhs buffer
+  }
+  cluster_barrier_arrive();  // this block's level-0 rows are written
+
+  for (int lev = 0; lev < L; ++lev) {
+    mbar_wait(bars + lev % R, (lev / R) & 1);  // this level's E, F
+    cluster_barrier_wait();  // every block's level-lev rows are written
+#ifdef BAND_CLUSTER_CLOCKS
+    clk[1 + 3 * lev] = clock64();
+#endif
+    // the slot level lev - 1 used (its reads are done) takes the stage
+    // R - 1 levels ahead
+    if (producer && lev + R - 1 <= L)
+      cluster_stage<Db>(ring, bars, E, F, invD, lev + R - 1, L, R, nC, c, Tp, i0, n);
+#ifdef BAND_CLUSTER_CLOCKS
+    clk[2 + 3 * lev] = clock64();
+#endif
+    const int s = 1 << lev;
+    const double* cur = rhs + (lev & 1) * RS;
+    double* nxt = rhs + ((lev + 1) & 1) * RS;
+    const double* Es = ring + (size_t)(lev % R) * 2 * n * BS;
+#pragma unroll
+    for (int m = 0; m < kClusterItems; ++m) {
+      const int j = pos[m];
+      if (j < 0) continue;
+      const int i = i0 + j;
+      const int o = off[m];
+      const int kk = o % Kc;
+      const int g = (o / Kc - j * Db) / RG;
+      // both neighbours' rows first (zeros outside the chain), so their
+      // loads, local or remote, are in flight together
+      double bv[2][Db];
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int nb = side == 0 ? i - s : i + s;
+        const bool in = nb >= 0 && nb < Tp;
+        const int q = in ? nb / n : p;
+        const unsigned src =
+            cluster_addr(cur + (in ? nb - q * n : 0) * Db * Kc + kk, q);
+#pragma unroll
+        for (int jj = 0; jj < Db; ++jj)
+          bv[side][jj] = in ? ld_cluster(src + jj * Kc * (unsigned)sizeof(double)) : 0.0;
+      }
+      double acc[RG];
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr) acc[rr] = 0.0;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int nb = side == 0 ? i - s : i + s;
+        if (nb < 0 || nb >= Tp) continue;
+        const double* M = Es + side * n * BS + j * BS + g * RG * Db;
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr) {
+#pragma unroll
+          for (int jj = 0; jj < Db; jj += 2) {
+            const double2 mm = *reinterpret_cast<const double2*>(M + rr * Db + jj);
+            acc[rr] += mm.x * bv[side][jj];
+            acc[rr] += mm.y * bv[side][jj + 1];
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr) nxt[o + rr * Kc] = cur[o + rr * Kc] + acc[rr];
+    }
+#ifdef BAND_CLUSTER_CLOCKS
+    clk[3 + 3 * lev] = clock64();
+#endif
+    // this block's level-(lev + 1) rows are written and its level-lev reads
+    // done; the next level waits for every block's arrival
+    cluster_barrier_arrive();
+  }
+  mbar_wait(bars + L % R, (L / R) & 1);  // invD
+  cluster_barrier_wait();  // no block reads another's memory after this
+
+  // x = invD b on the block's own rows
+  const double* cur = rhs + (L & 1) * RS;
+  const double* Vs = ring + (size_t)(L % R) * 2 * n * BS;
+  double* xdst = x + ((long long)c * Tp + i0) * Db * K + k0;
+#pragma unroll
+  for (int m = 0; m < kClusterItems; ++m) {
+    const int j = pos[m];
+    if (j < 0) continue;
+    const int o = off[m];
+    const int kk = o % Kc;
+    const int g = (o / Kc - j * Db) / RG;
+    double bv[Db];
+#pragma unroll
+    for (int jj = 0; jj < Db; ++jj) bv[jj] = cur[(j * Db + jj) * Kc + kk];
+    const double* M = Vs + j * BS + g * RG * Db;
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      double out = 0.0;
+#pragma unroll
+      for (int jj = 0; jj < Db; jj += 2) {
+        const double2 mm = *reinterpret_cast<const double2*>(M + rr * Db + jj);
+        out += mm.x * bv[jj];
+        out += mm.y * bv[jj + 1];
+      }
+      xdst[(long long)(j * Db + g * RG + rr) * K + kk] = out;
+    }
+  }
+#ifdef BAND_CLUSTER_CLOCKS
+  // the first worker's clocks at each level's barrier, after its stage
+  // wait and after its products, from the kernel's start, over x
+  if (threadIdx.x == 0 && blockIdx.y == 0)
+    for (int m = 0; m < 1 + 3 * L; ++m) x[blockIdx.x * 32 + m] = (double)(clk[m] - clk[0]);
+#endif
+}
+
 // Opt the kernel in to the shared memory it may ask for, once per kernel.
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, bool* done) {
@@ -1164,7 +1670,7 @@ template <int Db, int CT>
 cudaError_t launch_narrow(const double* E, const double* F,
                           const double* invD, const double* b, double* x,
                           int nC, int Tp, int L, int K, cudaStream_t st) {
-  constexpr int ITMAX = narrow_acc<Db>() / CT;
+  constexpr int ITMAX = kNarrowAcc / CT;
   const size_t smem = (size_t)Tp * Db * CT * sizeof(double);
   // the fewest rounds of items that 512 threads allow, spread evenly
   const int nitem = Tp * Db;
@@ -1208,6 +1714,105 @@ cudaError_t launch_wide(const double* E, const double* F, const double* invD,
   return cudaGetLastError();
 }
 
+// The cluster kernel's launch: opts in to cluster sizes above 8 and to the
+// shared memory the plan asks for (a refusal returns its error), checks
+// that the card can place one cluster of this shape (cached per shape),
+// and launches with cudaLaunchKernelEx.
+template <int Db, int RG>
+cudaError_t launch_cluster_rg(const double* E, const double* F, const double* invD,
+                              const double* b, double* x, int nC, int Tp, int L,
+                              int K, int P, int Kc, int R, size_t smem, int threads,
+                              cudaStream_t st) {
+  auto kern = pcr_solve_cluster_kernel<Db, RG>;
+  static bool nonportable = false;
+  static size_t allowed = 0;
+  // shapes whose placement was checked: (P, threads, smem bytes)
+  static long long placed[16][3];
+  static int nplaced = 0;
+  cudaError_t err;
+  // a refusal is returned, and cleared from the runtime's last error so
+  // that the next launch's check does not report it again
+  auto refused = [](cudaError_t e) {
+    cudaGetLastError();
+    return e;
+  };
+  if (!nonportable) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return refused(err);
+    nonportable = true;
+  }
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return refused(err);
+    allowed = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nC * P, (K + Kc - 1) / Kc);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  bool known = false;
+  for (int m = 0; m < nplaced && !known; ++m)
+    known = placed[m][0] == P && placed[m][1] == threads && placed[m][2] == (long long)smem;
+  if (!known) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return refused(err);
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    if (nplaced < 16) {
+      placed[nplaced][0] = P;
+      placed[nplaced][1] = threads;
+      placed[nplaced][2] = (long long)smem;
+      ++nplaced;
+    }
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, E, F, invD, b, x, nC, Tp, L, K, Kc, R);
+  if (err != cudaSuccess) return refused(err);
+  return cudaGetLastError();
+}
+
+// P: the cluster size, Kc: the columns of a chunk, as ops/band.py planned
+// them (band._solve_cluster_plan, which leaves room for a ring of two
+// stages). The ring takes as many stages as the rest of the shared memory
+// holds, up to kClusterRingMax and the L + 1 stages of a solve.
+template <int Db>
+cudaError_t launch_cluster(const double* E, const double* F, const double* invD,
+                           const double* b, double* x, int nC, int Tp, int L,
+                           int K, int P, int Kc, cudaStream_t st) {
+  if (P < 1 || P > kClusterMax || (P & (P - 1)) || Tp % P || Kc < 1 ||
+      (K + Kc - 1) / Kc > 65535 || (long long)nC * P > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const int n = Tp / P;
+  const size_t rhs = (size_t)2 * n * Db * Kc * sizeof(double);
+  const size_t stage = (size_t)2 * n * Db * Db * sizeof(double);
+  const int R = L >= 1 ? kClusterRing : 1;
+  const size_t smem = rhs + R * stage;
+  const long long pairs = (long long)n * (K < Kc ? K : Kc);  // (position, column)
+  constexpr int kWorkers = kClusterThreads - 32;  // and the producer's warp
+  if (pairs > (long long)kClusterItems * kWorkers) return cudaErrorInvalidValue;
+  // the fewest rows a thread that the workers allow: a thread a row for
+  // directions, a quarter of them, or the whole strip
+  auto threads = [](long long work) {
+    return (int)((work < kWorkers ? (work + 31) / 32 * 32 : kWorkers) + 32);
+  };
+  if (pairs * Db <= kWorkers)
+    return launch_cluster_rg<Db, 1>(E, F, invD, b, x, nC, Tp, L, K, P, Kc, R, smem,
+                                    threads(pairs * Db), st);
+  if (pairs < kClusterWide)
+    return launch_cluster_rg<Db, 3>(E, F, invD, b, x, nC, Tp, L, K, P, Kc, R, smem,
+                                    threads(pairs * (Db / 3)), st);
+  return launch_cluster_rg<Db, Db>(E, F, invD, b, x, nC, Tp, L, K, P, Kc, R, smem,
+                                   threads(pairs), st);
+}
+
 inline int grid_for(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
@@ -1236,10 +1841,16 @@ cudaError_t launch_pcr_level(const double* D, const double* A, const double* Cc,
                              const double* invD, double* E, double* F,
                              double* D2, double* A2, double* C2, double* invD2,
                              int nC, int Tp, int s, cudaStream_t st) {
-  constexpr int warps = Lanes<Db>::level_warps;
-  constexpr int per_block = warps * Lanes<Db>::per_warp;
-  pcr_level_kernel<Db><<<grid_for((long long)nC * Tp, per_block), warps * 32, 0, st>>>(
-      D, A, Cc, invD, E, F, D2, A2, C2, invD2, nC, Tp, s);
+  if constexpr (Db == 12) {
+    pcr_level_element_kernel<Db><<<grid_for((long long)nC * Tp, kLevelPositions),
+                                   kLevelPositions * Db * Db, 0, st>>>(
+        D, A, Cc, invD, E, F, D2, A2, C2, invD2, nC, Tp, s);
+  } else {
+    constexpr int warps = Lanes<Db>::level_warps;
+    constexpr int per_block = warps * Lanes<Db>::per_warp;
+    pcr_level_kernel<Db><<<grid_for((long long)nC * Tp, per_block), warps * 32, 0, st>>>(
+        D, A, Cc, invD, E, F, D2, A2, C2, invD2, nC, Tp, s);
+  }
   return cudaGetLastError();
 }
 
@@ -1298,19 +1909,21 @@ template <int Db>
 cudaError_t launch_pcr_solve(const double* E, const double* F, const double* invD,
                              const double* b, double* x, int nC, int Tp, int L,
                              int K, int ct, int groups, cudaStream_t st) {
-  switch (ct) {
-    case 8:  // the wide kernel's Db x 8 register tile: Db = 6 only
-      if constexpr (Db == 6)
+  if constexpr (Db == 12) {
+    return launch_cluster<Db>(E, F, invD, b, x, nC, Tp, L, K, ct, groups, st);
+  } else {
+    switch (ct) {
+      case 8:  // the wide kernel's Db x 8 register tile
         return launch_wide<Db>(E, F, invD, b, x, nC, Tp, L, K, groups, st);
-      break;
-    case 4:
-      return launch_narrow<Db, 4>(E, F, invD, b, x, nC, Tp, L, K, st);
-    case 2:
-      return launch_narrow<Db, 2>(E, F, invD, b, x, nC, Tp, L, K, st);
-    case 1:
-      return launch_narrow<Db, 1>(E, F, invD, b, x, nC, Tp, L, K, st);
+      case 4:
+        return launch_narrow<Db, 4>(E, F, invD, b, x, nC, Tp, L, K, st);
+      case 2:
+        return launch_narrow<Db, 2>(E, F, invD, b, x, nC, Tp, L, K, st);
+      case 1:
+        return launch_narrow<Db, 1>(E, F, invD, b, x, nC, Tp, L, K, st);
+    }
+    return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1391,10 +2004,12 @@ int band_cr_backsub(const double* invDo, const double* Ao, const double* Co,
                                            narrow != 0, st))
 }
 
-// ct: columns of a thread's register tile, as ops/band.py chose them: 8
-// runs the wide kernel (Db = 6) with `groups` threads per position (8 *
-// groups columns per block), 1, 2 or 4 the narrow one (ops/band.py picks 1
-// at Db = 12; profile_port.py --sweep3d times all three).
+// Db = 6: ct, the columns of a thread's register tile, as ops/band.py chose
+// them: 8 runs the wide kernel with `groups` threads per position (8 *
+// groups columns per block), 1, 2 or 4 the narrow one. Db = 12: ct is the
+// cluster size P and groups the columns of a chunk Kc of the cluster
+// kernel (ops/band.py's _solve_cluster_plan; profile_port.py --sweep3d
+// times P = 4, 8, 16).
 int band_pcr_solve(const double* E, const double* F, const double* invD,
                    const double* b, double* x, int nC, int Tp, int Db, int L,
                    int K, int ct, int groups, void* stream) {

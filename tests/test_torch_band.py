@@ -413,24 +413,86 @@ def test_band_3d_refinement(T, n_cr, monkeypatch):
     assert refined <= 1e-10 and refined <= once / 50
 
 
-@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 9, 18, 258])
-@pytest.mark.parametrize("Tp", [1, 2, 4, 8, 64, 128, 256, 512])
+@pytest.mark.parametrize("K", [1, 2, 3, 12, 17, 18, 19, 138])
+@pytest.mark.parametrize("Tp", [1, 2, 4, 8, 32, 64, 128, 256, 512])
 def test_solve_tile_columns_3d(Tp, K):
-    """band_pcr_solve at Db = 12 always takes the narrow kernel with one
-    column a thread (the wide kernel's 12 x 8 register tile is not built;
-    one column was the fastest tile at every 3D remainder on the card),
-    within 512 threads of 12 accumulators: a (Tp, 12, K) solve never asks
-    for more than 232,448 bytes of shared memory."""
-    ct = band._solve_tile_columns(Tp, 12, K)
-    assert ct == 1
-    assert Tp * 12 * ct <= 12 * 512
-    assert band._solve_smem_bytes(Tp, 12, ct) <= band._SMEM_MAX
+    """band_pcr_solve at Db = 12 takes the cluster kernel (the 2D tile
+    rule refuses it): P thread blocks a chain, P a power of two up to 16
+    that divides the chain (so the grid's C * P blocks fall into whole
+    clusters), Kc columns a cluster whose ceil(K / Kc) chunks cover every
+    column with none empty, no more chunks than the shared memory needs
+    or than one cluster fewer than the card's 132 SMs hold, and a thread
+    block's two rhs buffers and two-stage E, F ring within 232,448 bytes
+    of shared memory."""
     for C in (1, 4):
-        assert band._solve_chunk_columns(Tp, 12, K, C) == 1
+        P, Kc = band._solve_cluster_plan(Tp, 12, K, C)
+        assert P == min(band._SOLVE_CLUSTER, Tp) and Tp % P == 0
+        assert 1 <= P <= 16 and P & (P - 1) == 0
+        chunks = -(-K // Kc)
+        assert 1 <= Kc <= K and chunks * Kc >= K and (chunks - 1) * Kc < K
+        assert band._cluster_smem_bytes(Tp, 12, P, Kc) <= band._CLUSTER_SMEM_MAX
+        per_column = band._cluster_smem_bytes(Tp, 12, P, 1) - band._cluster_smem_bytes(
+            Tp, 12, P, 0)
+        needed = -(-K // ((band._CLUSTER_SMEM_MAX - band._cluster_smem_bytes(Tp, 12, P, 0))
+                          // per_column))
+        assert needed <= chunks <= max(needed, max(1, 132 // P - 1) // C)
+        assert band._solve_chunk_columns(Tp, 12, K, C) == Kc
+    with pytest.raises(ValueError):
+        band._solve_tile_columns(Tp, 12, K)
 
 
 @pytest.mark.parametrize("Tp", [1024, 2048])
 def test_solve_tile_columns_3d_raises_past_a_column(Tp):
-    assert band._solve_tile_columns(512, 12, 18) == 1  # the longest chain that fits
+    # the longest chain that fits: 13 columns a cluster at most
+    P, Kc = band._solve_cluster_plan(512, 12, 18)
+    assert P == 16 and Kc <= 13
     with pytest.raises(ValueError):
-        band._solve_tile_columns(Tp, 12, 1)
+        band._solve_cluster_plan(Tp, 12, 1)
+
+
+def _pcr_solve_partitioned(E, F, invD, b):
+    """band_pcr_solve replayed as the cluster kernel cuts it: the columns
+    in the plan's chunks of Kc, a chain's positions over P owners of n =
+    Tp / P each, every owner with its own two (C, n, Db, Kc) buffers; at
+    level l an owner reads buffer l % 2, its own rows and the rows at
+    i -+ s from the owner of that position, and writes the other."""
+    L, nC, Tp, Db, _ = E.shape
+    K = b.shape[-1]
+    P, Kc = band._solve_cluster_plan(Tp, Db, K)
+    n = Tp // P
+    x = torch.empty_like(b)
+    for k0 in range(0, K, Kc):
+        kc = min(Kc, K - k0)
+        buf = [[b[:, p * n:(p + 1) * n, :, k0:k0 + kc].clone(), None] for p in range(P)]
+        for lev in range(L):
+            s, cur = 1 << lev, lev % 2
+            held = torch.stack([buf[q][cur] for q in range(P)])  # (P, C, n, Db, kc)
+            for p in range(P):
+                i = torch.arange(p * n, (p + 1) * n)
+                acc = torch.zeros_like(buf[p][cur])
+                for M, nb in ((E, i - s), (F, i + s)):
+                    inside = (nb >= 0) & (nb < Tp)
+                    q, j = nb.clamp(0, Tp - 1) // n, nb.clamp(0, Tp - 1) % n
+                    rows = held[q, :, j].transpose(0, 1) * inside.view(1, n, 1, 1)
+                    acc = acc + M[lev, :, p * n:(p + 1) * n] @ rows
+                buf[p][1 - cur] = buf[p][cur] + acc
+        for p in range(P):
+            x[:, p * n:(p + 1) * n, :, k0:k0 + kc] = invD[:, p * n:(p + 1) * n] @ buf[p][L % 2]
+    return x
+
+
+@pytest.mark.parametrize("Tp,Ks", [(1, (1, 18)), (2, (1, 18)), (32, (1, 18)),
+                                   (256, (1, 18, 138))])
+def test_pcr_solve_partitioned_as_the_cluster_plan(Tp, Ks):
+    """The cluster kernel's owner and halo indexing, replayed in PyTorch on
+    the plan's partition, against band_pcr_solve_plain (1e-15 relative: the
+    same products in the same grouping)."""
+    rng = np.random.default_rng(Tp)
+    C, Db, L = 2, 12, band.num_levels(Tp)
+    t = lambda *shape: torch.tensor(0.2 * rng.standard_normal(shape))
+    E, F, invD = t(L, C, Tp, Db, Db), t(L, C, Tp, Db, Db), t(C, Tp, Db, Db)
+    for K in Ks:
+        b = t(C, Tp, Db, K)
+        want = band.band_pcr_solve_plain(E, F, invD, b)
+        got = _pcr_solve_partitioned(E, F, invD, b)
+        assert _rel(got, want) <= 1e-15

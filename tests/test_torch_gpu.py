@@ -367,12 +367,13 @@ def test_f32_cuda_solve_matches_cpu(cuda):
 # ------------------------------------------------------------------ #
 
 
-@pytest.mark.parametrize("K", [1, 18])
+@pytest.mark.parametrize("K", [1, 2, 12, 17, 18, 19, 138])
 def test_kernels_match_plain_3d(cuda, K):
     """Every band kernel at Db = 12 against its plain version, 1e-12, on
     padded chains: the levels of a PCR factor, a PCR solve, and two
     compacting levels with their rhs reduction and back substitution (K = 1,
-    a direction; K = 18, the 3D bench's panel). Launches count at Db = 12."""
+    a direction; K = 18, the 3D bench's panel; widths around it and a wide
+    one). Launches count at Db = 12."""
     D, U = _band(3, 32, 12, 70, (32, 20, 5), cuda)
     band.reset_launch_counts()
     A = band.band_init_a(U)
@@ -405,19 +406,19 @@ def test_kernels_match_plain_3d(cuda, K):
 
 @pytest.mark.parametrize(
     "C,Tp,Ks",
-    [
-        (4, 4, (1, 18)),  # 3D 4x250's PCR remainder after compaction
-        (1, 4, (1, 18)),  # 3D 1x1000's
-        (4, 256, (1, 18)),  # 3D 4x250 without compaction
+    [(C, Tp, (1, 2, 12, 17, 18, 19, 138)) for Tp in (1, 2, 4, 32, 256, 512) for C in (1, 4)]
+    + [
         (3, 1, (1, 3)),  # a single block per chain: no level
         (2, 2, (1, 3, 18)),
-        (1, 256, (2, 4, 5, 9)),  # one chain; widths at the tiles' edges
+        (1, 256, (4, 5, 9)),  # one chain
         (2, 512, (1, 3)),
     ],
 )
 def test_pcr_kernels_match_plain_at_every_level_3d(cuda, C, Tp, Ks):
-    """band_pcr_level at every level and band_pcr_solve (the narrow kernel:
-    the wide one's 12 x 8 tile is not built) at Db = 12, 1e-12."""
+    """band_pcr_level at every level (a thread per block element) and
+    band_pcr_solve (a cluster of thread blocks per chain; K = 138 takes
+    several column chunks at Tp = 256 and 512) at Db = 12, 1e-12; chains
+    of 1, 2 and 4 blocks run clusters of fewer blocks than the route's 16."""
     D, U = _band(C, Tp, 12, 71, (Tp,) * C, cuda)
     A, Cl, invD = band.band_init_a(U), U, band.band_block_inv(D)
     Es, Fs = [], []
@@ -431,11 +432,29 @@ def test_pcr_kernels_match_plain_at_every_level_3d(cuda, C, Tp, Ks):
     E = torch.stack(Es) if Es else D.new_zeros((0, C, Tp, 12, 12))
     F = torch.stack(Fs) if Fs else E
     for K in Ks:
-        assert band._solve_tile_columns(Tp, 12, K) in (1, 2, 4)
+        P, Kc = band._solve_cluster_plan(Tp, 12, K, C, torch.cuda.get_device_properties(
+            cuda).multi_processor_count)
+        assert P == min(16, Tp) and 1 <= Kc <= K
         b = torch.randn(C, Tp, 12, K, dtype=torch.float64, device=cuda)
         x = band.band_pcr_solve(E, F, invD, b)
         assert _rel(x, band.band_pcr_solve_plain(E, F, invD, b)) <= 1e-12
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("plan", [(16, 400), (32, 1)])
+def test_pcr_solve_3d_refused_launch_raises(cuda, plan, monkeypatch):
+    """A cluster plan the card or the C entry point refuses (shared memory
+    past 227 KB a thread block; a cluster of 32) raises from the wrapper,
+    with no fallback."""
+    D, U = _band(1, 256, 12, 74, (256,), cuda)
+    f = band.band_factor(D, U, n_cr=0)
+    b = torch.randn(1, 256, 12, 18, dtype=torch.float64, device=cuda)
+    monkeypatch.setattr(band, "_solve_cluster_plan", lambda *args: plan)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        band.band_pcr_solve(f.E, f.F, f.invD, b)
+    monkeypatch.undo()
+    x = band.band_pcr_solve(f.E, f.F, f.invD, b)  # the next launch runs
+    assert _rel(x, band.band_pcr_solve_plain(f.E, f.F, f.invD, b)) <= 1e-12
 
 
 @pytest.mark.parametrize("C,T", [(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30),
