@@ -12,8 +12,10 @@ without printing a result line:
    one nvcc each, started together; print the build times, ptxas'
    register and spill lines, and one line each with the registers and
    spill bytes of every band kernel at each block size (Db = 6 and 12),
-   of ``block_chol`` and of both block kernels at the 3D sizes D = 12 and
-   D = 3 (a spill fails the run);
+   of ``block_chol`` and of both block kernels at the 3D sizes D = 12
+   (``chol_lanes_kernel``, a lane group a block; ``tri_solve_tile_kernel``
+   and ``tri_solve_lanes_kernel``, the solve's two layouts) and D = 3 (a
+   spill fails the run);
 3. every band kernel against its plain PyTorch version on the card, at
    the band shapes of the four instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
@@ -48,11 +50,20 @@ without printing a result line:
    3D ones (D = 12: M = 512 at K = 18, 12, 1 and the roots; D = 3: the
    2348 and 2363 pivots), ``block_chol`` also at D = 2, 3, 6, 12 and M = 1
    to 2363 on contiguous and strided blocks, and its device time at every
-   Cholesky of a Manhattan-4 and a 3D 4x250 f32 factor; the launch floor
+   Cholesky of a Manhattan-4 and a 3D 4x250 f32 factor; the D = 12 kernels
+   at M = 1, 2, 3, 4, 31, 32, 33, 511, 512, 513 and 2363, on the same three
+   layouts, ``block_chol_solve`` at K = 1, 2, 12, 17, 18, 19 and 24 on each
+   factor (both sides of the edge between its two D = 12 layouts); one
+   launch for two right-hand sides (a transposed view and a stepped one,
+   as a factor level's W2 and W1) bit-equal to the two single-rhs launches
+   at D = 6 and 12, and a level's two solves timed as that one launch and
+   as two, at Manhattan-4's and 3D 4x250's first level; the launch floor
    (``launch_floor_us``: a one-element ``add_`` in the same graph
    harness); the f32 band
    (cyclic reduction over the block kernels) against the f64 band at
-   Manhattan-4's and 3D 4x250's band shapes (<= 1e-4); then a small 2D
+   Manhattan-4's and 3D 4x250's band shapes (<= 1e-4), the factor taking
+   one ``block_chol_solve`` launch a level, for both of its solves; then a
+   small 2D
    instance and a small 3D instance (2 x 30 poses, SOCP and QCQP) solved
    on the card against the port's plain CPU path, and the f32 mode on the
    3D one with a loop closure, SOCP and QCQP, on the card against the
@@ -77,7 +88,8 @@ without printing a result line:
    tolerance), objective within 1e-2 relative of the f64 solve of the same
    relaxation, det(R) = +1 within 1e-5, ``block_chol`` and the fused
    ``block_chol_solve`` launched (for QCQP also at D = 2, the distance
-   pivots), and neither the forward-only ``block_tri_lower_solve`` nor a
+   pivots), the factors' level solves as two-rhs launches, and neither the
+   forward-only ``block_tri_lower_solve`` nor a
    plain back substitution on f32 tensors of the card; then the f32 mode
    on the 3D bench worlds, 3D 4x250 as SOCP and QCQP and 3D 1x1000 as
    SOCP, each beside the port's f32 CPU runs of the same world at 1, 2, 4
@@ -686,7 +698,10 @@ def phase_blocks(device):
     3 x 3 pivots (M = 2348 and 2363, K = 3, the identity read through a
     block stride of 0 as ``inv_small_spd`` hands it). Times, bound and
     library call at each row's first shape; the fused kernel's device
-    time at every shape."""
+    time at every shape. Then ``block_chol`` at every size and layout the
+    f32 path hands it, the D = 12 kernels at the edge shapes, the two-rhs
+    launch against two single-rhs launches (bits and device time), and
+    ``block_chol``'s device time at every Cholesky of two f32 factors."""
     import torch
     from score_tpu_torch.ops import blocks
 
@@ -756,6 +771,67 @@ def phase_blocks(device):
     torch.cuda.synchronize()
     _log(f"block_chol at D = {blocks.CUDA_BLOCK_SIZES}, M = 1..2363, three layouts: "
          f"max_rel_diff={worst:.3e} (bound {REL_TOL_F32}), residuals <= 1e-5")
+    # the D = 12 kernels at batch sizes off and on their thread blocks and
+    # warps (two lane groups a warp), the same three layouts, and
+    # block_chol_solve on each factor at rhs widths on both sides of the
+    # edge between its two layouts (lane groups below K = 4)
+    worst_c = worst_s = worst_r = 0.0
+    for M in (1, 2, 3, 4, 31, 32, 33, 511, 512, 513, 2363):
+        for what, A in (
+                ("contiguous", _random_blocks(M, 12, seed=11 * M, device=device)),
+                ("odd blocks", _random_blocks(2 * M, 12, seed=11 * M + 1, device=device)[1::2]),
+                ("first of 3", _random_blocks(3 * M, 12, seed=11 * M + 2,
+                                              device=device).reshape(M, 3, 12, 12)[:, 0])):
+            label = f"D=12 M={M} {what}"
+            L = blocks.block_chol(A)
+            worst_c = max(worst_c, _compare(f"block_chol {label}", L, blocks.block_chol_plain(A),
+                                            REL_TOL_F32)[1])
+            r = _resid(L @ L.transpose(-1, -2), A)
+            if not (r <= 1e-5 and torch.equal(torch.triu(L, 1), torch.zeros_like(L))):
+                raise AssertionError(f"block_chol {label}: residual {r:.3e} or a non-zero "
+                                     "upper triangle")
+            for K in (1, 2, 12, 17, 18, 19, 24):
+                B = torch.tensor(rng.standard_normal((M, 12, K)), dtype=torch.float32,
+                                 device=device)
+                X = blocks.block_chol_solve(L, B)
+                worst_s = max(worst_s, _compare(f"block_chol_solve {label} K={K}", X,
+                                                blocks.block_chol_solve_plain(L, B),
+                                                REL_TOL_F32)[1])
+                r = _resid(L @ (L.transpose(-1, -2) @ X), B)
+                worst_r = max(worst_r, r)
+                if not r <= 1e-5:
+                    raise AssertionError(f"block_chol_solve {label} K={K}: residual {r:.3e}")
+    torch.cuda.synchronize()
+    _log(f"D = 12 at M = 1..2363, three layouts, K = 1..24: block_chol max_rel_diff="
+         f"{worst_c:.3e}, block_chol_solve max_rel_diff={worst_s:.3e} (bound {REL_TOL_F32}), "
+         f"residuals <= {worst_r:.3e}")
+    # one launch for two rhs against one factor (the f32 band's W2 and W1 of
+    # a level: a transposed view and a stepped one) gives the bits of the
+    # two single-rhs launches, at D = 6 and at both D = 12 layouts
+    for n in (6, 12):
+        for M in (1, 33, 512):
+            L = blocks.block_chol(_random_blocks(M, n, seed=13 * M + n, device=device))
+            for K in (1, n, 18):
+                B = torch.randn(M, K, n, device=device).transpose(-1, -2)
+                B2 = torch.randn(2 * M, n, K, device=device)[1::2]
+                X, X2 = blocks.block_chol_solve(L, B, B2)
+                if not (torch.equal(X, blocks.block_chol_solve(L, B)) and
+                        torch.equal(X2, blocks.block_chol_solve(L, B2))):
+                    raise AssertionError(f"block_chol_solve D={n} M={M} K={K}: the two-rhs "
+                                         "launch differs from two single launches")
+    # a factor level's two solves, one launch against two, at the first
+    # level of Manhattan-4's f32 factor (C = 4 chains of 512, D = 6) and of
+    # 3D 4x250's (C = 4 chains of 256, D = 12)
+    for n, C, T in ((6, 4, 512), (12, 4, 256)):
+        M = C * T // 2
+        L = blocks.block_chol(_random_blocks(M, n, seed=T, device=device))
+        U = torch.randn(C, T, n, n, device=device)
+        Bt, Bs = (U[:, 0::2].transpose(-1, -2).reshape(M, n, n), U[:, 1::2].reshape(M, n, n))
+        one = _device_us(lambda: blocks.block_chol_solve(L, Bt, Bs))
+        two = _device_us(lambda: (blocks.block_chol_solve(L, Bt), blocks.block_chol_solve(L, Bs)))
+        _log(f"block_chol_solve D={n} M={M} K={n}, a level's W2 and W1: two-rhs launch "
+             f"device_us={one:.2f}, two launches device_us={two:.2f}; bit-equal at D = 6, 12, "
+             "M = 1, 33, 512")
     # its device time at every Cholesky of a Manhattan-4 f32 factor (C = 4
     # chains of 512, D = 6) and of a 3D 4x250 one (C = 4 chains of 256,
     # D = 12): the odd blocks of each level, then the root, on contiguous
@@ -789,6 +865,12 @@ def phase_f32_band(device, C, Tp, Db, K):
     D, U = _random_band(C, Tp, Db, seed=Tp + C + 1, device=device)
     blocks.reset_launch_counts()
     f32 = pcr_factor(D.float(), U.float())
+    # a level's two solves (W2, W1) in one launch
+    levels = len(f32.L_odd)
+    solves, pairs = blocks.block_chol_solve.launches, blocks.block_chol_solve.two_rhs_launches
+    if not solves == pairs == levels:
+        raise AssertionError(f"f32 band Db={Db}: {solves} solve launches, {pairs} with two rhs, "
+                             f"for {levels} levels")
     f64 = band.band_factor(D, U)
     rng = np.random.default_rng(11)
     for k in (1, K):
@@ -931,12 +1013,18 @@ def phase_small_reference_3d():
 def _check_f32_launches(label, launches, by_size, plain_back, d, relaxation):
     """An f32 solve on a d-dimensional graph launched ``block_chol`` and the
     fused ``block_chol_solve`` at the band's block size d (d + 1) and, for
-    QCQP, at the pivots' d; and neither the forward-only kernel nor a plain
-    back substitution on the card's f32 tensors."""
+    QCQP, at the pivots' d, the factors' level solves as two-rhs launches
+    (at least one a Cholesky of the band's odd blocks: every level but the
+    root's); and neither the forward-only kernel nor a plain back
+    substitution on the card's f32 tensors."""
     if launches["block_tri_lower_solve"] or plain_back.calls:
         raise AssertionError(
             f"{label}: {launches['block_tri_lower_solve']} forward-only launches and "
             f"{plain_back.calls} plain back substitutions on the f32 path")
+    pairs, chols = launches["block_chol_solve.two_rhs"], by_size[f"block_chol[D={d * (d + 1)}]"]
+    if not 0 < pairs < chols:
+        raise AssertionError(f"{label}: {pairs} two-rhs solve launches beside {chols} "
+                             "Cholesky launches of the band")
     sizes = (d * (d + 1), d) if relaxation == "QCQP" else (d * (d + 1),)
     expected = [f"{k}[D={n}]" for n in sizes for k in ("block_chol", "block_chol_solve")]
     missing = [k for k in expected if by_size[k] == 0]
@@ -1005,6 +1093,7 @@ def _counts():
     from score_tpu_torch.ops import band, blocks
 
     launches = {k.__name__: k.launches for k in band.KERNELS + blocks.KERNELS}
+    launches["block_chol_solve.two_rhs"] = blocks.block_chol_solve.two_rhs_launches
     by_size = {f"{k.__name__}[{key}={n}]": c
                for key, kernels in (("Db", band.KERNELS), ("D", blocks.KERNELS))
                for k in kernels for n, c in k.launches_by_size.items()}
@@ -1135,8 +1224,10 @@ def main() -> int:
     # wide and narrow band_pcr_solve and the lane-group band_pcr_level at
     # Db = 6, the cluster band_pcr_solve and the element band_pcr_level at
     # Db = 12), of block_chol, and of both block kernels at the 3D sizes
-    # (block_chol_solve's kernel is tri_solve_kernel<D, V, BACK>; the worst
-    # over its V and BACK)
+    # (D = 12: block_chol's chol_lanes_kernel, block_chol_solve's
+    # tri_solve_tile_kernel<12, BACK, U> and tri_solve_lanes_kernel<12,
+    # BACK>; D = 3: chol_kernel, tri_solve_kernel<3, V, BACK>; the worst over
+    # the other template arguments)
     only = {"pcr_solve_wide_kernel": 6, "pcr_solve_narrow_kernel": 6, "pcr_level_kernel": 6,
             "pcr_solve_cluster_kernel": 12, "pcr_level_element_kernel": 12}
     checks = [("band", wrapper, kern, Db) for Db in (6, 12)
@@ -1153,7 +1244,11 @@ def main() -> int:
                                     ("band_cr_backsub", "cr_backsub_wide_kernel"))
               if only.get(kern, Db) == Db]
     checks += [("blocks", "block_chol", "chol_kernel", None)]
-    checks += [("blocks", wrapper, kern, D) for D in (12, 3)
+    checks += [("blocks", wrapper, kern, 12)
+               for wrapper, kern in (("block_chol", "chol_lanes_kernel"),
+                                     ("block_chol_solve", "tri_solve_tile_kernel"),
+                                     ("block_chol_solve", "tri_solve_lanes_kernel"))]
+    checks += [("blocks", wrapper, kern, 3)
                for wrapper, kern in (("block_chol", "chol_kernel"),
                                      ("block_chol_solve", "tri_solve_kernel"))]
     for lib, wrapper, kern, Db in checks:

@@ -40,7 +40,11 @@ from before that kernel, the forward kernel and the plain back
 substitution) at the first level's shapes, and ``block_chol`` at every
 Cholesky of a Manhattan-4 factor (on contiguous blocks, and through
 ``smallblocks.chol_small`` on the odd-row view the factor passes) and at
-QCQP's D = 2 pivots. Device time per launch from a
+QCQP's D = 2 pivots; then the block kernels at D = 12 at 3D 4x250's
+factor shapes (``_blocks12_times``: ``block_chol`` at every Cholesky,
+``block_chol_solve`` at K = 18, 12, 1, a level's two solves, and each of
+the solve's two D = 12 layouts alone, from builds of ``blocks.cu`` with
+``-DBLOCKS_WIDE_COLUMNS``). Device time per launch from a
 replayed CUDA graph (``chip_smoke._device_us``) and event time around the
 call. ``--root DIR`` imports ``score_tpu_torch`` from another checkout, so
 that two commits are timed on one card in one call.
@@ -50,8 +54,11 @@ that two commits are timed on one card in one call.
 five warm Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
 profiled solve in each: kernel launches, device busy time and the
 hand-written kernels' device time and launches (also per template
-instantiation, ``chol_kernel<12>``); then the same in f32 for 3D 4x250
-(``chip_smoke._cells_3d``) as SOCP and as QCQP. With ``--root`` for two
+instantiation, ``chol_lanes_kernel<12>``), and ``block_chol`` and
+``block_chol_solve`` at D = 6 in the f32 solve; then the same in f32 for
+3D 4x250 (``chip_smoke._cells_3d``) as SOCP and as QCQP and for 3D 1x1000
+as SOCP (three warm walls), with both block kernels' device ms and
+launches at D = 12. With ``--root`` for two
 commits in turns in one call (a checkout from before the f32 3D path
 raises at the 3D step).
 
@@ -146,8 +153,29 @@ _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_bac
                  "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                  "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
                  "pcr_solve_narrow_kernel", "pcr_level_element_kernel",
-                 "pcr_solve_cluster_kernel", "chol_kernel", "tri_solve_kernel",
+                 "pcr_solve_cluster_kernel", "chol_kernel", "chol_lanes_kernel",
+                 "tri_solve_kernel", "tri_solve_tile_kernel", "tri_solve_lanes_kernel",
                  "tri_lower_kernel")
+# the device-side kernels of block_chol and block_chol_solve (of this
+# package and of a checkout from before the D = 12 lane-group kernels)
+_BLOCK_WRAPPERS = {"block_chol": ("chol_kernel", "chol_lanes_kernel"),
+                   "block_chol_solve": ("tri_solve_kernel", "tri_solve_tile_kernel",
+                                        "tri_solve_lanes_kernel")}
+
+
+def _block_kernels_at(profile, D):
+    """{wrapper[D=n]: (device ms, launches)} of block_chol and
+    block_chol_solve at block size D, summed over their kernels'
+    instantiations in a profile of :func:`_profile_solve`."""
+    out = {}
+    for wrapper, names in _BLOCK_WRAPPERS.items():
+        ms = n = 0
+        for inst, row in profile["hand_kernels_by_instance"].items():
+            if any(inst.startswith(f"{name}<{D},") or inst == f"{name}<{D}>" for name in names):
+                ms += row["device_ms"]
+                n += row["launches"]
+        out[f"{wrapper}[D={D}]"] = (ms, n)
+    return out
 
 
 def _profile_solve(fg, top=12, precision="f64", relaxation="SOCP"):
@@ -375,7 +403,95 @@ def _kernel_times(device):
         fn = lambda: pcr._dinv(L, B)
         rows.append(dict(cell="f32 band", kernel="pcr._dinv", shape=f"M={M} D=6 K={K}",
                          device_us=_device_us(fn), event_ms=_event_ms(fn)))
-    return rows + _cr_solve_times(device) + _chol_times(device)
+    return rows + _cr_solve_times(device) + _chol_times(device) + _blocks12_times(device)
+
+
+# 3D 4x250's f32 factor: C = 4 chains of 256 blocks of 12 x 12
+_CHAINS_3D = (4, 256)
+# the widths at which block_chol_solve[D=12] is timed: the arrow panel, a
+# level's couplings, a direction
+_SOLVE12_WIDTHS = (18, 12, 1)
+# builds of csrc/blocks.cu that time each D = 12 solve layout alone: the
+# width from which the tile layout takes over (tri_solve_tile_kernel at
+# every width; tri_solve_lanes_kernel at every width)
+_SOLVE12_DESIGNS = {"tile (a)": 0, "lane groups (b)": 1 << 30}
+
+
+def _blocks12_times(device):
+    """The f32 block kernels at D = 12, at 3D 4x250's factor shapes:
+    block_chol at every Cholesky of the factor (contiguous blocks),
+    block_chol_solve at M = 512 and ``_SOLVE12_WIDTHS``, and a level's two
+    solves (W2 from the transposed even couplings, W1 from the odd ones)
+    as the package's factor makes them: one two-rhs launch where the
+    package has it, else two launches. With the two-rhs entry point, also
+    block_chol_solve at the same shapes from two builds of blocks.cu that
+    take one D = 12 layout at every width (``_SOLVE12_DESIGNS``)."""
+    import ctypes
+    import inspect
+
+    import torch
+    from chip_smoke import _device_us, _random_blocks
+    from score_tpu_torch.ops import blocks, build
+
+    rows = []
+    C, T = _CHAINS_3D
+    while T >= 1:
+        M = C * max(T // 2, 1)
+        A = _random_blocks(M, 12, seed=T, device=device)
+        fn = lambda: blocks.block_chol(A)
+        rows.append(dict(cell="3D f32 band", kernel="block_chol", shape=f"M={M} D=12",
+                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
+        T //= 2
+    M = C * _CHAINS_3D[1] // 2
+    L = blocks.block_chol(_random_blocks(M, 12, seed=1, device=device))
+    rhs = {K: torch.randn(M, 12, K, device=device) for K in _SOLVE12_WIDTHS}
+    for K, B in rhs.items():
+        fn = lambda: blocks.block_chol_solve(L, B)
+        rows.append(dict(cell="3D f32 band", kernel="block_chol_solve", shape=f"M={M} D=12 K={K}",
+                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    U = torch.randn(C, _CHAINS_3D[1], 12, 12, device=device)
+    Bt, Bs = U[:, 0::2].transpose(-1, -2).reshape(M, 12, 12), U[:, 1::2].reshape(M, 12, 12)
+    two_rhs = "B2" in inspect.signature(blocks.block_chol_solve).parameters
+    if two_rhs:
+        fn, what = lambda: blocks.block_chol_solve(L, Bt, Bs), "one two-rhs launch"
+    else:
+        fn = lambda: (blocks.block_chol_solve(L, Bt), blocks.block_chol_solve(L, Bs))
+        what = "two launches"
+    rows.append(dict(cell="3D f32 band", kernel="block_chol_solve",
+                     shape=f"M={M} D=12 K=12 W2+W1 ({what})",
+                     device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    if not two_rhs:
+        return rows
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    procs = {}
+    for design, width in _SOLVE12_DESIGNS.items():
+        so = build.BUILD_DIR / f"solve12_{width}.so"
+        procs[design] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, f"-DBLOCKS_WIDE_COLUMNS={width}", "-o", str(so),
+             str(build.SOURCES["blocks"])], stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    for design, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"nvcc blocks.cu for {design} failed")
+        lib = ctypes.CDLL(str(so))
+        lib.block_chol_solve.argtypes = [vp, vp, vp, i64, i32, i32, i64, i64, i64,
+                                         vp, vp, i64, i64, i64, vp]
+        lib.block_chol_solve.restype = i32
+        for K, B in rhs.items():
+            X = torch.empty_like(B)
+            want = blocks.block_chol_solve(L, B)
+
+            def fn(B=B, X=X):
+                blocks._raise_on("block_chol_solve", lib.block_chol_solve(
+                    L.data_ptr(), B.data_ptr(), X.data_ptr(), M, 12, K, *B.stride(),
+                    None, None, 0, 0, 0, torch.cuda.current_stream().cuda_stream))
+            fn()
+            err = ((X - want).abs().max() / want.abs().max()).item()
+            if not err <= 1e-5:
+                raise AssertionError(f"block_chol_solve {design} K={K}: {err:.3e} from the package's")
+            rows.append(dict(cell="3D f32 band", kernel=f"block_chol_solve, {design} only",
+                             shape=f"M={M} D=12 K={K}", device_us=_device_us(fn),
+                             event_ms=_event_ms(fn)))
+    return rows
 
 
 # the 3D instances' bands (chip_smoke._cells_3d): chains, padded chain
@@ -745,10 +861,14 @@ def main() -> int:
                  f"ms, {p['kernel_launches']} kernel launches")
             for name, b in p["hand_kernels"].items():
                 _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
-        label, fg = _cells_3d()[0]
-        for relaxation in ("SOCP", "QCQP"):
+        m4 = _block_kernels_at(report["f32_profile"], 6)
+        _log(f"{label}-f32: " + ", ".join(f"{k} {ms:.3f} ms, {n} launches"
+                                          for k, (ms, n) in m4.items()))
+        (l4, fg4), (l1, fg1) = _cells_3d()
+        for label, fg, relaxation, n in ((l4, fg4, "SOCP", 5), (l4, fg4, "QCQP", 5),
+                                         (l1, fg1, "SOCP", 3)):
             key = f"{label}-{relaxation.lower()}-f32"
-            report[key] = _warm_walls(fg, n=5, precision="f32", relaxation=relaxation)
+            report[key] = _warm_walls(fg, n=n, precision="f32", relaxation=relaxation)
             _log(f"{key}: warm {report[key]}")
             p = report[key + "_profile"] = _profile_solve(fg, precision="f32",
                                                           relaxation=relaxation)
@@ -756,6 +876,9 @@ def main() -> int:
                  f"{p['kernel_launches']} kernel launches")
             for name, b in p["hand_kernels_by_instance"].items():
                 _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+            d12 = p["block_kernels_d12"] = _block_kernels_at(p, 12)
+            _log(f"{key}: " + ", ".join(f"{k} {ms:.3f} ms, {n} launches"
+                                        for k, (ms, n) in d12.items()))
         if args.out:
             out = Path(args.out)
             out.parent.mkdir(parents=True, exist_ok=True)

@@ -26,7 +26,8 @@ unrolled routines that :mod:`score_tpu_torch.solver.smallblocks` runs off
 the card. A wrapper runs the plain twin only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises. Each wrapper counts
 its launches in its ``launches`` attribute, and per block size D in
-``launches_by_size``.
+``launches_by_size``; ``block_chol_solve.two_rhs_launches`` counts those
+of its launches that solved for two right-hand sides.
 """
 
 from __future__ import annotations
@@ -188,7 +189,11 @@ def block_chol(A: torch.Tensor) -> torch.Tensor:
     square root, as the TPU kernel does; L leaves through shared memory as
     16-byte stores. At the f32 path's sizes (M = 1..2363 blocks, at most
     0.6 MB in and out) an H100's launch latency bounds it, not memory or
-    arithmetic; thread blocks of 32 threads spread M = 1024 over 32 SMs."""
+    arithmetic; thread blocks of 32 threads spread M = 1024 over 32 SMs.
+    At D = 12 a lane group of 16 owns a block and a lane its row
+    (``chol_lanes_kernel``): the lane loads its row's three 16-byte units
+    into registers, row j reaches the group by warp shuffles at column j,
+    and each entry's arithmetic is the one-thread chain's."""
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"block_chol: expected (M, D, D), got {tuple(A.shape)}")
     M, D, _ = A.shape
@@ -210,10 +215,12 @@ def block_chol(A: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def _solve(wrapper, plain, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def _solve(wrapper, plain, L: torch.Tensor, B: torch.Tensor, B2=None):
     """Checks, routing, launch and launch count shared by the two
     substitution wrappers; the C entry point carries the wrapper's name.
-    B may have any strides (the kernel reads it through them)."""
+    B (and B2, a second rhs of the same shape against the same L) may have
+    any strides (the kernel reads them through them). Returns X, or
+    (X, X2) with B2."""
     name = wrapper.__name__
     if L.dim() != 3 or B.dim() != 3 or L.shape[-1] != L.shape[-2]:
         raise ValueError(f"{name}: expected L (M, D, D), B (M, D, K), "
@@ -222,20 +229,28 @@ def _solve(wrapper, plain, L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     K = B.shape[-1]
     _check(f"{name}.L", L, (M, D, D))
     _check(f"{name}.B", B, (M, D, K), contiguous=False)
-    if not _route(name, D, L, B):
-        return plain(L, B)
-    X = torch.empty((M, D, K), dtype=B.dtype, device=B.device)
-    if X.numel() == 0:
-        return X
+    rhs = (B,) if B2 is None else (B, B2)
+    if B2 is not None:
+        _check(f"{name}.B2", B2, (M, D, K), contiguous=False)
+    if not _route(name, D, L, *rhs):
+        X = tuple(plain(L, b) for b in rhs)
+        return X if B2 is not None else X[0]
+    X = tuple(torch.empty((M, D, K), dtype=B.dtype, device=B.device) for _ in rhs)
+    if X[0].numel() == 0:
+        return X if B2 is not None else X[0]
     if _units16(D) and L.data_ptr() % 16:
         raise ValueError(f"{name}: L is not 16-byte aligned")
-    err = getattr(_lib(), name)(L.data_ptr(), B.data_ptr(), X.data_ptr(), M, D, K,
-                                *B.stride(),
+    second = [B2.data_ptr(), X[1].data_ptr(), *B2.stride()] if B2 is not None else [
+        None, None, 0, 0, 0]
+    err = getattr(_lib(), name)(L.data_ptr(), B.data_ptr(), X[0].data_ptr(), M, D, K,
+                                *B.stride(), *second,
                                 torch.cuda.current_stream(L.device).cuda_stream)
     _raise_on(name, err)
     wrapper.launches += 1
     wrapper.launches_by_size[D] += 1
-    return X
+    if B2 is not None:
+        wrapper.two_rhs_launches += 1
+    return X if B2 is not None else X[0]
 
 
 def block_tri_lower_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -245,25 +260,34 @@ def block_tri_lower_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return _solve(block_tri_lower_solve, block_tri_lower_solve_plain, L, B)
 
 
-def block_chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def block_chol_solve(L: torch.Tensor, B: torch.Tensor, B2=None):
     """X (M, D, K) with L_m L_m^T X_m = B_m for Cholesky factors L
-    (M, D, D), contiguous, and B (M, D, K) of any strides, float32.
+    (M, D, D), contiguous, and B (M, D, K) of any strides, float32. With
+    B2 (M, D, K), a second rhs of any strides against the same L, returns
+    (X, X2) from one launch; each equals, bit for bit, the launch of its
+    rhs alone (the f32 band's two solves of a factor level).
 
     Replaces ``score_tpu/ops/pallas_blocks.py:_tri_solve_kernel`` and the
     ~37 elementwise launches of the back substitution that followed it in
     every caller (``pcr._dinv``, ``inv_small_spd``). A thread owns 4, 2 or
     1 neighbouring rhs columns of one block (the widest vector that K,
-    B's strides and the addresses keep aligned), loads them once,
-    substitutes forward and back in registers in the plain version's
-    order, and stores X once: B in and X out is all the traffic. The
-    thread block is (column vectors, blocks) and the grid (block ranges,
-    column tiles), so no thread divides by K; the L blocks of a thread
-    block are staged once in shared memory with the reciprocals of their
-    diagonals. Memory bounds the arrow panel (K = 138..258; blocks of 256
-    threads), launch latency the K = 1 and K = 6 solves (blocks of 64
-    threads, to spread 1024 to 3072 threads of work over the SMs). A
-    transposed or stepped B costs no copy."""
-    return _solve(block_chol_solve, block_chol_solve_plain, L, B)
+    the strides and the addresses of every rhs keep aligned), loads them
+    once, substitutes forward and back in registers in the plain version's
+    order, and stores X once: B in and X out is all the traffic. At D = 2,
+    3 and 6 the thread block is (column vectors, blocks, staging layers)
+    and the grid (block ranges, column tiles, rhs), so no thread divides
+    by K; the L blocks of a thread block are staged once in shared memory
+    with the reciprocals of their diagonals. Memory bounds the arrow panel
+    (K = 138..258; blocks of 256 threads), launch latency the K = 1 and
+    K = 6 solves (blocks of 64 threads, to spread 1024 to 3072 threads of
+    work over the SMs). At D = 12 a thread owns one column: from K = 4 up
+    the thread block has no staging layers, every thread stages its share
+    of the blocks of L by cp.async and solves (``tri_solve_tile_kernel``
+    in ``csrc/blocks.cu``); below, a lane group of 16 owns a column, a lane
+    a row, and hands each solved entry to the group by warp shuffles
+    (``tri_solve_lanes_kernel``). A transposed or stepped B costs no
+    copy."""
+    return _solve(block_chol_solve, block_chol_solve_plain, L, B, B2)
 
 
 KERNELS = (block_chol, block_tri_lower_solve, block_chol_solve)
@@ -273,6 +297,8 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.launches_by_size = dict.fromkeys(CUDA_BLOCK_SIZES, 0)
+    # of block_chol_solve's launches, those that took a second rhs
+    block_chol_solve.two_rhs_launches = 0
 
 
 reset_launch_counts()

@@ -141,7 +141,9 @@ def blocks_library() -> ctypes.CDLL:
     lib.block_chol.argtypes = [vp, vp, i64, i32, i64, vp]
     lib.block_chol.restype = i32
     for solve in (lib.block_tri_lower_solve, lib.block_chol_solve):
-        # L, B, out, M, D, K, B's three element strides, stream
-        solve.argtypes = [vp, vp, vp, i64, i32, i32, i64, i64, i64, vp]
+        # L, B, out, M, D, K, B's three element strides, then B2, out2
+        # (null for one rhs) and B2's strides, stream
+        solve.argtypes = [vp, vp, vp, i64, i32, i32, i64, i64, i64,
+                          vp, vp, i64, i64, i64, vp]
         solve.restype = i32
     return lib

@@ -15,7 +15,9 @@ system on the way down and back-substitutes the odd blocks on the way up.
 Each level's block Cholesky and Cholesky solves go through
 :mod:`score_tpu_torch.solver.smallblocks`, which launches the batched block
 kernels of :mod:`score_tpu_torch.ops.blocks` for float32 tensors on the
-card (a solve is one launch, forward and back substitution fused). The 6x6 block products stay ``torch.matmul``.
+card (a solve is one launch, forward and back substitution fused; a
+level's W2 and W1 share their factor and one launch). The 6x6 block
+products stay ``torch.matmul``.
 
 Level loop and shapes: the JAX version runs the levels as a ``lax.scan``
 over a fixed-shape state, refilling the dropped half with decoupled
@@ -55,9 +57,10 @@ def pcr_pad_length(T: int) -> int:
     return p
 
 
-def _dinv(L, M):
-    """(L L^T)^-1 M: one fused kernel launch for float32 on the card."""
-    return chol_solve(L, M)
+def _dinv(L, M, M2=None):
+    """(L L^T)^-1 M, and with M2 also (L L^T)^-1 M2: one fused kernel
+    launch for float32 on the card."""
+    return chol_solve(L, M, M2)
 
 
 def _shift_down(x: torch.Tensor) -> torch.Tensor:
@@ -89,8 +92,7 @@ def pcr_factor(D: torch.Tensor, U: torch.Tensor) -> PCRFactors:
         D_even, D_odd = D[:, 0::2], D[:, 1::2]
         U_even, U_odd = U[:, 0::2], U[:, 1::2]
         L_odd = chol_small(D_odd)
-        W2 = _dinv(L_odd, U_even.transpose(-1, -2))
-        W1 = _dinv(L_odd, U_odd)
+        W2, W1 = _dinv(L_odd, U_even.transpose(-1, -2), U_odd)
         term_right = U_even @ W2
         term_left = _shift_down(U_odd.transpose(-1, -2) @ W1)
         D = D_even - term_right - term_left

@@ -8,7 +8,9 @@ float64 anywhere) takes the plain unrolled versions, which are those
 kernels' twins. float64 on the card stays on the plain path, as the JAX
 package keeps f64 on its unrolled jnp path. :func:`chol_solve` (forward
 then back substitution, L L^T X = B) is one fused kernel launch on that
-route: ``inv_small_spd`` and the f32 band's ``_dinv`` go through it. The f64 band kernels
+route: ``inv_small_spd`` and the f32 band's ``_dinv`` go through it, and it
+takes a second rhs against the same factor in the same launch (a cyclic
+reduction level's two solves). The f64 band kernels
 (``ops/csrc/band.cu``: ``chol``, ``tri_lower``, ``tri_upper``) run the
 same left-looking column Cholesky and substitution order inside their
 threads.
@@ -60,13 +62,20 @@ def tri_upper_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return blocks.block_tri_upper_solve_plain(L, B)
 
 
-def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def chol_solve(L: torch.Tensor, B: torch.Tensor, B2=None):
     """Solve L L^T X = B for the Cholesky factor L (..., m, m) and B
     (..., m, K): one kernel launch for a float32 batch on the card, the
-    two plain substitutions everywhere else."""
+    two plain substitutions everywhere else. With B2 (the shape of B), a
+    second rhs against the same L, returns (X, X2), on the card from the
+    same launch."""
     if _use_kernel(L):
-        return blocks.block_chol_solve(*_blocks(L, B)).reshape(B.shape)
-    return tri_upper_solve(L, tri_lower_solve(L, B))
+        Lb, Bb = _blocks(L, B)
+        if B2 is None:
+            return blocks.block_chol_solve(Lb, Bb).reshape(B.shape)
+        X, X2 = blocks.block_chol_solve(Lb, Bb, _blocks(L, B2)[1])
+        return X.reshape(B.shape), X2.reshape(B2.shape)
+    X = tri_upper_solve(L, tri_lower_solve(L, B))
+    return X if B2 is None else (X, tri_upper_solve(L, tri_lower_solve(L, B2)))
 
 
 def inv_small_spd(A: torch.Tensor) -> torch.Tensor:

@@ -207,6 +207,48 @@ def test_chol_solve_rejects_bad_inputs():
         blocks.block_chol_solve(L, B.to("meta"))  # two devices
 
 
+@pytest.mark.parametrize("D", [6, 12])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_two_rhs_chol_solve_is_two_single_solves(D, transposed):
+    """A second rhs against the same factor (the f32 band's W2 and W1 of a
+    level): ``block_chol_solve(L, B, B2)`` and ``smallblocks.chol_solve``
+    return, bit for bit, the two single-rhs plain results, on contiguous
+    rhs and on a level's transposed even blocks beside its odd ones, and
+    launch nothing on the CPU."""
+    blocks.reset_launch_counts()
+    L = blocks.block_chol_plain(torch.tensor(_spd(8, D, 97 + D)))
+    U = torch.tensor(np.random.default_rng(D).standard_normal((2, 8, D, D)).astype(np.float32))
+    if transposed:
+        B, B2 = U[:, 0::2].transpose(-1, -2), U[:, 1::2]
+        assert not B.is_contiguous()
+    else:
+        B, B2 = U[0], U[1]
+    L4 = L.reshape(B.shape)
+    want = (blocks.block_chol_solve_plain(L4, B), blocks.block_chol_solve_plain(L4, B2))
+    for got in (psb.chol_solve(L4, B, B2),
+                blocks.block_chol_solve(L, B.reshape(8, D, D), B2.reshape(8, D, D))):
+        assert isinstance(got, tuple) and len(got) == 2
+        for g, w in zip(got, want):
+            assert torch.equal(g.reshape(w.shape), w)
+    assert torch.equal(psb.chol_solve(L4, B), want[0])
+    assert [k.launches for k in blocks.KERNELS] == [0, 0, 0]
+
+
+def test_two_rhs_chol_solve_rejects_a_mismatched_second_rhs():
+    L = blocks.block_chol(torch.tensor(_spd(4, 6, 62)))
+    B = torch.zeros(4, 6, 3)
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, B, torch.zeros(4, 6, 2))  # other width
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, B, torch.zeros(3, 6, 3))  # other batch
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, B, torch.zeros(4, 6))  # not batched
+    with pytest.raises(TypeError):
+        blocks.block_chol_solve(L, B, B.double())  # other dtype
+    with pytest.raises(ValueError):
+        blocks.block_chol_solve(L, B, B.to("meta"))  # other device
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_chol_small_takes_the_band_views(dtype):
     """The views the f32 band hands ``chol_small`` (the odd rows ``D[:,

@@ -304,6 +304,51 @@ def test_block_chol_matches_plain_in_every_layout(cuda, D, M):
     assert blocks.block_chol.launches_by_size[D] == len(views)
 
 
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 31, 32, 33, 511, 512, 513, 2363])
+def test_block_kernels_match_plain_at_d12(cuda, M):
+    """The D = 12 kernels (block_chol: a lane group a block; block_chol_solve:
+    lane groups below K = 4, a thread a column above) against their plain
+    versions, 1e-5, with ||L L^T - A|| / ||A|| and ||A X - B|| / ||B|| <=
+    1e-5: batch sizes off and on the thread blocks and the warps' two
+    groups, A contiguous, the odd rows of a batch and the first of each
+    three, and rhs widths on both sides of the layouts' edge."""
+    views = [_spd32(M, 12, M, cuda), _spd32(2 * M, 12, M + 1, cuda)[1::2],
+             _spd32(3 * M, 12, M + 2, cuda).reshape(M, 3, 12, 12)[:, 0]]
+    blocks.reset_launch_counts()
+    for A in views:
+        L = blocks.block_chol(A)
+        assert _rel(L, blocks.block_chol_plain(A)) <= 1e-5
+        assert torch.equal(torch.triu(L, diagonal=1), torch.zeros_like(L))
+        assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
+        for K in (1, 2, 12, 17, 18, 19, 24):
+            B = torch.randn(M, 12, K, device=cuda)
+            X = blocks.block_chol_solve(L, B)
+            assert _rel(X, blocks.block_chol_solve_plain(L, B)) <= 1e-5
+            assert _rel(A @ X, B) <= 1e-5
+    torch.cuda.synchronize()
+    assert blocks.block_chol.launches_by_size[12] == len(views)
+    assert blocks.block_chol_solve.launches_by_size[12] == 7 * len(views)
+
+
+@pytest.mark.parametrize("D", [6, 12])
+@pytest.mark.parametrize("M", [1, 33, 512])
+def test_two_rhs_launch_is_two_single_launches(cuda, D, M):
+    """block_chol_solve(L, B, B2), one launch, gives bit for bit the two
+    single-rhs launches, with B a transposed view and B2 a stepped one (a
+    factor level's U_even^T and U_odd), at widths of both D = 12 layouts."""
+    L = blocks.block_chol(_spd32(M, D, M + D, cuda))
+    for K in (1, D, 18):
+        B = torch.randn(M, K, D, device=cuda).transpose(-1, -2)
+        B2 = torch.randn(2 * M, D, K, device=cuda)[1::2]
+        blocks.reset_launch_counts()
+        X, X2 = blocks.block_chol_solve(L, B, B2)
+        assert blocks.block_chol_solve.launches == 1
+        assert torch.equal(X, blocks.block_chol_solve(L, B))
+        assert torch.equal(X2, blocks.block_chol_solve(L, B2))
+        assert _rel(X2, blocks.block_chol_solve_plain(L, B2)) <= 1e-5
+    torch.cuda.synchronize()
+
+
 def test_block_kernels_raise_on_other_sizes(cuda):
     """A CUDA tensor of a block size the kernels are not built for raises;
     nothing falls back to the plain version on the card."""
@@ -339,9 +384,14 @@ def test_f32_band_matches_f64_band(cuda, Db):
     D, U = _band(3, 64, Db, 62, (64, 40, 7), cuda)
     b = torch.randn(3, 64, Db, 5, dtype=torch.float64, device=cuda)
     blocks.reset_launch_counts()
-    x32 = pcr_solve(pcr_factor(D.float(), U.float()), b.float())
+    f32 = pcr_factor(D.float(), U.float())
+    # a level: one Cholesky and one launch for both of its solves (W2, W1)
+    levels = len(f32.L_odd)
+    assert blocks.block_chol.launches_by_size[Db] == levels + 1
+    assert blocks.block_chol_solve.launches_by_size[Db] == levels
+    assert blocks.block_chol_solve.two_rhs_launches == levels
+    x32 = pcr_solve(f32, b.float())
     _assert_fused_path()
-    assert blocks.block_chol.launches_by_size[Db] > 0
     x64 = band.band_solve(band.band_factor(D, U), b)
     assert _rel(x32.double(), x64) <= 1e-4
 

@@ -46,6 +46,7 @@ CASES = [
     (3, 16, 6, (16, 11, 3)),
     (2, 32, 6, (32, 20)),
     (2, 1, 6, (1, 1)),  # one block per chain: no levels
+    (2, 8, 12, (8, 5)),  # 3D poses: 12 x 12 blocks
 ]
 
 
