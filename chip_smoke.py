@@ -11,7 +11,11 @@ without printing a result line:
    f64 band kernels, and ``csrc/blocks.cu``, the f32 block kernels) with
    one nvcc each, started together; print the build times, ptxas'
    register and spill lines, and one line each with the registers and
-   spill bytes of every band kernel at each block size (Db = 6 and 12),
+   spill bytes of every band kernel at each block size (Db = 6 and 12;
+   the fused CR kernels ``cr_reduce_levels_kernel``,
+   ``cr_backsub_levels_kernel`` and, at Db = 12, ``cr_backsub_element_kernel``,
+   and a one-level solve's ``cr_backsub_narrow_kernel`` and, at Db = 6,
+   ``cr_backsub_wide_kernel``),
    of ``block_chol`` and of both block kernels at the 3D sizes D = 12
    (``chol_lanes_kernel``, a lane group a block; ``tri_solve_tile_kernel``
    and ``tri_solve_lanes_kernel``, the solve's two layouts) and D = 3 (a
@@ -29,18 +33,21 @@ without printing a result line:
    (CUDA events around the wrapper, after warm-up) and the kernel's
    device time (a CUDA graph of 20 launches replayed between events), for
    the three solve kernels (``band_cr_reduce``, ``band_pcr_solve``,
-   ``band_cr_backsub``) at K = 1 beside the panel; then every band kernel
+   ``band_cr_backsub``) at K = 1 beside the panel; ``band_cr_reduce`` and
+   ``band_cr_backsub`` run every compacting level of a solve in one
+   launch (3D 1x1000: Th 512 -> 256); then every band kernel
    at edge shapes of both block sizes: ``band_pcr_level`` and
    ``band_pcr_solve`` at one and two blocks per chain, one chain and rhs
    widths off the column tiles (3D: Tp = 1, 2, 4, 32, 256 and 512 at C = 1
    and 4, K = 1, 2, 12, 17, 18, 19 and 138, which takes several column
    chunks of the cluster kernel), ``band_cr_level`` at chain lengths that
    put a thread block's edge inside a chain, on a chain's first position
-   and past the last, ``band_cr_backsub`` at C = 1, 4, 20, coarse lengths
-   1, 2, 256, 1024 and K = 1, 2, 4, 5, 138, 258 (both of its kernels; the
-   3D set is smaller), ``band_block_inv`` at block counts off its thread
-   blocks, ``band_init_a`` and ``band_cr_reduce`` at one and two
-   positions; then each block kernel against its plain version in f32 at
+   and past the last, ``band_block_inv`` at block counts off its thread
+   blocks, ``band_init_a``; the two fused CR kernels at 1 to 4 levels,
+   C = 1, 4, 20, coarsest lengths 1, 2, 64, 256 and K = 1, 2, 4, 5, 17,
+   18, 19, 138 (and 258 at Db = 6), one launch each a call, and band
+   solves of a Db = 6 chain with two and three compacting levels (C = 1,
+   Tp = 1024 and 2048); then each block kernel against its plain version in f32 at
    the shapes of the f32 path (max relative difference <= 1e-5, and
    reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
    ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
@@ -82,7 +89,9 @@ without printing a result line:
    x 250 poses, 6 landmarks, seed 3) as SOCP and QCQP and 3D 1x1000 (one
    chain of 1000 poses) as SOCP, in f64: solved, relative gap <= 1e-6,
    det(R) = +1 on the 3 x 3 rotations, and every band kernel of the path
-   launched at Db = 12 (the 1x1000 QCQP is left out for time);
+   launched at Db = 12 (the 1x1000 QCQP is left out for time); every f64
+   solve whose band compacts launches ``band_cr_reduce`` and
+   ``band_cr_backsub`` once each a ``band_pcr_solve`` launch;
 7. the f32 fast mode (``precision="f32"``) on Manhattan-4, SOCP and QCQP,
    cold and warm: solved, relative gap <= 1e-2 (the mode's reduced
    tolerance), objective within 1e-2 relative of the f64 solve of the same
@@ -352,10 +361,13 @@ def _band_cost(name, *args):
         rows = D.numel() // n ** 2 // 2  # kept rows; one odd-row inverse each
         return (3 * D.numel() + 4 * D.numel()) * f8, rows * (_inv_flops(n) + 12 * n ** 3 + 2 * n * n)
     if name == "band_cr_reduce":
-        E, F, b = args
+        # one launch for every level: each level's E and F read once, the
+        # fine rhs read once, each level's reduced rhs written once
+        levels, b = args
         n, K = b.shape[-2], b.shape[-1]
-        rows = E.numel() // n ** 2
-        return (E.numel() + F.numel() + b.numel() + b.numel() // 2) * f8, rows * (4 * n * n * K + 2 * n * K)
+        blocks = sum(lv.E.numel() + lv.F.numel() for lv in levels)
+        rows = sum(lv.E.numel() // n ** 2 for lv in levels)
+        return ((blocks + b.numel() + rows * n * K) * f8, rows * (4 * n * n * K + 2 * n * K))
     if name == "band_pcr_solve":
         E, F, invD, b = args
         n, K = b.shape[-2], b.shape[-1]
@@ -364,11 +376,14 @@ def _band_cost(name, *args):
         return ((E.numel() + F.numel() + invD.numel() + 2 * b.numel()) * f8,
                 L * pos * (4 * n * n * K + 2 * n * K) + pos * 2 * n * n * K)
     if name == "band_cr_backsub":
-        invD, A, C, b, xe = args
-        n, K = b.shape[-2], b.shape[-1]
-        rows = invD.numel() // n ** 2
-        # the odd rows of b, the kept rows' solution, the fine solution out
-        return ((3 * invD.numel() + b.numel() // 2 + xe.numel() + b.numel()) * f8,
+        # one launch for every level: each level's invD, A and C read once,
+        # the odd rows of each level's fine rhs, the coarsest solution, and
+        # the finest solution written once
+        levels, fine, xe = args
+        n, K = xe.shape[-2], xe.shape[-1]
+        blocks = sum(3 * lv.invD.numel() for lv in levels)
+        rows = sum(lv.invD.numel() // n ** 2 for lv in levels)
+        return ((blocks + rows * n * K + xe.numel() + fine[0].numel()) * f8,
                 rows * (6 * n * n * K + 2 * n * K))
     raise KeyError(name)
 
@@ -461,7 +476,7 @@ def phase_kernels(label, C, Tp, K, Db, device):
         args = (Dl, Al, Cl)
         out = chk("band_cr_level", lambda: band.band_cr_level(*args),
                   lambda: band.band_cr_level_plain(*args), _band_cost("band_cr_level", *args))
-        levels.append(out[:5])
+        levels.append(band.CRLevel(*out[:5]))
         Dl, Al, Cl = out[5:]
     Es, Fs = [], []
     invD = chk("band_block_inv", lambda: band.band_block_inv(Dl),
@@ -491,22 +506,21 @@ def phase_kernels(label, C, Tp, K, Db, device):
 
     for k in (K, 1):  # the panel first: its times are the ones reported
         b0 = torch.tensor(rng.standard_normal((C, Tp, Db, k)), device=device)
-        b, fine = b0, []
-        for lE, lF, *_ in levels:
-            fine.append(b)
-            bb = b
-            b = solve_chk("band_cr_reduce", lambda: band.band_cr_reduce(lE, lF, bb),
-                          lambda: band.band_cr_reduce_plain(lE, lF, bb),
-                          _band_cost("band_cr_reduce", lE, lF, bb))
+        b, fine = b0, ()
+        if levels:  # every compacting level in one launch each way
+            red = solve_chk("band_cr_reduce", lambda: band.band_cr_reduce(levels, b0),
+                            lambda: band.band_cr_reduce_plain(levels, b0),
+                            _band_cost("band_cr_reduce", levels, b0))
+            fine, b = (b0,) + red[:-1], red[-1]
         bb = b
         x = solve_chk("band_pcr_solve", lambda: band.band_pcr_solve(E, F, invD, bb),
                       lambda: band.band_pcr_solve_plain(E, F, invD, bb),
                       _band_cost("band_pcr_solve", E, F, invD, bb))
-        for (_, _, iv, Ao, Co), bf in zip(reversed(levels), reversed(fine)):
+        if levels:
             xe = x
-            x = solve_chk("band_cr_backsub", lambda: band.band_cr_backsub(iv, Ao, Co, bf, xe),
-                          lambda: band.band_cr_backsub_plain(iv, Ao, Co, bf, xe),
-                          _band_cost("band_cr_backsub", iv, Ao, Co, bf, xe))
+            x = solve_chk("band_cr_backsub", lambda: band.band_cr_backsub(levels, fine, xe),
+                          lambda: band.band_cr_backsub_plain(levels, fine, xe),
+                          _band_cost("band_cr_backsub", levels, fine, xe))
         resid[k] = _band_residual(D, U, x, b0)
         if not resid[k] <= 1e-10:
             raise AssertionError(f"{label}: band residual {resid[k]:.3e} at K={k}")
@@ -549,23 +563,19 @@ def _log_rows(label, rows):
 # band_cr_level: (chains, fine length); a thread block holds 15 coarse
 # positions at Db = 6 and 3 at Db = 12, so fine lengths 2 and 4 start
 # chains inside a thread block, 30 (6) on its first position, 512 and 2048
-# cut chains at its edge. band_cr_backsub: chains, coarse lengths and rhs
-# widths (narrow K <= 4, wide K >= 5, odd and even K for the wide one's
-# column pairs, a chain of one coarse position, robot20's panel width).
-# band_block_inv: block counts off the thread blocks' 16 (8) blocks.
+# cut chains at its edge. band_block_inv: block counts off the thread
+# blocks' 16 (8) blocks.
 _EDGE = {
     6: dict(
         pcr=[(3, 1, (1, 3)), (2, 2, (1, 3, 139)), (1, 256, (1, 2, 4, 5, 139)),
              (4, 256, (3, 8, 139)), (20, 128, (3, 139)), (5, 32, (7,)), (2, 512, (1, 3, 9))],
         cr=[(1, 2), (4, 2), (20, 4), (4, 30), (1, 512), (4, 512), (20, 512), (1, 2048)],
-        backsub=((1, 4, 20), (1, 2, 256, 1024), (1, 2, 4, 5, 138, 258)),
         inv=(1, 7, 17, 1024, 2560),
     ),
     12: dict(
         pcr=[(C, Tp, (1, 2, 12, 17, 18, 19, 138)) for Tp in (1, 2, 4, 32, 256, 512)
              for C in (1, 4)] + [(3, 1, (3,)), (2, 2, (3,)), (4, 8, (3, 4, 5, 6, 7, 8, 9))],
         cr=[(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30), (1, 512), (4, 512), (1, 2048)],
-        backsub=((1, 4), (1, 2, 128, 512), (1, 2, 4, 5, 18)),
         inv=(1, 7, 9, 1024, 1000),
     ),
 }
@@ -574,9 +584,7 @@ _EDGE = {
 def phase_edge_shapes(Db, device):
     """Every band kernel against its plain version at the edge shapes of
     ``_EDGE[Db]``: ``band_pcr_level`` at every level and ``band_pcr_solve``,
-    ``band_cr_level``, ``band_cr_backsub`` (both of its kernels),
-    ``band_block_inv``, and ``band_init_a`` and ``band_cr_reduce`` at one
-    and two coarse positions."""
+    ``band_cr_level``, ``band_block_inv`` and ``band_init_a``."""
     import torch
     from score_tpu_torch.ops import band
 
@@ -612,26 +620,6 @@ def phase_edge_shapes(Db, device):
         worst_cr = max(worst_cr, _compare(f"band_cr_level Db={Db} C={C} T={T}",
                                           band.band_cr_level(*args),
                                           band.band_cr_level_plain(*args))[1])
-    worst_bs = 0.0
-    gen = torch.Generator(device=device).manual_seed(13)
-    chains, lengths, widths = edge["backsub"]
-    for C in chains:
-        for Th in lengths:
-            D, U = _random_band(C, 2 * Th, Db, seed=13 * Th + C, device=device)
-            E, F, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
-            for K in widths:
-                b = torch.randn((C, 2 * Th, Db, K), generator=gen, dtype=torch.float64,
-                                device=device)
-                xe = torch.randn((C, Th, Db, K), generator=gen, dtype=torch.float64,
-                                 device=device)
-                worst_bs = max(worst_bs, _compare(
-                    f"band_cr_backsub Db={Db} C={C} Th={Th} K={K}",
-                    band.band_cr_backsub(iv, Ao, Co, b, xe),
-                    band.band_cr_backsub_plain(iv, Ao, Co, b, xe))[1])
-                if Th <= 2:
-                    worst_bs = max(worst_bs, _compare(
-                        f"band_cr_reduce Db={Db} C={C} Th={Th} K={K}",
-                        band.band_cr_reduce(E, F, b), band.band_cr_reduce_plain(E, F, b))[1])
     worst_inv = 0.0
     for M in edge["inv"]:
         D, _ = _random_band(1, M, Db, seed=17 * M, device=device)
@@ -640,9 +628,86 @@ def phase_edge_shapes(Db, device):
                                             band.band_block_inv_plain(D))[1])
     torch.cuda.synchronize()
     _log(f"edge shapes Db={Db}: band_init_a, band_pcr_level and band_pcr_solve "
-         f"max_rel_diff={worst:.3e}, band_cr_level max_rel_diff={worst_cr:.3e}, "
-         f"band_cr_backsub and band_cr_reduce max_rel_diff={worst_bs:.3e}, band_block_inv "
+         f"max_rel_diff={worst:.3e}, band_cr_level max_rel_diff={worst_cr:.3e}, band_block_inv "
          f"max_rel_diff={worst_inv:.3e} (bound {REL_TOL})")
+
+
+# The fused CR kernels' edge shapes, both block sizes: 1 to 4 levels, C = 1,
+# 4, 20 chains, coarsest lengths 1, 2, 64 and 256 (tiles that start on a
+# chain's first position, fall inside it and end on its last; one position
+# a chain), rhs widths on both sides of each step's edge (narrow K <= 4),
+# odd and even (column pairs, 8-byte and 16-byte copies), 3D 1x1000's
+# panel (18) and Manhattan-4's (138), and robot20's (258) at Db = 6.
+_CR_EDGE = dict(levels=(1, 2, 3, 4), chains=(1, 4, 20), coarse=(1, 2, 64, 256),
+                widths=(1, 2, 4, 5, 17, 18, 19, 138), widths6=(258,))
+
+
+def _cr_levels(C, T, Db, n, gen, device):
+    """n random compacting levels (fine -> coarse) of C chains of T, blocks
+    of 0.2 N(0, 1) / sqrt(Db): the rhs stays of order one level to level."""
+    import torch
+    from score_tpu_torch.ops import band
+
+    return tuple(band.CRLevel(*(0.2 / Db ** 0.5 * torch.randn(
+        C, T >> (lev + 1), Db, Db, generator=gen, dtype=torch.float64, device=device)
+        for _ in range(5))) for lev in range(n))
+
+
+def phase_cr_levels(Db, device):
+    """``band_cr_reduce`` and ``band_cr_backsub`` (every level in one
+    launch) against their plain twins at ``_CR_EDGE``'s shapes (<= 1e-12,
+    one launch each a call); then, at Db = 6, solves of chains with two and
+    three compacting levels (C = 1, Tp = 1024 and 2048) through the whole
+    band: residual <= 1e-10 and one launch of each CR kernel a solve."""
+    import torch
+    from score_tpu_torch.ops import band
+
+    gen = torch.Generator(device=device).manual_seed(19 + Db)
+    worst_r = worst_b = 0.0
+    shapes = 0
+    widths = _CR_EDGE["widths"] + (_CR_EDGE["widths6"] if Db == 6 else ())
+    for n in _CR_EDGE["levels"]:
+        for C in _CR_EDGE["chains"]:
+            for Tn in _CR_EDGE["coarse"]:
+                T = Tn << n
+                levels = _cr_levels(C, T, Db, n, gen, device)
+                for K in widths:
+                    b = torch.randn(C, T, Db, K, generator=gen, dtype=torch.float64, device=device)
+                    x = torch.randn(C, Tn, Db, K, generator=gen, dtype=torch.float64,
+                                    device=device)
+                    band.reset_launch_counts()
+                    label = f"Db={Db} levels={n} C={C} coarse={Tn} K={K}"
+                    want = band.band_cr_reduce_plain(levels, b)
+                    worst_r = max(worst_r, _compare(f"band_cr_reduce {label}",
+                                                    band.band_cr_reduce(levels, b), want)[1])
+                    fine = (b,) + want[:-1]
+                    worst_b = max(worst_b, _compare(
+                        f"band_cr_backsub {label}", band.band_cr_backsub(levels, fine, x),
+                        band.band_cr_backsub_plain(levels, fine, x))[1])
+                    if not band.band_cr_reduce.launches == band.band_cr_backsub.launches == 1:
+                        raise AssertionError(f"{label}: not one launch each")
+                    shapes += 1
+    torch.cuda.synchronize()
+    _log(f"fused CR kernels Db={Db}: {shapes} shapes (levels 1-4, C = 1, 4, 20, coarse 1, 2, "
+         f"64, 256, K = {widths}): band_cr_reduce max_rel_diff={worst_r:.3e}, band_cr_backsub "
+         f"max_rel_diff={worst_b:.3e} (bound {REL_TOL}), one launch each a call")
+    if Db != 6:
+        return
+    for Tp in (1024, 2048):  # two and three compacting levels
+        D, U = _random_band(1, Tp, Db, seed=Tp + 3, device=device)
+        f = band.band_factor(D, U)
+        for K in (1, 138):
+            b = torch.randn(1, Tp, Db, K, generator=gen, dtype=torch.float64, device=device)
+            band.reset_launch_counts()
+            x = band.band_solve(f, b)
+            resid = _band_residual(D, U, x, b)
+            launches = (band.band_cr_reduce.launches, band.band_cr_backsub.launches,
+                        band.band_pcr_solve.launches)
+            _log(f"Db=6 chain C=1 Tp={Tp} ({len(f.levels)} CR levels) K={K}: residual "
+                 f"{resid:.3e}, launches reduce/backsub/pcr_solve {launches}")
+            if not (resid <= 1e-10 and launches == (1, 1, 1)):
+                raise AssertionError(f"Db=6 Tp={Tp} K={K}: residual {resid:.3e}, launches "
+                                     f"{launches}")
 
 
 def _ptxas_report(log, kernel, Db=None):
@@ -1136,6 +1201,14 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
         missing = [k for k in expected if by_size[k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
+        from score_tpu_torch.ops import band
+
+        # every compacting level of a band solve in one launch each way
+        cr = (launches["band_cr_reduce"], launches["band_cr_backsub"])
+        want = (launches["band_pcr_solve"],) * 2 if band.cr_depth(Tp) else (0, 0)
+        if cr != want:
+            raise AssertionError(f"{label}: band_cr_reduce / band_cr_backsub launches {cr}, "
+                                 f"expected {want}: one each a band_pcr_solve launch")
     tols = dict(relgap_tol=1e-2, det_tol=1e-5) if f32 else {}
 
     def check(tag, r):
@@ -1229,19 +1302,22 @@ def main() -> int:
     # BACK>; D = 3: chol_kernel, tri_solve_kernel<3, V, BACK>; the worst over
     # the other template arguments)
     only = {"pcr_solve_wide_kernel": 6, "pcr_solve_narrow_kernel": 6, "pcr_level_kernel": 6,
-            "pcr_solve_cluster_kernel": 12, "pcr_level_element_kernel": 12}
+            "pcr_solve_cluster_kernel": 12, "pcr_level_element_kernel": 12,
+            "cr_backsub_element_kernel": 12, "cr_backsub_wide_kernel": 6}
     checks = [("band", wrapper, kern, Db) for Db in (6, 12)
               for wrapper, kern in (("band_init_a", "init_a_kernel"),
                                     ("band_block_inv", "block_inv_kernel"),
                                     ("band_pcr_level", "pcr_level_kernel"),
                                     ("band_pcr_level", "pcr_level_element_kernel"),
                                     ("band_cr_level", "cr_level_kernel"),
-                                    ("band_cr_reduce", "cr_reduce_kernel"),
+                                    ("band_cr_reduce", "cr_reduce_levels_kernel"),
                                     ("band_pcr_solve", "pcr_solve_wide_kernel"),
                                     ("band_pcr_solve", "pcr_solve_narrow_kernel"),
                                     ("band_pcr_solve", "pcr_solve_cluster_kernel"),
                                     ("band_cr_backsub", "cr_backsub_narrow_kernel"),
-                                    ("band_cr_backsub", "cr_backsub_wide_kernel"))
+                                    ("band_cr_backsub", "cr_backsub_wide_kernel"),
+                                    ("band_cr_backsub", "cr_backsub_levels_kernel"),
+                                    ("band_cr_backsub", "cr_backsub_element_kernel"))
               if only.get(kern, Db) == Db]
     checks += [("blocks", "block_chol", "chol_kernel", None)]
     checks += [("blocks", wrapper, kern, 12)
@@ -1267,6 +1343,7 @@ def main() -> int:
         rows[label] = phase_kernels(label, *shape, dev)
     for Db in (6, 12):
         phase_edge_shapes(Db, dev)
+        phase_cr_levels(Db, dev)
     block_rows = phase_blocks(dev)
     launch_floor_us = _launch_floor_us(dev)
     _log(f"launch_floor_us={launch_floor_us:.2f} (a one-element add_ in the device-time "

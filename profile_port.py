@@ -33,8 +33,13 @@ direction, K = 1, and the arrow panel) at the PCR remainder's shape of
 both instances,
 ``band_cr_level`` at Manhattan-4's first level and at the deeper levels'
 and robot20's shapes of the depth sweep, ``band_cr_reduce`` and
-``band_cr_backsub`` at Manhattan-4's direction and panel and at a forced
-level of robot20 and of a long chain; of the f32 band its Cholesky solve
+``band_cr_backsub`` (one solve's launches: one each with the fused
+kernels, one a level in a checkout from before them, also each level
+alone) at Manhattan-4's direction and panel, at a forced level of robot20
+and of a long chain, on a Db = 6 chain with two levels and at 3D 1x1000's
+two levels, with the fused kernels also from builds of ``band.cu`` that
+take one layout (``_CR_BUILDS``: the reduce's two, the element backsub's
+row a thread) and one that records each phase's clock; of the f32 band its Cholesky solve
 ``solver.pcr._dinv`` (one launch of ``block_chol_solve``; in a checkout
 from before that kernel, the forward kernel and the plain back
 substitution) at the first level's shapes, and ``block_chol`` at every
@@ -51,7 +56,10 @@ that two commits are timed on one card in one call.
 
     python3 profile_port.py --walls [--root DIR]
 
-five warm Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
+three warm 3D 1x1000 f64 SOCP solves and a profiled one (launches, device
+busy, the hand-written kernels per instantiation, and ``band_cr_reduce``
+and ``band_cr_backsub`` device ms and launches at Db = 12); five warm
+Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
 profiled solve in each: kernel launches, device busy time and the
 hand-written kernels' device time and launches (also per template
 instantiation, ``chol_lanes_kernel<12>``), and ``block_chol`` and
@@ -147,34 +155,43 @@ def _warm_walls(fg, n=3, precision="f64", relaxation="SOCP"):
 
 
 # device-side names of the port's hand-written kernels (band.cu, blocks.cu);
-# tri_lower_kernel and cr_backsub_kernel are kernels of a --root checkout
-# from before tri_solve_kernel and the two cr_backsub kernels
+# tri_lower_kernel, cr_backsub_kernel, cr_reduce_kernel and the narrow and
+# wide cr_backsub kernels are kernels of --root checkouts from before
+# tri_solve_kernel and the fused CR kernels
 _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
                  "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
+                 "cr_reduce_levels_kernel", "cr_backsub_levels_kernel",
+                 "cr_backsub_element_kernel",
                  "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
                  "pcr_solve_narrow_kernel", "pcr_level_element_kernel",
                  "pcr_solve_cluster_kernel", "chol_kernel", "chol_lanes_kernel",
                  "tri_solve_kernel", "tri_solve_tile_kernel", "tri_solve_lanes_kernel",
                  "tri_lower_kernel")
 # the device-side kernels of block_chol and block_chol_solve (of this
-# package and of a checkout from before the D = 12 lane-group kernels)
+# package and of a checkout from before the D = 12 lane-group kernels), and
+# of band_cr_reduce and band_cr_backsub (of this package and of one from
+# before the fused CR kernels)
 _BLOCK_WRAPPERS = {"block_chol": ("chol_kernel", "chol_lanes_kernel"),
                    "block_chol_solve": ("tri_solve_kernel", "tri_solve_tile_kernel",
                                         "tri_solve_lanes_kernel")}
+_CR_WRAPPERS = {"band_cr_reduce": ("cr_reduce_kernel", "cr_reduce_levels_kernel"),
+                "band_cr_backsub": ("cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
+                                    "cr_backsub_levels_kernel", "cr_backsub_element_kernel")}
 
 
-def _block_kernels_at(profile, D):
+def _block_kernels_at(profile, D, wrappers=None, key="D"):
     """{wrapper[D=n]: (device ms, launches)} of block_chol and
-    block_chol_solve at block size D, summed over their kernels'
-    instantiations in a profile of :func:`_profile_solve`."""
+    block_chol_solve (or ``wrappers``, labelled ``[<key>=n]``) at block
+    size D, summed over their kernels' instantiations in a profile of
+    :func:`_profile_solve`."""
     out = {}
-    for wrapper, names in _BLOCK_WRAPPERS.items():
+    for wrapper, names in (wrappers or _BLOCK_WRAPPERS).items():
         ms = n = 0
         for inst, row in profile["hand_kernels_by_instance"].items():
             if any(inst.startswith(f"{name}<{D},") or inst == f"{name}<{D}>" for name in names):
                 ms += row["device_ms"]
                 n += row["launches"]
-        out[f"{wrapper}[D={D}]"] = (ms, n)
+        out[f"{wrapper}[{key}={D}]"] = (ms, n)
     return out
 
 
@@ -293,11 +310,21 @@ _REMAINDERS = {"manhattan4": (4, 256, 138), "robot20": (20, 128, 258)}
 # level, and robot20's panel
 _CR_LEVEL_SHAPES = ((4, 512), (1, 1024), (1, 2048), (20, 128))
 _DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
-# band_cr_reduce and band_cr_backsub: (chains, coarse length, rhs columns) of
-# Manhattan-4's direction and panel, of one forced level on robot20, of a
-# long chain and of the narrow kernel's widest rhs
-_CR_SOLVE_SHAPES = ((4, 256, 1), (4, 256, 138), (4, 256, 4), (20, 64, 1), (20, 64, 258),
-                    (1, 1024, 1), (1, 1024, 5))
+# band_cr_reduce and band_cr_backsub: (chains, fine length, block size,
+# compacting levels, rhs columns) of Manhattan-4's level (direction, panel,
+# the narrow step's widest rhs), of one forced level on robot20, of a long
+# chain, of a Db = 6 chain with two levels and of 3D 1x1000's two levels
+_CR_SOLVE_SHAPES = ((4, 512, 6, 1, (1, 138, 4)), (20, 128, 6, 1, (1, 258)),
+                    (1, 2048, 6, 1, (1, 5)), (1, 1024, 6, 2, (1, 138)),
+                    (1, 1024, 12, 2, (18, 1)))
+# measurement builds of csrc/band.cu for the fused CR kernels: each of the
+# reduce's layouts alone (a thread per output row and column; a thread per
+# position and column holding the Db rows), the element backsub with a
+# thread per row and column, and the phases' clocks
+_CR_BUILDS = {"reduce (a) a row a thread": "-DBAND_CR_REGISTER_ROWS_K=1073741824",
+              "reduce (b) Db rows a thread": "-DBAND_CR_REGISTER_ROWS_K=0",
+              "element backsub, a row a thread": "-DBAND_CR_ELEMENT_ROWS=1",
+              "clocks": "-DBAND_CR_CLOCKS"}
 # block_chol: the f32 factor of Manhattan-4 (C = 4 chains of 512) takes the
 # Cholesky of the odd blocks of chains of 512, 256, ..., 2 (M = 1024 ... 4)
 # and of the root (C = 4 blocks); QCQP's distance pivots are 2070 blocks of 2
@@ -336,22 +363,119 @@ def _chol_times(device):
 
 def _cr_solve_times(device):
     """band_cr_reduce and band_cr_backsub at ``_CR_SOLVE_SHAPES``, on the
-    blocks of a compacting level of a random band."""
+    levels of a random band's factor: one solve's launches (a package with
+    the fused kernels makes one each; one from before makes one a level,
+    timed together in one graph and each alone); with the fused kernels,
+    also each layout of ``_CR_BUILDS`` (its own build of band.cu) and the
+    clock build's phases at Db = 12 (SM cycles from the start of thread
+    block 0: copies issued, staged, barrier, then the reduce's level end
+    and barrier for each level, the element backsub's rv, barrier and invD
+    product for each level)."""
+    import ctypes
+    import inspect
+
     import torch
     from chip_smoke import _device_us
-    from score_tpu_torch.ops import band
+    from score_tpu_torch.ops import band, build
+
+    fused = list(inspect.signature(band.band_cr_reduce).parameters) == ["levels", "b"]
+    libs = {}
+    if fused:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        procs = {}
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for what, flag in _CR_BUILDS.items():
+            so = build.BUILD_DIR / ("cr" + flag.replace("=", "_")[2:] + ".so")
+            procs[what] = (so, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, flag, "-o", str(so), str(build.SOURCES["band"])],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+        for what, (so, proc) in procs.items():
+            if proc.wait():
+                raise RuntimeError(f"nvcc band.cu for {what} failed")
+            lib = libs[what] = ctypes.CDLL(str(so))
+            lib.band_error_string.argtypes = [i32]
+            lib.band_error_string.restype = ctypes.c_char_p
+            lib.band_cr_reduce.argtypes = [build.CrReduceLevels, vp] + [i32] * 7 + [vp]
+            lib.band_cr_backsub.argtypes = [build.CrBacksubLevels, vp, vp] + [i32] * 7 + [vp]
+            lib.band_cr_reduce.restype = lib.band_cr_backsub.restype = i32
+
+    def through(lib, fn):
+        """fn() with the wrappers launching from another build of band.cu."""
+        package = band._lib
+        band._lib = lambda: lib
+        try:
+            return fn()
+        finally:
+            band._lib = package
 
     rows = []
     rng = np.random.default_rng(1)
-    for C, Th, K in _CR_SOLVE_SHAPES:
-        D, U = _random_band(C, 2 * Th, 6, seed=Th + C, device=device)
-        E, F, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
-        b = torch.tensor(rng.standard_normal((C, 2 * Th, 6, K)), device=device)
-        xe = torch.tensor(rng.standard_normal((C, Th, 6, K)), device=device)
-        for kernel, fn in (("band_cr_reduce", lambda: band.band_cr_reduce(E, F, b)),
-                           ("band_cr_backsub", lambda: band.band_cr_backsub(iv, Ao, Co, b, xe))):
-            rows.append(dict(cell="f64 band", kernel=kernel, shape=f"C={C} Th={Th} K={K}",
-                             device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    for C, T, Db, n, Ks in _CR_SOLVE_SHAPES:
+        D, U = _random_band(C, T, Db, seed=T + C, device=device)
+        levels = band.band_factor(D, U, n_cr=n).levels
+        for K in Ks:
+            b = torch.tensor(rng.standard_normal((C, T, Db, K)), device=device)
+            shape = f"C={C} T={T} Db={Db} levels={n} K={K}"
+            if fused:
+                red = band.band_cr_reduce(levels, b)
+                fine, x = (b,) + red[:-1], torch.tensor(rng.standard_normal(red[-1].shape),
+                                                        device=device)
+                kernels = {"band_cr_reduce": lambda: band.band_cr_reduce(levels, b),
+                           "band_cr_backsub": lambda: band.band_cr_backsub(levels, fine, x)}
+                for kernel, fn in kernels.items():
+                    rows.append(dict(cell="f64 band", kernel=kernel, shape=shape + " (1 launch)",
+                                     device_us=_device_us(fn), event_ms=_event_ms(fn)))
+                for what, lib in libs.items():
+                    kernel = what.split()[0]
+                    kernel = "band_cr_" + ("backsub" if kernel == "element" else kernel)
+                    if what == "clocks" or (kernel == "band_cr_backsub" and (Db != 12 or K <= 4)):
+                        continue
+                    fn = kernels[kernel]
+                    rows.append(dict(cell="f64 band", kernel=f"{kernel}, {what}", shape=shape,
+                                     device_us=through(lib, lambda: _device_us(fn)),
+                                     event_ms=through(lib, lambda: _event_ms(fn))))
+                if "clocks" in libs and Db == 12:
+                    # the kernels that stage a tile (not the narrow backsub)
+                    for kernel, fn in kernels.items():
+                        if kernel == "band_cr_backsub" and K <= 4:
+                            continue
+                        out = through(libs["clocks"], lambda: [fn() for _ in range(3)][-1])
+                        out = out[-1] if isinstance(out, tuple) else out
+                        clk = out.flatten()[:10].tolist()
+                        rows.append(dict(cell="f64 band", kernel=f"{kernel}, clocks", shape=shape,
+                                         device_us=0.0, event_ms=0.0,
+                                         clocks=[int(v) for v in clk[1:]]))
+                continue
+            # a package from before the fused kernels: one launch a level
+            outs, cur = [], b
+            for lv in levels:
+                outs.append(band.band_cr_reduce(lv.E, lv.F, cur))
+                cur = outs[-1]
+            fine = [b] + outs[:-1]
+            x = torch.tensor(rng.standard_normal(cur.shape), device=device)
+
+            def reduce_all():
+                cur = b
+                for lv in levels:
+                    cur = band.band_cr_reduce(lv.E, lv.F, cur)
+
+            def backsub_all():
+                xx = x
+                for lv, bf in zip(reversed(levels), reversed(fine)):
+                    xx = band.band_cr_backsub(lv.invD, lv.A, lv.C, bf, xx)
+
+            for kernel, fn in (("band_cr_reduce", reduce_all), ("band_cr_backsub", backsub_all)):
+                rows.append(dict(cell="f64 band", kernel=kernel, shape=shape + f" ({n} launches)",
+                                 device_us=_device_us(fn), event_ms=_event_ms(fn)))
+            if n > 1:
+                for lev, lv in enumerate(levels):
+                    for kernel, fn in (
+                            ("band_cr_reduce", lambda: band.band_cr_reduce(lv.E, lv.F, fine[lev])),
+                            ("band_cr_backsub", lambda: band.band_cr_backsub(
+                                lv.invD, lv.A, lv.C, fine[lev], outs[lev]))):
+                        rows.append(dict(cell="f64 band", kernel=kernel,
+                                         shape=shape + f" level {lev + 1} alone",
+                                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
     return rows
 
 
@@ -836,6 +960,9 @@ def main() -> int:
         rows = _kernel_times(torch.device("cuda"))
         _log(f"package: {Path(score_tpu_torch.__file__).parent}")
         for r in rows:
+            if "clocks" in r:
+                _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<36} clocks {r['clocks']}")
+                continue
             _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<36} "
                  f"device {r['device_us']:9.2f} us   events {r['event_ms']:.4f} ms")
         if args.out:
@@ -850,8 +977,20 @@ def main() -> int:
         import score_tpu_torch
 
         _log(f"package: {Path(score_tpu_torch.__file__).parent}")
-        label, fg = _cells()[0]
         report = dict(card=smi)
+        # 3D 1x1000 f64 SOCP: band_cr_reduce and band_cr_backsub at Db = 12
+        label, fg = _cells_3d()[1]
+        key = f"{label}-socp-f64"
+        report[key] = _warm_walls(fg, n=3)
+        _log(f"{key}: warm {report[key]}")
+        p = report[key + "_profile"] = _profile_solve(fg)
+        _log(f"{key}: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
+             f"{p['kernel_launches']} kernel launches")
+        for name, b in p["hand_kernels_by_instance"].items():
+            _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+        cr = p["cr_kernels_db12"] = _block_kernels_at(p, 12, _CR_WRAPPERS, "Db")
+        _log(f"{key}: " + ", ".join(f"{k} {ms:.3f} ms, {n} launches" for k, (ms, n) in cr.items()))
+        label, fg = _cells()[0]
         for precision in ("f32", "f64"):
             report[precision] = _warm_walls(fg, n=5, precision=precision)
             _log(f"{label}-{precision}: warm {report[precision]}")

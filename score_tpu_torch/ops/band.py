@@ -55,10 +55,13 @@ Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
     _solve_kernel           :433  -> band_pcr_solve
     _cr_level_kernel        :362  -> band_cr_level (also does the TPU
                                      caller's even/odd lane slicing)
-    _cr_reduce_kernel       :385  -> band_cr_reduce
-    _cr_backsub_kernel      :405  -> band_cr_backsub (also interleaves
-                                     the odd rows back, as the TPU caller
-                                     does between launches)
+    _cr_reduce_kernel       :385  -> band_cr_reduce, every level of a
+                                     solve in one launch (the TPU caller
+                                     launched one a level)
+    _cr_backsub_kernel      :405  -> band_cr_backsub, every level in one
+                                     launch (also interleaves the odd rows
+                                     back, as the TPU caller does between
+                                     launches)
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ from typing import NamedTuple
 
 import torch
 
+from score_tpu_torch.ops.build import CR_MAX_LEVELS as _CR_MAX_LEVELS
 from score_tpu_torch.solver.smallblocks import inv_small_spd
 
 __all__ = [
@@ -122,10 +126,20 @@ _CLUSTER_SMEM_MAX = _SMEM_MAX - 16
 _SOLVE_CLUSTER = 16
 
 
-# band_cr_backsub: the narrow kernel (a lane group per position) takes up
-# to this many rhs columns, the wide one (a thread per column) the rest.
-# The same constant stands in csrc/band.cu.
+# band_cr_reduce and band_cr_backsub (every compacting level of a solve in
+# one launch): the narrow step of band_cr_backsub (a lane group per
+# position) takes up to _BACKSUB_NARROW_MAX_K rhs columns; a launch takes up
+# to _CR_MAX_LEVELS levels; thread blocks of _CR_THREADS threads (the
+# reduce and the backsub's narrow and wide steps); a plan keeps a thread
+# block's shared memory under _CR_SMEM_TARGET where it can, so that several
+# blocks share an SM. The same constants stand in csrc/band.cu.
 _BACKSUB_NARROW_MAX_K = 4
+_CR_THREADS = 256
+_CR_SMEM_TARGET = 64 * 1024
+# work items of a tile's finest level for band_cr_backsub's register steps:
+# a thread block of 64 for the narrow step (8 positions at Db = 6, as the
+# per-level kernel before), four passes of 256 threads for the wide one
+_CR_STEP_ITEMS = {"narrow": 64, "wide": 4 * _CR_THREADS}
 # CR compacts while the chain is longer than this; PCR factors the rest.
 # Chosen from depth sweeps on an H100 (profile_port.py; PERF.md has them),
 # for 3D blocks too (profile_port.py --sweep3d).
@@ -256,19 +270,41 @@ def band_cr_level_plain(D, A, C):
     return tuple(t.contiguous() for t in (E, F, invD, Aod, Cod, D2, A2, C2))
 
 
-def band_cr_reduce_plain(E, F, b):
-    """Reduce the fine rhs b (C, T, Db, K) onto the kept rows:
-    b[2j] + (E_j b[2j-1] + F_j b[2j+1]), shape (C, T/2, Db, K)."""
+def _cr_reduce_level(E, F, b):
+    """One compacting level's rhs reduction: the fine rhs b (C, T, Db, K)
+    onto the kept rows, b[2j] + (E_j b[2j-1] + F_j b[2j+1]), shape
+    (C, T/2, Db, K)."""
     bod = b[:, 1::2]
     return b[:, 0::2] + (E @ _shift_down(bod, 1) + F @ bod)
 
 
-def band_cr_backsub_plain(invD, A, C, b, xe):
-    """Fine solution (C, T, Db, K) from the kept rows' solution xe
-    (C, T/2, Db, K): x[2j] = xe[j] and
-    x[2j+1] = invD_j ((b[2j+1] - A_j xe[j]) - C_j xe[j+1])."""
+def _cr_backsub_level(invD, A, C, b, xe):
+    """One compacting level's back substitution: the fine solution (C, T,
+    Db, K) from the kept rows' solution xe (C, T/2, Db, K), x[2j] = xe[j]
+    and x[2j+1] = invD_j ((b[2j+1] - A_j xe[j]) - C_j xe[j+1])."""
     xo = invD @ ((b[:, 1::2] - A @ xe) - C @ _shift_up(xe, 1))
     return torch.stack([xe, xo], dim=2).reshape(b.shape)
+
+
+def band_cr_reduce_plain(levels, b):
+    """The rhs b (C, T, Db, K) reduced through every level of ``levels``
+    (:class:`CRLevel`, fine -> coarse): a tuple of each level's reduced rhs,
+    the last one the PCR remainder's."""
+    out = []
+    for lv in levels:
+        b = _cr_reduce_level(lv.E, lv.F, b)
+        out.append(b)
+    return tuple(out)
+
+
+def band_cr_backsub_plain(levels, fine, x):
+    """The finest solution from the coarsest level's x, back-substituting
+    through ``levels`` from the coarsest up; ``fine[l]`` is level l's fine
+    rhs (the rhs of the solve, then what :func:`band_cr_reduce_plain`
+    returned for the levels before l)."""
+    for lv, b in zip(reversed(levels), reversed(fine)):
+        x = _cr_backsub_level(lv.invD, lv.A, lv.C, b, x)
+    return x
 
 
 # ------------------------------------------------------------------ #
@@ -671,86 +707,267 @@ def band_cr_level(D, A, C):
     return tuple(outs)
 
 
-def band_cr_reduce(E, F, b):
-    """Reduce the fine rhs b (C, T, Db, K) onto the kept rows through a
-    CR level's (E, F) (C, T/2, Db, Db); returns (C, T/2, Db, K).
-
-    Replaces ``score_tpu/ops/pallas_pcr.py:_cr_reduce_kernel`` with the
-    caller's even/odd slices of the rhs (:789-790). One thread per output
-    element, consecutive threads along the rhs columns: the reads of b and
-    the writes are contiguous, and E, F rows are shared by a warp. Bound
-    by memory traffic for a wide panel (each b element is read about
-    three times, from L1/L2) and by launch latency for one column."""
-    if E.dim() != 4 or b.dim() != 4:
-        raise ValueError("band_cr_reduce: expected E, F (C, T/2, Db, Db), b (C, T, Db, K)")
-    nC, T, Db, K = b.shape
-    _check("band_cr_reduce.E", E, (nC, T // 2, Db, Db))
-    _check("band_cr_reduce.F", F, (nC, T // 2, Db, Db))
-    _check("band_cr_reduce.b", b)
-    if T % 2:
-        raise ValueError(f"band_cr_reduce: chain length {T} is odd")
-    if not _route("band_cr_reduce", E, F, b):
-        return band_cr_reduce_plain(E, F, b)
-    out = b.new_empty((nC, T // 2, Db, K))
-    err = _lib().band_cr_reduce(E.data_ptr(), F.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), nC, T // 2, Db, K, _stream())
-    _raise_on("band_cr_reduce", err)
-    _count(band_cr_reduce, Db)
-    return out
-
-
 def _backsub_narrow(K: int) -> bool:
-    """True for band_cr_backsub's narrow kernel, False for the wide one:
-    the rule is on the rhs width alone. Directions (K = 1) and any K up
-    to ``_BACKSUB_NARROW_MAX_K`` spread a position's rows over a lane
-    group; the arrow panel (K = arrow width) gives each thread columns."""
+    """True where band_cr_backsub's narrow step (a lane group per position)
+    serves the rhs width K: directions (K = 1) and any K up to
+    ``_BACKSUB_NARROW_MAX_K``; the arrow panel (K = arrow width) takes a
+    step that gives threads columns."""
     return K <= _BACKSUB_NARROW_MAX_K
 
 
-def band_cr_backsub(invD, A, C, b, xe):
-    """Fine solution x (C, T, Db, K) of one CR level from the kept rows'
-    solution xe (C, T/2, Db, K), the fine rhs b before this level's
-    reduction, and the level's odd-row blocks (invD, A, C)
-    (see :func:`band_cr_backsub_plain`).
+def _backsub_step(Db: int, K: int) -> str:
+    """band_cr_backsub's per-level step, by the rhs width and block size:
+    "narrow" (a lane group per position, lane r a row) for K <= 4; above,
+    "wide" at Db = 6 (a thread per position and column pair) and "element"
+    at Db = 12 (a thread per three rows of a column, the levels' blocks
+    staged in shared memory). csrc/band.cu chooses by the same rule."""
+    if _backsub_narrow(K):
+        return "narrow"
+    return "wide" if Db <= _WIDE_MAX_BLOCK else "element"
 
-    Replaces ``score_tpu/ops/pallas_pcr.py:_cr_backsub_kernel`` together
-    with the caller's re-interleaving of even and odd rows (:809-810): the
-    work of coarse position (c, j) writes both fine rows 2j and 2j+1.
 
-    What bounds it on the card: bytes (the panel's rhs in and out, 28 MB
-    at Manhattan-4, 8.4 us of HBM time); a direction (K = 1, 1.1 MB) is
-    bound by a launch and one round trip to memory. Two kernels, chosen by
-    :func:`_backsub_narrow`: for K <= 4 a group of 8 lanes (16 at Db = 12)
-    owns a position and lane r one row, loads its rows of A, C, invD (16-byte loads,
-    coalesced across the group), b and xe before the first product, and
-    gathers the other rows of xe and of the intermediate by group-wide
-    shuffles (8 threads per position in blocks of 64, where a thread per
-    position and column left 1024 threads on 4 SMs); for the panel a
-    thread owns one or two neighbouring columns of a position (double2
-    where K is even, the rhs is 16-byte aligned and Db = 6), the block rows are
-    broadcasts across a warp and the rhs rows coalesce along the columns.
-    Sums run in the plain version's order; only nvcc's contraction to FMAs
+def _cr_smem_bytes(step: str, n: int, Db: int, P: int, Kc: int) -> int:
+    """Shared memory of one thread block of a fused CR launch over n levels
+    with a tile of P coarsest positions and Kc columns: for "reduce" every
+    level's E and F at its own and halo positions, the fine rows with the
+    left halo of 2^n - 1, and level 1's output; for band_cr_backsub's
+    steps the solution buffer ((P << n) + 1 rows; none for one level of the
+    narrow and wide steps, which read and write x in HBM) and for "element"
+    every level's invD, A, C and odd rows of b (csrc/band.cu:
+    cr_reduce_smem, cr_backsub_smem)."""
+    BS, RS = Db * Db, Db * Kc
+    if step == "reduce":
+        d = sum(2 * (((P + 1) << (n - lev)) - 1) * BS for lev in range(1, n + 1))
+        d += (((P + 1) << n) - 1) * RS
+        if n > 1:
+            d += (((P + 1) << (n - 1)) - 1) * RS
+        return 8 * d
+    rows = ((P << n) + 1) * RS
+    if step != "element":
+        return 8 * rows if n > 1 else 0
+    return 8 * (rows + sum((P << (n - lev)) * (3 * BS + RS) for lev in range(1, n + 1)))
+
+
+def _even_chunk(K: int, chunks: int) -> int:
+    """Columns of a chunk when K is cut into ``chunks``: even where K is,
+    so that every chunk moves by 16-byte units."""
+    Kc = -(-K // chunks)
+    return Kc + (K % 2 == 0 and Kc % 2)
+
+
+def _cr_plan(step: str, n: int, Tn: int, Db: int, K: int, C: int = 1,
+             n_sm: int = _SM_COUNT, P: int | None = None) -> tuple:
+    """(P, Kc) of a fused CR launch ("reduce", or band_cr_backsub's
+    :func:`_backsub_step`) of n levels over C chains whose coarsest level
+    has Tn positions, with K rhs columns, on a card of n_sm SMs.
+
+    P, the coarsest positions of a thread block's tile (``P`` where given),
+    a power of two up to Tn: for the reduce and the element step the
+    largest that still leaves a thread block for every SM (C ceil(Tn / P)
+    >= n_sm), so that the grid covers the card wherever the chain allows;
+    for the narrow and wide steps the largest whose finest level has at
+    most ``_CR_STEP_ITEMS`` work items (lane groups' lanes, or column
+    pairs) and that leaves a thread block for every second SM: fewer,
+    fuller tiles measured faster there, down to that grid (PERF.md); a
+    solve of one level takes no tile there (P = 1, all K: csrc/band.cu
+    runs the per-level kernels' grids). Kc, the columns of a thread block: all K, or the
+    fewest even chunks that bring the block's shared memory under
+    ``_CR_SMEM_TARGET`` (several thread blocks an SM) once P is down to 1,
+    down to chunks of 16 columns, and at worst under the card's 227 KB at
+    any width. Raises when one column of one position does not fit."""
+    if step in _CR_STEP_ITEMS and n == 1:  # no tile: a thread a work item, HBM to HBM
+        return 1, K
+    if P is None:
+        P = 1
+        if step in _CR_STEP_ITEMS:  # threads a finest position, and their most a tile
+            per = (8 if Db <= 8 else 16) if step == "narrow" else (K // 2 if K % 2 == 0 else K)
+            while (2 * P <= Tn and (2 * P << (n - 1)) * per <= _CR_STEP_ITEMS[step]
+                   and 2 * C * -(-Tn // (2 * P)) >= n_sm):
+                P *= 2
+        else:
+            while 2 * P <= Tn and C * -(-Tn // (2 * P)) >= n_sm:
+                P *= 2
+    if not 1 <= P <= Tn:
+        raise ValueError(f"fused CR launch: a tile of {P} positions on chains of {Tn}")
+    chunks, Kc = 1, K
+    fits = lambda limit: _cr_smem_bytes(step, n, Db, P, Kc) <= limit
+
+    def fewer_columns(least):
+        """The next smaller even chunk of at least ``least`` columns, or
+        False where there is none."""
+        nonlocal chunks, Kc
+        for more in range(chunks + 1, K + 1):
+            if _even_chunk(K, more) < Kc:
+                if _even_chunk(K, more) < least:
+                    return False
+                chunks, Kc = more, _even_chunk(K, more)
+                return True
+        return False
+
+    if step != "narrow":
+        while not fits(_CR_SMEM_TARGET):
+            if P > 1:
+                P //= 2
+            elif not fewer_columns(16):
+                break
+        while not fits(_SMEM_MAX) and fewer_columns(1):
+            pass
+    if not fits(_SMEM_MAX):
+        raise ValueError(
+            f"fused CR launch ({step}): {n} levels of {Db}-blocks with {K} rhs columns do "
+            f"not fit a thread block: {_cr_smem_bytes(step, n, Db, P, Kc)} bytes of shared "
+            f"memory (max {_SMEM_MAX})")
+    return P, Kc
+
+
+def _cr_launch_depths(step: str, n: int, Db: int, K: int) -> list:
+    """The levels of each launch of a fused CR kernel over n levels: all n
+    in one launch wherever a tile of one position and one column fits the
+    shared memory (up to ``_CR_MAX_LEVELS``; at Db = 12 the reduce's halo
+    blocks and the element step's blocks allow 5, so chains of 16,384 and
+    more take a second launch), else the deepest runs that fit, fine ->
+    coarse."""
+    depths = []
+    while n:
+        d = min(n, _CR_MAX_LEVELS)
+        # the narrowest chunk a plan can take: all K for the narrow step,
+        # else one column, two where K is even (16-byte copies)
+        least = K if step == "narrow" else min(K, 1 + (K % 2 == 0))
+        while d > 1 and _cr_smem_bytes(step, d, Db, 1, least) > _SMEM_MAX:
+            d -= 1
+        depths.append(d)
+        n -= d
+    return depths
+
+
+def _check_cr(name: str, levels, rhs, fields, coarse: bool = False):
+    """(C, T, Db, K, n) of a fused CR call; raises on a level list that is
+    empty, deeper than ``_CR_MAX_LEVELS`` or whose blocks do not halve the
+    chain level by level. ``rhs`` is the finest rhs, or with ``coarse`` the
+    coarsest solution."""
+    n = len(levels)
+    if not 1 <= n <= _CR_MAX_LEVELS:
+        raise ValueError(f"{name}: {n} levels (1 to {_CR_MAX_LEVELS} a launch)")
+    if rhs.dim() != 4:
+        raise ValueError(f"{name}: expected a rhs (C, T, Db, K), got {tuple(rhs.shape)}")
+    nC, T, Db, K = rhs.shape
+    if coarse:
+        T <<= n
+    if T % (1 << n):
+        raise ValueError(f"{name}: chain length {T} does not halve {n} times")
+    for lev, lv in enumerate(levels):
+        for f in fields:
+            _check(f"{name}.levels[{lev}].{f}", getattr(lv, f), (nC, T >> (lev + 1), Db, Db))
+    return nC, T, Db, K, n
+
+
+def band_cr_reduce(levels, b):
+    """Reduce the fine rhs b (C, T, Db, K) through every compacting level of
+    a solve (``levels``: :class:`CRLevel` fine -> coarse, level l's E, F
+    (C, T >> (l + 1), Db, Db)); returns each level's reduced rhs (C, T >>
+    (l + 1), Db, K), the last one the PCR remainder's rhs, the others the
+    fine rhs of the back substitution (see :func:`band_cr_reduce_plain`).
+
+    Replaces ``score_tpu/ops/pallas_pcr.py:_cr_reduce_kernel`` with the
+    caller's even/odd slices of the rhs (:789-790), and its launch a level
+    by ONE launch for all levels: a thread block owns a tile of coarsest
+    positions of one chain and a chunk of columns (:func:`_cr_plan`),
+    stages its E, F of every level and its fine rows with the left halo of
+    2^n - 1 rows in shared memory by 16-byte cp.async, and computes the
+    levels there, recomputing the halo positions of the tile before; each
+    level's own rows leave once. A thread owns one output row and column
+    (directions) or all Db rows of a position and column (the panel),
+    chosen by K in csrc/band.cu. What bounds it: bytes for a wide 2D panel
+    (each element of b read once from HBM, written once), a launch and the
+    levels' dependent chains otherwise. Sums run in the plain version's
+    order; only nvcc's contraction to FMAs differs."""
+    nC, T, Db, K, n = _check_cr("band_cr_reduce", levels, b, ("E", "F"))
+    _check("band_cr_reduce.b", b)
+    if not _route("band_cr_reduce", levels[0].E,
+                  *[t for lv in levels for t in (lv.E, lv.F)], b):
+        return band_cr_reduce_plain(levels, b)
+    out = tuple(b.new_empty((nC, T >> (lev + 1), Db, K)) for lev in range(n))
+    if K == 0 or nC == 0:
+        return out
+    _check_aligned("band_cr_reduce", b, *[t for lv in levels for t in (lv.E, lv.F)])
+    from score_tpu_torch.ops.build import CrReduceLevels
+
+    first, src = 0, b
+    for d in _cr_launch_depths("reduce", n, Db, K):
+        group, outs = levels[first:first + d], out[first:first + d]
+        P, Kc = _cr_plan("reduce", d, (T >> first) >> d, Db, K, nC, _sm_count(b.device))
+        ptrs = CrReduceLevels()
+        for lev, lv in enumerate(group):
+            ptrs.E[lev], ptrs.F[lev] = lv.E.data_ptr(), lv.F.data_ptr()
+            ptrs.out[lev] = outs[lev].data_ptr()
+        err = _lib().band_cr_reduce(ptrs, src.data_ptr(), d, nC, T >> first, Db, K, P, Kc,
+                                    _stream())
+        _raise_on("band_cr_reduce", err)
+        _count(band_cr_reduce, Db)
+        first, src = first + d, outs[-1]
+    return out
+
+
+def band_cr_backsub(levels, fine, x):
+    """The finest solution (C, T, Db, K) from the coarsest level's solution
+    x (C, T >> n, Db, K) through every compacting level of a solve
+    (``levels``: :class:`CRLevel` fine -> coarse, the odd rows' invD, A, C);
+    ``fine[l]`` is level l's fine rhs (C, T >> l, Db, K): the solve's rhs,
+    then :func:`band_cr_reduce`'s outputs (see
+    :func:`band_cr_backsub_plain`).
+
+    Replaces ``score_tpu/ops/pallas_pcr.py:_cr_backsub_kernel`` with the
+    caller's re-interleaving of even and odd rows (:809-810), and its launch
+    a level by ONE launch for all levels: a thread block owns a tile of
+    coarsest positions and a chunk of columns, reads the coarsest solution
+    of its tile and of the position after it, and fills each finer level's
+    odd rows in one shared buffer in the finest layout; only the finest x
+    leaves. Steps (:func:`_backsub_step`): a lane group per position for K
+    <= 4 (lane r a row, rows of x and of the intermediate by shuffles); for
+    the panel at Db = 6 a thread per position and column pair, block rows
+    as broadcasts (both the layouts of the per-level kernels before, block
+    rows and b from HBM); at Db = 12 a thread per three rows of a column,
+    the levels' A, C, invD and odd rows of b staged in shared memory by
+    cp.async, one block barrier between (b - A x) - C x and the invD
+    product. A solve of one level at K <= 4 or Db = 6 (Manhattan-4) runs
+    the per-level kernels' steps unchanged: the launch is the level's. A
+    solve deeper than the shared memory holds in one launch
+    (:func:`_cr_launch_depths`) takes one launch a run of levels. What bounds it: bytes for
+    the 2D panel, a launch and the levels' dependent chains otherwise. Sums
+    run in the plain version's order; only nvcc's contraction to FMAs
     differs."""
-    if invD.dim() != 4 or b.dim() != 4 or xe.dim() != 4:
-        raise ValueError("band_cr_backsub: expected invD, A, C (C, T/2, Db, Db), "
-                         "b (C, T, Db, K), xe (C, T/2, Db, K)")
-    nC, T, Db, K = b.shape
-    for name, t in (("invD", invD), ("A", A), ("C", C)):
-        _check(f"band_cr_backsub.{name}", t, (nC, T // 2, Db, Db))
-    _check("band_cr_backsub.b", b)
-    _check("band_cr_backsub.xe", xe, (nC, T // 2, Db, K))
-    if T % 2:
-        raise ValueError(f"band_cr_backsub: chain length {T} is odd")
-    if not _route("band_cr_backsub", invD, A, C, b, xe):
-        return band_cr_backsub_plain(invD, A, C, b, xe)
-    x = torch.empty_like(b)
-    _check_aligned("band_cr_backsub", invD, A, C)
-    err = _lib().band_cr_backsub(
-        invD.data_ptr(), A.data_ptr(), C.data_ptr(), b.data_ptr(), xe.data_ptr(),
-        x.data_ptr(), nC, T // 2, Db, K, int(_backsub_narrow(K)), _stream(),
-    )
-    _raise_on("band_cr_backsub", err)
-    _count(band_cr_backsub, Db)
+    nC, T, Db, K, n = _check_cr("band_cr_backsub", levels, x, ("invD", "A", "C"), coarse=True)
+    if len(fine) != n:
+        raise ValueError(f"band_cr_backsub: {len(fine)} fine rhs for {n} levels")
+    for lev, b in enumerate(fine):
+        _check(f"band_cr_backsub.fine[{lev}]", b, (nC, T >> lev, Db, K))
+    _check("band_cr_backsub.x", x)
+    blocks = [t for lv in levels for t in (lv.invD, lv.A, lv.C)]
+    if not _route("band_cr_backsub", levels[0].invD, *blocks, *fine, x):
+        return band_cr_backsub_plain(levels, fine, x)
+    if K == 0 or nC == 0:
+        return torch.empty_like(fine[0])
+    _check_aligned("band_cr_backsub", x, *fine, *blocks)
+    from score_tpu_torch.ops.build import CrBacksubLevels
+
+    step = _backsub_step(Db, K)
+    depths = _cr_launch_depths(step, n, Db, K)
+    last = n
+    for d in reversed(depths):
+        first = last - d
+        out = torch.empty_like(fine[first])
+        P, Kc = _cr_plan(step, d, (T >> first) >> d, Db, K, nC, _sm_count(x.device))
+        ptrs = CrBacksubLevels()
+        for lev in range(d):
+            lv = levels[first + lev]
+            ptrs.invD[lev], ptrs.A[lev], ptrs.C[lev] = (
+                lv.invD.data_ptr(), lv.A.data_ptr(), lv.C.data_ptr())
+            ptrs.b[lev] = fine[first + lev].data_ptr()
+        err = _lib().band_cr_backsub(ptrs, x.data_ptr(), out.data_ptr(), d, nC, T >> first,
+                                     Db, K, P, Kc, _stream())
+        _raise_on("band_cr_backsub", err)
+        _count(band_cr_backsub, Db)
+        last, x = first, out
     return x
 
 
@@ -782,8 +999,9 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
         raise ValueError(f"band_factor: chain length {Tp} is not a power of two")
     if n_cr is None:
         n_cr = cr_depth(Tp)
-    if not 0 <= n_cr <= num_levels(Tp):
-        raise ValueError(f"band_factor: {n_cr} compacting levels for chain length {Tp}")
+    if not 0 <= n_cr <= min(num_levels(Tp), _CR_MAX_LEVELS):
+        raise ValueError(f"band_factor: {n_cr} compacting levels for chain length {Tp} "
+                         f"(at most {_CR_MAX_LEVELS}, the solve kernels' depth)")
     D0 = D
     A = band_init_a(U)
     Cc = U
@@ -826,11 +1044,9 @@ def band_solve(factors: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def _band_solve_once(factors: BandFactors, b: torch.Tensor) -> torch.Tensor:
-    fine = []
-    for lv in factors.levels:
-        fine.append(b)
-        b = band_cr_reduce(lv.E, lv.F, b)
-    x = band_pcr_solve(factors.E, factors.F, factors.invD, b)
-    for lv, bf in zip(reversed(factors.levels), reversed(fine)):
-        x = band_cr_backsub(lv.invD, lv.A, lv.C, bf, x)
-    return x
+    levels = factors.levels
+    if not levels:
+        return band_pcr_solve(factors.E, factors.F, factors.invD, b)
+    reduced = band_cr_reduce(levels, b)
+    x = band_pcr_solve(factors.E, factors.F, factors.invD, reduced[-1])
+    return band_cr_backsub(levels, (b,) + reduced[:-1], x)

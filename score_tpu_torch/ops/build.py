@@ -24,7 +24,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["band_library", "blocks_library", "compile_all", "BUILD_DIR", "SOURCES"]
+__all__ = ["band_library", "blocks_library", "compile_all", "BUILD_DIR", "SOURCES",
+           "CR_MAX_LEVELS", "CrReduceLevels", "CrBacksubLevels"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
@@ -109,6 +110,21 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# Levels a launch of band_cr_reduce / band_cr_backsub takes, and their
+# pointers as the C entries take them, by value (csrc/band.cu:
+# kCrMaxLevels, CrReduceLevels, CrBacksubLevels).
+CR_MAX_LEVELS = 8
+_Pointers = ctypes.c_void_p * CR_MAX_LEVELS
+
+
+class CrReduceLevels(ctypes.Structure):
+    _fields_ = [("E", _Pointers), ("F", _Pointers), ("out", _Pointers)]
+
+
+class CrBacksubLevels(ctypes.Structure):
+    _fields_ = [("invD", _Pointers), ("A", _Pointers), ("C", _Pointers), ("b", _Pointers)]
+
+
 @functools.lru_cache(maxsize=None)
 def band_library() -> ctypes.CDLL:
     """The loaded band kernel library (built on first call)."""
@@ -124,10 +140,11 @@ def band_library() -> ctypes.CDLL:
     lib.band_pcr_solve.restype = i32
     lib.band_cr_level.argtypes = [vp] * 11 + [i32, i32, i32, vp]
     lib.band_cr_level.restype = i32
-    lib.band_cr_reduce.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+    # levels, b, n, nC, T, Db, K, P, Kc, stream
+    lib.band_cr_reduce.argtypes = [CrReduceLevels, vp] + [i32] * 7 + [vp]
     lib.band_cr_reduce.restype = i32
-    # invD, A, C, b, xe, x, nC, Th, Db, K, narrow, stream
-    lib.band_cr_backsub.argtypes = [vp] * 6 + [i32] * 5 + [vp]
+    # levels, xe, x, n, nC, T, Db, K, P, Kc, stream
+    lib.band_cr_backsub.argtypes = [CrBacksubLevels, vp, vp] + [i32] * 7 + [vp]
     lib.band_cr_backsub.restype = i32
     return lib
 

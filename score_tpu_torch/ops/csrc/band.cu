@@ -25,6 +25,23 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+// The level pointers of band_cr_reduce and band_cr_backsub, passed to the
+// C entries by value (ops/build.py mirrors them as ctypes structures).
+constexpr int kCrMaxLevels = 8;  // levels a launch takes (ops/band.py)
+
+struct CrReduceLevels {
+  const double* E[kCrMaxLevels];  // level l: (C, T >> (l + 1), Db, Db)
+  const double* F[kCrMaxLevels];
+  double* out[kCrMaxLevels];      // b_{l+1}: (C, T >> (l + 1), Db, K)
+};
+
+struct CrBacksubLevels {
+  const double* invD[kCrMaxLevels];  // level l's odd rows: (C, T >> (l + 1), Db, Db)
+  const double* A[kCrMaxLevels];
+  const double* C[kCrMaxLevels];
+  const double* b[kCrMaxLevels];     // b_l, the level's fine rhs: (C, T >> l, Db, K)
+};
+
 namespace {
 
 // The lane-group layout of the kernels that work on whole blocks
@@ -691,81 +708,357 @@ cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
   }
 }
 
-// CR rhs reduction onto the kept rows:
-//   out[j] = b[2j] + (E_j b[2j-1] + F_j b[2j+1])
-// b is fine (C, 2*Th, Db, K), out coarse (C, Th, Db, K). One thread per
-// output element; consecutive threads run along the rhs columns, so the
-// reads of b and the writes of out are contiguous.
-template <int Db>
-__global__ void __launch_bounds__(256)
-cr_reduce_kernel(const double* __restrict__ E, const double* __restrict__ F,
-                 const double* __restrict__ b, double* __restrict__ out,
-                 int nC, int Th, int K) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)nC * Th * Db * K) return;
-  const int k = (int)(e % K);
-  const int r = (int)((e / K) % Db);
-  const long long t = e / ((long long)K * Db);  // c * Th + j
-  const int j = (int)(t % Th);
-  const long long f = 2 * t;
-  const long long bs = (long long)Db * Db;
-  const long long rs = (long long)Db * K;  // one fine row of b
-  double ae = 0.0;
-  if (j > 0) {
-    const double* Er = E + t * bs + r * Db;
-    const double* bd = b + (f - 1) * rs + k;
-#pragma unroll
-    for (int q = 0; q < Db; ++q) ae += Er[q] * bd[(long long)q * K];
+// ---------------------------------------------------------------------
+// band_cr_reduce and band_cr_backsub: every compacting level of a solve in
+// ONE launch each. The TPU caller launched _cr_reduce_kernel and
+// _cr_backsub_kernel once a level (pallas_pcr.py:770-810) only because its
+// kernels are gridless; the kernels before these did the same, and each
+// level's rhs made a round trip through HBM.
+//
+// Level l (0-based, fine -> coarse) halves the chain, T >> l rows in,
+// Th = T >> (l + 1) out; its blocks E, F, invD, A, C are (C, Th, Db, Db):
+//   reduce   b_{l+1}[j] = b_l[2j] + (E_j b_l[2j-1] + F_j b_l[2j+1])
+//   backsub  x_l[2j] = x_{l+1}[j],
+//            x_l[2j+1] = invD_j ((b_l[2j+1] - A_j x_{l+1}[j]) - C_j x_{l+1}[j+1])
+// (no E term at a chain's first position, no C term at its last).
+//
+// A thread block owns a tile of P consecutive positions of the coarsest
+// level (depth n) of one chain and a chunk of Kc rhs columns (grid y);
+// ops/band.py plans (P, Kc) (band._cr_plan) so that the grid covers the
+// card's SMs where the chain allows and the shared memory stays small
+// enough for several blocks an SM. The dependencies between levels are
+// local:
+//   - reduce: coarsest position j reads the fine rows 2^n j - (2^n - 1) ..
+//     2^n j + 2^n - 1, so a tile reads its own 2^n P fine rows and a left
+//     halo of 2^n - 1 rows (none before a chain's start); at level l + 1 it
+//     also computes the 2^(n-l-1) - 1 positions before its own, which the
+//     tile before owns (recomputed from the halo, never written);
+//   - backsub: a tile's 2^n P fine rows need, besides its own coarsest
+//     solution, only the coarsest solution at the position after the tile
+//     (none past a chain's end), at every level.
+// Intermediate levels stay in shared memory: the reduce writes each level's
+// own rows once to HBM (the back substitution reads their odd rows, the
+// PCR solve the last level), the back substitution writes only the finest
+// x. Arithmetic order is the plain per-level version's: each block product
+// summed over q ascending from 0.0, b[2j] + (E b + F b), (b - A x) - C x;
+// only nvcc's contraction to FMAs differs.
+// ---------------------------------------------------------------------
+
+// threads of a thread block, at most: the reduce holding Db rows a thread
+// and the register-step backsub; the reduce at a row a thread; the element
+// backsub
+constexpr int kCrThreads = 256;
+constexpr int kCrReduceRowThreads = 1024;
+constexpr int kCrElementThreads = 512;
+constexpr int kBacksubNarrowK = 4;  // most rhs columns of the narrow step
+constexpr int kBacksubNarrowThreads = 64;  // one level's narrow kernel: 8 positions (Db = 6) or 4
+constexpr int kBacksubWideThreads = 256;
+// band_cr_reduce's layouts, by the rhs width: a thread per (output row,
+// column) below kReduceRegisterRowsK, a thread per (position, column)
+// holding the Db rows in registers from it (-DBAND_CR_REGISTER_ROWS_K=n
+// moves the edge in measurement builds of profile_port.py --kernels).
+#ifndef BAND_CR_REGISTER_ROWS_K
+#define BAND_CR_REGISTER_ROWS_K 8
+#endif
+constexpr int kReduceRegisterRowsK = BAND_CR_REGISTER_ROWS_K;
+// rows of a column a thread of the element backsub (Db = 12) holds:
+// 3 measured fastest at 3D 1x1000's panel (profile_port.py --kernels times
+// a thread per row, -DBAND_CR_ELEMENT_ROWS=1, beside it)
+#ifndef BAND_CR_ELEMENT_ROWS
+#define BAND_CR_ELEMENT_ROWS 3
+#endif
+constexpr int kBacksubElementRows = BAND_CR_ELEMENT_ROWS;
+// -DBAND_CR_CLOCKS: thread 0 of the first blocks records clock64() at the
+// phases of a launch and writes them over its output (measurement builds)
+#ifdef BAND_CR_CLOCKS
+#define CR_CLOCK(i) \
+  if (threadIdx.x == 0) clk[i] = clock64();
+#define CR_CLOCKS_OUT(dst)                                                      \
+  __syncthreads();                                                             \
+  if (threadIdx.x == 0 && blockIdx.x < 4 && blockIdx.y == 0)                   \
+    for (int i = 0; i < 16; ++i) (dst)[blockIdx.x * 16 + i] = (double)(clk[i] - clk[0]);
+#else
+#define CR_CLOCK(i)
+#define CR_CLOCKS_OUT(dst)
+#endif
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sa), "l"(gmem));
+}
+
+// Copies n doubles (n even, both ends 16-byte aligned) by the block's
+// threads, 16-byte cp.async units on neighbouring addresses.
+__device__ __forceinline__ void stage_span(double* dst, const double* src, int n) {
+  for (int u = threadIdx.x; u < n / 2; u += blockDim.x) cp_async16(dst + 2 * u, src + 2 * u);
+}
+
+// Copies `rows` rhs rows by the block's threads with cp.async. In HBM a row
+// is Db lines of K doubles, rows src_stride doubles apart, and the chunk is
+// kc columns from src; in shared memory lines are Kc doubles, rows
+// dst_stride apart. Units: 16 bytes over a whole row where the chunk is
+// every column (a row is Db * K doubles, an even count, 16-byte aligned),
+// 16 bytes a line where K and Kc are even, else 8 bytes.
+__device__ void stage_rhs(double* dst, int dst_stride, const double* src,
+                          long long src_stride, int rows, int Db, int K, int Kc,
+                          int kc) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  if (kc == K) {
+    const int per = Db * K / 2;
+    for (int u = t; u < rows * per; u += nt) {
+      const int r = u / per, v = 2 * (u - r * per);
+      cp_async16(dst + r * dst_stride + v, src + r * src_stride + v);
+    }
+  } else if (K % 2 == 0 && Kc % 2 == 0) {
+    const int per = kc / 2;
+    for (int u = t; u < rows * Db * per; u += nt) {
+      const int l = u / per, v = 2 * (u - l * per);
+      const int r = l / Db, q = l - r * Db;
+      cp_async16(dst + r * dst_stride + q * Kc + v, src + r * src_stride + (long long)q * K + v);
+    }
+  } else {
+    for (int u = t; u < rows * Db * kc; u += nt) {
+      const int l = u / kc, v = u - l * kc;
+      const int r = l / Db, q = l - r * Db;
+      cp_async8(dst + r * dst_stride + q * Kc + v, src + r * src_stride + (long long)q * K + v);
+    }
   }
-  double af = 0.0;
-  const double* Fr = F + t * bs + r * Db;
-  const double* bu = b + (f + 1) * rs + k;
+}
+
+// acc[i] += sum_q M[i][q] * v[q] for R rows of M (row-major, Db wide, in
+// shared memory, 16-byte aligned), q ascending; acc starts at 0.0.
+template <int Db, int R>
+__device__ __forceinline__ void rows_times_col(const double* M, const double* v,
+                                               double* acc) {
 #pragma unroll
-  for (int q = 0; q < Db; ++q) af += Fr[q] * bu[(long long)q * K];
-  out[e] = b[f * rs + (long long)r * K + k] + (ae + af);
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int q = 0; q < Db; q += 2) {
+      const double2 m = *reinterpret_cast<const double2*>(M + i * Db + q);
+      acc[i] += m.x * v[q];
+      acc[i] += m.y * v[q + 1];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
-// band_cr_backsub: CR back-substitution of the eliminated rows,
-// re-interleaving them with the kept rows' solution:
-//   x[2j]   = x_ev[j]
-//   x[2j+1] = invD_j ((b[2j+1] - A_j x_ev[j]) - C_j x_ev[j+1])
-// (invD, A, C: the odd rows' blocks stored by cr_level_kernel). Two kernels,
-// chosen by ops/band.py from K (band._backsub_narrow):
+// band_cr_reduce (cr_reduce_levels_kernel<Db, R>).
 //
-//   narrow (K <= 4: the directions, K = 1): the lane-group layout of the
-//          level kernels. A group (8 lanes at Db = 6, 16 at Db = 12) owns
-//          a coarse position; lane r < Db loads row r of A, C and invD
-//          (8 * Db bytes each as 16-byte loads, neighbouring lanes on
-//          neighbouring addresses) and its rows of b[2j+1], x_ev[j] and
-//          x_ev[j+1], all before the first product. The products gather
-//          the other rows of x_ev and of the intermediate rv by shuffles
-//          of the group's width, so a lane computes only its own row:
-//          C * Th * 8 threads at Db = 6 in blocks of 64, where the
-//          kernel before this one ran a thread per position and column
-//          (1024 threads on 4 SMs at Manhattan-4's direction) through
-//          three dependent 6x6 products on 108 uncoalesced loads.
-//   wide   (K >= 5: the arrow panel): a thread per position and V
-//          neighbouring columns (V = 2 where K is even, the rhs arrays
-//          are 16-byte aligned and Db = 6, so b, x_ev and x move as
-//          double2; else 1: at Db = 12 a pair of columns would hold 5 x 24
-//          doubles of rows in registers).
-//          The threads of a warp share a position, so the block rows they
-//          read (double2) are broadcasts; b and x_ev rows are coalesced
-//          along the columns.
-//
-// Arithmetic order is the plain version's: each product summed over p
-// ascending from 0.0, then (b - A x_ev) - C x_ev[j+1]; only nvcc's
-// contraction to FMAs differs. No C term at a chain's last position.
-// Bound: bytes (Manhattan-4 panel 28 MB, 8.4 us at 3.35 TB/s; a direction
-// 1.1 MB, 0.3 us), so the panel is memory-bound and a direction is bound by
-// a launch and one round trip to memory.
+// A thread block stages its tile's E and F blocks of every level (with the
+// halo positions) and its fine rhs rows with the left halo in shared memory
+// by cp.async, all copies in flight at once, then computes level after
+// level from shared memory: level l + 1 reads the buffer that level l wrote
+// (two buffers take turns), a block barrier between levels. A thread owns
+// R rows of one column of a position: R = 1 (a thread per output row and
+// column: the most threads, for directions) or R = Db (a thread per
+// position and column: b read once for all Db rows, block rows arriving as
+// broadcasts, for the panel), chosen by K (kReduceRegisterRowsK).
+// Consecutive threads run along the columns: shared-memory reads of b are
+// conflict-free and the HBM writes coalesce. Bound: bytes for a wide panel
+// (Manhattan-4: the fine rhs in, the reduced one out, 20.9 MB, 6.2 us at
+// 3.35 TB/s); a launch and the dependent chains of the levels for 3D and
+// for directions.
 // ---------------------------------------------------------------------
 
-constexpr int kBacksubNarrowK = 4;         // most rhs columns of the narrow kernel
-constexpr int kBacksubNarrowThreads = 64;  // 8 positions (Db = 6) or 4 a block
-constexpr int kBacksubWideThreads = 256;
+template <int Db, int R>
+__global__ void __launch_bounds__(R == 1 ? kCrReduceRowThreads : kCrThreads)
+cr_reduce_levels_kernel(const CrReduceLevels lv, const double* __restrict__ b,
+                        int n, int T, int K, int P, int Kc) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[16] = {};
+#endif
+  CR_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  constexpr int BS = Db * Db;
+  constexpr int G = Db / R;  // threads a position and column
+  const int Tn = T >> n;
+  const int tiles = (Tn + P - 1) / P;
+  const int c = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - c * tiles) * P;  // first coarsest position
+  const int k0 = blockIdx.y * Kc;
+  const int kc = min(Kc, K - k0);
+  const int RS = Db * Kc;  // a staged rhs row
+  // shared memory: level 1's E then F blocks, level 2's, ...; the fine rows;
+  // level 1's output (level 2's goes to the fine rows' buffer, and so on).
+  // Level lev covers the positions pbase .. pbase + cnt - 1, its own P <<
+  // (n - lev) and the h = 2^(n - lev) - 1 before them.
+  int ef_total = 0;
+  for (int lev = 1; lev <= n; ++lev) ef_total += 2 * (((P + 1) << (n - lev)) - 1) * BS;
+  double* buf[2];
+  buf[0] = sm + ef_total;
+  buf[1] = buf[0] + (((P + 1) << n) - 1) * RS;
+  // Everything the tile reads, in flight at once by 16-byte cp.async (8-byte
+  // where a chunk's lines are odd): the fine rows and every level's E, F.
+  // (Bulk copies by the Tensor Memory Accelerator measured no faster at the
+  // main path's shapes and slower at Manhattan-4's panel, one 60 KB copy a
+  // thread block.)
+  {
+    const int base = (j0 << n) - ((1 << n) - 1);  // fine row of staged row 0
+    const int lo = max(base, 0), hi = min((j0 + P) << n, T);
+    stage_rhs(buf[0] + (lo - base) * RS, RS, b + ((long long)c * T + lo) * Db * K + k0,
+              (long long)Db * K, hi - lo, Db, K, Kc, kc);
+    double* e = sm;
+    for (int lev = 1; lev <= n; ++lev) {
+      const int Th = T >> lev;
+      const int cnt = ((P + 1) << (n - lev)) - 1;
+      const int pbase = (j0 << (n - lev)) - ((1 << (n - lev)) - 1);
+      const int plo = max(pbase, 0), phi = min((j0 + P) << (n - lev), Th);
+      const long long g = ((long long)c * Th + plo) * BS;
+      stage_span(e + (plo - pbase) * BS, lv.E[lev - 1] + g, (phi - plo) * BS);
+      stage_span(e + (cnt + plo - pbase) * BS, lv.F[lev - 1] + g, (phi - plo) * BS);
+      e += 2 * cnt * BS;
+    }
+  }
+  CR_CLOCK(1)
+  cp_async_wait_all();
+  CR_CLOCK(2)
+  __syncthreads();
+  CR_CLOCK(3)
+  const double* e = sm;
+  for (int lev = 1; lev <= n; ++lev) {
+    const int Th = T >> lev;
+    const int h = (1 << (n - lev)) - 1;
+    const int cnt = ((P + 1) << (n - lev)) - 1;
+    const int pbase = (j0 << (n - lev)) - h;
+    const double* in = buf[(lev - 1) & 1];
+    double* nxt = buf[lev & 1];
+    double* out = lv.out[lev - 1];
+    const int items = cnt * G * kc;
+    for (int w = threadIdx.x; w < items; w += blockDim.x) {
+      const int k = w % kc;
+      const int s = w / kc / G;  // staged position
+      const int r0 = (w / kc - s * G) * R;
+      const int j = pbase + s;
+      if (j < 0 || j >= Th) continue;
+      // rows 2j - 1, 2j, 2j + 1 of the level's input are staged rows 2s .. 2s + 2
+      const double* bm = in + 2 * s * RS + k;
+      const double* bp = bm + 2 * RS;
+      double ae[R], af[R], v[Db];
+#pragma unroll
+      for (int i = 0; i < R; ++i) ae[i] = af[i] = 0.0;
+      if (j > 0) {
+#pragma unroll
+        for (int q = 0; q < Db; ++q) v[q] = bm[q * Kc];
+        rows_times_col<Db, R>(e + s * BS + r0 * Db, v, ae);
+      }
+#pragma unroll
+      for (int q = 0; q < Db; ++q) v[q] = bp[q * Kc];
+      rows_times_col<Db, R>(e + (cnt + s) * BS + r0 * Db, v, af);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = r0 + i;
+        const double o = bm[RS + r * Kc] + (ae[i] + af[i]);
+        if (lev < n) nxt[s * RS + r * Kc + k] = o;
+        if (s >= h) out[(((long long)c * Th + j) * Db + r) * K + k0 + k] = o;
+      }
+    }
+    e += 2 * cnt * BS;
+    CR_CLOCK(2 + 2 * lev)
+    if (lev < n) __syncthreads();
+    CR_CLOCK(3 + 2 * lev)
+  }
+  CR_CLOCKS_OUT(lv.out[n - 1])
+}
 
+// ---------------------------------------------------------------------
+// band_cr_backsub. The tile's solution lives in ONE shared buffer in the
+// finest layout: row i holds x_0[2^n j0 + i] for i = 0 .. 2^n P, so level
+// l's x_l[m] sits at row (m - m0) << l and a level only fills the odd
+// slots between the rows of the level above; row 2^n P is the coarsest
+// solution after the tile. The kernels, chosen by K, Db and the levels
+// (ops/band.py plans for the same rule, band._backsub_step):
+//
+//   one level (Manhattan-4) at K <= 4 or Db = 6: the per-level kernels'
+//     cr_backsub_narrow_kernel and cr_backsub_wide_kernel, unchanged (the
+//     launch is the level's);
+//   cr_backsub_levels_kernel<Db, S>: the same per-position steps
+//     (backsub_item), level after level over a tile, the block rows and b
+//     read from HBM (16-byte loads), issued before the barrier that ends
+//     the level above. The coarsest level reads x from HBM and the finest
+//     writes it there:
+//       S = 0, narrow (K <= 4; every Db): a lane group of 8 (Db = 6) or 16
+//         lanes a position, lane r a row; the other rows of x and of the
+//         intermediate gathered by shuffles of the group's width;
+//       S = 1, 2, wide (K > 4, Db = 6): a thread a position and S
+//         neighbouring columns (double2 where K is even), all Db rows in
+//         registers, block rows as broadcasts.
+//   cr_backsub_element_kernel<Db, R> (K > 4, Db = 12): a thread per R
+//     rows of a column of a position (R = kBacksubElementRows: the rows
+//     share the thread's column of x, where a thread a row read it R
+//     times from shared memory, the bound of that layout). A, C, invD and
+//     the odd rows of b of every level, and the coarsest x, are staged in
+//     shared memory by cp.async, all in flight at once; a level writes
+//     rv = (b - A x) - C x over the staged b (each element by its own
+//     thread), one block barrier, then x = invD rv (the thread a position
+//     and column of the kernel before ran three dependent 12 x 12 products
+//     on 216 16-byte loads).
+// Bound: bytes for the 2D panel (Manhattan-4, 28 MB, 8.4 us at 3.35 TB/s);
+// a launch and the levels' dependent chains in 3D and for directions.
+// ---------------------------------------------------------------------
+
+template <int V>
+__device__ __forceinline__ void load_cols(const double* p, double* v) {
+  if constexpr (V == 2) {
+    const double2 t = ldg2(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_cols(double* p, const double* v) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// out[q][v] = sum_p M[q][p] * y[p][v], p ascending from 0.0; M's rows are
+// read as double2 (broadcast across the threads of a position).
+template <int Db, int V>
+__device__ __forceinline__ void block_times_cols(const double* __restrict__ M,
+                                                 double (*y)[V],
+                                                 double (*out)[V]) {
+#pragma unroll
+  for (int q = 0; q < Db; ++q) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[q][v] = 0.0;
+#pragma unroll
+    for (int p = 0; p < Db; p += 2) {
+      const double2 m = ldg2(M + q * Db + p);
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[q][v] += m.x * y[p][v];
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[q][v] += m.y * y[p + 1][v];
+    }
+  }
+}
+
+
+template <int V>
+__device__ __forceinline__ void load_cols_shared(const double* p, double* v) {
+  if constexpr (V == 2) {
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// A solve of one level at K <= 4, or at Db = 6: the launch is the level's,
+// and its steps are those of the per-level kernels, unchanged (the same
+// steps inlined into the tile kernel below took more registers and ran the
+// 2D panel up to 0.8 us slower). narrow: a lane group per position, lane r
+// a row, its rows of A, C, invD, b and x loaded before the first product,
+// the other rows of x and of the intermediate gathered by shuffles of the
+// group's width (8 positions in a block of 64 at Db = 6). wide: a thread
+// per position and V neighbouring columns (V = 2 where K is even and the
+// rhs arrays 16-byte aligned), the block rows broadcasts across a warp, the
+// rhs rows coalesced along the columns.
 template <int Db>
 __global__ void __launch_bounds__(kBacksubNarrowThreads)
 cr_backsub_narrow_kernel(const double* __restrict__ invDo,
@@ -844,47 +1137,6 @@ cr_backsub_narrow_kernel(const double* __restrict__ invDo,
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_cols(const double* p, double* v) {
-  if constexpr (V == 2) {
-    const double2 t = ldg2(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_cols(double* p, const double* v) {
-  if constexpr (V == 2) {
-    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-// out[q][v] = sum_p M[q][p] * y[p][v], p ascending from 0.0; M's rows are
-// read as double2 (broadcast across the threads of a position).
-template <int Db, int V>
-__device__ __forceinline__ void block_times_cols(const double* __restrict__ M,
-                                                 double (*y)[V],
-                                                 double (*out)[V]) {
-#pragma unroll
-  for (int q = 0; q < Db; ++q) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) out[q][v] = 0.0;
-#pragma unroll
-    for (int p = 0; p < Db; p += 2) {
-      const double2 m = ldg2(M + q * Db + p);
-#pragma unroll
-      for (int v = 0; v < V; ++v) out[q][v] += m.x * y[p][v];
-#pragma unroll
-      for (int v = 0; v < V; ++v) out[q][v] += m.y * y[p + 1][v];
-    }
-  }
-}
-
 template <int Db, int V>
 __global__ void __launch_bounds__(kBacksubWideThreads)
 cr_backsub_wide_kernel(const double* __restrict__ invDo,
@@ -935,6 +1187,332 @@ cr_backsub_wide_kernel(const double* __restrict__ invDo,
     store_cols<V>(x0 + (long long)r * K, xv[r]);
     store_cols<V>(x0 + rs + (long long)r * K, a[r]);
   }
+}
+
+// One work item of the register steps: position t of level lev (global
+// index c * Th + m, m its place in the chain), item w of the position's
+// `per` (a lane of the narrow step's group; a column pair or column of the
+// wide one), at index s of the x source and destination (xs: x_lev,
+// positions xsp apart, rows xsr; xd: x_{lev-1}, rows of position 2s, 2s +
+// 1 and, with `halo`, 2s + 2 = the coarsest row after the tile). FROM_HBM:
+// x_lev is read from HBM (the coarsest level), else from the shared
+// buffer, after the block barrier that ends the level above (`sync`: the
+// first pass of a level; every thread of the block calls with the same
+// value). TO_HBM: x_{lev-1} goes to HBM (the finest level, both rows), else
+// to the buffer (its odd rows, and where x_lev came from HBM also the even
+// rows and the halo). The loads from HBM are issued before that barrier.
+template <int Db, int S, bool FROM_HBM, bool TO_HBM>
+__device__ __forceinline__ void backsub_item(const double* Ab, const double* Cb,
+                                             const double* Vb, const double* bl,
+                                             const double* xs, long long xsp, int xsr,
+                                             double* xd, long long xdp, int xdr, int K,
+                                             int per, int w, long long s, long long t, int m,
+                                             int Th, bool pos, bool halo, bool sync) {
+  constexpr int BS = Db * Db;
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int V = S == 0 ? 1 : S;
+  constexpr int KN = kBacksubNarrowK;
+  constexpr bool kEven = FROM_HBM || TO_HBM;
+  const bool has_up = pos && m + 1 < Th;
+  const double* bo = bl + (2 * t + 1) * Db * K;
+  const long long o = t * BS;
+  if constexpr (S == 0) {
+    const int r = w & (GL - 1);
+    const bool row = pos && r < Db;
+    double Ar[Db], Cr[Db], Vr[Db], xr[KN], ur[KN], br[KN];
+#pragma unroll
+    for (int p = 0; p < Db; ++p) Ar[p] = Cr[p] = Vr[p] = 0.0;
+#pragma unroll
+    for (int k = 0; k < KN; ++k) xr[k] = ur[k] = br[k] = 0.0;
+    if (row) {
+#pragma unroll
+      for (int p = 0; p < Db; p += 2) {
+        const double2 a = ldg2(Ab + o + r * Db + p);
+        const double2 v = ldg2(Vb + o + r * Db + p);
+        Ar[p] = a.x;
+        Ar[p + 1] = a.y;
+        Vr[p] = v.x;
+        Vr[p + 1] = v.y;
+        if (has_up) {
+          const double2 cc = ldg2(Cb + o + r * Db + p);
+          Cr[p] = cc.x;
+          Cr[p + 1] = cc.y;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < KN; ++k) {
+        if (k < K) {
+          br[k] = __ldg(bo + (long long)r * K + k);
+          if (FROM_HBM) {
+            xr[k] = __ldg(xs + s * xsp + r * xsr + k);
+            if (has_up) ur[k] = __ldg(xs + (s + 1) * xsp + r * xsr + k);
+          }
+        }
+      }
+    }
+    if (!FROM_HBM) {
+      if (sync) __syncthreads();  // the level above is in the buffer
+      if (row) {
+#pragma unroll
+        for (int k = 0; k < KN; ++k) {
+          if (k < K) {
+            xr[k] = xs[s * xsp + r * xsr + k];
+            if (has_up) ur[k] = xs[(s + 1) * xsp + r * xsr + k];
+          }
+        }
+      }
+    }
+    double* d = xd + 2 * s * xdp + r * xdr;
+#pragma unroll
+    for (int k = 0; k < KN; ++k) {
+      if (k < K) {  // K is the same for the whole grid: every lane shuffles
+        double a = 0.0;
+#pragma unroll
+        for (int p = 0; p < Db; ++p) a += Ar[p] * __shfl_sync(0xffffffffu, xr[k], p, GL);
+        double rv = br[k] - a;
+        a = 0.0;
+#pragma unroll
+        for (int p = 0; p < Db; ++p) a += Cr[p] * __shfl_sync(0xffffffffu, ur[k], p, GL);
+        if (has_up) rv = rv - a;
+        double out = 0.0;
+#pragma unroll
+        for (int q = 0; q < Db; ++q) out += Vr[q] * __shfl_sync(0xffffffffu, rv, q, GL);
+        if (row) {
+          if (kEven) d[k] = xr[k];
+          d[xdp + k] = out;
+          if (halo) d[2 * xdp + k] = ur[k];
+        }
+      }
+    }
+  } else {
+    const int k = (w % per) * V;
+    double bv[Db][V], xv[Db][V], xu[Db][V];
+    const double* xp = xs + s * xsp + k;
+    if (pos) {
+#pragma unroll
+      for (int p = 0; p < Db; ++p) load_cols<V>(bo + (long long)p * K + k, bv[p]);
+      if (FROM_HBM) {
+#pragma unroll
+        for (int p = 0; p < Db; ++p) load_cols<V>(xp + p * xsr, xv[p]);
+        if (has_up) {
+#pragma unroll
+          for (int p = 0; p < Db; ++p) load_cols<V>(xp + xsp + p * xsr, xu[p]);
+        }
+      }
+    }
+    if (!FROM_HBM) {
+      if (sync) __syncthreads();
+      if (pos) {
+#pragma unroll
+        for (int p = 0; p < Db; ++p) load_cols_shared<V>(xp + p * xsr, xv[p]);
+        if (has_up) {
+#pragma unroll
+          for (int p = 0; p < Db; ++p) load_cols_shared<V>(xp + xsp + p * xsr, xu[p]);
+        }
+      }
+    }
+    if (pos) {
+      double rv[Db][V], a[Db][V];
+      block_times_cols<Db, V>(Ab + o, xv, a);
+#pragma unroll
+      for (int q = 0; q < Db; ++q) {
+#pragma unroll
+        for (int u = 0; u < V; ++u) rv[q][u] = bv[q][u] - a[q][u];
+      }
+      if (has_up) {
+        block_times_cols<Db, V>(Cb + o, xu, a);
+#pragma unroll
+        for (int q = 0; q < Db; ++q) {
+#pragma unroll
+          for (int u = 0; u < V; ++u) rv[q][u] = rv[q][u] - a[q][u];
+        }
+      }
+      block_times_cols<Db, V>(Vb + o, rv, a);
+      double* d = xd + 2 * s * xdp + k;
+#pragma unroll
+      for (int r = 0; r < Db; ++r) {
+        if (kEven) store_cols<V>(d + r * xdr, xv[r]);
+        store_cols<V>(d + xdp + r * xdr, a[r]);
+        if (halo) store_cols<V>(d + 2 * xdp + r * xdr, xu[r]);
+      }
+    }
+  }
+}
+
+// The levels of a tile, coarsest first; the tile's Pl = P << (n - lev)
+// positions m0 .. m0 + Pl - 1 of level lev take passes of the thread block.
+template <int Db, int S, bool FROM_HBM, bool TO_HBM>
+__device__ __forceinline__ void backsub_level(const double* Ab, const double* Cb,
+                                              const double* Vb, const double* bl,
+                                              const double* xs, long long xsp, int xsr,
+                                              double* xd, long long xdp, int xdr, int c,
+                                              int Th, int Pl, int m0, int K, int per) {
+  const int items = Pl * per;
+  for (int base = 0; base < items; base += blockDim.x) {
+    const int w = base + threadIdx.x;
+    const int s = w / per;
+    const int m = m0 + s;
+    const bool pos = w < items && m < Th;
+    const bool halo = FROM_HBM && !TO_HBM && s == Pl - 1 && m + 1 < Th;
+    backsub_item<Db, S, FROM_HBM, TO_HBM>(Ab, Cb, Vb, bl, xs, xsp, xsr, xd, xdp, xdr, K, per,
+                                          w, s, (long long)c * Th + m, m, Th, pos, halo,
+                                          base == 0);
+  }
+}
+
+// Two or more levels: a tile of P coarsest positions and Kc columns, the
+// levels' x between the coarsest and the finest in the shared buffer.
+template <int Db, int S>
+__global__ void __launch_bounds__(kCrThreads)
+cr_backsub_levels_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
+                         double* __restrict__ x, int n, int T, int K, int P, int Kc) {
+  extern __shared__ __align__(16) double sm[];
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int V = S == 0 ? 1 : S;
+  const int Tn = T >> n;
+  const int tiles = (Tn + P - 1) / P;
+  const int c = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - c * tiles) * P;
+  const int k0 = blockIdx.y * Kc;
+  const int kc = min(Kc, K - k0);
+  const int RS = Db * Kc;
+  const int per = S == 0 ? GL : kc / V;  // kc is even where V = 2
+  // x_n and the finest x in HBM; the levels between in the shared buffer
+  const double* xg = xe + ((long long)c * Tn + j0) * Db * K + k0;
+  double* xo = x + ((long long)c * T + (j0 << n)) * Db * K + k0;
+  const long long hp = (long long)Db * K;  // a position's stride in HBM
+  for (int lev = n; lev >= 1; --lev) {
+    const int Th = T >> lev, Pl = P << (n - lev), m0 = j0 << (n - lev);
+    const double *Ab = lv.A[lev - 1], *Cb = lv.C[lev - 1], *Vb = lv.invD[lev - 1];
+    const double* bl = lv.b[lev - 1] + k0;
+    const long long up = (long long)RS << lev, down = (long long)RS << (lev - 1);
+    if (lev == n)
+      backsub_level<Db, S, true, false>(Ab, Cb, Vb, bl, xg, hp, K, sm, down, Kc, c, Th, Pl,
+                                        m0, K, per);
+    else if (lev == 1)
+      backsub_level<Db, S, false, true>(Ab, Cb, Vb, bl, sm, up, Kc, xo, hp, K, c, Th, Pl, m0,
+                                        K, per);
+    else
+      backsub_level<Db, S, false, false>(Ab, Cb, Vb, bl, sm, up, Kc, sm, down, Kc, c, Th, Pl,
+                                         m0, K, per);
+  }
+}
+
+template <int Db, int R>
+__global__ void __launch_bounds__(kCrElementThreads)
+cr_backsub_element_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
+                          double* __restrict__ x, int n, int T, int K, int P, int Kc) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[16] = {};
+#endif
+  CR_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  constexpr int BS = Db * Db;
+  const int Tn = T >> n;
+  const int tiles = (Tn + P - 1) / P;
+  const int c = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - c * tiles) * P;
+  const int k0 = blockIdx.y * Kc;
+  const int kc = min(Kc, K - k0);
+  const int RS = Db * Kc;
+  // shared memory: the solution buffer (finest layout, (P << n) + 1 rows),
+  // then for level n, n - 1, ..., 1: invD, A, C of its P << (n - lev)
+  // positions and their odd rows of b (rv after the level's first half)
+  double* xb = sm;
+  double* lvl = xb + ((P << n) + 1) * RS;
+  // Everything the tile reads, in flight at once by cp.async: the coarsest
+  // x of the tile and of the position after it, and every level's invD, A,
+  // C and odd rows of b.
+  {
+    const long long hp = (long long)Db * K;  // a position's stride in HBM
+    stage_rhs(xb, RS << n, xe + ((long long)c * Tn + j0) * hp + k0, hp, min(P + 1, Tn - j0),
+              Db, K, Kc, kc);
+    double* q = lvl;
+    for (int lev = n; lev >= 1; --lev) {
+      const int Th = T >> lev, Pl = P << (n - lev), m0 = j0 << (n - lev);
+      const int v = min(Pl, Th - m0);
+      const long long g = ((long long)c * Th + m0) * BS;
+      stage_span(q, lv.invD[lev - 1] + g, v * BS);
+      stage_span(q + Pl * BS, lv.A[lev - 1] + g, v * BS);
+      stage_span(q + 2 * Pl * BS, lv.C[lev - 1] + g, v * BS);
+      stage_rhs(q + 3 * Pl * BS, RS, lv.b[lev - 1] + ((long long)c * 2 * Th + 2 * m0 + 1) * hp + k0,
+                2 * hp, v, Db, K, Kc, kc);
+      q += Pl * (3 * BS + RS);
+    }
+  }
+  CR_CLOCK(1)
+  cp_async_wait_all();
+  CR_CLOCK(2)
+  __syncthreads();
+  CR_CLOCK(3)
+  const double* q = lvl;
+  for (int lev = n; lev >= 1; --lev) {
+    const int Th = T >> lev, Pl = P << (n - lev), m0 = j0 << (n - lev);
+    const double* Vs = q;
+    const double* As = q + Pl * BS;
+    const double* Cs = q + 2 * Pl * BS;
+    double* bs = const_cast<double*>(q) + 3 * Pl * BS;
+    constexpr int G = Db / R;  // threads a position and column
+    const int items = Pl * G * kc;
+    // rv = (b - A x) - C x_up over the staged b: a thread R rows of a column
+    for (int w = threadIdx.x; w < items; w += blockDim.x) {
+      const int k = w % kc, s = w / kc / G, r0 = (w / kc - s * G) * R;
+      const int m = m0 + s;
+      if (m >= Th) continue;
+      const double* xa = xb + (s << lev) * RS + k;
+      double xv[Db], rv[R];
+#pragma unroll
+      for (int p = 0; p < Db; ++p) xv[p] = xa[p * Kc];
+      double* bw = bs + s * RS + r0 * Kc + k;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        double a = 0.0;
+        rows_times_col<Db, 1>(As + s * BS + (r0 + i) * Db, xv, &a);
+        rv[i] = bw[i * Kc] - a;
+      }
+      if (m + 1 < Th) {
+#pragma unroll
+        for (int p = 0; p < Db; ++p) xv[p] = xa[(RS << lev) + p * Kc];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          double a = 0.0;
+          rows_times_col<Db, 1>(Cs + s * BS + (r0 + i) * Db, xv, &a);
+          rv[i] = rv[i] - a;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) bw[i * Kc] = rv[i];
+    }
+    CR_CLOCK(4 + 3 * (n - lev))
+    __syncthreads();
+    CR_CLOCK(5 + 3 * (n - lev))
+    // x_{lev-1}[2m + 1] = invD rv
+    for (int w = threadIdx.x; w < items; w += blockDim.x) {
+      const int k = w % kc, s = w / kc / G, r0 = (w / kc - s * G) * R;
+      const int m = m0 + s;
+      if (m >= Th) continue;
+      double rv[Db];
+#pragma unroll
+      for (int p = 0; p < Db; ++p) rv[p] = bs[s * RS + p * Kc + k];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = r0 + i;
+        double out = 0.0;
+        rows_times_col<Db, 1>(Vs + s * BS + r * Db, rv, &out);
+        if (lev > 1) {
+          xb[((s << lev) + (1 << (lev - 1))) * RS + r * Kc + k] = out;
+        } else {
+          double* xo = x + (((long long)c * T + (j0 << n) + 2 * s) * Db + r) * K + k0 + k;
+          xo[0] = xb[2 * s * RS + r * Kc + k];
+          xo[(long long)Db * K] = out;
+        }
+      }
+    }
+    q += Pl * (3 * BS + RS);
+    CR_CLOCK(6 + 3 * (n - lev))
+    if (lev > 1) __syncthreads();
+  }
+  CR_CLOCKS_OUT(x)
 }
 
 // ---------------------------------------------------------------------
@@ -1866,43 +2444,141 @@ cudaError_t launch_cr_level(const double* D, const double* A, const double* Cc,
   return cudaGetLastError();
 }
 
-template <int Db>
-cudaError_t launch_cr_reduce(const double* E, const double* F, const double* b,
-                             double* out, int nC, int Th, int K, cudaStream_t st) {
-  const long long n = (long long)nC * Th * Db * K;
-  cr_reduce_kernel<Db><<<grid_for(n, 256), 256, 0, st>>>(E, F, b, out, nC, Th, K);
+// Shared memory of one thread block of band_cr_reduce: every level's E and
+// F at its own and halo positions, the fine rows with the left halo, and
+// level 1's output (deeper levels reuse the two buffers).
+inline long long cr_reduce_smem(int n, int Db, int P, int Kc) {
+  long long d = 0;
+  for (int lev = 1; lev <= n; ++lev)
+    d += 2 * ((((long long)P + 1) << (n - lev)) - 1) * Db * Db;
+  d += ((((long long)P + 1) << n) - 1) * Db * Kc;
+  if (n > 1) d += ((((long long)P + 1) << (n - 1)) - 1) * Db * Kc;
+  return d * (long long)sizeof(double);
+}
+
+// Shared memory of one thread block of band_cr_backsub: the solution buffer
+// (none for one level of the register steps) and, for the element kernel,
+// every level's invD, A, C and odd rows of b.
+inline long long cr_backsub_smem(int n, int Db, int P, int Kc, bool element) {
+  const long long rows = (((long long)P << n) + 1) * Db * Kc;
+  if (!element) return n > 1 ? rows * (long long)sizeof(double) : 0;
+  long long d = rows;
+  for (int lev = n; lev >= 1; --lev)
+    d += ((long long)P << (n - lev)) * (3LL * Db * Db + (long long)Db * Kc);
+  return d * (long long)sizeof(double);
+}
+
+// A plan the kernels take: 1 to kCrMaxLevels levels that halve T, a tile
+// of 1 to T >> n coarsest positions, chunks of 1 to K columns, and a grid
+// and shared memory the card launches.
+inline bool cr_plan_ok(int nC, int n, int T, int K, int P, int Kc, long long smem) {
+  if (n < 1 || n > kCrMaxLevels || T < 1 || T % (1 << n) || P < 1 || P > (T >> n) ||
+      Kc < 1 || Kc > K || smem > 232448)
+    return false;
+  const long long tiles = ((T >> n) + P - 1) / P;
+  return (long long)nC * tiles <= 0x7fffffff && (K + Kc - 1) / Kc <= 65535;
+}
+
+// Threads of a fused CR thread block: whole warps for the first level's
+// items (it has the most), at most `most`.
+inline int cr_threads(long long items, int most) {
+  return (int)(items < most ? (items + 31) / 32 * 32 : most);
+}
+
+inline dim3 cr_grid(int nC, int n, int T, int K, int P, int Kc) {
+  return dim3(nC * (((T >> n) + P - 1) / P), (K + Kc - 1) / Kc);
+}
+
+template <int Db, int R>
+cudaError_t launch_cr_reduce_rows(const CrReduceLevels& lv, const double* b, int nC, int n,
+                                  int T, int K, int P, int Kc, size_t smem,
+                                  cudaStream_t st) {
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(cr_reduce_levels_kernel<Db, R>, &allowed);
+  if (err != cudaSuccess) return err;
+  // the first level's items (it has the most): positions, threads of one, columns
+  const long long items = ((((long long)P + 1) << (n - 1)) - 1) * (Db / R) * (K < Kc ? K : Kc);
+  cr_reduce_levels_kernel<Db, R><<<cr_grid(nC, n, T, K, P, Kc),
+                                   cr_threads(items, R == 1 ? kCrReduceRowThreads : kCrThreads),
+                                   smem, st>>>(lv, b, n, T, K, P, Kc);
   return cudaGetLastError();
 }
 
 template <int Db>
-cudaError_t launch_cr_backsub(const double* invDo, const double* Ao,
-                              const double* Co, const double* b,
-                              const double* xe, double* x, long long n, int Th,
-                              int K, bool narrow, cudaStream_t st) {
-  if (narrow) {
-    if (K > kBacksubNarrowK || n > 0x7fffffff) return cudaErrorInvalidValue;
-    constexpr int per_block = kBacksubNarrowThreads / Lanes<Db>::group;
-    cr_backsub_narrow_kernel<Db><<<grid_for(n, per_block), kBacksubNarrowThreads, 0, st>>>(
-        invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+cudaError_t launch_cr_reduce(const CrReduceLevels& lv, const double* b, int nC, int n,
+                             int T, int K, int P, int Kc, cudaStream_t st) {
+  const long long smem = cr_reduce_smem(n, Db, P, Kc);
+  if (!cr_plan_ok(nC, n, T, K, P, Kc, smem)) return cudaErrorInvalidValue;
+  if (K >= kReduceRegisterRowsK)
+    return launch_cr_reduce_rows<Db, Db>(lv, b, nC, n, T, K, P, Kc, smem, st);
+  return launch_cr_reduce_rows<Db, 1>(lv, b, nC, n, T, K, P, Kc, smem, st);
+}
+
+template <int Db, int S>
+cudaError_t launch_cr_backsub_steps(const CrBacksubLevels& lv, const double* xe, double* x,
+                                    int nC, int n, int T, int K, int P, int Kc, size_t smem,
+                                    long long items, cudaStream_t st) {
+  if (n == 1) {  // the per-level kernels' grids: every position of every chain
+    const long long pos = (long long)nC * (T >> 1);
+    if (Kc != K || pos > 0x7fffffff) return cudaErrorInvalidValue;
+    if constexpr (S == 0) {
+      constexpr int per_block = kBacksubNarrowThreads / Lanes<Db>::group;
+      cr_backsub_narrow_kernel<Db><<<grid_for(pos, per_block), kBacksubNarrowThreads, 0, st>>>(
+          lv.invD[0], lv.A[0], lv.C[0], lv.b[0], xe, x, (int)pos, T >> 1, K);
+    } else {
+      const long long w = pos * (K / S);
+      if (w > 0x7fffffff) return cudaErrorInvalidValue;
+      cr_backsub_wide_kernel<Db, S><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
+                                      st>>>(lv.invD[0], lv.A[0], lv.C[0], lv.b[0], xe, x,
+                                            (int)pos, T >> 1, K);
+    }
     return cudaGetLastError();
   }
-  auto aligned16 = [](const void* p) {
-    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
-  };
-  if constexpr (Db == 6) {  // column pairs: 2D only
-    if (K % 2 == 0 && aligned16(b) && aligned16(xe) && aligned16(x)) {
-      const long long w = n * (K / 2);
-      if (w > 0x7fffffff) return cudaErrorInvalidValue;
-      cr_backsub_wide_kernel<Db, 2><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads,
-                                      0, st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
-      return cudaGetLastError();
-    }
-  }
-  const long long w = n * K;
-  if (w > 0x7fffffff) return cudaErrorInvalidValue;
-  cr_backsub_wide_kernel<Db, 1><<<grid_for(w, kBacksubWideThreads), kBacksubWideThreads, 0,
-                                  st>>>(invDo, Ao, Co, b, xe, x, (int)n, Th, K);
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(cr_backsub_levels_kernel<Db, S>, &allowed);
+  if (err != cudaSuccess) return err;
+  cr_backsub_levels_kernel<Db, S><<<cr_grid(nC, n, T, K, P, Kc), cr_threads(items, kCrThreads),
+                                    smem, st>>>(lv, xe, x, n, T, K, P, Kc);
   return cudaGetLastError();
+}
+
+// The step by the rhs width, as band._backsub_step plans for it: narrow for
+// K <= 4, else wide at Db = 6 (column pairs where K and Kc are even and the
+// rhs arrays 16-byte aligned) and the element kernel at Db = 12.
+template <int Db>
+cudaError_t launch_cr_backsub(const CrBacksubLevels& lv, const double* xe, double* x,
+                              int nC, int n, int T, int K, int P, int Kc, cudaStream_t st) {
+  const bool element = Db == 12 && K > kBacksubNarrowK;
+  const long long smem = cr_backsub_smem(n, Db, P, Kc, element);
+  if (!cr_plan_ok(nC, n, T, K, P, Kc, smem)) return cudaErrorInvalidValue;
+  const long long finest = (long long)P << (n - 1);  // positions of the finest level
+  const int kc = K < Kc ? K : Kc;
+  if (K <= kBacksubNarrowK) {
+    if (Kc != K) return cudaErrorInvalidValue;
+    return launch_cr_backsub_steps<Db, 0>(lv, xe, x, nC, n, T, K, P, Kc, smem,
+                                          finest * Lanes<Db>::group, st);
+  }
+  if constexpr (Db == 12) {
+    static bool allowed = false;
+    constexpr int R = kBacksubElementRows;
+    const cudaError_t err = allow_smem(cr_backsub_element_kernel<Db, R>, &allowed);
+    if (err != cudaSuccess) return err;
+    cr_backsub_element_kernel<Db, R><<<cr_grid(nC, n, T, K, P, Kc),
+                                       cr_threads(finest * (Db / R) * kc, kCrElementThreads),
+                                       smem, st>>>(lv, xe, x, n, T, K, P, Kc);
+    return cudaGetLastError();
+  } else {
+    auto aligned16 = [](const void* p) {
+      return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+    };
+    bool pairs = K % 2 == 0 && Kc % 2 == 0 && aligned16(xe) && aligned16(x);
+    for (int l = 0; l < n; ++l) pairs = pairs && aligned16(lv.b[l]);
+    if (pairs)
+      return launch_cr_backsub_steps<Db, 2>(lv, xe, x, nC, n, T, K, P, Kc, smem,
+                                            finest * (kc / 2), st);
+    return launch_cr_backsub_steps<Db, 1>(lv, xe, x, nC, n, T, K, P, Kc, smem, finest * kc,
+                                          st);
+  }
 }
 
 template <int Db>
@@ -1985,23 +2661,23 @@ int band_cr_level(const double* D, const double* A, const double* Cc,
                                          nC, Th, st))
 }
 
-int band_cr_reduce(const double* E, const double* F, const double* b,
-                   double* out, int nC, int Th, int Db, int K, void* stream) {
-  if ((long long)nC * Th * K == 0) return 0;
+// Every compacting level of a solve in one launch: levels (1 to
+// kCrMaxLevels) halve the fine chain length T; P and Kc, the tile of
+// coarsest positions and the rhs columns of a thread block, as
+// ops/band.py planned them (band._cr_plan). A plan past the limits returns
+// cudaErrorInvalidValue.
+int band_cr_reduce(CrReduceLevels lv, const double* b, int levels, int nC, int T,
+                   int Db, int K, int P, int Kc, void* stream) {
+  if ((long long)nC * T * K == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  BAND_DISPATCH(Db, launch_cr_reduce<kDb>(E, F, b, out, nC, Th, K, st))
+  BAND_DISPATCH(Db, launch_cr_reduce<kDb>(lv, b, nC, levels, T, K, P, Kc, st))
 }
 
-// narrow: 1 for the lane-group kernel (K <= 4), 0 for the thread-per-
-// column kernel, as ops/band.py chose it.
-int band_cr_backsub(const double* invDo, const double* Ao, const double* Co,
-                    const double* b, const double* xe, double* x, int nC,
-                    int Th, int Db, int K, int narrow, void* stream) {
-  const long long n = (long long)nC * Th;
-  if (n == 0 || K == 0) return 0;
+int band_cr_backsub(CrBacksubLevels lv, const double* xe, double* x, int levels, int nC,
+                    int T, int Db, int K, int P, int Kc, void* stream) {
+  if ((long long)nC * T * K == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  BAND_DISPATCH(Db, launch_cr_backsub<kDb>(invDo, Ao, Co, b, xe, x, n, Th, K,
-                                           narrow != 0, st))
+  BAND_DISPATCH(Db, launch_cr_backsub<kDb>(lv, xe, x, nC, levels, T, K, P, Kc, st))
 }
 
 // Db = 6: ct, the columns of a thread's register tile, as ops/band.py chose

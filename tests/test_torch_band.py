@@ -95,11 +95,17 @@ def test_cr_depth_of_the_main_path():
     assert [band.cr_depth(t) for t in (1, 128, 256, 512, 2048)] == [0, 0, 0, 1, 3]
 
 
-@pytest.mark.parametrize("C,T,Db", [(2, 16, 6), (1, 32, 4)])
-def test_band_matches_jax_f64_cyclic_reduction(C, T, Db):
+@pytest.mark.parametrize("C,T,Db,n_cr", [
+    pytest.param(2, 16, 6, None, id="2-16-6"),
+    pytest.param(1, 32, 4, None, id="1-32-4"),
+    # compacting levels (the fused rhs reduction and back substitution)
+    (2, 64, 6, 2), (2, 64, 6, 3), (1, 64, 12, 2), (1, 64, 12, 3),
+])
+def test_band_matches_jax_f64_cyclic_reduction(C, T, Db, n_cr):
     D, U = _chains(C, T, Db, 20)
     rhs = np.random.default_rng(2).standard_normal((C, T, Db, 3))
-    _, x = _port_solve(D, U, rhs)
+    f, x = _port_solve(D, U, rhs, n_cr)
+    assert len(f.levels) == (n_cr or 0)
     xref = jax.vmap(lambda d, u, r: pcr_solve(pcr_factor(d, u), r))(
         jnp.asarray(D), jnp.asarray(U), jnp.asarray(rhs))
     assert _rel(x, xref) <= 1e-11
@@ -163,11 +169,15 @@ def test_cpu_tensors_take_the_plain_versions():
     lv = band.band_cr_level(D, A, U)
     for got, want in zip(lv, band.band_cr_level_plain(D, A, U)):
         assert torch.equal(got, want)
-    E, F, iv, Ao, Co = lv[:5]
-    xe = band.band_cr_reduce(E, F, b)
-    assert torch.equal(xe, band.band_cr_reduce_plain(E, F, b))
-    assert torch.equal(band.band_cr_backsub(iv, Ao, Co, b, xe),
-                       band.band_cr_backsub_plain(iv, Ao, Co, b, xe))
+    # the fused CR kernels at one and two levels
+    for n in (1, 2):
+        levels = band.band_factor(D, U, n_cr=n).levels
+        red = band.band_cr_reduce(levels, b)
+        want = band.band_cr_reduce_plain(levels, b)
+        assert len(red) == n and all(torch.equal(g, w) for g, w in zip(red, want))
+        fine = (b,) + red[:-1]
+        assert torch.equal(band.band_cr_backsub(levels, fine, red[-1]),
+                           band.band_cr_backsub_plain(levels, fine, red[-1]))
     assert [k.launches for k in band.KERNELS] == [0] * 7
 
 
@@ -187,6 +197,32 @@ def test_wrappers_reject_bad_inputs():
         band.band_cr_level(D[:, :3], A[:, :3], U[:, :3])  # odd chain length
     with pytest.raises(ValueError):
         band.band_factor(D, U, n_cr=3)  # deeper than log2(T) = 2
+    # the fused CR kernels: level lists whose lengths do not halve the chain,
+    # a fine rhs too few, and a depth past a launch's maximum
+    levels = band.band_factor(D, U, n_cr=2).levels
+    b = torch.zeros(1, 4, 6, 2, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        band.band_cr_reduce(levels[::-1], b)  # coarse -> fine
+    with pytest.raises(ValueError):
+        band.band_cr_reduce(levels, torch.zeros(1, 8, 6, 2, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        band.band_cr_reduce((), b)
+    x = torch.zeros(1, 1, 6, 2, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        band.band_cr_backsub(levels, (b,), x)
+    with pytest.raises(ValueError):
+        band.band_cr_backsub(levels[:1], (b,), x)  # x is not the level's coarse length
+    n = band._CR_MAX_LEVELS + 1
+    Dd, Ud = (torch.tensor(a) for a in _chains(1, 1 << n, 2, 51))
+    with pytest.raises(ValueError):
+        band.band_factor(Dd, Ud, n_cr=n)
+    deep = band.band_factor(Dd, Ud, n_cr=n - 1).levels
+    deep += (deep[-1]._replace(**{f: t[:, :1] for f, t in deep[-1]._asdict().items()}),)
+    bd = torch.zeros(1, 1 << n, 2, 1, dtype=torch.float64)
+    with pytest.raises(ValueError, match="levels"):
+        band.band_cr_reduce(deep, bd)
+    with pytest.raises(ValueError, match="levels"):
+        band.band_cr_backsub(deep, (bd,) * n, bd[:, :1])
 
 
 # ------------------------------------------------------------------ #
@@ -496,3 +532,197 @@ def test_pcr_solve_partitioned_as_the_cluster_plan(Tp, Ks):
         want = band.band_pcr_solve_plain(E, F, invD, b)
         got = _pcr_solve_partitioned(E, F, invD, b)
         assert _rel(got, want) <= 1e-15
+
+
+# ------------------------------------------------------------------ #
+# The fused CR kernels: every compacting level of a solve in one launch
+# ------------------------------------------------------------------ #
+
+
+def _cr_levels(C, T, Db, n, seed):
+    """n random compacting levels (CRLevel, fine -> coarse) of C chains of
+    T: blocks of 0.2 N(0, 1) / sqrt(Db), so that repeated reductions keep
+    the rhs of order one."""
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.tensor(0.2 / np.sqrt(Db) * rng.standard_normal(shape))
+    return tuple(band.CRLevel(*(t(C, T >> (lev + 1), Db, Db) for _ in range(5)))
+                 for lev in range(n))
+
+
+@pytest.mark.parametrize("K", [1, 18])
+@pytest.mark.parametrize("Db", [6, 12])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_fused_cr_plain_twins_are_the_per_level_composition(n, Db, K):
+    """band_cr_reduce_plain and band_cr_backsub_plain over n levels equal,
+    bit for bit, the per-level formulas applied level by level (what the
+    solve ran before the levels went into one launch each)."""
+    C, T = 2, 16 << n
+    levels = _cr_levels(C, T, Db, n, seed=n + Db + K)
+    b = torch.tensor(np.random.default_rng(K).standard_normal((C, T, Db, K)))
+    fine, cur = [], b
+    for lv in levels:
+        fine.append(cur)
+        bod = cur[:, 1::2]
+        cur = cur[:, 0::2] + (lv.E @ band._shift_down(bod, 1) + lv.F @ bod)
+    red = band.band_cr_reduce_plain(levels, b)
+    assert len(red) == n and all(torch.equal(r, f) for r, f in zip(red, fine[1:] + [cur]))
+    x = torch.tensor(np.random.default_rng(K + 1).standard_normal(cur.shape))
+    want = x
+    for lv, bf in zip(reversed(levels), reversed(fine)):
+        xo = lv.invD @ ((bf[:, 1::2] - lv.A @ want) - lv.C @ band._shift_up(want, 1))
+        want = torch.stack([want, xo], dim=2).reshape(bf.shape)
+    assert torch.equal(band.band_cr_backsub_plain(levels, (b,) + red[:-1], x), want)
+
+
+def _cr_reduce_tiled(levels, b, P, Kc):
+    """band_cr_reduce replayed as its kernel cuts it: per chain, tile of P
+    coarsest positions j0 .. j0 + P - 1 and chunk of Kc columns, the fine
+    rows 2^n j0 - (2^n - 1) .. 2^n (j0 + P) - 1 (the left halo; none before
+    a chain's start), every level computed over the tile's own positions
+    and the 2^(n - l) - 1 before them (no E term at a chain's first
+    position, none past its end), only the own positions written."""
+    n = len(levels)
+    C, T, Db, K = b.shape
+    Tn = T >> n
+    outs = [torch.full((C, T >> (lev + 1), Db, K), float("nan"), dtype=b.dtype)
+            for lev in range(n)]
+    for j0 in range(0, Tn, P):
+        for k0 in range(0, K, Kc):
+            kc = min(Kc, K - k0)
+            base = (j0 << n) - ((1 << n) - 1)
+            rows = torch.zeros(C, ((P + 1) << n) - 1, Db, kc, dtype=b.dtype)
+            lo, hi = max(base, 0), min((j0 + P) << n, T)
+            rows[:, lo - base:hi - base] = b[:, lo:hi, :, k0:k0 + kc]
+            for lev in range(1, n + 1):
+                h, Th = (1 << (n - lev)) - 1, T >> lev
+                cnt = ((P + 1) << (n - lev)) - 1
+                j = (j0 << (n - lev)) - h + torch.arange(cnt)
+                inside = (j >= 0) & (j < Th)
+                E = torch.zeros(C, cnt, Db, Db, dtype=b.dtype)
+                F = torch.zeros_like(E)
+                E[:, inside] = levels[lev - 1].E[:, j[inside]]
+                F[:, inside] = levels[lev - 1].F[:, j[inside]]
+                E = E * (j > 0).view(1, cnt, 1, 1).to(b.dtype)
+                new = rows[:, 1:2 * cnt:2] + (E @ rows[:, 0:2 * cnt:2] + F @ rows[:, 2:2 * cnt + 1:2])
+                own = inside & (torch.arange(cnt) >= h)
+                outs[lev - 1][:, j[own], :, k0:k0 + kc] = new[:, own]
+                rows = new
+    return tuple(outs)
+
+
+def _cr_backsub_tiled(levels, fine, x, P, Kc):
+    """band_cr_backsub replayed as its kernels cut it: per tile of P
+    coarsest positions and chunk of Kc columns, the tile's coarsest rows and
+    the one after it (the right halo; none past a chain's end), each finer
+    level's odd rows computed between them (no C term at a chain's last
+    position), the tile's 2^n P finest rows written."""
+    n = len(levels)
+    C, Tn, Db, K = x.shape
+    T = Tn << n
+    out = torch.full((C, T, Db, K), float("nan"), dtype=x.dtype)
+    for j0 in range(0, Tn, P):
+        for k0 in range(0, K, Kc):
+            kc = min(Kc, K - k0)
+            m = j0 + torch.arange(P + 1)
+            cur = torch.zeros(C, P + 1, Db, kc, dtype=x.dtype)
+            cur[:, m < Tn] = x[:, m[m < Tn], :, k0:k0 + kc]
+            for lev in range(n, 0, -1):
+                Th, Pl = T >> lev, P << (n - lev)
+                m = (j0 << (n - lev)) + torch.arange(Pl)
+                inside, up = m < Th, (m + 1 < Th).view(1, Pl, 1, 1).to(x.dtype)
+                lv = levels[lev - 1]
+                blk = {f: torch.zeros(C, Pl, Db, Db, dtype=x.dtype) for f in ("invD", "A", "C")}
+                for f, t in blk.items():
+                    t[:, inside] = getattr(lv, f)[:, m[inside]]
+                bo = torch.zeros(C, Pl, Db, kc, dtype=x.dtype)
+                bo[:, inside] = fine[lev - 1][:, 2 * m[inside] + 1, :, k0:k0 + kc]
+                xo = blk["invD"] @ ((bo - blk["A"] @ cur[:, :Pl]) - (blk["C"] * up) @ cur[:, 1:])
+                nxt = torch.zeros(C, 2 * Pl + 1, Db, kc, dtype=x.dtype)
+                nxt[:, 0::2], nxt[:, 1::2] = cur, xo
+                cur = nxt
+            rows = (j0 << n) + torch.arange(P << n)
+            out[:, rows[rows < T], :, k0:k0 + kc] = cur[:, :P << n][:, rows < T]
+    return out
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("Db,n,Tn,K,P", [
+    (12, 2, 256, 18, None),  # 3D 1x1000's levels, the panel: the plan's tiles
+    (12, 2, 256, 1, None),
+    (6, 1, 256, 138, None),  # Manhattan-4's level
+    (6, 3, 8, 5, None),
+    (6, 2, 7, 19, 2),  # a tile past the chain's end (7 coarsest positions)
+    (12, 3, 5, 4, 3),
+    (6, 1, 6, 2, 4),
+    (12, 4, 3, 17, 2),
+])
+def test_cr_partitioned_as_the_tile_plan(C, Db, n, Tn, K, P):
+    """The fused CR kernels' tiles, halos and column chunks, replayed in
+    PyTorch over the wrapper's own plan (band._cr_plan: tiles start at a
+    chain's start, fall inside it and run past its end), against the plain
+    twins: 1e-15 relative (the same products in the same grouping). Chunks
+    of fewer columns where the plan takes all K: the replay of chunked
+    columns."""
+    T = Tn << n
+    levels = _cr_levels(C, T, Db, n, seed=C + n + K)
+    rng = np.random.default_rng(Tn + K)
+    b = torch.tensor(rng.standard_normal((C, T, Db, K)))
+    x = torch.tensor(rng.standard_normal((C, Tn, Db, K)))
+    step = band._backsub_step(Db, K)
+    for kind in ("reduce", step):
+        Pk, Kc = band._cr_plan(kind, n, Tn, Db, K, C, P=P)
+        assert 1 <= Pk <= Tn and 1 <= Kc <= K
+        assert band._cr_smem_bytes(kind, n, Db, Pk, Kc) <= band._SMEM_MAX
+        for kc in {Kc, max(1, K // 3)} if kind != "narrow" else {K}:
+            if kind == "reduce":
+                got = _cr_reduce_tiled(levels, b, Pk, kc)
+                for g, w in zip(got, band.band_cr_reduce_plain(levels, b)):
+                    assert _rel(g, w) <= 1e-15
+            else:
+                fine = (b,) + band.band_cr_reduce_plain(levels, b)[:-1]
+                got = _cr_backsub_tiled(levels, fine, x, Pk, kc)
+                assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-15
+
+
+@pytest.mark.parametrize("Db", [6, 12])
+@pytest.mark.parametrize("K", [1, 2, 4, 5, 17, 18, 19, 138, 258])
+@pytest.mark.parametrize("n,Tn", [(1, 1), (1, 256), (2, 2), (2, 256), (3, 64), (4, 256)])
+def test_cr_plan(n, Tn, K, Db):
+    """The fused CR launches' plans at the main paths' and the card tests'
+    shapes: a tile of 1 to Tn positions (a power of two), all K columns or
+    even chunks of them (16-byte copies), every SM given a thread block
+    where the chain allows, a thread block's shared memory within the
+    card's 227 KB, and one launch for every level (n <= 4). Manhattan-4's
+    and 3D 1x1000's plans as measured."""
+    for C in (1, 4, 20):
+        for kind in ("reduce", band._backsub_step(Db, K)):
+            P, Kc = band._cr_plan(kind, n, Tn, Db, K, C)
+            assert 1 <= P <= Tn and P & (P - 1) == 0
+            assert (Kc == K) or (1 <= Kc < K and (K % 2 or Kc % 2 == 0))
+            assert kind != "narrow" or Kc == K
+            assert band._cr_smem_bytes(kind, n, Db, P, Kc) <= band._SMEM_MAX
+            if kind in ("reduce", "element"):
+                blocks = C * -(-Tn // P) * -(-K // Kc)
+                assert blocks >= min(132, C * Tn) or P == 1
+            else:  # the register steps: a tile's finest level within its items
+                per = (8 if Db == 6 else 16) if kind == "narrow" else (K // 2 if K % 2 == 0 else K)
+                assert (P << (n - 1)) * per <= band._CR_STEP_ITEMS[kind] or P == 1
+                assert 2 * C * -(-Tn // P) >= 132 or P == 1
+            assert band._cr_launch_depths(kind, n, Db, K) == [n]
+    # a solve deeper than a thread block holds takes runs of levels, each of
+    # which the plan fits
+    assert band._cr_launch_depths("reduce", 6, 12, 18) == [5, 1]
+    assert band._cr_launch_depths("reduce", 8, 6, 18) == [7, 1]
+    assert band._cr_launch_depths("element", 6, 12, 18) == [5, 1]
+    for kind, Db_, K_ in (("reduce", 12, 18), ("reduce", 6, 258), ("element", 12, 138),
+                          ("element", 12, 19), ("narrow", 12, 4), ("wide", 6, 258)):
+        for depth in band._cr_launch_depths(kind, 8, Db_, K_):
+            band._cr_plan(kind, depth, 2, Db_, K_, 2)
+    # Manhattan-4's and 3D 1x1000's plans, as measured
+    assert band._cr_plan("reduce", 1, 256, 6, 138, 4) == (4, 138)
+    assert band._cr_plan("wide", 1, 256, 6, 138, 4) == (1, 138)  # one level: no tile
+    assert band._cr_plan("narrow", 1, 256, 6, 1, 4) == (1, 1)
+    assert band._cr_plan("wide", 2, 256, 6, 138, 1) == (2, 138)
+    assert band._cr_plan("reduce", 2, 256, 12, 18, 1) == (1, 18)
+    assert band._cr_plan("element", 2, 256, 12, 18, 1) == (1, 18)
+    assert band._cr_plan("narrow", 2, 256, 12, 1, 1) == (2, 1)

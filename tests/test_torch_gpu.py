@@ -68,21 +68,35 @@ def test_kernels_match_plain(cuda, K):
     b = torch.randn(3, 64, 6, K, dtype=torch.float64, device=cuda)
     x = band.band_pcr_solve(f.E, f.F, f.invD, b)
     assert _rel(x, band.band_pcr_solve_plain(f.E, f.F, f.invD, b)) <= 1e-12
-    # two compacting levels, each fed the previous level's kernel outputs
-    Dl, Al, Cl, bl = D, A, U, b
+    # two compacting levels, each fed the previous level's kernel outputs,
+    # and the rhs reduction and back substitution through both in one launch
+    Dl, Al, Cl, levels = D, A, U, []
     for _ in range(2):
         lv = band.band_cr_level(Dl, Al, Cl)
         for got, want in zip(lv, band.band_cr_level_plain(Dl, Al, Cl)):
             assert _rel(got, want) <= 1e-12
-        E, F, iv, Ao, Co, Dl, Al, Cl = lv
-        red = band.band_cr_reduce(E, F, bl)
-        assert _rel(red, band.band_cr_reduce_plain(E, F, bl)) <= 1e-12
-        xe = torch.randn_like(red)
-        xb = band.band_cr_backsub(iv, Ao, Co, bl, xe)
-        assert _rel(xb, band.band_cr_backsub_plain(iv, Ao, Co, bl, xe)) <= 1e-12
-        bl = red
+        levels.append(band.CRLevel(*lv[:5]))
+        Dl, Al, Cl = lv[5:]
+    _check_fused_cr(levels, b)
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in band.KERNELS)
+
+
+def _check_fused_cr(levels, b):
+    """band_cr_reduce and band_cr_backsub over ``levels`` against their
+    plain twins, 1e-12, one launch each."""
+    r0, b0 = band.band_cr_reduce.launches, band.band_cr_backsub.launches
+    red = band.band_cr_reduce(levels, b)
+    want = band.band_cr_reduce_plain(levels, b)
+    assert len(red) == len(levels)
+    for got, w in zip(red, want):
+        assert got.shape == w.shape and _rel(got, w) <= 1e-12
+    fine = (b,) + want[:-1]
+    x = torch.randn_like(want[-1])
+    got = band.band_cr_backsub(levels, fine, x)
+    assert got.shape == b.shape
+    assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-12
+    assert (band.band_cr_reduce.launches - r0, band.band_cr_backsub.launches - b0) == (1, 1)
 
 
 @pytest.mark.parametrize(
@@ -265,20 +279,17 @@ def test_cr_level_matches_plain(cuda, C, T):
 @pytest.mark.parametrize("C", [1, 4, 20])
 @pytest.mark.parametrize("Th", [1, 2, 256, 1024])
 def test_cr_backsub_matches_plain(cuda, C, Th):
-    """band_cr_backsub against its plain version, 1e-12, through both of
-    its kernels (narrow for K <= 4, wide above; odd and even K for the
-    wide one's column pairs), on chains of one coarse position (no upper
-    neighbour), two, and lengths whose chains thread blocks cut."""
+    """band_cr_backsub (and band_cr_reduce) at one level of a factor against
+    their plain versions, 1e-12, through both per-level steps (narrow for
+    K <= 4, wide above; odd and even K for the wide one's column pairs), on
+    chains of one coarse position (no upper neighbour), two, and lengths
+    that tiles cut: one launch each a call."""
     D, U = _band(C, 2 * Th, 6, 66 + Th, (2 * Th,) * C, cuda)
-    _, _, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+    levels = (band.CRLevel(*band.band_cr_level(D, band.band_init_a(U), U)[:5]),)
     band.reset_launch_counts()
     Ks = (1, 2, 4, 5, 138, 258)
     for K in Ks:
-        b = torch.randn(C, 2 * Th, 6, K, dtype=torch.float64, device=cuda)
-        xe = torch.randn(C, Th, 6, K, dtype=torch.float64, device=cuda)
-        x = band.band_cr_backsub(iv, Ao, Co, b, xe)
-        assert x.shape == b.shape
-        assert _rel(x, band.band_cr_backsub_plain(iv, Ao, Co, b, xe)) <= 1e-12
+        _check_fused_cr(levels, torch.randn(C, 2 * Th, 6, K, dtype=torch.float64, device=cuda))
     torch.cuda.synchronize()
     assert band.band_cr_backsub.launches == len(Ks)
 
@@ -438,18 +449,14 @@ def test_kernels_match_plain_3d(cuda, K):
     b = torch.randn(3, 32, 12, K, dtype=torch.float64, device=cuda)
     x = band.band_pcr_solve(f.E, f.F, f.invD, b)
     assert _rel(x, band.band_pcr_solve_plain(f.E, f.F, f.invD, b)) <= 1e-12
-    Dl, Al, Cl, bl = D, A, U, b
+    Dl, Al, Cl, levels = D, A, U, []
     for _ in range(2):
         lv = band.band_cr_level(Dl, Al, Cl)
         for got, want in zip(lv, band.band_cr_level_plain(Dl, Al, Cl)):
             assert _rel(got, want) <= 1e-12
-        E, F, iv, Ao, Co, Dl, Al, Cl = lv
-        red = band.band_cr_reduce(E, F, bl)
-        assert _rel(red, band.band_cr_reduce_plain(E, F, bl)) <= 1e-12
-        xe = torch.randn_like(red)
-        xb = band.band_cr_backsub(iv, Ao, Co, bl, xe)
-        assert _rel(xb, band.band_cr_backsub_plain(iv, Ao, Co, bl, xe)) <= 1e-12
-        bl = red
+        levels.append(band.CRLevel(*lv[:5]))
+        Dl, Al, Cl = lv[5:]
+    _check_fused_cr(levels, b)
     torch.cuda.synchronize()
     assert all(k.launches_by_size[12] == k.launches > 0 for k in band.KERNELS)
 
@@ -523,18 +530,69 @@ def test_cr_level_matches_plain_3d(cuda, C, T):
 @pytest.mark.parametrize("C", [1, 4])
 @pytest.mark.parametrize("Th", [1, 2, 128, 512])
 def test_cr_backsub_matches_plain_3d(cuda, C, Th):
-    """band_cr_backsub at Db = 12 through both kernels (narrow, a group of
-    16 lanes per position, for K <= 4; wide, single columns, above), and
-    band_cr_reduce at the same widths, against their plain versions."""
+    """band_cr_backsub at Db = 12 through both steps (narrow, a group of 16
+    lanes per position, for K <= 4; element, a thread per rows of a
+    column, above), and band_cr_reduce at the same widths, at one level of
+    a factor against their plain versions."""
     D, U = _band(C, 2 * Th, 12, 73 + Th, (2 * Th,) * C, cuda)
-    E, F, iv, Ao, Co, *_ = band.band_cr_level(D, band.band_init_a(U), U)
+    levels = (band.CRLevel(*band.band_cr_level(D, band.band_init_a(U), U)[:5]),)
     for K in (1, 2, 4, 5, 18):
-        b = torch.randn(C, 2 * Th, 12, K, dtype=torch.float64, device=cuda)
-        xe = torch.randn(C, Th, 12, K, dtype=torch.float64, device=cuda)
-        assert _rel(band.band_cr_backsub(iv, Ao, Co, b, xe),
-                    band.band_cr_backsub_plain(iv, Ao, Co, b, xe)) <= 1e-12
-        assert _rel(band.band_cr_reduce(E, F, b), band.band_cr_reduce_plain(E, F, b)) <= 1e-12
+        _check_fused_cr(levels, torch.randn(C, 2 * Th, 12, K, dtype=torch.float64, device=cuda))
     torch.cuda.synchronize()
+
+
+def _random_levels(C, T, Db, n, gen, device):
+    """n random compacting levels (fine -> coarse): blocks of 0.2 N(0, 1) /
+    sqrt(Db), which keep the rhs of order one from level to level."""
+    return tuple(band.CRLevel(*(0.2 / Db ** 0.5 * torch.randn(
+        C, T >> (lev + 1), Db, Db, generator=gen, dtype=torch.float64, device=device)
+        for _ in range(5))) for lev in range(n))
+
+
+@pytest.mark.parametrize("C", [1, 4, 20])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("Db", [6, 12])
+def test_fused_cr_kernels_match_plain(cuda, Db, n, C):
+    """band_cr_reduce and band_cr_backsub, every level in one launch,
+    against their plain twins (1e-12) at 1 to 4 levels, coarsest lengths
+    1, 2, 64 and 256 (tiles on a chain's start, inside it and at its end)
+    and rhs widths on both sides of each step's edge, odd and even, 3D
+    1x1000's panel (18), Manhattan-4's (138) and at Db = 6 robot20's (258)."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * Db + 10 * n + C)
+    Ks = (1, 2, 4, 5, 17, 18, 19, 138) + ((258,) if Db == 6 else ())
+    for Tn in (1, 2, 64, 256):
+        levels = _random_levels(C, Tn << n, Db, n, gen, cuda)
+        for K in Ks:
+            b = torch.randn(C, Tn << n, Db, K, generator=gen, dtype=torch.float64, device=cuda)
+            _check_fused_cr(levels, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("Db,C,Tp,n_cr", [(6, 1, 1024, 2), (6, 1, 2048, 3), (6, 4, 512, 2),
+                                          (12, 1, 1024, 2), (12, 2, 256, 3)])
+def test_band_solve_at_two_and_three_levels(cuda, Db, C, Tp, n_cr):
+    """band_solve with two and three compacting levels against a dense
+    solve of each chain (1e-11), one launch of each CR kernel a solve (two
+    for 3D blocks: a refinement step solves again)."""
+    D, U = _band(C, Tp, Db, 75 + Tp, (Tp,) * C, cuda)
+    f = band.band_factor(D, U, n_cr=n_cr)
+    assert len(f.levels) == n_cr
+    for K in (1, 18):
+        b = torch.randn(C, Tp, Db, K, dtype=torch.float64, device=cuda)
+        band.reset_launch_counts()
+        x = band.band_solve(f, b)
+        solves = 1 + band.refine_steps(Db)
+        assert band.band_cr_reduce.launches == band.band_cr_backsub.launches == solves
+        assert band.band_pcr_solve.launches == solves
+        for c in range(C):
+            M = torch.zeros(Tp * Db, Tp * Db, dtype=torch.float64, device=cuda)
+            for i in range(Tp):
+                M[Db * i:Db * (i + 1), Db * i:Db * (i + 1)] = D[c, i]
+                if i + 1 < Tp:
+                    M[Db * i:Db * (i + 1), Db * (i + 1):Db * (i + 2)] = U[c, i]
+                    M[Db * (i + 1):Db * (i + 2), Db * i:Db * (i + 1)] = U[c, i].T
+            xref = torch.linalg.solve(M, b[c].reshape(Tp * Db, K))
+            assert _rel(x[c].reshape(Tp * Db, K), xref) <= 1e-11
 
 
 @pytest.mark.parametrize("Db", [6, 12])
@@ -598,3 +656,28 @@ def test_f32_cuda_solve_3d_matches_cpu(cuda, relaxation):
     assert abs(gpu.primal_objective - cpu.primal_objective) <= 2e-2 * abs(cpu.primal_objective)
     for P in gpu.poses.values():
         assert abs(np.linalg.det(P[:3, :3]) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("Db,n,depths", [(12, 6, [5, 1]), (6, 8, [7, 1])])
+def test_fused_cr_kernels_past_one_launch(cuda, Db, n, depths):
+    """A reduce deeper than a thread block's shared memory holds in one
+    launch (the halo blocks of 6 levels at Db = 12, of 8 at Db = 6) runs
+    the levels in runs of band._cr_launch_depths, one launch a run, and
+    still matches the plain twins (1e-12)."""
+    assert band._cr_launch_depths("reduce", n, Db, 18) == depths
+    gen = torch.Generator(device=cuda).manual_seed(7 * n + Db)
+    levels = _random_levels(2, 4 << n, Db, n, gen, cuda)
+    for K in (1, 18):
+        b = torch.randn(2, 4 << n, Db, K, generator=gen, dtype=torch.float64, device=cuda)
+        band.reset_launch_counts()
+        red = band.band_cr_reduce(levels, b)
+        want = band.band_cr_reduce_plain(levels, b)
+        assert all(_rel(g, w) <= 1e-12 for g, w in zip(red, want))
+        assert band.band_cr_reduce.launches == len(depths)
+        fine = (b,) + want[:-1]
+        x = torch.randn_like(want[-1])
+        got = band.band_cr_backsub(levels, fine, x)
+        assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-12
+        step = band._backsub_step(Db, K)
+        assert band.band_cr_backsub.launches == len(band._cr_launch_depths(step, n, Db, K))
+    torch.cuda.synchronize()
