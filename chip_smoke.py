@@ -15,7 +15,10 @@ without printing a result line:
    the fused CR kernels ``cr_reduce_levels_kernel``,
    ``cr_backsub_levels_kernel`` and, at Db = 12, ``cr_backsub_element_kernel``,
    and a one-level solve's ``cr_backsub_narrow_kernel`` and, at Db = 6,
-   ``cr_backsub_wide_kernel``),
+   ``cr_backsub_wide_kernel``; ``block_inv_kernel`` and
+   ``cr_level_kernel`` at Db = 6, and at Db = 12 the element kernels
+   ``block_inv_element_kernel``, ``cr_level_element_kernel`` and
+   ``pcr_level_element_kernel``, a thread per block element),
    of ``block_chol`` and of both block kernels at the 3D sizes D = 12
    (``chol_lanes_kernel``, a lane group a block; ``tri_solve_tile_kernel``
    and ``tri_solve_lanes_kernel``, the solve's two layouts) and D = 3 (a
@@ -42,12 +45,17 @@ without printing a result line:
    and 4, K = 1, 2, 12, 17, 18, 19 and 138, which takes several column
    chunks of the cluster kernel), ``band_cr_level`` at chain lengths that
    put a thread block's edge inside a chain, on a chain's first position
-   and past the last, ``band_block_inv`` at block counts off its thread
-   blocks, ``band_init_a``; the two fused CR kernels at 1 to 4 levels,
+   and past the last (3D: coarse lengths 1, 2, 3, 5, 15, 256, 512 and
+   1024 at C = 1, 4, 20), ``band_block_inv`` at block counts off its
+   thread blocks (3D: 1, 2, 3 and the 256, 512 and 1024 blocks of the 3D
+   remainders), ``band_init_a``; the two fused CR kernels at 1 to 4 levels,
    C = 1, 4, 20, coarsest lengths 1, 2, 64, 256 and K = 1, 2, 4, 5, 17,
    18, 19, 138 (and 258 at Db = 6), one launch each a call, and band
    solves of a Db = 6 chain with two and three compacting levels (C = 1,
-   Tp = 1024 and 2048); then each block kernel against its plain version in f32 at
+   Tp = 1024 and 2048); a chain of 512 compacted 9 times (the compaction
+   floor at 1; a fused CR launch takes 8 levels) at both block sizes,
+   against a dense solve (<= 1e-11), two launches of each fused CR kernel
+   a solve; then each block kernel against its plain version in f32 at
    the shapes of the f32 path (max relative difference <= 1e-5, and
    reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
    ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
@@ -561,10 +569,14 @@ def _log_rows(label, rows):
 # 1, 2, 12, 17-19 (the panel 18) and 138 (two or more column chunks at
 # Tp = 256 and 512: band._solve_cluster_plan).
 # band_cr_level: (chains, fine length); a thread block holds 15 coarse
-# positions at Db = 6 and 3 at Db = 12, so fine lengths 2 and 4 start
-# chains inside a thread block, 30 (6) on its first position, 512 and 2048
-# cut chains at its edge. band_block_inv: block counts off the thread
-# blocks' 16 (8) blocks.
+# positions at Db = 6, so fine lengths 2 and 4 start chains inside a
+# thread block, 30 on its first position, 512 and 2048 cut chains at its
+# edge; at Db = 12 it holds P positions (csrc/band.cu's kCrLevelPositions,
+# 1 to 4 in the measurement builds): coarse lengths 1, 2 and 3, 5 and 15
+# (no multiple of 2 to 4), chains that start inside a thread block (C = 4,
+# 20) and 3D 1x1000's two levels (Th = 512, 256). band_block_inv: block
+# counts off the thread blocks' 16 at Db = 6; at Db = 12 (a block a thread
+# block) 1, 2, 3 and the 3D remainders' 256, 512 and 1024 blocks.
 _EDGE = {
     6: dict(
         pcr=[(3, 1, (1, 3)), (2, 2, (1, 3, 139)), (1, 256, (1, 2, 4, 5, 139)),
@@ -575,8 +587,9 @@ _EDGE = {
     12: dict(
         pcr=[(C, Tp, (1, 2, 12, 17, 18, 19, 138)) for Tp in (1, 2, 4, 32, 256, 512)
              for C in (1, 4)] + [(3, 1, (3,)), (2, 2, (3,)), (4, 8, (3, 4, 5, 6, 7, 8, 9))],
-        cr=[(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30), (1, 512), (4, 512), (1, 2048)],
-        inv=(1, 7, 9, 1024, 1000),
+        cr=[(1, 2), (4, 2), (20, 2), (1, 4), (20, 4), (1, 6), (4, 6), (20, 6), (1, 8),
+            (4, 10), (4, 30), (20, 30), (1, 512), (4, 512), (1, 1024), (1, 2048)],
+        inv=(1, 2, 3, 7, 9, 256, 512, 1000, 1024),
     ),
 }
 
@@ -656,9 +669,11 @@ def _cr_levels(C, T, Db, n, gen, device):
 def phase_cr_levels(Db, device):
     """``band_cr_reduce`` and ``band_cr_backsub`` (every level in one
     launch) against their plain twins at ``_CR_EDGE``'s shapes (<= 1e-12,
-    one launch each a call); then, at Db = 6, solves of chains with two and
-    three compacting levels (C = 1, Tp = 1024 and 2048) through the whole
-    band: residual <= 1e-10 and one launch of each CR kernel a solve."""
+    one launch each a call); a chain of 512 compacted 9 times, one level
+    more than a launch takes (:func:`phase_past_a_launch`); then, at Db =
+    6, solves of chains with two and three compacting levels (C = 1, Tp =
+    1024 and 2048) through the whole band: residual <= 1e-10 and one launch
+    of each CR kernel a solve."""
     import torch
     from score_tpu_torch.ops import band
 
@@ -691,6 +706,7 @@ def phase_cr_levels(Db, device):
     _log(f"fused CR kernels Db={Db}: {shapes} shapes (levels 1-4, C = 1, 4, 20, coarse 1, 2, "
          f"64, 256, K = {widths}): band_cr_reduce max_rel_diff={worst_r:.3e}, band_cr_backsub "
          f"max_rel_diff={worst_b:.3e} (bound {REL_TOL}), one launch each a call")
+    phase_past_a_launch(Db, device, gen)
     if Db != 6:
         return
     for Tp in (1024, 2048):  # two and three compacting levels
@@ -710,16 +726,55 @@ def phase_cr_levels(Db, device):
                                      f"{launches}")
 
 
+def phase_past_a_launch(Db, device, gen):
+    """A chain of 512 with the compaction floor at 1: 9 compacting levels,
+    one more than a fused CR launch takes. The factor keeps all 9; a solve
+    runs ``band_cr_reduce`` and ``band_cr_backsub`` in two runs (5 and 4
+    levels, ``band._cr_runs``), two launches each a solve (and again for a
+    3D refinement step), and matches a dense solve on the card (<= 1e-11,
+    the compacted band tests' bound) at K = 1 and 18."""
+    import torch
+    from score_tpu_torch.ops import band
+
+    Tp, floor = 512, band.CR_BASE_LENGTH
+    D, U = _random_band(1, Tp, Db, seed=Tp + 9, device=device)
+    band.CR_BASE_LENGTH = 1
+    try:
+        f = band.band_factor(D, U)
+    finally:
+        band.CR_BASE_LENGTH = floor
+    M = torch.zeros(Tp * Db, Tp * Db, dtype=torch.float64, device=device)
+    for i in range(Tp):
+        M[Db * i:Db * (i + 1), Db * i:Db * (i + 1)] = D[0, i]
+        if i + 1 < Tp:
+            M[Db * i:Db * (i + 1), Db * (i + 1):Db * (i + 2)] = U[0, i]
+            M[Db * (i + 1):Db * (i + 2), Db * i:Db * (i + 1)] = U[0, i].T
+    solves = 1 + band.refine_steps(Db)
+    for K in (1, 18):
+        b = torch.randn(1, Tp, Db, K, generator=gen, dtype=torch.float64, device=device)
+        band.reset_launch_counts()
+        x = band.band_solve(f, b)
+        xref = torch.linalg.solve(M, b[0].reshape(Tp * Db, K))
+        rel = ((x[0].reshape(Tp * Db, K) - xref).abs().max() / xref.abs().max()).item()
+        launches = (band.band_cr_reduce.launches, band.band_cr_backsub.launches)
+        _log(f"Db={Db} chain C=1 Tp={Tp} ({len(f.levels)} CR levels) K={K}: max_rel_diff to a "
+             f"dense solve {rel:.3e}, launches reduce/backsub {launches}")
+        if not (len(f.levels) == 9 and rel <= 1e-11 and launches == (2 * solves,) * 2):
+            raise AssertionError(f"Db={Db} Tp={Tp} 9 levels K={K}: {len(f.levels)} levels, "
+                                 f"max_rel_diff {rel:.3e}, launches {launches}")
+
+
 def _ptxas_report(log, kernel, Db=None):
     """(registers, spill store bytes, spill load bytes), the worst over the
     instantiations of ``kernel`` in nvcc's ptxas output (with ``Db``, over
     those whose first template argument is Db: ``<kernel>ILi<Db>E`` in the
-    mangled name)."""
+    mangled name). The name is matched with its length prefix, so that
+    ``cr_level_kernel`` does not match ``pcr_level_kernel``."""
     import re
 
     regs = stores = loads = 0
     found = False
-    key = kernel if Db is None else f"{kernel}ILi{Db}E"
+    key = f"{len(kernel)}{kernel}" + ("" if Db is None else f"ILi{Db}E")
     lines = log.splitlines()
     for n, line in enumerate(lines):
         if "Compiling entry function" in line and key in line:
@@ -1294,22 +1349,27 @@ def main() -> int:
                 _log("  ptxas:", line.strip())
 
     # registers and spills of every band kernel at each block size (the
-    # wide and narrow band_pcr_solve and the lane-group band_pcr_level at
-    # Db = 6, the cluster band_pcr_solve and the element band_pcr_level at
-    # Db = 12), of block_chol, and of both block kernels at the 3D sizes
-    # (D = 12: block_chol's chol_lanes_kernel, block_chol_solve's
+    # wide and narrow band_pcr_solve and the lane-group band_block_inv,
+    # band_pcr_level and band_cr_level at Db = 6, the cluster
+    # band_pcr_solve and the element band_block_inv, band_pcr_level and
+    # band_cr_level at Db = 12), of block_chol, and of both block kernels
+    # at the 3D sizes (D = 12: block_chol's chol_lanes_kernel, block_chol_solve's
     # tri_solve_tile_kernel<12, BACK, U> and tri_solve_lanes_kernel<12,
     # BACK>; D = 3: chol_kernel, tri_solve_kernel<3, V, BACK>; the worst over
     # the other template arguments)
     only = {"pcr_solve_wide_kernel": 6, "pcr_solve_narrow_kernel": 6, "pcr_level_kernel": 6,
+            "block_inv_kernel": 6, "cr_level_kernel": 6,
             "pcr_solve_cluster_kernel": 12, "pcr_level_element_kernel": 12,
+            "block_inv_element_kernel": 12, "cr_level_element_kernel": 12,
             "cr_backsub_element_kernel": 12, "cr_backsub_wide_kernel": 6}
     checks = [("band", wrapper, kern, Db) for Db in (6, 12)
               for wrapper, kern in (("band_init_a", "init_a_kernel"),
                                     ("band_block_inv", "block_inv_kernel"),
+                                    ("band_block_inv", "block_inv_element_kernel"),
                                     ("band_pcr_level", "pcr_level_kernel"),
                                     ("band_pcr_level", "pcr_level_element_kernel"),
                                     ("band_cr_level", "cr_level_kernel"),
+                                    ("band_cr_level", "cr_level_element_kernel"),
                                     ("band_cr_reduce", "cr_reduce_levels_kernel"),
                                     ("band_pcr_solve", "pcr_solve_wide_kernel"),
                                     ("band_pcr_solve", "pcr_solve_narrow_kernel"),

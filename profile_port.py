@@ -32,7 +32,12 @@ times only the redesigned kernels: of the f64 band ``band_block_inv``,
 direction, K = 1, and the arrow panel) at the PCR remainder's shape of
 both instances,
 ``band_cr_level`` at Manhattan-4's first level and at the deeper levels'
-and robot20's shapes of the depth sweep, ``band_cr_reduce`` and
+and robot20's shapes of the depth sweep, at Db = 12 ``band_cr_level`` at
+3D 1x1000's two levels (also from builds of ``band.cu`` at each tiling,
+``-DBAND_CR_LEVEL_POSITIONS`` = 1 to 4 coarse positions a thread block,
+held bit for bit to the package's build) and ``band_block_inv`` at the
+3D remainders (C = 1 and 4 chains of 256), both also from a build without
+their shared element inversion (``-DBAND_LEVEL_NO_INVERSE``), ``band_cr_reduce`` and
 ``band_cr_backsub`` (one solve's launches: one each with the fused
 kernels, one a level in a checkout from before them, also each level
 alone) at Manhattan-4's direction and panel, at a forced level of robot20
@@ -57,8 +62,9 @@ that two commits are timed on one card in one call.
     python3 profile_port.py --walls [--root DIR]
 
 three warm 3D 1x1000 f64 SOCP solves and a profiled one (launches, device
-busy, the hand-written kernels per instantiation, and ``band_cr_reduce``
-and ``band_cr_backsub`` device ms and launches at Db = 12); five warm
+busy, the hand-written kernels per instantiation, and ``band_cr_reduce``,
+``band_cr_backsub``, ``band_cr_level`` and ``band_block_inv`` device ms
+and launches at Db = 12); five warm
 Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
 profiled solve in each: kernel launches, device busy time and the
 hand-written kernels' device time and launches (also per template
@@ -158,7 +164,8 @@ def _warm_walls(fg, n=3, precision="f64", relaxation="SOCP"):
 # tri_lower_kernel, cr_backsub_kernel, cr_reduce_kernel and the narrow and
 # wide cr_backsub kernels are kernels of --root checkouts from before
 # tri_solve_kernel and the fused CR kernels
-_KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
+_KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_level_element_kernel",
+                 "block_inv_element_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
                  "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                  "cr_reduce_levels_kernel", "cr_backsub_levels_kernel",
                  "cr_backsub_element_kernel",
@@ -177,6 +184,11 @@ _BLOCK_WRAPPERS = {"block_chol": ("chol_kernel", "chol_lanes_kernel"),
 _CR_WRAPPERS = {"band_cr_reduce": ("cr_reduce_kernel", "cr_reduce_levels_kernel"),
                 "band_cr_backsub": ("cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                                     "cr_backsub_levels_kernel", "cr_backsub_element_kernel")}
+# band_cr_level and band_block_inv: the lane-group kernels (Db = 6, and
+# Db = 12 in a checkout from before the element kernels) and the element
+# kernels at Db = 12
+_LEVEL_WRAPPERS = {"band_cr_level": ("cr_level_kernel", "cr_level_element_kernel"),
+                   "band_block_inv": ("block_inv_kernel", "block_inv_element_kernel")}
 
 
 def _block_kernels_at(profile, D, wrappers=None, key="D"):
@@ -309,6 +321,13 @@ _REMAINDERS = {"manhattan4": (4, 256, 138), "robot20": (20, 128, 258)}
 # direction, a level's couplings and the arrow panel at Manhattan-4's first
 # level, and robot20's panel
 _CR_LEVEL_SHAPES = ((4, 512), (1, 1024), (1, 2048), (20, 128))
+# at Db = 12: band_cr_level at 3D 1x1000's two levels (C, fine length),
+# band_block_inv at 3D 1x1000's and 3D 4x250's PCR remainders (C, Tp), and
+# the coarse positions of a band_cr_level thread block in the builds of
+# band.cu that time each tiling (-DBAND_CR_LEVEL_POSITIONS)
+_CR_LEVEL_SHAPES_3D = ((1, 1024), (1, 512))
+_BLOCK_INV_SHAPES_3D = ((1, 256), (4, 256))
+_CR_LEVEL_TILINGS = (1, 2, 3, 4)
 _DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
 # band_cr_reduce and band_cr_backsub: (chains, fine length, block size,
 # compacting levels, rhs columns) of Manhattan-4's level (direction, panel,
@@ -330,6 +349,99 @@ _CR_BUILDS = {"reduce (a) a row a thread": "-DBAND_CR_REGISTER_ROWS_K=1073741824
 # and of the root (C = 4 blocks); QCQP's distance pivots are 2070 blocks of 2
 _CHOL_CHAINS = (4, 512)
 _CHOL_PIVOTS = 2070
+
+
+def _through(lib, fn):
+    """fn() with the band wrappers launching from another build of band.cu."""
+    from score_tpu_torch.ops import band
+
+    package = band._lib
+    band._lib = lambda: lib
+    try:
+        return fn()
+    finally:
+        band._lib = package
+
+
+def _band_builds(flags, prefix):
+    """{flag: library} of band.cu built once for each nvcc flag, all nvcc
+    processes started together."""
+    import ctypes
+
+    from score_tpu_torch.ops import build
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    procs, libs = {}, {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for flag in flags:
+        so = build.BUILD_DIR / (prefix + flag.replace("=", "_")[2:] + ".so")
+        procs[flag] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, flag, "-o", str(so), str(build.SOURCES["band"])],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    for flag, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"nvcc band.cu {flag} failed")
+        lib = libs[flag] = ctypes.CDLL(str(so))
+        lib.band_error_string.argtypes = [i32]
+        lib.band_error_string.restype = ctypes.c_char_p
+        lib.band_block_inv.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
+        lib.band_pcr_level.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+        lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+        lib.band_cr_level.argtypes = [vp] * 11 + [i32, i32, i32, vp]
+        lib.band_cr_reduce.argtypes = [build.CrReduceLevels, vp] + [i32] * 7 + [vp]
+        lib.band_cr_backsub.argtypes = [build.CrBacksubLevels, vp, vp] + [i32] * 7 + [vp]
+        for fn in (lib.band_block_inv, lib.band_pcr_level, lib.band_pcr_solve,
+                   lib.band_cr_level, lib.band_cr_reduce, lib.band_cr_backsub):
+            fn.restype = i32
+    return libs
+
+
+def _element_times(device):
+    """The Db = 12 element kernels: band_cr_level at ``_CR_LEVEL_SHAPES_3D``
+    and band_block_inv at ``_BLOCK_INV_SHAPES_3D``, device us and event ms;
+    where the package's band.cu takes -DBAND_CR_LEVEL_POSITIONS, also
+    band_cr_level from a build at each tiling of ``_CR_LEVEL_TILINGS`` (P
+    coarse positions a thread block), whose eight outputs must equal the
+    package build's bit for bit, and both kernels from a build with
+    -DBAND_LEVEL_NO_INVERSE (the shared element inversion compiled out:
+    what the rest of a launch costs)."""
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band, build
+
+    libs = {}
+    if "BAND_CR_LEVEL_POSITIONS" in build.SOURCES["band"].read_text():
+        libs = _band_builds([f"-DBAND_CR_LEVEL_POSITIONS={P}" for P in _CR_LEVEL_TILINGS]
+                            + ["-DBAND_LEVEL_NO_INVERSE"], "element")
+    ablation = libs.pop("-DBAND_LEVEL_NO_INVERSE", None)
+    rows = []
+
+    def timed(kernel, shape, fn):
+        rows.append(dict(cell="3D band", kernel=kernel, shape=shape,
+                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
+        if ablation is not None:
+            rows.append(dict(cell="3D band", kernel=f"{kernel}, no inverse", shape=shape,
+                             device_us=_through(ablation, lambda: _device_us(fn)),
+                             event_ms=_through(ablation, lambda: _event_ms(fn))))
+
+    for C, T in _CR_LEVEL_SHAPES_3D:
+        D, U = _random_band(C, T, 12, seed=T + C, device=device)
+        A = band.band_init_a(U)
+        fn = lambda: band.band_cr_level(D, A, U)
+        timed("band_cr_level[Db=12]", f"C={C} T={T}", fn)
+        want = fn()
+        for flag, lib in libs.items():
+            got = _through(lib, fn)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"band_cr_level {flag} C={C} T={T}: not the package's bits")
+            rows.append(dict(cell="3D band", kernel=f"band_cr_level[Db=12], P={flag[-1]}",
+                             shape=f"C={C} T={T}",
+                             device_us=_through(lib, lambda: _device_us(fn)),
+                             event_ms=_through(lib, lambda: _event_ms(fn))))
+    for C, Tp in _BLOCK_INV_SHAPES_3D:
+        D, _ = _random_band(C, Tp, 12, seed=Tp + C, device=device)
+        timed("band_block_inv[Db=12]", f"C={C} Tp={Tp}", lambda: band.band_block_inv(D))
+    return rows
 
 
 def _chol_times(device):
@@ -371,42 +483,17 @@ def _cr_solve_times(device):
     block 0: copies issued, staged, barrier, then the reduce's level end
     and barrier for each level, the element backsub's rv, barrier and invD
     product for each level)."""
-    import ctypes
     import inspect
 
     import torch
     from chip_smoke import _device_us
-    from score_tpu_torch.ops import band, build
+    from score_tpu_torch.ops import band
 
     fused = list(inspect.signature(band.band_cr_reduce).parameters) == ["levels", "b"]
     libs = {}
     if fused:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        procs = {}
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for what, flag in _CR_BUILDS.items():
-            so = build.BUILD_DIR / ("cr" + flag.replace("=", "_")[2:] + ".so")
-            procs[what] = (so, subprocess.Popen(
-                [build._nvcc(), *build.NVCC_FLAGS, flag, "-o", str(so), str(build.SOURCES["band"])],
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
-        for what, (so, proc) in procs.items():
-            if proc.wait():
-                raise RuntimeError(f"nvcc band.cu for {what} failed")
-            lib = libs[what] = ctypes.CDLL(str(so))
-            lib.band_error_string.argtypes = [i32]
-            lib.band_error_string.restype = ctypes.c_char_p
-            lib.band_cr_reduce.argtypes = [build.CrReduceLevels, vp] + [i32] * 7 + [vp]
-            lib.band_cr_backsub.argtypes = [build.CrBacksubLevels, vp, vp] + [i32] * 7 + [vp]
-            lib.band_cr_reduce.restype = lib.band_cr_backsub.restype = i32
-
-    def through(lib, fn):
-        """fn() with the wrappers launching from another build of band.cu."""
-        package = band._lib
-        band._lib = lambda: lib
-        try:
-            return fn()
-        finally:
-            band._lib = package
+        built = _band_builds(list(_CR_BUILDS.values()), "cr")
+        libs = {what: built[flag] for what, flag in _CR_BUILDS.items()}
 
     rows = []
     rng = np.random.default_rng(1)
@@ -432,14 +519,14 @@ def _cr_solve_times(device):
                         continue
                     fn = kernels[kernel]
                     rows.append(dict(cell="f64 band", kernel=f"{kernel}, {what}", shape=shape,
-                                     device_us=through(lib, lambda: _device_us(fn)),
-                                     event_ms=through(lib, lambda: _event_ms(fn))))
+                                     device_us=_through(lib, lambda: _device_us(fn)),
+                                     event_ms=_through(lib, lambda: _event_ms(fn))))
                 if "clocks" in libs and Db == 12:
                     # the kernels that stage a tile (not the narrow backsub)
                     for kernel, fn in kernels.items():
                         if kernel == "band_cr_backsub" and K <= 4:
                             continue
-                        out = through(libs["clocks"], lambda: [fn() for _ in range(3)][-1])
+                        out = _through(libs["clocks"], lambda: [fn() for _ in range(3)][-1])
                         out = out[-1] if isinstance(out, tuple) else out
                         clk = out.flatten()[:10].tolist()
                         rows.append(dict(cell="f64 band", kernel=f"{kernel}, clocks", shape=shape,
@@ -527,7 +614,8 @@ def _kernel_times(device):
         fn = lambda: pcr._dinv(L, B)
         rows.append(dict(cell="f32 band", kernel="pcr._dinv", shape=f"M={M} D=6 K={K}",
                          device_us=_device_us(fn), event_ms=_event_ms(fn)))
-    return rows + _cr_solve_times(device) + _chol_times(device) + _blocks12_times(device)
+    return (rows + _element_times(device) + _cr_solve_times(device) + _chol_times(device)
+            + _blocks12_times(device))
 
 
 # 3D 4x250's f32 factor: C = 4 chains of 256 blocks of 12 x 12
@@ -691,29 +779,11 @@ def _pcr3d_ablation(device):
     band_pcr_solve's first worker's clock at each level's barrier, after
     its stage wait and after its products, in three blocks of the cluster,
     at K = 1 and at the panel's plan (K = 18)."""
-    import ctypes
-
     import torch
     from chip_smoke import _device_us
-    from score_tpu_torch.ops import band, build
+    from score_tpu_torch.ops import band
 
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    libs = {}
-    procs = {}
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for flag in ("-DBAND_LEVEL_NO_INVERSE", "-DBAND_CLUSTER_CLOCKS"):
-        so = build.BUILD_DIR / ("sweep3d" + flag[2:] + ".so")
-        procs[flag] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, flag, "-o", str(so), str(build.SOURCES["band"])],
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
-    for flag, (so, proc) in procs.items():
-        if proc.wait():
-            raise RuntimeError(f"nvcc {flag} failed")
-        lib = libs[flag] = ctypes.CDLL(str(so))
-        lib.band_pcr_level.argtypes = [vp] * 10 + [i32] * 4 + [vp]
-        lib.band_pcr_level.restype = i32
-        lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
-        lib.band_pcr_solve.restype = i32
+    libs = _band_builds(["-DBAND_LEVEL_NO_INVERSE", "-DBAND_CLUSTER_CLOCKS"], "sweep3d")
     C, Tp, Db = 1, 256, 12
     D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
     f = band.band_factor(D, U, n_cr=0)
@@ -990,6 +1060,8 @@ def main() -> int:
             _log(f"  kernel {name:<24} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
         cr = p["cr_kernels_db12"] = _block_kernels_at(p, 12, _CR_WRAPPERS, "Db")
         _log(f"{key}: " + ", ".join(f"{k} {ms:.3f} ms, {n} launches" for k, (ms, n) in cr.items()))
+        lv = p["level_kernels_db12"] = _block_kernels_at(p, 12, _LEVEL_WRAPPERS, "Db")
+        _log(f"{key}: " + ", ".join(f"{k} {ms:.3f} ms, {n} launches" for k, (ms, n) in lv.items()))
         label, fg = _cells()[0]
         for precision in ("f32", "f64"):
             report[precision] = _warm_walls(fg, n=5, precision=precision)

@@ -401,13 +401,22 @@ def band_block_inv(D: torch.Tensor) -> torch.Tensor:
     Replaces ``score_tpu/ops/pallas_pcr.py:_block_inv_kernel`` (body
     ``_block_inv``). Bound on the card by latency: a launch, and the
     dependent f64 chains of a Cholesky and two substitutions (two blocks
-    of traffic, ~0.2 us of HBM time at 1,024 blocks). The lane-group
-    layout of the level kernels: a group of 8 (Db = 6) or 16 (Db = 12)
-    lanes owns a block, lane r loads row r (16-byte loads, the group's
-    rows contiguous), the Cholesky runs across the group by shuffles and
-    lane c solves column c of the inverse (``group_inv_spd``, shared with
-    the level kernels), which leaves through shared memory as 16-byte
-    stores."""
+    of traffic, ~0.2 us of HBM time at 1,024 blocks). At Db = 6 the
+    lane-group layout of the level kernels: a group of 8 lanes owns a
+    block, lane r loads row r (16-byte loads, the group's rows
+    contiguous), the Cholesky runs across the group by shuffles and lane c
+    solves column c of the inverse (``group_inv_spd``, shared with the
+    Db = 6 level kernels), which leaves through shared memory as 16-byte
+    stores. At Db = 12 a thread per block element: a thread block of 144
+    threads a block (256 thread blocks at 3D 1x1000's remainder, over
+    every SM), thread (r, c) reads elements (r, c) and (c, c), the
+    Cholesky runs a column per block barrier and thread c solves column c
+    with correctly rounded quotients by two corrections of a reciprocal
+    (``element_inv_spd``, shared with ``band_pcr_level`` and
+    ``band_cr_level`` at Db = 12, so the three agree bit for bit); thread
+    (r, c) writes element (r, c). Both make the plain version's Cholesky
+    and substitutions in its order; only nvcc's contraction to FMAs
+    differs."""
     _check("band_block_inv", D)
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
         raise ValueError(f"band_block_inv: expected (C, Tp, Db, Db), got {tuple(D.shape)}")
@@ -676,22 +685,31 @@ def band_cr_level(D, A, C):
     (1.6 MB at Manhattan-4's first level, half a microsecond of HBM
     time), so a launch is bound by latency, of the launch and of the
     dependent f64 chain of a Cholesky, two substitutions and two
-    row-times-block products. The design is ``band_pcr_level``'s: a group
-    of 8 lanes (16 at Db = 12) per coarse position, lanes 0..Db-1 one row
-    of every block each, inputs staged in shared memory by 16-byte
-    cp.async, products
-    against shared-memory broadcasts, outputs by 16-byte stores, and the
-    group inversion (Cholesky by shuffles, lane c solves column c) is the
-    device function that ``band_pcr_level`` calls. Every group inverts
-    the ONE odd block 2j + 1 it owns and leaves it in shared memory; after
-    a block barrier F_j takes it and E_{j+1} of the next group takes it
-    too, so an odd block is inverted once where a thread of the kernel
-    before this design inverted both its neighbours one after the other.
-    A thread block is 15 positions (3 at Db = 12) and one more group that
-    inverts the odd block before the first position (1 inversion in 16,
-    or 4, is repeated;
-    all 16 run side by side). Sums run in the plain version's order;
-    only nvcc's contraction to FMAs differs."""
+    row-times-block products. Every group of a thread block inverts the
+    ONE odd block 2j + 1 of the position it owns and leaves it in shared
+    memory; after a block barrier F_j takes it and E_{j+1} of the next
+    group takes it too, and one more group inverts the odd block before
+    the first position, all side by side.
+
+    At Db = 6 the design is ``band_pcr_level``'s: a group of 8 lanes per
+    coarse position, lanes 0..Db-1 one row of every block each, inputs
+    staged in shared memory by 16-byte cp.async, products against
+    shared-memory broadcasts, outputs by 16-byte stores, and the group
+    inversion (Cholesky by shuffles, lane c solves column c) is the device
+    function that ``band_pcr_level`` calls; a thread block is 15 positions
+    and the halo group (1 inversion in 16 is repeated). At Db = 12 a
+    thread per block element, as ``band_pcr_level`` at Db = 12: a group
+    is 144 threads, thread (r, c) owning element (r, c) of every block the
+    group touches; a thread block is P coarse positions and P + 1 groups
+    (csrc/band.cu's kCrLevelPositions), the odd blocks inverted by the
+    element inversion the Db = 12 ``band_pcr_level`` and
+    ``band_block_inv`` call (a Cholesky column per block barrier,
+    correctly rounded quotients from reciprocals), while the A and C rows
+    the products read arrive in shared memory by 16-byte cp.async; then E
+    and F, a barrier, and A', C' and the two terms of D', each element a
+    12-term chain, and every output leaves from the register holding it.
+    Sums run in the plain version's order; only nvcc's contraction to FMAs
+    differs."""
     _check_fine_band("band_cr_level", D, A, C)
     if not _route("band_cr_level", D, A, C):
         return band_cr_level_plain(D, A, C)
@@ -999,9 +1017,9 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
         raise ValueError(f"band_factor: chain length {Tp} is not a power of two")
     if n_cr is None:
         n_cr = cr_depth(Tp)
-    if not 0 <= n_cr <= min(num_levels(Tp), _CR_MAX_LEVELS):
+    if not 0 <= n_cr <= num_levels(Tp):
         raise ValueError(f"band_factor: {n_cr} compacting levels for chain length {Tp} "
-                         f"(at most {_CR_MAX_LEVELS}, the solve kernels' depth)")
+                         f"(at most log2 of it, {num_levels(Tp)})")
     D0 = D
     A = band_init_a(U)
     Cc = U
@@ -1043,10 +1061,27 @@ def band_solve(factors: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _cr_runs(n: int) -> list:
+    """The levels of each call of the fused CR wrappers in a solve of n
+    compacting levels, fine -> coarse: all n in one call up to
+    ``_CR_MAX_LEVELS`` (a launch's depth), else the fewest runs of at most
+    that many, as even as they come (9 levels: 5 and 4, which both 3D
+    kernels' shared memory takes in one launch each)."""
+    runs = -(-n // _CR_MAX_LEVELS)
+    return [n // runs + (r < n % runs) for r in range(runs)]
+
+
 def _band_solve_once(factors: BandFactors, b: torch.Tensor) -> torch.Tensor:
     levels = factors.levels
     if not levels:
         return band_pcr_solve(factors.E, factors.F, factors.invD, b)
-    reduced = band_cr_reduce(levels, b)
-    x = band_pcr_solve(factors.E, factors.F, factors.invD, reduced[-1])
-    return band_cr_backsub(levels, (b,) + reduced[:-1], x)
+    runs = _cr_runs(len(levels))
+    fine, first = (b,), 0  # each level's fine rhs, then the remainder's
+    for d in runs:
+        fine += band_cr_reduce(levels[first:first + d], fine[-1])
+        first += d
+    x = band_pcr_solve(factors.E, factors.F, factors.invD, fine[-1])
+    for d in reversed(runs):
+        first -= d
+        x = band_cr_backsub(levels[first:first + d], fine[first:first + d], x)
+    return x

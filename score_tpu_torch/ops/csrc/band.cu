@@ -45,23 +45,23 @@ struct CrBacksubLevels {
 namespace {
 
 // The lane-group layout of the kernels that work on whole blocks
-// (band_block_inv, band_pcr_level at Db = 6, band_cr_level, the narrow
-// band_cr_backsub): a group of `group` neighbouring lanes owns one
-// position and lane r < Db of the group holds row r of every block. A
-// group is 8 lanes for Db = 6 (4 groups a warp) and 16 for Db = 12 (2 a
-// warp), so it stays inside a warp and its shuffles have a width of a
-// power of two. The level kernels stage nine blocks per group in static
-// shared memory, under 48 KB a thread block: 4 warps of 4 groups in
-// band_pcr_level at Db = 6, and 16 groups of band_cr_level at Db = 6 or 4
-// at Db = 12 (a block is 4 times the bytes); 41,472 bytes each. At
-// Db = 12 band_pcr_level has a layout of its own (a thread per block
-// element, pcr_level_element_kernel).
+// (band_block_inv, band_pcr_level and band_cr_level at Db = 6, the narrow
+// band_cr_backsub at both sizes): a group of `group` neighbouring lanes
+// owns one position and lane r < Db of the group holds row r of every
+// block. A group is 8 lanes for Db = 6 (4 groups a warp) and 16 for
+// Db = 12 (2 a warp), so it stays inside a warp and its shuffles have a
+// width of a power of two. The level kernels stage nine blocks per group
+// in static shared memory, under 48 KB a thread block: 4 warps of 4 groups
+// in band_pcr_level, and 16 groups of band_cr_level; 41,472 bytes each. At
+// Db = 12 band_block_inv, band_pcr_level and band_cr_level have a layout
+// of their own: a thread per block element (block_inv_element_kernel,
+// pcr_level_element_kernel, cr_level_element_kernel).
 template <int Db>
 struct Lanes {
   static constexpr int group = Db <= 8 ? 8 : 16;   // lanes per position
   static constexpr int per_warp = 32 / group;      // positions per warp
   static constexpr int level_warps = 4;            // band_pcr_level, Db = 6
-  static constexpr int cr_groups = Db <= 8 ? 16 : 4;
+  static constexpr int cr_groups = 16;             // band_cr_level, Db = 6
 };
 
 // ---------------------------------------------------------------------
@@ -194,11 +194,12 @@ __device__ __forceinline__ void group_inv_spd(const double* Dv, double* Lm,
 // ---------------------------------------------------------------------
 // band_block_inv: invD[b] = D[b]^{-1} for every SPD block b.
 //
-// Mapping: the lane-group layout, a group per block (16 blocks in a thread
-// block of 128 threads at Db = 6, 8 at Db = 12): lane r < Db loads row r of
-// its block by 16-byte loads (the group's rows are the block, contiguous),
-// the group inverts it with group_inv_spd, and the inverse leaves through
-// shared memory as 16-byte stores. The kernel before this one gave a whole
+// Mapping (Db = 6; Db = 12 runs block_inv_element_kernel below): the
+// lane-group layout, a group per block (16 blocks in a thread block of 128
+// threads): lane r < Db loads row r of its block by 16-byte loads (the
+// group's rows are the block, contiguous), the group inverts it with
+// group_inv_spd, and the inverse leaves through shared memory as 16-byte
+// stores. The kernel before this one gave a whole
 // block to one thread: at Db = 6, 72 doubles of local arrays and a
 // dependent chain of ~Db^3 operations per thread (14.2 us for 1,024 blocks
 // on an H100); at Db = 12, 576 doubles a thread, past the registers.
@@ -388,16 +389,17 @@ pcr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 // 0.0 as the plain version's matmul: E and F, a barrier, then A', C' and
 // the two terms of D'. E, F, D', A' and C' leave from the registers that
 // hold them, a block's 144 elements on neighbouring addresses, while D' is
-// inverted. The Cholesky of D' makes group_inv_spd's operations in its
-// order: element (r, j), r >= j, is D'_rj minus L_rk L_jk for k
-// ascending, over the square root of the pivot D'_jj minus L_jk^2 for k
-// ascending. Thread (r, j) subtracts each term as column k lands
-// (right-looking) and keeps its own copy of the pivot, made by the same
-// operations as thread (j, j)'s, so a column takes one barrier over the
-// block and a square root and a division on the chain. Thread c < Db then
-// solves column c of L Y = I, L^T X = Y as group_inv_spd's lane c does,
-// from its diagonal on and with its quotients by markstein_div: the same
-// values, fewer dependent steps.
+// inverted by element_inv_spd (below), which makes group_inv_spd's
+// operations in its order: element (r, j), r >= j, of the Cholesky is
+// D'_rj minus L_rk L_jk for k ascending, over the square root of the pivot
+// D'_jj minus L_jk^2 for k ascending. Thread (r, j) subtracts each term as
+// column k lands (right-looking) and keeps its own copy of the pivot, made
+// by the same operations as thread (j, j)'s, so a column takes one barrier
+// over the block and a square root and a division on the chain. Thread
+// c < Db then solves column c of L Y = I, L^T X = Y as group_inv_spd's
+// lane c does, from its diagonal on and with its quotients by
+// markstein_div: the same values, fewer dependent steps. band_cr_level and
+// band_block_inv call the same function at Db = 12.
 // ---------------------------------------------------------------------
 
 // a / b, correctly rounded, from r = RN(1 / b) (a, b and the quotient
@@ -409,6 +411,74 @@ __device__ __forceinline__ double markstein_div(double a, double b, double r) {
   double q = __dmul_rn(a, r);
   q = __fma_rn(__fma_rn(-b, q, a), r, q);
   return __fma_rn(__fma_rn(-b, q, a), r, q);
+}
+
+// Inverse of an SPD Db x Db block by the Db * Db threads that own its
+// elements: thread e = (r, c) passes a, element (r, c) of the block, and
+// piv, its diagonal element (c, c). Lm and X are blocks of shared memory,
+// rcp Db doubles of it; X holds the inverse after the caller's next block
+// barrier. It holds block barriers: every thread of the thread block calls
+// it, each group of Db * Db threads (e = 0 .. Db * Db - 1 in each) with a
+// block of its own, and every thread belongs to a group. Called by
+// pcr_level_element_kernel (D'), cr_level_element_kernel (the odd rows)
+// and block_inv_element_kernel, so the three agree bit for bit.
+//
+// The Cholesky goes into Lm, a column a barrier. Thread (r, c), r >= c,
+// holds a = D_rc and its own copy piv of the pivot D_cc and subtracts
+// L_rk L_ck and L_ck L_ck as column k < c lands: group_inv_spd's
+// operations in its left-looking order, k ascending, without its chain of
+// j products between a column's barrier and its square root. Thread c < Db
+// then solves column c of L Y = I, L^T X = Y in column c of X (X over Y:
+// x_q needs y_q and x_k, k > q), group_inv_spd's operations in its order.
+// y_q = +0 for q < c exactly (0 - L_qk * 0 = +0, then +0 / L_qq), and a
+// term L_qk y_k with y_k = +0 leaves v as it was, so the thread starts at
+// its diagonal: fewer dependent steps. A quotient v / L_qq is v * r_q
+// corrected twice, r_q = 1 / L_qq rounded to nearest (__drcp_rn, formed by
+// the diagonal's thread off the chain): the correctly rounded quotient the
+// division gives (markstein_div), in five dependent operations where the
+// division refines a reciprocal first. A measurement build with
+// -DBAND_LEVEL_NO_INVERSE compiles the whole inversion out of the three
+// kernels (profile_port.py prices it; X is then left as it was).
+template <int Db>
+__device__ __forceinline__ void element_inv_spd(double a, double piv, double* Lm,
+                                                double* X, double* rcp, int e) {
+#ifndef BAND_LEVEL_NO_INVERSE
+  const int r = e / Db, col = e - r * Db;
+#pragma unroll
+  for (int k = 0; k < Db; ++k) {
+    if (col == k && r >= k) Lm[r * Db + k] = a / sqrt(piv);
+    __syncthreads();
+    if (col > k && r >= col) {
+      const double lck = Lm[col * Db + k];
+      a = a - Lm[r * Db + k] * lck;
+      piv = piv - lck * lck;
+    }
+  }
+  if (e < Db) rcp[e] = __drcp_rn(Lm[e * Db + e]);
+  __syncthreads();
+  if (e < Db) {
+    double* Y = X + e;
+#pragma unroll
+    for (int q = 0; q < Db; ++q) {
+      if (q < e) {
+        Y[q * Db] = 0.0;
+      } else {
+        double v = (q == e) ? 1.0 : 0.0;
+#pragma unroll
+        for (int k = 0; k < q; ++k)
+          if (k >= e) v = v - Lm[q * Db + k] * Y[k * Db];
+        Y[q * Db] = markstein_div(v, Lm[q * Db + q], rcp[q]);
+      }
+    }
+#pragma unroll
+    for (int q = Db - 1; q >= 0; --q) {
+      double v = Y[q * Db];
+#pragma unroll
+      for (int k = q + 1; k < Db; ++k) v = v - Lm[k * Db + q] * Y[k * Db];
+      Y[q * Db] = markstein_div(v, Lm[q * Db + q], rcp[q]);
+    }
+  }
+#endif
 }
 
 constexpr int kLevelPositions = 1;
@@ -505,59 +575,9 @@ pcr_level_element_kernel(const double* __restrict__ D, const double* __restrict_
   my[2][e] = dp;    // slot 2 is read by thread e alone until this barrier
   __syncthreads();  // D' is whole; the neighbours' A and C are read
 
-#ifndef BAND_LEVEL_NO_INVERSE
-  // Cholesky of D' into slot 4, a column a barrier. Thread (r, c), r >= c,
-  // holds a = D'_rc and its own copy p of the pivot D'_cc and subtracts
-  // L_rk L_ck and L_ck L_ck as column k < c lands: the operations of the
-  // left-looking order, k ascending, without its chain of j products
-  // between a column's barrier and its square root.
-  double* Lm = my[4];
-  double a = dp, piv = my[2][col * Db + col];
-#pragma unroll
-  for (int k = 0; k < Db; ++k) {
-    if (col == k && r >= k) Lm[r * Db + k] = a / sqrt(piv);
-    __syncthreads();
-    if (col > k && r >= col) {
-      const double lck = Lm[col * Db + k];
-      a = a - Lm[r * Db + k] * lck;
-      piv = piv - lck * lck;
-    }
-  }
-  // thread c < Db solves column c of L Y = I, L^T X = Y in column c of
-  // slot 5 (X over Y: x_q needs y_q and x_k, k > q), group_inv_spd's
-  // operations in its order. y_q = +0 for q < c exactly (0 - L_qk * 0 = +0,
-  // then +0 / L_qq), and a term L_qk y_k with y_k = +0 leaves v as it was,
-  // so the thread starts at its diagonal: fewer dependent steps. A quotient
-  // v / L_qq is v * r_q corrected twice, r_q = 1 / L_qq rounded to nearest
-  // (__drcp_rn, formed by the diagonal's thread off the chain): the
-  // correctly rounded quotient the division gives (markstein_div), in five
-  // dependent operations where the division refines a reciprocal first.
-  double* rcp = my[6];  // slot 6 is free after the products
-  if (e < Db) rcp[e] = __drcp_rn(Lm[e * Db + e]);
-  __syncthreads();
-  if (e < Db) {
-    double* Y = my[5] + e;
-#pragma unroll
-    for (int q = 0; q < Db; ++q) {
-      if (q < e) {
-        Y[q * Db] = 0.0;
-      } else {
-        double v = (q == e) ? 1.0 : 0.0;
-#pragma unroll
-        for (int k = 0; k < q; ++k)
-          if (k >= e) v = v - Lm[q * Db + k] * Y[k * Db];
-        Y[q * Db] = markstein_div(v, Lm[q * Db + q], rcp[q]);
-      }
-    }
-#pragma unroll
-    for (int q = Db - 1; q >= 0; --q) {
-      double v = Y[q * Db];
-#pragma unroll
-      for (int k = q + 1; k < Db; ++k) v = v - Lm[k * Db + q] * Y[k * Db];
-      Y[q * Db] = markstein_div(v, Lm[q * Db + q], rcp[q]);
-    }
-  }
-#endif
+  // inv(D') into slot 5: L through slot 4, the reciprocals of its diagonal
+  // through slot 6 (free after the products)
+  element_inv_spd<Db>(dp, my[2][col * Db + col], my[4], my[5], my[6], e);
   __syncthreads();
   if (valid) invD2[t * BS + e] = my[5][e];
 }
@@ -571,10 +591,11 @@ pcr_level_element_kernel(const double* __restrict__ D, const double* __restrict_
 // outputs at the coarse length Th; fine row 2j of chain c is block 2*t for
 // t = c*Th + j, so the compaction costs no gather.
 //
-// Mapping: the lane-group layout of band_pcr_level. A thread block has NG
-// lane groups (Lanes<Db>::cr_groups: 16 groups of 8 lanes at Db = 6, 4
-// groups of 16 at Db = 12): groups 1..NG-1 own consecutive coarse
-// positions, and group 0 stands in for the position before them. Every
+// Mapping (Db = 6; Db = 12 runs cr_level_element_kernel below): the
+// lane-group layout of band_pcr_level. A thread block has NG lane groups
+// (Lanes<Db>::cr_groups: 16 groups of 8 lanes): groups 1..NG-1 own
+// consecutive coarse positions, and group 0 stands in for the position
+// before them. Every
 // group owns ONE odd row, 2t + 1 for its position t: it stages that row's
 // D, A, C (and, groups 1..NG-1, the even row's) in shared memory by 16-byte
 // cp.async, inverts the
@@ -706,6 +727,178 @@ cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
             *reinterpret_cast<const double2*>(&my[slot[b]][2 * v]);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// band_cr_level at Db = 12: a thread per block element.
+//
+// Replaces pallas_pcr.py:_cr_level_kernel (:362) at 12 x 12 blocks. What
+// bounds it: latency. A level moves 7 blocks per pair of fine rows (2.5 us
+// of HBM time at 3D 1x1000's first level, Th = 512) and its work is a
+// dependent chain: the inverse of an odd block (a Cholesky and two
+// substitutions), two products, a barrier and four more. The lane-group
+// layout (cr_level_kernel, kept at Db = 6) gave a lane a whole row: each
+// lane ran a Cholesky of 66 dependent shuffles, 24 IEEE divisions and six
+// row-times-block products of 144 multiply-adds, in thread blocks of two
+// warps.
+//
+// Mapping: a thread block owns P = kCrLevelPositions consecutive coarse
+// positions t0 .. t0 + P - 1 (of all chains, laid end to end) and has
+// P + 1 groups of Db * Db threads; thread e = (r, c) of a group owns
+// element (r, c) of every block the group touches. Group g inverts odd
+// row 2t + 1 of t = t0 + g - 1 (group 0: the row before the first
+// position, when that position has a lower neighbour in its chain), all
+// groups side by side with element_inv_spd, each odd block once per thread
+// block. Thread e reads elements (r, c) and (c, c) of its odd D, and
+// element e of its position's even D, straight into registers; the blocks
+// that the products read by rows and columns (the odd rows' A and C, the
+// even row's A and C) are staged in shared memory by 16-byte cp.async,
+// issued before the inversion and waited for after it. Then group g >= 1
+// takes E = -A_{2t} invD_{2t-1} (group g - 1's inverse) and
+// F = -C_{2t} invD_{2t+1} (its own), a barrier, then A' = E A_{2t-1},
+// C' = F C_{2t+1} and D' = D_{2t} + (E C_{2t-1} + F A_{2t+1}); each
+// element a Db-term chain, k ascending from 0.0 as the plain version's
+// matmul. Every output leaves from the register that holds it, a block's
+// 144 elements on neighbouring addresses. With P = 1 a thread block is
+// one position and both its odd neighbours (288 threads; every odd block
+// is inverted by two thread blocks); a larger P repeats one inversion in
+// P + 1 (profile_port.py --kernels times P = 1 to 4, from builds with
+// -DBAND_CR_LEVEL_POSITIONS; PERF.md). A register cap keeps
+// kCrLevelThreadsPerSM threads on an SM, so that 3D 1x1000's first level
+// fits the card at once.
+// ---------------------------------------------------------------------
+
+#ifndef BAND_CR_LEVEL_POSITIONS
+#define BAND_CR_LEVEL_POSITIONS 1
+#endif
+constexpr int kCrLevelPositions = BAND_CR_LEVEL_POSITIONS;
+constexpr int kCrLevelThreadsPerSM = 1152;
+
+template <int Db, int P>
+__global__ void __launch_bounds__((P + 1) * Db * Db, kCrLevelThreadsPerSM / ((P + 1) * Db * Db))
+cr_level_element_kernel(const double* __restrict__ D, const double* __restrict__ A,
+                        const double* __restrict__ Cc, double* __restrict__ E,
+                        double* __restrict__ F, double* __restrict__ invDo,
+                        double* __restrict__ Ao, double* __restrict__ Co,
+                        double* __restrict__ D2, double* __restrict__ A2,
+                        double* __restrict__ C2, int nC, int Th) {
+  constexpr int BS = Db * Db;
+  constexpr int V = BS / 2;  // double2 per block
+  static_assert(BS % 2 == 0 && 1 <= P && (P + 1) * BS <= 1024, "groups of a thread block");
+  static_assert(8 * ((2 * P + 1) * 4 * BS + (P + 1) * Db) <= 48 * 1024, "static shared memory");
+  // [group][slot][BS]: 0 A_odd, 1 C_odd, 2 L, 3 inverse of D_odd
+  __shared__ __align__(16) double odd[P + 1][4][BS];
+  // [position][slot][BS]: 0 A_even, 1 C_even, 2 E, 3 F
+  __shared__ __align__(16) double even[P][4][BS];
+  __shared__ double rcp[P + 1][Db];
+
+  const int g = threadIdx.x / BS;  // group of the thread block
+  const int e = threadIdx.x - g * BS;
+  const int r = e / Db, col = e - r * Db;
+  const int n = nC * Th;
+  const int t = (int)blockIdx.x * P + g - 1;
+  const bool pos = g > 0 && t < n;  // group g owns coarse position t
+  // odd row 2t + 1 is wanted: by its owner, or by the thread block's first
+  // position when that has a lower neighbour in its chain
+  const bool odd_on = g > 0 ? pos : (t >= 0 && t + 1 < n && (t + 1) % Th != 0);
+  const bool has_dn = pos && t % Th != 0;  // odd row 2t - 1, group g - 1's
+  const long long o = (long long)t * BS;   // coarse block t; fine rows 2t, 2t + 1
+
+  // thread e moves unit v of A (e < V) or of C (e >= V), of the odd row and
+  // of the even row
+  const int half = e >= V, v = e - half * V;
+  const double* AC = half ? Cc : A;
+  if (odd_on) cp_async16(&odd[g][half][2 * v], AC + 2 * o + BS + 2 * v);
+  if (pos) cp_async16(&even[g - 1][half][2 * v], AC + 2 * o + 2 * v);
+  // an odd row nobody wants is the identity
+  double a = r == col ? 1.0 : 0.0, piv = 1.0, dev = 0.0;
+  if (odd_on) {
+    a = __ldg(D + 2 * o + BS + e);
+    piv = __ldg(D + 2 * o + BS + col * Db + col);
+  }
+  if (pos) dev = __ldg(D + 2 * o + e);
+
+  element_inv_spd<Db>(a, piv, odd[g][2], odd[g][3], rcp[g], e);
+  cp_async_wait_all();
+  __syncthreads();  // every inverse and every staged block is in place
+
+  double(*my)[BS] = even[g > 0 ? g - 1 : 0];
+  if (pos) {
+    // E = -A_{2t} invD_{2t-1};  F = -C_{2t} invD_{2t+1}
+    const double* Xdn = odd[g - 1][3];
+    const double* Xup = odd[g][3];
+    double ev = 0.0, fv = 0.0;
+#pragma unroll
+    for (int k = 0; k < Db; ++k) {
+      ev += my[0][r * Db + k] * Xdn[k * Db + col];
+      fv += my[1][r * Db + k] * Xup[k * Db + col];
+    }
+    ev = has_dn ? -ev : 0.0;
+    fv = -fv;
+    my[2][e] = ev;
+    my[3][e] = fv;
+    E[o + e] = ev;
+    F[o + e] = fv;
+    invDo[o + e] = Xup[e];
+    Ao[o + e] = odd[g][0][e];
+    Co[o + e] = odd[g][1][e];
+  }
+  __syncthreads();  // E and F are whole
+  if (pos) {
+    // A' = E A_{2t-1};  C' = F C_{2t+1};  D' = D_{2t} + (E C_{2t-1} + F A_{2t+1})
+    const double(*dn)[BS] = odd[g - 1];
+    const double(*up)[BS] = odd[g];
+    double a2 = 0.0, c2 = 0.0, d1 = 0.0, d2 = 0.0;
+#pragma unroll
+    for (int k = 0; k < Db; ++k) {
+      const double fk = my[3][r * Db + k];
+      c2 += fk * up[1][k * Db + col];
+      d2 += fk * up[0][k * Db + col];
+    }
+    if (has_dn) {  // else E is zero, and group g - 1 may hold no odd row
+#pragma unroll
+      for (int k = 0; k < Db; ++k) {
+        const double ek = my[2][r * Db + k];
+        a2 += ek * dn[0][k * Db + col];
+        d1 += ek * dn[1][k * Db + col];
+      }
+    }
+    D2[o + e] = dev + (d1 + d2);
+    A2[o + e] = a2;
+    C2[o + e] = c2;
+  }
+}
+
+// ---------------------------------------------------------------------
+// band_block_inv at Db = 12: a thread per block element.
+//
+// Replaces pallas_pcr.py:_block_inv_kernel (:423) at 12 x 12 blocks.
+// Bound by latency: a launch, one read of a block and the dependent chain
+// of element_inv_spd (2 blocks of traffic per block: 0.18 us of HBM time
+// at 3D 1x1000's 256 blocks). The lane-group layout (block_inv_kernel,
+// kept at Db = 6) put 8 blocks in a thread block, so 256 blocks filled 32
+// of the 132 SMs, and a lane ran the whole Cholesky by 66 dependent
+// shuffles and 24 IEEE divisions. Here a thread block is one block of 144
+// threads: thread e = (r, c) reads elements (r, c) and (c, c) straight
+// into registers (the block's 144 threads on neighbouring addresses),
+// element_inv_spd inverts it, and thread e writes element e of the
+// inverse. A register cap keeps kInvThreadsPerSM threads on an SM.
+// ---------------------------------------------------------------------
+
+constexpr int kInvThreadsPerSM = 1152;
+
+template <int Db>
+__global__ void __launch_bounds__(Db * Db, kInvThreadsPerSM / (Db * Db))
+block_inv_element_kernel(const double* __restrict__ D, double* __restrict__ invD) {
+  constexpr int BS = Db * Db;
+  __shared__ __align__(16) double sm[2][BS];  // L, the inverse
+  __shared__ double rcp[Db];
+  const int e = threadIdx.x;
+  const int col = e % Db;
+  const long long o = (long long)blockIdx.x * BS;
+  element_inv_spd<Db>(__ldg(D + o + e), __ldg(D + o + col * Db + col), sm[0], sm[1], rcp, e);
+  __syncthreads();
+  invD[o + e] = sm[1][e];
 }
 
 // ---------------------------------------------------------------------
@@ -1561,8 +1754,9 @@ cr_backsub_element_kernel(const CrBacksubLevels lv, const double* __restrict__ x
 // profile_port.py --ablate builds this file with -DBAND_NO_STAGING (the
 // level loop of band_pcr_solve moves no E, F) and -DBAND_NO_PRODUCT (the
 // wide kernel's level loop multiplies nothing) to price those parts, and
-// profile_port.py --sweep3d with -DBAND_LEVEL_NO_INVERSE (the Db = 12
-// band_pcr_level forms no inverse of D') and -DBAND_CLUSTER_CLOCKS (the
+// profile_port.py --sweep3d and --kernels with -DBAND_LEVEL_NO_INVERSE
+// (the Db = 12 band_pcr_level, band_cr_level and band_block_inv form no
+// inverse) and -DBAND_CLUSTER_CLOCKS (the
 // cluster band_pcr_solve writes its first worker's clocks over x); the
 // results are then wrong, and no other build defines them.
 constexpr int kWideCols = 8;
@@ -2408,9 +2602,14 @@ cudaError_t launch_init_a(const double* U, double* A, int nC, int Tp,
 template <int Db>
 cudaError_t launch_block_inv(const double* D, double* invD, long long nblocks,
                              cudaStream_t st) {
-  constexpr int per_block = kBlockInvThreads / Lanes<Db>::group;
-  block_inv_kernel<Db><<<grid_for(nblocks, per_block), kBlockInvThreads, 0, st>>>(
-      D, invD, nblocks);
+  if constexpr (Db == 12) {
+    if (nblocks > 0x7fffffff) return cudaErrorInvalidValue;  // a thread block a block
+    block_inv_element_kernel<Db><<<(unsigned)nblocks, Db * Db, 0, st>>>(D, invD);
+  } else {
+    constexpr int per_block = kBlockInvThreads / Lanes<Db>::group;
+    block_inv_kernel<Db><<<grid_for(nblocks, per_block), kBlockInvThreads, 0, st>>>(
+        D, invD, nblocks);
+  }
   return cudaGetLastError();
 }
 
@@ -2437,10 +2636,17 @@ cudaError_t launch_cr_level(const double* D, const double* A, const double* Cc,
                             double* E, double* F, double* invDo, double* Ao,
                             double* Co, double* D2, double* A2, double* C2,
                             int nC, int Th, cudaStream_t st) {
-  constexpr int groups = Lanes<Db>::cr_groups;
-  cr_level_kernel<Db><<<grid_for((long long)nC * Th, groups - 1),
-                        groups * Lanes<Db>::group, 0, st>>>(
-      D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
+  if constexpr (Db == 12) {
+    constexpr int P = kCrLevelPositions;
+    cr_level_element_kernel<Db, P><<<grid_for((long long)nC * Th, P), (P + 1) * Db * Db,
+                                      0, st>>>(
+        D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
+  } else {
+    constexpr int groups = Lanes<Db>::cr_groups;
+    cr_level_kernel<Db><<<grid_for((long long)nC * Th, groups - 1),
+                          groups * Lanes<Db>::group, 0, st>>>(
+        D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
+  }
   return cudaGetLastError();
 }
 

@@ -89,6 +89,23 @@ def test_compacted_band_matches_dense(C, T, Db, K, active, n_cr):
         assert _rel(x[c].reshape(T * Db, K), xref) <= 1e-11
 
 
+@pytest.mark.parametrize("Db,K", [(6, 1), (6, 138), (12, 1), (12, 18)])
+def test_band_past_a_launch_of_compacting_levels(Db, K, monkeypatch):
+    """With the compaction floor at 1 a chain of 512 compacts 9 times, one
+    level more than a fused CR launch takes: the factor keeps every level,
+    the solve runs the fused wrappers in two runs (5 and 4 levels) and
+    matches a dense solve (1e-11) at a direction and a panel width."""
+    monkeypatch.setattr(band, "CR_BASE_LENGTH", 1)
+    T = 512
+    D, U = _chains(1, T, Db, 95)
+    rhs = np.random.default_rng(6).standard_normal((1, T, Db, K))
+    f, x = _port_solve(D, U, rhs)
+    assert len(f.levels) == 9 > band._CR_MAX_LEVELS and f.invD.shape[1] == 1
+    assert band._cr_runs(9) == [5, 4]
+    xref = np.linalg.solve(_dense(D[0], U[0]), rhs[0].reshape(T * Db, K))
+    assert _rel(x[0].reshape(T * Db, K), xref) <= 1e-11
+
+
 def test_cr_depth_of_the_main_path():
     """Manhattan-4 chains pad to 512 and compact once; robot20's pad to
     128 and run PCR only."""
@@ -198,7 +215,8 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         band.band_factor(D, U, n_cr=3)  # deeper than log2(T) = 2
     # the fused CR kernels: level lists whose lengths do not halve the chain,
-    # a fine rhs too few, and a depth past a launch's maximum
+    # a fine rhs too few, and a depth past a launch's maximum (which the
+    # factor takes and the solve cuts into runs)
     levels = band.band_factor(D, U, n_cr=2).levels
     b = torch.zeros(1, 4, 6, 2, dtype=torch.float64)
     with pytest.raises(ValueError):
@@ -215,9 +233,8 @@ def test_wrappers_reject_bad_inputs():
     n = band._CR_MAX_LEVELS + 1
     Dd, Ud = (torch.tensor(a) for a in _chains(1, 1 << n, 2, 51))
     with pytest.raises(ValueError):
-        band.band_factor(Dd, Ud, n_cr=n)
-    deep = band.band_factor(Dd, Ud, n_cr=n - 1).levels
-    deep += (deep[-1]._replace(**{f: t[:, :1] for f, t in deep[-1]._asdict().items()}),)
+        band.band_factor(Dd, Ud, n_cr=n + 1)  # deeper than log2(T) = n
+    deep = band.band_factor(Dd, Ud, n_cr=n).levels
     bd = torch.zeros(1, 1 << n, 2, 1, dtype=torch.float64)
     with pytest.raises(ValueError, match="levels"):
         band.band_cr_reduce(deep, bd)

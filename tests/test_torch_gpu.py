@@ -514,11 +514,15 @@ def test_pcr_solve_3d_refused_launch_raises(cuda, plan, monkeypatch):
     assert _rel(x, band.band_pcr_solve_plain(f.E, f.F, f.invD, b)) <= 1e-12
 
 
-@pytest.mark.parametrize("C,T", [(1, 2), (4, 2), (20, 4), (4, 6), (1, 8), (4, 30),
-                                 (1, 512), (4, 512), (1, 2048)])
+@pytest.mark.parametrize("C,T", [(1, 2), (4, 2), (20, 2), (1, 4), (20, 4), (1, 6), (4, 6),
+                                 (20, 6), (1, 8), (4, 10), (4, 30), (20, 30), (1, 512),
+                                 (4, 512), (1, 1024), (1, 2048)])
 def test_cr_level_matches_plain_3d(cuda, C, T):
-    """band_cr_level at Db = 12 (a thread block is 3 coarse positions and
-    the halo group) against its plain version, 1e-12."""
+    """band_cr_level at Db = 12 (a thread per block element: P coarse
+    positions and P + 1 odd blocks a thread block) against its plain
+    version, 1e-12: coarse lengths 1, 2 and 3, lengths that are no multiple
+    of P = 2 to 4 (3, 5, 15), chains that start inside a thread block
+    (C = 4, 20), and 3D 1x1000's two levels (Th = 512, 256)."""
     D, U = _band(C, T, 12, 72 + T, (T,) * C, cuda)
     A = band.band_init_a(U)
     for got, want in zip(band.band_cr_level(D, A, U), band.band_cr_level_plain(D, A, U)):
@@ -568,6 +572,18 @@ def test_fused_cr_kernels_match_plain(cuda, Db, n, C):
     torch.cuda.synchronize()
 
 
+def _dense_chain(D, U, c):
+    """Chain c of the band (D, U) as a dense matrix on D's device."""
+    Tp, Db = D.shape[1], D.shape[-1]
+    M = torch.zeros(Tp * Db, Tp * Db, dtype=torch.float64, device=D.device)
+    for i in range(Tp):
+        M[Db * i:Db * (i + 1), Db * i:Db * (i + 1)] = D[c, i]
+        if i + 1 < Tp:
+            M[Db * i:Db * (i + 1), Db * (i + 1):Db * (i + 2)] = U[c, i]
+            M[Db * (i + 1):Db * (i + 2), Db * i:Db * (i + 1)] = U[c, i].T
+    return M
+
+
 @pytest.mark.parametrize("Db,C,Tp,n_cr", [(6, 1, 1024, 2), (6, 1, 2048, 3), (6, 4, 512, 2),
                                           (12, 1, 1024, 2), (12, 2, 256, 3)])
 def test_band_solve_at_two_and_three_levels(cuda, Db, C, Tp, n_cr):
@@ -585,27 +601,62 @@ def test_band_solve_at_two_and_three_levels(cuda, Db, C, Tp, n_cr):
         assert band.band_cr_reduce.launches == band.band_cr_backsub.launches == solves
         assert band.band_pcr_solve.launches == solves
         for c in range(C):
-            M = torch.zeros(Tp * Db, Tp * Db, dtype=torch.float64, device=cuda)
-            for i in range(Tp):
-                M[Db * i:Db * (i + 1), Db * i:Db * (i + 1)] = D[c, i]
-                if i + 1 < Tp:
-                    M[Db * i:Db * (i + 1), Db * (i + 1):Db * (i + 2)] = U[c, i]
-                    M[Db * (i + 1):Db * (i + 2), Db * i:Db * (i + 1)] = U[c, i].T
-            xref = torch.linalg.solve(M, b[c].reshape(Tp * Db, K))
+            xref = torch.linalg.solve(_dense_chain(D, U, c), b[c].reshape(Tp * Db, K))
             assert _rel(x[c].reshape(Tp * Db, K), xref) <= 1e-11
 
 
 @pytest.mark.parametrize("Db", [6, 12])
-@pytest.mark.parametrize("M", [1, 7, 17, 1024, 2560])
+def test_band_solve_past_a_launch_of_levels(cuda, Db, monkeypatch):
+    """With the compaction floor at 1 a chain of 512 compacts 9 times, one
+    level more than a fused CR launch takes: the solve runs the reduce and
+    the back substitution twice each (5 and 4 levels; again for a 3D
+    refinement step) and matches a dense solve (1e-11) at a direction and
+    the 3D panel's width."""
+    monkeypatch.setattr(band, "CR_BASE_LENGTH", 1)
+    Tp = 512
+    D, U = _band(1, Tp, Db, 77, (Tp,), cuda)
+    f = band.band_factor(D, U)
+    assert len(f.levels) == 9 > band._CR_MAX_LEVELS
+    M = _dense_chain(D, U, 0)
+    for K in (1, 18):
+        b = torch.randn(1, Tp, Db, K, dtype=torch.float64, device=cuda)
+        band.reset_launch_counts()
+        x = band.band_solve(f, b)
+        solves = 1 + band.refine_steps(Db)
+        assert band.band_cr_reduce.launches == band.band_cr_backsub.launches == 2 * solves
+        assert band.band_pcr_solve.launches == solves
+        xref = torch.linalg.solve(M, b[0].reshape(Tp * Db, K))
+        assert _rel(x[0].reshape(Tp * Db, K), xref) <= 1e-11
+
+
+@pytest.mark.parametrize("Db", [6, 12])
+@pytest.mark.parametrize("M", [1, 2, 3, 7, 17, 256, 512, 1024, 2560])
 def test_block_inv_matches_plain(cuda, Db, M):
-    """band_block_inv (a lane group per block, 16 blocks a thread block at
-    Db = 6, 8 at Db = 12) against its plain version, 1e-12, and as an
-    inverse; the last thread block is not full for most M."""
+    """band_block_inv (at Db = 6 a lane group per block, 16 blocks a thread
+    block, the last one not full for most M; at Db = 12 a thread block of
+    144 threads a block) against its plain version, 1e-12, and as an
+    inverse; M = 256 and 1024 are 3D 1x1000's and 3D 4x250's PCR
+    remainders (C = 1 and 4 chains of 256)."""
     D, _ = _band(1, M, Db, 74 + M, (M,), cuda)
     inv = band.band_block_inv(D)
     assert _rel(inv, band.band_block_inv_plain(D)) <= 1e-12
     eye = torch.eye(Db, dtype=torch.float64, device=cuda).expand_as(D)
     assert _rel(inv @ D, eye) <= 1e-12
+    torch.cuda.synchronize()
+
+
+def test_element_inverse_agrees_bit_for_bit_3d(cuda):
+    """The three kernels that share csrc/band.cu's element inverse at
+    Db = 12 agree bit for bit: band_block_inv of a PCR level's D' is the
+    level's invD', and band_cr_level's inverses of the odd rows are
+    band_block_inv of the odd rows."""
+    D, U = _band(2, 64, 12, 76, (64, 50), cuda)
+    A, invD = band.band_init_a(U), band.band_block_inv(D)
+    for s in (1, 8):
+        out = band.band_pcr_level(D, A, U, invD, s)
+        assert torch.equal(band.band_block_inv(out[2]), out[5])
+    lv = band.band_cr_level(D, A, U)
+    assert torch.equal(lv[2], band.band_block_inv(D[:, 1::2].contiguous()))
     torch.cuda.synchronize()
 
 
