@@ -122,7 +122,27 @@ without printing a result line:
    printed beside the f64 ones;
 8. a 4 x 50 world in f32 on the card against the port's f32 CPU path:
    both solved, iterations within 3, objectives within 2e-2;
-9. the launch floor again, and one JSON line describing the kernels
+9. the solve API around the kernels (``api``), on the card: (a) the
+   assembly memo: Manhattan-4 and 3D 1x1000 as f64 SOCP solved twice each
+   with one graph object (a copy, so that the first solve assembles): the
+   first runs one ``build_conic_problem`` and one ``backend.prepare``, the
+   second neither (counted by wrappers in this script), both repeat the
+   earlier phase's digits exactly; both walls and the hand-written
+   kernels' launches of each call are printed; (b) Manhattan-4 through
+   ``save_to_pickle_file`` and ``parse_pickle_file`` in a temporary
+   directory solves to (a)'s digits; (c) ``backend="dense"`` on
+   Manhattan-4 f64 SOCP (a dense K of n x n): solved, relgap <= 1e-6,
+   iterations within 1 of the chain+arrow solve, objectives within the two
+   final gaps plus 1e-9 relative; its wall and
+   ``torch.cuda.max_memory_allocated``; (d) ``init_technique="odom"`` on
+   Manhattan-4 and 3D 4x250 f64 SOCP, iterations beside the cold start's,
+   held to the port's CPU run of the same start (the same solved status,
+   iterations within 1; solved at relgap <= 1e-6 where solved: the JAX
+   package's stall detector ends a 2D odometry start of 3 x 40 poses and
+   more unsolved after 5 iterations, and the port keeps that); (e)
+   ``solve_problem_with_intermediate_iterates`` on the 2 x 25 world: one
+   snapshot per iteration and a last one equal to ``solve_score``'s result;
+10. the launch floor again, and one JSON line describing the kernels
    (event time, device time, plain time, the bound from bytes and
    operations, and a PyTorch call computing the same function where one
    exists, by events and in device time, ``library_us``): a row per kernel at
@@ -139,6 +159,7 @@ prints no result line. Imports nothing of jax or of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -1304,7 +1325,9 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
         for n in CPU_THREADS:
             torch.set_num_threads(n)
             t0 = time.perf_counter()
-            cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu", precision=precision))
+            # a copy of the graph: each run assembles at its own thread count
+            cpu = solve_score(copy.deepcopy(fg), relaxation,
+                              ScoreSolverParams(device="cpu", precision=precision))
             _log(f"{label}[cpu, {n} threads]: solved={cpu.solved} iterations={cpu.iterations} "
                  f"relgap={cpu.gap / max(1.0, abs(cpu.primal_objective)):.3e} "
                  f"pres={cpu.primal_residual:.3e} dres={cpu.dual_residual:.3e} "
@@ -1321,6 +1344,168 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
                                  f"{relgap:.3e}, more than 3 from the CPU runs' {its} "
                                  f"(relgaps {relgaps})")
     return {**launches, **by_size}, res
+
+
+class _AssemblyCounts:
+    """Counts, while active, the conic assemblies (``build_conic_problem``
+    as the solve API calls it) and the backends' ``prepare`` calls: a
+    solve served by the assembly memo runs neither."""
+
+    def __enter__(self):
+        from score_tpu_torch import api
+        from score_tpu_torch.solver.backend import DenseBackend
+        from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+
+        self.builds = self.prepares = 0
+        self._saved = [(api, "build_conic_problem", api.build_conic_problem)] + [
+            (cls, "prepare", cls.__dict__["prepare"]) for cls in (ChainArrowBackend, DenseBackend)]
+        build = api.build_conic_problem
+
+        def counting_build(*a, **k):
+            self.builds += 1
+            return build(*a, **k)
+
+        api.build_conic_problem = counting_build
+        for cls, _, method in self._saved[1:]:
+            def counting_prepare(*a, _prepare=method.__func__, **k):
+                self.prepares += 1
+                return _prepare(*a, **k)
+
+            cls.prepare = staticmethod(counting_prepare)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+
+
+def _digits(r):
+    """What a solve line prints, unrounded: status, iterations, relgap,
+    residuals, objective."""
+    return (r.solved, r.iterations, r.gap / max(1.0, abs(r.primal_objective)),
+            r.primal_residual, r.dual_residual, r.primal_objective)
+
+
+def _timed_solve(fg, relaxation, params):
+    """One solve_score on the card with the hand-written kernels' launches
+    counted from zero: (result, wall s, launches of the kernels launched)."""
+    import torch
+    from score_tpu_torch import solve_score
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = solve_score(fg, relaxation, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = _counts()
+    return res, wall, {k: v for k, v in launches.items() if v}
+
+
+def phase_api(m4, g4x250, g1000, results):
+    """The solve API around the kernels, on the card: (a) the assembly memo
+    (a second solve of one graph runs no assembly and no prepare and
+    repeats the first's digits), (b) a pickle round trip, (c) the dense
+    KKT backend at Manhattan-4's full size, (d) odometry warm starts, (e)
+    the intermediate iterates. ``results`` holds the earlier phases' f64
+    solves of the same graphs."""
+    import os
+    import tempfile
+
+    import torch
+    from score_tpu_torch import (ScoreSolverParams, solve_problem_with_intermediate_iterates,
+                                 solve_score)
+    from score_tpu_torch.fg import parse_pickle_file, save_to_pickle_file
+
+    params = ScoreSolverParams(device="cuda")
+    # (a) the memo: two solves of one graph object, the first one cold
+    # (a copy, so no earlier phase's entry serves it)
+    first = {}
+    for label, fg, earlier in (("manhattan4", m4, results["manhattan4"]),
+                               ("3d-1x1000", g1000, results["3d-1x1000"])):
+        fg = copy.deepcopy(fg)
+        calls = []
+        for call in ("first", "second"):
+            with _AssemblyCounts() as counts:
+                res, wall, launches = _timed_solve(fg, "SOCP", params)
+            calls.append((res, counts.builds, counts.prepares))
+            _log(f"api memo {label} {call}: solved={res.solved} iterations={res.iterations} "
+                 f"relgap={_digits(res)[2]:.3e} objective={res.primal_objective!r} "
+                 f"wall_s={wall:.3f} assemblies={counts.builds} prepares={counts.prepares} "
+                 f"launches={launches}")
+        (a, a_builds, a_prep), (b, b_builds, b_prep) = calls
+        if (a_builds, a_prep, b_builds, b_prep) != (1, 1, 0, 0):
+            raise AssertionError(f"api memo {label}: assemblies/prepares {a_builds}, {a_prep} "
+                                 f"then {b_builds}, {b_prep}; expected 1, 1 then 0, 0")
+        _check_result(f"api memo {label}", a, fg.num_poses, fg.dimension)
+        if _digits(a) != _digits(b) or _digits(a) != _digits(earlier):
+            raise AssertionError(f"api memo {label}: digits {_digits(a)}, {_digits(b)}, "
+                                 f"earlier phase {_digits(earlier)}")
+        first[label] = a
+    # (b) pickle round trip of Manhattan-4
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "manhattan4.pkl")
+        save_to_pickle_file(m4, path)
+        parsed = parse_pickle_file(path)
+    res, wall, _ = _timed_solve(parsed, "SOCP", params)
+    _log(f"api pickle manhattan4: solved={res.solved} iterations={res.iterations} "
+         f"relgap={_digits(res)[2]:.3e} objective={res.primal_objective!r} wall_s={wall:.3f}")
+    if _digits(res) != _digits(first["manhattan4"]):
+        raise AssertionError(f"api pickle: digits {_digits(res)} != memo's "
+                             f"{_digits(first['manhattan4'])}")
+    # (c) the dense KKT backend at full size (a dense K of n x n in f64)
+    chain = first["manhattan4"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dense, wall, launches = _timed_solve(m4, "SOCP", ScoreSolverParams(device="cuda",
+                                                                        backend="dense"))
+    peak = torch.cuda.max_memory_allocated()
+    relgap = _check_result("api dense manhattan4", dense, m4.num_poses)
+    dobj = abs(dense.primal_objective - chain.primal_objective)
+    bound = dense.gap + chain.gap + 1e-9 * abs(chain.primal_objective)
+    _log(f"api dense manhattan4: solved={dense.solved} iterations={dense.iterations} "
+         f"(chain+arrow {chain.iterations}) relgap={relgap:.3e} "
+         f"objective={dense.primal_objective!r} |dobj|={dobj:.3e} (bound {bound:.3e}) "
+         f"wall_s={wall:.3f} max_memory_allocated_GB={peak / 1e9:.3f} launches={launches}")
+    if abs(dense.iterations - chain.iterations) > 1 or not dobj <= bound:
+        raise AssertionError("api dense: disagrees with the chain+arrow solve")
+    # (d) odometry warm starts, beside the cold starts of the earlier phases
+    # and the port's CPU run of the same warm start. Where the JAX package's
+    # algorithm ends such a start by its stall detector (2D worlds from 3 x
+    # 40 poses up: the objective falls from the dead-reckoned start faster
+    # than the gap, so the relative gap in the best-iterate metric grows and
+    # the start is never beaten), the card must end it the same way
+    for label, fg in (("manhattan4", m4), ("3d-4x250", g4x250)):
+        res, wall, _ = _timed_solve(fg, "SOCP", ScoreSolverParams(device="cuda",
+                                                                   init_technique="odom"))
+        cpu = solve_score(copy.deepcopy(fg), "SOCP", ScoreSolverParams(device="cpu",
+                                                                        init_technique="odom"))
+        relgap = res.gap / max(1.0, abs(res.primal_objective))
+        _log(f"api odom {label}: solved={res.solved} iterations={res.iterations} "
+             f"(cold start {results[label].iterations}) relgap={relgap:.3e} "
+             f"objective={res.primal_objective!r} wall_s={wall:.3f}; cpu solved={cpu.solved} "
+             f"iterations={cpu.iterations} objective={cpu.primal_objective!r}")
+        if res.solved != cpu.solved or abs(res.iterations - cpu.iterations) > 1:
+            raise AssertionError(f"api odom {label}: the card and the CPU disagree")
+        if res.solved:
+            _check_result(f"api odom {label}", res, fg.num_poses, fg.dimension)
+        else:
+            _check_poses(f"api odom {label}", res, fg.num_poses, fg.dimension, 1e-9)
+    # (e) the intermediate iterates of the small parity world
+    from score_tpu_torch.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
+
+    small = simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=2, num_poses_per_robot=25, num_landmarks=3, grid_size=8,
+        range_measure_prob=0.4, seed=1,
+    ))
+    snaps = solve_problem_with_intermediate_iterates(small, "SOCP", params)
+    final = solve_score(small, "SOCP", params)
+    same = _digits(snaps[-1]) == _digits(final) and all(
+        np.array_equal(snaps[-1].poses[k], T) for k, T in final.poses.items())
+    _log(f"api iterates 2x25: {len(snaps)} snapshots, solve_score iterations="
+         f"{final.iterations}, last snapshot equals solve_score: {same}; objectives "
+         + " ".join(f"{s.primal_objective:.6f}" for s in snaps))
+    if len(snaps) != final.iterations + 1 or not same:
+        raise AssertionError("api iterates: the last snapshot is not solve_score's result")
 
 
 def main() -> int:
@@ -1447,6 +1632,7 @@ def main() -> int:
             _log(f"{name}: f32 objective {res.primal_objective:.6f} beside f64 "
                  f"{f64.primal_objective:.6f}")
     phase_small_f32_reference()
+    phase_api(m4_fg, cells_3d[0][1], cells_3d[1][1], results)
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
     # its band shape, and at Db = 12 launches from the 3D 1x1000 SOCP solve,

@@ -61,11 +61,15 @@ that two commits are timed on one card in one call.
 
     python3 profile_port.py --walls [--root DIR]
 
-three warm 3D 1x1000 f64 SOCP solves and a profiled one (launches, device
+three warm 3D 1x1000 f64 SOCP solves, the assembly memo's miss path three
+times (host clock of ``api._prepare_assembly`` on a fresh copy of the
+graph; skipped for a checkout without the memo) and a profiled solve
+(launches, device
 busy, the hand-written kernels per instantiation, and ``band_cr_reduce``,
 ``band_cr_backsub``, ``band_cr_level`` and ``band_block_inv`` device ms
 and launches at Db = 12); five warm
-Manhattan-4 SOCP solves in f32 and in f64 (host clock), then one
+Manhattan-4 SOCP solves in f32 and in f64 (host clock), the memo's miss
+path in f64 as above, then one
 profiled solve in each: kernel launches, device busy time and the
 hand-written kernels' device time and launches (also per template
 instantiation, ``chol_lanes_kernel<12>``), and ``block_chol`` and
@@ -141,6 +145,27 @@ def _launches(fn):
     band.reset_launch_counts()
     fn()
     return sum(k.launches for k in band.KERNELS)
+
+
+def _assembly_walls(fg, n=3, relaxation="SOCP"):
+    """Host clock of the assembly memo's miss path (normalize, assemble,
+    upload, build the chain+arrow structure, prepare), each on a fresh
+    copy of the graph; None for a checkout without the memo."""
+    import copy
+
+    import torch
+    from score_tpu_torch import ScoreSolverParams, api
+
+    if not hasattr(api, "_prepare_assembly"):
+        return None
+    walls = []
+    for _ in range(n):
+        g = copy.deepcopy(fg)
+        t0 = time.perf_counter()
+        api._prepare_assembly(g, relaxation, ScoreSolverParams(device="cuda"))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
 
 
 def _warm_walls(fg, n=3, precision="f64", relaxation="SOCP"):
@@ -1053,6 +1078,8 @@ def main() -> int:
         key = f"{label}-socp-f64"
         report[key] = _warm_walls(fg, n=3)
         _log(f"{key}: warm {report[key]}")
+        report[key + "_assembly_s"] = _assembly_walls(fg)
+        _log(f"{key}: assembly (memo miss) {report[key + '_assembly_s']}")
         p = report[key + "_profile"] = _profile_solve(fg)
         _log(f"{key}: profiled solve: device busy {p['device_busy_ms']:.3f} ms, "
              f"{p['kernel_launches']} kernel launches")
@@ -1066,6 +1093,8 @@ def main() -> int:
         for precision in ("f32", "f64"):
             report[precision] = _warm_walls(fg, n=5, precision=precision)
             _log(f"{label}-{precision}: warm {report[precision]}")
+        report["f64_assembly_s"] = _assembly_walls(fg)
+        _log(f"{label}-f64: assembly (memo miss) {report['f64_assembly_s']}")
         for precision in ("f32", "f64"):
             p = report[f"{precision}_profile"] = _profile_solve(fg, precision=precision)
             _log(f"{label}-{precision}: profiled solve: device busy {p['device_busy_ms']:.3f} "

@@ -3,17 +3,25 @@
 Port of :mod:`score_tpu.api`: ``solve_score(data, relaxation_type,
 params)`` normalizes the factor graph, assembles the conic program on
 ``params.device`` (the card by default), runs the interior-point solver
-through the chain+arrow backend, rounds every rotation block onto SO(d)
-and returns a :class:`SolverResults` in the caller's units. With
-``precision="f32"`` the conic problem is cast to float32 after assembly
-and the whole solve runs in f32.
+through the chain+arrow backend (or the dense one on request), rounds
+every rotation block onto SO(d) and returns a :class:`SolverResults` in
+the caller's units. ``solve_problem_with_intermediate_iterates`` returns
+one result per interior-point iteration. With ``precision="f32"`` the
+conic problem is cast to float32 after assembly and the whole solve runs
+in f32.
+
+Normalization, assembly and the backend's ``prepare`` are memoized per
+factor graph (:func:`_prepare_assembly`), so a repeated solve of the same
+graph pays solver time only.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,18 +32,28 @@ from score_tpu_torch.assembly.conic import (
     VariableIndex,
     build_conic_problem,
 )
+from score_tpu_torch.assembly.initialization import build_initial_x
 from score_tpu_torch.assembly.normalize import normalize_factor_graph, unscale_results
 from score_tpu_torch.fg.factor_graph import FactorGraphData
 from score_tpu_torch.fg.solver_utils import SolverResults, VariableValues, save_results_to_file
 from score_tpu_torch.ops.rounding import extract_pose_matrices, homogenize_batched
+from score_tpu_torch.solver import cones
+from score_tpu_torch.solver.backend import DenseBackend
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
-from score_tpu_torch.solver.ipm import SOLVED_STATUSES, IPMResult, solve_conic
+from score_tpu_torch.solver.ipm import (
+    SOLVED_STATUSES,
+    IPMResult,
+    solve_conic,
+    solve_conic_with_iterates,
+)
+from score_tpu_torch.solver.linops import G_apply
 from score_tpu_torch.solver.params import ScoreSolverParams
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
     "solve_score",
+    "solve_problem_with_intermediate_iterates",
     "ScoreSolverParams",
     "extract_solver_results",
     "variable_values_from_x",
@@ -48,15 +66,26 @@ def _device(params: ScoreSolverParams) -> torch.device:
         raise RuntimeError(
             f"device {params.device!r} requested but torch.cuda.is_available() is False"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
-def _select_backend(problem: ConicProblem, idx: VariableIndex):
-    """The chain+arrow backend for any graph with a pose chain; the dense
-    backend (pose-free graphs) is not ported yet."""
-    if idx.num_poses == 0:
-        raise NotImplementedError(
-            "the dense KKT backend (pose-free graphs) is not ported yet"
+def _select_backend(data: FactorGraphData, problem: ConicProblem, idx: VariableIndex,
+                    params: ScoreSolverParams):
+    """Resolve the KKT backend: the chain+arrow structured factorization
+    (2D and 3D, loop closures handled as arrow blocks), dense Cholesky on
+    explicit request or for pose-free graphs. "auto", "mixed" and "f64"
+    precision all take the f64 chain+arrow backend (the card has native
+    f64; "f32" casts the problem before this point)."""
+    choice = params.backend  # validated by ScoreSolverParams
+    supported = idx.num_poses > 0
+    if choice == "dense" or (choice == "auto" and not supported):
+        return DenseBackend, None
+    if not supported:
+        raise ValueError(
+            "chain_arrow backend requires at least one pose chain; "
+            "use backend='dense'"
         )
     return ChainArrowBackend, build_chain_arrow(problem, idx)
 
@@ -131,6 +160,131 @@ def extract_solver_results(result: IPMResult, idx: VariableIndex,
     )
 
 
+def _build_warm_start(scaled_data, problem: ConicProblem, idx: VariableIndex,
+                      params: ScoreSolverParams, scale: float = 1.0):
+    """Realize init_technique / custom_init_file: construct x0 on the
+    problem's device and in its dtype, take s0 = h - G x0 and z0 = e
+    (shifted to the interior by the solver)."""
+    technique = params.init_technique
+    if technique == "default" and not params.custom_init_file:
+        return None
+    if params.custom_init_file:
+        with np.load(params.custom_init_file) as f:
+            x0 = np.asarray(f["x"], dtype=np.float64)
+    else:
+        x0 = build_initial_x(scaled_data, problem, idx, technique)
+        if scale != 1.0 and technique in ("gt", "random"):
+            # ground-truth / world-bounds values live in ORIGINAL units;
+            # the problem is solved in normalized units (odometry
+            # dead-reckoning already composes scaled measurements)
+            for pidx in range(idx.num_poses):
+                x0[np.asarray(idx.trans_cols(pidx))] /= scale
+            for l in range(idx.num_landmarks):
+                x0[np.asarray(idx.landmark_cols(l))] /= scale
+            if idx.relaxation == "SOCP":
+                for m in range(idx.num_ranges):
+                    x0[np.asarray(idx.dist_cols(m))] /= scale
+    x0 = torch.as_tensor(x0, dtype=problem.dtype, device=problem.device)
+    s0 = problem.cone_h - G_apply(problem, x0)
+    z0 = cones.soc_identity(problem.num_cones, problem.k, x0.dtype, x0.device)
+    return (x0, s0, z0)
+
+
+def _data_fingerprint(data: FactorGraphData) -> tuple:
+    """Content-complete memo key: one digest over every measurement's
+    endpoints and numeric values (odometry, loop closures, ranges, and the
+    cost-carrying landmark priors), so in-place mutation of ANY
+    measurement (a middle range or an odometry value, with unchanged
+    counts) invalidates the entry. One pass over the host measurement
+    lists per call."""
+    h = hashlib.blake2b(digest_size=16)
+
+    def upd(v) -> None:
+        h.update(v if isinstance(v, bytes) else repr(v).encode())
+
+    def upd_pose_meas(ms) -> None:
+        for m in ms:
+            upd(m.base_pose)
+            upd(m.to_pose)
+            if hasattr(m, "x"):  # 2D
+                upd((m.x, m.y, m.theta, m.translation_precision,
+                     m.rotation_precision))
+            else:  # 3D
+                upd(np.asarray(m.translation, np.float64).tobytes())
+                upd(np.asarray(m.rotation, np.float64).tobytes())
+                upd((m.translation_precision, m.rotation_precision))
+
+    upd((data.dimension, data.num_poses, data.num_landmarks))
+    for chain in data.odom_measurements:
+        upd_pose_meas(chain)
+    upd_pose_meas(data.loop_closure_measurements)
+    for r in data.range_measurements:
+        upd(r.association)
+        upd((r.dist, r.stddev))
+    for p in data.landmark_priors:
+        upd(p.name)
+        upd(np.asarray(p.translation_vector, np.float64).tobytes())
+        upd(p.translation_precision)
+    return (
+        data.num_poses,
+        data.num_landmarks,
+        data.num_odom_measurements,
+        len(data.range_measurements),
+        len(data.loop_closure_measurements),
+        h.hexdigest(),
+    )
+
+
+# Assembly memo: repeated solves of one FactorGraphData (Monte-Carlo
+# re-solves, parameter sweeps, warm starts) skip normalizing, assembling,
+# uploading and preparing the conic problem; the entry's tensors stay on
+# their device. Keyed on id(data), checked against the content
+# fingerprint (object reuse at the same address, in-place mutation), and
+# within a graph on (relaxation, normalize, precision, backend, device).
+# At most _ASSEMBLY_CACHE_MAX graphs, least recently used evicted first.
+# Entries are never written after insertion (no backend writes its
+# prepared state or the problem in place), so the lock guards only the
+# dict operations.
+_ASSEMBLY_CACHE: Dict[int, Tuple[tuple, dict]] = {}
+_ASSEMBLY_CACHE_MAX = 8
+_ASSEMBLY_CACHE_LOCK = threading.Lock()
+
+
+def _prepare_assembly(data: FactorGraphData, relaxation_type: str,
+                      params: ScoreSolverParams):
+    """Normalize + assemble + structure-build + backend prepare, memoized
+    per factor graph. Returns (scaled_data, scale, problem, idx, backend,
+    backend_aux, prepared)."""
+    device = _device(params)
+    key = (relaxation_type, params.normalize, params.precision, params.backend, device)
+    fp = _data_fingerprint(data)
+    with _ASSEMBLY_CACHE_LOCK:
+        hit = _ASSEMBLY_CACHE.get(id(data))
+        if hit is not None and hit[0] == fp and key in hit[1]:
+            # LRU touch: reinsert so eviction pops the stalest graph
+            _ASSEMBLY_CACHE[id(data)] = _ASSEMBLY_CACHE.pop(id(data))
+            return hit[1][key]
+
+    scaled_data, scale = (
+        normalize_factor_graph(data) if params.normalize else (data, 1.0)
+    )
+    problem, idx = build_conic_problem(scaled_data, relaxation_type, device=device)
+    if params.precision == "f32":
+        problem = problem.cast(torch.float32)
+    backend, backend_aux = _select_backend(data, problem, idx, params)
+    prepared = backend.prepare(problem, backend_aux)
+    entry = (scaled_data, scale, problem, idx, backend, backend_aux, prepared)
+    with _ASSEMBLY_CACHE_LOCK:
+        hit = _ASSEMBLY_CACHE.pop(id(data), None)
+        if hit is None or hit[0] != fp:
+            while len(_ASSEMBLY_CACHE) >= _ASSEMBLY_CACHE_MAX:
+                _ASSEMBLY_CACHE.pop(next(iter(_ASSEMBLY_CACHE)))
+            hit = (fp, {})
+        hit[1][key] = entry
+        _ASSEMBLY_CACHE[id(data)] = hit
+    return entry
+
+
 def solve_score(
     data: FactorGraphData,
     relaxation_type: str = QCQP_RELAXATION,
@@ -141,18 +295,14 @@ def solve_score(
     relaxation QCQP like the reference)."""
     params = params or ScoreSolverParams()
     _check_factor_graph(data)
-    device = _device(params)
     ipm_params = params.ipm_params()
 
     t0 = time.perf_counter()
-    scaled_data, scale = (
-        normalize_factor_graph(data) if params.normalize else (data, 1.0)
-    )
-    problem, idx = build_conic_problem(scaled_data, relaxation_type, device=device)
-    if params.precision == "f32":
-        problem = problem.cast(torch.float32)
-    backend, aux = _select_backend(problem, idx)
-    result = solve_conic(problem, ipm_params, backend=backend, backend_aux=aux)
+    scaled_data, scale, problem, idx, backend, aux, prepared = _prepare_assembly(
+        data, relaxation_type, params)
+    warm_start = _build_warm_start(scaled_data, problem, idx, params, scale)
+    result = solve_conic(problem, ipm_params, backend=backend, backend_aux=aux,
+                         warm_start=warm_start, prepared=prepared)
     # the rounding's device-to-host copy is the sync point of the solve
     results = extract_solver_results(result, idx, data, 0.0, relaxation_type)
     results.total_time = time.perf_counter() - t0
@@ -168,3 +318,66 @@ def solve_score(
     if params.save_results and params.results_filepath:
         save_results_to_file(results, params.results_filepath)
     return results
+
+
+def solve_problem_with_intermediate_iterates(
+    data: FactorGraphData,
+    relaxation_type: str = QCQP_RELAXATION,
+    params: Optional[ScoreSolverParams] = None,
+) -> List[SolverResults]:
+    """Return a SolverResults snapshot per interior-point iteration: the
+    solver's iterates recorded in one solve (the starting point first),
+    through the same normalization, precision and warm start as
+    :func:`solve_score`, so the last snapshot IS its result."""
+    logger.warning(
+        "Solving with intermediate iterates - this is for debugging or "
+        "visualization; use solve_score() otherwise"
+    )
+    params = params or ScoreSolverParams()
+    _check_factor_graph(data)
+    ipm_params = params.ipm_params()
+    t0 = time.perf_counter()
+    scaled_data, scale, problem, idx, backend, aux, prepared = _prepare_assembly(
+        data, relaxation_type, params)
+    warm_start = _build_warm_start(scaled_data, problem, idx, params, scale)
+    result, xs, ms = solve_conic_with_iterates(
+        problem, ipm_params, num_iters=params.max_iter, backend=backend,
+        backend_aux=aux, warm_start=warm_start, prepared=prepared,
+    )
+    n_iters = result.iterations
+    # one host copy of the metrics; the last snapshot is the result's
+    # (best) iterate, the same vector solve_score extracts
+    ms = ms[:n_iters].to(torch.float64).cpu().numpy()
+    total_time = time.perf_counter() - t0
+
+    out: List[SolverResults] = []
+    chains = data.get_pose_chain_names()
+    for it in range(n_iters + 1):
+        if it == n_iters:
+            x_it = result.x
+            pres, dres, gap, pobj, status = (result.pres, result.dres, result.gap,
+                                             result.pobj, result.status)
+        else:
+            x_it = xs[it]
+            pres, dres, gap, pobj = (float(v) for v in ms[it, :4])
+            status = int(ms[it, 4])
+        xnp, T = _round_and_fetch(x_it, idx)
+        out.append(
+            unscale_results(
+                SolverResults(
+                    variables=_values_from_host(xnp, T, idx),
+                    total_time=total_time,
+                    solved=status in SOLVED_STATUSES,
+                    pose_chain_names=chains,
+                    iterations=it,
+                    primal_objective=pobj,
+                    dual_objective=pobj - gap,
+                    gap=gap,
+                    primal_residual=pres,
+                    dual_residual=dres,
+                    relaxation=relaxation_type,
+                ),
+                scale,
+            )
+        )
+    return out

@@ -46,6 +46,7 @@ __all__ = [
     "ConicProblem",
     "VariableIndex",
     "build_conic_problem",
+    "evaluate_objective",
     "SOCP_RELAXATION",
     "QCQP_RELAXATION",
 ]
@@ -416,3 +417,16 @@ def build_conic_problem(
         arrays, n=n, k=k, dim=d, relaxation=relaxation, device=device
     )
     return problem, idx
+
+
+def evaluate_objective(problem: ConicProblem, x) -> float:
+    """Host evaluation of the cost at x (a numpy array or a tensor on any
+    device), in float64: the ground truth the parity tests hold the
+    solver's objective to."""
+    x = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    host = {name: getattr(problem, name).detach().cpu().numpy()
+            for name in ("cost_cols", "cost_coefs", "cost_b", "cost_w", "c0")}
+    xpad = np.concatenate([x, [0.0]])
+    ax = (host["cost_coefs"] * xpad[host["cost_cols"]]).sum(axis=1)
+    r = ax - host["cost_b"]
+    return float((host["cost_w"] * r * r).sum() + host["c0"])

@@ -1,8 +1,15 @@
 """Factor-graph data layer: variables, measurements, priors, the
-FactorGraphData container and solution containers (host-side numpy,
-port of :mod:`score_tpu.fg` without its pickle/g2o/TUM parsers)."""
+FactorGraphData container, IO (pickle, g2o, TUM) and solution containers
+(host-side numpy, port of :mod:`score_tpu.fg`)."""
 
 from score_tpu_torch.fg.factor_graph import FactorGraphData
+from score_tpu_torch.fg.io import (
+    parse_g2o_file,
+    parse_pickle_file,
+    parse_tum_file,
+    save_to_g2o_file,
+    save_to_pickle_file,
+)
 from score_tpu_torch.fg.measurements import (
     AmbiguousFGRangeMeasurement,
     AmbiguousPoseMeasurement2D,
@@ -34,6 +41,11 @@ from score_tpu_torch.fg.variables import (
 
 __all__ = [
     "FactorGraphData",
+    "parse_g2o_file",
+    "parse_pickle_file",
+    "parse_tum_file",
+    "save_to_g2o_file",
+    "save_to_pickle_file",
     "FGRangeMeasurement",
     "PoseMeasurement2D",
     "PoseMeasurement3D",

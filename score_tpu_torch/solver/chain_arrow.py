@@ -34,7 +34,7 @@ stay in device memory) and intra-problem sharding.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,7 +45,7 @@ from score_tpu_torch.assembly.conic import (
     VariableIndex,
 )
 from score_tpu_torch.ops.band import BandFactors, band_factor, band_solve, pad_length
-from score_tpu_torch.solver.linops import G_apply
+from score_tpu_torch.solver.linops import G_apply, cost_constant, cost_q, free_mask, pin_vector
 from score_tpu_torch.solver.pcr import PCRFactors, pcr_factor, pcr_solve
 from score_tpu_torch.solver.smallblocks import inv_small_spd
 
@@ -554,18 +554,9 @@ class ChainArrowBackend:
         st = aux
         dev = problem.device
         C, T, D, d, A = st.C, st.T, st.D, st.d, st.A
-        n = problem.n
         dt = problem.dtype
 
-        q = torch.zeros(n + 1, dtype=dt, device=dev)
-        contrib = -2.0 * (problem.cost_w * problem.cost_b)[:, None] * problem.cost_coefs
-        _scatter_add(q, (problem.cost_cols,), contrib)
-        q = q[:n]
-        const = problem.c0 + torch.sum(problem.cost_w * problem.cost_b ** 2)
-        mask = torch.ones(n, dtype=dt, device=dev)
-        mask[problem.pin_idx] = 0.0
-        xpin = torch.zeros(n, dtype=dt, device=dev)
-        xpin[problem.pin_idx] = problem.pin_val
+        q = cost_q(problem)
 
         # odometry edge blocks (batched matmuls)
         eii, eij, ejj = ChainArrowBackend._edge_blocks(problem, st, st.odom_row_base)
@@ -663,7 +654,8 @@ class ChainArrowBackend:
 
         one = torch.ones((), dtype=dt, device=dev)
         return CAState(
-            structure=st, q=q, const=const, mask=mask, xpin=xpin,
+            structure=st, q=q, const=cost_constant(problem), mask=free_mask(problem),
+            xpin=pin_vector(problem),
             hnorm=torch.maximum(one, torch.linalg.vector_norm(problem.cone_h)),
             qnorm=torch.maximum(one, torch.linalg.vector_norm(q)),
             edge_ii=edge_ii, edge_ij=edge_ij, edge_jj=edge_jj,
@@ -947,15 +939,24 @@ class ChainArrowBackend:
         return ChainArrowBackend._to_x(state, dx_full, dxl, dd)
 
 
-def _cholesky_escalated(S: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:
-    """Cholesky of S; on breakdown (info != 0 or a non-finite factor) retry
-    on S + esc*I. A second breakdown yields a NaN factor, so the step turns
-    non-finite and the solver reports a numerical error, as the JAX
-    backend's NaN-returning cholesky does."""
+def checked_cholesky(S: torch.Tensor) -> Optional[torch.Tensor]:
+    """The Cholesky factor of S, or None on breakdown: ``cholesky_ex``
+    reports it through ``info`` and may return a partial factor that is
+    finite (on the card), so a factor counts only with info == 0 and every
+    entry finite. One synchronisation."""
     L, info = torch.linalg.cholesky_ex(S)
-    if bool(((info != 0) | ~torch.isfinite(L).all()).item()):
+    return L if bool(((info == 0) & torch.isfinite(L).all()).item()) else None
+
+
+def _cholesky_escalated(S: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:
+    """Cholesky of S; on breakdown retry on S + esc*I. A second breakdown
+    yields a NaN factor, so the step turns non-finite and the solver
+    reports a numerical error, as the JAX backend's NaN-returning cholesky
+    does."""
+    L = checked_cholesky(S)
+    if L is None:
         eye = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
-        L, info = torch.linalg.cholesky_ex(S + esc * eye)
-        if bool(((info != 0) | ~torch.isfinite(L).all()).item()):
-            L = torch.full_like(L, float("nan"))
+        L = checked_cholesky(S + esc * eye)
+        if L is None:
+            L = torch.full_like(S, float("nan"))
     return L

@@ -20,7 +20,7 @@ condition) is decided from one synchronised scalar. Selections that were
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,7 +28,13 @@ from score_tpu_torch.assembly.conic import ConicProblem
 from score_tpu_torch.solver import cones
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
 
-__all__ = ["IPMParams", "IPMResult", "solve_conic"]
+__all__ = [
+    "IPMParams",
+    "IPMResult",
+    "solve_conic",
+    "solve_conic_fixed",
+    "solve_conic_with_iterates",
+]
 
 # Status codes (same values as the JAX package).
 RUNNING = 0
@@ -416,6 +422,17 @@ def _finalize(backend, problem, ops, params, st: _State) -> IPMResult:
                      pobj=pobj, gap=gap_f, pres=pres_f, dres=dres_f)
 
 
+def _initial_state(backend, problem, ops, params, warm_start) -> _State:
+    if warm_start is not None:
+        x0, s0, z0 = warm_start
+        s0 = cones.shift_to_interior(s0)
+        z0 = cones.shift_to_interior(z0)
+    else:
+        x0, s0, z0 = _initial_point(backend, problem, ops, params)
+    return _State(x=x0, s=s0, z=z0, it=0, status=RUNNING, best_x=x0, best_s=s0,
+                  best_z=z0, best_metric=float("inf"), stall=0)
+
+
 def solve_conic(
     problem: ConicProblem,
     params: IPMParams = IPMParams(),
@@ -432,14 +449,76 @@ def solve_conic(
     ops = prepared if prepared is not None else backend.prepare(problem, backend_aux)
     if problem.num_cones == 0:
         return _degenerate_no_cones(backend, problem, ops, params)
-    if warm_start is not None:
-        x0, s0, z0 = warm_start
-        s0 = cones.shift_to_interior(s0)
-        z0 = cones.shift_to_interior(z0)
-    else:
-        x0, s0, z0 = _initial_point(backend, problem, ops, params)
-    st = _State(x=x0, s=s0, z=z0, it=0, status=RUNNING, best_x=x0, best_s=s0,
-                best_z=z0, best_metric=float("inf"), stall=0)
+    st = _initial_state(backend, problem, ops, params, warm_start)
     while st.status == RUNNING and st.it < params.max_iter:
         _advance(backend, problem, ops, params, st)
     return _finalize(backend, problem, ops, params, st)
+
+
+def _metrics5(backend, problem, ops, params, st: _State) -> torch.Tensor:
+    """[pres, dres, gap, pobj, status] of the state's iterate, on its
+    device (no synchronisation)."""
+    _, _, pres, dres, gap, pq = _convergence_full(
+        backend, problem, ops, params, st.x, st.s, st.z)[:6]
+    return torch.stack([pres, dres, gap, pq + ops.const,
+                        torch.full_like(gap, float(st.status))])
+
+
+def _fixed_trips(backend, problem, ops, params, num_iters, warm_start, record):
+    """Exactly ``num_iters`` loop trips; a terminal state is frozen (the
+    JAX package's ``lax.scan`` with a ``lax.cond`` on the status).
+    Returns (result, xs, metrics): with ``record``, the iterate and its
+    metrics before the first trip and after each one, else None, None."""
+    st = _initial_state(backend, problem, ops, params, warm_start)
+    xs, ms = [], []
+    if record:
+        xs.append(st.x)
+        ms.append(_metrics5(backend, problem, ops, params, st))
+    for _ in range(num_iters):
+        frozen = st.status != RUNNING
+        if not frozen:
+            _advance(backend, problem, ops, params, st)
+        if record:
+            xs.append(st.x)
+            # a frozen state's metrics are its last snapshot's
+            ms.append(ms[-1] if frozen else _metrics5(backend, problem, ops, params, st))
+    result = _finalize(backend, problem, ops, params, st)
+    if not record:
+        return result, None, None
+    return result, torch.stack(xs), torch.stack(ms)
+
+
+def solve_conic_fixed(
+    problem: ConicProblem,
+    params: IPMParams = IPMParams(),
+    num_iters: int = 50,
+    backend=ChainArrowBackend,
+    backend_aux=None,
+) -> IPMResult:
+    """Fixed-trip-count variant: exactly ``num_iters`` trips, a terminal
+    state frozen. The same result as :func:`solve_conic` with
+    ``max_iter = num_iters``."""
+    ops = backend.prepare(problem, backend_aux)
+    if problem.num_cones == 0:
+        return _degenerate_no_cones(backend, problem, ops, params)
+    return _fixed_trips(backend, problem, ops, params, num_iters, None, record=False)[0]
+
+
+def solve_conic_with_iterates(
+    problem: ConicProblem,
+    params: IPMParams = IPMParams(),
+    num_iters: int = 50,
+    backend=ChainArrowBackend,
+    backend_aux=None,
+    warm_start: Optional[tuple] = None,
+    prepared=None,
+) -> Tuple[IPMResult, torch.Tensor, torch.Tensor]:
+    """Like :func:`solve_conic` but records x after every trip.
+
+    Returns (result, xs, metrics): xs of shape (num_iters + 1, n), the
+    starting point first (trips after convergence repeat the converged
+    x), and metrics of shape (num_iters + 1, 5) holding [pres, dres, gap,
+    pobj, status] at each snapshot. ``warm_start`` and ``prepared`` as in
+    :func:`solve_conic`."""
+    ops = prepared if prepared is not None else backend.prepare(problem, backend_aux)
+    return _fixed_trips(backend, problem, ops, params, num_iters, warm_start, record=True)

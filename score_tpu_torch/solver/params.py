@@ -1,7 +1,8 @@
 """User-facing solver configuration.
 
 Port of :class:`score_tpu.solver.params.ScoreSolverParams`, with the
-device the solve runs on as a field of its own.
+device the solve runs on as a field of its own. The LM refinement fields
+(``refine``, ``refine_params``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -9,9 +10,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from score_tpu_torch.assembly.initialization import ACCEPTABLE_INIT
 from score_tpu_torch.solver.ipm import IPMParams
 
-__all__ = ["ScoreSolverParams"]
+__all__ = ["ScoreSolverParams", "ACCEPTABLE_BACKENDS"]
+
+ACCEPTABLE_BACKENDS = ("auto", "chain_arrow", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +30,11 @@ class ScoreSolverParams:
     verbose: bool = False
     save_results: bool = False
     results_filepath: str = ""
+    # warm start: "default" is the solver's cold start; random | zero |
+    # odom | gt build an x0 (assembly/initialization.py); a custom file is
+    # an .npz whose "x" is the flat x0 in normalized units
+    init_technique: str = "default"
+    custom_init_file: Optional[str] = None
 
     # interior-point controls
     max_iter: int = 60
@@ -50,6 +59,22 @@ class ScoreSolverParams:
 
     # solve in normalized translation units (exact reparameterization)
     normalize: bool = True
+
+    # KKT backend: "auto" takes the chain+arrow factorization (every graph
+    # the assembly accepts has a pose chain); "dense" the dense Cholesky
+    # of K = P + G'W^{-2}G (solver/backend.py), the correctness reference
+    backend: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in ACCEPTABLE_BACKENDS:
+            raise ValueError(
+                f"Unknown backend {self.backend!r}; acceptable: {ACCEPTABLE_BACKENDS}"
+            )
+        if self.init_technique not in ("default",) + ACCEPTABLE_INIT:
+            raise ValueError(
+                f"Unknown init technique {self.init_technique!r}; acceptable: "
+                f"{('default',) + ACCEPTABLE_INIT}"
+            )
 
     def ipm_params(self) -> IPMParams:
         if self.precision == "f32":

@@ -12,6 +12,7 @@ import numpy as np
 __all__ = [
     "round_to_special_orthogonal",
     "get_quat_from_rotation_matrix",
+    "get_rotation_matrix_from_quat",
     "get_rotation_from_transformation_matrix",
     "get_translation_from_transformation_matrix",
 ]
@@ -85,6 +86,18 @@ def get_quat_from_rotation_matrix(mat: np.ndarray) -> np.ndarray:
         qz = 0.25 * s
     q = np.array([qx, qy, qz, qw])
     return q / np.linalg.norm(q)
+
+
+def get_rotation_matrix_from_quat(quat: np.ndarray) -> np.ndarray:
+    """Quaternion (qx, qy, qz, qw) -> 3x3 rotation matrix."""
+    qx, qy, qz, qw = np.asarray(quat, dtype=np.float64) / np.linalg.norm(quat)
+    return np.array(
+        [
+            [1 - 2 * (qy**2 + qz**2), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw)],
+            [2 * (qx * qy + qz * qw), 1 - 2 * (qx**2 + qz**2), 2 * (qy * qz - qx * qw)],
+            [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx**2 + qy**2)],
+        ]
+    )
 
 
 def get_rotation_from_transformation_matrix(T: np.ndarray) -> np.ndarray:

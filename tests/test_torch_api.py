@@ -38,6 +38,9 @@ from score_tpu.api import _cast_problem as ref_cast
 from score_tpu.api import variable_values_from_x as ref_values_from_x
 from score_tpu.assembly.conic import build_conic_problem as ref_build
 from score_tpu.assembly.normalize import normalize_factor_graph as ref_normalize
+from score_tpu.fg.factor_graph import FactorGraphData as RefFactorGraphData
+from score_tpu.fg.measurements import FGRangeMeasurement as RefFGRangeMeasurement
+from score_tpu.fg.variables import LandmarkVariable2D as RefLandmarkVariable2D
 from score_tpu.solver.chain_arrow import ChainArrowBackend as RefBackend
 from score_tpu.solver.chain_arrow import build_chain_arrow as ref_build_ca
 from score_tpu.solver.ipm import solve_conic as ref_solve_conic
@@ -47,8 +50,10 @@ from tests import torch_reference_data
 
 from score_tpu_torch import ScoreSolverParams, solve_score
 from score_tpu_torch.api import _select_backend, variable_values_from_x
+from score_tpu_torch.assembly.conic import build_conic_problem
 from score_tpu_torch.convert import factor_graph_from_reference, problem_from_reference
 from score_tpu_torch.ops import band
+from score_tpu_torch.solver.backend import DenseBackend
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
 from score_tpu_torch.solver.ipm import IPMParams, solve_conic
 from score_tpu_torch.solver.pcr import PCRFactors
@@ -127,7 +132,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import score_tpu_torch, score_tpu_torch.api, score_tpu_torch.convert\n"
         "import score_tpu_torch.ops.band, score_tpu_torch.ops.blocks, score_tpu_torch.ops.build\n"
-        "import score_tpu_torch.solver.pcr\n"
+        "import score_tpu_torch.solver.pcr, score_tpu_torch.solver.backend\n"
+        "import score_tpu_torch.fg.io, score_tpu_torch.datasets\n"
+        "import score_tpu_torch.assembly.initialization\n"
         "import score_tpu_torch.sim.manhattan, score_tpu_torch.sim.world3d\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'score_tpu' or m.startswith('score_tpu.'))\n"
@@ -142,9 +149,25 @@ def test_unported_options_raise(ref_graph):
     fg = factor_graph_from_reference(ref_graph)
     with pytest.raises(ValueError):
         solve_score(fg, "SOCP", ScoreSolverParams(device="cpu", precision="f16"))
-    # a pose-free graph needs the dense backend
-    with pytest.raises(NotImplementedError):
-        _select_backend(None, SimpleNamespace(num_poses=0))
+    # the JAX package's backend selection for a pose-free index: "auto" and
+    # "dense" take the dense backend, "chain_arrow" raises
+    pose_free = SimpleNamespace(num_poses=0)
+    for backend in ("auto", "dense"):
+        assert _select_backend(None, None, pose_free, ScoreSolverParams(
+            device="cpu", backend=backend)) == (DenseBackend, None)
+    with pytest.raises(ValueError, match="pose chain"):
+        _select_backend(None, None, pose_free, ScoreSolverParams(device="cpu",
+                                                                 backend="chain_arrow"))
+    # ... but both packages refuse a pose-free graph at assembly, at the
+    # gauge pin, before any backend is selected
+    ref_pose_free = RefFactorGraphData(dimension=2)
+    for name, xy in (("L0", (0.0, 0.0)), ("L1", (3.0, 4.0))):
+        ref_pose_free.add_landmark_variable(RefLandmarkVariable2D(name, xy))
+    ref_pose_free.add_range_measurement(RefFGRangeMeasurement(("L0", "L1"), 5.0, 0.1))
+    with pytest.raises(StopIteration):
+        ref_build(ref_pose_free, "SOCP")
+    with pytest.raises(StopIteration):
+        build_conic_problem(factor_graph_from_reference(ref_pose_free), "SOCP", device="cpu")
     # f32 is ported: the JAX package's f32 interior-point controls
     assert ScoreSolverParams(precision="f32").ipm_params() == IPMParams(
         **{f: getattr(RefParams(precision="f32").ipm_params(), f)

@@ -732,3 +732,78 @@ def test_fused_cr_kernels_past_one_launch(cuda, Db, n, depths):
         step = band._backsub_step(Db, K)
         assert band.band_cr_backsub.launches == len(band._cr_launch_depths(step, n, Db, K))
     torch.cuda.synchronize()
+
+
+def _graph_2x25():
+    return simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=2, num_poses_per_robot=25, num_landmarks=3, grid_size=8,
+        range_measure_prob=0.4, seed=1))
+
+
+def _same_digits(a, b):
+    assert (a.solved, a.iterations, a.primal_objective, a.gap, a.primal_residual,
+            a.dual_residual) == (b.solved, b.iterations, b.primal_objective, b.gap,
+                                 b.primal_residual, b.dual_residual)
+    for name, T in a.poses.items():
+        np.testing.assert_array_equal(b.poses[name], T)
+
+
+def test_memo_hit_on_cuda_repeats_digits(cuda, monkeypatch):
+    """The second solve of a graph on the card assembles nothing and
+    repeats the first solve's digits (no backend writes the memoized
+    prepared state in place)."""
+    from score_tpu_torch import api
+
+    monkeypatch.setattr(api, "_ASSEMBLY_CACHE", {})
+    builds = []
+    build = api.build_conic_problem
+    monkeypatch.setattr(api, "build_conic_problem",
+                        lambda *a, **k: builds.append(1) or build(*a, **k))
+    fg = _graph_2x25()
+    for relaxation in ("SOCP", "QCQP"):
+        first = solve_score(fg, relaxation, ScoreSolverParams(device="cuda"))
+        second = solve_score(fg, relaxation, ScoreSolverParams(device="cuda"))
+        assert first.solved
+        _same_digits(first, second)
+    assert len(builds) == 2
+
+
+def test_memo_keeps_cpu_and_cuda_entries_apart(cuda, monkeypatch):
+    from score_tpu_torch import api
+
+    monkeypatch.setattr(api, "_ASSEMBLY_CACHE", {})
+    fg = _graph_2x25()
+    on_card = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda"))
+    on_cpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cpu"))
+    (_, entries), = api._ASSEMBLY_CACHE.values()
+    devices = {key[-1].type: entry[2].device.type for key, entry in entries.items()}
+    assert devices == {"cuda": "cuda", "cpu": "cpu"}
+    assert on_card.solved and on_cpu.solved
+    assert abs(on_card.iterations - on_cpu.iterations) <= 1
+    assert abs(on_card.primal_objective - on_cpu.primal_objective) <= 1e-9 * abs(
+        on_cpu.primal_objective)
+    _same_digits(on_card, solve_score(fg, "SOCP", ScoreSolverParams(device="cuda")))
+
+
+@pytest.mark.parametrize("relaxation", ["SOCP", "QCQP"])
+def test_dense_backend_on_cuda_matches_chain_arrow(cuda, relaxation):
+    fg = _graph_2x25()
+    dense = solve_score(fg, relaxation, ScoreSolverParams(device="cuda", backend="dense"))
+    chain = solve_score(fg, relaxation, ScoreSolverParams(device="cuda"))
+    cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu", backend="dense"))
+    assert dense.solved and chain.solved
+    assert abs(dense.primal_objective - chain.primal_objective) <= dense.gap + chain.gap
+    assert abs(dense.iterations - cpu.iterations) <= 1
+    assert abs(dense.primal_objective - cpu.primal_objective) <= 1e-9 * abs(cpu.primal_objective)
+
+
+def test_pickle_round_trip_solves_on_cuda(cuda, tmp_path):
+    from score_tpu_torch.fg import parse_pickle_file, save_to_pickle_file
+
+    fg = _graph_2x25()
+    path = tmp_path / "graph.pkl"
+    save_to_pickle_file(fg, str(path))
+    parsed = parse_pickle_file(str(path))
+    assert parsed.summary() == fg.summary()
+    params = ScoreSolverParams(device="cuda")
+    _same_digits(solve_score(fg, "SOCP", params), solve_score(parsed, "SOCP", params))

@@ -31,7 +31,15 @@ as the worlds grow toward 3D 4x250. Entries of the file:
 - ``qcqp3d_4x100_*``: ``solve_conic`` of the QCQP relaxation of the 4 x 100
   3D world (``WORLD_3D_4X100``) in f64 (status, iterations, primal
   objective, gap, dual residual), read by
-  ``tests/test_torch_3d.py::test_stalled_qcqp_3d_matches_what_the_reference_shares``.
+  ``tests/test_torch_3d.py::test_stalled_qcqp_3d_matches_what_the_reference_shares``;
+- ``api_dense_{socp,qcqp}_*``, ``api_odom_{socp,qcqp}_*``: ``solve_score``
+  of the 2 x 25 world (``WORLD_2X25``) in f64 with ``backend="dense"`` and
+  with ``init_technique="odom"`` (solved, iterations, primal objective,
+  gap), ``api_odom_3x40_socp_*``: the same odometry warm start of the 3 x
+  40 world (``WORLD_3X40``), and ``api_iterates_{dense,chain_arrow}_socp``: the (iterations + 1,
+  4) [pres, dres, gap, pobj] of every snapshot of
+  ``solve_problem_with_intermediate_iterates`` of its SOCP on each
+  backend, read by ``tests/test_torch_api_surface.py``.
 """
 
 from pathlib import Path
@@ -49,6 +57,12 @@ LOOP_3D = ("A3", "A25", (1.0, -2.0, 0.5), 100.0, 1000.0)
 # QCQP both packages end OPTIMAL_INACCURATE, on a dual-residual floor
 WORLD_3D_4X100 = dict(num_robots=4, num_poses_per_robot=100, num_landmarks=6,
                       range_measure_prob=0.4, seed=3)
+# the 2D parity world of tests/test_torch_api.py and tests/test_torch_api_surface.py
+WORLD_2X25 = dict(num_robots=2, num_poses_per_robot=25, num_landmarks=3, grid_size=8,
+                  range_measure_prob=0.4, seed=1)
+# a 3 x 40 Manhattan world whose odometry warm start both packages end by
+# the stall detector (tests/test_torch_api_surface.py)
+WORLD_3X40 = dict(num_robots=3, num_poses_per_robot=40, num_landmarks=4, seed=0)
 # the f32 checks' world of tests/test_torch_api.py
 WORLD_4X50 = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=12,
                   range_measure_prob=0.4, seed=3)
@@ -66,6 +80,18 @@ def world_3d(loop: bool = False):
         fg.loop_closure_measurements.append(
             PoseMeasurement3D(a, b, np.array(t), np.eye(3), tp, rp, 0.0))
     return fg
+
+
+def graph_2x25():
+    from score_tpu.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
+
+    return simulate_manhattan_world(ManhattanWorldParams(**WORLD_2X25))
+
+
+def graph_3x40():
+    from score_tpu.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
+
+    return simulate_manhattan_world(ManhattanWorldParams(**WORLD_3X40))
 
 
 def graph_4x50():
@@ -110,9 +136,36 @@ def main() -> None:
                       backend=ChainArrowBackend, backend_aux=build_chain_arrow(rp, ridx))
     for name in ("status", "iterations", "pobj", "gap", "dres"):
         out[f"qcqp3d_4x100_{name}"] = np.asarray(getattr(res, name))
+    out.update(api_entries())
     PATH.parent.mkdir(exist_ok=True)
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
+
+
+def api_entries() -> dict:
+    from score_tpu import solve_score
+    from score_tpu.api import solve_problem_with_intermediate_iterates
+    from score_tpu.solver.params import ScoreSolverParams
+
+    out = {}
+    g = graph_2x25()
+    for relaxation in ("SOCP", "QCQP"):
+        for key, extra in (("dense", dict(backend="dense")), ("odom", dict(init_technique="odom"))):
+            r = solve_score(g, relaxation, ScoreSolverParams(precision="f64", **extra))
+            for name, value in (("solved", r.solved), ("iterations", r.iterations),
+                                ("pobj", r.primal_objective), ("gap", r.gap)):
+                out[f"api_{key}_{relaxation.lower()}_{name}"] = np.asarray(value)
+    r = solve_score(graph_3x40(), "SOCP", ScoreSolverParams(precision="f64",
+                                                             init_technique="odom"))
+    for name, value in (("solved", r.solved), ("iterations", r.iterations),
+                        ("pobj", r.primal_objective), ("gap", r.gap)):
+        out[f"api_odom_3x40_socp_{name}"] = np.asarray(value)
+    for backend in ("dense", "chain_arrow"):
+        snaps = solve_problem_with_intermediate_iterates(
+            g, "SOCP", ScoreSolverParams(precision="f64", backend=backend))
+        out[f"api_iterates_{backend}_socp"] = np.array(
+            [[s.primal_residual, s.dual_residual, s.gap, s.primal_objective] for s in snaps])
+    return out
 
 
 def qcqp3d_sizes(poses=(30, 60, 100)) -> None:
