@@ -142,7 +142,19 @@ without printing a result line:
    more unsolved after 5 iterations, and the port keeps that); (e)
    ``solve_problem_with_intermediate_iterates`` on the 2 x 25 world: one
    snapshot per iteration and a last one equal to ``solve_score``'s result;
-10. the launch floor again, and one JSON line describing the kernels
+10. the refinement stage (``refine``) on Manhattan-4 and 3D 4x250 in f64:
+   ``solve_score(fg, "SOCP", ScoreSolverParams(refine=True))`` with the
+   kernel counts set to 0 just before it (every band kernel of the solve's
+   path launched; the solve's digits those of the plain solve and of the
+   earlier phase), then ``refine_solution`` of the plain solve's rounded
+   values: initial and final cost (the final one also evaluated on the
+   host), iterations, the refinement's wall, host synchronizations counted
+   through ``torch.cuda.set_sync_debug_mode``, launches per refinement
+   (profiled refinements of 1, 2 and 3 outer iterations, extrapolated),
+   rotations in SO(d) to 1e-9, the 3D final cost below the initial one,
+   and the card against the port's CPU refinement of the same start at
+   ``max_iter=10`` (equal iterations, costs within 1e-8 relative);
+11. the launch floor again, and one JSON line describing the kernels
    (event time, device time, plain time, the bound from bytes and
    operations, and a PyTorch call computing the same function where one
    exists, by events and in device time, ``library_us``): a row per kernel at
@@ -154,7 +166,8 @@ without printing a result line:
 
 ``python3 chip_smoke.py --kernels`` stops after the band and block
 kernels' checks of phase 3 (a short first run after a kernel changed) and
-prints no result line. Imports nothing of jax or of the JAX package.
+prints no result line; ``--refine`` builds the kernels and runs phase 10
+alone, and prints no result line either. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -1508,6 +1521,166 @@ def phase_api(m4, g4x250, g1000, results):
         raise AssertionError("api iterates: the last snapshot is not solve_score's result")
 
 
+def _refine_cells(cells, cells_3d):
+    """The refinement's cells: Manhattan-4 and 3D 4x250, as (label, graph,
+    Tp, Db)."""
+    return [(label, fg, shape[1], shape[3]) for label, fg, shape in (cells[0], cells_3d[0])]
+
+
+def _true_cost(fg, values):
+    """The nonlinear MLE objective the refinement minimizes, evaluated on
+    the host from the named values, measurement by measurement."""
+    d = fg.dimension
+    c = 0.0
+    meas = [m for chain in fg.odom_measurements for m in chain]
+    meas += list(fg.loop_closure_measurements)
+    for m in meas:
+        Ti, Tj = np.asarray(values.poses[m.base_pose]), np.asarray(values.poses[m.to_pose])
+        Ri, ti, Rj, tj = Ti[:d, :d], Ti[:d, d], Tj[:d, :d], Tj[:d, d]
+        c += m.rotation_precision * np.sum((Rj - Ri @ np.asarray(m.rotation_matrix)) ** 2)
+        c += m.translation_precision * np.sum(
+            (tj - ti - Ri @ np.asarray(m.translation_vector)) ** 2)
+
+    def pos(name):
+        if name in values.poses:
+            return np.asarray(values.poses[name])[:d, d]
+        return np.asarray(values.landmarks[name])
+
+    for r in fg.range_measurements:
+        c += r.precision * (np.linalg.norm(pos(r.first_key) - pos(r.second_key)) - r.dist) ** 2
+    for p in fg.landmark_priors:
+        c += p.translation_precision * np.sum(
+            (np.asarray(values.landmarks[p.name]) - np.asarray(p.position)[:d]) ** 2)
+    return float(c)
+
+
+def _so_error(values, d):
+    """max |R'R - I| and max |det R - 1| over the poses."""
+    R = np.stack([np.asarray(T)[:d, :d] for T in values.poses.values()])
+    orth = np.abs(np.swapaxes(R, -1, -2) @ R - np.eye(d)).max()
+    return float(orth), float(np.abs(np.linalg.det(R) - 1.0).max())
+
+
+def _refine_launches(fg, start, iterations):
+    """Kernel launches and device busy ms of one refinement on the card of
+    exactly ``iterations`` outer iterations (torch.profiler, the device's
+    activity alone: a refinement makes ~8-15 thousand launches an
+    iteration)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from score_tpu_torch import RefineParams, refine_solution
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = refine_solution(fg, start, RefineParams(max_iter=iterations), device="cuda")
+        torch.cuda.synchronize()
+    if out.iterations != iterations:
+        raise AssertionError(f"refine: {out.iterations} iterations profiled, asked {iterations}")
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3)
+
+
+def phase_refine(cells, results=None):
+    """The refinement stage on the card: for each (label, graph, Tp, Db),
+    (a) the main path ``solve_score(fg, "SOCP", ScoreSolverParams(refine=True))``
+    with the kernel counts set to 0 before it: every band kernel of the
+    solve's path launched, the solve's digits those of a plain solve (and of
+    the earlier phase's, ``results``); (b) ``refine_solution`` of the plain
+    solve's rounded values, timed, with every host synchronization counted
+    (``torch.cuda.set_sync_debug_mode``): initial and final cost (the final
+    one also on the host, ``_true_cost``), iterations, wall, rotations in
+    SO(d) to 1e-9, and in 3D a final cost below the initial one; (c)
+    launches per refinement: profiled refinements of 1, 2 and 3 outer
+    iterations, extrapolated to (b)'s count (the same launches every
+    iteration, within 1 %) and the device busy time of one; (d) the card
+    against the port's CPU refinement of the same start at ``max_iter=10``:
+    equal iterations, costs within 1e-8 relative."""
+    import warnings
+
+    import torch
+    from score_tpu_torch import RefineParams, ScoreSolverParams, refine_solution, solve_score
+
+    for label, fg, Tp, Db in cells:
+        t_cell = time.perf_counter()
+        d = fg.dimension
+        plain = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda"))
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", refine=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _, by_size = _counts()
+        missing = [k for k in _path_kernels(Tp) if by_size[f"{k}[Db={Db}]"] == 0]
+        if missing:
+            raise AssertionError(f"refine {label}: kernels not launched by the solve: {missing}")
+        earlier = [plain] + ([results[label]] if results and label in results else [])
+        if any(_digits(res) != _digits(r) for r in earlier):
+            raise AssertionError(f"refine {label}: solve digits {_digits(res)} != "
+                                 f"{[_digits(r) for r in earlier]}")
+        _log(f"refine {label} solve_score(refine=True): solved={res.solved} "
+             f"iterations={res.iterations} objective={res.primal_objective!r} "
+             f"total_time_s={res.total_time:.3f} wall_s={wall:.3f} "
+             f"launches_by_size={ {k: v for k, v in by_size.items() if v} }")
+
+        start = plain.variables
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                ref = refine_solution(fg, start, device="cuda")
+                torch.cuda.synchronize()
+                refine_wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        c_start, c_end = _true_cost(fg, start), _true_cost(fg, ref.values)
+        orth, det = _so_error(ref.values, d)
+        _log(f"refine {label}: iterations={ref.iterations} initial_cost={ref.initial_cost!r} "
+             f"cost={ref.cost!r} (host: {c_start!r} -> {c_end!r}, ratio "
+             f"{c_end / c_start:.3e}) refine_wall_s={refine_wall:.3f} host_syncs={syncs} "
+             f"so_orth_err={orth:.2e} so_det_err={det:.2e}")
+        if not (np.isfinite(ref.cost) and orth <= 1e-9 and det <= 1e-9):
+            raise AssertionError(f"refine {label}: cost {ref.cost}, SO(d) errors {orth}, {det}")
+        if abs(c_end - ref.cost) > 1e-9 * c_end or abs(c_start - ref.initial_cost) > 1e-9 * c_start:
+            raise AssertionError(f"refine {label}: costs disagree with the host's")
+        if d == 3 and not ref.cost < ref.initial_cost:
+            raise AssertionError(f"refine {label}: 3D cost {ref.cost} not below {ref.initial_cost}")
+        if not ref.cost <= ref.initial_cost:
+            raise AssertionError(f"refine {label}: cost rose")
+
+        # every outer iteration runs the same operations: launches of a
+        # refinement grow by one iteration's count each iteration (within
+        # a few launches: 7843 then 7841 on Manhattan-4)
+        profiled = [_refine_launches(fg, start, n) for n in (1, 2, 3)]
+        per = [n for n, _ in profiled]
+        busy = profiled[2][1] - profiled[1][1]
+        step = per[2] - per[1]
+        if not step > 0 or abs((per[1] - per[0]) - step) > 0.01 * step:
+            raise AssertionError(f"refine {label}: launches of 1, 2, 3 iterations {per}")
+        launches = per[0] + (ref.iterations - 1) * step
+        _log(f"refine {label}: launches per outer iteration={step} (1, 2, 3 iterations: {per}) "
+             f"launches per refinement={launches} ({ref.iterations} iterations) "
+             f"host_syncs_per_iteration={syncs / max(ref.iterations, 1):.2f} "
+             f"device_busy_ms_per_iteration={busy:.3f} (wall per iteration "
+             f"{1e3 * refine_wall / max(ref.iterations, 1):.1f} ms)")
+
+        gpu = refine_solution(fg, start, RefineParams(max_iter=10), device="cuda")
+        t0 = time.perf_counter()
+        cpu = refine_solution(fg, start, RefineParams(max_iter=10), device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        dcost = abs(gpu.cost - cpu.cost) / abs(cpu.cost)
+        dpose = max(np.abs(gpu.values.poses[k] - T).max() for k, T in cpu.values.poses.items())
+        _log(f"refine {label} max_iter=10: cuda iterations={gpu.iterations} cost={gpu.cost!r}; "
+             f"cpu iterations={cpu.iterations} cost={cpu.cost!r} wall_s={cpu_wall:.3f}; "
+             f"rel_cost_diff={dcost:.3e} max_pose_diff={dpose:.3e}")
+        if gpu.iterations != cpu.iterations or not dcost <= 1e-8:
+            raise AssertionError(f"refine {label}: the card and the CPU disagree")
+        _log(f"refine {label}: phase wall_s={time.perf_counter() - t_cell:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -1583,6 +1756,9 @@ def main() -> int:
     dev = torch.device("cuda")
     cells = [(label, fg, _band_shape(fg)) for label, fg in _cells()]
     cells_3d = [(label, fg, _band_shape(fg)) for label, fg in _cells_3d()]
+    if "--refine" in sys.argv[1:]:  # the refinement stage alone
+        phase_refine(_refine_cells(cells, cells_3d))
+        return 0
     rows = {}
     for label, fg, shape in cells + cells_3d:
         rows[label] = phase_kernels(label, *shape, dev)
@@ -1633,6 +1809,7 @@ def main() -> int:
                  f"{f64.primal_objective:.6f}")
     phase_small_f32_reference()
     phase_api(m4_fg, cells_3d[0][1], cells_3d[1][1], results)
+    phase_refine(_refine_cells(cells, cells_3d), results)
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
     # its band shape, and at Db = 12 launches from the 3D 1x1000 SOCP solve,

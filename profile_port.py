@@ -94,6 +94,17 @@ turns (walls, iterations, relative gap, dual residual), and the QCQP at
 four of them by the port's CPU path; three warm solves and a profiled solve of each 3D instance; and
 3D 1x1000 SOCP solved by the port's plain path on the CPU.
 
+    python3 profile_port.py --refine [--out report.json]
+
+the refinement stage (``refine/lm.py``) on Manhattan-4 and 3D 4x250 from
+their f64 SOCP rounding: the cost of the first trial step at lambda =
+1e-4 to 1e4 (one linearization at the start, one CG solve each), then a
+refinement with the default parameters and one with the stall rule lifted
+(``stall_limit`` above ``max_iter``: 60 iterations), each with its
+iterations, costs and wall, and one profiled outer iteration (the device's
+activity: launches, device busy ms, and the kernels with the most
+launches).
+
     python3 profile_port.py --ablate
 
 prices the parts of ``band_pcr_solve`` at the same shapes: it builds
@@ -1005,6 +1016,72 @@ def _solve_ablation(device):
     return rows
 
 
+def _refine_report(top=8):
+    """--refine: the refinement stage's first trials, walls and one
+    profiled outer iteration on Manhattan-4 and 3D 4x250."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import _cells, _cells_3d
+    from score_tpu_torch import RefineParams, ScoreSolverParams, refine_solution, solve_score
+    from score_tpu_torch.refine import lm
+
+    report = {}
+    for label, fg in (_cells()[0], _cells_3d()[0]):
+        start = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda")).variables
+        g, pose_names, lm_names = lm._compile_graph(fg, "cuda")
+        d = fg.dimension
+        base = tuple(torch.tensor(np.stack(a), device="cuda") for a in (
+            [start.poses[n][:d, :d] for n in pose_names],
+            [start.poses[n][:d, d] for n in pose_names],
+            [start.landmarks[n] for n in lm_names]))
+        n = g.P * g.rdim + g.P * d + g.L * d
+        mask = torch.ones(n, dtype=torch.float64, device="cuda")
+        mask[: g.rdim] = 0.0
+        mask[g.P * g.rdim: g.P * g.rdim + d] = 0.0
+
+        def residual(delta):
+            return lm._residuals(g, *lm._retract(g, base, delta, mask))
+
+        r0, jvp_fn, vjp_fn = lm._linearize(residual, torch.zeros(n, dtype=torch.float64,
+                                                                 device="cuda"))
+        rhs = -vjp_fn(r0)
+        trials = []
+        for lam in (1e-4, 4e-4, 1.6e-3, 1e-2, 1e-1, 1.0, 10.0, 100.0, 1e3, 1e4):
+            step = lm._solve_normal_cg(jvp_fn, vjp_fn, rhs,
+                                       torch.tensor(lam, dtype=torch.float64, device="cuda"), 60)
+            r = residual(step)
+            trials.append(dict(lam=lam, step_norm=step.norm().item(), cost=(r @ r).item()))
+        row = dict(initial_cost=(r0 @ r0).item(), first_trials=trials)
+        _log(f"{label}: initial cost {row['initial_cost']:.6e}; first trial cost by lambda: "
+             + ", ".join(f"{t['lam']:g}: {t['cost']:.4e}" for t in trials))
+        for name, params in (("default", RefineParams()),
+                             ("no_stall", RefineParams(stall_limit=10 ** 6))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = refine_solution(fg, start, params, device="cuda")
+            torch.cuda.synchronize()
+            row[name] = dict(iterations=out.iterations, initial_cost=out.initial_cost,
+                             cost=out.cost, wall_s=time.perf_counter() - t0)
+            _log(f"{label} refine {name}: {row[name]}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            refine_solution(fg, start, RefineParams(max_iter=1), device="cuda")
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        row["one_iteration"] = dict(
+            launches=sum(e.count for e in kernels),
+            device_busy_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+            top=[dict(kernel=e.key[:90], launches=e.count,
+                      device_ms=e.self_device_time_total / 1e3)
+                 for e in sorted(kernels, key=lambda e: -e.count)[:top]])
+        _log(f"{label} one outer iteration: {row['one_iteration']['launches']} launches, "
+             f"{row['one_iteration']['device_busy_ms']:.3f} device ms")
+        for k in row["one_iteration"]["top"]:
+            _log(f"    {k['launches']:6d}  {k['device_ms']:8.3f} ms  {k['kernel']}")
+        report[label] = row
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full report as JSON to this file")
@@ -1016,6 +1093,8 @@ def main() -> int:
                     help="time band_pcr_solve with parts of its level loop compiled out")
     ap.add_argument("--sweep3d", action="store_true",
                     help="3D: Db = 12 depth and tile sweep, floors, walls, CPU 1x1000")
+    ap.add_argument("--refine", action="store_true",
+                    help="the refinement stage: first trials, walls, one profiled iteration")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
     if args.root:
@@ -1032,6 +1111,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _log(smi)
 
+    if args.refine:
+        report = dict(card=smi, **_refine_report())
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1))
+        return 0
     if args.sweep3d:
         report = _sweep_3d(smi)
         if args.out:

@@ -10,6 +10,7 @@ it imports torch and never jax.
     from score_tpu_torch import ScoreSolverParams, parse_pickle_file, solve_score
     fg = parse_pickle_file("factor_graph.pickle")
     results = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda"))
+    refined = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", refine=True))
 """
 
 from score_tpu_torch.api import (
@@ -43,6 +44,7 @@ from score_tpu_torch.fg import (
     parse_pickle_file,
     save_to_tum,
 )
+from score_tpu_torch.refine import RefineParams, RefineResult, refine_solution
 
 __version__ = "0.1.0"
 
@@ -63,6 +65,9 @@ __all__ = [
     "solve_score",
     "solve_problem_with_intermediate_iterates",
     "ScoreSolverParams",
+    "refine_solution",
+    "RefineParams",
+    "RefineResult",
     "SOCP_RELAXATION",
     "QCQP_RELAXATION",
     "ACCEPTABLE_RELAXATIONS",

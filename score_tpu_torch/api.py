@@ -5,8 +5,10 @@ params)`` normalizes the factor graph, assembles the conic program on
 ``params.device`` (the card by default), runs the interior-point solver
 through the chain+arrow backend (or the dense one on request), rounds
 every rotation block onto SO(d) and returns a :class:`SolverResults` in
-the caller's units. ``solve_problem_with_intermediate_iterates`` returns
-one result per interior-point iteration. With ``precision="f32"`` the
+the caller's units; with ``params.refine`` the rounded solution is then
+refined on the same device (:mod:`score_tpu_torch.refine`).
+``solve_problem_with_intermediate_iterates`` returns one result per
+interior-point iteration. With ``precision="f32"`` the
 conic problem is cast to float32 after assembly and the whole solve runs
 in f32.
 
@@ -17,6 +19,7 @@ graph pays solver time only.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import logging
 import threading
@@ -60,11 +63,14 @@ __all__ = [
 ]
 
 
-def _device(params: ScoreSolverParams) -> torch.device:
-    dev = torch.device(params.device)
+def _device(device) -> torch.device:
+    """The device a solve or a refinement runs on: "cuda" resolved to the
+    current card's index; without a card "cuda" raises, and nothing falls
+    back to the CPU."""
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {params.device!r} requested but torch.cuda.is_available() is False"
+            f"device {device!r} requested but torch.cuda.is_available() is False"
         )
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -255,7 +261,7 @@ def _prepare_assembly(data: FactorGraphData, relaxation_type: str,
     """Normalize + assemble + structure-build + backend prepare, memoized
     per factor graph. Returns (scaled_data, scale, problem, idx, backend,
     backend_aux, prepared)."""
-    device = _device(params)
+    device = _device(params.device)
     key = (relaxation_type, params.normalize, params.precision, params.backend, device)
     fp = _data_fingerprint(data)
     with _ASSEMBLY_CACHE_LOCK:
@@ -315,6 +321,16 @@ def solve_score(
             results.dual_residual, results.total_time,
         )
     results = unscale_results(results, scale)
+    if params.refine:
+        # downstream nonlinear refinement of the rounded initialization, in
+        # the caller's units and on the solve's device
+        from score_tpu_torch.refine import RefineParams, refine_solution
+
+        refined = refine_solution(data, results.variables,
+                                  params.refine_params or RefineParams(),
+                                  device=params.device)
+        results = dataclasses.replace(results, variables=refined.values,
+                                      total_time=time.perf_counter() - t0)
     if params.save_results and params.results_filepath:
         save_results_to_file(results, params.results_filepath)
     return results

@@ -1,8 +1,7 @@
 """User-facing solver configuration.
 
 Port of :class:`score_tpu.solver.params.ScoreSolverParams`, with the
-device the solve runs on as a field of its own. The LM refinement fields
-(``refine``, ``refine_params``) are not ported yet.
+device the solve runs on as a field of its own.
 """
 
 from __future__ import annotations
@@ -59,6 +58,14 @@ class ScoreSolverParams:
 
     # solve in normalized translation units (exact reparameterization)
     normalize: bool = True
+
+    # run the downstream nonlinear refinement (matrix-free LM on the true
+    # MLE objective, score_tpu_torch.refine) on the rounded solution, on
+    # the same device
+    refine: bool = False
+    # optional score_tpu_torch.refine.RefineParams for that stage (robust
+    # range kernels etc.); None uses the RefineParams defaults
+    refine_params: Optional[object] = None
 
     # KKT backend: "auto" takes the chain+arrow factorization (every graph
     # the assembly accepts has a pose chain); "dense" the dense Cholesky

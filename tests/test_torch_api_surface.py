@@ -329,8 +329,12 @@ def test_top_level_exports():
     assert score_tpu_torch.solve_problem_with_intermediate_iterates is (
         api.solve_problem_with_intermediate_iterates)
     assert sorted(score_tpu_torch.fg.__all__) == sorted(score_tpu.fg.__all__)
-    with pytest.raises(AttributeError):
-        score_tpu_torch.refine_solution  # noqa: B018  (comes with the LM port)
+    # the JAX package's lazy exports of its refinement stage
+    from score_tpu_torch import refine as port_refine
+
+    for name in ("refine_solution", "RefineParams", "RefineResult"):
+        assert getattr(score_tpu, name) is not None, name
+        assert getattr(score_tpu_torch, name) is getattr(port_refine, name), name
 
 
 def test_params_validate_options():

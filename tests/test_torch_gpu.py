@@ -807,3 +807,68 @@ def test_pickle_round_trip_solves_on_cuda(cuda, tmp_path):
     assert parsed.summary() == fg.summary()
     params = ScoreSolverParams(device="cuda")
     _same_digits(solve_score(fg, "SOCP", params), solve_score(parsed, "SOCP", params))
+
+
+def _refine_world(dim):
+    """A 1 x 10 Manhattan world (the JAX package's refinement tests' seed
+    3) or a 2 x 15 3D world, and its rounded SOCP solution on the CPU."""
+    if dim == 2:
+        fg = simulate_manhattan_world(ManhattanWorldParams(
+            num_robots=1, num_poses_per_robot=10, num_landmarks=2, grid_size=4,
+            range_measure_prob=0.5, seed=3))
+    else:
+        fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=15,
+                                             num_landmarks=3, seed=3))
+    return fg, solve_score(fg, "SOCP", ScoreSolverParams(device="cpu", max_iter=40)).variables
+
+
+@pytest.mark.parametrize("dim, robust, max_iter", [(2, "none", 60), (2, "gm", 60), (3, "none", 10)])
+def test_refine_on_cuda_matches_cpu(cuda, dim, robust, max_iter):
+    """The refinement on the card against the port's CPU refinement of the
+    same start: equal iterations, costs within 1e-8 relative, poses within
+    1e-6, rotations in SO(d) to 1e-9; one host synchronization an outer
+    iteration (the stall counter), plus the start's upload and the result's
+    copy back, counted through ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+
+    from score_tpu_torch import RefineParams, refine_solution
+
+    fg, start = _refine_world(dim)
+    params = RefineParams(robust=robust, max_iter=max_iter)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gpu = refine_solution(fg, start, params, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    cpu = refine_solution(fg, start, params, device="cpu")
+    assert gpu.iterations == cpu.iterations
+    assert abs(gpu.initial_cost - cpu.initial_cost) <= 1e-8 * cpu.initial_cost
+    assert abs(gpu.cost - cpu.cost) <= 1e-8 * cpu.cost
+    assert gpu.cost < gpu.initial_cost
+    for name, T in cpu.values.poses.items():
+        assert np.abs(gpu.values.poses[name] - T).max() <= 1e-6
+        R = gpu.values.poses[name][:dim, :dim]
+        assert np.abs(R.T @ R - np.eye(dim)).max() <= 1e-9
+        assert abs(np.linalg.det(R) - 1.0) <= 1e-9
+    assert gpu.iterations <= syncs <= gpu.iterations + 16
+
+
+def test_solve_score_refine_on_cuda(cuda):
+    """solve_score(refine=True) on the card: the solve's digits those of the
+    plain solve, the refined poses those of refine_solution on the card
+    within roundoff (index_add_ sums in the order its atomics land)."""
+    from score_tpu_torch import RefineParams, refine_solution
+
+    fg, _ = _refine_world(2)
+    params = ScoreSolverParams(device="cuda", max_iter=40)
+    plain = solve_score(fg, "SOCP", params)
+    refined = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda", max_iter=40, refine=True))
+    assert (plain.solved, plain.iterations, plain.primal_objective, plain.gap) == (
+        refined.solved, refined.iterations, refined.primal_objective, refined.gap)
+    direct = refine_solution(fg, plain.variables, RefineParams(), device="cuda")
+    for name, T in direct.values.poses.items():
+        assert np.abs(refined.poses[name] - T).max() <= 1e-6

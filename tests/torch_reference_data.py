@@ -39,7 +39,23 @@ as the worlds grow toward 3D 4x250. Entries of the file:
   40 world (``WORLD_3X40``), and ``api_iterates_{dense,chain_arrow}_socp``: the (iterations + 1,
   4) [pres, dres, gap, pobj] of every snapshot of
   ``solve_problem_with_intermediate_iterates`` of its SOCP on each
-  backend, read by ``tests/test_torch_api_surface.py``.
+  backend, read by ``tests/test_torch_api_surface.py``;
+- ``cli_{full,g2o,unsolved}_{rc,summary}``: the exit code and the
+  JSON summary line of ``python -m score_tpu`` (``score_tpu.__main__.main``)
+  on the CLI checks' graphs (``cli_graph``) with the flags of
+  ``CLI_CASES``, read by ``tests/test_torch_cli.py``.
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py --cli
+
+rewrites only the ``cli_*`` entries of the file.
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py --refine-roundoff
+
+writes nothing: on the two outlier worlds of ``tests/test_torch_refine.py``
+and each robust kernel it prints how far the JAX package's own refinement
+moves under a 1e-15 relative move of its start (at the default 60 CG
+trips), and how far the port's is from the JAX package's at 8, 15 and 60
+trips: why the parity test bounds ``cg_iters`` there.
 """
 
 from pathlib import Path
@@ -66,6 +82,48 @@ WORLD_3X40 = dict(num_robots=3, num_poses_per_robot=40, num_landmarks=4, seed=0)
 # the f32 checks' world of tests/test_torch_api.py
 WORLD_4X50 = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=12,
                   range_measure_prob=0.4, seed=3)
+
+
+# the CLI checks' cases: the input graph (``cli_graph``), its format, and
+# the flags after it; each case also writes every export it names
+CLI_CASES = {
+    # the Huber refinement moves this graph in both packages (the plain one
+    # stops after three rejected first steps in the JAX package)
+    "full": (dict(loop=False), ".pickle",
+             ["--relaxation", "SOCP", "--max-iter", "30", "--refine", "--robust", "huber",
+              "--robust-delta", "2.0", "--ate", "--tum", "{out}/out.tum",
+              "--save", "{out}/res.pkl", "--g2o-out", "{out}/g.g2o"]),
+    "g2o": (dict(loop=True, prior=False), ".g2o",
+            ["--relaxation", "QCQP", "--max-iter", "30", "--ate"]),
+    "unsolved": (dict(loop=False), ".pickle", ["--relaxation", "SOCP", "--max-iter", "1"]),
+}
+
+
+def cli_graph(**kw):
+    """The small 2D graph of ``tests/test_cli.py`` (6 poses, 2 landmarks,
+    13 ranges), as the JAX package's FactorGraphData."""
+    from tests.test_assembly import small_graph
+
+    return small_graph(np.random.default_rng(3), **kw)
+
+
+def cli_argv(case: str, graph_path: str, out_dir: str):
+    """The command line of a CLI case, exports written under ``out_dir``."""
+    flags = CLI_CASES[case][2]
+    return [graph_path] + [f.format(out=out_dir) for f in flags]
+
+
+def write_cli_graph(case: str, out_dir: str) -> str:
+    """Write a case's input graph with the JAX package's writers (a pickle
+    or a g2o file) and return its path."""
+    import os
+
+    from score_tpu.fg.io import save_to_g2o_file, save_to_pickle_file
+
+    kw, suffix, _ = CLI_CASES[case]
+    path = os.path.join(out_dir, "graph" + suffix)
+    (save_to_g2o_file if suffix == ".g2o" else save_to_pickle_file)(cli_graph(**kw), path)
+    return path
 
 
 def world_3d(loop: bool = False):
@@ -137,6 +195,7 @@ def main() -> None:
     for name in ("status", "iterations", "pobj", "gap", "dres"):
         out[f"qcqp3d_4x100_{name}"] = np.asarray(getattr(res, name))
     out.update(api_entries())
+    out.update(cli_entries())
     PATH.parent.mkdir(exist_ok=True)
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
@@ -166,6 +225,66 @@ def api_entries() -> dict:
         out[f"api_iterates_{backend}_socp"] = np.array(
             [[s.primal_residual, s.dual_residual, s.gap, s.primal_objective] for s in snaps])
     return out
+
+
+def cli_entries() -> dict:
+    import contextlib
+    import io
+    import tempfile
+
+    from score_tpu.__main__ import main as cli_main
+
+    out = {}
+    for case in CLI_CASES:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = cli_argv(case, write_cli_graph(case, tmp), tmp)
+            stdout = io.StringIO()
+            with contextlib.redirect_stdout(stdout):
+                rc = cli_main(argv)
+        out[f"cli_{case}_rc"] = np.asarray(rc)
+        # the export paths as the flags name them, with no temporary directory
+        line = stdout.getvalue().strip().splitlines()[-1].replace(tmp, "{out}")
+        out[f"cli_{case}_summary"] = np.asarray(line)
+    return out
+
+
+def update_cli() -> None:
+    """Rewrite the file with fresh ``cli_*`` entries and the others kept."""
+    out = {k: v for k, v in load().items() if not k.startswith("cli_")}
+    out.update(cli_entries())
+    np.savez_compressed(PATH, **out)
+    print(f"wrote {PATH}: " + ", ".join(f"{k} {out[k]}" for k in out if k.startswith("cli_")))
+
+
+def refine_roundoff() -> None:
+    import copy
+
+    import torch
+
+    from score_tpu.refine import RefineParams, refine_solution
+    from score_tpu_torch import RefineParams as PortParams
+    from score_tpu_torch import refine_solution as port_refine_solution
+    from tests.test_torch_refine import _world
+
+    torch.set_num_threads(1)
+    for name in ("sim9_outlier", "outliers_2x20"):
+        ref_fg, fg, start = _world(name)
+        moved = copy.deepcopy(start.variables)
+        for T in moved.poses.values():
+            T[:, -1] *= 1.0 + 1e-15
+        for kind in ("none", "huber", "gm"):
+            a = refine_solution(ref_fg, start.variables, RefineParams(robust=kind))
+            b = refine_solution(ref_fg, moved, RefineParams(robust=kind))
+            line = (f"{name} {kind}: JAX package, start moved by 1e-15: iterations "
+                    f"{a.iterations} -> {b.iterations}, cost {abs(b.cost - a.cost) / a.cost:.1e}")
+            for trips in (8, 15, 60):
+                ref = refine_solution(ref_fg, start.variables,
+                                      RefineParams(robust=kind, cg_iters=trips))
+                port = port_refine_solution(fg, start.variables,
+                                            PortParams(robust=kind, cg_iters=trips), device="cpu")
+                line += (f"; port vs JAX at {trips} trips: iterations {port.iterations} / "
+                         f"{ref.iterations}, cost {abs(port.cost - ref.cost) / ref.cost:.1e}")
+            print(line, flush=True)
 
 
 def qcqp3d_sizes(poses=(30, 60, 100)) -> None:
@@ -201,4 +320,11 @@ def qcqp3d_sizes(poses=(30, 60, 100)) -> None:
 if __name__ == "__main__":
     import sys
 
-    qcqp3d_sizes() if "--qcqp3d-sizes" in sys.argv[1:] else main()
+    if "--qcqp3d-sizes" in sys.argv[1:]:
+        qcqp3d_sizes()
+    elif "--cli" in sys.argv[1:]:
+        update_cli()
+    elif "--refine-roundoff" in sys.argv[1:]:
+        refine_roundoff()
+    else:
+        main()
