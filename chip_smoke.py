@@ -154,7 +154,23 @@ without printing a result line:
    rotations in SO(d) to 1e-9, the 3D final cost below the initial one,
    and the card against the port's CPU refinement of the same start at
    ``max_iter=10`` (equal iterations, costs within 1e-8 relative);
-11. the launch floor again, and one JSON line describing the kernels
+11. the Monte-Carlo batch (``mc_batch``, ``score_tpu_torch.parallel``):
+   16 resamples of the JAX package's bench world (``bench.py:330-394``: 4
+   x 50 poses, SOCP, ``max_iter=20``, no Gondzio correctors,
+   ``ChainArrowBackend``) on the card against the port's CPU batch of the
+   same trials (the same status, iterations within 1, pobj within 1e-9
+   relative, trips within 1); the 100-trial batch with the band kernels'
+   counts set to 0 just before it (its band folded to C = 400 chains of
+   Tp = 64: the four PCR kernels launched), every lane solved at relgap <=
+   1e-6, lanes 0-2 within 1e-6 of the card's single solves, the trips, the
+   cold wall and five warm walls with ms per trial, each band kernel's
+   launches per trip at each state of the batch's two shared gates equal
+   to a 1-trial batch's, host synchronizations of one batch solve <= trips
+   + ``MC_SYNC_CONSTANT``; then 8 trials on ``DenseBackend``, card against
+   CPU as above, with the card's peak memory; and in phase 3 the four PCR
+   kernels at the fold's shape (C = 400, Tp = 64, K = 56 and 1) against
+   their plain twins;
+12. the launch floor again, and one JSON line describing the kernels
    (event time, device time, plain time, the bound from bytes and
    operations, and a PyTorch call computing the same function where one
    exists, by events and in device time, ``library_us``): a row per kernel at
@@ -162,12 +178,15 @@ without printing a result line:
    1x1000's shapes (all seven run there) with its launches per 3D 1x1000
    SOCP solve; for the block kernels rows ``<name>[D=12]`` and
    ``<name>[D=3]`` at 3D 4x250's shapes with their launches per 3D 4x250
-   f32 QCQP solve; then the result line.
+   f32 QCQP solve; and rows ``<name>[mc]`` at the Monte-Carlo fold's
+   shapes with their launches per 100-trial batch solve; then the result
+   line.
 
 ``python3 chip_smoke.py --kernels`` stops after the band and block
 kernels' checks of phase 3 (a short first run after a kernel changed) and
 prints no result line; ``--refine`` builds the kernels and runs phase 10
-alone, and prints no result line either. Imports nothing of jax or of the JAX package.
+alone, ``--mc`` the fold's kernel checks and phase 11 alone, and neither
+prints a result line. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -1681,6 +1700,231 @@ def phase_refine(cells, results=None):
         _log(f"refine {label}: phase wall_s={time.perf_counter() - t_cell:.1f}")
 
 
+# ------------------------------------------------------------------ #
+# The Monte-Carlo batch (score_tpu_torch.parallel)
+# ------------------------------------------------------------------ #
+
+# the JAX package's Monte-Carlo bench row (bench.py:330-394): resamples of a
+# 4 x 50 Manhattan world, SOCP, IPMParams(max_iter=20) without Gondzio
+# correctors, ChainArrowBackend; 100 trials fold to C = 400 chains of Tp = 64
+MC_WORLD = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
+                range_measure_prob=0.4, seed=0)
+MC_TRIALS = 100
+# host synchronizations a batch solve may make besides its one a trip
+MC_SYNC_CONSTANT = 4
+# the fold's band shape: chains, padded length, arrow width (the panel)
+MC_BAND = (4 * MC_TRIALS, 64, 56)
+
+
+def _mc_params():
+    import dataclasses
+
+    from score_tpu_torch.solver.ipm import IPMParams
+
+    return dataclasses.replace(IPMParams(max_iter=20), gondzio_correctors=0)
+
+
+def _mc_batch(seeds, device, relaxation="SOCP"):
+    """Trials ``seeds`` of the Monte-Carlo world, assembled on the host,
+    stacked and moved to ``device``: (batch, single problems on the device,
+    chain+arrow structure on the device)."""
+    import dataclasses
+
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.parallel import stack_problems
+    from score_tpu_torch.sim.manhattan import (
+        ManhattanWorldParams,
+        resample_measurements,
+        simulate_manhattan_world,
+    )
+    from score_tpu_torch.solver.chain_arrow import build_chain_arrow
+
+    def to(pb):
+        return dataclasses.replace(pb, **{f.name: getattr(pb, f.name).to(device)
+                                         for f in dataclasses.fields(pb)
+                                         if not isinstance(getattr(pb, f.name), (int, str))})
+
+    base = simulate_manhattan_world(ManhattanWorldParams(**MC_WORLD))
+    trials = [resample_measurements(base, seed=s) for s in seeds]
+    problems = [build_conic_problem(t, relaxation, device="cpu")[0] for t in trials]
+    idx = build_conic_problem(trials[0], relaxation, device="cpu")[1]
+    first = to(problems[0])
+    return to(stack_problems(problems)), [first] + [to(p) for p in problems[1:3]], \
+        build_chain_arrow(first, idx)
+
+
+def _batch_lines_agree(label, card, cpu, trips):
+    """The card's batch against the port's CPU batch of the same trials,
+    lane by lane: the same status, iterations within 1, pobj within 1e-9
+    relative; the trips (card, CPU) within 1."""
+    st_c, st_h = card.status.cpu(), cpu.status
+    it_c, it_h = card.iterations.cpu(), cpu.iterations
+    pc, ph = card.pobj.cpu(), cpu.pobj
+    dobj = ((pc - ph).abs() / ph.abs().clamp_min(1e-300)).max().item()
+    dit = (it_c - it_h).abs().max().item()
+    _log(f"mc_batch {label}: card statuses {st_c.tolist()} iterations {it_c.tolist()}; "
+         f"cpu iterations {it_h.tolist()}; max_rel_pobj_diff={dobj:.3e} "
+         f"max_iteration_diff={dit} trips card/cpu={trips}")
+    if not _same(st_c, st_h) or dit > 1 or not dobj <= 1e-9 or abs(trips[0] - trips[1]) > 1:
+        raise AssertionError(f"mc_batch {label}: the card and the CPU disagree")
+
+
+def _same(a, b):
+    """Equal shapes and equal entries (one host read)."""
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def _trip_launches(run):
+    """Run ``run()`` with every trip's band-kernel launches recorded by the
+    batch's gate state: ({(refine gate, centering gate): [launches of each
+    trip]}, result of run)."""
+    from score_tpu_torch.ops import band
+    from score_tpu_torch.solver import ipm
+
+    step = ipm._step_batch
+    trips = {}
+
+    def recording(*a):
+        before = {k.__name__: k.launches for k in band.KERNELS}
+        out = step(*a)
+        now = {k.__name__: k.launches for k in band.KERNELS}
+        trips.setdefault((bool(a[7]), bool(a[8])), []).append(
+            tuple(sorted((k, now[k] - v) for k, v in before.items() if now[k] > v)))
+        return out
+
+    ipm._step_batch = recording
+    try:
+        return trips, run()
+    finally:
+        ipm._step_batch = step
+
+
+def phase_mc_batch(dev):
+    """The Monte-Carlo batch on the card (``mc_batch``): (a) 16 trials
+    against the port's CPU batch; (b) the 100-trial batch of the JAX
+    package's bench row: the main path, counted from zero, every lane
+    solved at relgap <= 1e-6, lanes 0-2 within 1e-6 of the card's single
+    solves, trips, the cold wall and five warm walls, ms per trial, the
+    band kernels' launches per trip by gate state equal to a 1-trial
+    batch's, host synchronizations <= trips + ``MC_SYNC_CONSTANT``; (c) an
+    8-trial ``DenseBackend`` batch against the CPU's, and its peak memory.
+    Returns the 100-trial batch's launches of each band kernel."""
+    import warnings
+
+    import torch
+    from score_tpu_torch.parallel import solve_conic_batch_trips
+    from score_tpu_torch.solver.backend import DenseBackend
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+    from score_tpu_torch.solver.ipm import SOLVED_STATUSES, solve_conic
+
+    t_phase = time.perf_counter()
+    params = _mc_params()
+    cpu = torch.device("cpu")
+
+    # (a) 16 trials, card against CPU
+    batch, _, ca = _mc_batch(range(16), dev)
+    card, trips_c = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    hbatch, _, hca = _mc_batch(range(16), cpu)
+    t0 = time.perf_counter()
+    host, trips_h = solve_conic_batch_trips(hbatch, params, ChainArrowBackend, hca)
+    _log(f"mc_batch 16 trials: cpu batch wall_s={time.perf_counter() - t0:.3f}")
+    _batch_lines_agree("16 trials", card, host, (trips_c, trips_h))
+
+    # (b) the 100-trial batch: the main path, its counts from zero
+    batch, singles, ca = _mc_batch(range(MC_TRIALS), dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res, trips = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches, by_size = _counts()
+    missing = [k for k in _path_kernels(MC_BAND[1]) if by_size[f"{k}[Db=6]"] == 0]
+    if missing:
+        raise AssertionError(f"mc_batch: kernels not launched by the batch: {missing}")
+    band_launches = {k: launches[k] for k in _path_kernels(MC_BAND[1])}
+    status = res.status.cpu()
+    relgap = (res.gap / res.pobj.abs().clamp_min(1.0)).cpu()
+    solved = sum(int(s) in SOLVED_STATUSES for s in status.tolist())
+    _log(f"mc_batch {MC_TRIALS} trials: trips={trips} solved={solved}/{MC_TRIALS} "
+         f"statuses={sorted(set(status.tolist()))} max_relgap={relgap.max().item():.3e} "
+         f"iterations min/max={res.iterations.min().item()}/{res.iterations.max().item()} "
+         f"launches={band_launches}")
+    if solved != MC_TRIALS or not relgap.max().item() <= 1e-6:
+        raise AssertionError(f"mc_batch: {solved} of {MC_TRIALS} lanes solved, max relgap "
+                             f"{relgap.max().item():.3e}")
+    if not torch.isfinite(res.x).all() or res.x.shape != (MC_TRIALS, singles[0].n):
+        raise AssertionError(f"mc_batch: bad x {tuple(res.x.shape)}")
+    for lane, pb in enumerate(singles):
+        one = solve_conic(pb, params, backend_aux=ca)
+        d = abs(one.pobj - res.pobj[lane].item())
+        _log(f"mc_batch lane {lane}: batch pobj={res.pobj[lane].item()!r} single pobj="
+             f"{one.pobj!r} iterations batch/single={res.iterations[lane].item()}/"
+             f"{one.iterations} rel_diff={d / abs(one.pobj):.3e}")
+        if not d <= 1e-6 * abs(one.pobj) + 1e-8:
+            raise AssertionError(f"mc_batch lane {lane}: the batch and the single solve differ")
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        again, _ = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    if not _same(again.pobj, res.pobj):
+        raise AssertionError("mc_batch: a warm batch solve changed the digits")
+    med = statistics.median(warm)
+    _log(f"mc_batch {MC_TRIALS} trials: cold_s={cold:.3f} warm_s={[round(w, 3) for w in warm]} "
+         f"median_warm_s={med:.3f} ms_per_trial={1e3 * med / MC_TRIALS:.2f} "
+         f"(cold {1e3 * cold / MC_TRIALS:.2f})")
+
+    # launches per trip, by the batch's gates, against a 1-trial batch
+    one_batch, _, one_ca = _mc_batch(range(1), dev)
+    per100, _ = _trip_launches(lambda: solve_conic_batch_trips(batch, params,
+                                                               ChainArrowBackend, ca))
+    per1, (_, trips1) = _trip_launches(lambda: solve_conic_batch_trips(
+        one_batch, params, ChainArrowBackend, one_ca))
+    for gates in sorted(set(per100) | set(per1)):
+        _log(f"mc_batch launches per trip at gates (refine, center)={gates}: "
+             f"B={MC_TRIALS} {sorted(set(per100.get(gates, [])))} "
+             f"({len(per100.get(gates, []))} trips); B=1 {sorted(set(per1.get(gates, [])))} "
+             f"({len(per1.get(gates, []))} trips)")
+    shared = set(per100) & set(per1)
+    if (False, False) not in shared or any(
+            len(set(per100[g]) | set(per1[g])) != 1 for g in shared):
+        raise AssertionError("mc_batch: launches per trip depend on the trial count")
+
+    # host synchronizations of one warm batch solve
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, trips_s = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    _log(f"mc_batch {MC_TRIALS} trials: host_syncs={syncs} trips={trips_s} "
+         f"(limit trips + {MC_SYNC_CONSTANT}); 1-trial batch trips={trips1}")
+    if syncs > trips_s + MC_SYNC_CONSTANT:
+        raise AssertionError(f"mc_batch: {syncs} host syncs for {trips_s} trips")
+
+    # (c) the dense backend, 8 trials, card against CPU
+    batch, _, _ = _mc_batch(range(8), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card, trips_c = solve_conic_batch_trips(batch, params, DenseBackend)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hbatch, _, _ = _mc_batch(range(8), cpu)
+    t0 = time.perf_counter()
+    host, trips_h = solve_conic_batch_trips(hbatch, params, DenseBackend)
+    _log(f"mc_batch dense 8 trials: card wall_s={wall:.3f} max_memory_allocated_GB={peak:.3f}; "
+         f"cpu wall_s={time.perf_counter() - t0:.3f}")
+    _batch_lines_agree("dense 8 trials", card, host, (trips_c, trips_h))
+    _log(f"mc_batch: phase wall_s={time.perf_counter() - t_phase:.1f}")
+    return band_launches
+
+
 def main() -> int:
     import torch
 
@@ -1759,9 +2003,14 @@ def main() -> int:
     if "--refine" in sys.argv[1:]:  # the refinement stage alone
         phase_refine(_refine_cells(cells, cells_3d))
         return 0
+    if "--mc" in sys.argv[1:]:  # the Monte-Carlo batch alone
+        phase_kernels("mc", *MC_BAND, 6, dev)
+        phase_mc_batch(dev)
+        return 0
     rows = {}
     for label, fg, shape in cells + cells_3d:
         rows[label] = phase_kernels(label, *shape, dev)
+    rows["mc"] = phase_kernels("mc", *MC_BAND, 6, dev)  # the batch's fold
     for Db in (6, 12):
         phase_edge_shapes(Db, dev)
         phase_cr_levels(Db, dev)
@@ -1810,6 +2059,7 @@ def main() -> int:
     phase_small_f32_reference()
     phase_api(m4_fg, cells_3d[0][1], cells_3d[1][1], results)
     phase_refine(_refine_cells(cells, cells_3d), results)
+    mc_launches = phase_mc_batch(dev)
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
     # its band shape, and at Db = 12 launches from the 3D 1x1000 SOCP solve,
@@ -1820,8 +2070,10 @@ def main() -> int:
     # QCQP solve, times at its first level's and its pivots' shapes
     timed = {**rows["manhattan4"], **block_rows}
     timed.update({f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
+    timed.update({f"{name}[mc]": r for name, r in rows["mc"].items()})
     names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS]
-             + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)])
+             + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)]
+             + [f"{k}[mc]" for k in mc_launches])
     kernels = []
     for name in names:
         base = name.split("[")[0]
@@ -1830,6 +2082,8 @@ def main() -> int:
             source = BLOCKS_SOURCE
             launched = (launches["manhattan4-f32"][base] if name == base
                         else launches["3d-4x250-qcqp-f32"][name])
+        elif name.endswith("[mc]"):  # launches per 100-trial batch solve
+            source, launched = BAND_SOURCE, mc_launches[base]
         elif name == base:
             source, launched = BAND_SOURCE, launches["manhattan4"][f"{base}[Db=6]"]
         else:

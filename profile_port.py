@@ -105,6 +105,14 @@ iterations, costs and wall, and one profiled outer iteration (the device's
 activity: launches, device busy ms, and the kernels with the most
 launches).
 
+    python3 profile_port.py --batch [--out report.json]
+
+the Monte-Carlo batch (``score_tpu_torch.parallel.solve_conic_batch``,
+``chip_smoke.py``'s ``mc_batch`` world and settings: trials of a 4 x 50
+Manhattan world, ChainArrowBackend) at 1, 16 and 100 trials: trips, three
+warm walls and ms per trial, and one profiled batch solve (device busy,
+launches, top ops, the band kernels' device ms and launches).
+
     python3 profile_port.py --ablate
 
 prices the parts of ``band_pcr_solve`` at the same shapes: it builds
@@ -244,14 +252,22 @@ def _block_kernels_at(profile, D, wrappers=None, key="D"):
 
 
 def _profile_solve(fg, top=12, precision="f64", relaxation="SOCP"):
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from score_tpu_torch import ScoreSolverParams, solve_score
 
     params = ScoreSolverParams(device="cuda", precision=precision)
+    return _profile(lambda: solve_score(fg, relaxation, params), top)
+
+
+def _profile(run, top=12):
+    """One call of ``run()`` under torch.profiler: device busy time (self
+    device time of all kernels), kernel launches, the ops with the most
+    device time, and the hand-written kernels' device time and launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solve_score(fg, relaxation, params)
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -278,6 +294,47 @@ def _profile_solve(fg, top=12, precision="f64", relaxation="SOCP"):
         hand_kernels=band,
         hand_kernels_by_instance=by_instance,
     )
+
+
+def _batch_report(sizes=(1, 16, 100)):
+    """The Monte-Carlo batch (``chip_smoke.py``'s ``mc_batch`` world and
+    settings) at each trial count: the trips, three warm walls (host clock
+    around ``solve_conic_batch`` and a device sync, ``prepare`` included)
+    and ms per trial, and one profiled batch solve: device busy, kernel
+    launches, the top ops and the band kernels' device ms and launches."""
+    import torch
+    from chip_smoke import _mc_batch, _mc_params
+    from score_tpu_torch.parallel import solve_conic_batch_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+
+    params, dev, out = _mc_params(), torch.device("cuda"), {}
+    for B in sizes:
+        batch, _, ca = _mc_batch(range(B), dev)
+
+        def run():
+            return solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+
+        _, trips = run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        p = _profile(run)
+        row = out[f"B={B}"] = dict(trips=trips, warm_s=walls,
+                                   ms_per_trial=1e3 * statistics.median(walls) / B, profile=p)
+        busy = p["device_busy_ms"] / 1e3 / statistics.median(walls)
+        _log(f"mc batch B={B}: trips={trips} warm_s={[round(w, 3) for w in walls]} "
+             f"ms_per_trial={row['ms_per_trial']:.2f}; profiled: device busy "
+             f"{p['device_busy_ms']:.3f} ms ({100 * busy:.1f} % of the median wall), "
+             f"{p['kernel_launches']} kernel launches")
+        for o in p["top_ops"][:8]:
+            _log(f"  {o['op']:<40} {o['device_ms']:9.3f} ms {o['calls']:7d} calls")
+        for name, b in p["hand_kernels"].items():
+            _log(f"  band {name:<22} {b['device_ms']:9.3f} ms {b['launches']:5d} launches")
+    return out
 
 
 def _random_band(C, Tp, Db, seed, device):
@@ -1095,6 +1152,8 @@ def main() -> int:
                     help="3D: Db = 12 depth and tile sweep, floors, walls, CPU 1x1000")
     ap.add_argument("--refine", action="store_true",
                     help="the refinement stage: first trials, walls, one profiled iteration")
+    ap.add_argument("--batch", action="store_true",
+                    help="the Monte-Carlo batch at 1, 16 and 100 trials: walls, trips, profile")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
     if args.root:
@@ -1111,6 +1170,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _log(smi)
 
+    if args.batch:
+        report = dict(card=smi, **_batch_report())
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1))
+        return 0
     if args.refine:
         report = dict(card=smi, **_refine_report())
         if args.out:

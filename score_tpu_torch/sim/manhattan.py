@@ -26,6 +26,7 @@ from score_tpu_torch.fg.variables import LandmarkVariable2D, PoseVariable2D
 __all__ = [
     "ManhattanWorldParams",
     "simulate_manhattan_world",
+    "resample_measurements",
 ]
 
 # 'L' is reserved for landmark names (L0, L1, ...) — a robot letter 'L'
@@ -223,3 +224,100 @@ def simulate_manhattan_world(
     fg.x_min, fg.x_max = 0.0, world
     fg.y_min, fg.y_max = 0.0, world
     return fg
+
+
+def resample_measurements(
+    fg: FactorGraphData,
+    seed: int,
+    odom_trans_stddev: float = None,
+    odom_rot_stddev: float = None,
+) -> FactorGraphData:
+    """Redraw measurement noise around the graph's ground truth, keeping the
+    measurement STRUCTURE (variables, associations, chain layout) identical.
+
+    This is the Monte-Carlo trial generator: a batch of resampled graphs
+    shares one ConicProblem structure, so the trials stack
+    (:func:`score_tpu_torch.parallel.stack_problems`) and solve as one
+    batch (:func:`score_tpu_torch.parallel.solve_conic_batch`). Draws the
+    numpy ``default_rng(seed)`` sequence of
+    ``score_tpu.sim.manhattan.resample_measurements`` in its order
+    (odometry per chain, loop closures, ranges), so the same graph and
+    seed give the same measurements to the last bit.
+    """
+    rng = np.random.default_rng(seed)
+    out = FactorGraphData(dimension=fg.dimension)
+    out.pose_variables = fg.pose_variables
+    out.landmark_variables = fg.landmark_variables
+    out.existing_pose_variables = set(fg.existing_pose_variables)
+    out.existing_landmark_variables = set(fg.existing_landmark_variables)
+    out.pose_priors = fg.pose_priors
+    out.landmark_priors = fg.landmark_priors
+    out.x_min, out.x_max = fg.x_min, fg.x_max
+    out.y_min, out.y_max = fg.y_min, fg.y_max
+
+    poses = fg.pose_variables_dict
+    translations = {
+        **{n: np.asarray(p.true_position, dtype=np.float64) for n, p in poses.items()},
+        **{
+            l.name: np.asarray(l.true_position, dtype=np.float64)
+            for l in fg.landmark_variables
+        },
+    }
+
+    def true_state(name):
+        p = poses[name]
+        return np.array([p.true_position[0], p.true_position[1], p.true_theta])
+
+    for r, chain in enumerate(fg.odom_measurements):
+        for m in chain:
+            dx, dy, dth = _rel_pose(true_state(m.base_pose), true_state(m.to_pose))
+            ts = (
+                odom_trans_stddev
+                if odom_trans_stddev is not None
+                else 1.0 / np.sqrt(m.translation_precision)
+            )
+            rs = (
+                odom_rot_stddev
+                if odom_rot_stddev is not None
+                else 1.0 / np.sqrt(m.rotation_precision)
+            )
+            out.add_odom_measurement(
+                PoseMeasurement2D(
+                    m.base_pose,
+                    m.to_pose,
+                    dx + rng.normal(0.0, ts),
+                    dy + rng.normal(0.0, ts),
+                    dth + rng.normal(0.0, rs),
+                    translation_precision=m.translation_precision,
+                    rotation_precision=m.rotation_precision,
+                    timestamp=m.timestamp,
+                ),
+                chain_idx=r,
+            )
+    for m in fg.loop_closure_measurements:
+        dx, dy, dth = _rel_pose(true_state(m.base_pose), true_state(m.to_pose))
+        ts = 1.0 / np.sqrt(m.translation_precision)
+        rs = 1.0 / np.sqrt(m.rotation_precision)
+        out.loop_closure_measurements.append(
+            PoseMeasurement2D(
+                m.base_pose,
+                m.to_pose,
+                dx + rng.normal(0.0, ts),
+                dy + rng.normal(0.0, ts),
+                dth + rng.normal(0.0, rs),
+                translation_precision=m.translation_precision,
+                rotation_precision=m.rotation_precision,
+                timestamp=m.timestamp,
+            )
+        )
+    for m in fg.range_measurements:
+        d_true = np.linalg.norm(
+            translations[m.first_key] - translations[m.second_key]
+        )
+        noisy = max(d_true + rng.normal(0.0, m.stddev), 1e-3)
+        out.add_range_measurement(
+            FGRangeMeasurement(
+                tuple(m.association), float(noisy), m.stddev, m.timestamp
+            )
+        )
+    return out

@@ -25,6 +25,18 @@ Arrow column layout (host-chosen, static):
     [ landmarks | range-cover translations | loop-cover translations
       | loop-cover rotations ]
 
+A stacked problem (``score_tpu_torch.parallel.stack_problems``: B trials
+of one structure) runs through the same methods with a leading trial axis
+on every per-trial quantity: ``prepare`` stacks the ``CAState`` fields
+(never ``structure``, the one ``ChainArrowStructure`` passed in, whose
+index tensors index the trials' tensors along their own axes and are never
+expanded over the trials), and the band folds the trials into its chain
+axis, (B*C, Tp, Db, Db), so that one launch of each band kernel serves
+every trial; its compaction depth follows Tp alone. The arrow Schur
+complement is (B, A, A), factored by one batched ``cholesky_ex`` with the
+escalated retry selected lane by lane on the device (:func:`lane_cholesky`).
+On a single problem every method runs the ops it always did.
+
 Not carried over from the JAX backend: the two-float band and its Jacobi
 equilibration (the card has native f64), the blocked arrow Cholesky and
 the split-f32 matmuls (TPU f64 workarounds), SPIKE segmentation (chains
@@ -45,7 +57,15 @@ from score_tpu_torch.assembly.conic import (
     VariableIndex,
 )
 from score_tpu_torch.ops.band import BandFactors, band_factor, band_solve, pad_length
-from score_tpu_torch.solver.linops import G_apply, cost_constant, cost_q, free_mask, pin_vector
+from score_tpu_torch.solver.linops import (
+    G_apply,
+    batch_shape,
+    cost_constant,
+    cost_q,
+    free_mask,
+    pin_vector,
+    trial_norm,
+)
 from score_tpu_torch.solver.pcr import PCRFactors, pcr_factor, pcr_solve
 from score_tpu_torch.solver.smallblocks import inv_small_spd
 
@@ -55,6 +75,7 @@ __all__ = [
     "ChainArrowBackend",
     "CAState",
     "CAFactors",
+    "lane_cholesky",
 ]
 
 # ------------------------------------------------------------------ #
@@ -478,14 +499,26 @@ class CAFactors(NamedTuple):
     Winv2: torch.Tensor  # (NR, k, k) NT scalings (for refinement matvecs)
 
 
-def _scatter_add(out: torch.Tensor, index: tuple, values: torch.Tensor) -> None:
+def _scatter_add(out: torch.Tensor, index: tuple, values: torch.Tensor,
+                 lead: tuple = ()) -> None:
     """out[index] += values with repeated indices accumulating (the JAX
     ``.at[index].add``): the index tensors broadcast against each other to
     a shape S, and values broadcast to S + out.shape[len(index):], the
     shape of ``out[index]``. (Index tensors for fewer dimensions than
     ``out`` has select whole sub-blocks: the loop closures' D x D blocks
-    and D-vectors.)"""
+    and D-vectors.) With ``lead`` trial axes leading both ``out`` and
+    ``values``, the index applies to the dimensions after them in every
+    trial: the trial axes move behind the indexed ones in a view, so that
+    the index tensors are used as they are."""
     shape = torch.broadcast_shapes(*(i.shape for i in index))
+    if lead:
+        nl, ni = len(lead), len(index)
+        rest = out.shape[nl + ni:]
+        view = out.movedim(tuple(range(nl)), tuple(range(ni, ni + nl)))
+        vals = values.expand(lead + shape + rest).movedim(
+            tuple(range(nl)), tuple(range(len(shape), len(shape) + nl)))
+        view.index_put_(tuple(i.expand(shape) for i in index), vals, accumulate=True)
+        return
     target = shape + out.shape[len(index):]
     out.index_put_(
         tuple(i.expand(shape) for i in index), values.expand(target),
@@ -503,23 +536,25 @@ class ChainArrowBackend:
     @staticmethod
     def _gather(state: CAState, v):
         st = state.structure
-        vp = torch.cat([v, v.new_zeros((1,))])
-        return vp[st.x_to_chain], vp[st.x_to_lm], vp[st.x_to_dist]
+        vp = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
+        return vp[..., st.x_to_chain], vp[..., st.x_to_lm], vp[..., st.x_to_dist]
 
     @staticmethod
     def _to_x(state: CAState, vc, vl, vd):
         st = state.structure
+        lead = vc.shape[:-3]
         flat = torch.cat(
-            [vc.reshape(-1), vl.reshape(-1), vd.reshape(-1), vc.new_zeros((1,))]
+            [vc.reshape(lead + (-1,)), vl.reshape(lead + (-1,)), vd.reshape(lead + (-1,)),
+             vc.new_zeros(lead + (1,))], dim=-1,
         )
-        return flat[st.struct_to_x]
+        return flat[..., st.struct_to_x]
 
     @staticmethod
     def _range_endpoint_values(state: CAState, v):
         """(ta, tb) translations of each range's endpoints from x."""
         st = state.structure
-        vp = torch.cat([v, v.new_zeros((1,))])
-        return vp[st.end_a_cols], vp[st.end_b_cols]
+        vp = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
+        return vp[..., st.end_a_cols], vp[..., st.end_b_cols]
 
     @staticmethod
     def _range_endpoint_adjoint(state: CAState, ga, gb):
@@ -528,12 +563,13 @@ class ChainArrowBackend:
         gather + sum over the incidence lists."""
         st = state.structure
         d, D = st.d, st.D
-        gab = torch.cat([ga, gb, ga.new_zeros((1, d))], dim=0)
-        tr = torch.sum(gab[st.pose_inc], dim=1)  # (C*T, d)
-        vc = ga.new_zeros((st.C * st.T, D))
-        vc[:, d * d:] = tr
-        vl = torch.sum(gab[st.lm_inc], dim=1)
-        return vc.reshape(st.C, st.T, D), vl[: st.NL]
+        lead = ga.shape[:-2]
+        gab = torch.cat([ga, gb, ga.new_zeros(lead + (1, d))], dim=-2)
+        tr = torch.sum(gab[..., st.pose_inc, :], dim=-2)  # (C*T, d)
+        vc = ga.new_zeros(lead + (st.C * st.T, D))
+        vc[..., d * d:] = tr
+        vl = torch.sum(gab[..., st.lm_inc, :], dim=-2)
+        return vc.reshape(lead + (st.C, st.T, D)), vl[..., : st.NL, :]
 
     # ---------------- prepare ---------------- #
 
@@ -543,8 +579,8 @@ class ChainArrowBackend:
         encoding; row_base (...,) gives each edge's first row."""
         D = st.D
         row_idx = row_base[..., None] + torch.arange(D, device=row_base.device)
-        coefs = problem.cost_coefs[row_idx]  # (..., D, nnz)
-        w = problem.cost_w[row_idx]
+        coefs = problem.cost_coefs[..., row_idx, :]  # (..., D, nnz)
+        w = problem.cost_w[..., row_idx]
         A_loc = torch.einsum("...rj,rjl->...rl", coefs, st.odom_local_onehot)[..., : 2 * D]
         M = 2.0 * torch.einsum("...rl,...r,...rm->...lm", A_loc, w, A_loc)
         return M[..., :D, :D], M[..., :D, D:], M[..., D:, D:]
@@ -555,6 +591,8 @@ class ChainArrowBackend:
         dev = problem.device
         C, T, D, d, A = st.C, st.T, st.D, st.d, st.A
         dt = problem.dtype
+        lead = batch_shape(problem)  # (B,) for stacked trials
+        nl = lead  # the trial axes a scatter passes over
 
         q = cost_q(problem)
 
@@ -568,7 +606,7 @@ class ChainArrowBackend:
                 problem, st, st.loop_row_base
             )
         else:
-            loop_ii = loop_ij = loop_jj = torch.zeros((0, D, D), dtype=dt, device=dev)
+            loop_ii = loop_ij = loop_jj = torch.zeros(lead + (0, D, D), dtype=dt, device=dev)
 
         cm_f = st.cm.reshape(C * T, D)
         av_f = st.av.reshape(C * T, D)
@@ -576,15 +614,15 @@ class ChainArrowBackend:
 
         # chain-band pieces
         cm_i, cm_j = st.cm[:, :-1], st.cm[:, 1:]
-        D0 = torch.zeros((C, T, D, D), dtype=dt, device=dev)
-        D0[:, :-1] += edge_ii[:, : T - 1] * cm_i[..., :, None] * cm_i[..., None, :]
-        D0[:, 1:] += edge_jj[:, : T - 1] * cm_j[..., :, None] * cm_j[..., None, :]
-        U0 = edge_ij[:, : T - 1] * cm_i[..., :, None] * cm_j[..., None, :]
+        D0 = torch.zeros(lead + (C, T, D, D), dtype=dt, device=dev)
+        D0[..., :-1, :, :] += edge_ii[..., : T - 1, :, :] * cm_i[..., :, None] * cm_i[..., None, :]
+        D0[..., 1:, :, :] += edge_jj[..., : T - 1, :, :] * cm_j[..., :, None] * cm_j[..., None, :]
+        U0 = edge_ij[..., : T - 1, :, :] * cm_i[..., :, None] * cm_j[..., None, :]
 
         # static arrow couplings, scattered once per solve. B0 has a pad
         # column (index A) and S0 a pad row/col for non-arrow entries.
-        B0p = torch.zeros((C * T, D, A + 1), dtype=dt, device=dev)
-        S0p = torch.zeros((A + 1, A + 1), dtype=dt, device=dev)
+        B0p = torch.zeros(lead + (C * T, D, A + 1), dtype=dt, device=dev)
+        S0p = torch.zeros(lead + (A + 1, A + 1), dtype=dt, device=dev)
         l_idx = torch.arange(D, device=dev)[None, :, None]
 
         def add_coupling(D0f, blk, su, sv):
@@ -592,13 +630,13 @@ class ChainArrowBackend:
             cmu, avu, acu = cm_f[su], av_f[su], ac_f[su]
             cmv, avv, acv = cm_f[sv], av_f[sv], ac_f[sv]
             _scatter_add(B0p, (su[:, None, None], l_idx, acv[:, None, :]),
-                         blk * cmu[:, :, None] * avv[:, None, :])
+                         blk * cmu[:, :, None] * avv[:, None, :], nl)
             _scatter_add(S0p, (acu[:, :, None], acv[:, None, :]),
-                         blk * avu[:, :, None] * avv[:, None, :])
+                         blk * avu[:, :, None] * avv[:, None, :], nl)
             # same-slot chain x chain (loop endpoints; odometry diagonals
             # are handled densely above)
             if D0f is not None:
-                _scatter_add(D0f, (su,), blk * cmu[:, :, None] * cmv[:, None, :])
+                _scatter_add(D0f, (su,), blk * cmu[:, :, None] * cmv[:, None, :], nl)
 
         # odometry spill into the arrow (skipped when no pose has arrow
         # residency, e.g. robot-landmark ranges only)
@@ -608,9 +646,9 @@ class ChainArrowBackend:
             si = slots[:, :-1].reshape(-1)
             sj = slots[:, 1:].reshape(-1)
             vmask = st.odom_valid.reshape(-1)[:, None, None]
-            bii = edge_ii.reshape(-1, D, D) * vmask
-            bij = edge_ij.reshape(-1, D, D) * vmask
-            bjj = edge_jj.reshape(-1, D, D) * vmask
+            bii = edge_ii.reshape(lead + (-1, D, D)) * vmask
+            bij = edge_ij.reshape(lead + (-1, D, D)) * vmask
+            bjj = edge_jj.reshape(lead + (-1, D, D)) * vmask
             add_coupling(None, bii, si, si)
             add_coupling(None, bjj, sj, sj)
             add_coupling(None, bij, si, sj)
@@ -618,7 +656,7 @@ class ChainArrowBackend:
 
         # loop-closure couplings (the cover guarantees no cross-slot
         # chain x chain term; same-slot chain x chain goes to D0)
-        D0f = D0.reshape(C * T, D, D)
+        D0f = D0.reshape(lead + (C * T, D, D))
         if st.NLC:
             si, sj = st.loop_slot_i, st.loop_slot_j
             add_coupling(D0f, loop_ii, si, si)
@@ -626,38 +664,38 @@ class ChainArrowBackend:
             add_coupling(D0f, loop_ij, si, sj)
             add_coupling(D0f, loop_ij.transpose(-1, -2), sj, si)
 
-        B0 = B0p[:, :, :A].reshape(C, T, D, A)
-        S0 = S0p[:A, :A].clone()
+        B0 = B0p[..., :A].reshape(lead + (C, T, D, A))
+        S0 = S0p[..., :A, :A].clone()
 
         # landmark priors on the arrow diagonal (landmark sites lead)
-        prior_diag = torch.zeros(st.NL * d, dtype=dt, device=dev)
+        prior_diag = torch.zeros(lead + (st.NL * d,), dtype=dt, device=dev)
         if st.prior_row_base.shape[0] > 0:
-            pw = 2.0 * problem.cost_w[st.prior_row_base]
+            pw = 2.0 * problem.cost_w[..., st.prior_row_base]
             site_oh = (
                 st.prior_diag_sites[:, None] == torch.arange(st.NL, device=dev)[None, :]
             ).to(dt)
-            per_lm = torch.einsum("pl,p->l", site_oh, pw)
-            prior_diag = torch.repeat_interleave(per_lm, d)
-            S0 = S0 + torch.diag(
-                torch.cat([prior_diag, prior_diag.new_zeros(A - st.NL * d)])
+            per_lm = torch.einsum("pl,...p->...l", site_oh, pw)
+            prior_diag = torch.repeat_interleave(per_lm, d, dim=-1)
+            S0 = S0 + torch.diag_embed(
+                torch.cat([prior_diag, prior_diag.new_zeros(lead + (A - st.NL * d,))], dim=-1)
             )
 
         # range numeric data
         if st.NR > 0:
-            rng_prec = problem.cost_w[st.range_row_base]
+            rng_prec = problem.cost_w[..., st.range_row_base]
             if st.relaxation == SOCP_RELAXATION:
-                rng_dist = problem.cost_b[st.range_row_base]
+                rng_dist = problem.cost_b[..., st.range_row_base]
             else:
-                rng_dist = -problem.cost_coefs[st.range_row_base, 2]
+                rng_dist = -problem.cost_coefs[..., st.range_row_base, 2]
         else:
-            rng_prec = rng_dist = torch.zeros(0, dtype=dt, device=dev)
+            rng_prec = rng_dist = torch.zeros(lead + (0,), dtype=dt, device=dev)
 
         one = torch.ones((), dtype=dt, device=dev)
         return CAState(
             structure=st, q=q, const=cost_constant(problem), mask=free_mask(problem),
             xpin=pin_vector(problem),
-            hnorm=torch.maximum(one, torch.linalg.vector_norm(problem.cone_h)),
-            qnorm=torch.maximum(one, torch.linalg.vector_norm(q)),
+            hnorm=torch.maximum(one, trial_norm(problem.cone_h, lead)),
+            qnorm=torch.maximum(one, trial_norm(q, lead)),
             edge_ii=edge_ii, edge_ij=edge_ij, edge_jj=edge_jj,
             loop_ii=loop_ii, loop_ij=loop_ij, loop_jj=loop_jj,
             D0=D0, U0=U0, B0=B0, S0=S0, prior_diag=prior_diag,
@@ -678,48 +716,54 @@ class ChainArrowBackend:
         # in f64 and round once to the problem's dtype (a no-op for f64).
         wide = torch.float64
 
+        lead = v.shape[:-1]
+
         # odometry
-        vi, vj = vc[:, :-1].to(wide), vc[:, 1:].to(wide)
-        ei, ej, ejj = (e[:, : st.T - 1].to(wide)
+        vi, vj = vc[..., :-1, :].to(wide), vc[..., 1:, :].to(wide)
+        ei, ej, ejj = (e[..., : st.T - 1, :, :].to(wide)
                        for e in (state.edge_ii, state.edge_ij, state.edge_jj))
-        oi = torch.einsum("ctlm,ctm->ctl", ei, vi) + torch.einsum("ctlm,ctm->ctl", ej, vj)
-        oj = torch.einsum("ctml,ctm->ctl", ej, vi) + torch.einsum("ctlm,ctm->ctl", ejj, vj)
+        oi = (torch.einsum("...ctlm,...ctm->...ctl", ei, vi)
+              + torch.einsum("...ctlm,...ctm->...ctl", ej, vj))
+        oj = (torch.einsum("...ctml,...ctm->...ctl", ej, vi)
+              + torch.einsum("...ctlm,...ctm->...ctl", ejj, vj))
         out_c = torch.zeros_like(vc)
-        out_c[:, :-1] += oi.to(vc.dtype)
-        out_c[:, 1:] += oj.to(vc.dtype)
+        out_c[..., :-1, :] += oi.to(vc.dtype)
+        out_c[..., 1:, :] += oj.to(vc.dtype)
 
         # loop closures (few edges: gather endpoints, blocked matvecs,
         # small scatter-add back)
         if st.NLC:
-            vflat = vc.reshape(st.C * st.T, st.D)
-            li = vflat[st.loop_slot_i].to(wide)
-            lj = vflat[st.loop_slot_j].to(wide)
+            vflat = vc.reshape(lead + (st.C * st.T, st.D))
+            li = vflat[..., st.loop_slot_i, :].to(wide)
+            lj = vflat[..., st.loop_slot_j, :].to(wide)
             lii, lij, ljj = (e.to(wide) for e in (state.loop_ii, state.loop_ij, state.loop_jj))
-            gi = torch.einsum("elm,em->el", lii, li) + torch.einsum("elm,em->el", lij, lj)
-            gj = torch.einsum("eml,em->el", lij, li) + torch.einsum("elm,em->el", ljj, lj)
+            gi = (torch.einsum("...elm,...em->...el", lii, li)
+                  + torch.einsum("...elm,...em->...el", lij, lj))
+            gj = (torch.einsum("...eml,...em->...el", lij, li)
+                  + torch.einsum("...elm,...em->...el", ljj, lj))
             oflat = torch.zeros_like(vflat)
-            _scatter_add(oflat, (st.loop_slot_i,), gi.to(vc.dtype))
-            _scatter_add(oflat, (st.loop_slot_j,), gj.to(vc.dtype))
-            out_c = out_c + oflat.reshape(st.C, st.T, st.D)
+            _scatter_add(oflat, (st.loop_slot_i,), gi.to(vc.dtype), lead)
+            _scatter_add(oflat, (st.loop_slot_j,), gj.to(vc.dtype), lead)
+            out_c = out_c + oflat.reshape(lead + (st.C, st.T, st.D))
 
         # ranges
         out_d = torch.zeros_like(vd)
         out_l = torch.zeros_like(vl)
         if st.NR:
             if st.relaxation == SOCP_RELAXATION:
-                out_d = 2.0 * state.rng_prec[:, None] * vd
+                out_d = 2.0 * state.rng_prec[..., None] * vd
             else:
                 ta, tb = ChainArrowBackend._range_endpoint_values(state, v)
-                r = ta - tb - state.rng_dist[:, None] * vd
-                w2 = 2.0 * state.rng_prec[:, None]
+                r = ta - tb - state.rng_dist[..., None] * vd
+                w2 = 2.0 * state.rng_prec[..., None]
                 gc, gl = ChainArrowBackend._range_endpoint_adjoint(state, w2 * r, -w2 * r)
                 out_c = out_c + gc
                 out_l = out_l + gl
-                out_d = -state.rng_dist[:, None] * w2 * r
+                out_d = -state.rng_dist[..., None] * w2 * r
 
         # priors
         if st.NL:
-            out_l = out_l + state.prior_diag.reshape(st.NL, d) * vl
+            out_l = out_l + state.prior_diag.reshape(lead + (st.NL, d)) * vl
 
         return ChainArrowBackend._to_x(state, out_c, out_l, out_d)
 
@@ -731,11 +775,11 @@ class ChainArrowBackend:
     def GT(problem: ConicProblem, state: CAState, z):
         st = state.structure
         if st.relaxation == SOCP_RELAXATION:
-            out_d = -z[:, 0:1]
-            ga, gb = -z[:, 1:], z[:, 1:]
+            out_d = -z[..., 0:1]
+            ga, gb = -z[..., 1:], z[..., 1:]
         else:
-            out_d = -z[:, 1:]
-            ga = z.new_zeros((st.NR, st.d))
+            out_d = -z[..., 1:]
+            ga = z.new_zeros(z.shape[:-2] + (st.NR, st.d))
             gb = ga
         gc, gl = ChainArrowBackend._range_endpoint_adjoint(state, ga, gb)
         return ChainArrowBackend._to_x(state, gc, gl, out_d)
@@ -748,18 +792,18 @@ class ChainArrowBackend:
         d = st.d
         prec, dist = state.rng_prec, state.rng_dist
         if st.relaxation == SOCP_RELAXATION:
-            w00 = Winv2[:, 0, 0]
-            wv = Winv2[:, 0, 1:]
-            Mtt = Winv2[:, 1:, 1:]
+            w00 = Winv2[..., 0, 0]
+            wv = Winv2[..., 0, 1:]
+            Mtt = Winv2[..., 1:, 1:]
             kdd = 2.0 * prec + w00
-            Hhat = Mtt - wv[:, :, None] * wv[:, None, :] / kdd[:, None, None]
+            Hhat = Mtt - wv[..., :, None] * wv[..., None, :] / kdd[..., None, None]
             return kdd, wv, Hhat
         eye = torch.eye(d, dtype=Winv2.dtype, device=Winv2.device)
-        Kdd = 2.0 * (prec * dist ** 2)[:, None, None] * eye + Winv2[:, 1:, 1:]
+        Kdd = 2.0 * (prec * dist ** 2)[..., None, None] * eye + Winv2[..., 1:, 1:]
         Kdd_inv = inv_small_spd(Kdd)
         c = 2.0 * prec * dist
-        Hhat = 2.0 * prec[:, None, None] * eye - (c ** 2)[:, None, None] * Kdd_inv
-        return Kdd_inv, Winv2.new_zeros((st.NR, d)), Hhat
+        Hhat = 2.0 * prec[..., None, None] * eye - (c ** 2)[..., None, None] * Kdd_inv
+        return Kdd_inv, Winv2.new_zeros(Winv2.shape[:-3] + (st.NR, d)), Hhat
 
     @staticmethod
     def _assemble(problem: ConicProblem, state: CAState, Winv2, params):
@@ -773,51 +817,56 @@ class ChainArrowBackend:
         dev = Winv2.device
 
         kdd, wv, Hhat = ChainArrowBackend._range_elimination(state, Winv2)
+        lead = state.D0.shape[:-4]  # (B,) for stacked trials
 
-        Dg = state.D0.reshape(C * T, D, D).clone()
+        Dg = state.D0.reshape(lead + (C * T, D, D)).clone()
         Bg = state.B0.clone()
         Sg = state.S0.clone()
         if st.NR:
-            Hp = torch.cat([Hhat, Hhat.new_zeros((1, d, d))], dim=0)
+            Hp = torch.cat([Hhat, Hhat.new_zeros(lead + (1, d, d))], dim=-3)
             # chain diagonals: each slot's incident Hhat blocks, summed
-            Dg[:, d * d:, d * d:] += torch.sum(Hp[st.chain_inc], dim=1)
+            Dg[..., d * d:, d * d:] += torch.sum(Hp[..., st.chain_inc, :, :], dim=-3)
             # arrow translation-zone blocks: Hhat on both endpoint sites'
             # diagonals, -Hhat on the (a, b) and (b, a) cross blocks; the
             # pad site NTB collects chain-resident endpoints and is cut
-            Sblk = Hhat.new_zeros((NTB + 1, d, NTB + 1, d))
+            Sblk = Hhat.new_zeros(lead + (NTB + 1, d, NTB + 1, d))
             ii = torch.arange(d, device=dev)[None, :, None]
             jj = torch.arange(d, device=dev)[None, None, :]
             sa = st.site_a[:, None, None]
             sb = st.site_b[:, None, None]
-            _scatter_add(Sblk, (sa, ii, sa, jj), Hhat)
-            _scatter_add(Sblk, (sb, ii, sb, jj), Hhat)
-            _scatter_add(Sblk, (sa, ii, sb, jj), -Hhat)
-            _scatter_add(Sblk, (sb, ii, sa, jj), -Hhat.transpose(-1, -2))
-            Sg[:tz, :tz] += Sblk[:NTB, :, :NTB, :].reshape(tz, tz)
+            _scatter_add(Sblk, (sa, ii, sa, jj), Hhat, lead)
+            _scatter_add(Sblk, (sb, ii, sb, jj), Hhat, lead)
+            _scatter_add(Sblk, (sa, ii, sb, jj), -Hhat, lead)
+            _scatter_add(Sblk, (sb, ii, sa, jj), -Hhat.transpose(-1, -2), lead)
+            Sg[..., :tz, :tz] += Sblk[..., :NTB, :, :NTB, :].reshape(lead + (tz, tz))
             # chain-arrow cross terms: a chain-resident endpoint couples to
             # its partner's arrow site with -Hhat (pad site NTB is cut)
-            Hg = -Hp[st.chain_inc]  # (C*T, Kc, d, d)
+            Hg = -Hp[..., st.chain_inc, :, :]  # (C*T, Kc, d, d)
             # (chain_other's pad site is max(NTB, 1): room for it)
-            Badd = Hhat.new_zeros((C * T, d, (max(NTB, 1) + 1) * d))
+            Badd = Hhat.new_zeros(lead + (C * T, d, (max(NTB, 1) + 1) * d))
             p = torch.arange(C * T, device=dev)[:, None, None, None]
             cols = st.chain_other[:, :, None, None] * d + jj[:, None]
-            _scatter_add(Badd, (p, ii[:, None], cols), Hg)
-            Bg[..., d * d:, :tz] += Badd[:, :, :tz].reshape(C, T, d, tz)
+            _scatter_add(Badd, (p, ii[:, None], cols), Hg, lead)
+            Bg[..., d * d:, :tz] += Badd[..., :tz].reshape(lead + (C, T, d, tz))
 
-        Dg = Dg.reshape(C, T, D, D)
+        Dg = Dg.reshape(lead + (C, T, D, D))
 
         # masks, pin fill, regularization
         cm = st.cm
         Dg = Dg * cm[..., :, None] * cm[..., None, :]
-        scale = torch.maximum(Dg.abs().max(), Sg.abs().max())
+        if lead:  # one regularization a trial
+            scale = torch.maximum(Dg.abs().flatten(-4).amax(-1), Sg.abs().flatten(-2).amax(-1))
+        else:
+            scale = torch.maximum(Dg.abs().max(), Sg.abs().max())
         delta = params.static_reg * torch.clamp(scale, min=1.0)
         iD = torch.arange(D, device=dev)
-        Dg[..., iD, iD] += delta * cm + (1.0 - cm)
+        Dg[..., iD, iD] += (delta[..., None, None, None] if lead else delta) * cm + (1.0 - cm)
         Ug = state.U0 * cm[:, :-1, :, None] * cm[:, 1:, None, :]
         Bg = Bg * cm[..., None]
         # decoupled-identity rows for padding when the arrow is a dummy
-        inactive = torch.all(Sg == 0.0, dim=0) & torch.all(Sg == 0.0, dim=1)
-        Sg = Sg + torch.diag(torch.where(inactive, torch.ones_like(delta), delta))
+        inactive = torch.all(Sg == 0.0, dim=-2) & torch.all(Sg == 0.0, dim=-1)
+        dA = delta[..., None] if lead else delta
+        Sg = Sg + torch.diag_embed(torch.where(inactive, torch.ones_like(dA), dA))
         return Dg, Ug, Bg, Sg, kdd, wv, Hhat, delta
 
     @staticmethod
@@ -828,22 +877,29 @@ class ChainArrowBackend:
         on breakdown), all in the problem's dtype."""
         C, T, D, A = st.C, st.T, st.D, st.A
         dev, dt = Dg.device, Dg.dtype
+        lead = Dg.shape[:-4]  # (B,) for stacked trials
         Tp = pad_length(T)
-        Dp = torch.eye(D, dtype=dt, device=dev).expand(C, Tp, D, D).clone()
-        Dp[:, :T] = Dg
-        Up = torch.zeros((C, Tp, D, D), dtype=dt, device=dev)
+        Dp = torch.eye(D, dtype=dt, device=dev).expand(lead + (C, Tp, D, D)).clone()
+        Dp[..., :T, :, :] = Dg
+        Up = torch.zeros(lead + (C, Tp, D, D), dtype=dt, device=dev)
         if T > 1:
-            Up[:, : T - 1] = Ug
-        Bp = torch.zeros((C, Tp, D, A), dtype=dt, device=dev)
-        Bp[:, :T] = Bg
+            Up[..., : T - 1, :, :] = Ug
+        Bp = torch.zeros(lead + (C, Tp, D, A), dtype=dt, device=dev)
+        Bp[..., :T, :, :] = Bg
         if dt == torch.float32:
             bf = pcr_factor(Dp, Up)
             Z = pcr_solve(bf, Bp)
         else:
-            bf = band_factor(Dp, Up)
-            Z = band_solve(bf, Bp)
+            # the trials fold into the chain axis: (B*C, Tp, D, .), one
+            # launch of each band kernel for the batch
+            bf = band_factor(Dp.reshape(-1, Tp, D, D), Up.reshape(-1, Tp, D, D))
+            Z = band_solve(bf, Bp.reshape(-1, Tp, D, A)).reshape(Bp.shape)
         Kc = C * Tp * D
-        Sg = Sg - Bp.reshape(Kc, A).T @ Z.reshape(Kc, A)
+        Sg = Sg - Bp.reshape(lead + (Kc, A)).transpose(-1, -2) @ Z.reshape(lead + (Kc, A))
+        if lead:
+            eye = torch.eye(A, dtype=dt, device=dev)
+            esc = params.reg_escalation * delta
+            return bf, Bp, Z, lane_cholesky(Sg, Sg + esc[..., None, None] * eye)
         LS = _cholesky_escalated(Sg, params.reg_escalation * delta)
         return bf, Bp, Z, LS
 
@@ -868,7 +924,7 @@ class ChainArrowBackend:
         for _ in range(params.kkt_refine_steps):
             Gv = G_apply(problem, dx)
             Kdx = ChainArrowBackend.P_matvec(state, dx) + ChainArrowBackend.GT(
-                problem, state, torch.einsum("mij,mj->mi", factors.Winv2, Gv)
+                problem, state, torch.einsum("...mij,...mj->...mi", factors.Winv2, Gv)
             )
             resid = state.mask * (rhs - Kdx)
             dx = dx + ChainArrowBackend._solve_once(problem, state, factors, resid)
@@ -880,32 +936,41 @@ class ChainArrowBackend:
             [T B; B' S][x; u] = [rc; ra]  =>
             w = T^{-1} rc,  u = Stilde^{-1}(ra - B' w),  x = w - T^{-1}B u."""
         C, T, D, A = st.C, st.T, st.D, st.A
-        Tp = factors.B.shape[1]
-        rp = torch.zeros((C, Tp, D, 1), dtype=rc.dtype, device=rc.device)
-        rp[:, :T, :, 0] = rc
+        lead = rc.shape[:-3]  # (B,) for stacked trials
+        Tp = factors.B.shape[-3]
+        rp = torch.zeros(lead + (C, Tp, D, 1), dtype=rc.dtype, device=rc.device)
+        rp[..., :T, :, 0] = rc
         solve = pcr_solve if isinstance(factors.band, PCRFactors) else band_solve
-        w = solve(factors.band, rp)[..., 0]  # (C, Tp, D)
+        # (the trials folded into the chain axis, as the factor has them)
+        w = solve(factors.band, rp.reshape(-1, Tp, D, 1))[..., 0].reshape(lead + (C, Tp, D))
         Kc = C * Tp * D
-        ra_schur = ra - factors.B.reshape(Kc, A).T @ w.reshape(Kc)
-        y = torch.linalg.solve_triangular(factors.LS, ra_schur[:, None], upper=False)
-        u = torch.linalg.solve_triangular(factors.LS.T, y, upper=True)[:, 0]
-        dxc = (w - (factors.Z.reshape(Kc, A) @ u).reshape(C, Tp, D))[:, :T]
+        Bt = factors.B.reshape(lead + (Kc, A)).transpose(-1, -2)
+        Zf = factors.Z.reshape(lead + (Kc, A))
+        if lead:
+            ra_schur = ra - (Bt @ w.reshape(lead + (Kc, 1)))[..., 0]
+        else:
+            ra_schur = ra - Bt @ w.reshape(Kc)
+        y = torch.linalg.solve_triangular(factors.LS, ra_schur[..., None], upper=False)
+        u = torch.linalg.solve_triangular(factors.LS.transpose(-1, -2), y, upper=True)[..., 0]
+        Zu = (Zf @ u[..., None])[..., 0] if lead else Zf @ u
+        dxc = (w - Zu.reshape(lead + (C, Tp, D)))[..., :T, :]
         return dxc, u
 
     @staticmethod
     def _solve_once(problem: ConicProblem, state: CAState, factors: CAFactors, rhs):
         st = state.structure
         d = st.d
+        lead = rhs.shape[:-1]  # (B,) for stacked trials
         vc, vl, rd = ChainArrowBackend._gather(state, rhs)
 
         # eliminate distance variables from the rhs
         if st.NR:
             if st.relaxation == SOCP_RELAXATION:
-                tvec = factors.wv * (rd / factors.kdd[:, None])
+                tvec = factors.wv * (rd / factors.kdd[..., None])
                 ga, gb = -tvec, tvec
             else:
-                tvec = torch.einsum("mij,mj->mi", factors.kdd, rd)
-                c = (2.0 * state.rng_prec * state.rng_dist)[:, None]
+                tvec = torch.einsum("...mij,...mj->...mi", factors.kdd, rd)
+                c = (2.0 * state.rng_prec * state.rng_dist)[..., None]
                 ga, gb = c * tvec, -c * tvec
             dc, dl = ChainArrowBackend._range_endpoint_adjoint(state, ga, gb)
             vc = vc + dc
@@ -913,15 +978,16 @@ class ChainArrowBackend:
 
         # split into chain rhs and arrow rhs (one gather per arrow column)
         rc = vc * st.cm
-        combined = torch.cat([vc.reshape(-1), vl.reshape(-1), vc.new_zeros((1,))])
-        ra = combined[st.arrow_src]
+        combined = torch.cat([vc.reshape(lead + (-1,)), vl.reshape(lead + (-1,)),
+                              vc.new_zeros(lead + (1,))], dim=-1)
+        ra = combined[..., st.arrow_src]
 
         dxc, u = ChainArrowBackend._band_solve(st, factors, rc, ra)
 
         # recompose pose slots: chain part + arrow-resident entries
-        u_pad = torch.cat([u, u.new_zeros((1,))])
-        dx_full = dxc * st.cm + u_pad[st.arrow_col] * st.av
-        dxl = u[: st.NL * d].reshape(st.NL, d)
+        u_pad = torch.cat([u, u.new_zeros(lead + (1,))], dim=-1)
+        dx_full = dxc * st.cm + u_pad[..., st.arrow_col] * st.av
+        dxl = u[..., : st.NL * d].reshape(lead + (st.NL, d))
 
         # back-substitute distances
         if st.NR:
@@ -929,10 +995,11 @@ class ChainArrowBackend:
             ta, tb = ChainArrowBackend._range_endpoint_values(state, dx_for_ends)
             du = ta - tb
             if st.relaxation == SOCP_RELAXATION:
-                dd = ((rd[:, 0] - torch.einsum("mi,mi->m", factors.wv, du)) / factors.kdd)[:, None]
+                dd = ((rd[..., 0] - torch.einsum("...mi,...mi->...m", factors.wv, du))
+                      / factors.kdd)[..., None]
             else:
-                c = (2.0 * state.rng_prec * state.rng_dist)[:, None]
-                dd = torch.einsum("mij,mj->mi", factors.kdd, rd + c * du)
+                c = (2.0 * state.rng_prec * state.rng_dist)[..., None]
+                dd = torch.einsum("...mij,...mj->...mi", factors.kdd, rd + c * du)
         else:
             dd = torch.zeros_like(rd)
 
@@ -946,6 +1013,21 @@ def checked_cholesky(S: torch.Tensor) -> Optional[torch.Tensor]:
     entry finite. One synchronisation."""
     L, info = torch.linalg.cholesky_ex(S)
     return L if bool(((info == 0) & torch.isfinite(L).all()).item()) else None
+
+
+def lane_cholesky(first: torch.Tensor, retry: torch.Tensor) -> torch.Tensor:
+    """Cholesky factors of a batch (B, n, n), lane by lane with no host
+    read: a lane's factor of ``first``, or where that breaks down (as
+    :func:`checked_cholesky` tests it: info != 0 or a non-finite entry) its
+    factor of ``retry``, or NaN where both do. Both batches are factored
+    and the lanes selected on the device, as the JAX package's retry
+    (``lax.cond``) runs under ``vmap``."""
+    L1, info1 = torch.linalg.cholesky_ex(first)
+    L2, info2 = torch.linalg.cholesky_ex(retry)
+    ok1 = (info1 == 0) & torch.isfinite(L1).flatten(-2).all(-1)
+    ok2 = (info2 == 0) & torch.isfinite(L2).flatten(-2).all(-1)
+    L2 = torch.where(ok2[..., None, None], L2, float("nan"))
+    return torch.where(ok1[..., None, None], L1, L2)
 
 
 def _cholesky_escalated(S: torch.Tensor, esc: torch.Tensor) -> torch.Tensor:

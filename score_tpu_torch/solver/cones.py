@@ -4,6 +4,12 @@ Port of :mod:`score_tpu.solver.cones`. Every problem has a product cone
 K = SOC(k)^N with one static width k (= dim + 1), so all operations are
 dense batched tensor ops of shape (N, k) / (N, k, k).
 
+Every function also takes a leading trial axis, (B, N, k) / (B, N, k, k)
+(the Monte-Carlo batch, ``score_tpu_torch.parallel``): the reductions over
+the cones (:func:`inner`, :func:`max_step`, :func:`shift_to_interior`)
+then give one value a trial, and on (N, k) they run the ops they always
+did.
+
 Conventions: a cone vector u = (u0, u1) with u0 scalar and u1 in R^{k-1};
 u in int(SOC) iff u0 > ||u1||. The Jordan product is
 u o v = (u.v, u0 v1 + v0 u1) with identity e = (1, 0). The Nesterov-Todd
@@ -53,12 +59,15 @@ def soc_identity(N: int, k: int, dtype, device) -> torch.Tensor:
 
 
 def inner(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Total inner product over the cone product, per-cone compensated."""
+    """Total inner product over the cone product, per-cone compensated
+    (one a trial over a leading trial axis)."""
+    if u.dim() > 2:
+        return torch.sum(dd.dot(u, v), dim=-1)
     return torch.sum(dd.dot(u, v))
 
 
 def percone_inner(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Compensated <u_m, v_m> per cone, shape (N,)."""
+    """Compensated <u_m, v_m> per cone, shape (..., N)."""
     return dd.dot(u, v)
 
 
@@ -69,14 +78,14 @@ def soc_residual(u: torch.Tensor) -> torch.Tensor:
 
 def min_eig(u: torch.Tensor) -> torch.Tensor:
     """Smallest Jordan eigenvalue u0 - ||u1|| per cone."""
-    return u[:, 0] - torch.linalg.vector_norm(u[:, 1:], dim=1)
+    return u[..., 0] - torch.linalg.vector_norm(u[..., 1:], dim=-1)
 
 
 def jordan_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u o v = (u.v, u0 v1 + v0 u1)."""
-    head = torch.sum(u * v, dim=1, keepdim=True)
-    tail = u[:, :1] * v[:, 1:] + v[:, :1] * u[:, 1:]
-    return torch.cat([head, tail], dim=1)
+    head = torch.sum(u * v, dim=-1, keepdim=True)
+    tail = u[..., :1] * v[..., 1:] + v[..., :1] * u[..., 1:]
+    return torch.cat([head, tail], dim=-1)
 
 
 def jordan_solve(lmbda: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -84,16 +93,16 @@ def jordan_solve(lmbda: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     sigma = a^2 - ||b||^2,  u0 = (a d0 - b.d1) / sigma,  u1 = (d1 - u0 b) / a.
     sigma and the u0 numerator are evaluated compensated (both cancel for
     near-boundary lambda)."""
-    a = lmbda[:, :1]
-    b = lmbda[:, 1:]
-    sigma = dd.signed_sumsq(lmbda)[:, None]
-    u0 = dd.jdot(lmbda, d)[:, None] / sigma
-    u1 = (d[:, 1:] - u0 * b) / a
-    return torch.cat([u0, u1], dim=1)
+    a = lmbda[..., :1]
+    b = lmbda[..., 1:]
+    sigma = dd.signed_sumsq(lmbda)[..., None]
+    u0 = dd.jdot(lmbda, d)[..., None] / sigma
+    u1 = (d[..., 1:] - u0 * b) / a
+    return torch.cat([u0, u1], dim=-1)
 
 
 def _negate_tail(u: torch.Tensor) -> torch.Tensor:
-    return torch.cat([u[:, :1], -u[:, 1:]], dim=1)
+    return torch.cat([u[..., :1], -u[..., 1:]], dim=-1)
 
 
 def nt_scaling(s: torch.Tensor, z: torch.Tensor) -> NTScaling:
@@ -106,33 +115,33 @@ def nt_scaling(s: torch.Tensor, z: torch.Tensor) -> NTScaling:
     tiny = torch.finfo(s.dtype).smallest_normal
     rho_s = torch.sqrt(torch.clamp(soc_residual(s), min=tiny))
     rho_z = torch.sqrt(torch.clamp(soc_residual(z), min=tiny))
-    sbar = s / rho_s[:, None]
-    zbar = z / rho_z[:, None]
+    sbar = s / rho_s[..., None]
+    zbar = z / rho_z[..., None]
     sz = percone_inner(s, z) / (rho_s * rho_z)
     gamma = torch.sqrt((1.0 + sz) / 2.0)
-    wbar = (sbar + _negate_tail(zbar)) / (2.0 * gamma[:, None])
+    wbar = (sbar + _negate_tail(zbar)) / (2.0 * gamma[..., None])
     eta = torch.sqrt(rho_s / rho_z)
     return NTScaling(eta=eta, wbar=wbar)
 
 
 def _apply_H(wbar: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """H(wbar) u with H = [w0, w1^T; w1, I + w1 w1^T/(1+w0)]."""
-    w0 = wbar[:, :1]
-    w1 = wbar[:, 1:]
-    dot = torch.sum(w1 * u[:, 1:], dim=1, keepdim=True)
-    head = w0 * u[:, :1] + dot
-    tail = u[:, 1:] + (u[:, :1] + dot / (1.0 + w0)) * w1
-    return torch.cat([head, tail], dim=1)
+    w0 = wbar[..., :1]
+    w1 = wbar[..., 1:]
+    dot = torch.sum(w1 * u[..., 1:], dim=-1, keepdim=True)
+    head = w0 * u[..., :1] + dot
+    tail = u[..., 1:] + (u[..., :1] + dot / (1.0 + w0)) * w1
+    return torch.cat([head, tail], dim=-1)
 
 
 def apply_W(nt: NTScaling, u: torch.Tensor) -> torch.Tensor:
     """W u (W is symmetric)."""
-    return nt.eta[:, None] * _apply_H(nt.wbar, u)
+    return nt.eta[..., None] * _apply_H(nt.wbar, u)
 
 
 def apply_Winv(nt: NTScaling, u: torch.Tensor) -> torch.Tensor:
     """W^{-1} u = (1/eta) H(J wbar) u."""
-    return _apply_H(_negate_tail(nt.wbar), u) / nt.eta[:, None]
+    return _apply_H(_negate_tail(nt.wbar), u) / nt.eta[..., None]
 
 
 def apply_Winv2(nt: NTScaling, u: torch.Tensor) -> torch.Tensor:
@@ -144,21 +153,22 @@ def apply_Winv2(nt: NTScaling, u: torch.Tensor) -> torch.Tensor:
 
 def winv2_matrices(nt: NTScaling) -> torch.Tensor:
     """Dense per-cone W^{-2} = eta^{-2} (2 (J wbar)(J wbar)^T - J), shape
-    (N, k, k), consumed by the KKT assembly G^T W^{-2} G."""
-    k = nt.wbar.shape[1]
+    (..., N, k, k), consumed by the KKT assembly G^T W^{-2} G."""
+    k = nt.wbar.shape[-1]
     Jwbar = _negate_tail(nt.wbar)
     J = torch.eye(k, dtype=nt.wbar.dtype, device=nt.wbar.device)
     J[1:, 1:] *= -1.0
-    M = 2.0 * Jwbar[:, :, None] * Jwbar[:, None, :] - J[None]
-    return M / (nt.eta ** 2)[:, None, None]
+    M = 2.0 * Jwbar[..., :, None] * Jwbar[..., None, :] - J[None]
+    return M / (nt.eta ** 2)[..., None, None]
 
 
 def max_step(u: torch.Tensor, du: torch.Tensor, cap: float = 10.0) -> torch.Tensor:
     """Largest alpha in (0, cap] with u + alpha du in SOC for EVERY cone,
     given u strictly interior: the smallest positive root of the per-cone
-    quadratic (u0+a du0)^2 - ||u1 + a du1||^2. Returns a 0-d tensor."""
-    if u.shape[0] == 0:
-        return torch.tensor(cap, dtype=u.dtype, device=u.device)
+    quadratic (u0+a du0)^2 - ||u1 + a du1||^2. Returns a 0-d tensor, or
+    one value a trial over a leading trial axis."""
+    if u.shape[-2] == 0:
+        return torch.full(u.shape[:-2], cap, dtype=u.dtype, device=u.device)
     a = dd.signed_sumsq(du)
     b = 2.0 * dd.jdot(u, du)
     c = soc_residual(u)  # > 0 strictly inside
@@ -185,16 +195,20 @@ def max_step(u: torch.Tensor, du: torch.Tensor, cap: float = 10.0) -> torch.Tens
     per_cone = torch.where(
         b >= 0.0, torch.where(a >= 0.0, cap, per_cone), per_cone
     )
+    if u.dim() > 2:
+        return torch.clamp(torch.amin(per_cone, dim=-1), max=cap)
     return torch.clamp(torch.min(per_cone), max=cap)
 
 
 def shift_to_interior(u: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
     """Shift u along the global identity so every cone is strictly
-    interior: u0 += (1 + |t|) when t = min_m min_eig(u_m) <= margin."""
-    if u.shape[0] == 0:
+    interior: u0 += (1 + |t|) when t = min_m min_eig(u_m) <= margin (t and
+    the shift one a trial over a leading trial axis)."""
+    if u.shape[-2] == 0:
         return u
-    t = torch.min(min_eig(u))
+    batched = u.dim() > 2
+    t = torch.amin(min_eig(u), dim=-1) if batched else torch.min(min_eig(u))
     shift = torch.where(t <= margin, 1.0 + torch.abs(t), 0.0)
     out = u.clone()
-    out[:, 0] += shift
+    out[..., 0] += shift[..., None] if batched else shift
     return out

@@ -872,3 +872,76 @@ def test_solve_score_refine_on_cuda(cuda):
     direct = refine_solution(fg, plain.variables, RefineParams(), device="cuda")
     for name, T in direct.values.poses.items():
         assert np.abs(refined.poses[name] - T).max() <= 1e-6
+
+
+def test_band_kernels_at_the_mc_fold(cuda):
+    """The four PCR kernels at the shape the 100-trial Monte-Carlo batch
+    folds its band into (C = 400 chains of Tp = 64, Db = 6), each call
+    against its plain twin (1e-12 relative, as at the other shapes), the
+    solve at a direction and at the arrow panel (K = 56), one launch a
+    call."""
+    C, Tp, K = 400, 64, 56
+    D, U = _band(C, Tp, 6, 64, (50,) * C, cuda)
+    band.reset_launch_counts()
+    A = band.band_init_a(U)
+    assert _rel(A, band.band_init_a_plain(U)) == 0.0
+    invD = band.band_block_inv(D)
+    assert _rel(invD, band.band_block_inv_plain(D)) <= 1e-12
+    Cl, Es, Fs = U, [], []
+    for lev in range(band.num_levels(Tp)):
+        out = band.band_pcr_level(D, A, Cl, invD, 1 << lev)
+        for got, want in zip(out, band.band_pcr_level_plain(D, A, Cl, invD, 1 << lev)):
+            assert _rel(got, want) <= 1e-12
+        E, F, D, A, Cl, invD = out
+        Es.append(E)
+        Fs.append(F)
+    E, F = torch.stack(Es), torch.stack(Fs)
+    for k in (1, K):
+        b = torch.randn(C, Tp, 6, k, dtype=torch.float64, device=cuda)
+        assert _rel(band.band_pcr_solve(E, F, invD, b),
+                    band.band_pcr_solve_plain(E, F, invD, b)) <= 1e-12
+    torch.cuda.synchronize()
+    assert (band.band_init_a.launches, band.band_block_inv.launches,
+            band.band_pcr_level.launches, band.band_pcr_solve.launches) == (
+        1, 1, band.num_levels(Tp), 2)
+
+
+def _mc_batch(seeds, device):
+    """Trials of the Monte-Carlo bench world (4 x 50 poses) on ``device``:
+    the stacked problem and the chain+arrow structure."""
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.parallel import stack_problems
+    from score_tpu_torch.sim.manhattan import resample_measurements
+    from score_tpu_torch.solver.chain_arrow import build_chain_arrow
+
+    base = simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
+        range_measure_prob=0.4, seed=0))
+    trials = [resample_measurements(base, seed=s) for s in seeds]
+    problems = [build_conic_problem(t, "SOCP", device=device)[0] for t in trials]
+    idx = build_conic_problem(trials[0], "SOCP", device=device)[1]
+    return stack_problems(problems), build_chain_arrow(problems[0], idx)
+
+
+def test_cuda_batch_matches_cpu(cuda):
+    """An 8-trial batch on the card against the port's CPU batch, lane by
+    lane: the same status, iterations within 1, pobj within 1e-9 relative,
+    the trips within 1; the fold's four band kernels launched."""
+    import dataclasses
+
+    from score_tpu_torch.parallel import solve_conic_batch_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+    from score_tpu_torch.solver.ipm import IPMParams
+
+    params = dataclasses.replace(IPMParams(max_iter=20), gondzio_correctors=0)
+    batch, ca = _mc_batch(range(8), cuda)
+    band.reset_launch_counts()
+    gpu, trips_g = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    launched = {k.__name__: k.launches for k in band.KERNELS if k.launches}
+    batch, ca = _mc_batch(range(8), "cpu")
+    cpu, trips_c = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    assert gpu.status.cpu().tolist() == cpu.status.tolist()
+    assert (gpu.iterations.cpu() - cpu.iterations).abs().max().item() <= 1
+    assert abs(trips_g - trips_c) <= 1
+    assert ((gpu.pobj.cpu() - cpu.pobj).abs() / cpu.pobj.abs()).max().item() <= 1e-9
+    assert set(launched) == {"band_init_a", "band_block_inv", "band_pcr_level", "band_pcr_solve"}

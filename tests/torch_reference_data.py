@@ -49,6 +49,37 @@ as the worlds grow toward 3D 4x250. Entries of the file:
 
 rewrites only the ``cli_*`` entries of the file.
 
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py --batch
+
+rewrites only the ``batch_*`` entries: ``score_tpu.parallel.
+solve_conic_batch`` on the CPU in f64 (``BATCH_CASES``), each lane's
+status, iterations, pobj, gap, pres, dres and x, and the batch's loop
+trips (``batch_<case>_trips``: the slowest lane's iterations + 1, capped
+at max_iter, which is the JAX loop's trip count unless its last lane ends
+on a non-finite step), read by ``tests/test_torch_batch.py``:
+
+- ``batch_fixture_socp_{dense,chain_arrow}_*``: ``tests/test_parallel.py``'s
+  fixture (``BATCH_FIXTURE``: 2 x 10 poses, seed 11, trials of seeds 0-7)
+  as SOCP, ``IPMParams(max_iter=30)``, ``DenseBackend`` and
+  ``ChainArrowBackend``;
+- ``batch_fixture_qcqp_chain_arrow_*``: the same trials as QCQP,
+  ``ChainArrowBackend``;
+- ``batch_mc8_socp_chain_arrow_*``: trials of seeds 0-7 of the Monte-Carlo
+  bench world (``BATCH_MC_WORLD``, ``bench.py:330-394``: 4 x 50 poses),
+  SOCP, ``max_iter=20``, no Gondzio correctors, ``ChainArrowBackend``;
+- ``batch_nocones_socp_dense_*``: three trials of a world with no range
+  (``BATCH_NOCONES``: no cone), SOCP, ``max_iter=10``, ``DenseBackend``
+  (the JAX package's batch runs its IPM on them: a stacked problem's
+  ``num_cones`` is the trial count).
+
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py --band-stability
+
+writes nothing: on the 2 x 10 fixture's trials it prints the JAX package's
+and the port's single chain+arrow solves (the port at its default band
+schedule and with the band compacted to one block), and the band residual
+of each band along one trial's iterates: why ``tests/test_torch_batch.py``
+compacts that fixture's band (ROADMAP queue 3).
+
     JAX_PLATFORMS=cpu python tests/torch_reference_data.py --refine-roundoff
 
 writes nothing: on the two outlier worlds of ``tests/test_torch_refine.py``
@@ -97,6 +128,36 @@ CLI_CASES = {
             ["--relaxation", "QCQP", "--max-iter", "30", "--ate"]),
     "unsolved": (dict(loop=False), ".pickle", ["--relaxation", "SOCP", "--max-iter", "1"]),
 }
+
+
+# the Monte-Carlo batch's checks: tests/test_parallel.py's fixture world,
+# the Monte-Carlo bench world (bench.py:330-394) and a world with no range
+BATCH_FIXTURE = dict(num_robots=2, num_poses_per_robot=10, num_landmarks=2, grid_size=6,
+                     range_measure_prob=0.5, seed=11)
+BATCH_MC_WORLD = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
+                      range_measure_prob=0.4, seed=0)
+BATCH_NOCONES = dict(num_robots=2, num_poses_per_robot=6, num_landmarks=1, grid_size=6,
+                     range_measure_prob=0.0, inter_robot_ranges=False, seed=11)
+# case: (world, trial seeds, relaxation, backend, IPMParams fields)
+BATCH_CASES = {
+    "fixture_socp_dense": (BATCH_FIXTURE, range(8), "SOCP", "dense", dict(max_iter=30)),
+    "fixture_socp_chain_arrow": (BATCH_FIXTURE, range(8), "SOCP", "chain_arrow",
+                                 dict(max_iter=30)),
+    "fixture_qcqp_chain_arrow": (BATCH_FIXTURE, range(8), "QCQP", "chain_arrow",
+                                 dict(max_iter=30)),
+    "mc8_socp_chain_arrow": (BATCH_MC_WORLD, range(8), "SOCP", "chain_arrow",
+                             dict(max_iter=20, gondzio_correctors=0)),
+    "nocones_socp_dense": (BATCH_NOCONES, range(3), "SOCP", "dense", dict(max_iter=10)),
+}
+BATCH_FIELDS = ("status", "iterations", "pobj", "gap", "pres", "dres", "x")
+
+
+def batch_trials(case: str, simulate, resample):
+    """The trials of a batch case, from a package's Manhattan simulator
+    and ``resample_measurements`` (either package's: both draw the same)."""
+    world, seeds = BATCH_CASES[case][:2]
+    base = simulate(world)
+    return [resample(base, seed=s) for s in seeds]
 
 
 def cli_graph(**kw):
@@ -196,6 +257,7 @@ def main() -> None:
         out[f"qcqp3d_4x100_{name}"] = np.asarray(getattr(res, name))
     out.update(api_entries())
     out.update(cli_entries())
+    out.update(batch_entries())
     PATH.parent.mkdir(exist_ok=True)
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
@@ -256,6 +318,47 @@ def update_cli() -> None:
     print(f"wrote {PATH}: " + ", ".join(f"{k} {out[k]}" for k in out if k.startswith("cli_")))
 
 
+def batch_entries() -> dict:
+    from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.parallel.batch import solve_conic_batch, stack_problems
+    from score_tpu.sim.manhattan import (
+        ManhattanWorldParams,
+        resample_measurements,
+        simulate_manhattan_world,
+    )
+    from score_tpu.solver.backend import DenseBackend
+    from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu.solver.ipm import IPMParams
+
+    out = {}
+    for case, (_, _, relaxation, backend, fields) in BATCH_CASES.items():
+        trials = batch_trials(case, lambda w: simulate_manhattan_world(ManhattanWorldParams(**w)),
+                              resample_measurements)
+        problems = [build_conic_problem(t, relaxation)[0] for t in trials]
+        if backend == "dense":
+            be, aux = DenseBackend, None
+        else:
+            be = ChainArrowBackend
+            aux = build_chain_arrow(problems[0], build_conic_problem(trials[0], relaxation)[1])
+        params = IPMParams(**fields)
+        res = solve_conic_batch(stack_problems(problems), params, backend=be, backend_aux=aux)
+        for name in BATCH_FIELDS:
+            out[f"batch_{case}_{name}"] = np.asarray(getattr(res, name))
+        out[f"batch_{case}_trips"] = np.asarray(
+            min(params.max_iter, int(np.max(np.asarray(res.iterations))) + 1))
+    return out
+
+
+def update_batch() -> None:
+    """Rewrite the file with fresh ``batch_*`` entries and the others kept."""
+    out = {k: v for k, v in load().items() if not k.startswith("batch_")}
+    out.update(batch_entries())
+    np.savez_compressed(PATH, **out)
+    print(f"wrote {PATH}: " + ", ".join(
+        f"{k} {out[k].tolist() if out[k].size <= 8 else out[k].shape}"
+        for k in out if k.startswith("batch_")))
+
+
 def refine_roundoff() -> None:
     import copy
 
@@ -285,6 +388,106 @@ def refine_roundoff() -> None:
                 line += (f"; port vs JAX at {trips} trips: iterations {port.iterations} / "
                          f"{ref.iterations}, cost {abs(port.cost - ref.cost) / ref.cost:.1e}")
             print(line, flush=True)
+
+
+def band_stability() -> None:
+    """Why the 2 x 10 fixture's chain+arrow batch cases compact the band
+    all the way down: the port's single chain+arrow solves of its trials
+    (SOCP, ``max_iter=30``) at the default band schedule (a chain of 16
+    runs parallel cyclic reduction only) and with ``band.CR_BASE_LENGTH =
+    1`` (cyclic reduction to one block, the JAX package's CPU band), beside
+    the JAX package's; then, along the port's dense-backend iterates of
+    trial 0, the band residual max |T x - b| / max |b| of the port's band
+    at both schedules, of the JAX package's CPU band and of a dense
+    Cholesky solve of each chain."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.sim.manhattan import (
+        ManhattanWorldParams,
+        resample_measurements,
+        simulate_manhattan_world,
+    )
+    from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu.solver.ipm import IPMParams, solve_conic
+    from score_tpu.solver.pcr import pcr_factor, pcr_solve
+    from score_tpu_torch.convert import problem_from_reference
+    from score_tpu_torch.ops import band
+    from score_tpu_torch.solver import chain_arrow as port_ca
+    from score_tpu_torch.solver.backend import DenseBackend as PortDense
+    from score_tpu_torch.solver.ipm import IPMParams as PortParams
+    from score_tpu_torch.solver.ipm import solve_conic as port_solve
+
+    torch.set_num_threads(1)
+    case = "fixture_socp_chain_arrow"
+    trials = batch_trials(case, lambda w: simulate_manhattan_world(ManhattanWorldParams(**w)),
+                          resample_measurements)
+    default = band.CR_BASE_LENGTH
+    for i, t in enumerate(trials):
+        rp, ridx = build_conic_problem(t, "SOCP")
+        ref = solve_conic(rp, IPMParams(max_iter=30), backend=ChainArrowBackend,
+                          backend_aux=build_chain_arrow(rp, ridx))
+        pp = problem_from_reference(rp, device="cpu")
+        line = (f"trial {i}: JAX package status {int(ref.status)} after "
+                f"{int(ref.iterations)}, pobj {float(ref.pobj)!r}")
+        for floor in (default, 1):
+            band.CR_BASE_LENGTH = floor
+            r = port_solve(pp, PortParams(max_iter=30),
+                           backend_aux=port_ca.build_chain_arrow(pp, ridx))
+            line += f"; port (CR_BASE_LENGTH={floor}) {r.status} after {r.iterations}"
+        band.CR_BASE_LENGTH = default
+        print(line, flush=True)
+
+    rp, ridx = build_conic_problem(trials[0], "SOCP")
+    pp = problem_from_reference(rp, device="cpu")
+    seen = []
+    factor = PortDense.factor
+
+    def recording(problem, state, Winv2, params):
+        seen.append(Winv2)
+        return factor(problem, state, Winv2, params)
+
+    PortDense.factor = staticmethod(recording)
+    try:
+        port_solve(pp, PortParams(max_iter=30), backend=PortDense)
+    finally:
+        PortDense.factor = staticmethod(factor)
+    st = port_ca.build_chain_arrow(pp, ridx)
+    ops = port_ca.ChainArrowBackend.prepare(pp, st)
+    rng = np.random.default_rng(0)
+    for it, W in enumerate(seen):
+        Dg, Ug = port_ca.ChainArrowBackend._assemble(pp, ops, W, PortParams())[:2]
+        C, T, D = st.C, st.T, st.D
+        Tp = band.pad_length(T)
+        Dp = torch.eye(D, dtype=torch.float64).expand(C, Tp, D, D).clone()
+        Dp[:, :T] = Dg
+        Up = torch.zeros((C, Tp, D, D), dtype=torch.float64)
+        Up[:, : T - 1] = Ug
+        b = torch.tensor(rng.standard_normal((C, Tp, D, 3)))
+
+        def resid(x):
+            return ((band.band_matvec(Dp, Up, x) - b).abs().max() / b.abs().max()).item()
+
+        out = []
+        for floor in (default, 1):
+            band.CR_BASE_LENGTH = floor
+            out.append(resid(band.band_solve(band.band_factor(Dp, Up), b)))
+        band.CR_BASE_LENGTH = default
+        f = jax.vmap(pcr_factor)(jnp.asarray(Dp.numpy()), jnp.asarray(Up.numpy()))
+        out.append(resid(torch.tensor(np.asarray(jax.vmap(pcr_solve)(f, jnp.asarray(b.numpy()))))))
+        Tm = torch.zeros((C, Tp * D, Tp * D), dtype=torch.float64)
+        for k in range(Tp):
+            Tm[:, k * D:(k + 1) * D, k * D:(k + 1) * D] = Dp[:, k]
+            if k + 1 < Tp:
+                Tm[:, k * D:(k + 1) * D, (k + 1) * D:(k + 2) * D] = Up[:, k]
+                Tm[:, (k + 1) * D:(k + 2) * D, k * D:(k + 1) * D] = Up[:, k].mT
+        out.append(resid(torch.cholesky_solve(b.reshape(C, Tp * D, 3),
+                                              torch.linalg.cholesky(Tm)).reshape(b.shape)))
+        print(f"trial 0, dense iterate {it}: band condition {torch.linalg.cond(Tm).max():.1e}; "
+              f"residual port PCR {out[0]:.2e}, port CR to one block {out[1]:.2e}, "
+              f"JAX package's CPU band {out[2]:.2e}, dense Cholesky {out[3]:.2e}", flush=True)
 
 
 def qcqp3d_sizes(poses=(30, 60, 100)) -> None:
@@ -324,6 +527,10 @@ if __name__ == "__main__":
         qcqp3d_sizes()
     elif "--cli" in sys.argv[1:]:
         update_cli()
+    elif "--batch" in sys.argv[1:]:
+        update_batch()
+    elif "--band-stability" in sys.argv[1:]:
+        band_stability()
     elif "--refine-roundoff" in sys.argv[1:]:
         refine_roundoff()
     else:
