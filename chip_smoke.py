@@ -1710,8 +1710,9 @@ def phase_refine(cells, results=None):
 MC_WORLD = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
                 range_measure_prob=0.4, seed=0)
 MC_TRIALS = 100
-# host synchronizations a batch solve may make besides its one a trip
-MC_SYNC_CONSTANT = 4
+# host synchronizations a batch solve may make besides its one a trip (the
+# measured count: one, logged with its source line by phase mc_batch)
+MC_SYNC_CONSTANT = 1
 # the fold's band shape: chains, padded length, arrow width (the panel)
 MC_BAND = (4 * MC_TRIALS, 64, 56)
 
@@ -1809,10 +1810,12 @@ def phase_mc_batch(dev):
     batch's, host synchronizations <= trips + ``MC_SYNC_CONSTANT``; (c) an
     8-trial ``DenseBackend`` batch against the CPU's, and its peak memory.
     Returns the 100-trial batch's launches of each band kernel."""
+    import collections
+    import os
     import warnings
 
     import torch
-    from score_tpu_torch.parallel import solve_conic_batch_trips
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
     from score_tpu_torch.solver.backend import DenseBackend
     from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
     from score_tpu_torch.solver.ipm import SOLVED_STATUSES, solve_conic
@@ -1823,10 +1826,10 @@ def phase_mc_batch(dev):
 
     # (a) 16 trials, card against CPU
     batch, _, ca = _mc_batch(range(16), dev)
-    card, trips_c = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    card, trips_c = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
     hbatch, _, hca = _mc_batch(range(16), cpu)
     t0 = time.perf_counter()
-    host, trips_h = solve_conic_batch_trips(hbatch, params, ChainArrowBackend, hca)
+    host, trips_h = _solve_batch_trips(hbatch, params, ChainArrowBackend, hca)
     _log(f"mc_batch 16 trials: cpu batch wall_s={time.perf_counter() - t0:.3f}")
     _batch_lines_agree("16 trials", card, host, (trips_c, trips_h))
 
@@ -1834,7 +1837,7 @@ def phase_mc_batch(dev):
     batch, singles, ca = _mc_batch(range(MC_TRIALS), dev)
     _reset_counts()
     t0 = time.perf_counter()
-    res, trips = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    res, trips = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches, by_size = _counts()
@@ -1865,7 +1868,7 @@ def phase_mc_batch(dev):
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
-        again, _ = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+        again, _ = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     if not _same(again.pobj, res.pobj):
@@ -1877,9 +1880,9 @@ def phase_mc_batch(dev):
 
     # launches per trip, by the batch's gates, against a 1-trial batch
     one_batch, _, one_ca = _mc_batch(range(1), dev)
-    per100, _ = _trip_launches(lambda: solve_conic_batch_trips(batch, params,
-                                                               ChainArrowBackend, ca))
-    per1, (_, trips1) = _trip_launches(lambda: solve_conic_batch_trips(
+    per100, _ = _trip_launches(lambda: _solve_batch_trips(batch, params,
+                                                          ChainArrowBackend, ca))
+    per1, (_, trips1) = _trip_launches(lambda: _solve_batch_trips(
         one_batch, params, ChainArrowBackend, one_ca))
     for gates in sorted(set(per100) | set(per1)):
         _log(f"mc_batch launches per trip at gates (refine, center)={gates}: "
@@ -1897,12 +1900,16 @@ def phase_mc_batch(dev):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            _, trips_s = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+            _, trips_s = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    synced = [w for w in caught if "synchroniz" in str(w.message)]
+    syncs = len(synced)
+    sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}"
+                                for w in synced)
     _log(f"mc_batch {MC_TRIALS} trials: host_syncs={syncs} trips={trips_s} "
-         f"(limit trips + {MC_SYNC_CONSTANT}); 1-trial batch trips={trips1}")
+         f"(limit trips + {MC_SYNC_CONSTANT}); 1-trial batch trips={trips1}; "
+         f"sync sites {dict(sites)}")
     if syncs > trips_s + MC_SYNC_CONSTANT:
         raise AssertionError(f"mc_batch: {syncs} host syncs for {trips_s} trips")
 
@@ -1911,13 +1918,13 @@ def phase_mc_batch(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    card, trips_c = solve_conic_batch_trips(batch, params, DenseBackend)
+    card, trips_c = _solve_batch_trips(batch, params, DenseBackend)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     hbatch, _, _ = _mc_batch(range(8), cpu)
     t0 = time.perf_counter()
-    host, trips_h = solve_conic_batch_trips(hbatch, params, DenseBackend)
+    host, trips_h = _solve_batch_trips(hbatch, params, DenseBackend)
     _log(f"mc_batch dense 8 trials: card wall_s={wall:.3f} max_memory_allocated_GB={peak:.3f}; "
          f"cpu wall_s={time.perf_counter() - t0:.3f}")
     _batch_lines_agree("dense 8 trials", card, host, (trips_c, trips_h))

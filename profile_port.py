@@ -304,7 +304,7 @@ def _batch_report(sizes=(1, 16, 100)):
     launches, the top ops and the band kernels' device ms and launches."""
     import torch
     from chip_smoke import _mc_batch, _mc_params
-    from score_tpu_torch.parallel import solve_conic_batch_trips
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
     from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
 
     params, dev, out = _mc_params(), torch.device("cuda"), {}
@@ -312,7 +312,7 @@ def _batch_report(sizes=(1, 16, 100)):
         batch, _, ca = _mc_batch(range(B), dev)
 
         def run():
-            return solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+            return _solve_batch_trips(batch, params, ChainArrowBackend, ca)
 
         _, trips = run()
         torch.cuda.synchronize()

@@ -34,7 +34,7 @@ from score_tpu_torch.assembly.conic import ConicProblem
 from score_tpu_torch.solver.backend import DenseBackend
 from score_tpu_torch.solver.ipm import IPMParams, IPMResult, solve_batch
 
-__all__ = ["stack_problems", "solve_conic_batch", "solve_conic_batch_trips"]
+__all__ = ["stack_problems", "solve_conic_batch"]
 
 _DATA_FIELDS = (
     "cost_cols",
@@ -73,14 +73,15 @@ def stack_problems(problems: Sequence[ConicProblem]) -> ConicProblem:
     return dataclasses.replace(first, **stacked)
 
 
-def solve_conic_batch_trips(
+def _solve_batch_trips(
     batched_problem: ConicProblem,
     params: IPMParams = IPMParams(),
     backend=None,
     backend_aux=None,
 ) -> Tuple[IPMResult, int]:
     """:func:`solve_conic_batch`, and the number of loop trips the batch
-    took (the trips of its slowest lane)."""
+    took (the trips of its slowest lane), which the card checks and the
+    profiler read."""
     backend = backend or DenseBackend
     if batched_problem.cone_h.dim() != 3:
         raise ValueError("solve_conic_batch takes a stacked problem (stack_problems): "
@@ -107,4 +108,4 @@ def solve_conic_batch(
     ``ChainArrowStructure`` of the batch as ``backend_aux``. Every field
     of the result has a leading trial axis (``iterations`` and ``status``
     int64)."""
-    return solve_conic_batch_trips(batched_problem, params, backend, backend_aux)[0]
+    return _solve_batch_trips(batched_problem, params, backend, backend_aux)[0]

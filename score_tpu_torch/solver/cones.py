@@ -61,9 +61,7 @@ def soc_identity(N: int, k: int, dtype, device) -> torch.Tensor:
 def inner(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Total inner product over the cone product, per-cone compensated
     (one a trial over a leading trial axis)."""
-    if u.dim() > 2:
-        return torch.sum(dd.dot(u, v), dim=-1)
-    return torch.sum(dd.dot(u, v))
+    return torch.sum(dd.dot(u, v), dim=-1)
 
 
 def percone_inner(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -195,9 +193,7 @@ def max_step(u: torch.Tensor, du: torch.Tensor, cap: float = 10.0) -> torch.Tens
     per_cone = torch.where(
         b >= 0.0, torch.where(a >= 0.0, cap, per_cone), per_cone
     )
-    if u.dim() > 2:
-        return torch.clamp(torch.amin(per_cone, dim=-1), max=cap)
-    return torch.clamp(torch.min(per_cone), max=cap)
+    return torch.clamp(torch.amin(per_cone, dim=-1), max=cap)
 
 
 def shift_to_interior(u: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
@@ -206,9 +202,8 @@ def shift_to_interior(u: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
     the shift one a trial over a leading trial axis)."""
     if u.shape[-2] == 0:
         return u
-    batched = u.dim() > 2
-    t = torch.amin(min_eig(u), dim=-1) if batched else torch.min(min_eig(u))
+    t = torch.amin(min_eig(u), dim=-1)
     shift = torch.where(t <= margin, 1.0 + torch.abs(t), 0.0)
     out = u.clone()
-    out[..., 0] += shift[..., None] if batched else shift
+    out[..., 0] += shift[..., None]
     return out

@@ -111,9 +111,7 @@ def cost_q(problem: ConicProblem) -> torch.Tensor:
 
 def cost_constant(problem: ConicProblem) -> torch.Tensor:
     """c0 + sum_r w_r b_r^2 so that 0.5 x'Px + q'x + const == true cost."""
-    if batch_shape(problem):
-        return problem.c0 + torch.sum(problem.cost_w * problem.cost_b ** 2, dim=-1)
-    return problem.c0 + torch.sum(problem.cost_w * problem.cost_b ** 2)
+    return problem.c0 + torch.sum(problem.cost_w * problem.cost_b ** 2, dim=-1)
 
 
 def gtwg_dense(problem: ConicProblem, Winv2: torch.Tensor) -> torch.Tensor:

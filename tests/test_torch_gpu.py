@@ -929,17 +929,17 @@ def test_cuda_batch_matches_cpu(cuda):
     the trips within 1; the fold's four band kernels launched."""
     import dataclasses
 
-    from score_tpu_torch.parallel import solve_conic_batch_trips
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
     from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
     from score_tpu_torch.solver.ipm import IPMParams
 
     params = dataclasses.replace(IPMParams(max_iter=20), gondzio_correctors=0)
     batch, ca = _mc_batch(range(8), cuda)
     band.reset_launch_counts()
-    gpu, trips_g = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    gpu, trips_g = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
     launched = {k.__name__: k.launches for k in band.KERNELS if k.launches}
     batch, ca = _mc_batch(range(8), "cpu")
-    cpu, trips_c = solve_conic_batch_trips(batch, params, ChainArrowBackend, ca)
+    cpu, trips_c = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
     assert gpu.status.cpu().tolist() == cpu.status.tolist()
     assert (gpu.iterations.cpu() - cpu.iterations).abs().max().item() <= 1
     assert abs(trips_g - trips_c) <= 1
