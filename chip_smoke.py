@@ -23,12 +23,19 @@ without printing a result line:
    (``chol_lanes_kernel``, a lane group a block; ``tri_solve_tile_kernel``
    and ``tri_solve_lanes_kernel``, the solve's two layouts) and D = 3 (a
    spill fails the run);
-3. every band kernel against its plain PyTorch version on the card, at
+3. every band kernel of the default schedule (the band compacts to one
+   block a chain: ``band_init_a``, ``band_cr_level``, ``band_block_inv``,
+   ``band_cr_reduce``, ``band_pcr_solve`` on the remainder's one block,
+   ``band_cr_backsub``) against its plain PyTorch version on the card, at
    the band shapes of the four instances below (Manhattan-4: C = 4 chains
-   padded to Tp = 512, one compacting level; robot20: C = 20, Tp = 128,
-   PCR only; Db = 6; 3D 4x250: C = 4, Tp = 256, PCR only, and 3D 1x1000:
-   C = 1, Tp = 1024, two compacting levels, Db = 12; rhs K = 1 and K =
-   the instance's arrow width), at every level of a factor and two solves,
+   padded to Tp = 512, 9 compacting levels; robot20: C = 20, Tp = 128, 7;
+   Db = 6; 3D 4x250: C = 4, Tp = 256, 8, and 3D 1x1000: C = 1, Tp = 1024,
+   10, Db = 12; rhs K = 1 and K = the instance's arrow width), of the
+   Monte-Carlo batches' folds (``mc``: C = 400, Tp = 64, Db = 6, K = 56;
+   ``mc3d``: C = 64, Tp = 256, Db = 12, K = 18) and, for
+   ``band_pcr_level``, which no solve launches since, at the shapes of the
+   earlier remainder of 256 blocks (``EARLIER_BASE``: Manhattan-4, 3D
+   1x1000 and the ``mc`` fold), at every level of a factor and two solves,
    each call fed the previous
    level's kernel outputs: the max relative difference
    (max |kernel - plain| / max |plain|) must be <= 1e-12 and the band
@@ -37,8 +44,10 @@ without printing a result line:
    device time (a CUDA graph of 20 launches replayed between events), for
    the three solve kernels (``band_cr_reduce``, ``band_pcr_solve``,
    ``band_cr_backsub``) at K = 1 beside the panel; ``band_cr_reduce`` and
-   ``band_cr_backsub`` run every compacting level of a solve in one
-   launch (3D 1x1000: Th 512 -> 256); then every band kernel
+   ``band_cr_backsub`` run a solve's compacting levels in runs of at most
+   8 (``band._cr_runs``: 9 levels as 5 and 4), a launch a run where the
+   shared memory holds it; the f32 block kernels at the f32 batch's fold
+   (``mc-f32``: M = 12,800 blocks of 6 x 6, K = 56, 6, 1); then every band kernel
    at edge shapes of both block sizes: ``band_pcr_level`` and
    ``band_pcr_solve`` at one and two blocks per chain, one chain and rhs
    widths off the column tiles (3D: Tp = 1, 2, 4, 32, 256 and 512 at C = 1
@@ -51,8 +60,8 @@ without printing a result line:
    remainders), ``band_init_a``; the two fused CR kernels at 1 to 4 levels,
    C = 1, 4, 20, coarsest lengths 1, 2, 64, 256 and K = 1, 2, 4, 5, 17,
    18, 19, 138 (and 258 at Db = 6), one launch each a call, and band
-   solves of a Db = 6 chain with two and three compacting levels (C = 1,
-   Tp = 1024 and 2048); a chain of 512 compacted 9 times (the compaction
+   solves of a Db = 6 chain with two and three compacting levels, then PCR
+   (C = 1, Tp = 1024 and 2048); a chain of 512 compacted 9 times (the compaction
    floor at 1; a fused CR launch takes 8 levels) at both block sizes,
    against a dense solve (<= 1e-11), two launches of each fused CR kernel
    a solve; then each block kernel against its plain version in f32 at
@@ -88,18 +97,18 @@ without printing a result line:
 4. Manhattan-4 (4 robots x 400 poses, 6 landmarks, inter-robot ranges,
    seed 0) solved as SOCP on the card: solved status, relative gap <=
    1e-6, det(R) = +1 for every rounded pose, and every band kernel of its
-   path (all seven) launched during the solve;
+   path (all but ``band_pcr_level``) launched during the solve;
 5. the same for the 20-robot world (20 x 100 poses, 10 landmarks, seed 20),
-   whose arrow panel runs K in the hundreds and whose band runs the four
-   PCR kernels only;
+   whose arrow panel runs K in the hundreds;
 6. Manhattan-4 as QCQP in f64: the same checks; then the 3D instances of
    the JAX package's bench (``bench.py:296``, ``:311``): 3D 4x250 (4 robots
    x 250 poses, 6 landmarks, seed 3) as SOCP and QCQP and 3D 1x1000 (one
    chain of 1000 poses) as SOCP, in f64: solved, relative gap <= 1e-6,
    det(R) = +1 on the 3 x 3 rotations, and every band kernel of the path
    launched at Db = 12 (the 1x1000 QCQP is left out for time); every f64
-   solve whose band compacts launches ``band_cr_reduce`` and
-   ``band_cr_backsub`` once each a ``band_pcr_solve`` launch;
+   solve launches ``band_cr_reduce`` and ``band_cr_backsub`` as many times
+   as its band solves' passes take (``band.cr_solve_launches`` of each
+   pass, recorded by ``_BandSolves``) and ``band_pcr_solve`` once a pass;
 7. the f32 fast mode (``precision="f32"``) on Manhattan-4, SOCP and QCQP,
    cold and warm: solved, relative gap <= 1e-2 (the mode's reduced
    tolerance), objective within 1e-2 relative of the f64 solve of the same
@@ -142,6 +151,11 @@ without printing a result line:
    more unsolved after 5 iterations, and the port keeps that); (e)
    ``solve_problem_with_intermediate_iterates`` on the 2 x 25 world: one
    snapshot per iteration and a last one equal to ``solve_score``'s result;
+   then the solve trace (``trace``, :func:`phase_trace`): Manhattan-4 f64
+   SOCP on ``ChainArrowBackend`` and the 2 x 25 world on ``DenseBackend``
+   through ``solve_conic_traced``: 13 finite columns, the converged row the
+   result's metrics, the untraced solve's digits, host synchronizations
+   <= the untraced solve's + 1, the card's trace against the CPU's;
 10. the refinement stage (``refine``) on Manhattan-4 and 3D 4x250 in f64:
    ``solve_score(fg, "SOCP", ScoreSolverParams(refine=True))`` with the
    kernel counts set to 0 just before it (every band kernel of the solve's
@@ -162,32 +176,44 @@ without printing a result line:
    same trials (the same status, iterations within 1, pobj within 1e-9
    relative, trips within 1); the 100-trial batch with the band kernels'
    counts set to 0 just before it (its band folded to C = 400 chains of
-   Tp = 64: the four PCR kernels launched), every lane solved at relgap <=
+   Tp = 64, compacted to one block: every band kernel but
+   ``band_pcr_level`` launched), every lane solved at relgap <=
    1e-6, lanes 0-2 within 1e-6 of the card's single solves, the trips, the
    cold wall and five warm walls with ms per trial, each band kernel's
    launches per trip at each state of the batch's two shared gates equal
    to a 1-trial batch's, host synchronizations of one batch solve <= trips
    + ``MC_SYNC_CONSTANT``; then 8 trials on ``DenseBackend``, card against
-   CPU as above, with the card's peak memory; and in phase 3 the four PCR
+   CPU as above, with the card's peak memory; and in phase 3 the band
    kernels at the fold's shape (C = 400, Tp = 64, K = 56 and 1) against
-   their plain twins;
+   their plain twins; then the f32 batch (``mc_batch f32``: the 100 trials
+   cast to float32 at the f32 mode's tolerances, the f32 band's block
+   kernels folded likewise) and the 3D batch (``mc_batch 3d``: 16 trials
+   of 3D 4x250 with redrawn ranges, each normalized, f64, the fold C = 64,
+   Tp = 256, Db = 12) (:func:`phase_mc_batch`): a small batch card
+   against CPU, every lane solved (relgap <= 1e-2 in f32, 1e-6 in 3D),
+   lanes 0-2 held to the card's single solves, walls, launches per trip
+   equal to a 1-trial batch's, host synchronizations <= trips + 1;
 12. the launch floor again, and one JSON line describing the kernels
    (event time, device time, plain time, the bound from bytes and
    operations, and a PyTorch call computing the same function where one
    exists, by events and in device time, ``library_us``): a row per kernel at
    the 2D shapes; for the band kernels a row ``<name>[Db=12]`` at 3D
-   1x1000's shapes (all seven run there) with its launches per 3D 1x1000
+   1x1000's shapes with its launches per 3D 1x1000
    SOCP solve; for the block kernels rows ``<name>[D=12]`` and
    ``<name>[D=3]`` at 3D 4x250's shapes with their launches per 3D 4x250
-   f32 QCQP solve; and rows ``<name>[mc]`` at the Monte-Carlo fold's
-   shapes with their launches per 100-trial batch solve; then the result
-   line.
+   f32 QCQP solve; rows ``<name>[mc]`` at the Monte-Carlo fold's
+   shapes with their launches per 100-trial batch solve, ``<name>[mc3d]``
+   at the 3D batch's fold with their launches per 16-trial 3D batch solve
+   and ``<name>[mc-f32]`` at the f32 batch's first level with their
+   launches per 100-trial f32 batch solve; the ``band_pcr_level`` rows
+   (2D, ``[Db=12]``, ``[mc]``) are timed at the earlier remainder's shapes,
+   with 0 launches and a ``note`` saying why; then the result line.
 
 ``python3 chip_smoke.py --kernels`` stops after the band and block
 kernels' checks of phase 3 (a short first run after a kernel changed) and
 prints no result line; ``--refine`` builds the kernels and runs phase 10
-alone, ``--mc`` the fold's kernel checks and phase 11 alone, and neither
-prints a result line. Imports nothing of jax or of the JAX package.
+alone, ``--mc`` the three folds' kernel checks and phase 11 alone, and
+neither prints a result line. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -519,17 +545,19 @@ def _band_residual(D, U, x, b):
     return ((band_matvec(D, U, x) - b).abs().max() / b.abs().max()).item()
 
 
-def phase_kernels(label, C, Tp, K, Db, device):
-    """Phase 3 for one cell's band shape: every kernel against its plain
+def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
+    """Phase 3 for one cell's band shape: every kernel of its band at the
+    default schedule (or ``n_cr`` compacting levels) against its plain
     version, at every level of a factor and of two solves (K = 1 and the
-    cell's arrow width K), each call fed the kernels' outputs of the
-    level before, as the main path feeds them."""
+    cell's arrow width K), each call fed the kernels' outputs of the level
+    before, as the main path feeds them; the fused CR kernels in a solve's
+    runs of levels (``band._cr_runs``)."""
     import torch
     from score_tpu_torch.ops import band
 
     D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
     chk = _KernelCheck()
-    n_cr = band.cr_depth(Tp)
+    n_cr = band.cr_depth(Tp) if n_cr is None else n_cr
     A = chk("band_init_a", lambda: band.band_init_a(U), lambda: band.band_init_a_plain(U),
             _band_cost("band_init_a", U))
     Dl, Al, Cl = D, A, U
@@ -551,7 +579,11 @@ def phase_kernels(label, C, Tp, K, Db, device):
                                      _band_cost("band_pcr_level", *args))
         Es.append(E)
         Fs.append(F)
-    E, F = torch.stack(Es), torch.stack(Fs)
+    if Es:
+        E, F = torch.stack(Es), torch.stack(Fs)
+    else:  # compacted to one block: the remainder's solve is x = invD b
+        E = F = Dl.new_zeros((0,) + tuple(Dl.shape))
+    runs = band._cr_runs(n_cr) if n_cr else []
     rng = np.random.default_rng(Tp)
     resid = {}
 
@@ -568,25 +600,27 @@ def phase_kernels(label, C, Tp, K, Db, device):
 
     for k in (K, 1):  # the panel first: its times are the ones reported
         b0 = torch.tensor(rng.standard_normal((C, Tp, Db, k)), device=device)
-        b, fine = b0, ()
-        if levels:  # every compacting level in one launch each way
-            red = solve_chk("band_cr_reduce", lambda: band.band_cr_reduce(levels, b0),
-                            lambda: band.band_cr_reduce_plain(levels, b0),
-                            _band_cost("band_cr_reduce", levels, b0))
-            fine, b = (b0,) + red[:-1], red[-1]
-        bb = b
+        fine, first = (b0,), 0  # each level's fine rhs, then the remainder's
+        for d in runs:  # the compacting levels in runs, one launch each way a run
+            group, src = levels[first:first + d], fine[-1]
+            fine += solve_chk("band_cr_reduce", lambda: band.band_cr_reduce(group, src),
+                              lambda: band.band_cr_reduce_plain(group, src),
+                              _band_cost("band_cr_reduce", group, src))
+            first += d
+        bb = fine[-1]
         x = solve_chk("band_pcr_solve", lambda: band.band_pcr_solve(E, F, invD, bb),
                       lambda: band.band_pcr_solve_plain(E, F, invD, bb),
                       _band_cost("band_pcr_solve", E, F, invD, bb))
-        if levels:
-            xe = x
-            x = solve_chk("band_cr_backsub", lambda: band.band_cr_backsub(levels, fine, xe),
-                          lambda: band.band_cr_backsub_plain(levels, fine, xe),
-                          _band_cost("band_cr_backsub", levels, fine, xe))
+        for d in reversed(runs):
+            first -= d
+            group, rhs, xe = levels[first:first + d], fine[first:first + d], x
+            x = solve_chk("band_cr_backsub", lambda: band.band_cr_backsub(group, rhs, xe),
+                          lambda: band.band_cr_backsub_plain(group, rhs, xe),
+                          _band_cost("band_cr_backsub", group, rhs, xe))
         resid[k] = _band_residual(D, U, x, b0)
         if not resid[k] <= 1e-10:
             raise AssertionError(f"{label}: band residual {resid[k]:.3e} at K={k}")
-    _log(f"{label} band: C={C} Tp={Tp} Db={Db} CR levels={n_cr} panel K={K} "
+    _log(f"{label} band: C={C} Tp={Tp} Db={Db} CR levels={n_cr} (runs {runs}) panel K={K} "
          f"residual K={K} {resid[K]:.3e} K=1 {resid[1]:.3e}")
     _log_rows(label, chk.rows)
     for name in ("band_cr_reduce", "band_pcr_solve", "band_cr_backsub"):
@@ -597,7 +631,7 @@ def phase_kernels(label, C, Tp, K, Db, device):
              f"device_us={r['k1_device_us']:.2f} plain_ms={r['k1_plain_ms']:.4f} "
              f"bound_ms={r['k1_bound_ms']:.6f} ({r['k1_bound_by']}); at the panel K={K}: "
              f"kernel_ms={r['ms']:.4f} device_us={r['device_us']:.2f}")
-    missing = [k for k in _path_kernels(Tp) if k not in chk.rows]
+    missing = [k for k in _path_kernels(Tp, n_cr) if k not in chk.rows]
     if missing:
         raise AssertionError(f"{label}: kernels not checked: {missing}")
     return chk.rows
@@ -763,9 +797,9 @@ def phase_cr_levels(Db, device):
     phase_past_a_launch(Db, device, gen)
     if Db != 6:
         return
-    for Tp in (1024, 2048):  # two and three compacting levels
+    for Tp, n_cr in ((1024, 2), (2048, 3)):  # two and three compacting levels, then PCR
         D, U = _random_band(1, Tp, Db, seed=Tp + 3, device=device)
-        f = band.band_factor(D, U)
+        f = band.band_factor(D, U, n_cr=n_cr)
         for K in (1, 138):
             b = torch.randn(1, Tp, Db, K, generator=gen, dtype=torch.float64, device=device)
             band.reset_launch_counts()
@@ -870,7 +904,9 @@ def phase_blocks(device):
     first level (M = 512; the panel K = 18, the couplings K = 12, a
     direction K = 1) and its roots (M = 4; 3D 1x1000's, M = 1), and the
     3 x 3 pivots (M = 2348 and 2363, K = 3, the identity read through a
-    block stride of 0 as ``inv_small_spd`` hands it). Times, bound and
+    block stride of 0 as ``inv_small_spd`` hands it), and the f32
+    Monte-Carlo batch's fold (``[mc-f32]``: M = 12,800 at K = 56, 6, 1,
+    the first level of the 100-trial batch's band). Times, bound and
     library call at each row's first shape; the fused kernel's device
     time at every shape. Then ``block_chol`` at every size and layout the
     f32 path hands it, the D = 12 kernels at the edge shapes, the two-rhs
@@ -886,7 +922,9 @@ def phase_blocks(device):
               ("", 2, 2070, (2,), False),
               ("[D=12]", 12, 512, (18, 12, 1), False), ("[D=12]", 12, 4, (18, 12, 1), False),
               ("[D=12]", 12, 1, (18, 1), False),
-              ("[D=3]", 3, 2348, (3,), True), ("[D=3]", 3, 2363, (3,), True)]
+              ("[D=3]", 3, 2348, (3,), True), ("[D=3]", 3, 2363, (3,), True),
+              # the f32 batch's fold: the first level's odd blocks, its panel
+              ("[mc-f32]", 6, MC_BAND[0] * MC_BAND[1] // 2, (MC_BAND[2], 6, 1), False)]
     for tag, n, M, Ks, identity in shapes:
         A = _random_blocks(M, n, seed=M + n, device=device)
         L = chk("block_chol" + tag, lambda: blocks.block_chol(A),
@@ -1061,13 +1099,26 @@ def phase_f32_band(device, C, Tp, Db, K):
         raise AssertionError(f"f32 band Db={Db}: the block kernels were not launched at D={Db}")
 
 
-def _path_kernels(Tp):
-    """Names of the band kernels a solve with chains padded to Tp runs:
-    the compacting-CR kernels only when its band compacts."""
+def _depth_to(Tp, base):
+    """Compacting levels that leave a chain of Tp no longer than ``base``."""
+    n = 0
+    while (Tp >> n) > base:
+        n += 1
+    return n
+
+
+def _path_kernels(Tp, n_cr=None):
+    """Names of the band kernels a solve with chains padded to Tp runs at
+    the default schedule (or ``n_cr`` compacting levels): the compacting-CR
+    kernels where its band compacts, ``band_pcr_level`` where a remainder
+    longer than one block is left (at the default schedule, none)."""
     from score_tpu_torch.ops import band
 
-    cr = (band.band_cr_level, band.band_cr_reduce, band.band_cr_backsub)
-    return [k.__name__ for k in band.KERNELS if band.cr_depth(Tp) or k not in cr]
+    n = band.cr_depth(Tp) if n_cr is None else n_cr
+    off = set() if n else {band.band_cr_level, band.band_cr_reduce, band.band_cr_backsub}
+    if not band.num_levels(Tp >> n):
+        off.add(band.band_pcr_level)
+    return [k.__name__ for k in band.KERNELS if k not in off]
 
 
 def _check_result(label, res, num_poses, d=2, relgap_tol=1e-6, det_tol=1e-9):
@@ -1260,6 +1311,39 @@ class _PlainBackSubstitutions:
         blocks.block_tri_upper_solve_plain = self._plain
 
 
+class _BandSolves:
+    """Records, while active, every pass of a band solve through its
+    levels (``band._band_solve_once``): (compacting levels, Db, rhs
+    width K) each, from which ``band.cr_solve_launches`` gives the fused
+    CR kernels' launches."""
+
+    def __enter__(self):
+        from score_tpu_torch.ops import band
+
+        self.calls = []
+        self._once = band._band_solve_once
+
+        def recording(factors, b):
+            self.calls.append((len(factors.levels), b.shape[-2], b.shape[-1]))
+            return self._once(factors, b)
+
+        band._band_solve_once = recording
+        return self
+
+    def __exit__(self, *exc):
+        from score_tpu_torch.ops import band
+
+        band._band_solve_once = self._once
+
+    def cr_launches(self):
+        """(band_cr_reduce, band_cr_backsub) launches the recorded passes
+        take."""
+        from score_tpu_torch.ops import band
+
+        per = [band.cr_solve_launches(*c) for c in self.calls]
+        return sum(p[0] for p in per), sum(p[1] for p in per)
+
+
 def _counts():
     """Launches of every kernel since the last reset, and each kernel's
     launches per block size: ``<name>[Db=n]`` for the band kernels,
@@ -1298,7 +1382,7 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
     d = fg.dimension
     _reset_counts()
     t0 = time.perf_counter()
-    with _PlainBackSubstitutions() as plain_back:
+    with _PlainBackSubstitutions() as plain_back, _BandSolves() as passes:
         res = solve_score(fg, relaxation, params)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
@@ -1310,14 +1394,15 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
         missing = [k for k in expected if by_size[k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
-        from score_tpu_torch.ops import band
-
-        # every compacting level of a band solve in one launch each way
+        # the compacting levels of a band solve in the fused CR kernels'
+        # runs (band._cr_runs: 8 levels a launch; at Db = 12 fewer where the
+        # shared memory ends), one band_pcr_solve launch a pass
         cr = (launches["band_cr_reduce"], launches["band_cr_backsub"])
-        want = (launches["band_pcr_solve"],) * 2 if band.cr_depth(Tp) else (0, 0)
-        if cr != want:
-            raise AssertionError(f"{label}: band_cr_reduce / band_cr_backsub launches {cr}, "
-                                 f"expected {want}: one each a band_pcr_solve launch")
+        want = passes.cr_launches()
+        if cr != want or launches["band_pcr_solve"] != len(passes.calls):
+            raise AssertionError(f"{label}: band_cr_reduce / band_cr_backsub / band_pcr_solve "
+                                 f"launches {cr} / {launches['band_pcr_solve']}, expected "
+                                 f"{want} / {len(passes.calls)} for the solve's passes")
     tols = dict(relgap_tol=1e-2, det_tol=1e-5) if f32 else {}
 
     def check(tag, r):
@@ -1728,6 +1813,12 @@ def phase_refine(cells, results=None):
 MC_WORLD = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
                 range_measure_prob=0.4, seed=0)
 MC_TRIALS = 100
+# the band's compaction floor before it compacted to one block: the shapes
+# at which band_pcr_level, on no solve path since, is held to its twin
+EARLIER_BASE = 256
+PCR_LEVEL_NOTE = (f"on no solve path: the band compacts to one block (band.CR_BASE_LENGTH = 1); "
+                  f"held to its twin and timed at the shapes of the earlier remainder of "
+                  f"{EARLIER_BASE} blocks")
 # host synchronizations a batch solve may make besides its one a trip (the
 # measured count: one, logged with its source line by phase mc_batch)
 MC_SYNC_CONSTANT = 1
@@ -1743,13 +1834,51 @@ def _mc_params():
     return dataclasses.replace(IPMParams(max_iter=20), gondzio_correctors=0)
 
 
-def _mc_batch(seeds, device, relaxation="SOCP"):
-    """Trials ``seeds`` of the Monte-Carlo world, assembled on the host,
-    stacked and moved to ``device``: (batch, single problems on the device,
-    chain+arrow structure on the device)."""
+# the 3D batch: trials of 3D 4x250 (``bench.py:296``) with redrawn ranges,
+# each normalized as ``solve_score`` normalizes; the f32 batch: the
+# 100-trial batch's stacks cast to float32, the f32 mode's tolerances
+MC3D_TRIALS = 16
+MC_F32_RELGAP = 1e-2  # the f32 mode's reduced tolerance
+
+
+def _mc_f32_params():
+    from score_tpu_torch.solver.params import ScoreSolverParams
+
+    return ScoreSolverParams(precision="f32", max_iter=20, gondzio_correctors=0).ipm_params()
+
+
+def _resample_ranges(fg, seed):
+    """A trial of a graph's structure: a copy whose range measurements are
+    redrawn around the ground truth (the true distance plus a normal of
+    the range's stddev, at least 1e-3, from a numpy generator of ``seed``,
+    in the graph's order), every association and every other measurement
+    kept (the tests' ``torch_reference_data.resample_ranges``; the JAX
+    package has no 3D resampler)."""
+    out = copy.deepcopy(fg)
+    rng = np.random.default_rng(seed)
+    where = {v.name: np.asarray(v.true_position, dtype=np.float64)
+             for chain in out.pose_variables for v in chain}
+    where.update({v.name: np.asarray(v.true_position, dtype=np.float64)
+                  for v in out.landmark_variables})
+    for m in out.range_measurements:
+        a, b = m.association
+        m.dist = float(max(np.linalg.norm(where[a] - where[b]) + rng.normal(0.0, m.stddev),
+                           1e-3))
+    return out
+
+
+def _mc_batch(seeds, device, relaxation="SOCP", world="mc", precision="f64"):
+    """Trials ``seeds`` of a batch world, assembled on the host, stacked
+    and moved to ``device``: (batch, the first three single problems on
+    the device, chain+arrow structure on the device). ``world`` "mc": the
+    Monte-Carlo world with ``resample_measurements``; "3d": 3D 4x250 with
+    :func:`_resample_ranges`, each trial normalized. ``precision`` "f32"
+    casts the problems to float32 after assembly."""
     import dataclasses
 
+    import torch
     from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.assembly.normalize import normalize_factor_graph
     from score_tpu_torch.parallel import stack_problems
     from score_tpu_torch.sim.manhattan import (
         ManhattanWorldParams,
@@ -1763,28 +1892,56 @@ def _mc_batch(seeds, device, relaxation="SOCP"):
                                          for f in dataclasses.fields(pb)
                                          if not isinstance(getattr(pb, f.name), (int, str))})
 
-    base = simulate_manhattan_world(ManhattanWorldParams(**MC_WORLD))
-    trials = [resample_measurements(base, seed=s) for s in seeds]
+    if world == "3d":
+        base = _cells_3d()[0][1]
+        trials = [normalize_factor_graph(_resample_ranges(base, s))[0] for s in seeds]
+    else:
+        base = simulate_manhattan_world(ManhattanWorldParams(**MC_WORLD))
+        trials = [resample_measurements(base, seed=s) for s in seeds]
     problems = [build_conic_problem(t, relaxation, device="cpu")[0] for t in trials]
+    if precision == "f32":
+        problems = [p.cast(torch.float32) for p in problems]
     idx = build_conic_problem(trials[0], relaxation, device="cpu")[1]
     first = to(problems[0])
     return to(stack_problems(problems)), [first] + [to(p) for p in problems[1:3]], \
         build_chain_arrow(first, idx)
 
 
-def _batch_lines_agree(label, card, cpu, trips):
+def _batch_lines_agree(label, card, cpu, trips, f32=False, flat=False):
     """The card's batch against the port's CPU batch of the same trials,
     lane by lane: the same status, iterations within 1, pobj within 1e-9
-    relative; the trips (card, CPU) within 1."""
+    relative (with ``flat``, a world whose objective is ~0, as the 3D
+    worlds without a loop closure, at the roundoff of its constant term:
+    within the solver's relative-gap scale, 1e-6 * max(1, |pobj|)); the
+    trips (card, CPU) within 1. With ``f32`` the f32 bounds (PERF.md
+    section 2): pobj within 2e-2 * max(1, |pobj|), iterations within 3 on
+    the lanes that end OPTIMAL, the trips within 3 where every lane does."""
+    from score_tpu_torch.solver.ipm import OPTIMAL
+
     st_c, st_h = card.status.cpu(), cpu.status
     it_c, it_h = card.iterations.cpu(), cpu.iterations
-    pc, ph = card.pobj.cpu(), cpu.pobj
+    pc, ph = card.pobj.cpu().double(), cpu.pobj.double()
     dobj = ((pc - ph).abs() / ph.abs().clamp_min(1e-300)).max().item()
     dit = (it_c - it_h).abs().max().item()
+    dtrips = abs(trips[0] - trips[1])
+    if f32:
+        # a lane that ends OPTIMAL_INACCURATE stops on the f32 dual-residual
+        # floor by the stall counter, at a trip that follows the roundoff
+        # (the Monte-Carlo world's fourth trial: 19 iterations on the card
+        # and in the JAX package's CPU batch, 15 in the port's): iterations
+        # held only on OPTIMAL lanes, the trips where every lane is
+        its, tol = 3, 2e-2 * ph.abs().clamp_min(1.0)
+        held = st_h == OPTIMAL
+        dit = (it_c - it_h).abs()[held].max().item() if held.any() else 0
+        dtrips = dtrips if held.all() else 0
+    else:
+        its, tol = 1, (1e-6 * ph.abs().clamp_min(1.0) if flat else 1e-9 * ph.abs())
+    ok_obj = bool(((pc - ph).abs() <= tol).all())
     _log(f"mc_batch {label}: card statuses {st_c.tolist()} iterations {it_c.tolist()}; "
          f"cpu iterations {it_h.tolist()}; max_rel_pobj_diff={dobj:.3e} "
+         f"max_abs_pobj_diff={(pc - ph).abs().max().item():.3e} "
          f"max_iteration_diff={dit} trips card/cpu={trips}")
-    if not _same(st_c, st_h) or dit > 1 or not dobj <= 1e-9 or abs(trips[0] - trips[1]) > 1:
+    if not _same(st_c, st_h) or dit > its or not ok_obj or dtrips > its:
         raise AssertionError(f"mc_batch {label}: the card and the CPU disagree")
 
 
@@ -1794,19 +1951,20 @@ def _same(a, b):
 
 
 def _trip_launches(run):
-    """Run ``run()`` with every trip's band-kernel launches recorded by the
-    batch's gate state: ({(refine gate, centering gate): [launches of each
-    trip]}, result of run)."""
-    from score_tpu_torch.ops import band
+    """Run ``run()`` with every trip's band- and block-kernel launches
+    recorded by the batch's gate state: ({(refine gate, centering gate):
+    [launches of each trip]}, result of run)."""
+    from score_tpu_torch.ops import band, blocks
     from score_tpu_torch.solver import ipm
 
     step = ipm._step_batch
     trips = {}
+    kernels = band.KERNELS + blocks.KERNELS
 
     def recording(*a):
-        before = {k.__name__: k.launches for k in band.KERNELS}
+        before = {k.__name__: k.launches for k in kernels}
         out = step(*a)
-        now = {k.__name__: k.launches for k in band.KERNELS}
+        now = {k.__name__: k.launches for k in kernels}
         trips.setdefault((bool(a[7]), bool(a[8])), []).append(
             tuple(sorted((k, now[k] - v) for k, v in before.items() if now[k] > v)))
         return out
@@ -1818,136 +1976,292 @@ def _trip_launches(run):
         ipm._step_batch = step
 
 
-def phase_mc_batch(dev):
-    """The Monte-Carlo batch on the card (``mc_batch``): (a) 16 trials
-    against the port's CPU batch; (b) the 100-trial batch of the JAX
-    package's bench row: the main path, counted from zero, every lane
-    solved at relgap <= 1e-6, lanes 0-2 within 1e-6 of the card's single
-    solves, trips, the cold wall and five warm walls, ms per trial, the
-    band kernels' launches per trip by gate state equal to a 1-trial
-    batch's, host synchronizations <= trips + ``MC_SYNC_CONSTANT``; (c) an
-    8-trial ``DenseBackend`` batch against the CPU's, and its peak memory.
-    Returns the 100-trial batch's launches of each band kernel."""
+def phase_mc_batch(dev, kind="f64"):
+    """The Monte-Carlo batch on the card. ``kind`` "f64" (``mc_batch``):
+    the JAX package's bench row, 100 trials of the 4 x 50 world; "f32"
+    (``mc_batch f32``): its stacks cast to float32 at the f32 mode's
+    tolerances (the f32 band over the block kernels, the trials folded into
+    its chain axis); "3d" (``mc_batch 3d``): 16 trials of 3D 4x250, each
+    normalized, f64 (the band folded to C = 64 chains of Tp = 256, Db =
+    12). (a) A small batch (16 trials; f32 8; 3d 2) against the port's CPU
+    batch (:func:`_batch_lines_agree`); (b) the full batch, its kernel
+    counts from zero: every lane solved (relgap <= 1e-6; f32 <= 1e-2),
+    lanes 0-2 held to the card's single solves (the same status; pobj
+    within 1e-6 relative plus 1e-8; 3d, whose objective is ~0, within 1e-6
+    * max(1, |pobj|); f32 within 2e-2 * max(1, |pobj|) and, on a lane that
+    ends OPTIMAL, iterations within 3), trips, the cold wall and five warm
+    walls, ms per trial, each band and block kernel's launches per trip at
+    each state of the two shared gates equal to a 1-trial batch's, host
+    synchronizations of one batch solve <= trips + ``MC_SYNC_CONSTANT``;
+    (c) for "f64", an 8-trial ``DenseBackend`` batch against the CPU's,
+    and its peak memory. Returns the full batch's launches of every band
+    and block kernel."""
+    import torch
+    from score_tpu_torch.ops import band, blocks
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
+    from score_tpu_torch.solver.backend import DenseBackend
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+    from score_tpu_torch.solver.ipm import OPTIMAL, SOLVED_STATUSES, solve_conic
+    from score_tpu_torch.solver.params import ScoreSolverParams
+
+    t_phase = time.perf_counter()
+    f32 = kind == "f32"
+    world, B, small = {"f64": ("mc", MC_TRIALS, 16), "f32": ("mc", MC_TRIALS, 8),
+                       "3d": ("3d", MC3D_TRIALS, 2)}[kind]
+    precision = "f32" if f32 else "f64"
+    params = {"f64": _mc_params, "f32": _mc_f32_params,
+              "3d": lambda: ScoreSolverParams().ipm_params()}[kind]()
+    tag = "mc_batch" if kind == "f64" else f"mc_batch {kind}"
+    cpu = torch.device("cpu")
+
+    def make(seeds, device):
+        return _mc_batch(seeds, device, world=world, precision=precision)
+
+    def run(batch, ca, backend=ChainArrowBackend):
+        return _solve_batch_trips(batch, params, backend, ca)
+
+    # (a) a small batch, card against CPU
+    batch, _, ca = make(range(small), dev)
+    card, trips_c = run(batch, ca)
+    hbatch, _, hca = make(range(small), cpu)
+    t0 = time.perf_counter()
+    host, trips_h = run(hbatch, hca)
+    _log(f"{tag} {small} trials: cpu batch wall_s={time.perf_counter() - t0:.3f}")
+    _batch_lines_agree(f"{small} trials" if kind == "f64" else f"{kind} {small} trials",
+                       card, host, (trips_c, trips_h), f32=f32, flat=kind == "3d")
+
+    # (b) the full batch: the main path, its counts from zero
+    batch, singles, ca = make(range(B), dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res, trips = run(batch, ca)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches, by_size = _counts()
+    kernels = {k.__name__: launches[k.__name__] for k in band.KERNELS + blocks.KERNELS}
+    if f32:
+        want = [f"block_chol[D={ca.D}]", f"block_chol_solve[D={ca.D}]"]
+    else:
+        want = [f"{k}[Db={ca.D}]" for k in _path_kernels(band.pad_length(ca.T))]
+    missing = [k for k in want if by_size[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels not launched by the batch: {missing}")
+    status = res.status.cpu()
+    relgap = (res.gap.double() / res.pobj.double().abs().clamp_min(1.0)).cpu()
+    solved = sum(int(s) in SOLVED_STATUSES for s in status.tolist())
+    _log(f"{tag} {B} trials: trips={trips} solved={solved}/{B} "
+         f"statuses={sorted(set(status.tolist()))} max_relgap={relgap.max().item():.3e} "
+         f"iterations min/max={res.iterations.min().item()}/{res.iterations.max().item()} "
+         f"band C={B * ca.C} Tp={band.pad_length(ca.T)} D={ca.D} "
+         f"launches={ {k: n for k, n in kernels.items() if n} }")
+    if solved != B or not relgap.max().item() <= (MC_F32_RELGAP if f32 else 1e-6):
+        raise AssertionError(f"{tag}: {solved} of {B} lanes solved, max relgap "
+                             f"{relgap.max().item():.3e}")
+    if not torch.isfinite(res.x).all() or res.x.shape != (B, singles[0].n):
+        raise AssertionError(f"{tag}: bad x {tuple(res.x.shape)}")
+    for lane, pb in enumerate(singles):
+        one = solve_conic(pb, params, backend_aux=ca)
+        lane_pobj, lane_its = res.pobj[lane].item(), res.iterations[lane].item()
+        d = abs(one.pobj - lane_pobj)
+        _log(f"{tag} lane {lane}: batch status/pobj={res.status[lane].item()}/{lane_pobj!r} "
+             f"single {one.status}/{one.pobj!r} iterations batch/single={lane_its}/"
+             f"{one.iterations} abs_diff={d:.3e} rel_diff={d / max(abs(one.pobj), 1.0):.3e}")
+        if f32:  # iterations held where the lane ends OPTIMAL (see _batch_lines_agree)
+            ok = ((one.status != OPTIMAL or abs(one.iterations - lane_its) <= 3)
+                  and d <= 2e-2 * max(1.0, abs(one.pobj)))
+        elif kind == "3d":  # an objective of ~0, at the roundoff of its constant
+            ok = d <= 1e-6 * max(1.0, abs(one.pobj))
+        else:
+            ok = d <= 1e-6 * abs(one.pobj) + 1e-8
+        if not (ok and one.status == res.status[lane].item()):
+            raise AssertionError(f"{tag} lane {lane}: the batch and the single solve differ")
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        again, _ = run(batch, ca)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    if not _same(again.pobj, res.pobj):
+        raise AssertionError(f"{tag}: a warm batch solve changed the digits")
+    med = statistics.median(warm)
+    _log(f"{tag} {B} trials: cold_s={cold:.3f} warm_s={[round(w, 3) for w in warm]} "
+         f"median_warm_s={med:.3f} ms_per_trial={1e3 * med / B:.2f} "
+         f"(cold {1e3 * cold / B:.2f})")
+
+    # launches per trip, by the batch's gates, against a 1-trial batch
+    one_batch, _, one_ca = make(range(1), dev)
+    per_b, _ = _trip_launches(lambda: run(batch, ca))
+    per1, (_, trips1) = _trip_launches(lambda: run(one_batch, one_ca))
+    for gates in sorted(set(per_b) | set(per1)):
+        _log(f"{tag} launches per trip at gates (refine, center)={gates}: "
+             f"B={B} {sorted(set(per_b.get(gates, [])))} ({len(per_b.get(gates, []))} trips); "
+             f"B=1 {sorted(set(per1.get(gates, [])))} ({len(per1.get(gates, []))} trips)")
+    shared = set(per_b) & set(per1)
+    if (False, False) not in shared or any(
+            len(set(per_b[g]) | set(per1[g])) != 1 for g in shared):
+        raise AssertionError(f"{tag}: launches per trip depend on the trial count")
+
+    # host synchronizations of one warm batch solve
+    out = {}
+    syncs, sites = _sync_count(lambda: out.update(trips=run(batch, ca)[1]))
+    _log(f"{tag} {B} trials: host_syncs={syncs} trips={out['trips']} "
+         f"(limit trips + {MC_SYNC_CONSTANT}); 1-trial batch trips={trips1}; "
+         f"sync sites {sites}")
+    if syncs > out["trips"] + MC_SYNC_CONSTANT:
+        raise AssertionError(f"{tag}: {syncs} host syncs for {out['trips']} trips")
+
+    if kind == "f64":  # (c) the dense backend, 8 trials, card against CPU
+        batch, _, _ = make(range(8), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card, trips_c = run(batch, None, DenseBackend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        hbatch, _, _ = make(range(8), cpu)
+        t0 = time.perf_counter()
+        host, trips_h = run(hbatch, None, DenseBackend)
+        _log(f"{tag} dense 8 trials: card wall_s={wall:.3f} max_memory_allocated_GB={peak:.3f}; "
+             f"cpu wall_s={time.perf_counter() - t0:.3f}")
+        _batch_lines_agree("dense 8 trials", card, host, (trips_c, trips_h))
+    _log(f"{tag}: phase wall_s={time.perf_counter() - t_phase:.1f}")
+    return kernels
+
+
+def _sync_count(fn):
+    """Host synchronizations of ``fn()`` (``torch.cuda.set_sync_debug_mode``
+    warnings): (count, {file:line: count})."""
     import collections
     import os
     import warnings
 
     import torch
-    from score_tpu_torch.parallel.batch import _solve_batch_trips
-    from score_tpu_torch.solver.backend import DenseBackend
-    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
-    from score_tpu_torch.solver.ipm import SOLVED_STATUSES, solve_conic
 
-    t_phase = time.perf_counter()
-    params = _mc_params()
-    cpu = torch.device("cpu")
-
-    # (a) 16 trials, card against CPU
-    batch, _, ca = _mc_batch(range(16), dev)
-    card, trips_c = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
-    hbatch, _, hca = _mc_batch(range(16), cpu)
-    t0 = time.perf_counter()
-    host, trips_h = _solve_batch_trips(hbatch, params, ChainArrowBackend, hca)
-    _log(f"mc_batch 16 trials: cpu batch wall_s={time.perf_counter() - t0:.3f}")
-    _batch_lines_agree("16 trials", card, host, (trips_c, trips_h))
-
-    # (b) the 100-trial batch: the main path, its counts from zero
-    batch, singles, ca = _mc_batch(range(MC_TRIALS), dev)
-    _reset_counts()
-    t0 = time.perf_counter()
-    res, trips = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    launches, by_size = _counts()
-    missing = [k for k in _path_kernels(MC_BAND[1]) if by_size[f"{k}[Db=6]"] == 0]
-    if missing:
-        raise AssertionError(f"mc_batch: kernels not launched by the batch: {missing}")
-    band_launches = {k: launches[k] for k in _path_kernels(MC_BAND[1])}
-    status = res.status.cpu()
-    relgap = (res.gap / res.pobj.abs().clamp_min(1.0)).cpu()
-    solved = sum(int(s) in SOLVED_STATUSES for s in status.tolist())
-    _log(f"mc_batch {MC_TRIALS} trials: trips={trips} solved={solved}/{MC_TRIALS} "
-         f"statuses={sorted(set(status.tolist()))} max_relgap={relgap.max().item():.3e} "
-         f"iterations min/max={res.iterations.min().item()}/{res.iterations.max().item()} "
-         f"launches={band_launches}")
-    if solved != MC_TRIALS or not relgap.max().item() <= 1e-6:
-        raise AssertionError(f"mc_batch: {solved} of {MC_TRIALS} lanes solved, max relgap "
-                             f"{relgap.max().item():.3e}")
-    if not torch.isfinite(res.x).all() or res.x.shape != (MC_TRIALS, singles[0].n):
-        raise AssertionError(f"mc_batch: bad x {tuple(res.x.shape)}")
-    for lane, pb in enumerate(singles):
-        one = solve_conic(pb, params, backend_aux=ca)
-        d = abs(one.pobj - res.pobj[lane].item())
-        _log(f"mc_batch lane {lane}: batch pobj={res.pobj[lane].item()!r} single pobj="
-             f"{one.pobj!r} iterations batch/single={res.iterations[lane].item()}/"
-             f"{one.iterations} rel_diff={d / abs(one.pobj):.3e}")
-        if not d <= 1e-6 * abs(one.pobj) + 1e-8:
-            raise AssertionError(f"mc_batch lane {lane}: the batch and the single solve differ")
-    warm = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        again, _ = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    if not _same(again.pobj, res.pobj):
-        raise AssertionError("mc_batch: a warm batch solve changed the digits")
-    med = statistics.median(warm)
-    _log(f"mc_batch {MC_TRIALS} trials: cold_s={cold:.3f} warm_s={[round(w, 3) for w in warm]} "
-         f"median_warm_s={med:.3f} ms_per_trial={1e3 * med / MC_TRIALS:.2f} "
-         f"(cold {1e3 * cold / MC_TRIALS:.2f})")
-
-    # launches per trip, by the batch's gates, against a 1-trial batch
-    one_batch, _, one_ca = _mc_batch(range(1), dev)
-    per100, _ = _trip_launches(lambda: _solve_batch_trips(batch, params,
-                                                          ChainArrowBackend, ca))
-    per1, (_, trips1) = _trip_launches(lambda: _solve_batch_trips(
-        one_batch, params, ChainArrowBackend, one_ca))
-    for gates in sorted(set(per100) | set(per1)):
-        _log(f"mc_batch launches per trip at gates (refine, center)={gates}: "
-             f"B={MC_TRIALS} {sorted(set(per100.get(gates, [])))} "
-             f"({len(per100.get(gates, []))} trips); B=1 {sorted(set(per1.get(gates, [])))} "
-             f"({len(per1.get(gates, []))} trips)")
-    shared = set(per100) & set(per1)
-    if (False, False) not in shared or any(
-            len(set(per100[g]) | set(per1[g])) != 1 for g in shared):
-        raise AssertionError("mc_batch: launches per trip depend on the trial count")
-
-    # host synchronizations of one warm batch solve
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            _, trips_s = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     synced = [w for w in caught if "synchroniz" in str(w.message)]
-    syncs = len(synced)
-    sites = collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}"
-                                for w in synced)
-    _log(f"mc_batch {MC_TRIALS} trials: host_syncs={syncs} trips={trips_s} "
-         f"(limit trips + {MC_SYNC_CONSTANT}); 1-trial batch trips={trips1}; "
-         f"sync sites {dict(sites)}")
-    if syncs > trips_s + MC_SYNC_CONSTANT:
-        raise AssertionError(f"mc_batch: {syncs} host syncs for {trips_s} trips")
+    return len(synced), dict(collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in synced))
 
-    # (c) the dense backend, 8 trials, card against CPU
-    batch, _, _ = _mc_batch(range(8), dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    card, trips_c = _solve_batch_trips(batch, params, DenseBackend)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    hbatch, _, _ = _mc_batch(range(8), cpu)
-    t0 = time.perf_counter()
-    host, trips_h = _solve_batch_trips(hbatch, params, DenseBackend)
-    _log(f"mc_batch dense 8 trials: card wall_s={wall:.3f} max_memory_allocated_GB={peak:.3f}; "
-         f"cpu wall_s={time.perf_counter() - t0:.3f}")
-    _batch_lines_agree("dense 8 trials", card, host, (trips_c, trips_h))
-    _log(f"mc_batch: phase wall_s={time.perf_counter() - t_phase:.1f}")
-    return band_launches
+
+def phase_trace(m4_fg, device="cuda"):
+    """The solve trace on the card (``trace``): Manhattan-4 f64 SOCP on
+    ``ChainArrowBackend`` (full width) and the 2 x 25 world on
+    ``DenseBackend``, each through ``solve_conic_traced`` with two trips
+    more than its solve needs: (num_iters, 13) finite metrics on the card,
+    the converged row (the first with a terminal status) equal to the
+    result's [pres, dres, gap, pobj] and repeated to the end; the traced
+    result bit-equal to the untraced ``solve_conic`` and
+    ``solve_conic_fixed`` of the same problem (x, pobj, status,
+    iterations); host synchronizations of the traced solve <= the untraced
+    fixed-trip solve's + 1; the 2 x 25 trace (and ``trace_solve``'s
+    SolveTrace) against the port's CPU trace of the same world: the same
+    status, iterations within 1, pobj within 1e-9 relative, pres and dres within
+    1e-6 relative plus 1e-10, the gap within 1e-6 relative plus 1e-9 *
+    max(1, |pobj|), the diagnostics within 1e-6 * max(1, |value|) (the CPU
+    tests' bounds against the JAX package; where the iterations differ by
+    one, the rows before the first converged); Manhattan-4's card trace
+    against the CPU's in the same bounds. ``device`` "cpu" rehearses the
+    phase without a card."""
+    import torch
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.assembly.normalize import normalize_factor_graph
+    from score_tpu_torch.sim.manhattan import ManhattanWorldParams, simulate_manhattan_world
+    from score_tpu_torch.solver import solve_conic_traced
+    from score_tpu_torch.solver.backend import DenseBackend
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu_torch.solver.ipm import solve_conic, solve_conic_fixed
+    from score_tpu_torch.solver.params import ScoreSolverParams
+    from score_tpu_torch.utils.telemetry import trace_solve
+
+    t_phase = time.perf_counter()
+    params = ScoreSolverParams().ipm_params()
+    w2x25 = simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=2, num_poses_per_robot=25, num_landmarks=3, grid_size=8,
+        range_measure_prob=0.4, seed=1))
+
+    def problem(fg, backend, device):
+        pp, idx = build_conic_problem(normalize_factor_graph(fg)[0], "SOCP", device=device)
+        return pp, (build_chain_arrow(pp, idx) if backend is ChainArrowBackend else None)
+
+    def agree(label, m, ref, rows):
+        """The first ``rows`` rows of two traces within the bounds above."""
+        m, ref = m.cpu().numpy()[:rows], ref.cpu().numpy()[:rows]
+        gap_tol = 1e-6 * np.abs(ref[:, 2]) + 1e-9 * np.maximum(1.0, np.abs(ref[:, 3]))
+        diffs = dict(
+            status=bool(np.array_equal(m[:, 4], ref[:, 4])),
+            pobj=float(np.max(np.abs(m[:, 3] - ref[:, 3]) / np.abs(ref[:, 3]))),
+            resid=float(np.max(np.abs(m[:, :2] - ref[:, :2]) / (1e-6 * np.abs(ref[:, :2])
+                                                                + 1e-10))),
+            gap=float(np.max(np.abs(m[:, 2] - ref[:, 2]) / gap_tol)),
+            diag=float(np.max(np.abs(m[:, 5:] - ref[:, 5:])
+                              / (1e-6 * np.maximum(1.0, np.abs(ref[:, 5:]))))))
+        _log(f"trace {label} card vs cpu: statuses equal={diffs['status']} "
+             f"pobj max_rel_diff={diffs['pobj']:.3e}; pres/dres, gap, diagnostics at "
+             f"{diffs['resid']:.3f}, {diffs['gap']:.3f}, {diffs['diag']:.3f} of their bounds")
+        if not (diffs["status"] and diffs["pobj"] <= 1e-9 and diffs["resid"] <= 1
+                and diffs["gap"] <= 1 and diffs["diag"] <= 1):
+            raise AssertionError(f"trace {label}: the card and the CPU traces disagree")
+
+    for label, fg, backend in (("manhattan4", m4_fg, ChainArrowBackend),
+                               ("2x25-dense", w2x25, DenseBackend)):
+        pp, aux = problem(fg, backend, device)
+        plain = solve_conic(pp, params, backend=backend, backend_aux=aux)
+        trips = plain.iterations + 2
+        t0 = time.perf_counter()
+        res, metrics = solve_conic_traced(pp, params, num_iters=trips, backend=backend,
+                                          backend_aux=aux)
+        if metrics.is_cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fixed = solve_conic_fixed(pp, params, num_iters=trips, backend=backend, backend_aux=aux)
+        m = metrics.cpu().numpy()
+        live = res.iterations
+        ok = (metrics.device.type == device and m.shape == (trips, 13) and bool(np.isfinite(m).all())
+              and m[live, :4].tolist() == [res.pres, res.dres, res.gap, res.pobj]
+              and bool(np.all(m[live:] == m[live])) and bool(np.all(m[:live, 4] == 0)))
+        same = all((a.status, a.iterations, a.pobj, a.gap) == (res.status, res.iterations,
+                                                              res.pobj, res.gap)
+                   and torch.equal(a.x, res.x) for a in (plain, fixed))
+        syncs_t, sites_t = _sync_count(lambda: solve_conic_traced(
+            pp, params, num_iters=trips, backend=backend, backend_aux=aux))
+        syncs_u, sites_u = _sync_count(lambda: solve_conic_fixed(
+            pp, params, num_iters=trips, backend=backend, backend_aux=aux))
+        _log(f"trace {label}: trips={trips} status={res.status} iterations={res.iterations} "
+             f"pobj={res.pobj!r} wall_s={wall:.3f} rows ok={ok} untraced digits equal={same} "
+             f"host_syncs traced/untraced={syncs_t}/{syncs_u} sites {sites_t} / {sites_u}")
+        _log(f"trace {label} rows [alpha, nbhd_frac, sigma, gap_aff/gap, min_detprod/mu^2, "
+             f"centering, alpha_pre, newton_resid]: "
+             + "; ".join(", ".join(f"{v:.3g}" for v in row[5:]) for row in m[:live]))
+        if not (ok and same and syncs_t <= syncs_u + 1):
+            raise AssertionError(f"trace {label}: rows ok={ok}, untraced digits equal={same}, "
+                                 f"host syncs {syncs_t} traced against {syncs_u}")
+        hp, haux = problem(fg, backend, "cpu")
+        t0 = time.perf_counter()
+        hres, hmetrics = solve_conic_traced(hp, params, num_iters=trips, backend=backend,
+                                            backend_aux=haux)
+        _log(f"trace {label} cpu: iterations={hres.iterations} wall_s="
+             f"{time.perf_counter() - t0:.3f}")
+        if hres.status != res.status or abs(hres.iterations - res.iterations) > 1:
+            raise AssertionError(f"trace {label}: card {res.status}/{res.iterations}, cpu "
+                                 f"{hres.status}/{hres.iterations}")
+        # every row where the two converge together, else the rows before
+        # the first of them converged
+        agree(label, metrics, hmetrics,
+              trips if hres.iterations == res.iterations else min(live, hres.iterations))
+        if backend is DenseBackend:  # trace_solve: the dense backend by default
+            _, trace = trace_solve(pp, params, num_iters=trips)
+            if not (np.array_equal(trace.pobj, m[:, 3]) and trace.iterations == res.iterations
+                    and len(trace.as_dict()["gap"]) == res.iterations + 1):
+                raise AssertionError("trace: trace_solve's SolveTrace is not the traced solve's")
+    _log(f"trace: phase wall_s={time.perf_counter() - t_phase:.1f}")
 
 
 def main() -> int:
@@ -2028,14 +2342,27 @@ def main() -> int:
     if "--refine" in sys.argv[1:]:  # the refinement stage alone
         phase_refine(_refine_cells(cells, cells_3d))
         return 0
-    if "--mc" in sys.argv[1:]:  # the Monte-Carlo batch alone
+    c4, tp4, a4, _ = cells_3d[0][2]
+    mc3d_band = (c4 * MC3D_TRIALS, tp4, a4, 12)  # the 3D batch's fold
+    if "--mc" in sys.argv[1:]:  # the Monte-Carlo batches alone
         phase_kernels("mc", *MC_BAND, 6, dev)
+        phase_kernels("mc3d", *mc3d_band, dev)
+        phase_blocks(dev)
         phase_mc_batch(dev)
+        phase_mc_batch(dev, "f32")
+        phase_mc_batch(dev, "3d")
         return 0
     rows = {}
     for label, fg, shape in cells + cells_3d:
         rows[label] = phase_kernels(label, *shape, dev)
     rows["mc"] = phase_kernels("mc", *MC_BAND, 6, dev)  # the batch's fold
+    rows["mc3d"] = phase_kernels("mc3d", *mc3d_band, dev)
+    # band_pcr_level, on no solve path at the default schedule: held to its
+    # twin and timed at the shapes of the earlier remainder (EARLIER_BASE)
+    earlier = {label: phase_kernels(f"{label} remainder {EARLIER_BASE}", *shape, dev,
+                                    n_cr=_depth_to(shape[1], EARLIER_BASE))
+               for label, shape in (("manhattan4", cells[0][2]), ("3d-1x1000", cells_3d[1][2]),
+                                    ("mc", MC_BAND + (6,)))}
     for Db in (6, 12):
         phase_edge_shapes(Db, dev)
         phase_cr_levels(Db, dev)
@@ -2083,8 +2410,11 @@ def main() -> int:
                  f"{f64.primal_objective:.6f}")
     phase_small_f32_reference()
     phase_api(m4_fg, cells_3d[0][1], cells_3d[1][1], results)
+    phase_trace(m4_fg)
     phase_refine(_refine_cells(cells, cells_3d), results)
     mc_launches = phase_mc_batch(dev)
+    f32_launches = phase_mc_batch(dev, "f32")
+    mc3d_launches = phase_mc_batch(dev, "3d")
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
     # its band shape, and at Db = 12 launches from the 3D 1x1000 SOCP solve,
@@ -2095,20 +2425,31 @@ def main() -> int:
     # QCQP solve, times at its first level's and its pivots' shapes
     timed = {**rows["manhattan4"], **block_rows}
     timed.update({f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
-    timed.update({f"{name}[mc]": r for name, r in rows["mc"].items()})
+    for tag in ("mc", "mc3d"):
+        timed.update({f"{name}[{tag}]": r for name, r in rows[tag].items()})
+    for key, suffix in (("manhattan4", ""), ("3d-1x1000", "[Db=12]"), ("mc", "[mc]")):
+        timed[f"band_pcr_level{suffix}"] = dict(earlier[key]["band_pcr_level"],
+                                                note=PCR_LEVEL_NOTE)
     names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS]
              + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)]
-             + [f"{k}[mc]" for k in mc_launches])
+             + [f"{k.__name__}[mc]" for k in band.KERNELS
+                if k.__name__ in rows["mc"] or k is band.band_pcr_level]
+             + [f"{k}[mc3d]" for k in rows["mc3d"]]
+             + [f"{k}[mc-f32]" for k in ("block_chol", "block_chol_solve")])
     kernels = []
     for name in names:
         base = name.split("[")[0]
         row = timed[name]
-        if base.startswith("block_"):
+        if name.endswith("[mc-f32]"):  # launches per 100-trial f32 batch solve
+            source, launched = BLOCKS_SOURCE, f32_launches[base]
+        elif name.endswith("[mc3d]"):  # launches per 16-trial 3D 4x250 batch solve
+            source, launched = BAND_SOURCE, mc3d_launches[base]
+        elif name.endswith("[mc]"):  # launches per 100-trial batch solve
+            source, launched = BAND_SOURCE, mc_launches[base]
+        elif base.startswith("block_"):
             source = BLOCKS_SOURCE
             launched = (launches["manhattan4-f32"][base] if name == base
                         else launches["3d-4x250-qcqp-f32"][name])
-        elif name.endswith("[mc]"):  # launches per 100-trial batch solve
-            source, launched = BAND_SOURCE, mc_launches[base]
         elif name == base:
             source, launched = BAND_SOURCE, launches["manhattan4"][f"{base}[Db=6]"]
         else:
@@ -2119,7 +2460,7 @@ def main() -> int:
             device_us=row["device_us"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], library_us=row["library_us"],
-            **{k: v for k, v in row.items() if k.startswith("k1_")}))
+            **{k: v for k, v in row.items() if k.startswith("k1_") or k == "note"}))
     _log(f"launch_floor_us={launch_floor_us:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

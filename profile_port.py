@@ -59,6 +59,13 @@ replayed CUDA graph (``chip_smoke._device_us``) and event time around the
 call. ``--root DIR`` imports ``score_tpu_torch`` from another checkout, so
 that two commits are timed on one card in one call.
 
+    python3 profile_port.py --schedule [--out FILE]
+
+prices the band's compaction floor: Manhattan-4, robot20, 3D 4x250 and
+3D 1x1000 (f64 SOCP) and the 100-trial Monte-Carlo batch at the earlier
+floor of 256 blocks and at one block (the default), warm walls taking
+turns and a profiled solve at each (``_schedule_report``).
+
     python3 profile_port.py --walls [--root DIR]
 
 three warm 3D 1x1000 f64 SOCP solves, the assembly memo's miss path three
@@ -337,6 +344,72 @@ def _batch_report(sizes=(1, 16, 100)):
     return out
 
 
+def _schedule_report(rounds=3):
+    """The band's schedule priced on the card: Manhattan-4, robot20, 3D
+    4x250 and 3D 1x1000 (f64 SOCP, ``chip_smoke``'s cells) and the
+    100-trial Monte-Carlo batch, each at the earlier compaction floor
+    (``chip_smoke.EARLIER_BASE``: a parallel cyclic reduction remainder of
+    up to 256 blocks) and at one block (the default): warm walls taking
+    turns (iterations, relative gap), then one profiled solve at each
+    floor: device busy, kernel launches, the hand-written kernels' device
+    ms and launches."""
+    import torch
+    from chip_smoke import EARLIER_BASE, _band_shape, _cells, _cells_3d, _mc_batch, _mc_params
+    from score_tpu_torch.ops import band
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+
+    default = band.CR_BASE_LENGTH
+    bases = (EARLIER_BASE, default)
+    out = {}
+    try:
+        for label, fg in _cells() + _cells_3d():
+            Tp = _band_shape(fg)[1]
+            cell = out[label] = dict(Tp=Tp, walls=_forced_depth_walls(fg, Tp, rounds, bases))
+            for n, w in cell["walls"].items():
+                _log(f"{label} (Tp={Tp}) at {n} compacting levels: {w}")
+            for base in bases:
+                band.CR_BASE_LENGTH = base
+                p = cell[f"profile_floor_{base}"] = _profile_solve(fg)
+                _log(f"{label} floor {base}: device busy {p['device_busy_ms']:.3f} ms, "
+                     f"{p['kernel_launches']} kernel launches")
+                for name, b in p["hand_kernels"].items():
+                    _log(f"  kernel {name:<26} {b['device_ms']:9.3f} ms {b['launches']:6d} "
+                         "launches")
+            band.CR_BASE_LENGTH = default
+        params, dev = _mc_params(), torch.device("cuda")
+        batch, _, ca = _mc_batch(range(100), dev)
+
+        def run():
+            return _solve_batch_trips(batch, params, ChainArrowBackend, ca)
+
+        mc = out["mc100"] = {}
+        for r in range(rounds + 1):  # round 0 warms up
+            for base in bases:
+                band.CR_BASE_LENGTH = base
+                t0 = time.perf_counter()
+                res, trips = run()
+                torch.cuda.synchronize()
+                row = mc.setdefault(f"floor {base}", dict(
+                    walls_s=[], trips=trips, max_relgap=(res.gap / res.pobj.abs().clamp_min(
+                        1.0)).max().item(), solved=int((res.status == 1).sum().item())))
+                if r:
+                    row["walls_s"].append(time.perf_counter() - t0)
+        for base in bases:
+            band.CR_BASE_LENGTH = base
+            row = mc[f"floor {base}"]
+            row["median_s"] = statistics.median(row["walls_s"])
+            p = row["profile"] = _profile(run)
+            _log(f"mc100 floor {base}: trips={row['trips']} optimal={row['solved']}/100 "
+                 f"max_relgap={row['max_relgap']:.3e} warm_s={row['walls_s']} device busy "
+                 f"{p['device_busy_ms']:.3f} ms, {p['kernel_launches']} kernel launches")
+            for name, b in p["hand_kernels"].items():
+                _log(f"  kernel {name:<26} {b['device_ms']:9.3f} ms {b['launches']:6d} launches")
+    finally:
+        band.CR_BASE_LENGTH = default
+    return out
+
+
 def _random_band(C, Tp, Db, seed, device):
     import torch
 
@@ -371,16 +444,17 @@ def _depth_sweep(C, Tp, K, device):
     return rows
 
 
-def _forced_depth_walls(fg, Tp, rounds=4):
-    """Warm solves at depth 0, 1, the default depth and the deepest depth,
-    by moving ``band.CR_BASE_LENGTH``; the depths take turns, one solve
-    each per round, so a drift of the host clock hits all of them."""
+def _forced_depth_walls(fg, Tp, rounds=4, bases=None):
+    """Warm solves at depth 0, 1, the default depth and the deepest depth
+    (or at the compaction floors ``bases``), by moving
+    ``band.CR_BASE_LENGTH``; the depths take turns, one solve each per
+    round, so a drift of the host clock hits all of them."""
     import torch
     from score_tpu_torch import ScoreSolverParams, solve_score
     from score_tpu_torch.ops import band
 
     default = band.CR_BASE_LENGTH
-    bases = sorted({Tp, Tp // 2, default, 1}, reverse=True)
+    bases = sorted(set(bases or (Tp, Tp // 2, default, 1)), reverse=True)
     params = ScoreSolverParams(device="cuda")
     out = {}
     try:
@@ -1154,6 +1228,8 @@ def main() -> int:
                     help="the refinement stage: first trials, walls, one profiled iteration")
     ap.add_argument("--batch", action="store_true",
                     help="the Monte-Carlo batch at 1, 16 and 100 trials: walls, trips, profile")
+    ap.add_argument("--schedule", action="store_true",
+                    help="the band's compaction floor, 256 against 1: walls and profiles")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
     if args.root:
@@ -1170,6 +1246,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _log(smi)
 
+    if args.schedule:
+        report = dict(card=smi, **_schedule_report())
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1))
+        return 0
     if args.batch:
         report = dict(card=smi, **_batch_report())
         if args.out:

@@ -24,7 +24,9 @@ adjacent again. The solve reduces the rhs onto the even rows on the way
 down, and on the way up back-substitutes each dropped row from its two
 kept neighbours, x_{2j+1} = invD_{2j+1} (b_{2j+1} - A_{2j+1} x_{2j} -
 C_{2j+1} x_{2j+2}). The first :func:`cr_depth` levels compact; PCR
-finishes the remainder.
+finishes the remainder. By default (``CR_BASE_LENGTH`` = 1) every level
+compacts: the remainder is one block a chain, with no PCR level, and its
+solve is x = invD b.
 
 Public convention (the JAX package's band convention): ``D``, ``U`` are
 (C, Tp, Db, Db) with Tp a power of two, identity diagonal blocks and zero
@@ -141,9 +143,16 @@ _CR_SMEM_TARGET = 64 * 1024
 # per-level kernel before), four passes of 256 threads for the wide one
 _CR_STEP_ITEMS = {"narrow": 64, "wide": 4 * _CR_THREADS}
 # CR compacts while the chain is longer than this; PCR factors the rest.
-# Chosen from depth sweeps on an H100 (profile_port.py; PERF.md has them),
-# for 3D blocks too (profile_port.py --sweep3d).
-CR_BASE_LENGTH = 256
+# At 1 a band is cyclic reduction to one block, the JAX package's CPU
+# band's order: parallel cyclic reduction applies its explicit inverses to
+# every position at every level, and on ill-conditioned bands (IPM
+# iterates near the optimum, condition 1e8-1e11) its backward error grows
+# past 1e-3 (remainders of 64 and 256 blocks) and up to 1e4-1e5 (16),
+# where cyclic reduction to one block stays at the JAX band's and a
+# dense Cholesky's 1e-11-1e-5 (tests/torch_reference_data.py
+# --band-stability; PERF.md has the table). Tests that need PCR levels set
+# it higher or pass ``n_cr``.
+CR_BASE_LENGTH = 1
 # Steps of iterative refinement that every 3D band solve (Db = 12) takes.
 # The band's explicit inverses of ill-conditioned 12 x 12 blocks (the
 # rotation rows weigh ~1e4 times the translation rows) leave a 3D solve's
@@ -198,7 +207,8 @@ def refine_steps(Db: int) -> int:
 
 def cr_depth(Tp: int) -> int:
     """Compacting levels for chains of length Tp: halve while the chain
-    is longer than ``CR_BASE_LENGTH``."""
+    is longer than ``CR_BASE_LENGTH`` (by default all log2(Tp) levels,
+    leaving one block a chain)."""
     n = 0
     while (Tp >> n) > CR_BASE_LENGTH:
         n += 1
@@ -1069,6 +1079,16 @@ def _cr_runs(n: int) -> list:
     kernels' shared memory takes in one launch each)."""
     runs = -(-n // _CR_MAX_LEVELS)
     return [n // runs + (r < n % runs) for r in range(runs)]
+
+
+def cr_solve_launches(n: int, Db: int, K: int) -> tuple:
+    """(band_cr_reduce, band_cr_backsub) launches of one pass of a band
+    solve through n compacting levels at rhs width K: the runs of
+    :func:`_cr_runs`, each in the launches of :func:`_cr_launch_depths`.
+    A 3D band solve makes :func:`refine_steps` more passes."""
+    runs = _cr_runs(n) if n else []
+    return (sum(len(_cr_launch_depths("reduce", d, Db, K)) for d in runs),
+            sum(len(_cr_launch_depths(_backsub_step(Db, K), d, Db, K)) for d in runs))
 
 
 def _band_solve_once(factors: BandFactors, b: torch.Tensor) -> torch.Tensor:

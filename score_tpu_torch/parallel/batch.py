@@ -86,10 +86,6 @@ def _solve_batch_trips(
     if batched_problem.cone_h.dim() != 3:
         raise ValueError("solve_conic_batch takes a stacked problem (stack_problems): "
                          f"cone_h of shape {tuple(batched_problem.cone_h.shape)}")
-    if batched_problem.dtype != torch.float64:
-        raise NotImplementedError(
-            "solve_conic_batch runs float64 problems; the f32 batch waits in "
-            "ROADMAP.md queue 1 (the Monte-Carlo batch in f32 and 3D)")
     ops = backend.prepare(batched_problem, backend_aux)
     return solve_batch(batched_problem, params, backend, ops)
 

@@ -15,7 +15,7 @@ Per iteration: the chain band is factored and solved, the arrow panel
 Z = T^{-1}B goes through the same band solve, and the dense arrow Schur
 complement S - B'Z is a plain matmul followed by a Cholesky, all in the
 problem's dtype. A float64 problem's band runs the f64 band kernels
-(:mod:`score_tpu_torch.ops.band`: compacting CR, then PCR); a float32
+(:mod:`score_tpu_torch.ops.band`: compacting CR down to one block); a float32
 problem's (``precision="f32"``) runs cyclic reduction all the way down
 (:mod:`score_tpu_torch.solver.pcr`) over the f32 block kernels, as the
 JAX backend's non-two-float branch does.
@@ -31,8 +31,9 @@ on every per-trial quantity: ``prepare`` stacks the ``CAState`` fields
 (never ``structure``, the one ``ChainArrowStructure`` passed in, whose
 index tensors index the trials' tensors along their own axes and are never
 expanded over the trials), and the band folds the trials into its chain
-axis, (B*C, Tp, Db, Db), so that one launch of each band kernel serves
-every trial; its compaction depth follows Tp alone. The arrow Schur
+axis, (B*C, Tp, Db, Db), so that one launch of each band kernel (in
+f32: each block kernel call of a cyclic reduction level) serves every
+trial; its compaction depth follows Tp alone. The arrow Schur
 complement is (B, A, A), factored by one batched ``cholesky_ex`` with the
 escalated retry selected lane by lane on the device (:func:`lane_cholesky`).
 On a single problem every method runs the ops it always did.
@@ -886,14 +887,12 @@ class ChainArrowBackend:
             Up[..., : T - 1, :, :] = Ug
         Bp = torch.zeros(lead + (C, Tp, D, A), dtype=dt, device=dev)
         Bp[..., :T, :, :] = Bg
-        if dt == torch.float32:
-            bf = pcr_factor(Dp, Up)
-            Z = pcr_solve(bf, Bp)
-        else:
-            # the trials fold into the chain axis: (B*C, Tp, D, .), one
-            # launch of each band kernel for the batch
-            bf = band_factor(Dp.reshape(-1, Tp, D, D), Up.reshape(-1, Tp, D, D))
-            Z = band_solve(bf, Bp.reshape(-1, Tp, D, A)).reshape(Bp.shape)
+        factor, solve = (pcr_factor, pcr_solve) if dt == torch.float32 else (band_factor,
+                                                                             band_solve)
+        # the trials fold into the chain axis: (B*C, Tp, D, .), one launch
+        # of each band (or block) kernel for the batch
+        bf = factor(Dp.reshape(-1, Tp, D, D), Up.reshape(-1, Tp, D, D))
+        Z = solve(bf, Bp.reshape(-1, Tp, D, A)).reshape(Bp.shape)
         Kc = C * Tp * D
         Sg = Sg - Bp.reshape(lead + (Kc, A)).transpose(-1, -2) @ Z.reshape(lead + (Kc, A))
         if lead:

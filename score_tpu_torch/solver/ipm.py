@@ -34,6 +34,7 @@ import torch
 
 from score_tpu_torch.assembly.conic import ConicProblem
 from score_tpu_torch.solver import cones
+from score_tpu_torch.solver.backend import DenseBackend
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
 from score_tpu_torch.solver.linops import trial_norm
 
@@ -42,6 +43,7 @@ __all__ = [
     "IPMResult",
     "solve_conic",
     "solve_conic_fixed",
+    "solve_conic_traced",
     "solve_conic_with_iterates",
 ]
 
@@ -92,6 +94,10 @@ class IPMParams:
     nbhd_gamma: float = 0.1
     # refine the affine (predictor) direction too
     refine_affine: bool = False
+    # fill _State.diag with the step's diagnostics (a full Newton-system
+    # residual, three operator applications, a step): off on the solve
+    # path, on in solve_conic_traced
+    record_diag: bool = False
 
 
 class IPMResult(NamedTuple):
@@ -122,6 +128,8 @@ class _State:
     best_z: torch.Tensor
     best_metric: float
     stall: int
+    # the last step's 8 diagnostics (IPMParams.record_diag), on the device
+    diag: Optional[torch.Tensor] = None
 
 
 def _convergence_full(backend, problem, ops, params: IPMParams, x, s, z):
@@ -344,6 +352,7 @@ def _step(backend, problem: ConicProblem, ops, params: IPMParams, st: _State,
     # --- centering recovery ---
     # frac == 0: take a safeguarded pure-centering step (sigma = 1) that
     # keeps the gap but restores centrality
+    alpha_pre = alpha
     if float(frac.item()) == 0.0:
         d_c = mu * e - cones.jordan_mul(lam, lam)
         dx, ds, dz = kkt_dirs_correction(d_c)
@@ -351,6 +360,22 @@ def _step(backend, problem: ConicProblem, ops, params: IPMParams, st: _State,
         alpha = a_c * largest_ok_frac(ds, dz, a_c, gap * 1.01)
     else:
         alpha = alpha * frac
+
+    if params.record_diag:
+        # the JAX package's order and definitions (score_tpu/solver/ipm.py:715)
+        detprod = cones.soc_residual(s) * cones.soc_residual(z)
+        f1, f2, f3 = _newton_resid(rx, rz, d_comb, dx, ds, dz)
+        tiny = torch.finfo(dtype).tiny
+        st.diag = torch.stack([
+            alpha,
+            frac,
+            sigma,
+            torch.clamp(gap_a, min=0.0) / gap,
+            torch.min(detprod) / torch.clamp(mu ** 2, min=tiny),
+            (frac == 0.0).to(dtype),
+            alpha_pre,
+            norm(f1) + norm(f2) + norm(f3),
+        ]).to(dtype)
 
     x_new = x + alpha * dx
     s_new = s + alpha * ds
@@ -478,28 +503,39 @@ def _metrics5(backend, problem, ops, params, st: _State) -> torch.Tensor:
                         torch.full_like(gap, float(st.status))])
 
 
-def _fixed_trips(backend, problem, ops, params, num_iters, warm_start, record):
+def _fixed_trips(backend, problem, ops, params, num_iters, warm_start, record=None):
     """Exactly ``num_iters`` loop trips; a terminal state is frozen (the
     JAX package's ``lax.scan`` with a ``lax.cond`` on the status).
-    Returns (result, xs, metrics): with ``record``, the iterate and its
-    metrics before the first trip and after each one, else None, None."""
+    Returns (result, xs, metrics), the last two on the device, stacked
+    once: with ``record="iterates"`` the iterate and its [pres, dres, gap,
+    pobj, status] before the first trip and after each one; with
+    ``record="trace"`` (``params.record_diag`` on) those metrics and the
+    step's 8 diagnostics after each trip, xs None; else None, None."""
     st = _initial_state(backend, problem, ops, params, warm_start)
     xs, ms = [], []
-    if record:
+    if record == "trace":
+        st.diag = torch.zeros(8, dtype=st.x.dtype, device=st.x.device)
+    elif record == "iterates":
         xs.append(st.x)
         ms.append(_metrics5(backend, problem, ops, params, st))
     for _ in range(num_iters):
         frozen = st.status != RUNNING
         if not frozen:
             _advance(backend, problem, ops, params, st)
-        if record:
+        if not record:
+            continue
+        if record == "iterates":
             xs.append(st.x)
-            # a frozen state's metrics are its last snapshot's
-            ms.append(ms[-1] if frozen else _metrics5(backend, problem, ops, params, st))
+        if frozen:  # a frozen state repeats its last row
+            ms.append(ms[-1])
+        elif record == "trace":
+            ms.append(torch.cat([_metrics5(backend, problem, ops, params, st), st.diag]))
+        else:
+            ms.append(_metrics5(backend, problem, ops, params, st))
     result = _finalize(backend, problem, ops, params, st)
     if not record:
         return result, None, None
-    return result, torch.stack(xs), torch.stack(ms)
+    return result, torch.stack(xs) if xs else None, torch.stack(ms)
 
 
 def solve_conic_fixed(
@@ -515,7 +551,30 @@ def solve_conic_fixed(
     ops = backend.prepare(problem, backend_aux)
     if problem.num_cones == 0:
         return _degenerate_no_cones(backend, problem, ops, params)
-    return _fixed_trips(backend, problem, ops, params, num_iters, None, record=False)[0]
+    return _fixed_trips(backend, problem, ops, params, num_iters, None)[0]
+
+
+def solve_conic_traced(
+    problem: ConicProblem,
+    params: IPMParams = IPMParams(),
+    num_iters: int = 50,
+    backend=DenseBackend,
+    backend_aux=None,
+) -> Tuple[IPMResult, torch.Tensor]:
+    """Solve while recording per-iteration telemetry: exactly ``num_iters``
+    trips, a terminal state frozen. Returns (result, metrics), metrics of
+    shape (num_iters, 13) on the problem's device: [pres, dres, gap, pobj,
+    status] after each trip, then the step diagnostics [alpha, nbhd_frac,
+    sigma, gap_affine / gap, min_detprod / mu^2, centering_flag,
+    alpha_pre_nbhd, newton_resid] of the trip's step (a frozen state
+    repeats its last row). The rows stay on the device and are stacked
+    once: no host read beyond the loop's own. ``backend`` defaults to the
+    dense one, as in the JAX package."""
+    params = dataclasses.replace(params, record_diag=True)
+    ops = backend.prepare(problem, backend_aux)
+    result, _, metrics = _fixed_trips(backend, problem, ops, params, num_iters, None,
+                                      record="trace")
+    return result, metrics
 
 
 def solve_conic_with_iterates(
@@ -535,7 +594,8 @@ def solve_conic_with_iterates(
     pobj, status] at each snapshot. ``warm_start`` and ``prepared`` as in
     :func:`solve_conic`."""
     ops = prepared if prepared is not None else backend.prepare(problem, backend_aux)
-    return _fixed_trips(backend, problem, ops, params, num_iters, warm_start, record=True)
+    return _fixed_trips(backend, problem, ops, params, num_iters, warm_start,
+                        record="iterates")
 
 
 # ------------------------------------------------------------------ #

@@ -6,13 +6,13 @@ Port of :mod:`score_tpu.utils.telemetry`:
   with per-level colors on a TTY, without external dependencies;
 - :class:`PhaseTimer` — wall-clock per named phase (assembly, solve,
   refinement, ...);
+- :class:`SolveTrace` and :func:`trace_solve` — per-iteration
+  interior-point telemetry over
+  :func:`score_tpu_torch.solver.ipm.solve_conic_traced`, whose rows stay
+  on the device until one host copy at the end;
 - :func:`profiler_trace` — a context manager around ``torch.profiler``
   that writes a TensorBoard-compatible trace of the host and, where a
   card is present, the device.
-
-The reference's per-iteration solve trace (``SolveTrace``, ``trace_solve``
-over ``solve_conic_traced``) is not ported yet: it needs step diagnostics
-that the port's interior-point step does not return.
 """
 
 from __future__ import annotations
@@ -23,9 +23,11 @@ import sys
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["setup_logging", "PhaseTimer", "profiler_trace"]
+import numpy as np
+
+__all__ = ["setup_logging", "PhaseTimer", "SolveTrace", "trace_solve", "profiler_trace"]
 
 _FORMAT = "[%(filename)s:%(lineno)d] %(name)s %(levelname)s - %(message)s"
 
@@ -84,6 +86,61 @@ class PhaseTimer:
         total = sum(self.phases.values())
         parts = [f"{k}={v:.3f}s" for k, v in self.phases.items()]
         return f"total={total:.3f}s ({', '.join(parts)})"
+
+
+@dataclass
+class SolveTrace:
+    """Per-iteration interior-point telemetry (host arrays, one entry a
+    trip)."""
+
+    pres: np.ndarray
+    dres: np.ndarray
+    gap: np.ndarray
+    pobj: np.ndarray
+    iterations: int
+    status: int
+
+    def log(self, logger: Optional[logging.Logger] = None) -> None:
+        logger = logger or logging.getLogger("score_tpu_torch.solver")
+        for i in range(self.iterations + 1):
+            logger.info(
+                "iter %3d: pres=%.3e dres=%.3e gap=%.3e pobj=%.8e",
+                i, self.pres[i], self.dres[i], self.gap[i], self.pobj[i],
+            )
+
+    def as_dict(self) -> Dict[str, List[float]]:
+        k = self.iterations + 1
+        return {
+            "pres": self.pres[:k].tolist(),
+            "dres": self.dres[:k].tolist(),
+            "gap": self.gap[:k].tolist(),
+            "pobj": self.pobj[:k].tolist(),
+        }
+
+
+def trace_solve(problem, params=None, backend=None, backend_aux=None,
+                num_iters: int = 50) -> "tuple":
+    """Solve with per-iteration telemetry (on the problem's device). Returns
+    (IPMResult, SolveTrace); ``backend`` defaults to the dense one."""
+    from score_tpu_torch.solver.backend import DenseBackend
+    from score_tpu_torch.solver.ipm import IPMParams, solve_conic_traced
+
+    params = params or IPMParams()
+    backend = backend or DenseBackend
+    result, metrics = solve_conic_traced(
+        problem, params, num_iters=num_iters, backend=backend,
+        backend_aux=backend_aux,
+    )
+    m = metrics.cpu().numpy()  # the one host copy
+    trace = SolveTrace(
+        pres=m[:, 0],
+        dres=m[:, 1],
+        gap=m[:, 2],
+        pobj=m[:, 3],
+        iterations=int(result.iterations),
+        status=int(result.status),
+    )
+    return result, trace
 
 
 @contextlib.contextmanager

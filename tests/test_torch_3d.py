@@ -26,7 +26,11 @@ all-positions PCR over the whole 32-block chains, the band's explicit
 inverses of fully reduced 12 x 12 blocks left the dual residual 20-100x
 the reference's, so the solve ended OPTIMAL_INACCURATE after 12 iterations
 where the reference is OPTIMAL after 5. A 3D band solve now takes one step
-of iterative refinement (``band.REFINE_STEPS_3D``).
+of iterative refinement (``band.REFINE_STEPS_3D``). The band now compacts
+to one block by default, and then needs no refinement step on this world
+(``test_qcqp_3d_needs_no_refinement_at_the_default_schedule``); the step
+stays, and ``test_qcqp_3d_without_refinement_stalls`` holds the fault at a
+parallel cyclic reduction remainder.
 """
 
 import dataclasses
@@ -191,15 +195,35 @@ def test_solve_score_3d_matches_reference(loop_graph, reference, relaxation):
 
 
 def test_qcqp_3d_without_refinement_stalls(ref_graph, monkeypatch):
-    """The fault test's world still shows the fault: without the 3D band's
-    refinement step the port's QCQP ends OPTIMAL_INACCURATE, many
-    iterations past the reference's 5 (dual residual above 1e-8)."""
+    """The fault test's world still shows the fault where the band runs a
+    parallel cyclic reduction remainder (the chains of 32 padded poses
+    whole, the schedule before the band compacted to one block): without
+    the 3D band's refinement step the port's QCQP ends
+    OPTIMAL_INACCURATE, many iterations past the reference's 5 (dual
+    residual above 1e-8)."""
     monkeypatch.setattr(band, "REFINE_STEPS_3D", 0)
+    monkeypatch.setattr(band, "CR_BASE_LENGTH", 256)
     rp, ridx = ref_build(ref_normalize(ref_graph)[0], "QCQP")
     pp = problem_from_reference(rp, device="cpu")
     port = solve_conic(pp, ScoreSolverParams().ipm_params(),
                        backend_aux=build_chain_arrow(pp, ridx))
     assert port.status != OPTIMAL and port.iterations >= 8
+
+
+def test_qcqp_3d_needs_no_refinement_at_the_default_schedule(ref_graph, reference,
+                                                           monkeypatch):
+    """Compacted to one block, the 3D band holds the fault test's QCQP to
+    the reference without its refinement step: OPTIMAL, iterations within
+    1, objective within 1e-9 relative (the step stays on: it is part of
+    the 3D path's digits, PERF.md)."""
+    monkeypatch.setattr(band, "REFINE_STEPS_3D", 0)
+    rp, ridx, ref = reference(ref_graph, "QCQP")
+    pp = problem_from_reference(rp, device="cpu")
+    port = solve_conic(pp, ScoreSolverParams().ipm_params(),
+                       backend_aux=build_chain_arrow(pp, ridx))
+    assert port.status == OPTIMAL, (port.status, port.iterations, float(port.dres))
+    assert abs(port.iterations - int(ref.iterations)) <= 1
+    assert _objective_ok(float(port.pobj), ref)
 
 
 def _f32_reference(key):

@@ -107,22 +107,23 @@ def test_band_past_a_launch_of_compacting_levels(Db, K, monkeypatch):
 
 
 def test_cr_depth_of_the_main_path():
-    """Manhattan-4 chains pad to 512 and compact once; robot20's pad to
-    128 and run PCR only."""
-    assert [band.cr_depth(t) for t in (1, 128, 256, 512, 2048)] == [0, 0, 0, 1, 3]
+    """Every chain compacts to one block: Manhattan-4's chains pad to 512
+    and compact 9 times, robot20's pad to 128 and compact 7 times."""
+    assert [band.cr_depth(t) for t in (1, 128, 256, 512, 2048)] == [0, 7, 8, 9, 11]
 
 
 @pytest.mark.parametrize("C,T,Db,n_cr", [
     pytest.param(2, 16, 6, None, id="2-16-6"),
     pytest.param(1, 32, 4, None, id="1-32-4"),
-    # compacting levels (the fused rhs reduction and back substitution)
+    # the default schedule above (compacted to one block); below, compacting
+    # levels (the fused rhs reduction and back substitution), then PCR
     (2, 64, 6, 2), (2, 64, 6, 3), (1, 64, 12, 2), (1, 64, 12, 3),
 ])
 def test_band_matches_jax_f64_cyclic_reduction(C, T, Db, n_cr):
     D, U = _chains(C, T, Db, 20)
     rhs = np.random.default_rng(2).standard_normal((C, T, Db, 3))
     f, x = _port_solve(D, U, rhs, n_cr)
-    assert len(f.levels) == (n_cr or 0)
+    assert len(f.levels) == (band.cr_depth(T) if n_cr is None else n_cr)
     xref = jax.vmap(lambda d, u, r: pcr_solve(pcr_factor(d, u), r))(
         jnp.asarray(D), jnp.asarray(U), jnp.asarray(rhs))
     assert _rel(x, xref) <= 1e-11
@@ -179,7 +180,7 @@ def test_cpu_tensors_take_the_plain_versions():
     for got, want in zip(band.band_pcr_level(D, A, U, invD, 2),
                          band.band_pcr_level_plain(D, A, U, invD, 2)):
         assert torch.equal(got, want)
-    f = band.band_factor(D, U)
+    f = band.band_factor(D, U, n_cr=0)  # parallel cyclic reduction only
     b = torch.randn(2, 8, 6, 3, dtype=torch.float64)
     assert torch.equal(band.band_pcr_solve(f.E, f.F, f.invD, b),
                        band.band_pcr_solve_plain(f.E, f.F, f.invD, b))

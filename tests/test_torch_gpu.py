@@ -31,6 +31,20 @@ def cuda():
     return torch.device("cuda")
 
 
+def _reference_data():
+    """``tests/torch_reference_data.py`` (numpy only at import), loaded
+    from its file: on a machine whose site-packages hold a ``tests``
+    package, ``tests.torch_reference_data`` does not resolve."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_reference_data", Path(__file__).resolve().parent / "torch_reference_data.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _rel(a, b):
     """max |a - b| / max |b|; the absolute difference where b is all zero
     (the couplings A', C' after a chain's last PCR level)."""
@@ -137,12 +151,13 @@ def test_pcr_kernels_match_plain_at_every_level(cuda, C, Tp, Ks):
 
 def test_robot20_band_shape_launches_the_pcr_kernels(cuda):
     """A factor and two solves at robot20's band shape (20 chains of 128,
-    panel width 258) run PCR only: both redesigned kernels launch, no
-    compacting kernel does, and the solution satisfies the band."""
+    panel width 258) with no compacting level (the schedule before the band
+    compacted to one block) run PCR only: both redesigned kernels launch,
+    no compacting kernel does, and the solution satisfies the band."""
     C, Tp, K = 20, 128, 258
     D, U = _band(C, Tp, 6, 64, (100,) * C, cuda)
     band.reset_launch_counts()
-    f = band.band_factor(D, U)
+    f = band.band_factor(D, U, n_cr=0)
     assert band.band_pcr_level.launches == band.num_levels(Tp)
     for k in (1, K):
         b = torch.randn(C, Tp, 6, k, dtype=torch.float64, device=cuda)
@@ -906,9 +921,10 @@ def test_band_kernels_at_the_mc_fold(cuda):
         1, 1, band.num_levels(Tp), 2)
 
 
-def _mc_batch(seeds, device):
-    """Trials of the Monte-Carlo bench world (4 x 50 poses) on ``device``:
-    the stacked problem and the chain+arrow structure."""
+def _mc_batch(seeds, device, dtype=torch.float64):
+    """Trials of the Monte-Carlo bench world (4 x 50 poses) on ``device``,
+    cast to ``dtype`` after assembly: the stacked problem and the
+    chain+arrow structure."""
     from score_tpu_torch.assembly.conic import build_conic_problem
     from score_tpu_torch.parallel import stack_problems
     from score_tpu_torch.sim.manhattan import resample_measurements
@@ -918,7 +934,7 @@ def _mc_batch(seeds, device):
         num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
         range_measure_prob=0.4, seed=0))
     trials = [resample_measurements(base, seed=s) for s in seeds]
-    problems = [build_conic_problem(t, "SOCP", device=device)[0] for t in trials]
+    problems = [build_conic_problem(t, "SOCP", device=device)[0].cast(dtype) for t in trials]
     idx = build_conic_problem(trials[0], "SOCP", device=device)[1]
     return stack_problems(problems), build_chain_arrow(problems[0], idx)
 
@@ -926,7 +942,8 @@ def _mc_batch(seeds, device):
 def test_cuda_batch_matches_cpu(cuda):
     """An 8-trial batch on the card against the port's CPU batch, lane by
     lane: the same status, iterations within 1, pobj within 1e-9 relative,
-    the trips within 1; the fold's four band kernels launched."""
+    the trips within 1; the fold's band kernels launched (compacted to one
+    block: every kernel but band_pcr_level)."""
     import dataclasses
 
     from score_tpu_torch.parallel.batch import _solve_batch_trips
@@ -944,4 +961,163 @@ def test_cuda_batch_matches_cpu(cuda):
     assert (gpu.iterations.cpu() - cpu.iterations).abs().max().item() <= 1
     assert abs(trips_g - trips_c) <= 1
     assert ((gpu.pobj.cpu() - cpu.pobj).abs() / cpu.pobj.abs()).max().item() <= 1e-9
-    assert set(launched) == {"band_init_a", "band_block_inv", "band_pcr_level", "band_pcr_solve"}
+    assert set(launched) == {k.__name__ for k in band.KERNELS} - {"band_pcr_level"}
+
+
+@pytest.mark.parametrize("C,Tp,Db,K", [(400, 64, 6, 56), (64, 256, 12, 18)])
+def test_default_schedule_at_the_batch_folds(cuda, C, Tp, Db, K):
+    """The band at its default schedule (compacted to one block) at the
+    folds of the 100-trial Monte-Carlo batch (C = 400 chains of 64, Db = 6,
+    panel 56) and of the 16-trial 3D 4x250 batch (C = 64 chains of 256,
+    Db = 12, panel 18): factor and solve on the card against the plain
+    twins on the CPU (1e-12 relative), every kernel but band_pcr_level
+    launched, and the band satisfied (1e-10)."""
+    D, U = _band(C, Tp, Db, 66, (Tp - 7,) * C, cuda)
+    band.reset_launch_counts()
+    f = band.band_factor(D, U)
+    for k in (1, K):
+        b = torch.randn(C, Tp, Db, k, dtype=torch.float64, device=cuda)
+        x = band.band_solve(f, b)
+        want = band.band_solve(band.band_factor(D.cpu(), U.cpu()), b.cpu())
+        assert _rel(x.cpu(), want) <= 1e-12
+        assert ((band.band_matvec(D, U, x) - b).abs().max() / b.abs().max()).item() <= 1e-10
+    torch.cuda.synchronize()
+    assert len(f.levels) == band.num_levels(Tp) and f.E.shape[0] == 0
+    assert {k.__name__ for k in band.KERNELS if k.launches_by_size[Db]} == (
+        {k.__name__ for k in band.KERNELS} - {"band_pcr_level"})
+
+
+def _f32_lanes_agree(gpu, cpu, trips, max_iter):
+    """An f32 batch on the card against the CPU's: the same status, pobj
+    within 2e-2 * max(1, |pobj|) (the f32 bounds); lanes that end OPTIMAL
+    within 3 iterations and the trips within 3 where every lane does. A
+    lane that ends OPTIMAL_INACCURATE stops on the f32 dual-residual floor
+    by the stall counter, at a trip that follows the roundoff (the
+    Monte-Carlo world's fourth trial: 19 iterations on the card and in the
+    JAX package's CPU batch, 15 in the port's CPU batch): at most
+    ``max_iter``."""
+    status = cpu.status.tolist()
+    assert gpu.status.cpu().tolist() == status
+    assert all(s in (1, 4) for s in status)
+    diff = (gpu.iterations.cpu() - cpu.iterations).abs()
+    assert all(d <= 3 for d, s in zip(diff.tolist(), status) if s == 1)
+    assert gpu.iterations.max().item() <= max_iter and max(trips) <= max_iter
+    if all(s == 1 for s in status):
+        assert abs(trips[0] - trips[1]) <= 3
+    assert ((gpu.pobj.cpu() - cpu.pobj).abs() <= 2e-2 * cpu.pobj.abs().clamp_min(1.0)).all()
+
+
+def test_cuda_f32_batch_matches_cpu(cuda):
+    """Four trials of the Monte-Carlo world cast to float32 at the f32
+    mode's tolerances, on the card against the port's CPU batch
+    (:func:`_f32_lanes_agree`); the f32 band's block kernels launched at
+    D = 6, no f64 band kernel."""
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+
+    params = ScoreSolverParams(precision="f32", max_iter=20, gondzio_correctors=0).ipm_params()
+    out = {}
+    for dev in (cuda, "cpu"):
+        batch, ca = _mc_batch(range(4), dev, torch.float32)
+        band.reset_launch_counts()
+        blocks.reset_launch_counts()
+        out[str(dev)] = _solve_batch_trips(batch, params, ChainArrowBackend, ca)
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert all(k.launches == 0 for k in band.KERNELS)
+            _assert_fused_path()
+            assert blocks.block_chol_solve.launches_by_size[6] > 0
+    (gpu, trips_g), (cpu, trips_c) = out[str(cuda)], out["cpu"]
+    assert gpu.x.dtype == torch.float32 and torch.isfinite(gpu.x).all()
+    _f32_lanes_agree(gpu, cpu, (trips_g, trips_c), params.max_iter)
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_cuda_3d_batch_matches_cpu(cuda, precision):
+    """Four trials of the 2 x 30 3D world with its loop closure (ranges
+    redrawn, ``tests/torch_reference_data.resample_ranges``; objective
+    ~5e3), SOCP, on the card against the port's CPU batch: f64 through the
+    band kernels at Db = 12 (the same status, iterations within 1, pobj
+    within 1e-9 relative), f32 through the block kernels at D = 12
+    (:func:`_f32_lanes_agree`)."""
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.parallel import stack_problems
+    from score_tpu_torch.parallel.batch import _solve_batch_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+
+    fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=30,
+                                         num_landmarks=4, range_measure_prob=0.4, seed=3))
+    fg.loop_closure_measurements.append(PoseMeasurement3D(
+        "A3", "A25", np.array([1.0, -2.0, 0.5]), np.eye(3), 100.0, 1000.0, 0.0))
+    trials = [_reference_data().resample_ranges(fg, s) for s in range(4)]
+    dtype = torch.float32 if precision == "f32" else torch.float64
+    params = ScoreSolverParams(precision=precision).ipm_params()
+    out = {}
+    for dev in (cuda, "cpu"):
+        problems = [build_conic_problem(t, "SOCP", device=dev)[0].cast(dtype) for t in trials]
+        idx = build_conic_problem(trials[0], "SOCP", device=dev)[1]
+        band.reset_launch_counts()
+        blocks.reset_launch_counts()
+        out[str(dev)] = _solve_batch_trips(stack_problems(problems), params, ChainArrowBackend,
+                                           build_chain_arrow(problems[0], idx))
+        if dev is cuda:
+            torch.cuda.synchronize()
+            if precision == "f64":
+                assert {k.__name__ for k in band.KERNELS if k.launches_by_size[12]} == (
+                    {k.__name__ for k in band.KERNELS} - {"band_pcr_level"})
+            else:
+                assert all(k.launches == 0 for k in band.KERNELS)
+                _assert_fused_path()
+                assert blocks.block_chol_solve.launches_by_size[12] > 0
+    (gpu, trips_g), (cpu, trips_c) = out[str(cuda)], out["cpu"]
+    if precision == "f32":
+        _f32_lanes_agree(gpu, cpu, (trips_g, trips_c), params.max_iter)
+        return
+    assert gpu.status.cpu().tolist() == cpu.status.tolist()
+    assert all(s in (1, 4) for s in cpu.status.tolist())
+    assert (gpu.iterations.cpu() - cpu.iterations).abs().max().item() <= 1
+    assert abs(trips_g - trips_c) <= 1
+    assert ((gpu.pobj.cpu() - cpu.pobj).abs() <= 1e-9 * cpu.pobj.abs()).all()
+
+
+@pytest.mark.parametrize("backend", ["dense", "chain_arrow"])
+def test_cuda_trace_matches_cpu(cuda, backend):
+    """``solve_conic_traced`` of the 2 x 25 world (SOCP, normalized) on the
+    card against the port's CPU trace: (16, 13) metrics on the card, the
+    same status, iterations within 1, pobj within 1e-9 relative on every
+    row, pres and dres within 1e-6 relative plus 1e-10, the gap within
+    1e-6 relative plus 1e-9 * max(1, |pobj|), the diagnostics within 1e-6 *
+    max(1, |value|) (the CPU tests' bounds against the JAX package); the
+    traced result bit-equal to the card's untraced fixed-trip solve."""
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.assembly.normalize import normalize_factor_graph
+    from score_tpu_torch.solver import solve_conic_traced
+    from score_tpu_torch.solver.backend import DenseBackend
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu_torch.solver.ipm import solve_conic_fixed
+
+    fg = normalize_factor_graph(simulate_manhattan_world(ManhattanWorldParams(
+        num_robots=2, num_poses_per_robot=25, num_landmarks=3, grid_size=8,
+        range_measure_prob=0.4, seed=1)))[0]
+    params = ScoreSolverParams().ipm_params()
+    be = DenseBackend if backend == "dense" else ChainArrowBackend
+    out = {}
+    for dev in (cuda, "cpu"):
+        pp, idx = build_conic_problem(fg, "SOCP", device=dev)
+        aux = None if backend == "dense" else build_chain_arrow(pp, idx)
+        out[str(dev)] = solve_conic_traced(pp, params, num_iters=16, backend=be, backend_aux=aux)
+        if dev is cuda:
+            fixed = solve_conic_fixed(pp, params, num_iters=16, backend=be, backend_aux=aux)
+    (gpu, gm), (cpu, cm) = out[str(cuda)], out["cpu"]
+    assert gm.is_cuda and gm.shape == (16, 13)
+    assert (fixed.status, fixed.iterations, fixed.pobj) == (gpu.status, gpu.iterations, gpu.pobj)
+    assert torch.equal(fixed.x, gpu.x)
+    assert gpu.status == cpu.status and abs(gpu.iterations - cpu.iterations) <= 1
+    m, ref = gm.cpu().numpy(), cm.numpy()
+    rows = 16 if gpu.iterations == cpu.iterations else min(gpu.iterations, cpu.iterations)
+    m, ref = m[:rows], ref[:rows]
+    np.testing.assert_allclose(m[:, 3], ref[:, 3], rtol=1e-9, atol=0)
+    np.testing.assert_allclose(m[:, :2], ref[:, :2], rtol=1e-6, atol=1e-10)
+    gap_tol = 1e-6 * np.abs(ref[:, 2]) + 1e-9 * np.maximum(1.0, np.abs(ref[:, 3]))
+    assert np.all(np.abs(m[:, 2] - ref[:, 2]) <= gap_tol)
+    assert np.all(np.abs(m[:, 5:] - ref[:, 5:]) <= 1e-6 * np.maximum(1.0, np.abs(ref[:, 5:])))

@@ -74,11 +74,13 @@ on a non-finite step), read by ``tests/test_torch_batch.py``:
 
     JAX_PLATFORMS=cpu python tests/torch_reference_data.py --band-stability
 
-writes nothing: on the 2 x 10 fixture's trials it prints the JAX package's
-and the port's single chain+arrow solves (the port at its default band
-schedule and with the band compacted to one block), and the band residual
-of each band along one trial's iterates: why ``tests/test_torch_batch.py``
-compacts that fixture's band (ROADMAP queue 3).
+writes nothing: the f64 band's backward error along the iterates of five
+worlds (the 2 x 10 fixture's trial 0 as it is and normalized, the
+Monte-Carlo world's trial 0, Manhattan-4 and robot20) at each remainder
+length of ``STABILITY_FLOORS``, beside the JAX package's CPU band and a
+dense Cholesky, then the fixture's trials solved by both packages at each
+remainder: why the port's band compacts to one block
+(``band.CR_BASE_LENGTH`` = 1).
 
     JAX_PLATFORMS=cpu python tests/torch_reference_data.py --refine-roundoff
 
@@ -131,33 +133,82 @@ CLI_CASES = {
 
 
 # the Monte-Carlo batch's checks: tests/test_parallel.py's fixture world,
-# the Monte-Carlo bench world (bench.py:330-394) and a world with no range
+# the Monte-Carlo bench world (bench.py:330-394), a world with no range,
+# and the 3D loop world (WORLD_3D with LOOP_3D: 2 x 30 poses, seed 3),
+# whose trials redraw only the ranges (resample_ranges)
 BATCH_FIXTURE = dict(num_robots=2, num_poses_per_robot=10, num_landmarks=2, grid_size=6,
                      range_measure_prob=0.5, seed=11)
 BATCH_MC_WORLD = dict(num_robots=4, num_poses_per_robot=50, num_landmarks=4, grid_size=10,
                       range_measure_prob=0.4, seed=0)
 BATCH_NOCONES = dict(num_robots=2, num_poses_per_robot=6, num_landmarks=1, grid_size=6,
                      range_measure_prob=0.0, inter_robot_ranges=False, seed=11)
-# case: (world, trial seeds, relaxation, backend, IPMParams fields)
+BATCH_LOOP_3D = "loop3d"
+# case: (world, trial seeds, relaxation, backend, ScoreSolverParams fields
+# of its IPMParams (``batch_params``), precision of the stacked problems)
 BATCH_CASES = {
-    "fixture_socp_dense": (BATCH_FIXTURE, range(8), "SOCP", "dense", dict(max_iter=30)),
+    "fixture_socp_dense": (BATCH_FIXTURE, range(8), "SOCP", "dense", dict(max_iter=30), "f64"),
     "fixture_socp_chain_arrow": (BATCH_FIXTURE, range(8), "SOCP", "chain_arrow",
-                                 dict(max_iter=30)),
+                                 dict(max_iter=30), "f64"),
     "fixture_qcqp_chain_arrow": (BATCH_FIXTURE, range(8), "QCQP", "chain_arrow",
-                                 dict(max_iter=30)),
+                                 dict(max_iter=30), "f64"),
     "mc8_socp_chain_arrow": (BATCH_MC_WORLD, range(8), "SOCP", "chain_arrow",
-                             dict(max_iter=20, gondzio_correctors=0)),
-    "nocones_socp_dense": (BATCH_NOCONES, range(3), "SOCP", "dense", dict(max_iter=10)),
+                             dict(max_iter=20, gondzio_correctors=0), "f64"),
+    "nocones_socp_dense": (BATCH_NOCONES, range(3), "SOCP", "dense", dict(max_iter=10), "f64"),
+    "loop3d_socp_chain_arrow": (BATCH_LOOP_3D, range(4), "SOCP", "chain_arrow",
+                                dict(max_iter=30), "f64"),
+    "loop3d_qcqp_chain_arrow": (BATCH_LOOP_3D, range(4), "QCQP", "chain_arrow",
+                                dict(max_iter=30), "f64"),
+    # the f32 batch: the problems cast to float32 after assembly and the
+    # f32 mode's tolerances (precision="f32"), as solve_score's f32 solves
+    "fixture_socp_chain_arrow_f32": (BATCH_FIXTURE, range(8), "SOCP", "chain_arrow",
+                                     dict(max_iter=30), "f32"),
+    "mc4_socp_chain_arrow_f32": (BATCH_MC_WORLD, range(4), "SOCP", "chain_arrow",
+                                 dict(max_iter=20, gondzio_correctors=0), "f32"),
+    "loop3d_socp_chain_arrow_f32": (BATCH_LOOP_3D, range(4), "SOCP", "chain_arrow",
+                                    dict(max_iter=30), "f32"),
 }
 BATCH_FIELDS = ("status", "iterations", "pobj", "gap", "pres", "dres", "x")
 
 
 def batch_trials(case: str, simulate, resample):
-    """The trials of a batch case, from a package's Manhattan simulator
-    and ``resample_measurements`` (either package's: both draw the same)."""
+    """The trials of a batch case (the JAX package's FactorGraphData for a
+    3D case; the 2D cases from a package's Manhattan simulator and
+    ``resample_measurements``, either package's: both draw the same)."""
     world, seeds = BATCH_CASES[case][:2]
+    if world == BATCH_LOOP_3D:
+        base = world_3d(loop=True)
+        return [resample_ranges(base, seed=s) for s in seeds]
     base = simulate(world)
     return [resample(base, seed=s) for s in seeds]
+
+
+def batch_params(case: str, solver_params):
+    """A case's IPMParams from a package's ScoreSolverParams class."""
+    _, _, _, _, fields, precision = BATCH_CASES[case]
+    return solver_params(precision=precision, **fields).ipm_params()
+
+
+def resample_ranges(fg, seed: int):
+    """A trial of a graph's structure for a batch: a copy whose range
+    measurements are redrawn around the ground truth (the true distance
+    plus a normal of the range's stddev, at least 1e-3, from a numpy
+    generator of ``seed``, in the graph's order), every association,
+    odometry measurement, loop closure and prior kept. Either package's
+    FactorGraphData (the JAX package has no 3D resampler; its 2D one draws
+    the ranges this way after the odometry)."""
+    import copy
+
+    out = copy.deepcopy(fg)
+    rng = np.random.default_rng(seed)
+    where = {v.name: np.asarray(v.true_position, dtype=np.float64)
+             for chain in out.pose_variables for v in chain}
+    where.update({v.name: np.asarray(v.true_position, dtype=np.float64)
+                  for v in out.landmark_variables})
+    for m in out.range_measurements:
+        a, b = m.association
+        d_true = np.linalg.norm(where[a] - where[b])
+        m.dist = float(max(d_true + rng.normal(0.0, m.stddev), 1e-3))
+    return out
 
 
 def cli_graph(**kw):
@@ -258,6 +309,7 @@ def main() -> None:
     out.update(api_entries())
     out.update(cli_entries())
     out.update(batch_entries())
+    out.update(trace_entries())
     PATH.parent.mkdir(exist_ok=True)
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
@@ -310,15 +362,10 @@ def cli_entries() -> dict:
     return out
 
 
-def update_cli() -> None:
-    """Rewrite the file with fresh ``cli_*`` entries and the others kept."""
-    out = {k: v for k, v in load().items() if not k.startswith("cli_")}
-    out.update(cli_entries())
-    np.savez_compressed(PATH, **out)
-    print(f"wrote {PATH}: " + ", ".join(f"{k} {out[k]}" for k in out if k.startswith("cli_")))
-
-
 def batch_entries() -> dict:
+    import jax.numpy as jnp
+
+    from score_tpu.api import _cast_problem
     from score_tpu.assembly.conic import build_conic_problem
     from score_tpu.parallel.batch import solve_conic_batch, stack_problems
     from score_tpu.sim.manhattan import (
@@ -328,35 +375,79 @@ def batch_entries() -> dict:
     )
     from score_tpu.solver.backend import DenseBackend
     from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
-    from score_tpu.solver.ipm import IPMParams
+    from score_tpu.solver.params import ScoreSolverParams
 
     out = {}
-    for case, (_, _, relaxation, backend, fields) in BATCH_CASES.items():
+    for case, (_, _, relaxation, backend, _, precision) in BATCH_CASES.items():
         trials = batch_trials(case, lambda w: simulate_manhattan_world(ManhattanWorldParams(**w)),
                               resample_measurements)
         problems = [build_conic_problem(t, relaxation)[0] for t in trials]
+        if precision == "f32":
+            problems = [_cast_problem(p, jnp.float32) for p in problems]
         if backend == "dense":
             be, aux = DenseBackend, None
         else:
             be = ChainArrowBackend
             aux = build_chain_arrow(problems[0], build_conic_problem(trials[0], relaxation)[1])
-        params = IPMParams(**fields)
+        params = batch_params(case, ScoreSolverParams)
         res = solve_conic_batch(stack_problems(problems), params, backend=be, backend_aux=aux)
         for name in BATCH_FIELDS:
             out[f"batch_{case}_{name}"] = np.asarray(getattr(res, name))
         out[f"batch_{case}_trips"] = np.asarray(
             min(params.max_iter, int(np.max(np.asarray(res.iterations))) + 1))
+        print(case, out[f"batch_{case}_status"].tolist(),
+              out[f"batch_{case}_iterations"].tolist(), flush=True)
     return out
 
 
-def update_batch() -> None:
-    """Rewrite the file with fresh ``batch_*`` entries and the others kept."""
-    out = {k: v for k, v in load().items() if not k.startswith("batch_")}
-    out.update(batch_entries())
+# the solve trace's checks (tests/test_torch_trace.py): case -> (graph,
+# relaxation, backend, trips); every graph normalized, f64, the default
+# IPMParams
+TRACE_CASES = {
+    "2x25_socp_dense": ("2x25", "SOCP", "dense", 16),
+    "2x25_socp_chain_arrow": ("2x25", "SOCP", "chain_arrow", 16),
+    "loop3d_qcqp_dense": ("loop3d", "QCQP", "dense", 8),
+    "loop3d_qcqp_chain_arrow": ("loop3d", "QCQP", "chain_arrow", 8),
+}
+TRACE_FIELDS = ("metrics", "status", "iterations", "pobj")
+
+
+def trace_graph(name: str):
+    """A trace case's graph, as the JAX package's FactorGraphData."""
+    return graph_2x25() if name == "2x25" else world_3d(loop=True)
+
+
+def trace_entries() -> dict:
+    from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.assembly.normalize import normalize_factor_graph
+    from score_tpu.solver.backend import DenseBackend
+    from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu.solver.ipm import solve_conic_traced
+    from score_tpu.solver.params import ScoreSolverParams
+
+    out = {}
+    for case, (graph, relaxation, backend, trips) in TRACE_CASES.items():
+        rp, ridx = build_conic_problem(normalize_factor_graph(trace_graph(graph))[0], relaxation)
+        be, aux = ((DenseBackend, None) if backend == "dense"
+                   else (ChainArrowBackend, build_chain_arrow(rp, ridx)))
+        res, metrics = solve_conic_traced(rp, ScoreSolverParams(precision="f64").ipm_params(),
+                                          num_iters=trips, backend=be, backend_aux=aux)
+        out[f"trace_{case}_metrics"] = np.asarray(metrics)
+        for name in TRACE_FIELDS[1:]:
+            out[f"trace_{case}_{name}"] = np.asarray(getattr(res, name))
+        print(case, int(res.status), int(res.iterations), flush=True)
+    return out
+
+
+def update_entries(prefix: str, entries) -> None:
+    """Rewrite the file with fresh ``<prefix>*`` entries and the others
+    kept."""
+    out = {k: v for k, v in load().items() if not k.startswith(prefix)}
+    out.update(entries())
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(
         f"{k} {out[k].tolist() if out[k].size <= 8 else out[k].shape}"
-        for k in out if k.startswith("batch_")))
+        for k in out if k.startswith(prefix)))
 
 
 def refine_roundoff() -> None:
@@ -390,21 +481,101 @@ def refine_roundoff() -> None:
             print(line, flush=True)
 
 
+# the remainder lengths --band-stability prices: the band compacts while a
+# chain is longer than this, then runs parallel cyclic reduction
+STABILITY_FLOORS = (1, 2, 4, 8, 16, 64, 256)
+
+
+def _stability_worlds():
+    """(label, JAX FactorGraphData, normalize, IPMParams fields, iterates
+    backend) of each world ``--band-stability`` reads."""
+    from score_tpu.sim.manhattan import (
+        ManhattanWorldParams,
+        resample_measurements,
+        simulate_manhattan_world,
+    )
+
+    def sim(w):
+        return simulate_manhattan_world(ManhattanWorldParams(**w))
+
+    fixture = batch_trials("fixture_socp_chain_arrow", sim, resample_measurements)[0]
+    mc = batch_trials("mc8_socp_chain_arrow", sim, resample_measurements)[0]
+    robot20 = dict(num_robots=20, num_poses_per_robot=100, num_landmarks=10, grid_size=30,
+                   range_measure_prob=0.25, inter_robot_measure_prob=0.05, seed=20)
+    return [
+        ("fixture 2x10 trial 0", fixture, False, dict(max_iter=30), "dense"),
+        ("fixture 2x10 trial 0, normalized", fixture, True, dict(max_iter=30), "dense"),
+        ("MC 4x50 trial 0", mc, False, dict(max_iter=20, gondzio_correctors=0), "dense"),
+        ("Manhattan-4", sim({}), True, {}, "chain_arrow"),
+        ("robot20", sim(robot20), True, {}, "chain_arrow"),
+    ]
+
+
+def recorded_bands(pp, st, params, iterates="dense"):
+    """(result, bands): the port's SOCP solve of the problem ``pp`` (a CPU
+    ConicProblem of the port, ``st`` its chain+arrow structure) on its
+    dense backend, or with ``iterates="chain_arrow"`` on its chain+arrow
+    backend with the band compacted to one block, and the f64 chain band
+    (D, U), each (C, Tp, Db, Db) in the band convention, that the
+    chain+arrow backend assembles at every factor of that solve's
+    iterates."""
+    import torch
+
+    from score_tpu_torch.ops import band
+    from score_tpu_torch.solver import chain_arrow as port_ca
+    from score_tpu_torch.solver.backend import DenseBackend
+    from score_tpu_torch.solver.ipm import solve_conic
+
+    backend = DenseBackend if iterates == "dense" else port_ca.ChainArrowBackend
+    seen = []
+    factor = backend.factor
+
+    def recording(problem, state, Winv2, p):
+        seen.append(Winv2)
+        return factor(problem, state, Winv2, p)
+
+    backend.factor = staticmethod(recording)
+    default, band.CR_BASE_LENGTH = band.CR_BASE_LENGTH, 1
+    try:
+        res = solve_conic(pp, params, backend=backend,
+                          backend_aux=None if iterates == "dense" else st)
+    finally:
+        backend.factor = staticmethod(factor)
+        band.CR_BASE_LENGTH = default
+    ops = port_ca.ChainArrowBackend.prepare(pp, st)
+    C, T, D = st.C, st.T, st.D
+    Tp = band.pad_length(T)
+    bands = []
+    for W in seen:
+        Dg, Ug = port_ca.ChainArrowBackend._assemble(pp, ops, W, params)[:2]
+        Dp = torch.eye(D, dtype=torch.float64).expand(C, Tp, D, D).clone()
+        Dp[:, :T] = Dg
+        Up = torch.zeros((C, Tp, D, D), dtype=torch.float64)
+        Up[:, : T - 1] = Ug
+        bands.append((Dp, Up))
+    return res, bands
+
+
 def band_stability() -> None:
-    """Why the 2 x 10 fixture's chain+arrow batch cases compact the band
-    all the way down: the port's single chain+arrow solves of its trials
-    (SOCP, ``max_iter=30``) at the default band schedule (a chain of 16
-    runs parallel cyclic reduction only) and with ``band.CR_BASE_LENGTH =
-    1`` (cyclic reduction to one block, the JAX package's CPU band), beside
-    the JAX package's; then, along the port's dense-backend iterates of
-    trial 0, the band residual max |T x - b| / max |b| of the port's band
-    at both schedules, of the JAX package's CPU band and of a dense
-    Cholesky solve of each chain."""
+    """Why the band compacts to one block: the f64 band's backward error,
+    max |T x - b| / max |b| of one random rhs of 3 columns, along the
+    iterates of an SOCP solve of each world of :func:`_stability_worlds`,
+    for each remainder length of ``STABILITY_FLOORS`` (``band.CR_BASE_LENGTH``:
+    cyclic reduction while a chain is longer, then parallel cyclic
+    reduction with explicit block inverses), beside the JAX package's CPU
+    band (``score_tpu.solver.pcr``: cyclic reduction to one block, a
+    Cholesky a block) and a dense Cholesky solve of each chain. The iterates
+    are the port's: its dense backend's on the small worlds, its chain+arrow
+    backend's compacted to one block on Manhattan-4 and robot20 (a dense
+    KKT of either is too large for a CPU run). Then the 2 x 10 fixture's
+    trials solved by the JAX package and by the port at the default
+    schedule and at every remainder length. Writes nothing."""
     import jax
     import jax.numpy as jnp
     import torch
 
     from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.assembly.normalize import normalize_factor_graph
     from score_tpu.sim.manhattan import (
         ManhattanWorldParams,
         resample_measurements,
@@ -416,78 +587,75 @@ def band_stability() -> None:
     from score_tpu_torch.convert import problem_from_reference
     from score_tpu_torch.ops import band
     from score_tpu_torch.solver import chain_arrow as port_ca
-    from score_tpu_torch.solver.backend import DenseBackend as PortDense
     from score_tpu_torch.solver.ipm import IPMParams as PortParams
     from score_tpu_torch.solver.ipm import solve_conic as port_solve
 
     torch.set_num_threads(1)
+    default = band.CR_BASE_LENGTH
+    jax_factor, jax_solve = jax.jit(jax.vmap(pcr_factor)), jax.jit(jax.vmap(pcr_solve))
+    names = [f"{f}" for f in STABILITY_FLOORS] + ["JAX", "dense"]
+    for label, fg, normalize, fields, iterates in _stability_worlds():
+        if normalize:
+            fg = normalize_factor_graph(fg)[0]
+        rp, ridx = build_conic_problem(fg, "SOCP")
+        pp = problem_from_reference(rp, device="cpu")
+        params = PortParams(**fields)
+        st = port_ca.build_chain_arrow(pp, ridx)
+        res, bands = recorded_bands(pp, st, params, iterates)
+        C, Tp, D = bands[0][0].shape[:3]
+        print(f"{label}: C = {C}, T = {st.T}, Tp = {Tp}, {len(bands)} factors of a "
+              f"{iterates} solve (status {res.status} after {res.iterations})", flush=True)
+        rng = np.random.default_rng(0)
+        worst = dict.fromkeys(names, 0.0)
+        for it, (Dp, Up) in enumerate(bands):
+            b = torch.tensor(rng.standard_normal((C, Tp, D, 3)))
+
+            def resid(x):
+                return ((band.band_matvec(Dp, Up, x) - b).abs().max() / b.abs().max()).item()
+
+            out = {}
+            for floor in STABILITY_FLOORS:
+                band.CR_BASE_LENGTH = floor
+                out[f"{floor}"] = resid(band.band_solve(band.band_factor(Dp, Up), b))
+            band.CR_BASE_LENGTH = default
+            f = jax_factor(jnp.asarray(Dp.numpy()), jnp.asarray(Up.numpy()))
+            out["JAX"] = resid(torch.tensor(np.asarray(jax_solve(f, jnp.asarray(b.numpy())))))
+            Tm = torch.zeros((C, Tp * D, Tp * D), dtype=torch.float64)
+            for k in range(Tp):
+                Tm[:, k * D:(k + 1) * D, k * D:(k + 1) * D] = Dp[:, k]
+                if k + 1 < Tp:
+                    Tm[:, k * D:(k + 1) * D, (k + 1) * D:(k + 2) * D] = Up[:, k]
+                    Tm[:, (k + 1) * D:(k + 2) * D, k * D:(k + 1) * D] = Up[:, k].mT
+            out["dense"] = resid(torch.cholesky_solve(
+                b.reshape(C, Tp * D, 3), torch.linalg.cholesky(Tm)).reshape(b.shape))
+            cond = "-"  # an eigensolve of Manhattan-4's chains takes minutes
+            if Tp * D <= 1024:
+                ev = torch.linalg.eigvalsh(Tm)
+                cond = f"{(ev[:, -1] / ev[:, 0]).max().item():.1e}"
+            for k in names:
+                worst[k] = max(worst[k], out[k])
+            print(f"  iterate {it}: band condition {cond}; residual by remainder "
+                  + ", ".join(f"{k} {out[k]:.1e}" for k in names), flush=True)
+        print(f"{label}, max over iterates: "
+              + ", ".join(f"{k} {worst[k]:.1e}" for k in names), flush=True)
+
     case = "fixture_socp_chain_arrow"
     trials = batch_trials(case, lambda w: simulate_manhattan_world(ManhattanWorldParams(**w)),
                           resample_measurements)
-    default = band.CR_BASE_LENGTH
     for i, t in enumerate(trials):
         rp, ridx = build_conic_problem(t, "SOCP")
         ref = solve_conic(rp, IPMParams(max_iter=30), backend=ChainArrowBackend,
                           backend_aux=build_chain_arrow(rp, ridx))
         pp = problem_from_reference(rp, device="cpu")
-        line = (f"trial {i}: JAX package status {int(ref.status)} after "
-                f"{int(ref.iterations)}, pobj {float(ref.pobj)!r}")
-        for floor in (default, 1):
+        line = (f"fixture trial {i}: JAX package status {int(ref.status)} after "
+                f"{int(ref.iterations)}; port by remainder")
+        for floor in STABILITY_FLOORS:
             band.CR_BASE_LENGTH = floor
             r = port_solve(pp, PortParams(max_iter=30),
                            backend_aux=port_ca.build_chain_arrow(pp, ridx))
-            line += f"; port (CR_BASE_LENGTH={floor}) {r.status} after {r.iterations}"
+            line += f" {floor}: {r.status} after {r.iterations},"
         band.CR_BASE_LENGTH = default
-        print(line, flush=True)
-
-    rp, ridx = build_conic_problem(trials[0], "SOCP")
-    pp = problem_from_reference(rp, device="cpu")
-    seen = []
-    factor = PortDense.factor
-
-    def recording(problem, state, Winv2, params):
-        seen.append(Winv2)
-        return factor(problem, state, Winv2, params)
-
-    PortDense.factor = staticmethod(recording)
-    try:
-        port_solve(pp, PortParams(max_iter=30), backend=PortDense)
-    finally:
-        PortDense.factor = staticmethod(factor)
-    st = port_ca.build_chain_arrow(pp, ridx)
-    ops = port_ca.ChainArrowBackend.prepare(pp, st)
-    rng = np.random.default_rng(0)
-    for it, W in enumerate(seen):
-        Dg, Ug = port_ca.ChainArrowBackend._assemble(pp, ops, W, PortParams())[:2]
-        C, T, D = st.C, st.T, st.D
-        Tp = band.pad_length(T)
-        Dp = torch.eye(D, dtype=torch.float64).expand(C, Tp, D, D).clone()
-        Dp[:, :T] = Dg
-        Up = torch.zeros((C, Tp, D, D), dtype=torch.float64)
-        Up[:, : T - 1] = Ug
-        b = torch.tensor(rng.standard_normal((C, Tp, D, 3)))
-
-        def resid(x):
-            return ((band.band_matvec(Dp, Up, x) - b).abs().max() / b.abs().max()).item()
-
-        out = []
-        for floor in (default, 1):
-            band.CR_BASE_LENGTH = floor
-            out.append(resid(band.band_solve(band.band_factor(Dp, Up), b)))
-        band.CR_BASE_LENGTH = default
-        f = jax.vmap(pcr_factor)(jnp.asarray(Dp.numpy()), jnp.asarray(Up.numpy()))
-        out.append(resid(torch.tensor(np.asarray(jax.vmap(pcr_solve)(f, jnp.asarray(b.numpy()))))))
-        Tm = torch.zeros((C, Tp * D, Tp * D), dtype=torch.float64)
-        for k in range(Tp):
-            Tm[:, k * D:(k + 1) * D, k * D:(k + 1) * D] = Dp[:, k]
-            if k + 1 < Tp:
-                Tm[:, k * D:(k + 1) * D, (k + 1) * D:(k + 2) * D] = Up[:, k]
-                Tm[:, (k + 1) * D:(k + 2) * D, k * D:(k + 1) * D] = Up[:, k].mT
-        out.append(resid(torch.cholesky_solve(b.reshape(C, Tp * D, 3),
-                                              torch.linalg.cholesky(Tm)).reshape(b.shape)))
-        print(f"trial 0, dense iterate {it}: band condition {torch.linalg.cond(Tm).max():.1e}; "
-              f"residual port PCR {out[0]:.2e}, port CR to one block {out[1]:.2e}, "
-              f"JAX package's CPU band {out[2]:.2e}, dense Cholesky {out[3]:.2e}", flush=True)
+        print(line.rstrip(","), flush=True)
 
 
 def qcqp3d_sizes(poses=(30, 60, 100)) -> None:
@@ -526,9 +694,11 @@ if __name__ == "__main__":
     if "--qcqp3d-sizes" in sys.argv[1:]:
         qcqp3d_sizes()
     elif "--cli" in sys.argv[1:]:
-        update_cli()
+        update_entries("cli_", cli_entries)
     elif "--batch" in sys.argv[1:]:
-        update_batch()
+        update_entries("batch_", batch_entries)
+    elif "--trace" in sys.argv[1:]:
+        update_entries("trace_", trace_entries)
     elif "--band-stability" in sys.argv[1:]:
         band_stability()
     elif "--refine-roundoff" in sys.argv[1:]:
