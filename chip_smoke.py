@@ -164,8 +164,9 @@ without printing a result line:
    values: initial and final cost (the final one also evaluated on the
    host), iterations, the refinement's wall, host synchronizations counted
    through ``torch.cuda.set_sync_debug_mode``, launches per refinement
-   (profiled refinements of 1, 2 and 3 outer iterations, each the
-   largest count of profiled runs until two agree, extrapolated),
+   (profiled refinements of 1, 2 and 3 outer iterations in 2D, 1 and 2
+   in 3D, each the largest count of profiled runs until two agree,
+   extrapolated),
    rotations in SO(d) to 1e-9, the 3D final cost below the initial one,
    and the card against the port's CPU refinement of the same start at
    ``max_iter=10`` (equal iterations, costs within 1e-8 relative);
@@ -193,7 +194,24 @@ without printing a result line:
    against CPU, every lane solved (relgap <= 1e-2 in f32, 1e-6 in 3D),
    lanes 0-2 held to the card's single solves, walls, launches per trip
    equal to a 1-trial batch's, host synchronizations <= trips + 1;
-12. the launch floor again, and one JSON line describing the kernels
+12. the sharded solves (``sharded``, :func:`phase_sharded`,
+   ``score_tpu_torch.parallel``): robot20 SOCP f64 (normalized; C = 20)
+   chain-sharded (``solve_conic_chain_sharded``) and the 100-trial
+   Monte-Carlo batch (``ChainArrowBackend``) trial-sharded
+   (``solve_conic_sharded``), over gloo at world 2 with both ranks on the
+   one card (10 chains, 50 trials a rank) and over NCCL at world = the
+   card count (``run_ranks``), each beside the unsharded solve on the
+   card: robot20 with the same status and iterations, relgap <= 1e-6 and
+   pobj within 1e-9 relative, the batch with every lane's status and
+   iterations, pobj within 1e-9 relative (``SHARDED_LANE_TOL``) and the
+   same trips, and rank 0's lanes against the same trials solved unsharded
+   as a batch of the rank's size, pobj within 1e-12 relative
+   (``SHARDED_RANK_LANE_TOL``); every band
+   kernel of the path launched on every rank (counts set to 0 just before
+   the timed call); ``all_reduce`` calls and bytes of one factor (the
+   Schur complement), one KKT solve (the arrow rhs and the chain
+   solution) and one trip (the four flags) as counted; the walls;
+13. the launch floor again, and one JSON line describing the kernels
    (event time, device time, plain time, the bound from bytes and
    operations, and a PyTorch call computing the same function where one
    exists, by events and in device time, ``library_us``): a row per kernel at
@@ -212,8 +230,8 @@ without printing a result line:
 ``python3 chip_smoke.py --kernels`` stops after the band and block
 kernels' checks of phase 3 (a short first run after a kernel changed) and
 prints no result line; ``--refine`` builds the kernels and runs phase 10
-alone, ``--mc`` the three folds' kernel checks and phase 11 alone, and
-neither prints a result line. Imports nothing of jax or of the JAX package.
+alone, ``--mc`` the three folds' kernel checks and phase 11 alone,
+``--sharded`` phase 12 alone, and none of them prints a result line. Imports nothing of jax or of the JAX package.
 """
 
 from __future__ import annotations
@@ -587,10 +605,10 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
     rng = np.random.default_rng(Tp)
     resid = {}
 
-    def solve_chk(name, kern, plain, cost):
+    def solve_chk(name, kern, plain, cost, library=None):
         """chk for the solve kernels; at K = 1, a direction's times beside
         the panel's on the kernel's row, at the kernel's first such call."""
-        out = chk(name, kern, plain, cost)
+        out = chk(name, kern, plain, cost, library)
         row = chk.rows[name]
         if k == 1 and "k1_ms" not in row:
             bound_ms, bound_by = _bound(*cost, "f64")
@@ -608,9 +626,12 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
                               _band_cost("band_cr_reduce", group, src))
             first += d
         bb = fine[-1]
+        # compacted to one block (no PCR level) the kernel computes x =
+        # invD b, which one torch.matmul computes too
         x = solve_chk("band_pcr_solve", lambda: band.band_pcr_solve(E, F, invD, bb),
                       lambda: band.band_pcr_solve_plain(E, F, invD, bb),
-                      _band_cost("band_pcr_solve", E, F, invD, bb))
+                      _band_cost("band_pcr_solve", E, F, invD, bb),
+                      library=None if Es else lambda: torch.matmul(invD, bb))
         for d in reversed(runs):
             first -= d
             group, rhs, xe = levels[first:first + d], fine[first:first + d], x
@@ -1676,7 +1697,9 @@ def _refine_launches(fg, start, iterations, most=6):
     refinement launches the same kernels whatever its data, so runs are
     profiled until two agree with the largest count to 0.1 % (at most
     ``most`` runs); the count is the largest and the busy time that
-    run's."""
+    run's. The device's records are counted as the profiler returns them
+    (``kineto_results``), not through ``key_averages()``, whose
+    aggregation in Python costs seconds a run at these counts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1689,9 +1712,9 @@ def _refine_launches(fg, start, iterations, most=6):
             torch.cuda.synchronize()
         if out.iterations != iterations:
             raise AssertionError(f"refine: {out.iterations} iterations profiled, asked {iterations}")
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        runs.append((sum(e.count for e in kernels),
-                     sum(e.self_device_time_total for e in kernels) / 1e3))
+        kernels = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+        runs.append((len(kernels), sum(kernels) / 1e6))
         top = max(n for n, _ in runs)
         if sum(top - n <= 1e-3 * top for n, _ in runs) >= 2:
             break
@@ -2264,6 +2287,263 @@ def phase_trace(m4_fg, device="cuda"):
     _log(f"trace: phase wall_s={time.perf_counter() - t_phase:.1f}")
 
 
+# ------------------------------------------------------------------ #
+# The sharded solves (phase ``sharded``)
+# ------------------------------------------------------------------ #
+
+
+# a trial-sharded lane against the same lane of the unsharded batch on the
+# card: the lane's arithmetic is the same, but the card's reductions over a
+# batch (torch's reduction kernels, cuBLAS's batched products) choose their
+# summation order by the batch's size, so a lane of a 50-trial rank differs
+# from it in the last bits, which the IPM's 15 trips amplify (9.7e-11 on
+# an NVIDIA H100 80GB HBM3 at 700 W); the bound is the one the card's batch
+# is held to against the port's CPU batch (``_batch_lines_agree``)
+SHARDED_LANE_TOL = 1e-9
+# rank 0's lanes against the same trials solved unsharded as a batch of the
+# rank's size: the same batch size, so the same summation order
+SHARDED_RANK_LANE_TOL = 1e-12
+
+
+def _sync(device):
+    """Wait for ``device``'s work (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _to_device(obj, device):
+    """A copy of a dataclass (a ConicProblem, a ChainArrowStructure) with
+    every tensor field on ``device``."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device)
+                                       for f in dataclasses.fields(obj)
+                                       if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def _counting_backend():
+    """``ChainArrowBackend`` counting its factorizations and KKT solves."""
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+
+    class Counting(ChainArrowBackend):
+        factors = solves = 0
+
+        @staticmethod
+        def factor(*a):
+            Counting.factors += 1
+            return ChainArrowBackend.factor(*a)
+
+        @staticmethod
+        def solve(*a):
+            Counting.solves += 1
+            return ChainArrowBackend.solve(*a)
+
+    return Counting
+
+
+def _sharded_run(solve, device, backend_counts):
+    """A warm-up call of ``solve`` on this rank, then a timed one with the
+    kernel launches, the all_reduce calls and bytes and the KKT counts set
+    to 0 just before it: {result, wall, calls, bytes, factors, solves,
+    launches of every rank}."""
+    import torch
+    import torch.distributed as dist
+    from score_tpu_torch.solver import collective
+
+    solve()
+    _sync(device)
+    _reset_counts()
+    collective.reset_counts()
+    backend_counts.factors = backend_counts.solves = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = solve()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    calls, nbytes = collective.all_reduce.calls, collective.all_reduce.bytes
+    launches = {k: v for k, v in _counts()[0].items() if v}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, launches)
+    return dict(result=res, wall=wall, calls=calls, bytes=nbytes,
+                factors=backend_counts.factors, solves=backend_counts.solves, launches=ranks)
+
+
+def _warm_wall(solve, device):
+    """(result, seconds) of a second call of ``solve``, after a first."""
+    solve()
+    _sync(device)
+    t0 = time.perf_counter()
+    res = solve()
+    _sync(device)
+    return res, time.perf_counter() - t0
+
+
+def _sharded_rank(device, robot20, mc):
+    """A rank of phase ``sharded``: robot20 chain-sharded and the
+    Monte-Carlo batch trial-sharded, on ``device`` (run_ranks); then rank 0
+    alone times both unsharded, in the same process (a fresh process's
+    walls differ from the smoke's own after its earlier phases)."""
+    import torch.distributed as dist
+    from score_tpu_torch.parallel import solve_conic_chain_sharded
+    from score_tpu_torch.parallel.batch import _solve_batch_trips, _solve_sharded_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu_torch.solver.ipm import solve_conic
+    from score_tpu_torch.solver.params import ScoreSolverParams
+
+    problem, idx = _to_device(robot20[0], device), robot20[1]
+    batch, ca = (_to_device(t, device) for t in mc)
+    counting = _counting_backend()
+    params = ScoreSolverParams().ipm_params()
+    out = {
+        "robot20": _sharded_run(lambda: solve_conic_chain_sharded(
+            problem, idx, params, backend=counting), device, counting),
+        "mc": _sharded_run(lambda: _solve_sharded_trips(
+            batch, _mc_params(), counting, ca), device, counting),
+    }
+    if dist.get_rank() == 0:
+        out["robot20"]["unsharded_wall"] = _warm_wall(lambda: solve_conic(
+            problem, params, backend=ChainArrowBackend,
+            backend_aux=build_chain_arrow(problem, idx)), device)[1]
+        out["mc"]["unsharded_wall"] = _warm_wall(lambda: _solve_batch_trips(
+            batch, _mc_params(), ChainArrowBackend, ca), device)[1]
+    dist.barrier()
+    return out
+
+
+def phase_sharded(dev, robot20_fg):
+    """The sharded solves (``score_tpu_torch.parallel``), each beside the
+    unsharded solve of the same problem on the card: robot20 SOCP f64
+    (normalized, as ``solve_score`` solves it; C = 20) chain-sharded with
+    ``solve_conic_chain_sharded``, and the 100-trial Monte-Carlo batch
+    (``ChainArrowBackend``) trial-sharded with ``solve_conic_sharded``,
+    (a) over gloo at world 2, both ranks on the one card (10 chains, 50
+    trials a rank), (b) over NCCL at world = the card count. robot20: the
+    same status and iterations as the unsharded solve, relgap <= 1e-6,
+    pobj within 1e-9 relative; the batch: every lane's status and
+    iterations, pobj within ``SHARDED_LANE_TOL`` relative, the same trips;
+    and rank 0's lanes against the same trials solved unsharded as a batch
+    of the rank's size (at world 2 the first half of the trials, also
+    printed against the same lanes of the 100-trial batch): every lane's
+    status and iterations, pobj within ``SHARDED_RANK_LANE_TOL``. Every band
+    kernel of the path launched on every rank; all_reduce calls = factors
+    + 2 x KKT solves (the Schur complement a factor, the arrow rhs and the
+    chain solution a solve) and, in the batch, trips + 9 (the trip's flags,
+    then the result's fields). Prints the walls (a warm call, after one on
+    the rank; the unsharded solves also in rank 0's process, which is as
+    fresh as the sharded ones'), the all_reduce calls and bytes per
+    factor, KKT solve and trip, and every rank's launches."""
+    import dataclasses
+
+    import torch
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.assembly.normalize import normalize_factor_graph
+    from score_tpu_torch.ops.band import pad_length
+    from score_tpu_torch.parallel import run_ranks
+    from score_tpu_torch.parallel.batch import _DATA_FIELDS, _solve_batch_trips
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu_torch.solver.ipm import solve_conic
+    from score_tpu_torch.solver.params import ScoreSolverParams
+
+    problem, idx = build_conic_problem(normalize_factor_graph(robot20_fg)[0], "SOCP",
+                                       device="cpu")
+    batch, _, ca = _mc_batch(range(MC_TRIALS), "cpu")
+    params = ScoreSolverParams().ipm_params()
+    st = build_chain_arrow(problem, idx)
+    band_shape = {"robot20": (st.C, pad_length(st.T), st.A, st.D),
+                  "mc": (ca.C, pad_length(ca.T), ca.A, ca.D)}
+
+    p_dev, b_dev, ca_dev = (_to_device(t, dev) for t in (problem, batch, ca))
+    want = {"robot20": _warm_wall(lambda: solve_conic(
+        p_dev, params, backend=ChainArrowBackend, backend_aux=build_chain_arrow(p_dev, idx)),
+        dev),
+        "mc": _warm_wall(lambda: _solve_batch_trips(b_dev, _mc_params(), ChainArrowBackend,
+                                                    ca_dev), dev)}
+    # rank 0's trials solved unsharded as a batch of a rank's size; at world
+    # 2, what the batch size alone does to a lane
+    worlds = (("gloo", 2), ("nccl", torch.cuda.device_count()))
+    rank0 = {MC_TRIALS: want["mc"][0]}
+    for n in {MC_TRIALS // w for _, w in worlds} - set(rank0):
+        rank0[n] = _warm_wall(lambda: _solve_batch_trips(
+            dataclasses.replace(b_dev, **{f: getattr(b_dev, f)[:n] for f in _DATA_FIELDS}),
+            _mc_params(), ChainArrowBackend, ca_dev), dev)[0]
+    half = MC_TRIALS // 2
+    (h, htrips), (u, utrips) = rank0[half], want["mc"][0]
+    _log(f"unsharded mc: trials 0-{half - 1} as a batch of {half} against the same lanes of "
+         f"the {MC_TRIALS}-trial batch: statuses and iterations equal: "
+         f"{_same(h.status, u.status[:half]) and _same(h.iterations, u.iterations[:half])}; "
+         f"max_rel_pobj_diff={((h.pobj - u.pobj[:half]).abs() / u.pobj[:half].abs()).max():.3e}"
+         f"; trips {htrips} / {utrips}")
+    for backend, world in worlds:
+        t0 = time.perf_counter()
+        got = run_ranks(_sharded_rank, world, device="cuda", backend=backend,
+                        args=((problem, idx), (batch, ca)), timeout=600)
+        call_s = time.perf_counter() - t0
+        tag = f"sharded {backend} world={world}"
+        for case in ("robot20", "mc"):
+            g, (w, wall) = got[case], want[case]
+            C, Tp, A, Db = band_shape[case]
+            idle = [(r, k) for r, la in enumerate(g["launches"]) for k in _path_kernels(Tp)
+                    if not la.get(k)]
+            if idle:
+                raise AssertionError(f"{tag} {case}: kernels not launched on (rank, kernel) "
+                                     f"{idle}")
+            if case == "robot20":
+                r, u = g["result"], w
+                relgap = r.gap / max(1.0, abs(r.pobj))
+                dobj = abs(r.pobj - u.pobj) / abs(u.pobj)
+                # the Schur complement's B'Z a factor; B'w and the chain
+                # solution (C, T, D) a KKT solve
+                per_factor, per_solve = A * A * 8, (A + C * st.T * Db) * 8
+                want_calls = g["factors"] + 2 * g["solves"]
+                want_bytes = g["factors"] * per_factor + g["solves"] * per_solve
+                per = f"per factor 1 call {per_factor} B, per KKT solve 2 calls {per_solve} B"
+                _log(f"{tag} robot20: status={r.status} iterations={r.iterations} "
+                     f"relgap={relgap:.3e} pobj={r.pobj:.12e} unsharded status={u.status} "
+                     f"iterations={u.iterations} pobj={u.pobj:.12e} rel_pobj_diff={dobj:.3e} "
+                     f"wall_s sharded={g['wall']:.3f} unsharded={g['unsharded_wall']:.3f} "
+                     f"(rank 0's process; in this one {wall:.3f})")
+                _log(f"{tag} robot20: all_reduce calls={g['calls']} bytes={g['bytes']} for "
+                     f"{g['factors']} factors and {g['solves']} KKT solves ({per})")
+                if (r.status, r.iterations) != (u.status, u.iterations) or not (
+                        relgap <= 1e-6 and dobj <= 1e-9) or (g["calls"], g["bytes"]) != (
+                        want_calls, want_bytes):
+                    raise AssertionError(f"{tag} robot20: the sharded solve disagrees")
+            else:
+                (r, trips), (u, utrips) = g["result"], w
+                dobj = ((r.pobj - u.pobj.cpu()).abs() / u.pobj.cpu().abs()).max().item()
+                same = (torch.equal(r.status, u.status.cpu())
+                        and torch.equal(r.iterations, u.iterations.cpu()))
+                _log(f"{tag} mc: {MC_TRIALS} trials, {MC_TRIALS // world} a rank, trips "
+                     f"sharded={trips} unsharded={utrips}; statuses and iterations equal: "
+                     f"{same}; max_rel_pobj_diff={dobj:.3e}; wall_s sharded={g['wall']:.3f} "
+                     f"unsharded={g['unsharded_wall']:.3f} (rank 0's process; in this one "
+                     f"{wall:.3f}; {g['wall'] / MC_TRIALS * 1e3:.2f} / "
+                     f"{g['unsharded_wall'] / MC_TRIALS * 1e3:.2f} ms a trial)")
+                _log(f"{tag} mc: all_reduce calls={g['calls']} bytes={g['bytes']} "
+                     f"(per trip 1 call of 4 int32 flags, 16 B; then "
+                     f"{g['calls'] - trips} gathers of the result)")
+                n = MC_TRIALS // world
+                h, htrips = rank0[n]
+                hp = h.pobj.cpu()
+                d0 = ((r.pobj[:n] - hp).abs() / hp.abs()).max().item()
+                same0 = (torch.equal(r.status[:n], h.status.cpu())
+                         and torch.equal(r.iterations[:n], h.iterations.cpu()))
+                _log(f"{tag} mc: rank 0's {n} lanes against the same trials as an unsharded "
+                     f"batch of {n}: statuses and iterations equal: {same0}; "
+                     f"max_rel_pobj_diff={d0:.3e}; pobj bit-equal: "
+                     f"{torch.equal(r.pobj[:n], hp)}; trips {trips} / {htrips}")
+                if not same or not dobj <= SHARDED_LANE_TOL or trips != utrips or \
+                        g["calls"] != trips + 9 or not same0 or not d0 <= SHARDED_RANK_LANE_TOL:
+                    raise AssertionError(f"{tag} mc: the sharded batch disagrees")
+            for rank, la in enumerate(g["launches"]):
+                _log(f"{tag} {case}: rank {rank} launches {la}")
+        _log(f"{tag}: run_ranks call {call_s:.1f} s (spawn, import, both cases twice)")
+
+
 def main() -> int:
     import torch
 
@@ -2279,6 +2559,11 @@ def main() -> int:
          f"{torch.cuda.get_device_name(0)}")
 
     from score_tpu_torch.ops import band, build
+
+    t_start = time.perf_counter()
+
+    def elapsed(after):
+        _log(f"elapsed_s={time.perf_counter() - t_start:.1f} after {after}")
 
     t0 = time.perf_counter()
     built = build.compile_all(force=True)
@@ -2342,6 +2627,9 @@ def main() -> int:
     if "--refine" in sys.argv[1:]:  # the refinement stage alone
         phase_refine(_refine_cells(cells, cells_3d))
         return 0
+    if "--sharded" in sys.argv[1:]:  # the sharded solves alone
+        phase_sharded(dev, cells[1][1])
+        return 0
     c4, tp4, a4, _ = cells_3d[0][2]
     mc3d_band = (c4 * MC3D_TRIALS, tp4, a4, 12)  # the 3D batch's fold
     if "--mc" in sys.argv[1:]:  # the Monte-Carlo batches alone
@@ -2370,6 +2658,7 @@ def main() -> int:
     launch_floor_us = _launch_floor_us(dev)
     _log(f"launch_floor_us={launch_floor_us:.2f} (a one-element add_ in the device-time "
          f"harness: 20 launches in a replayed CUDA graph)")
+    elapsed("the build and the kernel checks")
     if "--kernels" in sys.argv[1:]:  # stop after the kernels' checks
         return 0
     phase_f32_band(dev, 4, 512, 6, 138)  # Manhattan-4's band
@@ -2409,12 +2698,18 @@ def main() -> int:
             _log(f"{name}: f32 objective {res.primal_objective:.6f} beside f64 "
                  f"{f64.primal_objective:.6f}")
     phase_small_f32_reference()
+    elapsed("the solves")
     phase_api(m4_fg, cells_3d[0][1], cells_3d[1][1], results)
     phase_trace(m4_fg)
+    elapsed("api and trace")
     phase_refine(_refine_cells(cells, cells_3d), results)
+    elapsed("refine")
     mc_launches = phase_mc_batch(dev)
     f32_launches = phase_mc_batch(dev, "f32")
     mc3d_launches = phase_mc_batch(dev, "3d")
+    elapsed("mc_batch")
+    phase_sharded(dev, cells[1][1])
+    elapsed("sharded")
 
     # band kernels: launches from the f64 Manhattan-4 SOCP solve, times at
     # its band shape, and at Db = 12 launches from the 3D 1x1000 SOCP solve,

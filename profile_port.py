@@ -860,7 +860,7 @@ def _blocks12_times(device):
             want = blocks.block_chol_solve(L, B)
 
             def fn(B=B, X=X):
-                blocks._raise_on("block_chol_solve", lib.block_chol_solve(
+                build.raise_on(blocks._lib(), "block_chol_solve", lib.block_chol_solve(
                     L.data_ptr(), B.data_ptr(), X.data_ptr(), M, 12, K, *B.stride(),
                     None, None, 0, 0, 0, torch.cuda.current_stream().cuda_stream))
             fn()
@@ -889,7 +889,7 @@ def _depth_sweep_3d(device):
     ``band._SOLVE_CLUSTER``)."""
     import torch
     from chip_smoke import _band_residual, _device_us
-    from score_tpu_torch.ops import band
+    from score_tpu_torch.ops import band, build
 
     sweep, clusters = [], []
     for label, (C, Tp, K) in _BANDS_3D.items():
@@ -928,9 +928,10 @@ def _depth_sweep_3d(device):
                         continue
 
                     def fn(P=P, Kc=Kc):
-                        band._raise_on("band_pcr_solve", band._lib().band_pcr_solve(
+                        build.raise_on(band._lib(), "band_pcr_solve", band._lib().band_pcr_solve(
                             f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(),
-                            x.data_ptr(), C, floor, Db, L, k, P, Kc, band._stream()))
+                            x.data_ptr(), C, floor, Db, L, k, P, Kc,
+                            torch.cuda.current_stream().cuda_stream))
                     fn()
                     err = ((x - band.band_pcr_solve_plain(f.E, f.F, f.invD, b)).abs().max()
                            / x.abs().max()).item()
@@ -948,7 +949,7 @@ def _pcr3d_ablation(device):
     at K = 1 and at the panel's plan (K = 18)."""
     import torch
     from chip_smoke import _device_us
-    from score_tpu_torch.ops import band
+    from score_tpu_torch.ops import band, build
 
     libs = _band_builds(["-DBAND_LEVEL_NO_INVERSE", "-DBAND_CLUSTER_CLOCKS"], "sweep3d")
     C, Tp, Db = 1, 256, 12
@@ -961,9 +962,10 @@ def _pcr3d_ablation(device):
         def level(lib=None):
             if lib is None:
                 return band.band_pcr_level(D, A, U, invD, s)
-            band._raise_on("band_pcr_level", lib.band_pcr_level(
+            build.raise_on(band._lib(), "band_pcr_level", lib.band_pcr_level(
                 D.data_ptr(), A.data_ptr(), U.data_ptr(), invD.data_ptr(),
-                *[o.data_ptr() for o in outs], C, Tp, Db, s, band._stream()))
+                *[o.data_ptr() for o in outs], C, Tp, Db, s,
+                torch.cuda.current_stream().cuda_stream))
         rows.append(dict(kernel="band_pcr_level", s=s, whole_us=_device_us(level),
                          no_inverse_us=_device_us(
                              lambda: level(libs["-DBAND_LEVEL_NO_INVERSE"]))))
@@ -975,9 +977,9 @@ def _pcr3d_ablation(device):
         b = torch.randn(C, Tp, Db, K, dtype=torch.float64, device=device)
         x = torch.zeros_like(b)
         for _ in range(3):
-            band._raise_on("band_pcr_solve", lib.band_pcr_solve(
+            build.raise_on(band._lib(), "band_pcr_solve", lib.band_pcr_solve(
                 f.E.data_ptr(), f.F.data_ptr(), f.invD.data_ptr(), b.data_ptr(), x.data_ptr(),
-                C, Tp, Db, L, K, P, Kc, band._stream()))
+                C, Tp, Db, L, K, P, Kc, torch.cuda.current_stream().cuda_stream))
         torch.cuda.synchronize()
         t = x.flatten().cpu()
         for blk in (0, P // 2 - 1, P - 1):

@@ -12,6 +12,8 @@ from __future__ import annotations
 import os
 
 __all__ = [
+    "DatasetNotFoundError",
+    "require",
     "data_dir",
     "goats_pickle_path",
     "goats_gt_tum_path",
@@ -41,3 +43,18 @@ def goats_gt_tum_path() -> str:
 def manhattan_pickle_path() -> str:
     """Simulated 4-robot Manhattan world (1,600 poses, 1,160 ranges)."""
     return os.path.join(data_dir(), "manhattan", "factor_graph.pickle")
+
+
+class DatasetNotFoundError(FileNotFoundError):
+    """An example dataset is missing from the data directory."""
+
+
+def require(path: str) -> str:
+    """``path`` where the dataset file is there; else
+    :class:`DatasetNotFoundError` naming ``SCORE_TPU_DATA_DIR``. Nothing is
+    fetched."""
+    if not os.path.isfile(path):
+        raise DatasetNotFoundError(
+            f"{path}: dataset not found; point SCORE_TPU_DATA_DIR at a directory "
+            "in the reference's examples/ layout that holds it")
+    return path

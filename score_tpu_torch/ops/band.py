@@ -74,6 +74,7 @@ from typing import NamedTuple
 import torch
 
 from score_tpu_torch.ops.build import CR_MAX_LEVELS as _CR_MAX_LEVELS
+from score_tpu_torch.ops.build import launch as _launch
 from score_tpu_torch.solver.smallblocks import inv_small_spd
 
 __all__ = [
@@ -369,16 +370,6 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        msg = _lib().band_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
-
-
 def _count(wrapper, Db: int) -> None:
     wrapper.launches += 1
     wrapper.launches_by_size[Db] += 1
@@ -399,8 +390,7 @@ def band_init_a(U: torch.Tensor) -> torch.Tensor:
         return band_init_a_plain(U)
     C, Tp, Db, _ = U.shape
     A = torch.empty_like(U)
-    err = _lib().band_init_a(U.data_ptr(), A.data_ptr(), C, Tp, Db, _stream())
-    _raise_on("band_init_a", err)
+    _launch(_lib(), "band_init_a", U, U.data_ptr(), A.data_ptr(), C, Tp, Db)
     _count(band_init_a, Db)
     return A
 
@@ -435,8 +425,7 @@ def band_block_inv(D: torch.Tensor) -> torch.Tensor:
     C, Tp, Db, _ = D.shape
     out = torch.empty_like(D)
     _check_aligned("band_block_inv", D)
-    err = _lib().band_block_inv(D.data_ptr(), out.data_ptr(), C * Tp, Db, _stream())
-    _raise_on("band_block_inv", err)
+    _launch(_lib(), "band_block_inv", D, D.data_ptr(), out.data_ptr(), C * Tp, Db)
     _count(band_block_inv, Db)
     return out
 
@@ -483,11 +472,9 @@ def band_pcr_level(D, A, C, invD, s: int):
     nC, Tp, Db, _ = D.shape
     outs = [torch.empty_like(D) for _ in range(6)]
     _check_aligned("band_pcr_level", D, A, C, invD)
-    err = _lib().band_pcr_level(
-        D.data_ptr(), A.data_ptr(), C.data_ptr(), invD.data_ptr(),
-        *[o.data_ptr() for o in outs], nC, Tp, Db, int(s), _stream(),
-    )
-    _raise_on("band_pcr_level", err)
+    _launch(_lib(), "band_pcr_level", D,
+            D.data_ptr(), A.data_ptr(), C.data_ptr(), invD.data_ptr(),
+            *[o.data_ptr() for o in outs], nC, Tp, Db, int(s))
     _count(band_pcr_level, Db)
     return tuple(outs)
 
@@ -663,11 +650,9 @@ def band_pcr_solve(E, F, invD, b):
         if ct == _WIDE_COLUMNS:
             groups = _solve_groups(Tp, Db, K, nC, _sm_count(b.device))
     _check_aligned("band_pcr_solve", E, F, invD)
-    err = _lib().band_pcr_solve(
-        E.data_ptr(), F.data_ptr(), invD.data_ptr(), b.data_ptr(), x.data_ptr(),
-        nC, Tp, Db, L, K, ct, groups, _stream(),
-    )
-    _raise_on("band_pcr_solve", err)
+    _launch(_lib(), "band_pcr_solve", b,
+            E.data_ptr(), F.data_ptr(), invD.data_ptr(), b.data_ptr(), x.data_ptr(),
+            nC, Tp, Db, L, K, ct, groups)
     _count(band_pcr_solve, Db)
     return x
 
@@ -726,11 +711,9 @@ def band_cr_level(D, A, C):
     nC, T, Db, _ = D.shape
     outs = [D.new_empty((nC, T // 2, Db, Db)) for _ in range(8)]
     _check_aligned("band_cr_level", D, A, C)
-    err = _lib().band_cr_level(
-        D.data_ptr(), A.data_ptr(), C.data_ptr(), *[o.data_ptr() for o in outs],
-        nC, T // 2, Db, _stream(),
-    )
-    _raise_on("band_cr_level", err)
+    _launch(_lib(), "band_cr_level", D,
+            D.data_ptr(), A.data_ptr(), C.data_ptr(), *[o.data_ptr() for o in outs],
+            nC, T // 2, Db)
     _count(band_cr_level, Db)
     return tuple(outs)
 
@@ -928,9 +911,7 @@ def band_cr_reduce(levels, b):
         for lev, lv in enumerate(group):
             ptrs.E[lev], ptrs.F[lev] = lv.E.data_ptr(), lv.F.data_ptr()
             ptrs.out[lev] = outs[lev].data_ptr()
-        err = _lib().band_cr_reduce(ptrs, src.data_ptr(), d, nC, T >> first, Db, K, P, Kc,
-                                    _stream())
-        _raise_on("band_cr_reduce", err)
+        _launch(_lib(), "band_cr_reduce", b, ptrs, src.data_ptr(), d, nC, T >> first, Db, K, P, Kc)
         _count(band_cr_reduce, Db)
         first, src = first + d, outs[-1]
     return out
@@ -991,9 +972,8 @@ def band_cr_backsub(levels, fine, x):
             ptrs.invD[lev], ptrs.A[lev], ptrs.C[lev] = (
                 lv.invD.data_ptr(), lv.A.data_ptr(), lv.C.data_ptr())
             ptrs.b[lev] = fine[first + lev].data_ptr()
-        err = _lib().band_cr_backsub(ptrs, x.data_ptr(), out.data_ptr(), d, nC, T >> first,
-                                     Db, K, P, Kc, _stream())
-        _raise_on("band_cr_backsub", err)
+        _launch(_lib(), "band_cr_backsub", x, ptrs, x.data_ptr(), out.data_ptr(), d, nC, T >> first,
+                Db, K, P, Kc)
         _count(band_cr_backsub, Db)
         last, x = first, out
     return x

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import torch
 
+from score_tpu_torch.ops.build import launch as _launch
+
 __all__ = [
     "CUDA_BLOCK_SIZES",
     "block_chol",
@@ -145,12 +147,6 @@ def _route(name: str, D: int, *ts) -> bool:
     return True
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        msg = _lib().blocks_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
-
-
 def _block_stride(A: torch.Tensor) -> int:
     """Elements between neighbouring blocks of A (M, D, D)."""
     return A.stride(0) if A.shape[0] > 1 else A.shape[-1] ** 2
@@ -207,9 +203,7 @@ def block_chol(A: torch.Tensor) -> torch.Tensor:
     L = torch.empty((M, D, D), dtype=A.dtype, device=A.device)
     if M == 0:
         return L
-    err = _lib().block_chol(A.data_ptr(), L.data_ptr(), M, D, _block_stride(A),
-                            torch.cuda.current_stream(A.device).cuda_stream)
-    _raise_on("block_chol", err)
+    _launch(_lib(), "block_chol", A, A.data_ptr(), L.data_ptr(), M, D, _block_stride(A))
     block_chol.launches += 1
     block_chol.launches_by_size[D] += 1
     return L
@@ -242,10 +236,8 @@ def _solve(wrapper, plain, L: torch.Tensor, B: torch.Tensor, B2=None):
         raise ValueError(f"{name}: L is not 16-byte aligned")
     second = [B2.data_ptr(), X[1].data_ptr(), *B2.stride()] if B2 is not None else [
         None, None, 0, 0, 0]
-    err = getattr(_lib(), name)(L.data_ptr(), B.data_ptr(), X[0].data_ptr(), M, D, K,
-                                *B.stride(), *second,
-                                torch.cuda.current_stream(L.device).cuda_stream)
-    _raise_on(name, err)
+    _launch(_lib(), name, L, L.data_ptr(), B.data_ptr(), X[0].data_ptr(), M, D, K, *B.stride(),
+            *second)
     wrapper.launches += 1
     wrapper.launches_by_size[D] += 1
     if B2 is not None:

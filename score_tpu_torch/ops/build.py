@@ -107,7 +107,27 @@ def _load(name: str) -> ctypes.CDLL:
     lib_error = getattr(lib, f"{name}_error_string")
     lib_error.argtypes = [ctypes.c_int]
     lib_error.restype = ctypes.c_char_p
+    lib.error_string = lib_error  # cudaGetErrorString, for raise_on
     return lib
+
+
+def raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise on the error code ``err`` of ``lib``'s C entry point ``name``."""
+    if err != 0:
+        msg = lib.error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, name: str, t, *args) -> None:
+    """Call ``lib``'s C entry point ``name`` with ``args`` and the current
+    stream of the device of the tensor ``t``, with that device current (the
+    entry point launches on, and sets kernel attributes of, the current
+    device), and raise on its error code."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    raise_on(lib, name, err)
 
 
 # Levels a launch of band_cr_reduce / band_cr_backsub takes, and their

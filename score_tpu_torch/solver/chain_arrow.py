@@ -38,10 +38,17 @@ complement is (B, A, A), factored by one batched ``cholesky_ex`` with the
 escalated retry selected lane by lane on the device (:func:`lane_cholesky`).
 On a single problem every method runs the ops it always did.
 
+A structure with a ``shard`` (``score_tpu_torch.parallel.
+solve_conic_chain_sharded``) splits the chain axis over the ranks of a
+``torch.distributed`` group: every rank holds the problem, the state and
+the arrow, factors and solves only its own chains, and completes three
+sums over the group, each an ``all_reduce``: the arrow Schur complement's
+B'Z, the arrow rhs's B'w and the chain solution.
+
 Not carried over from the JAX backend: the two-float band and its Jacobi
 equilibration (the card has native f64), the blocked arrow Cholesky and
-the split-f32 matmuls (TPU f64 workarounds), SPIKE segmentation (chains
-stay in device memory) and intra-problem sharding.
+the split-f32 matmuls (TPU f64 workarounds) and SPIKE segmentation
+(chains stay in device memory).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from score_tpu_torch.assembly.conic import (
     VariableIndex,
 )
 from score_tpu_torch.ops.band import BandFactors, band_factor, band_solve, pad_length
+from score_tpu_torch.solver.collective import all_reduce
 from score_tpu_torch.solver.linops import (
     G_apply,
     batch_shape,
@@ -76,6 +84,7 @@ __all__ = [
     "ChainArrowBackend",
     "CAState",
     "CAFactors",
+    "ChainShard",
     "lane_cholesky",
 ]
 
@@ -132,6 +141,29 @@ class ChainArrowStructure:
     NLC: int
     ds: int
     relaxation: str
+    # intra-problem sharding (score_tpu_torch.parallel.intra): this rank's
+    # share of the chain axis. The rank factors and solves only its chains
+    # and the backend sums the arrow Schur complement, the arrow rhs and
+    # the chain solution over the group; None: one process holds them all
+    shard: Optional["ChainShard"] = None
+
+
+class ChainShard(NamedTuple):
+    """A process group over which the chain axis is split: rank ``rank`` of
+    ``world`` owns chains [rank * C / world, (rank + 1) * C / world) of a
+    structure whose C the world size divides (``torch.distributed``
+    ``group``; None is the default group)."""
+
+    group: object
+    rank: int
+    world: int
+
+    def chains(self, C: int) -> slice:
+        if C % self.world:
+            raise ValueError(f"{C} chains do not split over {self.world} ranks; pad the "
+                             "chain axis (build_chain_arrow(..., num_chains_pad=))")
+        per = C // self.world
+        return slice(self.rank * per, (self.rank + 1) * per)
 
 
 def _greedy_cover(edges, excluded):
@@ -177,12 +209,18 @@ def _pack_incidence(rows, vals, n_rows, pad, extra=None, extra_pad=0):
     return out, out2
 
 
-def build_chain_arrow(problem: ConicProblem, idx: VariableIndex) -> ChainArrowStructure:
+def build_chain_arrow(problem: ConicProblem, idx: VariableIndex,
+                      num_chains_pad: int = 0) -> ChainArrowStructure:
     """Host-side (numpy) structure analysis; the result lives on the
-    problem's device, its float masks in the problem's dtype."""
+    problem's device, its float masks in the problem's dtype.
+
+    ``num_chains_pad`` rounds the chain axis up to that many chains with
+    fully inactive ones (cm = av = 0, no coupling, identity diagonal), so
+    that it splits over the ranks of an intra-problem sharded solve
+    (``score_tpu/solver/chain_arrow.py:196-209``)."""
     d = idx.dim
     D = idx.pose_block
-    C = len(idx.chain_lengths)
+    C = max(len(idx.chain_lengths), num_chains_pad)
     T = max(idx.chain_lengths)
     NR = idx.num_ranges
     NL = idx.num_landmarks
@@ -875,10 +913,16 @@ class ChainArrowBackend:
         """Chain band factorization (the f64 band kernels, or cyclic
         reduction for f32), the arrow panel Z = T^{-1} B, and the dense
         arrow Schur complement with its Cholesky (escalated regularization
-        on breakdown), all in the problem's dtype."""
+        on breakdown), all in the problem's dtype. On a sharded structure
+        the rank factors its own chains, and the Schur complement's sum
+        over the chains is completed across the group."""
         C, T, D, A = st.C, st.T, st.D, st.A
         dev, dt = Dg.device, Dg.dtype
         lead = Dg.shape[:-4]  # (B,) for stacked trials
+        if st.shard is not None:  # this rank's chains
+            part = st.shard.chains(C)
+            Dg, Ug, Bg = (t[..., part, :, :, :] for t in (Dg, Ug, Bg))
+            C = Dg.shape[-4]
         Tp = pad_length(T)
         Dp = torch.eye(D, dtype=dt, device=dev).expand(lead + (C, Tp, D, D)).clone()
         Dp[..., :T, :, :] = Dg
@@ -894,7 +938,10 @@ class ChainArrowBackend:
         bf = factor(Dp.reshape(-1, Tp, D, D), Up.reshape(-1, Tp, D, D))
         Z = solve(bf, Bp.reshape(-1, Tp, D, A)).reshape(Bp.shape)
         Kc = C * Tp * D
-        Sg = Sg - Bp.reshape(lead + (Kc, A)).transpose(-1, -2) @ Z.reshape(lead + (Kc, A))
+        BZ = Bp.reshape(lead + (Kc, A)).transpose(-1, -2) @ Z.reshape(lead + (Kc, A))
+        if st.shard is not None:
+            all_reduce(BZ, st.shard.group)
+        Sg = Sg - BZ
         if lead:
             eye = torch.eye(A, dtype=dt, device=dev)
             esc = params.reg_escalation * delta
@@ -933,9 +980,17 @@ class ChainArrowBackend:
     def _band_solve(st, factors: CAFactors, rc, ra):
         """Solve the chain+arrow band system
             [T B; B' S][x; u] = [rc; ra]  =>
-            w = T^{-1} rc,  u = Stilde^{-1}(ra - B' w),  x = w - T^{-1}B u."""
+            w = T^{-1} rc,  u = Stilde^{-1}(ra - B' w),  x = w - T^{-1}B u.
+        On a sharded structure the rank solves its own chains; B'w and the
+        chain solution are completed across the group (the solution as the
+        sum of zero-filled shards: exact, each entry has one non-zero
+        addend)."""
         C, T, D, A = st.C, st.T, st.D, st.A
         lead = rc.shape[:-3]  # (B,) for stacked trials
+        if st.shard is not None:  # this rank's chains
+            part = st.shard.chains(C)
+            rc = rc[..., part, :, :]
+            C = rc.shape[-3]
         Tp = factors.B.shape[-3]
         rp = torch.zeros(lead + (C, Tp, D, 1), dtype=rc.dtype, device=rc.device)
         rp[..., :T, :, 0] = rc
@@ -946,13 +1001,20 @@ class ChainArrowBackend:
         Bt = factors.B.reshape(lead + (Kc, A)).transpose(-1, -2)
         Zf = factors.Z.reshape(lead + (Kc, A))
         if lead:
-            ra_schur = ra - (Bt @ w.reshape(lead + (Kc, 1)))[..., 0]
+            Bw = (Bt @ w.reshape(lead + (Kc, 1)))[..., 0]
         else:
-            ra_schur = ra - Bt @ w.reshape(Kc)
+            Bw = Bt @ w.reshape(Kc)
+        if st.shard is not None:
+            all_reduce(Bw, st.shard.group)
+        ra_schur = ra - Bw
         y = torch.linalg.solve_triangular(factors.LS, ra_schur[..., None], upper=False)
         u = torch.linalg.solve_triangular(factors.LS.transpose(-1, -2), y, upper=True)[..., 0]
         Zu = (Zf @ u[..., None])[..., 0] if lead else Zf @ u
         dxc = (w - Zu.reshape(lead + (C, Tp, D)))[..., :T, :]
+        if st.shard is not None:
+            full = dxc.new_zeros(lead + (st.C, T, D))
+            full[..., part, :, :] = dxc
+            dxc = all_reduce(full, st.shard.group)
         return dxc, u
 
     @staticmethod

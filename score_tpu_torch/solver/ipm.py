@@ -36,6 +36,7 @@ from score_tpu_torch.assembly.conic import ConicProblem
 from score_tpu_torch.solver import cones
 from score_tpu_torch.solver.backend import DenseBackend
 from score_tpu_torch.solver.chain_arrow import ChainArrowBackend
+from score_tpu_torch.solver.collective import all_reduce
 from score_tpu_torch.solver.linops import trial_norm
 
 __all__ = [
@@ -911,11 +912,20 @@ def _finalize_batch(backend, problem, ops, params, st: _BatchState) -> IPMResult
                      pobj=pq + ops.const, gap=gap, pres=pres, dres=dres)
 
 
-def solve_batch(problem: ConicProblem, params: IPMParams, backend, ops) -> Tuple[IPMResult, int]:
+def solve_batch(problem: ConicProblem, params: IPMParams, backend, ops,
+                reduce_over=None) -> Tuple[IPMResult, int]:
     """Solve B stacked trials (every field of ``problem`` with a leading
     trial axis; ``ops`` = ``backend.prepare(problem, aux)``) in lockstep:
     the loop stops once no lane runs or after ``params.max_iter`` trips.
-    Returns (result, trips). One host read a trip."""
+    Returns (result, trips). One host read a trip.
+
+    ``reduce_over``: None, no collective; else the resolved
+    ``torch.distributed`` group of a trial-sharded batch (each rank holds
+    its own trials; ``collective.process_group(...)[0]``), over which the
+    trip's four flags (a lane ran, a lane lives, the two shared gates) are
+    reduced by one ``all_reduce`` (max) before that read: the gates and the loop condition are
+    the whole batch's, so every rank runs the same trips and each lane the
+    path it takes in the unsharded batch."""
     x0, s0, z0 = _initial_point(backend, problem, ops, params)
     lead = x0.shape[:-1]
     dev = x0.device
@@ -933,8 +943,11 @@ def solve_batch(problem: ConicProblem, params: IPMParams, backend, ops) -> Tuple
         live = ~terminal
         near = ((st.best_metric < params.dir_refine_gate) & live).any()
         center = near | ((st.stall > 0) & live).any()
+        flags = torch.stack([ran, live.any(), near, center])
+        if reduce_over is not None:  # the whole batch's flags
+            flags = all_reduce(flags.to(torch.int32), reduce_over, op="max")
         # the one host read of the trip
-        ran, any_live, near, center = torch.stack([ran, live.any(), near, center]).tolist()
+        ran, any_live, near, center = (bool(f) for f in flags.tolist())
         if not ran:  # every lane ended in the last step: no trip
             break
         trips += 1

@@ -1121,3 +1121,91 @@ def test_cuda_trace_matches_cpu(cuda, backend):
     gap_tol = 1e-6 * np.abs(ref[:, 2]) + 1e-9 * np.maximum(1.0, np.abs(ref[:, 3]))
     assert np.all(np.abs(m[:, 2] - ref[:, 2]) <= gap_tol)
     assert np.all(np.abs(m[:, 5:] - ref[:, 5:]) <= 1e-6 * np.maximum(1.0, np.abs(ref[:, 5:])))
+
+
+# the 20 x 12 world of the chain-sharded checks (tests/test_torch_parallel.py)
+SHARDED_WORLD = dict(num_robots=20, num_poses_per_robot=12, num_landmarks=4, grid_size=10,
+                     range_measure_prob=0.35, inter_robot_measure_prob=0.1,
+                     inter_robot_sensing_radius=10.0, seed=3)
+
+
+def _chain_sharded_on(device):
+    """A rank's chain-sharded SOCP solve of ``SHARDED_WORLD`` (run_ranks)
+    and the band kernels' launches on the rank."""
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.parallel import solve_conic_chain_sharded
+    from score_tpu_torch.solver.ipm import IPMParams
+
+    problem, idx = build_conic_problem(
+        simulate_manhattan_world(ManhattanWorldParams(**SHARDED_WORLD)), "SOCP", device=device)
+    band.reset_launch_counts()
+    res = solve_conic_chain_sharded(problem, idx, IPMParams(max_iter=40))
+    return res, {k.__name__: k.launches for k in band.KERNELS}
+
+
+def test_world2_gloo_chain_sharded_solve_on_one_card(cuda):
+    """Two ranks over gloo, both on the one card (10 chains a rank), held
+    to the unsharded card solve: the same status and iterations, pobj
+    within 1e-9 relative, or, where |pobj| < 1e-3, within the unsharded
+    final gap if that is larger (PERF.md section 2's parity rule; the
+    world's optimum sits near 0), x within 1e-4; each rank ran the band
+    kernels."""
+    from score_tpu_torch.assembly.conic import build_conic_problem
+    from score_tpu_torch.parallel import run_ranks
+    from score_tpu_torch.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu_torch.solver.ipm import IPMParams, solve_conic
+
+    got, launches = run_ranks(_chain_sharded_on, world=2, device="cuda", backend="gloo",
+                              timeout=300)
+    problem, idx = build_conic_problem(
+        simulate_manhattan_world(ManhattanWorldParams(**SHARDED_WORLD)), "SOCP", device=cuda)
+    want = solve_conic(problem, IPMParams(max_iter=40), backend=ChainArrowBackend,
+                       backend_aux=build_chain_arrow(problem, idx))
+    assert (got.status, got.iterations) == (want.status, want.iterations)
+    tol = 1e-9 * abs(want.pobj)
+    assert abs(got.pobj - want.pobj) <= (max(tol, want.gap) if abs(want.pobj) < 1e-3 else tol)
+    assert (got.x - want.x.cpu()).abs().max().item() <= 1e-4
+    assert launches["band_cr_level"] > 0 and launches["band_cr_reduce"] > 0
+
+
+def test_kernels_launch_on_the_current_stream(cuda):
+    """A band kernel and a block kernel launched under a side stream that
+    is still busy (a sleep, then the copy of the inputs into zeroed
+    buffers): only a launch on that stream waits for the copy, so the
+    outputs agree with the plain versions after the side stream's own
+    synchronize (a launch on the default stream would read the zeros)."""
+    D, _ = _band(4, 64, 6, 61, (64, 64, 30, 5), cuda)
+    A = D.reshape(-1, 6, 6).float().contiguous()
+    want = band.band_block_inv_plain(D)
+    torch.cuda.synchronize(cuda)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        Dz, Az = torch.zeros_like(D), torch.zeros_like(A)
+        torch.cuda._sleep(100_000_000)
+        Dz.copy_(D)
+        Az.copy_(A)
+        invD = band.band_block_inv(Dz)
+        L = blocks.block_chol(Az)
+    side.synchronize()
+    assert _rel(invD, want) <= 1e-12
+    assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """A band kernel and a block kernel on cuda:1 while cuda:0 is current:
+    each launches on its tensors' device and stream and agrees with its
+    plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: tensors on cuda:1 while cuda:0 is current")
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    D, U = _band(4, 64, 6, 61, (64, 64, 30, 5), other)
+    launches = band.band_block_inv.launches
+    invD = band.band_block_inv(D)
+    assert invD.device == other and band.band_block_inv.launches == launches + 1
+    assert _rel(invD, band.band_block_inv_plain(D)) <= 1e-12
+    A = D.reshape(-1, 6, 6).float().contiguous()
+    L = blocks.block_chol(A)
+    assert L.device == other
+    assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
+    assert torch.cuda.current_device() == 0

@@ -72,6 +72,23 @@ on a non-finite step), read by ``tests/test_torch_batch.py``:
   (the JAX package's batch runs its IPM on them: a stacked problem's
   ``num_cones`` is the trial count).
 
+    JAX_PLATFORMS=cpu python tests/torch_reference_data.py --sharded
+
+rewrites only the ``sharded_*`` entries: the JAX package's sharded solves on
+an 8-device CPU mesh (the mode sets ``--xla_force_host_platform_device_count
+=8`` before jax starts), f64, read by ``tests/test_torch_parallel.py``:
+
+- ``sharded_chain_{chain20,chain3}_*``: ``score_tpu.parallel.intra.
+  solve_conic_chain_sharded`` of the SOCP relaxation of the worlds of
+  ``SHARDED_CHAIN_WORLDS`` (``tests/test_parallel.py:93-134``, 20 x 12
+  poses, seed 3, C = 20 padded to 24; and ``:346-387``, 3 x 8 poses, seed
+  9, C = 3 padded to 8), ``IPMParams(max_iter=40)``: status, iterations,
+  pobj, gap, x;
+- ``sharded_batch_{dense,chain_arrow}_*``: ``score_tpu.parallel.batch.
+  solve_conic_sharded`` of ``BATCH_FIXTURE``'s 8 trials (seeds 0-7) as
+  SOCP over the mesh, ``IPMParams(max_iter=30)``, ``DenseBackend`` and
+  ``ChainArrowBackend``: each lane's status, iterations, pobj and gap.
+
     JAX_PLATFORMS=cpu python tests/torch_reference_data.py --band-stability
 
 writes nothing: the f64 band's backward error along the iterates of five
@@ -168,6 +185,21 @@ BATCH_CASES = {
                                     dict(max_iter=30), "f32"),
 }
 BATCH_FIELDS = ("status", "iterations", "pobj", "gap", "pres", "dres", "x")
+
+# the chain-sharded solves' worlds (tests/test_parallel.py:93-134 and
+# :346-387), SOCP, IPMParams(max_iter=40)
+SHARDED_CHAIN_WORLDS = {
+    "chain20": dict(num_robots=20, num_poses_per_robot=12, num_landmarks=4, grid_size=10,
+                    range_measure_prob=0.35, inter_robot_measure_prob=0.1,
+                    inter_robot_sensing_radius=10.0, seed=3),
+    "chain3": dict(num_robots=3, num_poses_per_robot=8, num_landmarks=2, grid_size=6,
+                   range_measure_prob=0.5, seed=9),
+}
+SHARDED_CHAIN_ITERS = 40
+SHARDED_CHAIN_FIELDS = ("status", "iterations", "pobj", "gap", "x")
+# the trial-sharded batch: BATCH_FIXTURE's 8 trials, SOCP, max_iter=30
+SHARDED_BATCH_ITERS = 30
+SHARDED_BATCH_FIELDS = ("status", "iterations", "pobj", "gap")
 
 
 def batch_trials(case: str, simulate, resample):
@@ -310,6 +342,7 @@ def main() -> None:
     out.update(cli_entries())
     out.update(batch_entries())
     out.update(trace_entries())
+    out.update(sharded_entries())
     PATH.parent.mkdir(exist_ok=True)
     np.savez_compressed(PATH, **out)
     print(f"wrote {PATH}: " + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
@@ -436,6 +469,58 @@ def trace_entries() -> dict:
         for name in TRACE_FIELDS[1:]:
             out[f"trace_{case}_{name}"] = np.asarray(getattr(res, name))
         print(case, int(res.status), int(res.iterations), flush=True)
+    return out
+
+
+def eight_cpu_devices() -> None:
+    """Give jax, before it starts, the 8-device CPU mesh of the tests
+    (``tests/conftest.py``), which the sharded entries run on."""
+    import os
+
+    os.environ["XLA_FLAGS"] = " ".join(
+        [f for f in os.environ.get("XLA_FLAGS", "").split()
+         if "xla_force_host_platform_device_count" not in f]
+        + ["--xla_force_host_platform_device_count=8"])
+
+
+def sharded_entries() -> dict:
+    import jax
+
+    from score_tpu.assembly.conic import build_conic_problem
+    from score_tpu.parallel.batch import default_mesh, solve_conic_sharded, stack_problems
+    from score_tpu.parallel.intra import solve_conic_chain_sharded
+    from score_tpu.sim.manhattan import (
+        ManhattanWorldParams,
+        resample_measurements,
+        simulate_manhattan_world,
+    )
+    from score_tpu.solver.backend import DenseBackend
+    from score_tpu.solver.chain_arrow import ChainArrowBackend, build_chain_arrow
+    from score_tpu.solver.ipm import IPMParams
+
+    assert len(jax.devices()) == 8, "the sharded entries need the 8-device CPU mesh"
+    out = {}
+    for case, world in SHARDED_CHAIN_WORLDS.items():
+        fg = simulate_manhattan_world(ManhattanWorldParams(**world))
+        problem, idx = build_conic_problem(fg, "SOCP")
+        res = solve_conic_chain_sharded(problem, idx, params=IPMParams(
+            max_iter=SHARDED_CHAIN_ITERS))
+        for name in SHARDED_CHAIN_FIELDS:
+            out[f"sharded_chain_{case}_{name}"] = np.asarray(getattr(res, name))
+        print(case, int(res.status), int(res.iterations), float(res.pobj), flush=True)
+    base = simulate_manhattan_world(ManhattanWorldParams(**BATCH_FIXTURE))
+    trials = [resample_measurements(base, seed=s) for s in range(8)]
+    problems = [build_conic_problem(t, "SOCP")[0] for t in trials]
+    aux = build_chain_arrow(problems[0], build_conic_problem(trials[0], "SOCP")[1])
+    for backend, be, be_aux in (("dense", DenseBackend, None),
+                                ("chain_arrow", ChainArrowBackend, aux)):
+        res = solve_conic_sharded(stack_problems(problems), default_mesh(),
+                                  IPMParams(max_iter=SHARDED_BATCH_ITERS), backend=be,
+                                  backend_aux=be_aux)
+        for name in SHARDED_BATCH_FIELDS:
+            out[f"sharded_batch_{backend}_{name}"] = np.asarray(getattr(res, name))
+        print(backend, np.asarray(res.status).tolist(), np.asarray(res.iterations).tolist(),
+              flush=True)
     return out
 
 
@@ -699,9 +784,13 @@ if __name__ == "__main__":
         update_entries("batch_", batch_entries)
     elif "--trace" in sys.argv[1:]:
         update_entries("trace_", trace_entries)
+    elif "--sharded" in sys.argv[1:]:
+        eight_cpu_devices()
+        update_entries("sharded_", sharded_entries)
     elif "--band-stability" in sys.argv[1:]:
         band_stability()
     elif "--refine-roundoff" in sys.argv[1:]:
         refine_roundoff()
     else:
+        eight_cpu_devices()
         main()
