@@ -15,7 +15,9 @@ without printing a result line:
    the fused CR kernels ``cr_reduce_levels_kernel``,
    ``cr_backsub_levels_kernel`` and, at Db = 12, ``cr_backsub_element_kernel``,
    and a one-level solve's ``cr_backsub_narrow_kernel`` and, at Db = 6,
-   ``cr_backsub_wide_kernel``; ``block_inv_kernel`` and
+   ``cr_backsub_wide_kernel``, for runs that end at more than one position
+   a chain, and the chain kernels ``cr_reduce_chain_kernel`` and
+   ``cr_backsub_chain_kernel`` for runs that end at one; ``block_inv_kernel`` and
    ``cr_level_kernel`` at Db = 6, and at Db = 12 the element kernels
    ``block_inv_element_kernel``, ``cr_level_element_kernel`` and
    ``pcr_level_element_kernel``, a thread per block element),
@@ -46,7 +48,9 @@ without printing a result line:
    ``band_cr_backsub``) at K = 1 beside the panel; ``band_cr_reduce`` and
    ``band_cr_backsub`` run a solve's compacting levels in runs of at most
    8 (``band._cr_runs``: 9 levels as 5 and 4), a launch a run where the
-   shared memory holds it; the f32 block kernels at the f32 batch's fold
+   shared memory holds it, the last run (which ends at one position a
+   chain) in one, in rows ``<name>[tail]`` of their own where a solve
+   takes two runs (Manhattan-4, 3D 1x1000); the f32 block kernels at the f32 batch's fold
    (``mc-f32``: M = 12,800 blocks of 6 x 6, K = 56, 6, 1); then every band kernel
    at edge shapes of both block sizes: ``band_pcr_level`` and
    ``band_pcr_solve`` at one and two blocks per chain, one chain and rhs
@@ -217,7 +221,10 @@ without printing a result line:
    exists, by events and in device time, ``library_us``): a row per kernel at
    the 2D shapes; for the band kernels a row ``<name>[Db=12]`` at 3D
    1x1000's shapes with its launches per 3D 1x1000
-   SOCP solve; for the block kernels rows ``<name>[D=12]`` and
+   SOCP solve; for the CR kernels rows ``<name>[tail]`` and
+   ``<name>[Db=12 tail]`` at the last run of Manhattan-4's and 3D
+   1x1000's solves, with that run's launches per solve
+   (``launches_by_run``); for the block kernels rows ``<name>[D=12]`` and
    ``<name>[D=3]`` at 3D 4x250's shapes with their launches per 3D 4x250
    f32 QCQP solve; rows ``<name>[mc]`` at the Monte-Carlo fold's
    shapes with their launches per 100-trial batch solve, ``<name>[mc3d]``
@@ -605,6 +612,11 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
     rng = np.random.default_rng(Tp)
     resid = {}
 
+    def tail(name, end):
+        """The row of a CR kernel's run: ``<name>[tail]`` for the last run of
+        a solve of two or more, which ends at one position a chain."""
+        return f"{name}[tail]" if len(runs) > 1 and end == n_cr else name
+
     def solve_chk(name, kern, plain, cost, library=None):
         """chk for the solve kernels; at K = 1, a direction's times beside
         the panel's on the kernel's row, at the kernel's first such call."""
@@ -621,7 +633,8 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
         fine, first = (b0,), 0  # each level's fine rhs, then the remainder's
         for d in runs:  # the compacting levels in runs, one launch each way a run
             group, src = levels[first:first + d], fine[-1]
-            fine += solve_chk("band_cr_reduce", lambda: band.band_cr_reduce(group, src),
+            fine += solve_chk(tail("band_cr_reduce", first + d),
+                              lambda: band.band_cr_reduce(group, src),
                               lambda: band.band_cr_reduce_plain(group, src),
                               _band_cost("band_cr_reduce", group, src))
             first += d
@@ -635,7 +648,8 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
         for d in reversed(runs):
             first -= d
             group, rhs, xe = levels[first:first + d], fine[first:first + d], x
-            x = solve_chk("band_cr_backsub", lambda: band.band_cr_backsub(group, rhs, xe),
+            x = solve_chk(tail("band_cr_backsub", first + d),
+                          lambda: band.band_cr_backsub(group, rhs, xe),
                           lambda: band.band_cr_backsub_plain(group, rhs, xe),
                           _band_cost("band_cr_backsub", group, rhs, xe))
         resid[k] = _band_residual(D, U, x, b0)
@@ -644,7 +658,8 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
     _log(f"{label} band: C={C} Tp={Tp} Db={Db} CR levels={n_cr} (runs {runs}) panel K={K} "
          f"residual K={K} {resid[K]:.3e} K=1 {resid[1]:.3e}")
     _log_rows(label, chk.rows)
-    for name in ("band_cr_reduce", "band_pcr_solve", "band_cr_backsub"):
+    for name in ("band_cr_reduce", "band_pcr_solve", "band_cr_backsub", "band_cr_reduce[tail]",
+                 "band_cr_backsub[tail]"):
         if name not in chk.rows:
             continue
         r = chk.rows[name]
@@ -656,6 +671,15 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
     if missing:
         raise AssertionError(f"{label}: kernels not checked: {missing}")
     return chk.rows
+
+
+def _tail_run(Tp, Db):
+    """``Db,T,levels`` of the last run of a band solve of chains of Tp:
+    the launches_by_run key of its CR kernels."""
+    from score_tpu_torch.ops import band
+
+    runs = band._cr_runs(band.cr_depth(Tp))
+    return f"{Db},{Tp >> sum(runs[:-1])},{runs[-1]}"
 
 
 def _log_rows(label, rows):
@@ -1335,8 +1359,8 @@ class _PlainBackSubstitutions:
 class _BandSolves:
     """Records, while active, every pass of a band solve through its
     levels (``band._band_solve_once``): (compacting levels, Db, rhs
-    width K) each, from which ``band.cr_solve_launches`` gives the fused
-    CR kernels' launches."""
+    width K, remainder length) each, from which ``band.cr_solve_launches``
+    gives the fused CR kernels' launches."""
 
     def __enter__(self):
         from score_tpu_torch.ops import band
@@ -1345,7 +1369,9 @@ class _BandSolves:
         self._once = band._band_solve_once
 
         def recording(factors, b):
-            self.calls.append((len(factors.levels), b.shape[-2], b.shape[-1]))
+            n = len(factors.levels)
+            self.calls.append((n, b.shape[-2], b.shape[-1], b.shape[1] >> n, b.shape[0],
+                               band._sm_count(b.device)))
             return self._once(factors, b)
 
         band._band_solve_once = recording
@@ -1368,10 +1394,14 @@ class _BandSolves:
 def _counts():
     """Launches of every kernel since the last reset, and each kernel's
     launches per block size: ``<name>[Db=n]`` for the band kernels,
-    ``<name>[D=n]`` for the block kernels."""
+    ``<name>[D=n]`` for the block kernels; the CR kernels' by run,
+    ``<name>[run=Db,T,levels]``."""
     from score_tpu_torch.ops import band, blocks
 
     launches = {k.__name__: k.launches for k in band.KERNELS + blocks.KERNELS}
+    launches.update({f"{k.__name__}[run={','.join(map(str, run))}]": c
+                     for k in (band.band_cr_reduce, band.band_cr_backsub)
+                     for run, c in k.launches_by_run.items()})
     launches["block_chol_solve.two_rhs"] = blocks.block_chol_solve.two_rhs_launches
     by_size = {f"{k.__name__}[{key}={n}]": c
                for key, kernels in (("Db", band.KERNELS), ("D", blocks.KERNELS))
@@ -2597,13 +2627,15 @@ def main() -> int:
                                     ("band_cr_level", "cr_level_kernel"),
                                     ("band_cr_level", "cr_level_element_kernel"),
                                     ("band_cr_reduce", "cr_reduce_levels_kernel"),
+                                    ("band_cr_reduce", "cr_reduce_chain_kernel"),
                                     ("band_pcr_solve", "pcr_solve_wide_kernel"),
                                     ("band_pcr_solve", "pcr_solve_narrow_kernel"),
                                     ("band_pcr_solve", "pcr_solve_cluster_kernel"),
                                     ("band_cr_backsub", "cr_backsub_narrow_kernel"),
                                     ("band_cr_backsub", "cr_backsub_wide_kernel"),
                                     ("band_cr_backsub", "cr_backsub_levels_kernel"),
-                                    ("band_cr_backsub", "cr_backsub_element_kernel"))
+                                    ("band_cr_backsub", "cr_backsub_element_kernel"),
+                                    ("band_cr_backsub", "cr_backsub_chain_kernel"))
               if only.get(kern, Db) == Db]
     checks += [("blocks", "block_chol", "chol_kernel", None)]
     checks += [("blocks", wrapper, kern, 12)
@@ -2719,13 +2751,16 @@ def main() -> int:
     # level's shapes, and at D = 12 and D = 3 launches from the f32 3D 4x250
     # QCQP solve, times at its first level's and its pivots' shapes
     timed = {**rows["manhattan4"], **block_rows}
-    timed.update({f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
+    timed.update({name.replace("[tail]", "[Db=12 tail]") if name.endswith("[tail]")
+                  else f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
     for tag in ("mc", "mc3d"):
         timed.update({f"{name}[{tag}]": r for name, r in rows[tag].items()})
     for key, suffix in (("manhattan4", ""), ("3d-1x1000", "[Db=12]"), ("mc", "[mc]")):
         timed[f"band_pcr_level{suffix}"] = dict(earlier[key]["band_pcr_level"],
                                                 note=PCR_LEVEL_NOTE)
-    names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS]
+    tails = [f"{k}[{tag}]" for tag in ("tail", "Db=12 tail")
+             for k in ("band_cr_reduce", "band_cr_backsub")]
+    names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS] + tails
              + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)]
              + [f"{k.__name__}[mc]" for k in band.KERNELS
                 if k.__name__ in rows["mc"] or k is band.band_pcr_level]
@@ -2735,7 +2770,12 @@ def main() -> int:
     for name in names:
         base = name.split("[")[0]
         row = timed[name]
-        if name.endswith("[mc-f32]"):  # launches per 100-trial f32 batch solve
+        if name.endswith("tail]"):  # launches of the last run per Manhattan-4 / 3D 1x1000 solve
+            key, (_, fg, shape) = (("3d-1x1000", cells_3d[1]) if "Db=12" in name
+                                   else ("manhattan4", cells[0]))
+            source, launched = BAND_SOURCE, launches[key].get(
+                f"{base}[run={_tail_run(shape[1], shape[3])}]", 0)
+        elif name.endswith("[mc-f32]"):  # launches per 100-trial f32 batch solve
             source, launched = BLOCKS_SOURCE, f32_launches[base]
         elif name.endswith("[mc3d]"):  # launches per 16-trial 3D 4x250 batch solve
             source, launched = BAND_SOURCE, mc3d_launches[base]

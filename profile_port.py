@@ -59,6 +59,18 @@ replayed CUDA graph (``chip_smoke._device_us``) and event time around the
 call. ``--root DIR`` imports ``score_tpu_torch`` from another checkout, so
 that two commits are timed on one card in one call.
 
+    python3 profile_port.py --cr [--root DIR] [--out FILE]
+
+times ``band_cr_reduce`` and ``band_cr_backsub`` alone at every run of the
+cells' solves (``_CR_SOLVE_SHAPES``: the Monte-Carlo folds, Manhattan-4's
+and 3D 1x1000's two runs, robot20, 3D 4x250; a direction and the panel):
+device us, event ms and launches a call; the reduce's layouts and the
+chain back substitution's rows a thread from measurement builds of
+``band.cu``; the clock build's phases (``_cr_clocks``); and, for a
+package with the chain kernels, each plan of ``_CHAIN_SWEEP`` beside the
+planner's and the tile kernels' at the same run. With ``--root`` in
+turns against another checkout (parent, change, change, parent).
+
     python3 profile_port.py --schedule [--out FILE]
 
 prices the band's compaction floor: Manhattan-4, robot20, 3D 4x250 and
@@ -132,6 +144,7 @@ and with none (what a launch costs before and after its levels).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -496,13 +509,20 @@ _CR_LEVEL_SHAPES_3D = ((1, 1024), (1, 512))
 _BLOCK_INV_SHAPES_3D = ((1, 256), (4, 256))
 _CR_LEVEL_TILINGS = (1, 2, 3, 4)
 _DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
-# band_cr_reduce and band_cr_backsub: (chains, fine length, block size,
-# compacting levels, rhs columns) of Manhattan-4's level (direction, panel,
-# the narrow step's widest rhs), of one forced level on robot20, of a long
-# chain, of a Db = 6 chain with two levels and of 3D 1x1000's two levels
-_CR_SOLVE_SHAPES = ((4, 512, 6, 1, (1, 138, 4)), (20, 128, 6, 1, (1, 258)),
-                    (1, 2048, 6, 1, (1, 5)), (1, 1024, 6, 2, (1, 138)),
-                    (1, 1024, 12, 2, (18, 1)))
+# band_cr_reduce and band_cr_backsub at the launches of the cells' solves:
+# (label, chains, fine length of the run, block size, levels of the run,
+# rhs widths). Every solve compacts to one block a chain, in runs of at most
+# eight levels (band._cr_runs): the Monte-Carlo folds (100 trials of a 4 x
+# 50 world; 16 trials of 3D 4x250), Manhattan-4's two runs (the second, its
+# tail, ends at one position a chain), 3D 1x1000's two runs, robot20 and 3D
+# 4x250 in one run each.
+_CR_SOLVE_SHAPES = (("mc", 400, 64, 6, 6, (56, 1)), ("mc3d", 64, 256, 12, 8, (18, 1)),
+                    ("manhattan4 run 1", 4, 512, 6, 5, (138, 1)),
+                    ("manhattan4 tail", 4, 16, 6, 4, (138, 1)),
+                    ("3d-1x1000 run 1", 1, 1024, 12, 5, (18, 1)),
+                    ("3d-1x1000 tail", 1, 32, 12, 5, (18, 1)),
+                    ("robot20", 20, 128, 6, 7, (258, 1)),
+                    ("3d-4x250", 4, 256, 12, 8, (18, 1)))
 # measurement builds of csrc/band.cu for the fused CR kernels: each of the
 # reduce's layouts alone (a thread per output row and column; a thread per
 # position and column holding the Db rows), the element backsub with a
@@ -510,6 +530,8 @@ _CR_SOLVE_SHAPES = ((4, 512, 6, 1, (1, 138, 4)), (20, 128, 6, 1, (1, 258)),
 _CR_BUILDS = {"reduce (a) a row a thread": "-DBAND_CR_REGISTER_ROWS_K=1073741824",
               "reduce (b) Db rows a thread": "-DBAND_CR_REGISTER_ROWS_K=0",
               "element backsub, a row a thread": "-DBAND_CR_ELEMENT_ROWS=1",
+              "chain backsub, Db rows a thread": "-DBAND_CR_CHAIN_BACKSUB_ROWS=0",
+              "chain backsub, a row a thread": "-DBAND_CR_CHAIN_BACKSUB_ROWS=1",
               "clocks": "-DBAND_CR_CLOCKS"}
 # block_chol: the f32 factor of Manhattan-4 (C = 4 chains of 512) takes the
 # Cholesky of the odd blocks of chains of 512, 256, ..., 2 (M = 1024 ... 4)
@@ -551,6 +573,10 @@ def _band_builds(flags, prefix):
         lib = libs[flag] = ctypes.CDLL(str(so))
         lib.band_error_string.argtypes = [i32]
         lib.band_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.band_error_string
+        if hasattr(build, "band_signatures"):
+            build.band_signatures(lib)
+            continue
         lib.band_block_inv.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
         lib.band_pcr_level.argtypes = [vp] * 10 + [i32] * 4 + [vp]
         lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
@@ -640,16 +666,52 @@ def _chol_times(device):
     return rows
 
 
-def _cr_solve_times(device):
+def _cr_clocks(band, lib, kernel, fn, n, T, Db, K, C, device):
+    """The clock build's phases of one call of ``fn`` (SM cycles from the
+    start of the recording thread block), or None where the build records
+    none at this shape. A package with ``band._cr_chain_plan`` runs the
+    chain kernels on runs that end at one position a chain where that plans
+    one: the block that
+    finishes chain 0 (the reduce) or segment 0 of chain 0 (the back
+    substitution) writes 64 clocks over the output (csrc/band.cu,
+    CR_CHAIN_CLOCKS_OUT). Otherwise the tile kernels: thread block 0 writes
+    16 over its launch's output, the reduce's copies issued, staged,
+    barrier, then each level's end and barrier (levels a launch <= 6: the
+    array has 16 slots), the element back substitution's copies issued,
+    staged, barrier, then each level's rv, barrier and product (<= 4
+    levels); the lane-group steps record none. A list of each launch's
+    clocks (the tile reduce's launches each write over their last level's
+    output)."""
+    step = "reduce" if kernel == "band_cr_reduce" else band._backsub_step(Db, K)
+    chain = getattr(band, "_cr_chain_plan", None)
+    if chain is not None and T == 1 << n and chain(
+            "reduce" if step == "reduce" else "backsub", n, Db, K, C, band._sm_count(device)):
+        count, ends = 64, [n]
+    else:
+        depths = band._cr_launch_depths(step, n, Db, K)
+        if step == "reduce" and max(depths) <= 6:
+            count = 16
+        elif step == "element" and max(depths) <= 4:
+            count = 16
+        else:
+            return None
+        # each tile launch writes its clocks over its last level's output
+        ends = list(itertools.accumulate(depths)) if step == "reduce" else [n]
+    out = _through(lib, lambda: [fn() for _ in range(3)][-1])
+    outs = [out[e - 1] for e in ends] if isinstance(out, tuple) else [out]
+    if any(o.numel() < count for o in outs):
+        return None
+    return [[int(v) for v in o.flatten()[:count].tolist()] for o in outs]
+
+
+def _cr_solve_times(device, layouts=True):
     """band_cr_reduce and band_cr_backsub at ``_CR_SOLVE_SHAPES``, on the
-    levels of a random band's factor: one solve's launches (a package with
-    the fused kernels makes one each; one from before makes one a level,
-    timed together in one graph and each alone); with the fused kernels,
-    also each layout of ``_CR_BUILDS`` (its own build of band.cu) and the
-    clock build's phases at Db = 12 (SM cycles from the start of thread
-    block 0: copies issued, staged, barrier, then the reduce's level end
-    and barrier for each level, the element backsub's rv, barrier and invD
-    product for each level)."""
+    levels of a random band's factor: one call as a solve's run makes it
+    (its launches counted), device us and event ms; with ``layouts`` also
+    each layout of ``_CR_BUILDS`` (its own build of band.cu); and the clock
+    build's phases at the panel (:func:`_cr_clocks`). A package from before
+    the fused kernels launches once a level (timed together in one graph
+    and each level alone)."""
     import inspect
 
     import torch
@@ -659,12 +721,15 @@ def _cr_solve_times(device):
     fused = list(inspect.signature(band.band_cr_reduce).parameters) == ["levels", "b"]
     libs = {}
     if fused:
-        built = _band_builds(list(_CR_BUILDS.values()), "cr")
-        libs = {what: built[flag] for what, flag in _CR_BUILDS.items()}
+        builds = _CR_BUILDS if layouts else {
+            what: flag for what, flag in _CR_BUILDS.items()
+            if what == "clocks" or what.startswith(("reduce", "chain"))}
+        built = _band_builds(list(builds.values()), "cr")
+        libs = {what: built[flag] for what, flag in builds.items()}
 
     rows = []
     rng = np.random.default_rng(1)
-    for C, T, Db, n, Ks in _CR_SOLVE_SHAPES:
+    for label, C, T, Db, n, Ks in _CR_SOLVE_SHAPES:
         D, U = _random_band(C, T, Db, seed=T + C, device=device)
         levels = band.band_factor(D, U, n_cr=n).levels
         for K in Ks:
@@ -677,28 +742,30 @@ def _cr_solve_times(device):
                 kernels = {"band_cr_reduce": lambda: band.band_cr_reduce(levels, b),
                            "band_cr_backsub": lambda: band.band_cr_backsub(levels, fine, x)}
                 for kernel, fn in kernels.items():
-                    rows.append(dict(cell="f64 band", kernel=kernel, shape=shape + " (1 launch)",
-                                     device_us=_device_us(fn), event_ms=_event_ms(fn)))
+                    band.reset_launch_counts()
+                    fn()
+                    launches = getattr(band, kernel).launches
+                    rows.append(dict(cell=label, kernel=kernel, shape=shape,
+                                     launches=launches, device_us=_device_us(fn),
+                                     event_ms=_event_ms(fn)))
                 for what, lib in libs.items():
                     kernel = what.split()[0]
-                    kernel = "band_cr_" + ("backsub" if kernel == "element" else kernel)
-                    if what == "clocks" or (kernel == "band_cr_backsub" and (Db != 12 or K <= 4)):
+                    kernel = "band_cr_" + ("backsub" if kernel in ("element", "chain") else kernel)
+                    if what == "clocks" or (what.startswith("element") and (Db != 12 or K <= 4)):
+                        continue
+                    if what.startswith("chain") and T != 1 << n:
                         continue
                     fn = kernels[kernel]
-                    rows.append(dict(cell="f64 band", kernel=f"{kernel}, {what}", shape=shape,
+                    rows.append(dict(cell=label, kernel=f"{kernel}, {what}", shape=shape,
                                      device_us=_through(lib, lambda: _device_us(fn)),
                                      event_ms=_through(lib, lambda: _event_ms(fn))))
-                if "clocks" in libs and Db == 12:
-                    # the kernels that stage a tile (not the narrow backsub)
+                if "clocks" in libs and K > 1:
                     for kernel, fn in kernels.items():
-                        if kernel == "band_cr_backsub" and K <= 4:
-                            continue
-                        out = _through(libs["clocks"], lambda: [fn() for _ in range(3)][-1])
-                        out = out[-1] if isinstance(out, tuple) else out
-                        clk = out.flatten()[:10].tolist()
-                        rows.append(dict(cell="f64 band", kernel=f"{kernel}, clocks", shape=shape,
-                                         device_us=0.0, event_ms=0.0,
-                                         clocks=[int(v) for v in clk[1:]]))
+                        clk = _cr_clocks(band, libs["clocks"], kernel, fn, n, T, Db, K, C,
+                                         device)
+                        if clk is not None:
+                            rows.append(dict(cell=label, kernel=f"{kernel}, clocks", shape=shape,
+                                             device_us=0.0, event_ms=0.0, clocks=clk))
                 continue
             # a package from before the fused kernels: one launch a level
             outs, cur = [], b
@@ -719,17 +786,74 @@ def _cr_solve_times(device):
                     xx = band.band_cr_backsub(lv.invD, lv.A, lv.C, bf, xx)
 
             for kernel, fn in (("band_cr_reduce", reduce_all), ("band_cr_backsub", backsub_all)):
-                rows.append(dict(cell="f64 band", kernel=kernel, shape=shape + f" ({n} launches)",
+                rows.append(dict(cell=label, kernel=kernel, shape=shape + f" ({n} launches)",
                                  device_us=_device_us(fn), event_ms=_event_ms(fn)))
-            if n > 1:
-                for lev, lv in enumerate(levels):
-                    for kernel, fn in (
-                            ("band_cr_reduce", lambda: band.band_cr_reduce(lv.E, lv.F, fine[lev])),
-                            ("band_cr_backsub", lambda: band.band_cr_backsub(
-                                lv.invD, lv.A, lv.C, fine[lev], outs[lev]))):
-                        rows.append(dict(cell="f64 band", kernel=kernel,
-                                         shape=shape + f" level {lev + 1} alone",
-                                         device_us=_device_us(fn), event_ms=_event_ms(fn)))
+    return rows
+
+
+# plans of the chain kernels timed beside the planner's own (profile_port.py
+# --cr): (cell of _CR_SOLVE_SHAPES, K, reduce plans (m, Kf, Kc, stage),
+# back-substitution plans (S, Kc))
+_CHAIN_SWEEP = (
+    ("mc", 56, [None, (0, 56, 56, 0), (0, 56, 28, 1)], [None, (2, 28), (4, 56), (8, 56)]),
+    ("mc", 1, [None, (1, 1, 1, 1)], [None, (1, 1), (2, 1), (4, 1)]),
+    ("mc3d", 18, [None, (3, 18, 18, 0), (2, 18, 18, 0), (4, 9, 18, 1)],
+     [None, (16, 18), (32, 18), (64, 18)]),
+    ("mc3d", 1, [None, (3, 1, 1, 1), (5, 1, 1, 1)], [None, (8, 1), (16, 1), (32, 1)]),
+    ("manhattan4 tail", 138, [None, (2, 138, 138, 1), (0, 138, 46, 1)],
+     [None, (4, 138), (8, 138), (16, 138)]),
+    ("manhattan4 tail", 1, [None, (0, 1, 1, 1), (1, 1, 1, 1)], [None, (1, 1), (4, 1), (16, 1)]),
+    ("3d-1x1000 tail", 18, [None, (1, 18, 18, 1), (3, 18, 18, 1)],
+     [None, (4, 18), (8, 18), (32, 18)]),
+    ("3d-1x1000 tail", 1, [None, (0, 1, 1, 1), (1, 1, 1, 1)], [None, (2, 1), (4, 1), (32, 1)]),
+    ("robot20", 258, [None, (3, 86, 258, 1), (4, 43, 258, 1)],
+     [None, (8, 86), (16, 129), (32, 129)]),
+    ("robot20", 1, [None, (0, 1, 1, 1), (4, 1, 1, 1)], [None, (1, 1), (4, 1), (16, 1)]),
+    ("3d-4x250", 18, [None, (3, 18, 18, 0), (2, 18, 18, 0)], [None, (16, 18), (32, 18), (64, 18)]),
+    ("3d-4x250", 1, [None, (3, 1, 1, 1), (5, 1, 1, 1)], [None, (16, 1), (32, 1), (64, 1)]),
+)
+
+
+def _chain_sweep(device):
+    """Device us of the chain kernels under each plan of ``_CHAIN_SWEEP``
+    and of the tile kernels at the same run (plan None), the planner
+    replaced for the call; a plan the card refuses is recorded as such."""
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band
+
+    shapes = {s[0]: s for s in _CR_SOLVE_SHAPES}
+    rows = []
+    rng = np.random.default_rng(2)
+    planner = band._cr_chain_plan
+    for label, K, reduces, backsubs in _CHAIN_SWEEP:
+        _, C, T, Db, n, _ = shapes[label]
+        D, U = _random_band(C, T, Db, seed=T + C, device=device)
+        levels = band.band_factor(D, U, n_cr=n).levels
+        b = torch.tensor(rng.standard_normal((C, T, Db, K)), device=device)
+        red = band.band_cr_reduce(levels, b)
+        fine, x = (b,) + red[:-1], torch.tensor(rng.standard_normal(red[-1].shape),
+                                                device=device)
+        for kernel, fn, plans, make in (
+                ("band_cr_reduce", lambda: band.band_cr_reduce(levels, b), reduces,
+                 lambda p: band.ReducePlan(p[0], p[1], p[2], bool(p[3]))),
+                ("band_cr_backsub", lambda: band.band_cr_backsub(levels, fine, x), backsubs,
+                 lambda p: band.BacksubPlan(*p))):
+            for p in ["planner"] + plans:  # None: the tile kernels
+                plan = (planner("reduce" if kernel == "band_cr_reduce" else "backsub",
+                                n, Db, K, C, band._sm_count(device)) if p == "planner"
+                        else None if p is None else make(p))
+                band._cr_chain_plan = lambda *a, plan=plan: plan
+                try:
+                    us = _device_us(fn)
+                except RuntimeError as e:
+                    torch.cuda.synchronize()
+                    us = f"refused: {e}"
+                finally:
+                    band._cr_chain_plan = planner
+                rows.append(dict(cell=label, kernel=f"{kernel} sweep",
+                                 plan=str(plan) if plan is not None else "tile kernels",
+                                 planner=p == "planner", device_us=us))
     return rows
 
 
@@ -1232,6 +1356,9 @@ def main() -> int:
                     help="the Monte-Carlo batch at 1, 16 and 100 trials: walls, trips, profile")
     ap.add_argument("--schedule", action="store_true",
                     help="the band's compaction floor, 256 against 1: walls and profiles")
+    ap.add_argument("--cr", action="store_true",
+                    help="band_cr_reduce and band_cr_backsub alone at the cells' runs, "
+                         "with the clock build's phases")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
     if args.root:
@@ -1286,17 +1413,30 @@ def main() -> int:
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(dict(card=smi, ablation=rows), indent=1))
         return 0
-    if args.kernels:
+    if args.kernels or args.cr:
         import score_tpu_torch
 
-        rows = _kernel_times(torch.device("cuda"))
+        if args.cr:
+            clocks = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True).stdout.strip()
+            _log(f"SM clocks (current, max): {clocks}")
+        rows = (_cr_solve_times(torch.device("cuda"), layouts=False) if args.cr
+                else _kernel_times(torch.device("cuda")))
+        from score_tpu_torch.ops import band
+
+        if args.cr and hasattr(band, "_cr_chain_plan"):
+            for r in _chain_sweep(torch.device("cuda")):
+                _log(f"  {r['cell']:<16} {r['kernel']:<24} {r['plan']:<58} "
+                     f"{'(planner) ' if r['planner'] else ''}device {r['device_us']}")
         _log(f"package: {Path(score_tpu_torch.__file__).parent}")
         for r in rows:
             if "clocks" in r:
                 _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<36} clocks {r['clocks']}")
                 continue
+            launches = f"   launches {r['launches']}" if "launches" in r else ""
             _log(f"  {r['cell']:<11} {r['kernel']:<15} {r['shape']:<36} "
-                 f"device {r['device_us']:9.2f} us   events {r['event_ms']:.4f} ms")
+                 f"device {r['device_us']:9.2f} us   events {r['event_ms']:.4f} ms{launches}")
         if args.out:
             out = Path(args.out)
             out.parent.mkdir(parents=True, exist_ok=True)

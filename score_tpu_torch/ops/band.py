@@ -68,6 +68,7 @@ Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -137,6 +138,10 @@ _SOLVE_CLUSTER = 16
 # block's shared memory under _CR_SMEM_TARGET where it can, so that several
 # blocks share an SM. The same constants stand in csrc/band.cu.
 _BACKSUB_NARROW_MAX_K = 4
+# the rhs width from which band_cr_reduce's kernels hold several rows a
+# thread (csrc/band.cu: kReduceRegisterRowsK); the chain kernels' routing
+# reads it as the edge between directions and panels
+_REGISTER_ROWS_K = 8
 _CR_THREADS = 256
 _CR_SMEM_TARGET = 64 * 1024
 # work items of a tile's finest level for band_cr_backsub's register steps:
@@ -370,9 +375,13 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _count(wrapper, Db: int) -> None:
+def _count(wrapper, Db: int, run: tuple = ()) -> None:
+    """One launch of ``wrapper``'s kernel at block size Db; a CR wrapper's
+    also by its run, (Db, fine length, levels): ``launches_by_run``."""
     wrapper.launches += 1
     wrapper.launches_by_size[Db] += 1
+    if run:
+        wrapper.launches_by_run[(Db,) + run] += 1
 
 
 def band_init_a(U: torch.Tensor) -> torch.Tensor:
@@ -768,9 +777,14 @@ def _even_chunk(K: int, chunks: int) -> int:
 
 def _cr_plan(step: str, n: int, Tn: int, Db: int, K: int, C: int = 1,
              n_sm: int = _SM_COUNT, P: int | None = None) -> tuple:
-    """(P, Kc) of a fused CR launch ("reduce", or band_cr_backsub's
+    """(P, Kc) of a tile kernel's launch ("reduce", or band_cr_backsub's
     :func:`_backsub_step`) of n levels over C chains whose coarsest level
-    has Tn positions, with K rhs columns, on a card of n_sm SMs.
+    has Tn positions, with K rhs columns, on a card of n_sm SMs. The
+    wrappers take the tile kernels for runs that end at more than one
+    position a chain (Tn > 1: a solve's first runs), and the reduce's tile
+    with P = 1 is the chain reduce's fine phase; a run that ends at one
+    position a chain takes the chain kernels (:func:`_cr_chain_plan`),
+    where a tile of P = Tn = 1 would be the whole chain with a halo.
 
     P, the coarsest positions of a thread block's tile (``P`` where given),
     a power of two up to Tn: for the reduce and the element step the
@@ -851,6 +865,217 @@ def _cr_launch_depths(step: str, n: int, Db: int, K: int) -> list:
     return depths
 
 
+# The chain kernels (runs that end at one position a chain): a plan keeps a
+# thread block's shared memory within _CHAIN_SMEM_TARGET where it can, two
+# thread blocks an SM (228 KB an SM, 1 KB of it reserved a thread block).
+_CHAIN_SMEM_TARGET = 115712
+
+
+class ReducePlan(NamedTuple):
+    """band_cr_reduce on a run that ends at one position a chain: ``m`` fine
+    levels computed a level-m position (and ``Kf`` columns) a thread block,
+    with the tile's halo; the levels m + 1 .. n over the whole chain by the
+    block that takes the chain's last ticket, in chunks of ``Kc`` columns;
+    ``stage``: the coarse levels' E, F kept in shared memory."""
+
+    m: int
+    Kf: int
+    Kc: int
+    stage: bool
+
+
+class BacksubPlan(NamedTuple):
+    """band_cr_backsub on a run that ends at one position a chain: ``S``
+    segments a chain, a thread block each, in chunks of ``Kc`` columns."""
+
+    S: int
+    Kc: int
+
+
+def _chain_reduce_smem(n: int, Db: int, K: int, m: int, Kf: int, Kc: int, stage: bool) -> int:
+    """Shared memory of one thread block of the chain reduce (csrc/band.cu:
+    cr_chain_reduce_smem): the fine tile's (one level-m position, Kf
+    columns) or the coarse phase's (the coarse levels' E, F where staged,
+    and one or two chunks of Kc columns of the 2^(n - m) level-m rows),
+    whichever is more."""
+    Tc = (1 << n) >> m
+    chunks = -(-K // Kc)
+    d = 8 * ((2 if chunks > 1 else 1) * Tc * Db * Kc + (2 * (Tc - 1) * Db * Db if stage else 0))
+    return max(d, _cr_smem_bytes("reduce", m, Db, 1, Kf)) if m else d
+
+
+def _chain_intervals(n: int, S: int, s: int) -> list:
+    """(lo, hi) of x_l for l = 0 .. n that segment s of S of a chain of 2^n
+    needs (csrc/band.cu: chain_intervals): its own rows at l = 0, then
+    x_{l-1}[2p] = x_l[p] and x_{l-1}[2p + 1] from x_l[p], x_l[p + 1]."""
+    T = 1 << n
+    lo = s * (T // S)
+    hi = lo + T // S - 1
+    out = [(lo, hi)]
+    for lev in range(1, n + 1):
+        lo, hi = lo >> 1, min((hi + 1) >> 1, (T >> lev) - 1)
+        out.append((lo, hi))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_backsub_shape(n: int, Db: int, S: int, Kc: int) -> tuple:
+    """(shared memory bytes, x buffer rows, most positions of a level) of
+    the chain back substitution over S segments (csrc/band.cu:
+    cr_chain_backsub_shape): each segment's levels' invD, A, C and b at its
+    odd rows, and two buffers of the longest interval of x_l (l >= 1)."""
+    blocks, rows, items = 0, 1, 1
+    for s in range(S):
+        iv = _chain_intervals(n, S, s)
+        bl = 0
+        for lev in range(1, n + 1):
+            lo, hi = iv[lev - 1]
+            np_ = max((((hi - 1) >> 1) - (lo >> 1) + 1) if hi >= 1 else 0, 0)
+            bl += np_ * (3 * Db * Db + Db * Kc)
+            rows = max(rows, iv[lev][1] - iv[lev][0] + 1)
+            items = max(items, (hi >> 1) - (lo >> 1) + 1)
+        blocks = max(blocks, bl)
+    return 8 * (blocks + 2 * rows * Db * Kc), rows, items
+
+
+def _chunks(K: int, fits, even: bool) -> int | None:
+    """The widest chunk of K columns (the fewest chunks; even where
+    ``even``) for which fits(Kc) holds, or None."""
+    for chunks in range(1, K + 1):
+        Kc = _even_chunk(K, chunks) if even else -(-K // chunks)
+        if Kc <= K and fits(Kc):
+            return Kc
+    return None
+
+
+def _chain_takes(step: str, n: int, Db: int, K: int, C: int, n_sm: int) -> bool:
+    """Whether a chain kernel takes a run of n levels that ends at one
+    position a chain, or the tile kernels keep it: where they measured
+    faster (profile_port.py --cr, NVIDIA H100 80GB HBM3; PERF.md §6). The
+    reduce: chains that fill the card (the folds), chains of 64 and more,
+    and 3D panels; the tile kernel keeps the short 2D tails and 3D
+    directions (Manhattan-4's last run, 3D 1x1000's at K = 1). The back
+    substitution: the 2D fold's panel and 3D panels on chains of up to 32
+    (3D 1x1000's tail); the tile kernels keep directions, the 3D fold and
+    robot20, where their per-level kernels with block rows from HBM
+    measured faster. A batch's trial count moves no launch count (the
+    launches a trip of a Monte-Carlo batch equal a 1-trial batch's): at
+    256-long 3D chains the back substitution stays on the tile kernels at
+    every chain count, where the chain kernel was faster at 4 chains (3D
+    4x250) and slower at 64 (the 3D fold)."""
+    T = 1 << n
+    wide = K >= _REGISTER_ROWS_K
+    if step == "reduce":
+        return C >= n_sm or T >= 64 or (Db > _WIDE_MAX_BLOCK and wide)
+    if Db <= _WIDE_MAX_BLOCK:
+        return C >= n_sm and wide
+    return T <= 32 and wide
+
+
+def _cr_chain_plan(step: str, n: int, Db: int, K: int, C: int = 1,
+                   n_sm: int = _SM_COUNT):
+    """The plan of a chain kernel for a run of n levels that ends at one
+    position a chain (:func:`_chain_plan`), or None where the tile kernels
+    keep the run (:func:`_chain_takes`)."""
+    return _chain_plan(step, n, Db, K, C, n_sm) if _chain_takes(step, n, Db, K, C, n_sm) else None
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_plan(step: str, n: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_COUNT):
+    """The plan of a chain kernel for a run of n levels (1 to
+    ``_CR_MAX_LEVELS``) that ends at one position a chain, C chains, K
+    columns, n_sm SMs ("reduce" or a back-substitution step; every such run
+    takes ONE launch).
+
+    Reduce (:class:`ReducePlan`): where the chains alone give every SM a
+    thread block (the folds), and for a direction whose chain's E, F fit
+    a thread block, m = 0: a chain a thread block, its E, F staged once and
+    the rhs whole or through a ring of two chunks. Otherwise the fine
+    levels spread over the card, a thread block a level-m position (m = 1
+    .. n - 1), the plan preferred that takes all K columns at once in the
+    coarse phase, then in the fine tiles, then with the coarse E, F staged
+    (a coarse level reading them from HBM took 5-10 us at Db = 12), then
+    the one that needs the least shared memory: within two thread blocks an
+    SM, or the card's 227 KB where the fine tiles fit one wave. Back
+    substitution (:class:`BacksubPlan`): S, the fewest segments a chain (a
+    power of two) that give every second SM a thread block, more where
+    that takes all K columns in one chunk (or the fewest chunks) within
+    the shared memory of two thread blocks an SM."""
+    if not 1 <= n <= _CR_MAX_LEVELS:
+        raise ValueError(f"chain CR launch: {n} levels (1 to {_CR_MAX_LEVELS})")
+    T, target, BS = 1 << n, _CHAIN_SMEM_TARGET, Db * Db
+    if step != "reduce":
+        S = 1
+        while S < T and 2 * C * S < n_sm:
+            S *= 2
+        best = None
+        for limit in (target, _SMEM_MAX):
+            while True:
+                Kc = _chunks(K, lambda kc: _chain_backsub_shape(n, Db, S, kc)[0] <= limit, False)
+                if Kc is not None and (best is None or -(-K // Kc) < -(-K // best.Kc)):
+                    best = BacksubPlan(S, Kc)
+                if (best is not None and best.Kc == K) or S == T:
+                    break
+                S *= 2
+            if best is not None:
+                return best
+        raise ValueError(f"chain CR back substitution: {n} levels of {Db}-blocks do not fit "
+                         "a thread block")
+    whole = C >= n_sm or (K < _REGISTER_ROWS_K and 8 * (2 * (T - 1) * BS + T * Db * K)
+                          <= _SMEM_MAX)
+    plans = []
+    for m in range(1 if whole else n):
+        # one wave of fine tiles (or a chain a thread block) may take the
+        # card's limit: occupancy buys nothing there
+        few = C * (T >> m) <= n_sm
+        fine_limit = _SMEM_MAX if few else target
+        Kf = K if not m else _chunks(
+            K, lambda kf: _cr_smem_bytes("reduce", m, Db, 1, kf) <= fine_limit, False)
+        if Kf is None:
+            continue
+        # all K at once before chunks; a chain a thread block's E, F staged
+        # before all K
+        order = ([(True, False), (True, True), (False, False), (False, True)] if not m else
+                 [(True, False), (False, False), (True, True), (False, True)])
+        for stage, chunked in order:
+            limit = _SMEM_MAX if few or (not m and not chunked) else target
+            fits = lambda kc: _chain_reduce_smem(n, Db, K, m, Kf, kc, stage) <= limit
+            Kc = None
+            if not chunked:
+                Kc = K if fits(K) else None
+            elif not m or K % 2 == 0:  # m > 0 reads the level-m rows back in 16-byte units
+                Kc = _chunks(K, fits, K % 2 == 0)
+            if Kc is not None:
+                plans.append(ReducePlan(m, Kf, Kc, stage))
+                break
+    fine = [p for p in plans if p.m]
+    if fine and not whole:
+        return min(fine, key=lambda p: (p.Kc < K, p.Kf < K, not p.stage,
+                                        _chain_reduce_smem(n, Db, K, *p), p.m))
+    if plans:
+        return plans[0]
+    raise ValueError(f"chain CR reduce: {n} levels of {Db}-blocks with {K} rhs columns do "
+                     "not fit a thread block")
+
+
+_TICKETS = {}
+
+
+def _tickets(t: torch.Tensor, C: int) -> torch.Tensor:
+    """The chain reduce's per-chain counters on t's device and current
+    stream: zero, and zero again after every launch (its last thread block
+    of a chain resets it), so allocated once a stream. Under CUDA graph
+    capture a fresh buffer whose zeroing the graph replays (never kept)."""
+    with torch.cuda.device(t.device):
+        if torch.cuda.is_current_stream_capturing():
+            return torch.zeros(C, dtype=torch.int32, device=t.device)
+        key = (t.device, torch.cuda.current_stream().cuda_stream)
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < C:
+        have = _TICKETS[key] = torch.zeros(max(C, 1024), dtype=torch.int32, device=t.device)
+    return have
+
+
 def _check_cr(name: str, levels, rhs, fields, coarse: bool = False):
     """(C, T, Db, K, n) of a fused CR call; raises on a level list that is
     empty, deeper than ``_CR_MAX_LEVELS`` or whose blocks do not halve the
@@ -881,8 +1106,18 @@ def band_cr_reduce(levels, b):
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_reduce_kernel`` with the
     caller's even/odd slices of the rhs (:789-790), and its launch a level
-    by ONE launch for all levels: a thread block owns a tile of coarsest
-    positions of one chain and a chunk of columns (:func:`_cr_plan`),
+    by ONE launch for all levels. A run that ends at one position a chain
+    (every solve's last run, the batch folds' only one) takes the chain
+    kernel (:func:`_cr_chain_plan`): the first m levels a level-m position
+    a thread block (with the tile's halo) over the card, each block taking
+    a ticket of its chain's counter (``_tickets``) once its rows are out,
+    and the block with the chain's last ticket running the levels above
+    over the whole chain with no halo, the coarse E, F staged once, the
+    columns through a ring of two chunks, each level in place in one
+    buffer (where the chains alone fill the card, m = 0: a chain a thread
+    block). Runs that end at more than one position: a thread block owns a
+    tile of coarsest positions of one chain and a chunk of columns
+    (:func:`_cr_plan`),
     stages its E, F of every level and its fine rows with the left halo of
     2^n - 1 rows in shared memory by 16-byte cp.async, and computes the
     levels there, recomputing the halo positions of the tile before; each
@@ -903,6 +1138,17 @@ def band_cr_reduce(levels, b):
     _check_aligned("band_cr_reduce", b, *[t for lv in levels for t in (lv.E, lv.F)])
     from score_tpu_torch.ops.build import CrReduceLevels
 
+    plan = _cr_chain_plan("reduce", n, Db, K, nC, _sm_count(b.device)) if T == 1 << n else None
+    if plan is not None:  # the run ends at one position a chain: the chain kernel
+        ptrs = CrReduceLevels()
+        for lev, lv in enumerate(levels):
+            ptrs.E[lev], ptrs.F[lev] = lv.E.data_ptr(), lv.F.data_ptr()
+            ptrs.out[lev] = out[lev].data_ptr()
+        tickets = _tickets(b, nC).data_ptr() if plan.m else None
+        _launch(_lib(), "band_cr_reduce_chain", b, ptrs, b.data_ptr(), tickets, n, nC, Db, K,
+                plan.m, plan.Kf, plan.Kc, int(plan.stage))
+        _count(band_cr_reduce, Db, (T, n))
+        return out
     first, src = 0, b
     for d in _cr_launch_depths("reduce", n, Db, K):
         group, outs = levels[first:first + d], out[first:first + d]
@@ -912,7 +1158,7 @@ def band_cr_reduce(levels, b):
             ptrs.E[lev], ptrs.F[lev] = lv.E.data_ptr(), lv.F.data_ptr()
             ptrs.out[lev] = outs[lev].data_ptr()
         _launch(_lib(), "band_cr_reduce", b, ptrs, src.data_ptr(), d, nC, T >> first, Db, K, P, Kc)
-        _count(band_cr_reduce, Db)
+        _count(band_cr_reduce, Db, (T, n))
         first, src = first + d, outs[-1]
     return out
 
@@ -927,7 +1173,15 @@ def band_cr_backsub(levels, fine, x):
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_backsub_kernel`` with the
     caller's re-interleaving of even and odd rows (:809-810), and its launch
-    a level by ONE launch for all levels: a thread block owns a tile of
+    a level by ONE launch for all levels. A run that ends at one position a
+    chain takes the chain kernel (:func:`_cr_chain_plan`): a thread block a
+    segment of the chain's fine rows, recomputing the one or two positions
+    of each coarse level its segment needs (no second phase), every level's
+    invD, A, C of its rows staged once by cp.async (a group a level,
+    coarsest first), the columns in chunks, a thread all Db rows of a
+    column (Db = 6) or one row (Db = 12, rv through shared memory). Runs
+    that end at more than one position:
+    a thread block owns a tile of
     coarsest positions and a chunk of columns, reads the coarsest solution
     of its tile and of the position after it, and fills each finer level's
     odd rows in one shared buffer in the finest layout; only the finest x
@@ -959,6 +1213,18 @@ def band_cr_backsub(levels, fine, x):
     _check_aligned("band_cr_backsub", x, *fine, *blocks)
     from score_tpu_torch.ops.build import CrBacksubLevels
 
+    plan = _cr_chain_plan("backsub", n, Db, K, nC, _sm_count(x.device)) if T == 1 << n else None
+    if plan is not None:  # the run ends at one position a chain: the chain kernel
+        ptrs = CrBacksubLevels()
+        for lev, lv in enumerate(levels):
+            ptrs.invD[lev], ptrs.A[lev], ptrs.C[lev] = (
+                lv.invD.data_ptr(), lv.A.data_ptr(), lv.C.data_ptr())
+            ptrs.b[lev] = fine[lev].data_ptr()
+        out = torch.empty_like(fine[0])
+        _launch(_lib(), "band_cr_backsub_chain", x, ptrs, x.data_ptr(), out.data_ptr(), n, nC,
+                Db, K, plan.S, plan.Kc)
+        _count(band_cr_backsub, Db, (T, n))
+        return out
     step = _backsub_step(Db, K)
     depths = _cr_launch_depths(step, n, Db, K)
     last = n
@@ -974,7 +1240,7 @@ def band_cr_backsub(levels, fine, x):
             ptrs.b[lev] = fine[first + lev].data_ptr()
         _launch(_lib(), "band_cr_backsub", x, ptrs, x.data_ptr(), out.data_ptr(), d, nC, T >> first,
                 Db, K, P, Kc)
-        _count(band_cr_backsub, Db)
+        _count(band_cr_backsub, Db, (T, n))
         last, x = first, out
     return x
 
@@ -987,6 +1253,7 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.launches_by_size = dict.fromkeys(CUDA_BLOCK_SIZES, 0)
+        k.launches_by_run = collections.Counter()
 
 
 reset_launch_counts()
@@ -1061,14 +1328,23 @@ def _cr_runs(n: int) -> list:
     return [n // runs + (r < n % runs) for r in range(runs)]
 
 
-def cr_solve_launches(n: int, Db: int, K: int) -> tuple:
+def cr_solve_launches(n: int, Db: int, K: int, Tn: int = 1, C: int = 1,
+                      n_sm: int = _SM_COUNT) -> tuple:
     """(band_cr_reduce, band_cr_backsub) launches of one pass of a band
-    solve through n compacting levels at rhs width K: the runs of
-    :func:`_cr_runs`, each in the launches of :func:`_cr_launch_depths`.
-    A 3D band solve makes :func:`refine_steps` more passes."""
+    solve of C chains through n compacting levels at rhs width K down to a
+    remainder of Tn positions a chain: the runs of :func:`_cr_runs`, each
+    in the launches of :func:`_cr_launch_depths`, but a last run that ends
+    at one position a chain (Tn = 1, the default schedule) in one launch
+    where a chain kernel takes it (:func:`_cr_chain_plan`). A 3D band solve
+    makes :func:`refine_steps` more passes."""
     runs = _cr_runs(n) if n else []
-    return (sum(len(_cr_launch_depths("reduce", d, Db, K)) for d in runs),
-            sum(len(_cr_launch_depths(_backsub_step(Db, K), d, Db, K)) for d in runs))
+    out = []
+    for step in ("reduce", _backsub_step(Db, K)):
+        chain = Tn == 1 and runs and _cr_chain_plan(
+            "reduce" if step == "reduce" else "backsub", runs[-1], Db, K, C, n_sm) is not None
+        tiles = runs[:-1] if chain else runs
+        out.append(int(chain) + sum(len(_cr_launch_depths(step, d, Db, K)) for d in tiles))
+    return tuple(out)
 
 
 def _band_solve_once(factors: BandFactors, b: torch.Tensor) -> torch.Tensor:

@@ -148,7 +148,13 @@ class CrBacksubLevels(ctypes.Structure):
 @functools.lru_cache(maxsize=None)
 def band_library() -> ctypes.CDLL:
     """The loaded band kernel library (built on first call)."""
-    lib = _load("band")
+    return band_signatures(_load("band"))
+
+
+def band_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/band.cu) with the argument and result types
+    of its C entry points set: without them ctypes would pass the stream
+    as a 32-bit int."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.band_init_a.argtypes = [vp, vp, i32, i32, i32, vp]
     lib.band_init_a.restype = i32
@@ -166,6 +172,12 @@ def band_library() -> ctypes.CDLL:
     # levels, xe, x, n, nC, T, Db, K, P, Kc, stream
     lib.band_cr_backsub.argtypes = [CrBacksubLevels, vp, vp] + [i32] * 7 + [vp]
     lib.band_cr_backsub.restype = i32
+    # levels, b, tickets, n, nC, Db, K, m, Kf, Kc, stage, stream
+    lib.band_cr_reduce_chain.argtypes = [CrReduceLevels, vp, vp] + [i32] * 8 + [vp]
+    lib.band_cr_reduce_chain.restype = i32
+    # levels, xe, x, n, nC, Db, K, S, Kc, stream
+    lib.band_cr_backsub_chain.argtypes = [CrBacksubLevels, vp, vp] + [i32] * 6 + [vp]
+    lib.band_cr_backsub_chain.restype = i32
     return lib
 
 

@@ -117,6 +117,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async.wait_group for a count known at run time: at most n of the
+// thread's groups left in flight (n > 7 waits for 7 or fewer).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n <= 0 ? 0 : n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
 __device__ __forceinline__ double2 ldg2(const double* p) {
   return __ldg(reinterpret_cast<const double2*>(p));
 }
@@ -915,12 +939,22 @@ block_inv_element_kernel(const double* __restrict__ D, double* __restrict__ invD
 //            x_l[2j+1] = invD_j ((b_l[2j+1] - A_j x_{l+1}[j]) - C_j x_{l+1}[j+1])
 // (no E term at a chain's first position, no C term at its last).
 //
-// A thread block owns a tile of P consecutive positions of the coarsest
-// level (depth n) of one chain and a chunk of Kc rhs columns (grid y);
-// ops/band.py plans (P, Kc) (band._cr_plan) so that the grid covers the
-// card's SMs where the chain allows and the shared memory stays small
-// enough for several blocks an SM. The dependencies between levels are
-// local:
+// Two designs, by where the run ends (ops/band.py routes):
+//   - a run that ends at more than one position a chain (a solve's first
+//     runs: Manhattan-4's 512 -> 16, 3D 1x1000's 1024 -> 32): the tile
+//     kernels below. A thread block owns a tile of P consecutive positions
+//     of the coarsest level (depth n) of one chain and a chunk of Kc rhs
+//     columns (grid y); band._cr_plan plans (P, Kc) so that the grid covers
+//     the card's SMs where the chain allows and the shared memory stays
+//     small enough for several blocks an SM. The reduce's tile is also the
+//     fine phase of the chain reduce;
+//   - a run that ends at ONE position a chain (every solve's last run since
+//     the band compacts to one block, and the Monte-Carlo folds' one run):
+//     the chain kernels (cr_reduce_chain_kernel, cr_backsub_chain_kernel,
+//     further down), where a tile would be the whole chain: no halo, the
+//     blocks staged once for all columns, the fine levels spread over the
+//     card, one launch for up to kCrMaxLevels levels at both block sizes.
+// A tile's dependencies between levels are local:
 //   - reduce: coarsest position j reads the fine rows 2^n j - (2^n - 1) ..
 //     2^n j + 2^n - 1, so a tile reads its own 2^n P fine rows and a left
 //     halo of 2^n - 1 rows (none before a chain's start); at level l + 1 it
@@ -1035,7 +1069,9 @@ __device__ __forceinline__ void rows_times_col(const double* M, const double* v,
 }
 
 // ---------------------------------------------------------------------
-// band_cr_reduce (cr_reduce_levels_kernel<Db, R>).
+// band_cr_reduce on a run that ends at more than one position a chain
+// (cr_reduce_levels_kernel<Db, R>, its body reduce_tile), and the fine
+// phase of cr_reduce_chain_kernel.
 //
 // A thread block stages its tile's E and F blocks of every level (with the
 // halo positions) and its fine rhs rows with the left halo in shared memory
@@ -1048,27 +1084,28 @@ __device__ __forceinline__ void rows_times_col(const double* M, const double* v,
 // broadcasts, for the panel), chosen by K (kReduceRegisterRowsK).
 // Consecutive threads run along the columns: shared-memory reads of b are
 // conflict-free and the HBM writes coalesce. Bound: bytes for a wide panel
-// (Manhattan-4: the fine rhs in, the reduced one out, 20.9 MB, 6.2 us at
-// 3.35 TB/s); a launch and the dependent chains of the levels for 3D and
-// for directions.
+// (Manhattan-4's first run: the fine rhs in, the reduced ones out, 20.9 MB,
+// 6.2 us at 3.35 TB/s); a launch and the dependent chains of the levels for
+// 3D and for directions. On a run that ends at one position a chain its
+// tile was the whole chain with a halo it never filled, its E, F staged
+// again for every column chunk: such runs take the chain kernel.
 // ---------------------------------------------------------------------
 
-template <int Db, int R>
-__global__ void __launch_bounds__(R == 1 ? kCrReduceRowThreads : kCrThreads)
-cr_reduce_levels_kernel(const CrReduceLevels lv, const double* __restrict__ b,
-                        int n, int T, int K, int P, int Kc) {
-#ifdef BAND_CR_CLOCKS
-  long long clk[16] = {};
-#endif
-  CR_CLOCK(0)
-  extern __shared__ __align__(16) double sm[];
+// One tile of the reduce: P coarsest positions from j0 of chain c and the
+// columns k0 .. k0 + min(Kc, K - k0) - 1, n levels (the body of
+// cr_reduce_levels_kernel, and the fine phase of cr_reduce_chain_kernel).
+// Ends without a barrier after its last level. clk: the clock slots of
+// -DBAND_CR_CLOCKS builds. GROUPS: the fine rows and level 1's E, F as one
+// cp.async group, each further level's E, F as one more, and a level starts
+// when its group has landed (the chain kernel's fine phase); else one wait
+// for every copy (the tile kernel, as measured).
+template <int Db, int R, bool GROUPS = false>
+__device__ __forceinline__ void reduce_tile(const CrReduceLevels& lv,
+                                            const double* __restrict__ b, int n, int T,
+                                            int K, int P, int Kc, int c, int j0, int k0,
+                                            double* sm, long long* clk) {
   constexpr int BS = Db * Db;
   constexpr int G = Db / R;  // threads a position and column
-  const int Tn = T >> n;
-  const int tiles = (Tn + P - 1) / P;
-  const int c = blockIdx.x / tiles;
-  const int j0 = (blockIdx.x - c * tiles) * P;  // first coarsest position
-  const int k0 = blockIdx.y * Kc;
   const int kc = min(Kc, K - k0);
   const int RS = Db * Kc;  // a staged rhs row
   // shared memory: level 1's E then F blocks, level 2's, ...; the fine rows;
@@ -1100,15 +1137,20 @@ cr_reduce_levels_kernel(const CrReduceLevels lv, const double* __restrict__ b,
       stage_span(e + (plo - pbase) * BS, lv.E[lev - 1] + g, (phi - plo) * BS);
       stage_span(e + (cnt + plo - pbase) * BS, lv.F[lev - 1] + g, (phi - plo) * BS);
       e += 2 * cnt * BS;
+      if (GROUPS) cp_async_commit();
     }
   }
   CR_CLOCK(1)
-  cp_async_wait_all();
+  if (!GROUPS) cp_async_wait_all();
   CR_CLOCK(2)
-  __syncthreads();
+  if (!GROUPS) __syncthreads();
   CR_CLOCK(3)
   const double* e = sm;
   for (int lev = 1; lev <= n; ++lev) {
+    if (GROUPS) {  // the rows and levels 1 .. lev's E, F have landed
+      cp_async_wait_upto(n - lev);
+      __syncthreads();
+    }
     const int Th = T >> lev;
     const int h = (1 << (n - lev)) - 1;
     const int cnt = ((P + 1) << (n - lev)) - 1;
@@ -1147,15 +1189,35 @@ cr_reduce_levels_kernel(const CrReduceLevels lv, const double* __restrict__ b,
     }
     e += 2 * cnt * BS;
     CR_CLOCK(2 + 2 * lev)
-    if (lev < n) __syncthreads();
+    if (lev < n && !GROUPS) __syncthreads();
     CR_CLOCK(3 + 2 * lev)
   }
+}
+
+template <int Db, int R>
+__global__ void __launch_bounds__(R == 1 ? kCrReduceRowThreads : kCrThreads)
+cr_reduce_levels_kernel(const CrReduceLevels lv, const double* __restrict__ b,
+                        int n, int T, int K, int P, int Kc) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[16] = {};
+#else
+  long long* clk = nullptr;
+#endif
+  CR_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  const int tiles = ((T >> n) + P - 1) / P;
+  const int c = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - c * tiles) * P;  // first coarsest position
+  reduce_tile<Db, R>(lv, b, n, T, K, P, Kc, c, j0, blockIdx.y * Kc, sm, clk);
   CR_CLOCKS_OUT(lv.out[n - 1])
 }
 
 // ---------------------------------------------------------------------
-// band_cr_backsub. The tile's solution lives in ONE shared buffer in the
-// finest layout: row i holds x_0[2^n j0 + i] for i = 0 .. 2^n P, so level
+// band_cr_backsub on a run that ends at more than one position a chain (a
+// run that ends at one takes cr_backsub_chain_kernel, further down: there a
+// tile was the whole chain on 1 to 8 thread blocks at the tails, its blocks
+// read again for every chunk of columns). The tile's solution lives in ONE
+// shared buffer in the finest layout: row i holds x_0[2^n j0 + i] for i = 0 .. 2^n P, so level
 // l's x_l[m] sits at row (m - m0) << l and a level only fills the odd
 // slots between the rows of the level above; row 2^n P is the coarsest
 // solution after the tile. The kernels, chosen by K, Db and the levels
@@ -1709,6 +1771,460 @@ cr_backsub_element_kernel(const CrBacksubLevels lv, const double* __restrict__ x
 }
 
 // ---------------------------------------------------------------------
+// band_cr_reduce and band_cr_backsub on a run that ends at ONE position a
+// chain (cr_reduce_chain_kernel, cr_backsub_chain_kernel): since the band
+// compacts to one block (band.CR_BASE_LENGTH = 1) every solve's last run
+// does, and so do the Monte-Carlo folds (one run each). They replace the
+// same TPU kernels as the tile kernels above (pallas_pcr.py:385
+// _cr_reduce_kernel, :405 _cr_backsub_kernel), which still take the runs
+// that end at more than one position (a solve's first runs).
+//
+// What held the tile kernels back on such a run: a tile of P = Tn = 1
+// position is the whole chain, but the reduce reserved and half filled a
+// left halo ((P + 1) 2^n - 1 rows and blocks, 196-222 KB: one thread block
+// an SM); every chunk of columns (grid y) staged every level's blocks again
+// (65 times a robot20 chain); a tail ran on 1-28 thread blocks of 132 SMs;
+// every copy was in flight before one wait, and the levels behind it.
+//
+// The design:
+//   reduce: the chain is cut at level m (band._cr_chain_plan): the fine
+//     phase is the tile code above on one level-m position a thread block
+//     (with its halo: the fine levels of many chains spread over the card);
+//     each such block fences its rows and takes a ticket of its chain's
+//     counter (`tickets`: zero before the launch, zero again after it: the
+//     last block resets it); the block that takes the last ticket runs the
+//     coarse levels m + 1 .. n over the whole chain, with no halo, from the
+//     level-m rows the others wrote (16-byte cp.async.cg: read through L2,
+//     the point of coherence). m = 0 where the chains alone fill the card
+//     (the folds): no fine phase, no ticket. The coarse phase keeps its
+//     levels' E, F resident in shared memory (`stage`, staged once, one
+//     cp.async group a level, a level starting when its group has landed)
+//     or reads them through L1 where staging them would cost the fine
+//     phase's occupancy; the rhs moves in chunks of Kc columns through a
+//     ring of two buffers (chunk q + 1 in flight while chunk q computes),
+//     each level computed in place in the finest layout (level d's position
+//     j at row j << d: a position's own row is read and written only by its
+//     own threads, the odd rows only read), one barrier a level.
+//   backsub: a thread block owns a segment of T / S fine rows; the rows of
+//     x_l it needs form an interval at every level (x_{l-1}[2p] = x_l[p],
+//     x_{l-1}[2p + 1] from x_l[p], x_l[p + 1]): the whole chain for S = 1,
+//     one or two positions at the coarse levels and the segment at the fine
+//     ones otherwise. Each block recomputes its few coarse positions (no
+//     ticket, no second phase), with every level's invD, A, C and odd rows
+//     of b of its interval staged once (one cp.async group a level,
+//     coarsest first, issued two levels ahead of the level computed) and
+//     its columns looped in chunks through two compact x buffers; a thread
+//     owns Db rows of a column (Db = 6: rv = (b - A x) - C x_up and x =
+//     invD rv in registers) or one row (Db = 12: rv over the staged b, a
+//     barrier, then its row of invD rv); the finest x is written once.
+// Arithmetic order is the plain twins': each block product summed over q
+// ascending from 0.0, b[2j] + (E b + F b), (b - A x) - C x; only nvcc's
+// contraction to FMAs differs. ops/band.py routes a run to these kernels
+// where they measured faster than the tile kernels (band._chain_takes).
+// Bound: bytes at the folds (each element of the rhs, the blocks and the
+// outputs moved once: the 100-trial fold's reduce 151 MB, 45 us at 3.35
+// TB/s; measured 85.5 us, 0.56x the tile kernel: a chain's 208 KB staged at
+// ~2 TB/s, then its six levels latency-bound on one thread block an SM);
+// a launch and the levels' dependent chains at the tails (PERF.md §6 has
+// each phase).
+// ---------------------------------------------------------------------
+
+// -DBAND_CR_CLOCKS: the thread block that finishes chain 0 (reduce) or
+// segment 0 of chain 0 (backsub) records kChainClocks clock64() values and
+// writes them over its output (measurement builds). Reduce: 0 start, 1
+// fine phase done, 2 last ticket, 3 coarse copies issued, 4 + 2 (d - 1) /
+// 5 + 2 (d - 1) coarse level d (chunk 0) begun / done, 31 end, 32.. the fine
+// tile's own (reduce_tile: 33 copies issued, 34 staged, 35 barrier, then
+// each level). Backsub: 0 start, 1 copies issued, 2 + 2 (n - l) / 3 + 2
+// (n - l) level l (chunk 0) begun / done, 31 end.
+constexpr int kChainClocks = 64;
+#ifdef BAND_CR_CLOCKS
+#define CR_CHAIN_CLOCK(i) \
+  if (threadIdx.x == 0) clk[i] = clock64();
+#define CR_CHAIN_CLOCKS_OUT(first, dst, cap)                                     \
+  if ((first) && threadIdx.x == 0)                                              \
+    for (int i = 0; i < kChainClocks && i < (cap); ++i) (dst)[i] = (double)(clk[i] - clk[0]);
+#define CR_CHAIN_TILE_CLOCKS (clk + 32)
+#else
+#define CR_CHAIN_CLOCK(i)
+#define CR_CHAIN_CLOCKS_OUT(first, dst, cap)
+#define CR_CHAIN_TILE_CLOCKS nullptr
+#endif
+
+// acc[v] += sum_q M[q] * x[q][v] for one row of M (Db wide, 16-byte
+// aligned) and V columns, q ascending: each column's sum in
+// rows_times_col's order.
+template <int Db, int V>
+__device__ __forceinline__ void row_times_cols(const double* M, double (*x)[V],
+                                               double* acc) {
+#pragma unroll
+  for (int q = 0; q < Db; q += 2) {
+    const double2 m = *reinterpret_cast<const double2*>(M + q);
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += m.x * x[q][v];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] += m.y * x[q + 1][v];
+  }
+}
+
+// Rows of a column a thread of cr_reduce_chain_kernel holds at the panel
+// (K >= kReduceRegisterRowsK): all six at Db = 6, a third at Db = 12; a
+// thread block is kCrThreads (a row a thread in 512 or 1024 threads read the
+// rhs Db times and ran the folds 1.3-1.8x slower; half the rows at Db = 6
+// in 512 or 1024 threads no faster: profile_port.py --cr).
+template <int Db>
+constexpr int chain_rows() { return Db == 12 ? 4 : Db; }
+
+template <int Db, int R, int V>
+__global__ void __launch_bounds__(kCrThreads)
+cr_reduce_chain_kernel(const CrReduceLevels lv, const double* __restrict__ b,
+                       int* __restrict__ tickets, int n, int T, int K, int m, int Kf,
+                       int Kc, int stage) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[kChainClocks];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kChainClocks; ++i) clk[i] = 0;
+#endif
+  CR_CHAIN_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  constexpr int BS = Db * Db;
+  constexpr int G = Db / R;  // threads a position and column
+  const int Tc = T >> m;     // positions of level m: the coarse phase's input
+  int c = blockIdx.x, nC = gridDim.x;
+  if (m > 0) {
+    // the fine phase: levels 1 .. m of one level-m position and a chunk of
+    // Kf columns, with the tile's halo
+    const int chunks = (K + Kf - 1) / Kf, per = Tc * chunks;
+    c = blockIdx.x / per;
+    nC = gridDim.x / per;
+    const int r = blockIdx.x - c * per, tile = r / chunks;
+    reduce_tile<Db, R, true>(lv, b, m, T, K, 1, Kf, c, tile, (r - tile * chunks) * Kf, sm,
+                       CR_CHAIN_TILE_CLOCKS);
+    CR_CHAIN_CLOCK(1)
+    // every thread's rows out, then one ticket of the chain's; the last
+    // ticket runs the coarse levels
+    __threadfence();
+    __syncthreads();
+    int last = 0;
+    if (threadIdx.x == 0) {
+      last = atomicAdd(tickets + c, 1) == per - 1;
+      if (last) tickets[c] = 0;  // ready for the next launch
+    }
+    // (a barrier's OR, not a __shared__ flag: static shared memory would
+    // take from the dynamic shared memory the launch may ask for)
+    if (!__syncthreads_or(last)) return;
+    __threadfence();
+    CR_CHAIN_CLOCK(2)
+  }
+  // the coarse phase: levels m + 1 .. n of chain c, whole
+  const int nc = n - m;
+  const long long rs = (long long)Db * K;  // a position's stride in HBM
+  const double* src = (m ? lv.out[m - 1] : b) + (long long)c * Tc * rs;
+  const int chunks = (K + Kc - 1) / Kc;
+  const int RS = Db * Kc;       // a staged row
+  const int ring = Tc * RS;     // a chunk's rows
+  double* ef = sm;              // coarse level d's E, F (stage): after levels 1 .. d - 1's
+  double* rows = sm + (stage ? 2 * (Tc - 1) * BS : 0);
+  // chunk 0's rows and level 1's E, F; one group a level; chunk 1's rows
+  stage_rhs(rows, RS, src, rs, Tc, Db, K, Kc, min(Kc, K));
+  for (int d = 1; d <= nc; ++d) {
+    if (stage) {
+      const int Th = Tc >> d;
+      const long long g = (long long)c * Th * BS;
+      double* e = ef + 2 * (Tc - (Tc >> (d - 1))) * BS;
+      stage_span(e, lv.E[m + d - 1] + g, Th * BS);
+      stage_span(e + Th * BS, lv.F[m + d - 1] + g, Th * BS);
+    }
+    cp_async_commit();
+  }
+  int groups = nc;
+  if (chunks > 1) {
+    stage_rhs(rows + ring, RS, src + Kc, rs, Tc, Db, K, Kc, min(Kc, K - Kc));
+    cp_async_commit();
+    ++groups;
+  }
+  CR_CHAIN_CLOCK(3)
+  for (int q = 0; q < chunks; ++q) {
+    const int k0 = q * Kc, kc = min(Kc, K - k0);
+    double* buf = rows + (q & 1) * ring;
+    if (q > 0) {
+      __syncthreads();  // chunk q - 1 is done with the buffer chunk q + 1 takes
+      if (q + 1 < chunks)
+        stage_rhs(rows + ((q + 1) & 1) * ring, RS, src + k0 + Kc, rs, Tc, Db, K, Kc,
+                  min(Kc, K - k0 - Kc));
+      cp_async_commit();
+      cp_async_wait<1>();  // chunk q has landed
+    }
+    for (int d = 1; d <= nc; ++d) {
+      if (q == 0) cp_async_wait_upto(groups - d);  // level d's E, F (and chunk 0)
+      __syncthreads();
+      if (q == 0) {
+        CR_CHAIN_CLOCK(2 + 2 * d)
+      }
+      const int Th = Tc >> d, sh = d - 1;
+      const double *E, *F;
+      if (stage) {
+        E = ef + 2 * (Tc - (Tc >> (d - 1))) * BS;
+        F = E + Th * BS;
+      } else {
+        E = lv.E[m + d - 1] + (long long)c * Th * BS;
+        F = lv.F[m + d - 1] + (long long)c * Th * BS;
+      }
+      double* out = lv.out[m + d - 1] + (long long)c * Th * rs + k0;
+      const int per = kc / V;  // column groups: kc is even where V = 2
+      const int items = Th * G * per;
+      for (int w = threadIdx.x; w < items; w += blockDim.x) {
+        const int k = (w % per) * V;
+        const int s = w / per / G;  // the level's position
+        const int r0 = (w / per - s * G) * R;
+        // the level's input rows 2s - 1, 2s, 2s + 1 sit at rows (2s -+ 1) << sh
+        // and s << d; the output replaces row 2s in place
+        double* b0 = buf + (s << d) * RS + k;
+        const double* bp = b0 + (RS << sh);
+        double ae[R][V] = {}, af[R][V] = {}, v[Db][V];
+        if (s > 0) {
+          const double* bm = b0 - (RS << sh);
+#pragma unroll
+          for (int p = 0; p < Db; ++p) load_cols_shared<V>(bm + p * Kc, v[p]);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            row_times_cols<Db, V>(E + s * BS + (r0 + i) * Db, v, ae[i]);
+        }
+#pragma unroll
+        for (int p = 0; p < Db; ++p) load_cols_shared<V>(bp + p * Kc, v[p]);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          row_times_cols<Db, V>(F + s * BS + (r0 + i) * Db, v, af[i]);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int r = r0 + i;
+          double o[V];
+          load_cols_shared<V>(b0 + r * Kc, o);
+#pragma unroll
+          for (int u = 0; u < V; ++u) o[u] = o[u] + (ae[i][u] + af[i][u]);
+          store_cols<V>(b0 + r * Kc, o);
+          store_cols<V>(out + ((long long)s * Db + r) * K + k, o);
+        }
+      }
+      if (q == 0) {
+        CR_CHAIN_CLOCK(3 + 2 * d)
+      }
+    }
+  }
+  CR_CHAIN_CLOCK(31)
+  CR_CHAIN_CLOCKS_OUT(c == 0, lv.out[n - 1], (long long)nC * Db * K)
+}
+
+// The rows of x_l that segment s of S of a chain of T = 2^n fine rows
+// needs, lo[l] .. hi[l] for l = 0 .. n (band._chain_intervals mirrors it):
+// the segment's own fine rows at l = 0; x_{l-1}[2p] = x_l[p] and
+// x_{l-1}[2p + 1] needs x_l[p], x_l[p + 1].
+__host__ __device__ inline void chain_intervals(int n, int S, int s, int* lo, int* hi) {
+  const int T = 1 << n, seg = T / S;
+  lo[0] = s * seg;
+  hi[0] = lo[0] + seg - 1;
+  for (int l = 1; l <= n; ++l) {
+    lo[l] = lo[l - 1] >> 1;
+    const int up = (hi[l - 1] + 1) >> 1;
+    hi[l] = up < (T >> l) - 1 ? up : (T >> l) - 1;
+  }
+}
+
+// Level l's odd rows of the interval: positions plo .. plo + np - 1 of its
+// blocks (np may be 0).
+__host__ __device__ inline void chain_odd(int lo, int hi, int* plo, int* np) {
+  *plo = lo >> 1;
+  *np = hi >= 1 ? ((hi - 1) >> 1) - *plo + 1 : 0;
+}
+
+// Rows of a column a thread of the chain back substitution computes, and
+// the threads of a thread block. Db = 6: all six, rv and x = invD rv in
+// registers, no barrier between (a row a thread read x six times and ran
+// the 100-trial fold 1.7x slower). Db = 12: one, rv over the staged b, a
+// barrier, then the thread's row of invD rv (a thread a whole column ran a
+// level's three dependent 12 x 12 products on 216 16-byte loads of its
+// own: 1.8 us a level, 1.2-2x slower on the 3D runs it takes). Measured by
+// profile_port.py --cr, whose build -DBAND_CR_CHAIN_BACKSUB_ROWS=n takes
+// n rows a thread at both sizes (0: Db).
+template <int Db>
+constexpr int chain_backsub_rows() {
+#ifdef BAND_CR_CHAIN_BACKSUB_ROWS
+  return BAND_CR_CHAIN_BACKSUB_ROWS > 0 ? BAND_CR_CHAIN_BACKSUB_ROWS : Db;
+#else
+  return Db == 12 ? 1 : Db;
+#endif
+}
+template <int R>
+constexpr int chain_backsub_threads() { return R == 1 ? 512 : 256; }
+
+// The back substitution's shared memory: level l's invD, A, C of its odd
+// positions plo .. plo + np - 1 and their rows of b (a chunk of columns),
+// level n first; then the two x buffers.
+__host__ __device__ inline int chain_level_doubles(int np, int Db, int Kc) {
+  return np > 0 ? np * (3 * Db * Db + Db * Kc) : 0;
+}
+
+template <int Db, int R, int V>
+__global__ void __launch_bounds__(chain_backsub_threads<R>())
+cr_backsub_chain_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
+                        double* __restrict__ x, int n, int K, int S, int Kc, int rows) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[kChainClocks];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kChainClocks; ++i) clk[i] = 0;
+#endif
+  CR_CHAIN_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  constexpr int BS = Db * Db;
+  constexpr int G = Db / R;  // threads a position and column
+  const int T = 1 << n;
+  const int c = blockIdx.x / S, s = blockIdx.x - c * S;
+  const long long rs = (long long)Db * K;  // a position's stride in HBM
+  const int RS = Db * Kc;                  // a staged row
+  int lo[kCrMaxLevels + 1], hi[kCrMaxLevels + 1];
+  chain_intervals(n, S, s, lo, hi);
+  // level l's region: at base[l], level n first
+  int base[kCrMaxLevels + 1];
+  int levels_doubles = 0;
+  for (int l = n; l >= 1; --l) {
+    int plo, np;
+    chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
+    base[l] = levels_doubles;
+    levels_doubles += chain_level_doubles(np, Db, Kc);
+  }
+  double* xa = sm + levels_doubles;  // x_l over its interval: two buffers of `rows` positions
+  double* xb = xa + rows * RS;
+  for (int k0 = 0; k0 < K; k0 += Kc) {
+    const int kc = min(Kc, K - k0);
+    // level l's copies, a cp.async group: its blocks (first chunk) and its
+    // odd rows of b. Issued two levels ahead of the level computed, level
+    // n first: the coarse levels start while the fine ones' copies (most of
+    // the bytes) are still in flight.
+    auto issue = [&](int l) {
+      int plo, np;
+      chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
+      if (np > 0) {
+        double* q = sm + base[l];
+        if (k0 == 0) {
+          const long long g = ((long long)c * (T >> l) + plo) * BS;
+          stage_span(q, lv.invD[l - 1] + g, np * BS);
+          stage_span(q + np * BS, lv.A[l - 1] + g, np * BS);
+          stage_span(q + 2 * np * BS, lv.C[l - 1] + g, np * BS);
+        }
+        stage_rhs(q + 3 * np * BS, RS,
+                  lv.b[l - 1] + ((long long)c * (T >> (l - 1)) + 2 * plo + 1) * rs + k0, 2 * rs,
+                  np, Db, K, Kc, kc);
+      }
+      cp_async_commit();
+    };
+    int issued = 0;  // levels n .. n - issued + 1 issued
+    for (; issued < 2 && issued < n; ++issued) issue(n - issued);
+    if (k0 == 0) {
+      CR_CHAIN_CLOCK(1)
+    }
+    double* cur = xa;
+    double* nxt = xb;
+    // x_n: the chain's one coarsest position
+    for (int w = threadIdx.x; w < Db * kc; w += blockDim.x) {
+      const int e = w / kc, k = w - e * kc;
+      cur[e * Kc + k] = xe[c * rs + (long long)e * K + k0 + k];
+    }
+    for (int l = n; l >= 1; --l) {
+      const int Tl = T >> l, ilo = lo[l - 1], ihi = hi[l - 1], xlo = lo[l];
+      int plo, np;
+      chain_odd(ilo, ihi, &plo, &np);
+      if (issued < n) issue(n - issued++);
+      cp_async_wait_upto(issued - (n - l) - 1);  // level l's blocks and b rows have landed
+      __syncthreads();                           // and x_l is in the buffer
+      if (k0 == 0) {
+        CR_CHAIN_CLOCK(2 + 2 * (n - l))
+      }
+      auto dst = [&](int i, int r, int k) -> double* {
+        return l > 1 ? nxt + (i - ilo) * RS + r * Kc + k
+                     : x + ((long long)c * T + i) * rs + (long long)r * K + k0 + k;
+      };
+      // x_{l-1}[2p] = x_l[p]
+      const int e0 = (ilo + 1) >> 1, ne = (ihi >> 1) - e0 + 1;
+      for (int w = threadIdx.x; w < ne * Db * kc; w += blockDim.x) {
+        const int k = w % kc, t = w / kc, r = t % Db, p = e0 + t / Db;
+        *dst(2 * p, r, k) = cur[(p - xlo) * RS + r * Kc + k];
+      }
+      // x_{l-1}[2p + 1] = invD ((b - A x_l[p]) - C x_l[p + 1]): R rows of a
+      // column a thread
+      double* blk = sm + base[l];
+      const double* Vb = blk;
+      const double* Ab = blk + np * BS;
+      const double* Cb = blk + 2 * np * BS;
+      double* bs = blk + 3 * np * BS;
+      const int per = kc / V;  // column groups: kc is even where V = 2
+      const int items = (np > 0 ? np : 0) * G * per;
+      for (int w = threadIdx.x; w < items; w += blockDim.x) {
+        const int k = (w % per) * V, t = w / per, j = t / G, r0 = (t - j * G) * R;
+        const int p = plo + j, o = j * BS;
+        const double* xs = cur + (p - xlo) * RS + k;
+        double* bw = bs + j * RS + k;
+        double xv[Db][V], rv[R][V];
+#pragma unroll
+        for (int q = 0; q < Db; ++q) load_cols_shared<V>(xs + q * Kc, xv[q]);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          double a[V] = {};
+          row_times_cols<Db, V>(Ab + o + (r0 + i) * Db, xv, a);
+#pragma unroll
+          for (int v = 0; v < V; ++v) rv[i][v] = bw[(r0 + i) * Kc + v] - a[v];
+        }
+        if (p + 1 < Tl) {
+#pragma unroll
+          for (int q = 0; q < Db; ++q) load_cols_shared<V>(xs + RS + q * Kc, xv[q]);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            double a[V] = {};
+            row_times_cols<Db, V>(Cb + o + (r0 + i) * Db, xv, a);
+#pragma unroll
+            for (int v = 0; v < V; ++v) rv[i][v] = rv[i][v] - a[v];
+          }
+        }
+        if constexpr (R == Db) {
+#pragma unroll
+          for (int i = 0; i < Db; ++i) {
+            double out[V] = {};
+            row_times_cols<Db, V>(Vb + o + i * Db, rv, out);
+            store_cols<V>(dst(2 * p + 1, i, k), out);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < R; ++i) bw[(r0 + i) * Kc] = rv[i][0];
+        }
+      }
+      if constexpr (R < Db) {
+        __syncthreads();  // every row of rv over the staged b
+        for (int w = threadIdx.x; w < items; w += blockDim.x) {
+          const int k = w % kc, t = w / kc, j = t / G, r0 = (t - j * G) * R;
+          double rv[Db];
+#pragma unroll
+          for (int q = 0; q < Db; ++q) rv[q] = bs[j * RS + q * Kc + k];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            double out = 0.0;
+            rows_times_col<Db, 1>(Vb + j * BS + (r0 + i) * Db, rv, &out);
+            *dst(2 * plo + 2 * j + 1, r0 + i, k) = out;
+          }
+        }
+      }
+      if (k0 == 0) {
+        CR_CHAIN_CLOCK(3 + 2 * (n - l))
+      }
+      double* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    __syncthreads();  // the buffers and the staged b are free for the next chunk
+  }
+  CR_CHAIN_CLOCK(31)
+  CR_CHAIN_CLOCKS_OUT(blockIdx.x == 0, x, (long long)(gridDim.x / S) * T * rs)
+}
+
+// ---------------------------------------------------------------------
 // band_pcr_solve: all PCR levels of the rhs replay plus x = invD b in one
 // launch. Three kernels, by block size and shape (ops/band.py picks):
 //
@@ -1765,15 +2281,6 @@ constexpr int kWideRing = 3;
 constexpr int kNarrowThreads = 512;
 // Accumulators per thread of the narrow kernel, IT * CT (Db = 6).
 constexpr int kNarrowAcc = 24;
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int Db>
 __global__ void __launch_bounds__(kWideMaxT)
@@ -2787,6 +3294,136 @@ cudaError_t launch_cr_backsub(const CrBacksubLevels& lv, const double* xe, doubl
   }
 }
 
+// Shared memory of cr_reduce_chain_kernel: the fine tile's (m > 0, one
+// level-m position and Kf columns: cr_reduce_smem) or the coarse phase's,
+// whichever is more: the coarse levels' E, F where staged, and a ring of
+// two chunks of Kc columns of the level-m rows (one where one chunk holds K).
+inline long long cr_chain_reduce_smem(int n, int Db, int K, int m, int Kf, int Kc, int stage) {
+  const long long Tc = (1LL << n) >> m;
+  const int chunks = (K + Kc - 1) / Kc;
+  long long d = ((chunks > 1 ? 2 : 1) * Tc * Db * Kc + (stage ? 2 * (Tc - 1) * Db * Db : 0)) *
+                (long long)sizeof(double);
+  if (m > 0) {
+    const long long f = cr_reduce_smem(m, Db, 1, Kf);
+    if (f > d) d = f;
+  }
+  return d;
+}
+
+// cr_backsub_chain_kernel over S segments of a chain of 2^n: the most
+// shared memory a segment takes (its levels' blocks and odd rows of b, two
+// x buffers of `rows` positions of Kc columns), `rows` (the longest
+// interval of x_l, l >= 1) and the most positions p of a level.
+inline void cr_chain_backsub_shape(int n, int Db, int S, int Kc, long long* smem, int* rows,
+                                   int* items) {
+  long long blocks = 0;
+  int r = 1, it = 1;
+  for (int s = 0; s < S; ++s) {
+    int lo[kCrMaxLevels + 1], hi[kCrMaxLevels + 1];
+    chain_intervals(n, S, s, lo, hi);
+    long long bl = 0;
+    for (int l = 1; l <= n; ++l) {
+      int plo, np;
+      chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
+      bl += chain_level_doubles(np, Db, Kc);
+      if (hi[l] - lo[l] + 1 > r) r = hi[l] - lo[l] + 1;
+      const int its = (hi[l - 1] >> 1) - (lo[l - 1] >> 1) + 1;
+      if (its > it) it = its;
+    }
+    if (bl > blocks) blocks = bl;
+  }
+  *rows = r;
+  *items = it;
+  *smem = (blocks + 2LL * r * Db * Kc) * (long long)sizeof(double);
+}
+
+template <int Db, int R, int V>
+cudaError_t launch_cr_reduce_chain_rows(const CrReduceLevels& lv, const double* b, int* tickets,
+                                        int nC, int n, int K, int m, int Kf, int Kc, int stage,
+                                        long long smem, cudaStream_t st) {
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(cr_reduce_chain_kernel<Db, R, V>, &allowed);
+  if (err != cudaSuccess) return err;
+  const int T = 1 << n, Tc = T >> m;
+  const long long blocks = m ? (long long)nC * Tc * ((K + Kf - 1) / Kf) : nC;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  // the first coarse level's items, and the fine tile's first level's
+  long long items = (long long)(Tc >> 1) * (Db / R) * ((K < Kc ? K : Kc) / V);
+  if (m > 0) {
+    const long long fine = (long long)((2 << (m - 1)) - 1) * (Db / R) * (K < Kf ? K : Kf);
+    if (fine > items) items = fine;
+  }
+  cr_reduce_chain_kernel<Db, R, V><<<(unsigned)blocks, cr_threads(items, kCrThreads), smem,
+                                     st>>>(
+      lv, b, tickets, n, T, K, m, Kf, Kc, stage);
+  return cudaGetLastError();
+}
+
+// band_cr_reduce on a run of n levels that ends at one position a chain, as
+// band._cr_chain_plan planned it: m fine levels a level-m position (and Kf
+// columns) a thread block, the rest over the whole chain in chunks of Kc
+// columns, the coarse E, F staged or not. The level-m rows are read back in
+// 16-byte units (whole rows, or K and Kc even), through L2 (cp.async.cg).
+template <int Db>
+cudaError_t launch_cr_reduce_chain(const CrReduceLevels& lv, const double* b, int* tickets,
+                                   int nC, int n, int K, int m, int Kf, int Kc, int stage,
+                                   cudaStream_t st) {
+  if (n < 1 || n > kCrMaxLevels || m < 0 || m >= n || Kf < 1 || Kf > K || Kc < 1 || Kc > K ||
+      (m > 0 && tickets == nullptr) || (m > 0 && Kc != K && (K % 2 || Kc % 2)))
+    return cudaErrorInvalidValue;
+  const long long smem = cr_chain_reduce_smem(n, Db, K, m, Kf, Kc, stage);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  // the panel: several rows a thread, and column pairs (double2) where
+  // every chunk's width falls on 16-byte boundaries (half the rows a thread
+  // at Db = 6: all six by two columns took more than 128 registers)
+  if (K >= kReduceRegisterRowsK && K % 2 == 0 && Kc % 2 == 0)
+    return launch_cr_reduce_chain_rows<Db, Db == 6 ? 3 : chain_rows<Db>(), 2>(
+        lv, b, tickets, nC, n, K, m, Kf, Kc, stage, smem, st);
+  if (K >= kReduceRegisterRowsK)
+    return launch_cr_reduce_chain_rows<Db, chain_rows<Db>(), 1>(lv, b, tickets, nC, n, K, m,
+                                                                Kf, Kc, stage, smem, st);
+  return launch_cr_reduce_chain_rows<Db, 1, 1>(lv, b, tickets, nC, n, K, m, Kf, Kc, stage,
+                                               smem, st);
+}
+
+template <int Db, int R, int V>
+cudaError_t launch_cr_backsub_chain_cols(const CrBacksubLevels& lv, const double* xe, double* x,
+                                         int nC, int n, int K, int S, int Kc, int rows,
+                                         long long smem, int items, cudaStream_t st) {
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(cr_backsub_chain_kernel<Db, R, V>, &allowed);
+  if (err != cudaSuccess) return err;
+  cr_backsub_chain_kernel<Db, R, V><<<nC * S,
+                                      cr_threads((long long)items * (Db / R) *
+                                                     ((K < Kc ? K : Kc) / V),
+                                                 chain_backsub_threads<R>()),
+                                      smem, st>>>(lv, xe, x, n, K, S, Kc, rows);
+  return cudaGetLastError();
+}
+
+// band_cr_backsub on a run of n levels that ends at one position a chain:
+// S segments a chain (a power of two up to 2^n), chunks of Kc columns.
+template <int Db>
+cudaError_t launch_cr_backsub_chain(const CrBacksubLevels& lv, const double* xe, double* x,
+                                    int nC, int n, int K, int S, int Kc, cudaStream_t st) {
+  if (n < 1 || n > kCrMaxLevels || S < 1 || S > (1 << n) || (S & (S - 1)) || Kc < 1 ||
+      Kc > K || (long long)nC * S > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  long long smem;
+  int rows, items;
+  cr_chain_backsub_shape(n, Db, S, Kc, &smem, &rows, &items);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  constexpr int R = chain_backsub_rows<Db>();
+  // column pairs (double2) where a thread holds all Db rows and every
+  // chunk's width and the output's columns fall on 16-byte boundaries
+  if constexpr (R == Db) {
+    if (K % 2 == 0 && Kc % 2 == 0 && reinterpret_cast<unsigned long long>(x) % 16 == 0)
+      return launch_cr_backsub_chain_cols<Db, R, 2>(lv, xe, x, nC, n, K, S, Kc, rows, smem,
+                                                    items, st);
+  }
+  return launch_cr_backsub_chain_cols<Db, R, 1>(lv, xe, x, nC, n, K, S, Kc, rows, smem, items, st);
+}
+
 template <int Db>
 cudaError_t launch_pcr_solve(const double* E, const double* F, const double* invD,
                              const double* b, double* x, int nC, int Tp, int L,
@@ -2884,6 +3521,27 @@ int band_cr_backsub(CrBacksubLevels lv, const double* xe, double* x, int levels,
   if ((long long)nC * T * K == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   BAND_DISPATCH(Db, launch_cr_backsub<kDb>(lv, xe, x, nC, levels, T, K, P, Kc, st))
+}
+
+// band_cr_reduce / band_cr_backsub on a run that ends at one position a
+// chain (levels halve the chain 2^levels to 1), by the plan of
+// band._cr_chain_plan: the reduce's fine levels m, their chunk Kf, the
+// coarse chunk Kc and whether the coarse E, F are staged, with `tickets`
+// (nC ints, zero; zero again after the launch; unused for m = 0); the back
+// substitution's segments S a chain and chunk Kc.
+int band_cr_reduce_chain(CrReduceLevels lv, const double* b, int* tickets, int levels, int nC,
+                         int Db, int K, int m, int Kf, int Kc, int stage, void* stream) {
+  if ((long long)nC * K == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  BAND_DISPATCH(Db, launch_cr_reduce_chain<kDb>(lv, b, tickets, nC, levels, K, m, Kf, Kc, stage,
+                                                st))
+}
+
+int band_cr_backsub_chain(CrBacksubLevels lv, const double* xe, double* x, int levels, int nC,
+                          int Db, int K, int S, int Kc, void* stream) {
+  if ((long long)nC * K == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  BAND_DISPATCH(Db, launch_cr_backsub_chain<kDb>(lv, xe, x, nC, levels, K, S, Kc, st))
 }
 
 // Db = 6: ct, the columns of a thread's register tile, as ops/band.py chose

@@ -744,3 +744,207 @@ def test_cr_plan(n, Tn, K, Db):
     assert band._cr_plan("reduce", 2, 256, 12, 18, 1) == (1, 18)
     assert band._cr_plan("element", 2, 256, 12, 18, 1) == (1, 18)
     assert band._cr_plan("narrow", 2, 256, 12, 1, 1) == (2, 1)
+
+
+# ------------------------------------------------------------------ #
+# The chain kernels: runs that end at one position a chain
+# ------------------------------------------------------------------ #
+
+
+def _cr_reduce_chain_replay(levels, b, plan):
+    """band_cr_reduce's chain kernel replayed (band.ReducePlan): the fine
+    levels 1 .. m as the tile kernel cuts them (one level-m position a
+    tile, chunks of Kf columns, with the halo), then the coarse levels
+    m + 1 .. n over each whole chain from the level-m rows, in chunks of Kc
+    columns, each level computed in place in the finest layout (level d's
+    position j at row j << d, its input's rows 2j -+ 1 at (2j -+ 1) << (d - 1))."""
+    n = len(levels)
+    C, T, Db, K = b.shape
+    m = plan.m
+    outs = [torch.full((C, T >> (lev + 1), Db, K), float("nan"), dtype=b.dtype)
+            for lev in range(n)]
+    if m:
+        for lev, o in enumerate(_cr_reduce_tiled(levels[:m], b, 1, plan.Kf)):
+            outs[lev] = o
+    src = outs[m - 1] if m else b
+    Tc = T >> m
+    for k0 in range(0, K, plan.Kc):
+        buf = src[..., k0:k0 + plan.Kc].clone()
+        for d in range(1, n - m + 1):
+            lv, sh, Th = levels[m + d - 1], d - 1, Tc >> d
+            s = torch.arange(Th)
+            own, up = s << d, ((2 * s + 1) << sh)
+            down = ((2 * s - 1).clamp_min(0)) << sh
+            E = lv.E * (s > 0).view(1, Th, 1, 1).to(b.dtype)
+            new = buf[:, own] + (E @ buf[:, down] + lv.F @ buf[:, up])
+            buf[:, own] = new
+            outs[m + d - 1][..., k0:k0 + plan.Kc] = new
+    return tuple(outs)
+
+
+def _cr_backsub_chain_replay(levels, fine, x, plan):
+    """band_cr_backsub's chain kernel replayed (band.BacksubPlan): each of
+    the S segments of a chain makes x_{l-1} over its interval
+    (band._chain_intervals) from x_l over the level above's, from the
+    coarsest position down, in chunks of Kc columns; only its own finest
+    rows are written."""
+    n = len(levels)
+    C, _, Db, K = x.shape
+    T = 1 << n
+    out = torch.full((C, T, Db, K), float("nan"), dtype=x.dtype)
+    for s in range(plan.S):
+        iv = band._chain_intervals(n, plan.S, s)
+        for k0 in range(0, K, plan.Kc):
+            cur = x[..., k0:k0 + plan.Kc]  # x_n over [0, 0]
+            for lev in range(n, 0, -1):
+                (ilo, ihi), (xlo, _) = iv[lev - 1], iv[lev]
+                lv, Tl = levels[lev - 1], T >> lev
+                nxt = torch.empty((C, ihi - ilo + 1, Db, cur.shape[-1]), dtype=x.dtype)
+                for i in range(ilo, ihi + 1):
+                    p = i >> 1
+                    xv = cur[:, p - xlo]
+                    if i % 2 == 0:
+                        nxt[:, i - ilo] = xv
+                        continue
+                    rv = fine[lev - 1][:, i, :, k0:k0 + plan.Kc] - lv.A[:, p] @ xv
+                    if p + 1 < Tl:
+                        rv = rv - lv.C[:, p] @ cur[:, p + 1 - xlo]
+                    nxt[:, i - ilo] = lv.invD[:, p] @ rv
+                cur = nxt
+            out[:, iv[0][0]:iv[0][1] + 1, :, k0:k0 + plan.Kc] = cur
+    return out
+
+
+# The runs of the cells that end at one position a chain: (chains of the
+# cell, levels, block size, rhs widths): the Monte-Carlo folds (100 trials
+# of 4 x 50; 16 trials of 3D 4x250), Manhattan-4's and 3D 1x1000's last
+# runs (their tails), robot20, 3D 4x250, a chain of two positions
+_CHAIN_RUNS = [(400, 6, 6, (56, 1)), (64, 8, 12, (18, 1)), (4, 4, 6, (138, 1)),
+               (1, 5, 12, (18, 1)), (20, 7, 6, (258, 1)), (4, 8, 12, (18, 1)),
+               (3, 1, 6, (5, 1)), (1, 1, 12, (19,))]
+
+
+def _cr_run_replayed(levels, b, x, C, n_sm=132):
+    """A run's reduce and back substitution replayed as the wrappers cut
+    it at C chains: the chain kernels' plans where they take the run, the
+    tile kernels' launches (band._cr_launch_depths, band._cr_plan)
+    otherwise. Returns (reduced rhs of every level, finest x)."""
+    n = len(levels)
+    C_, T, Db, K = b.shape
+    red, first, src = [], 0, b
+    plan = band._cr_chain_plan("reduce", n, Db, K, C, n_sm)
+    if plan is not None:
+        red = list(_cr_reduce_chain_replay(levels, b, plan))
+    else:
+        for d in band._cr_launch_depths("reduce", n, Db, K):
+            P, Kc = band._cr_plan("reduce", d, (T >> first) >> d, Db, K, C, n_sm)
+            red += _cr_reduce_tiled(levels[first:first + d], src, P, Kc)
+            first, src = first + d, red[-1]
+    fine = (b,) + tuple(red[:-1])
+    plan = band._cr_chain_plan("backsub", n, Db, K, C, n_sm)
+    if plan is not None:
+        return red, _cr_backsub_chain_replay(levels, fine, x, plan)
+    step = band._backsub_step(Db, K)
+    depths = band._cr_launch_depths(step, n, Db, K)
+    last = n
+    for d in reversed(depths):
+        first = last - d
+        P, Kc = band._cr_plan(step, d, (T >> first) >> d, Db, K, C, n_sm)
+        x = _cr_backsub_tiled(levels[first:last], fine[first:last], x,
+                              P, K if step == "narrow" else Kc)
+        last = first
+    return red, x
+
+
+@pytest.mark.parametrize("cell_C,n,Db,Ks", _CHAIN_RUNS)
+def test_cr_cells_runs_replayed(cell_C, n, Db, Ks):
+    """Every run of the cells that ends at one position a chain, replayed
+    in PyTorch as the wrappers cut it at the cell's chain count (the chain
+    kernels' segments, tickets' phases and chunks, or the tile kernels'
+    tiles where they keep the run), on 2 chains, against the plain twins:
+    1e-15 relative (the same products in the same grouping)."""
+    C, T = 2, 1 << n
+    levels = _cr_levels(C, T, Db, n, seed=n + Db)
+    rng = np.random.default_rng(n + Db)
+    for K in Ks:
+        b = torch.tensor(rng.standard_normal((C, T, Db, K)))
+        x = torch.tensor(rng.standard_normal((C, 1, Db, K)))
+        want = band.band_cr_reduce_plain(levels, b)
+        red, got = _cr_run_replayed(levels, b, x, cell_C)
+        for g, w in zip(red, want):
+            assert _rel(g, w) <= 1e-15
+        fine = (b,) + want[:-1]
+        assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-15
+        # and the chain kernels' cuts at 1 and 400 chains, where the routing
+        # keeps the tile kernels too
+        for C_ in (1, 400):
+            plan = band._chain_plan("reduce", n, Db, K, C_)
+            for g, w in zip(_cr_reduce_chain_replay(levels, b, plan), want):
+                assert _rel(g, w) <= 1e-15
+            plan = band._chain_plan("backsub", n, Db, K, C_)
+            got = _cr_backsub_chain_replay(levels, fine, x, plan)
+            assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-15
+
+
+@pytest.mark.parametrize("Db", [6, 12])
+@pytest.mark.parametrize("n", range(1, 9))
+def test_cr_chain_plan(n, Db):
+    """The chain kernels' plans at every run length a launch takes, at the
+    widths of directions, 3D and 2D panels and robot20: a plan exactly
+    where band._chain_takes routes the run to a chain kernel, within the
+    card's 227 KB; a whole-chain tile (m = 0, S = 1) holds no halo: its
+    shared memory is exactly its E, F (reduce) or invD, A, C and b rows
+    (back substitution) and its rhs chunks; the fine levels spread over
+    the card where the chains do not fill it; a back substitution's thread
+    blocks give every second SM one where the chain allows."""
+    T, BS = 1 << n, Db * Db
+    for C in (1, 4, 20, 64, 400):
+        for K in (1, 2, 5, 18, 19, 56, 138, 258):
+            assert (band._cr_chain_plan("reduce", n, Db, K, C) is not None) == (
+                band._chain_takes("reduce", n, Db, K, C, 132))
+            r = band._chain_plan("reduce", n, Db, K, C)
+            if r is not None:
+                smem = band._chain_reduce_smem(n, Db, K, *r)
+                assert smem <= band._SMEM_MAX and 0 <= r.m < n and 1 <= r.Kc <= K
+                assert r.m == 0 or r.Kc == K or (K % 2 == 0 and r.Kc % 2 == 0)
+                if r.m == 0:
+                    ring = (2 if r.Kc < K else 1) * T * Db * r.Kc
+                    assert smem == 8 * (ring + (2 * (T - 1) * BS if r.stage else 0))
+                assert r.m == 0 or C < 132
+            assert (band._cr_chain_plan("backsub", n, Db, K, C) is not None) == (
+                band._chain_takes("backsub", n, Db, K, C, 132))
+            bk = band._chain_plan("backsub", n, Db, K, C)
+            if bk is not None:
+                smem, rows, _ = band._chain_backsub_shape(n, Db, bk.S, bk.Kc)
+                assert smem <= band._SMEM_MAX and 1 <= bk.Kc <= K and T % bk.S == 0
+                if bk.S == 1:
+                    assert smem == 8 * ((T - 1) * (3 * BS + Db * bk.Kc) + 2 * (T // 2) * Db * bk.Kc)
+                assert 2 * C * bk.S >= min(132, 2 * C * T)
+
+
+def test_cr_chain_plans_of_the_cells():
+    """The thread blocks of the cells' last runs: the 100-trial fold's
+    reduce a chain a thread block (400, its E, F staged once, all 56
+    columns) and its back substitution 4 segments a chain (1,600); the
+    16-trial 3D fold's reduce over 2,048 fine thread blocks in one launch
+    (two launches of 1,024 + 64 before); 3D 1x1000's tail 8 and 32 (2 and 1
+    before); the tile kernels keep Manhattan-4's tail and the 3D fold's
+    back substitution. Launches a solve pass never rise."""
+    blocks = lambda r, C, n, K: C * ((1 << n) >> r.m) * -(-K // r.Kf) if r.m else C
+    for C, n, Db, K, want in ((400, 6, 6, 56, (400, 1600)), (64, 8, 12, 18, (2048, None)),
+                              (4, 4, 6, 138, (None, None)), (1, 5, 12, 18, (8, 32))):
+        r = band._cr_chain_plan("reduce", n, Db, K, C)
+        bk = band._cr_chain_plan("backsub", n, Db, K, C)
+        assert (r and blocks(r, C, n, K), bk and C * bk.S) == want
+    assert band._cr_chain_plan("reduce", 6, 6, 56, 400).stage
+    # (reduce, back substitution) launches a pass, before: (2, 2) at the 3D
+    # fold, (2, 2) on a chain of 512 (9 levels: runs of 5 and 4)
+    assert band.cr_solve_launches(8, 12, 18, 1, 64) == band.cr_solve_launches(8, 12, 18, 1, 4)
+    assert band.cr_solve_launches(8, 12, 18, 1, 64) == (1, 2)
+    assert band.cr_solve_launches(9, 6, 138, 1, 4) == (2, 2)
+    assert band.cr_solve_launches(8, 12, 18, Tn=4) == (2, 2)
+    # a batch's trial count moves no launch count: the folds against their
+    # 1-trial batches (4 chains)
+    for n, Db, C in ((6, 6, 400), (8, 12, 64)):
+        for K in (1, 18, 56):
+            assert band.cr_solve_launches(n, Db, K, 1, C) == band.cr_solve_launches(n, Db, K, 1, 4)

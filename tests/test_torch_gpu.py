@@ -587,6 +587,78 @@ def test_fused_cr_kernels_match_plain(cuda, Db, n, C):
     torch.cuda.synchronize()
 
 
+# Every run of the cells' solves: (chains, fine length, levels, block
+# size, panel width): the Monte-Carlo folds (100 trials of 4 x 50; 16
+# trials of 3D 4x250), Manhattan-4's two runs, 3D 1x1000's two, robot20,
+# 3D 4x250; then an odd width and a chain of two positions
+_CELL_RUNS = [(400, 64, 6, 6, 56), (64, 256, 8, 12, 18), (4, 512, 5, 6, 138),
+              (4, 16, 4, 6, 138), (1, 1024, 5, 12, 18), (1, 32, 5, 12, 18),
+              (20, 128, 7, 6, 258), (4, 256, 8, 12, 18), (4, 16, 4, 6, 19),
+              (64, 256, 8, 12, 19), (3, 2, 1, 6, 5), (2, 2, 1, 12, 19)]
+
+
+@pytest.mark.parametrize("C,T,n,Db,K", _CELL_RUNS)
+def test_cr_kernels_at_the_cells_runs(cuda, C, T, n, Db, K):
+    """band_cr_reduce and band_cr_backsub at every run a cell's solve
+    launches (the chain kernels where they take a run that ends at one
+    position a chain, the tile kernels elsewhere), at a direction and the
+    panel, against their plain twins (1e-12), in the launches
+    band.cr_solve_launches counts (one a chain kernel's run), counted
+    under the run; then the chain kernels' plans wherever the routing could
+    take the run (band._cr_chain_plan at 1 and 400 chains, forced)."""
+    gen = torch.Generator(device=cuda).manual_seed(C + T + n + Db + K)
+    levels = _random_levels(C, T, Db, n, gen, cuda)
+    sm = band._sm_count(cuda)
+    for k in (1, K):
+        b = torch.randn(C, T, Db, k, generator=gen, dtype=torch.float64, device=cuda)
+        band.reset_launch_counts()
+        red = band.band_cr_reduce(levels, b)
+        want = band.band_cr_reduce_plain(levels, b)
+        assert all(_rel(g, w) <= 1e-12 for g, w in zip(red, want))
+        fine, x = (b,) + want[:-1], torch.randn_like(want[-1])
+        got = band.band_cr_backsub(levels, fine, x)
+        assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-12
+        launches = band.cr_solve_launches(n, Db, k, T >> n, C, sm)
+        for kernel, count in zip((band.band_cr_reduce, band.band_cr_backsub), launches):
+            assert kernel.launches_by_run == {(Db, T, n): count}
+        if T >> n == 1:
+            planner = band._cr_chain_plan
+            for C_ in (1, 400):
+                plans = {step: band._chain_plan(step, n, Db, k, C_, sm)
+                         for step in ("reduce", "backsub")}
+                try:
+                    band._cr_chain_plan = lambda step, *a: plans["reduce" if step == "reduce"
+                                                                 else "backsub"]
+                    for g, w in zip(band.band_cr_reduce(levels, b), want):
+                        assert _rel(g, w) <= 1e-12
+                    got = band.band_cr_backsub(levels, fine, x)
+                    assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-12
+                finally:
+                    band._cr_chain_plan = planner
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C,Tp,Db,K", [(400, 64, 6, 56), (64, 256, 12, 18), (4, 512, 6, 138),
+                                       (1, 1024, 12, 18), (20, 128, 6, 258), (4, 256, 12, 18)])
+def test_band_solve_launches_as_counted(cuda, C, Tp, Db, K):
+    """A band solve at each cell's band shape launches the CR kernels as
+    band.cr_solve_launches counts them (a pass, and a second for a 3D
+    refinement step), and matches the CPU's solve (1e-12)."""
+    D, U = _band(C, Tp, Db, 91 + Tp, (Tp,) * C, cuda)
+    f = band.band_factor(D, U)
+    fc = band.band_factor(D.cpu(), U.cpu())
+    for k in (1, K):
+        b = torch.randn(C, Tp, Db, k, dtype=torch.float64, device=cuda)
+        band.reset_launch_counts()
+        x = band.band_solve(f, b)
+        passes = 1 + band.refine_steps(Db)
+        want = band.cr_solve_launches(len(f.levels), Db, k, 1, C, band._sm_count(cuda))
+        assert (band.band_cr_reduce.launches, band.band_cr_backsub.launches) == (
+            want[0] * passes, want[1] * passes)
+        assert _rel(x.cpu(), band.band_solve(fc, b.cpu())) <= 1e-12
+    torch.cuda.synchronize()
+
+
 def _dense_chain(D, U, c):
     """Chain c of the band (D, U) as a dense matrix on D's device."""
     Tp, Db = D.shape[1], D.shape[-1]
