@@ -26,9 +26,21 @@ without printing a result line:
    and ``tri_solve_lanes_kernel``, the solve's two layouts) and D = 3 (a
    spill fails the run);
 3. every band kernel of the default schedule (the band compacts to one
-   block a chain: ``band_init_a``, ``band_cr_level``, ``band_block_inv``,
+   block a chain: ``band_init_a``, the factor's levels, in
+   ``band_cr_factor``'s runs at Db = 6 (``band._factor_runs``; rows
+   ``band_cr_factor`` and, for the last of two, ``band_cr_factor[tail]``;
+   built for Db = 6 only) and a ``band_cr_level`` launch a level (3
+   positions a thread block on levels of 1,024 positions and more:
+   ``band._cr_level_tile``) and ``band_block_inv`` at Db = 12,
    ``band_cr_reduce``, ``band_pcr_solve`` on the remainder's one block,
-   ``band_cr_backsub``) against its plain PyTorch version on the card, at
+   ``band_cr_backsub``; ``band_cr_level`` and ``band_block_inv`` are
+   checked at both block sizes, and each cell prints a ``<cell> factor:``
+   line: the factor as ``band_factor`` runs it and in the parent's design
+   (a ``band_cr_level`` launch a level, at Db = 12 a position a thread
+   block), device us of each, launches of each counted by the wrappers
+   over one eager call (the path's held to ``band.factor_launches``), and
+   the bound; ``factor_*`` and ``parent_*`` keys of the row of the kernel
+   that takes the levels) against its plain PyTorch version on the card, at
    the band shapes of the four instances below (Manhattan-4: C = 4 chains
    padded to Tp = 512, 9 compacting levels; robot20: C = 20, Tp = 128, 7;
    Db = 6; 3D 4x250: C = 4, Tp = 256, 8, and 3D 1x1000: C = 1, Tp = 1024,
@@ -101,7 +113,9 @@ without printing a result line:
 4. Manhattan-4 (4 robots x 400 poses, 6 landmarks, inter-robot ranges,
    seed 0) solved as SOCP on the card: solved status, relative gap <=
    1e-6, det(R) = +1 for every rounded pose, and every band kernel of its
-   path (all but ``band_pcr_level``) launched during the solve;
+   path (all but ``band_pcr_level``, ``band_cr_level`` and
+   ``band_block_inv``; at Db = 12 all but ``band_pcr_level`` and
+   ``band_cr_factor``) launched during the solve;
 5. the same for the 20-robot world (20 x 100 poses, 10 landmarks, seed 20),
    whose arrow panel runs K in the hundreds;
 6. Manhattan-4 as QCQP in f64: the same checks; then the 3D instances of
@@ -219,12 +233,12 @@ without printing a result line:
    (event time, device time, plain time, the bound from bytes and
    operations, and a PyTorch call computing the same function where one
    exists, by events and in device time, ``library_us``): a row per kernel at
-   the 2D shapes; for the band kernels a row ``<name>[Db=12]`` at 3D
-   1x1000's shapes with its launches per 3D 1x1000
-   SOCP solve; for the CR kernels rows ``<name>[tail]`` and
-   ``<name>[Db=12 tail]`` at the last run of Manhattan-4's and 3D
-   1x1000's solves, with that run's launches per solve
-   (``launches_by_run``); for the block kernels rows ``<name>[D=12]`` and
+   the 2D shapes; for the band kernels but ``band_cr_factor`` a row
+   ``<name>[Db=12]`` at 3D 1x1000's shapes with its launches per 3D 1x1000
+   SOCP solve; for the CR kernels rows ``<name>[tail]`` (the factor's and
+   the rhs kernels') and ``<name>[Db=12 tail]`` (the rhs kernels') at the
+   last run of Manhattan-4's and 3D 1x1000's solves, with that run's
+   launches per solve (``launches_by_run``); for the block kernels rows ``<name>[D=12]`` and
    ``<name>[D=3]`` at 3D 4x250's shapes with their launches per 3D 4x250
    f32 QCQP solve; rows ``<name>[mc]`` at the Monte-Carlo fold's
    shapes with their launches per 100-trial batch solve, ``<name>[mc3d]``
@@ -264,6 +278,7 @@ REPLACES = {
     "band_block_inv": "score_tpu/ops/pallas_pcr.py:423",
     "band_pcr_solve": "score_tpu/ops/pallas_pcr.py:433",
     "band_cr_level": "score_tpu/ops/pallas_pcr.py:362",
+    "band_cr_factor": "score_tpu/ops/pallas_pcr.py:362",
     "band_cr_reduce": "score_tpu/ops/pallas_pcr.py:385",
     "band_cr_backsub": "score_tpu/ops/pallas_pcr.py:405",
     "block_chol": "score_tpu/ops/pallas_blocks.py:36",
@@ -473,6 +488,18 @@ def _band_cost(name, *args):
         n = D.shape[-1]
         rows = D.numel() // n ** 2 // 2  # kept rows; one odd-row inverse each
         return (3 * D.numel() + 4 * D.numel()) * f8, rows * (_inv_flops(n) + 12 * n ** 3 + 2 * n * n)
+    if name == "band_cr_factor":
+        # one launch for n levels: D, A, C read once; every level's E, F,
+        # invD, A, C written once, then the last level's band or, where it
+        # has one block a chain, that block's inverse; an inverse and the
+        # products of every kept row (and the last inverse)
+        D, _, _, levels, last = args
+        n, pos = D.shape[-1], D.numel() // D.shape[-1] ** 2
+        kept = sum(pos >> lev for lev in range(1, levels + 1))
+        tail = pos >> levels
+        return ((3 * pos + 5 * kept + (1 if last else 3) * tail) * n * n * f8,
+                kept * (_inv_flops(n) + 12 * n ** 3 + 2 * n * n) + (tail * _inv_flops(n) if last
+                                                                     else 0))
     if name == "band_cr_reduce":
         # one launch for every level: each level's E and F read once, the
         # fine rhs read once, each level's reduced rhs written once
@@ -585,18 +612,46 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
     n_cr = band.cr_depth(Tp) if n_cr is None else n_cr
     A = chk("band_init_a", lambda: band.band_init_a(U), lambda: band.band_init_a_plain(U),
             _band_cost("band_init_a", U))
-    Dl, Al, Cl = D, A, U
-    levels = []
+    # a band_cr_level launch a level and band_block_inv (the 3D factor's
+    # path; at Db = 6 the parent's design, kept for band_cr_level's callers
+    # and for levels that stop above one block a chain): held to their twins
+    # at the cell's shapes
+    Dl, Al, Cl, by_level = D, A, U, []
     for _ in range(n_cr):
         args = (Dl, Al, Cl)
         out = chk("band_cr_level", lambda: band.band_cr_level(*args),
                   lambda: band.band_cr_level_plain(*args), _band_cost("band_cr_level", *args))
-        levels.append(band.CRLevel(*out[:5]))
+        by_level.append(band.CRLevel(*out[:5]))
         Dl, Al, Cl = out[5:]
+    Dn = Dl
+    inv_n = chk("band_block_inv", lambda: band.band_block_inv(Dn),
+                lambda: band.band_block_inv_plain(Dn), _band_cost("band_block_inv", Dn),
+                library=lambda: torch.linalg.inv_ex(Dn))
+    # the factor's runs where band_cr_factor takes it (Db = 6), a launch
+    # each (band._factor_runs), each fed the kernel's outputs of the run
+    # before; at Db = 12 the band_cr_level levels above are the factor's
+    fruns = band._factor_runs(Tp, Db, n_cr) if band._factor_takes(Db) else []
+    levels, invD = by_level, inv_n
+    if fruns:
+        Dl, Al, Cl, T, levels, invD = D, A, U, Tp, [], None
+    for i, n in enumerate(fruns):
+        args = (Dl, Al, Cl, n, T >> n == 1)
+        name = "band_cr_factor[tail]" if i and i == len(fruns) - 1 else "band_cr_factor"
+        out = chk(name, lambda: _run_tensors(band.band_cr_factor(*args)),
+                  lambda: _run_tensors(band.band_cr_factor_plain(*args)),
+                  _band_cost("band_cr_factor", *args))
+        levels += [band.CRLevel(*out[5 * lev:5 * lev + 5]) for lev in range(n)]
+        T >>= n
+        if T == 1:
+            invD = out[-1]
+        else:
+            Dl, Al, Cl = out[-3:]
+    factor_row = _factor_row(label, D, A, U, n_cr, chk.rows) if n_cr else {}
     Es, Fs = [], []
-    invD = chk("band_block_inv", lambda: band.band_block_inv(Dl),
-               lambda: band.band_block_inv_plain(Dl), _band_cost("band_block_inv", Dl),
-               library=lambda: torch.linalg.inv_ex(Dl))
+    if invD is None:  # band_cr_factor's levels stop above one block a chain
+        invD = chk("band_block_inv", lambda: band.band_block_inv(Dl),
+                   lambda: band.band_block_inv_plain(Dl), _band_cost("band_block_inv", Dl),
+                   library=lambda: torch.linalg.inv_ex(Dl))
     for lev in range(band.num_levels(Tp >> n_cr)):
         args = (Dl, Al, Cl, invD, 1 << lev)
         E, F, Dl, Al, Cl, invD = chk("band_pcr_level", lambda: band.band_pcr_level(*args),
@@ -607,7 +662,7 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
     if Es:
         E, F = torch.stack(Es), torch.stack(Fs)
     else:  # compacted to one block: the remainder's solve is x = invD b
-        E = F = Dl.new_zeros((0,) + tuple(Dl.shape))
+        E = F = invD.new_zeros((0,) + tuple(invD.shape))
     runs = band._cr_runs(n_cr) if n_cr else []
     rng = np.random.default_rng(Tp)
     resid = {}
@@ -667,18 +722,105 @@ def phase_kernels(label, C, Tp, K, Db, device, n_cr=None):
              f"device_us={r['k1_device_us']:.2f} plain_ms={r['k1_plain_ms']:.4f} "
              f"bound_ms={r['k1_bound_ms']:.6f} ({r['k1_bound_by']}); at the panel K={K}: "
              f"kernel_ms={r['ms']:.4f} device_us={r['device_us']:.2f}")
-    missing = [k for k in _path_kernels(Tp, n_cr) if k not in chk.rows]
+    missing = [k for k in _path_kernels(Tp, Db, n_cr) if k not in chk.rows]
     if missing:
         raise AssertionError(f"{label}: kernels not checked: {missing}")
+    if n_cr:
+        chk.rows["band_cr_factor" if fruns else "band_cr_level"].update(factor_row)
     return chk.rows
 
 
-def _tail_run(Tp, Db):
-    """``Db,T,levels`` of the last run of a band solve of chains of Tp:
-    the launches_by_run key of its CR kernels."""
+def _run_tensors(run):
+    """A band_cr_factor run's tensors: every level's E, F, invD, A, C, then
+    the band it leaves (D, A, C) or the last block's inverse."""
+    tail = (run.invD,) if run.invD is not None else (run.D, run.A, run.C)
+    return tuple(t for lv in run.levels for t in lv) + tail
+
+
+def _factor_row(label, D, A, U, n_cr, rows):
+    """A cell's factor (``band_init_a`` aside) on the same inputs two ways:
+    the path's, as band_factor runs it (band._factor_takes: band_cr_factor's
+    runs at Db = 6, whose last inverts the one block a chain; a
+    band_cr_level launch a level at the planner's tiles and band_block_inv
+    at Db = 12), and the parent's design (a band_cr_level launch a level and
+    band_block_inv; at Db = 12 one coarse position a thread block). Each
+    ends with band_block_inv where it leaves more than one block a chain.
+    Device us of each (a replayed CUDA graph); launches of each, counted by
+    the wrappers over one eager call with the band counters at 0 (the
+    path's held to band.factor_launches); the bound (D, A, C read once,
+    every level's E, F, invD, A, C and the last invD written once, over the
+    HBM rate; the remainder's band too where the levels stop above one
+    block). Logged, and returned as keys of the row of the kernel that
+    takes the factor's levels."""
+    import torch
     from score_tpu_torch.ops import band
 
-    runs = band._cr_runs(band.cr_depth(Tp))
+    C, Tp, Db, _ = D.shape
+    fused = band._factor_takes(Db)
+    runs = band._factor_runs(Tp, Db, n_cr) if fused else []
+
+    def by_runs():
+        Dl, Al, Cl, T = D, A, U, Tp
+        for n in runs:
+            run = band.band_cr_factor(Dl, Al, Cl, n, T >> n == 1)
+            Dl, Al, Cl, T = run.D, run.A, run.C, T >> n
+        if T > 1:
+            band.band_block_inv(Dl)
+
+    def by_levels():
+        Dl, Al, Cl = D, A, U
+        for _ in range(n_cr):
+            Dl, Al, Cl = band.band_cr_level(Dl, Al, Cl)[5:]
+        band.band_block_inv(Dl)
+
+    def one_position():  # band_cr_level as the parent tiled it at Db = 12
+        plan = band._cr_level_tile
+        band._cr_level_tile = lambda nC, Th, Db: 1
+        try:
+            by_levels()
+        finally:
+            band._cr_level_tile = plan
+
+    def launched(fn):
+        band.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return sum(k.launches for k in (band.band_cr_factor, band.band_cr_level,
+                                        band.band_block_inv))
+
+    path, parent = (by_runs, by_levels) if fused else (by_levels, one_position)
+    kept = sum(C * (Tp >> lev) for lev in range(1, n_cr + 1))
+    tail = C * (Tp >> n_cr)
+    nbytes = (3 * C * Tp + 5 * kept + (tail if tail == C else 4 * tail)) * Db * Db * 8
+    row = dict(factor_route="band_cr_factor" if fused else "band_cr_level",
+               factor_runs=runs, factor_bound_us=nbytes / HBM_BYTES_PER_S * 1e6,
+               factor_launches=launched(path), factor_device_us=_device_us(path),
+               parent_launches=launched(parent), parent_device_us=_device_us(parent))
+    want = band.factor_launches(Tp, Db, n_cr) - band.num_levels(Tp >> n_cr)
+    if row["factor_launches"] != want or row["parent_launches"] != n_cr + 1:
+        raise AssertionError(f"{label}: factor launches {row['factor_launches']} (planner: "
+                             f"{want}), parent design {row['parent_launches']} (want "
+                             f"{n_cr + 1})")
+    err = max(r["max_rel"] for k, r in rows.items()
+              if k.startswith("band_cr_factor" if fused else "band_cr_level"))
+    _log(f"{label} factor: band_factor takes {row['factor_route']}"
+         + (f" runs {runs}" if fused else " at the planner's tiles")
+         + f": device_us={row['factor_device_us']:.2f} launches={row['factor_launches']}; "
+         f"the parent's design (a band_cr_level launch a level"
+         + ("" if fused else ", a position a thread block")
+         + f"): device_us={row['parent_device_us']:.2f} launches={row['parent_launches']}; "
+         f"bound_us={row['factor_bound_us']:.3f}; max_rel_diff={err:.3e}")
+    return row
+
+
+def _tail_run(Tp, Db, kernel="band_cr_reduce"):
+    """``Db,T,levels`` of the last run of a band solve of chains of Tp
+    (the launches_by_run key of its CR kernels), or of its factor for
+    ``band_cr_factor``."""
+    from score_tpu_torch.ops import band
+
+    runs = (band._factor_runs(Tp, Db) if kernel == "band_cr_factor"
+            else band._cr_runs(band.cr_depth(Tp)))
     return f"{Db},{Tp >> sum(runs[:-1])},{runs[-1]}"
 
 
@@ -1152,15 +1294,25 @@ def _depth_to(Tp, base):
     return n
 
 
-def _path_kernels(Tp, n_cr=None):
-    """Names of the band kernels a solve with chains padded to Tp runs at
-    the default schedule (or ``n_cr`` compacting levels): the compacting-CR
-    kernels where its band compacts, ``band_pcr_level`` where a remainder
-    longer than one block is left (at the default schedule, none)."""
+def _path_kernels(Tp, Db, n_cr=None):
+    """Names of the band kernels a solve with chains padded to Tp of
+    Db-blocks runs at the default schedule (or ``n_cr`` compacting levels):
+    the compacting-CR kernels where its band compacts (its factor's levels
+    in band_cr_factor launches at Db = 6, whose last run inverts the one
+    block a chain where the levels end there; a band_cr_level launch a
+    level and band_block_inv at Db = 12: band._factor_takes),
+    ``band_pcr_level`` where a remainder longer than one block is left (at
+    the default schedule, none)."""
     from score_tpu_torch.ops import band
 
     n = band.cr_depth(Tp) if n_cr is None else n_cr
-    off = set() if n else {band.band_cr_level, band.band_cr_reduce, band.band_cr_backsub}
+    fused = band._factor_takes(Db)
+    off = {band.band_cr_level} if fused else {band.band_cr_factor}
+    if not n:
+        off |= {band.band_cr_factor, band.band_cr_level, band.band_cr_reduce,
+                band.band_cr_backsub}
+    elif fused and Tp >> n == 1:
+        off.add(band.band_block_inv)
     if not band.num_levels(Tp >> n):
         off.add(band.band_pcr_level)
     return [k.__name__ for k in band.KERNELS if k not in off]
@@ -1400,7 +1552,7 @@ def _counts():
 
     launches = {k.__name__: k.launches for k in band.KERNELS + blocks.KERNELS}
     launches.update({f"{k.__name__}[run={','.join(map(str, run))}]": c
-                     for k in (band.band_cr_reduce, band.band_cr_backsub)
+                     for k in (band.band_cr_factor, band.band_cr_reduce, band.band_cr_backsub)
                      for run, c in k.launches_by_run.items()})
     launches["block_chol_solve.two_rhs"] = blocks.block_chol_solve.two_rhs_launches
     by_size = {f"{k.__name__}[{key}={n}]": c
@@ -1441,7 +1593,7 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
     if f32:
         _check_f32_launches(label, launches, by_size, plain_back, d, relaxation)
     else:
-        expected = [f"{k}[Db={Db}]" for k in _path_kernels(Tp)]
+        expected = [f"{k}[Db={Db}]" for k in _path_kernels(Tp, Db)]
         missing = [k for k in expected if by_size[k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
@@ -1783,7 +1935,7 @@ def phase_refine(cells, results=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         _, by_size = _counts()
-        missing = [k for k in _path_kernels(Tp) if by_size[f"{k}[Db={Db}]"] == 0]
+        missing = [k for k in _path_kernels(Tp, Db) if by_size[f"{k}[Db={Db}]"] == 0]
         if missing:
             raise AssertionError(f"refine {label}: kernels not launched by the solve: {missing}")
         earlier = [plain] + ([results[label]] if results and label in results else [])
@@ -2095,7 +2247,7 @@ def phase_mc_batch(dev, kind="f64"):
     if f32:
         want = [f"block_chol[D={ca.D}]", f"block_chol_solve[D={ca.D}]"]
     else:
-        want = [f"{k}[Db={ca.D}]" for k in _path_kernels(band.pad_length(ca.T))]
+        want = [f"{k}[Db={ca.D}]" for k in _path_kernels(band.pad_length(ca.T), ca.D)]
     missing = [k for k in want if by_size[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels not launched by the batch: {missing}")
@@ -2516,7 +2668,7 @@ def phase_sharded(dev, robot20_fg):
         for case in ("robot20", "mc"):
             g, (w, wall) = got[case], want[case]
             C, Tp, A, Db = band_shape[case]
-            idle = [(r, k) for r, la in enumerate(g["launches"]) for k in _path_kernels(Tp)
+            idle = [(r, k) for r, la in enumerate(g["launches"]) for k in _path_kernels(Tp, Db)
                     if not la.get(k)]
             if idle:
                 raise AssertionError(f"{tag} {case}: kernels not launched on (rank, kernel) "
@@ -2614,7 +2766,7 @@ def main() -> int:
     # BACK>; D = 3: chol_kernel, tri_solve_kernel<3, V, BACK>; the worst over
     # the other template arguments)
     only = {"pcr_solve_wide_kernel": 6, "pcr_solve_narrow_kernel": 6, "pcr_level_kernel": 6,
-            "block_inv_kernel": 6, "cr_level_kernel": 6,
+            "block_inv_kernel": 6, "cr_level_kernel": 6, "cr_factor_kernel": 6,
             "pcr_solve_cluster_kernel": 12, "pcr_level_element_kernel": 12,
             "block_inv_element_kernel": 12, "cr_level_element_kernel": 12,
             "cr_backsub_element_kernel": 12, "cr_backsub_wide_kernel": 6}
@@ -2626,6 +2778,7 @@ def main() -> int:
                                     ("band_pcr_level", "pcr_level_element_kernel"),
                                     ("band_cr_level", "cr_level_kernel"),
                                     ("band_cr_level", "cr_level_element_kernel"),
+                                    ("band_cr_factor", "cr_factor_kernel"),
                                     ("band_cr_reduce", "cr_reduce_levels_kernel"),
                                     ("band_cr_reduce", "cr_reduce_chain_kernel"),
                                     ("band_pcr_solve", "pcr_solve_wide_kernel"),
@@ -2753,18 +2906,22 @@ def main() -> int:
     timed = {**rows["manhattan4"], **block_rows}
     timed.update({name.replace("[tail]", "[Db=12 tail]") if name.endswith("[tail]")
                   else f"{name}[Db=12]": r for name, r in rows["3d-1x1000"].items()})
+    fold = lambda name, tag: (name.replace("[tail]", f"[{tag} tail]") if name.endswith("[tail]")
+                              else f"{name}[{tag}]")
     for tag in ("mc", "mc3d"):
-        timed.update({f"{name}[{tag}]": r for name, r in rows[tag].items()})
+        timed.update({fold(name, tag): r for name, r in rows[tag].items()})
     for key, suffix in (("manhattan4", ""), ("3d-1x1000", "[Db=12]"), ("mc", "[mc]")):
         timed[f"band_pcr_level{suffix}"] = dict(earlier[key]["band_pcr_level"],
                                                 note=PCR_LEVEL_NOTE)
-    tails = [f"{k}[{tag}]" for tag in ("tail", "Db=12 tail")
-             for k in ("band_cr_reduce", "band_cr_backsub")]
-    names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS] + tails
+    # band_cr_factor is built for Db = 6 only: no Db = 12 or mc3d row
+    tails = ([f"{k}[tail]" for k in ("band_cr_factor", "band_cr_reduce", "band_cr_backsub")]
+             + [f"{k}[Db=12 tail]" for k in ("band_cr_reduce", "band_cr_backsub")])
+    names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS
+                               if k is not band.band_cr_factor] + tails
              + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)]
              + [f"{k.__name__}[mc]" for k in band.KERNELS
                 if k.__name__ in rows["mc"] or k is band.band_pcr_level]
-             + [f"{k}[mc3d]" for k in rows["mc3d"]]
+             + [fold(k, "mc3d") for k in rows["mc3d"]]
              + [f"{k}[mc-f32]" for k in ("block_chol", "block_chol_solve")])
     kernels = []
     for name in names:
@@ -2774,7 +2931,7 @@ def main() -> int:
             key, (_, fg, shape) = (("3d-1x1000", cells_3d[1]) if "Db=12" in name
                                    else ("manhattan4", cells[0]))
             source, launched = BAND_SOURCE, launches[key].get(
-                f"{base}[run={_tail_run(shape[1], shape[3])}]", 0)
+                f"{base}[run={_tail_run(shape[1], shape[3], base)}]", 0)
         elif name.endswith("[mc-f32]"):  # launches per 100-trial f32 batch solve
             source, launched = BLOCKS_SOURCE, f32_launches[base]
         elif name.endswith("[mc3d]"):  # launches per 16-trial 3D 4x250 batch solve
@@ -2795,7 +2952,8 @@ def main() -> int:
             device_us=row["device_us"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], library_us=row["library_us"],
-            **{k: v for k, v in row.items() if k.startswith("k1_") or k == "note"}))
+            **{k: v for k, v in row.items()
+               if k.startswith(("k1_", "factor_", "parent_")) or k == "note"}))
     _log(f"launch_floor_us={launch_floor_us:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

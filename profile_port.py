@@ -33,9 +33,9 @@ direction, K = 1, and the arrow panel) at the PCR remainder's shape of
 both instances,
 ``band_cr_level`` at Manhattan-4's first level and at the deeper levels'
 and robot20's shapes of the depth sweep, at Db = 12 ``band_cr_level`` at
-3D 1x1000's two levels (also from builds of ``band.cu`` at each tiling,
-``-DBAND_CR_LEVEL_POSITIONS`` = 1 to 4 coarse positions a thread block,
-held bit for bit to the package's build) and ``band_block_inv`` at the
+3D 1x1000's two levels and the 3D fold's first (also at each tiling it is
+built for, ``band._cr_level_tile`` forced to 1 and 3 coarse positions a
+thread block, held bit for bit to the planner's) and ``band_block_inv`` at the
 3D remainders (C = 1 and 4 chains of 256), both also from a build without
 their shared element inversion (``-DBAND_LEVEL_NO_INVERSE``), ``band_cr_reduce`` and
 ``band_cr_backsub`` (one solve's launches: one each with the fused
@@ -70,6 +70,25 @@ chain back substitution's rows a thread from measurement builds of
 package with the chain kernels, each plan of ``_CHAIN_SWEEP`` beside the
 planner's and the tile kernels' at the same run. With ``--root`` in
 turns against another checkout (parent, change, change, parent).
+
+    python3 profile_port.py --factor [--builds] [--root DIR] [--out FILE]
+
+times the band factor alone (``band_factor`` at the default schedule,
+``band_init_a`` excluded: it is replaced by the A it gave) at
+``_FACTOR_CELLS``, the cells' factors (Manhattan-4, robot20, 3D 4x250, 3D
+1x1000, the 2D and 3D folds): device us of the whole factor, its launches
+and its bound (D, A, C read once, every level's E, F, invD, A, C and the
+last invD written once), then each of its launches alone as the factor
+feeds it (where ``band._factor_takes`` gives the factor to
+``band_cr_factor``, Db = 6: each run of ``band._factor_runs``; at Db = 12
+and before it: each ``band_cr_level`` level and ``band_block_inv``), and
+at the 3D fold the factor and its levels at each tiling of
+``band_cr_level`` (``_forced_tile``: P = 1, the parent's, and 3). With
+``--builds`` also the measurement builds of ``_FACTOR_BUILDS`` (the
+inversions compiled out; the clock build, whose phases, SM cycles of
+thread block 0, print for each run) and the plans of ``_FACTOR_SWEEP``
+(the most levels of the last run). With ``--root`` in turns against
+another checkout (parent, change, change, parent).
 
     python3 profile_port.py --schedule [--out FILE]
 
@@ -228,7 +247,7 @@ def _warm_walls(fg, n=3, precision="f64", relaxation="SOCP"):
 # tri_lower_kernel, cr_backsub_kernel, cr_reduce_kernel and the narrow and
 # wide cr_backsub kernels are kernels of --root checkouts from before
 # tri_solve_kernel and the fused CR kernels
-_KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_level_element_kernel",
+_KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_level_element_kernel", "cr_factor_kernel",
                  "block_inv_element_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
                  "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                  "cr_reduce_levels_kernel", "cr_backsub_levels_kernel",
@@ -501,13 +520,13 @@ _REMAINDERS = {"manhattan4": (4, 256, 138), "robot20": (20, 128, 258)}
 # direction, a level's couplings and the arrow panel at Manhattan-4's first
 # level, and robot20's panel
 _CR_LEVEL_SHAPES = ((4, 512), (1, 1024), (1, 2048), (20, 128))
-# at Db = 12: band_cr_level at 3D 1x1000's two levels (C, fine length),
-# band_block_inv at 3D 1x1000's and 3D 4x250's PCR remainders (C, Tp), and
-# the coarse positions of a band_cr_level thread block in the builds of
-# band.cu that time each tiling (-DBAND_CR_LEVEL_POSITIONS)
-_CR_LEVEL_SHAPES_3D = ((1, 1024), (1, 512))
+# at Db = 12: band_cr_level at 3D 1x1000's two levels and the 3D fold's
+# first (C, fine length), band_block_inv at 3D 1x1000's and 3D 4x250's PCR
+# remainders (C, Tp), and the coarse positions of a band_cr_level thread
+# block that band.cu is built for (band._cr_level_tile forced to each)
+_CR_LEVEL_SHAPES_3D = ((1, 1024), (1, 512), (64, 256))
 _BLOCK_INV_SHAPES_3D = ((1, 256), (4, 256))
-_CR_LEVEL_TILINGS = (1, 2, 3, 4)
+_CR_LEVEL_TILINGS = (1, 3)
 _DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
 # band_cr_reduce and band_cr_backsub at the launches of the cells' solves:
 # (label, chains, fine length of the run, block size, levels of the run,
@@ -563,9 +582,10 @@ def _band_builds(flags, prefix):
     procs, libs = {}, {}
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for flag in flags:
-        so = build.BUILD_DIR / (prefix + flag.replace("=", "_")[2:] + ".so")
+        so = build.BUILD_DIR / (prefix + flag.replace("=", "_").replace(" ", "")[2:] + ".so")
         procs[flag] = (so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, flag, "-o", str(so), str(build.SOURCES["band"])],
+            [build._nvcc(), *build.NVCC_FLAGS, *flag.split(), "-o", str(so),
+             str(build.SOURCES["band"])],
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
     for flag, (so, proc) in procs.items():
         if proc.wait():
@@ -589,33 +609,48 @@ def _band_builds(flags, prefix):
     return libs
 
 
+def _forced_tile(P):
+    """A context in which band_cr_level takes P coarse positions a thread
+    block at Db = 12, whatever its planner (band._cr_level_tile) says."""
+    import contextlib
+
+    from score_tpu_torch.ops import band
+
+    @contextlib.contextmanager
+    def forced():
+        plan = band._cr_level_tile
+        band._cr_level_tile = lambda nC, Th, Db: P if Db == 12 else plan(nC, Th, Db)
+        try:
+            yield
+        finally:
+            band._cr_level_tile = plan
+
+    return forced()
+
+
 def _element_times(device):
     """The Db = 12 element kernels: band_cr_level at ``_CR_LEVEL_SHAPES_3D``
     and band_block_inv at ``_BLOCK_INV_SHAPES_3D``, device us and event ms;
-    where the package's band.cu takes -DBAND_CR_LEVEL_POSITIONS, also
-    band_cr_level from a build at each tiling of ``_CR_LEVEL_TILINGS`` (P
-    coarse positions a thread block), whose eight outputs must equal the
-    package build's bit for bit, and both kernels from a build with
-    -DBAND_LEVEL_NO_INVERSE (the shared element inversion compiled out:
-    what the rest of a launch costs)."""
+    where the package plans band_cr_level's tile (band._cr_level_tile),
+    also band_cr_level at each tiling of ``_CR_LEVEL_TILINGS`` (P coarse
+    positions a thread block), whose eight outputs must equal the planner's
+    bit for bit, and both kernels from a build with -DBAND_LEVEL_NO_INVERSE
+    (the shared element inversion compiled out: what the rest of a launch
+    costs)."""
     import torch
     from chip_smoke import _device_us
-    from score_tpu_torch.ops import band, build
+    from score_tpu_torch.ops import band
 
-    libs = {}
-    if "BAND_CR_LEVEL_POSITIONS" in build.SOURCES["band"].read_text():
-        libs = _band_builds([f"-DBAND_CR_LEVEL_POSITIONS={P}" for P in _CR_LEVEL_TILINGS]
-                            + ["-DBAND_LEVEL_NO_INVERSE"], "element")
-    ablation = libs.pop("-DBAND_LEVEL_NO_INVERSE", None)
+    ablation = _band_builds(["-DBAND_LEVEL_NO_INVERSE"], "element")["-DBAND_LEVEL_NO_INVERSE"]
+    tilings = _CR_LEVEL_TILINGS if hasattr(band, "_cr_level_tile") else ()
     rows = []
 
     def timed(kernel, shape, fn):
         rows.append(dict(cell="3D band", kernel=kernel, shape=shape,
                          device_us=_device_us(fn), event_ms=_event_ms(fn)))
-        if ablation is not None:
-            rows.append(dict(cell="3D band", kernel=f"{kernel}, no inverse", shape=shape,
-                             device_us=_through(ablation, lambda: _device_us(fn)),
-                             event_ms=_through(ablation, lambda: _event_ms(fn))))
+        rows.append(dict(cell="3D band", kernel=f"{kernel}, no inverse", shape=shape,
+                         device_us=_through(ablation, lambda: _device_us(fn)),
+                         event_ms=_through(ablation, lambda: _event_ms(fn))))
 
     for C, T in _CR_LEVEL_SHAPES_3D:
         D, U = _random_band(C, T, 12, seed=T + C, device=device)
@@ -623,14 +658,14 @@ def _element_times(device):
         fn = lambda: band.band_cr_level(D, A, U)
         timed("band_cr_level[Db=12]", f"C={C} T={T}", fn)
         want = fn()
-        for flag, lib in libs.items():
-            got = _through(lib, fn)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"band_cr_level {flag} C={C} T={T}: not the package's bits")
-            rows.append(dict(cell="3D band", kernel=f"band_cr_level[Db=12], P={flag[-1]}",
-                             shape=f"C={C} T={T}",
-                             device_us=_through(lib, lambda: _device_us(fn)),
-                             event_ms=_through(lib, lambda: _event_ms(fn))))
+        for P in tilings:
+            with _forced_tile(P):
+                got = fn()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"band_cr_level P={P} C={C} T={T}: not the planner's bits")
+                rows.append(dict(cell="3D band", kernel=f"band_cr_level[Db=12], P={P}",
+                                 shape=f"C={C} T={T}", device_us=_device_us(fn),
+                                 event_ms=_event_ms(fn)))
     for C, Tp in _BLOCK_INV_SHAPES_3D:
         D, _ = _random_band(C, Tp, 12, seed=Tp + C, device=device)
         timed("band_block_inv[Db=12]", f"C={C} Tp={Tp}", lambda: band.band_block_inv(D))
@@ -1339,6 +1374,149 @@ def _refine_report(top=8):
     return report
 
 
+# the band factors of the cells: (label, chains, chain length, block size).
+# Manhattan-4, robot20, 3D 4x250 and 3D 1x1000 (chip_smoke.py's solves),
+# the 100-trial 2D fold and the 16-trial 3D fold (a Monte-Carlo batch's).
+_FACTOR_CELLS = (("manhattan4", 4, 512, 6), ("robot20", 20, 128, 6), ("3d-4x250", 4, 256, 12),
+                 ("3d-1x1000", 1, 1024, 12), ("mc", 400, 64, 6), ("mc3d", 64, 256, 12))
+# measurement builds of csrc/band.cu for --factor: the element and group
+# inversions compiled out (what the rest of a factor costs), and
+# band_cr_factor's clocks; a flag the source does not know is not built
+_FACTOR_BUILDS = {"no inverse": "-DBAND_LEVEL_NO_INVERSE",
+                  "clocks": "-DBAND_FACTOR_CLOCKS"}
+
+
+def _factor_bound_us(C, Tp, Db):
+    """The least time of a whole factor (band_init_a excluded) on the card,
+    us: D, A and C read once, every level's E, F, invD, A and C written
+    once and the last invD once, over the HBM rate; the intermediate levels'
+    D', A' and C' never reach HBM."""
+    from chip_smoke import HBM_BYTES_PER_S
+
+    blocks = 3 * C * Tp + 5 * sum(C * (Tp >> lev) for lev in range(1, Tp.bit_length())) + C
+    return blocks * Db * Db * 8 / HBM_BYTES_PER_S * 1e6
+
+
+def _factor_times(device, builds=True):
+    """The band factor (``band_factor`` at the default schedule, its
+    ``band_init_a`` replaced by the A it gave) at ``_FACTOR_CELLS``: device
+    us of the whole factor (a replayed CUDA graph), event ms, its launches
+    and the fused bound; each of its launches alone, fed as the factor feeds
+    it (where ``band_cr_factor`` takes the factor: each run; else each
+    ``band_cr_level`` level and ``band_block_inv``); where the package plans
+    band_cr_level's tile, the 3D fold's factor and its levels at each tiling
+    of ``_CR_LEVEL_TILINGS`` forced; with ``builds``, the whole factor from
+    each build of ``_FACTOR_BUILDS`` that the source takes."""
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band, build
+
+    source = build.SOURCES["band"].read_text()
+    flags = {what: f for what, f in _FACTOR_BUILDS.items()
+             if builds and all(m[2:].split("=")[0] in source for m in f.split())}
+    libs = _band_builds(list(flags.values()), "factor") if flags else {}
+    rows = []
+    tilings = _CR_LEVEL_TILINGS if hasattr(band, "_cr_level_tile") else ()
+    init_a = band.band_init_a
+    for label, C, Tp, Db in _FACTOR_CELLS:
+        runs = hasattr(band, "band_cr_factor") and band._factor_takes(Db)
+        D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+        A = init_a(U)
+        band.band_init_a = lambda _U: A
+        try:
+            fn = lambda: band.band_factor(D, U)
+            band.reset_launch_counts()
+            fn()
+            launches = sum(k.launches for k in band.KERNELS)
+            shape = f"C={C} Tp={Tp} Db={Db}"
+            rows.append(dict(cell=label, kernel="factor", shape=shape, launches=launches,
+                             bound_us=_factor_bound_us(C, Tp, Db), device_us=_device_us(fn),
+                             event_ms=_event_ms(fn)))
+            for P in tilings if label == "mc3d" else ():
+                with _forced_tile(P):
+                    rows.append(dict(cell=label, kernel=f"factor, level P={P}", shape=shape,
+                                     device_us=_device_us(fn), event_ms=_event_ms(fn)))
+            for what, flag in flags.items():
+                rows.append(dict(cell=label, kernel=f"factor, {what}", shape=shape,
+                                 device_us=_through(libs[flag], lambda: _device_us(fn)),
+                                 event_ms=_through(libs[flag], lambda: _event_ms(fn))))
+        finally:
+            band.band_init_a = init_a
+        parts = []
+        if runs:
+            Dl, Al, Cl, T = D, A, U, Tp
+            for n in band._factor_runs(Tp, Db):
+                last = T == 1 << n
+                parts.append((f"band_cr_factor {T} -> {T >> n}",
+                              lambda a=(Dl, Al, Cl, n, last): band.band_cr_factor(*a)))
+                if not last:
+                    out = band.band_cr_factor(Dl, Al, Cl, n)
+                    Dl, Al, Cl, T = out.D, out.A, out.C, T >> n
+        else:
+            Dl, Al, Cl = D, A, U
+            for lev in range(band.cr_depth(Tp)):
+                parts.append((f"band_cr_level {Tp >> lev} -> {Tp >> lev + 1}",
+                              lambda a=(Dl, Al, Cl): band.band_cr_level(*a)))
+                Dl, Al, Cl = band.band_cr_level(Dl, Al, Cl)[5:]
+            parts.append(("band_block_inv", lambda Dl=Dl: band.band_block_inv(Dl)))
+        for what, part in parts:
+            rows.append(dict(cell=label, kernel=what, shape=f"C={C} Db={Db}",
+                             device_us=_device_us(part), event_ms=_event_ms(part)))
+            if "clocks" in flags and runs:
+                clk = _through(libs[flags["clocks"]], part).levels[0].E.flatten()[:32]
+                rows.append(dict(cell=label, kernel=f"{what}, clocks", shape=f"C={C} Db={Db}",
+                                 clocks=[int(v) for v in clk.tolist()]))
+            if "no inverse" in flags and (Db > 8 or runs):
+                rows.append(dict(cell=label, kernel=f"{what}, no inverse", shape=f"C={C} Db={Db}",
+                                 device_us=_through(libs[flags["no inverse"]],
+                                                    lambda: _device_us(part)),
+                                 event_ms=0.0))
+            for P in tilings if label == "mc3d" and what.startswith("band_cr_level") else ():
+                with _forced_tile(P):
+                    rows.append(dict(cell=label, kernel=f"{what}, level P={P}",
+                                     shape=f"C={C} Db={Db}", device_us=_device_us(part),
+                                     event_ms=0.0))
+    return rows
+
+
+# band_cr_factor's plans timed beside the planner's (profile_port.py
+# --factor --builds): the most levels of the last run (a chain a thread
+# block), at Db = 6, the size it is built for
+_FACTOR_SWEEP = {6: (4, 5, 6, 7)}
+
+
+def _factor_sweep(device):
+    """Device us of each cell's factor by band_cr_factor's runs under each
+    last-run length of ``_FACTOR_SWEEP`` (the planner's constants replaced
+    for the call)."""
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band
+
+    rows = []
+    keep = band._FACTOR_WHOLE_LEVELS, band._FACTOR_CHAIN_LEVELS
+    init_a = band.band_init_a
+    for label, C, Tp, Db in _FACTOR_CELLS:
+        if Db not in _FACTOR_SWEEP:
+            continue
+        D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+        A = init_a(U)
+        for levels in _FACTOR_SWEEP[Db]:
+            band._FACTOR_WHOLE_LEVELS = band._FACTOR_CHAIN_LEVELS = levels
+            band.band_init_a = lambda _U: A
+            try:
+                band.reset_launch_counts()
+                band.band_factor(D, U)
+                rows.append(dict(cell=label, runs=str(band._factor_runs(Tp, Db)),
+                                 launches=band.band_cr_factor.launches,
+                                 device_us=_device_us(lambda: band.band_factor(D, U))))
+            except (RuntimeError, ValueError) as e:
+                rows.append(dict(cell=label, runs=f"last {levels}", launches=0,
+                                 device_us=f"refused: {e}"))
+            finally:
+                band._FACTOR_WHOLE_LEVELS, band._FACTOR_CHAIN_LEVELS = keep
+                band.band_init_a = init_a
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full report as JSON to this file")
@@ -1359,6 +1537,10 @@ def main() -> int:
     ap.add_argument("--cr", action="store_true",
                     help="band_cr_reduce and band_cr_backsub alone at the cells' runs, "
                          "with the clock build's phases")
+    ap.add_argument("--factor", action="store_true",
+                    help="the band factor alone at the cells: whole and launch by launch")
+    ap.add_argument("--builds", action="store_true",
+                    help="with --factor: also from the measurement builds of band.cu")
     ap.add_argument("--root", help="import score_tpu_torch from this checkout")
     args = ap.parse_args()
     if args.root:
@@ -1375,6 +1557,32 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _log(smi)
 
+    if args.factor:
+        import score_tpu_torch
+
+        _log(f"package: {Path(score_tpu_torch.__file__).parent}")
+        rows = _factor_times(torch.device("cuda"), builds=args.builds)
+        for r in rows:
+            if "clocks" in r:
+                _log(f"  {r['cell']:<10} {r['kernel']:<34} {r['shape']:<22} clocks {r['clocks']}")
+                continue
+            extra = (f"   launches {r['launches']}   bound {r['bound_us']:.2f} us"
+                     if "launches" in r else "")
+            _log(f"  {r['cell']:<10} {r['kernel']:<34} {r['shape']:<22} "
+                 f"device {r['device_us']:9.2f} us   events {r['event_ms']:.4f} ms{extra}")
+        from score_tpu_torch.ops import band
+
+        if args.builds and hasattr(band, "band_cr_factor"):
+            sweep = _factor_sweep(torch.device("cuda"))
+            rows += sweep
+            for r in sweep:
+                _log(f"  {r['cell']:<10} sweep runs {r['runs']:<10} "
+                     f"launches {r['launches']}  device {r['device_us']}")
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(dict(card=smi, factor=rows), indent=1))
+        return 0
     if args.schedule:
         report = dict(card=smi, **_schedule_report())
         if args.out:

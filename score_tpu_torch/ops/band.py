@@ -36,10 +36,10 @@ layout natural for the GPU: each CR level's blocks as (C, Th, Db, Db) at
 its coarse length Th, the PCR remainder's E, F as (L, C, Tb, Db, Db) and
 invD as (C, Tb, Db, Db), all contiguous f64.
 
-Seven kernels, written by hand in CUDA C++ (``csrc/band.cu``, built for
+Eight kernels, written by hand in CUDA C++ (``csrc/band.cu``, built for
 sm_90a by :mod:`score_tpu_torch.ops.build`), do the work on the card, at
 the block sizes of :data:`CUDA_BLOCK_SIZES`: Db = 6 (2D poses) and Db = 12
-(3D). Each has a plain PyTorch twin here (``*_plain``) computing the same
+(3D), ``band_cr_factor`` at Db = 6 only. Each has a plain PyTorch twin here (``*_plain``) computing the same
 function. A wrapper runs the plain twin only for tensors on the CPU; for
 a CUDA tensor it launches its kernel or raises. Each wrapper counts its
 launches in its ``launches`` attribute, and per block size Db in
@@ -53,10 +53,17 @@ Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
                                      (two levels per launch only saved
                                      TPU launch overhead); invD is
                                      carried from level to level
-    _block_inv_kernel       :423  -> band_block_inv
+    _block_inv_kernel       :423  -> band_block_inv (at Db = 6 a factor
+                                     compacted to one block a chain emits
+                                     the last inverse from band_cr_factor)
     _solve_kernel           :433  -> band_pcr_solve
-    _cr_level_kernel        :362  -> band_cr_level (also does the TPU
-                                     caller's even/odd lane slicing)
+    _cr_level_kernel        :362  -> band_cr_factor at Db = 6, a run of
+                                     levels a launch (one or two a factor),
+                                     band_cr_level at Db = 12, a launch a
+                                     level, 3 positions a thread block on
+                                     levels of 1,024 positions and more
+                                     (both also do the TPU caller's
+                                     even/odd lane slicing)
     _cr_reduce_kernel       :385  -> band_cr_reduce, every level of a
                                      solve in one launch (the TPU caller
                                      launched one a level)
@@ -89,9 +96,11 @@ __all__ = [
     "band_block_inv",
     "band_pcr_solve",
     "band_cr_level",
+    "band_cr_factor",
     "band_cr_reduce",
     "band_cr_backsub",
     "band_factor",
+    "factor_launches",
     "band_solve",
     "band_matvec",
     "KERNELS",
@@ -180,6 +189,19 @@ class CRLevel(NamedTuple):
     invD: torch.Tensor
     A: torch.Tensor
     C: torch.Tensor
+
+
+class CRRun(NamedTuple):
+    """A run of compacting levels (:func:`band_cr_factor`): its levels
+    (:class:`CRLevel`, fine -> coarse); the band it leaves, (C, T >> n, Db,
+    Db) each, for the next run, or, after a run that ends at one position a
+    chain, None and ``invD``, that block's inverse (C, 1, Db, Db)."""
+
+    levels: tuple
+    D: torch.Tensor | None
+    A: torch.Tensor | None
+    C: torch.Tensor | None
+    invD: torch.Tensor | None
 
 
 class BandFactors(NamedTuple):
@@ -284,6 +306,20 @@ def band_cr_level_plain(D, A, C):
     A2 = E @ _shift_down(Aod, 1)
     C2 = F @ Cod
     return tuple(t.contiguous() for t in (E, F, invD, Aod, Cod, D2, A2, C2))
+
+
+def band_cr_factor_plain(D, A, C, n: int, last: bool = False) -> CRRun:
+    """n compacting levels (:func:`band_cr_level_plain` n times) from the
+    band (D, A, C), (C, T, Db, Db); with ``last`` (the run ends at one
+    position a chain) the inverse of that block (:func:`band_block_inv_plain`)
+    in place of the band it leaves."""
+    levels = []
+    for _ in range(n):
+        E, F, invD, Ao, Co, D, A, C = band_cr_level_plain(D, A, C)
+        levels.append(CRLevel(E=E, F=F, invD=invD, A=Ao, C=Co))
+    if last:
+        return CRRun(tuple(levels), None, None, None, band_block_inv_plain(D))
+    return CRRun(tuple(levels), D, A, C, None)
 
 
 def _cr_reduce_level(E, F, b):
@@ -673,10 +709,38 @@ def _check_fine_band(name, D, A, C):
         raise ValueError(f"{name}: expected (C, T, Db, Db) with T even, got {tuple(D.shape)}")
 
 
+# band_cr_level at Db = 12: coarse positions a thread block
+# (csrc/band.cu: cr_level_element_kernel<12, P>, built for P = 1 and 3):
+# _CR_LEVEL_TILE from _CR_LEVEL_TILE_FROM positions a level, else 1. P = 3
+# holds six positions an SM where P = 1 holds four (two thread blocks of
+# 576 threads against four of 288) and inverts one odd block in four twice
+# where P = 1 inverts every one twice: faster where a level takes several
+# waves of the card (the 3D fold's first four levels), slower below.
+_CR_LEVEL_TILE = 3
+_CR_LEVEL_TILE_FROM = 1024
+
+
+def _cr_level_tile(nC: int, Th: int, Db: int) -> int:
+    """P, the coarse positions a band_cr_level thread block owns on nC
+    chains of Th coarse positions: at Db = 12 ``_CR_LEVEL_TILE`` where the
+    level has ``_CR_LEVEL_TILE_FROM`` positions or more (at the 3D fold,
+    C = 64, P = 3 took 112.4, 61.5, 32.5, 18.9 us against P = 1's 131.4,
+    68.8, 35.9, 19.6 from 8,192 down to 1,024 positions, and 12.6 against
+    11.3 at 512; NVIDIA H100 80GB HBM3, 700 W, profile_port.py --factor),
+    else 1; 1 at Db = 6, whose kernel has its own tile. The grid changes
+    with P, the launches do not, so a batch's launches stay a 1-trial
+    batch's."""
+    if Db > _FACTOR_MAX_BLOCK and nC * Th >= _CR_LEVEL_TILE_FROM:
+        return _CR_LEVEL_TILE
+    return 1
+
+
 def band_cr_level(D, A, C):
     """One compacting CR level over all chains: from the fine band
     (C, T, Db, Db) returns (E, F, invD_odd, A_odd, C_odd, D', A', C'),
-    each (C, T/2, Db, Db) (see :func:`band_cr_level_plain`).
+    each (C, T/2, Db, Db) (see :func:`band_cr_level_plain`). The 3D factor
+    (Db = 12) runs it a level; the 2D factor takes its levels in
+    :func:`band_cr_factor` launches (:func:`_factor_takes`).
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_level_kernel`` together
     with its caller's even/odd lane slices (:606-620): the group of coarse
@@ -705,7 +769,8 @@ def band_cr_level(D, A, C):
     thread per block element, as ``band_pcr_level`` at Db = 12: a group
     is 144 threads, thread (r, c) owning element (r, c) of every block the
     group touches; a thread block is P coarse positions and P + 1 groups
-    (csrc/band.cu's kCrLevelPositions), the odd blocks inverted by the
+    (:func:`_cr_level_tile`: 3 on levels of 1,024 positions or more, else
+    1; the same bits at every P), the odd blocks inverted by the
     element inversion the Db = 12 ``band_pcr_level`` and
     ``band_block_inv`` call (a Cholesky column per block barrier,
     correctly rounded quotients from reciprocals), while the A and C rows
@@ -722,9 +787,163 @@ def band_cr_level(D, A, C):
     _check_aligned("band_cr_level", D, A, C)
     _launch(_lib(), "band_cr_level", D,
             D.data_ptr(), A.data_ptr(), C.data_ptr(), *[o.data_ptr() for o in outs],
-            nC, T // 2, Db)
+            nC, T // 2, Db, _cr_level_tile(nC, T // 2, Db))
     _count(band_cr_level, Db)
     return tuple(outs)
+
+
+# band_cr_factor: the block size it is built for and the threads of a
+# thread block (csrc/band.cu: kFactorBlock, kFactorThreads); the most
+# levels of a factor's last run where it ends at
+# one position a chain, a chain a thread block (the chain's 2^n rows of D,
+# A, C in shared memory): chains of up to 2^_FACTOR_WHOLE_LEVELS take the
+# factor in that one launch, longer ones end with a run of
+# _FACTOR_CHAIN_LEVELS (the fastest split on the cells' 2D bands, NVIDIA
+# H100 80GB HBM3: profile_port.py --factor --builds, PERF.md §6), after the
+# fewest runs of halo tiles that fit the shared memory.
+_FACTOR_MAX_BLOCK = 6
+_FACTOR_THREADS = 288
+_FACTOR_WHOLE_LEVELS = 6
+_FACTOR_CHAIN_LEVELS = 5
+
+
+def _factor_takes(Db: int) -> bool:
+    """Whether band_factor runs its compacting levels in band_cr_factor
+    launches at block size Db (the size it is built for), or keeps a
+    band_cr_level launch a level and band_block_inv. A Db = 12 build
+    measured slower than the per-level kernels at every cell (3D 4x250, 3D
+    1x1000 and the 16-trial 3D fold; NVIDIA H100 80GB HBM3, PERF.md §6): in
+    one SM a level's row inversions and product passes cost more than a
+    launch a level over the card. The route is by block size alone, so that
+    a batch's launches a trip equal a 1-trial batch's."""
+    return Db <= _FACTOR_MAX_BLOCK
+
+
+def _factor_rows(n: int, T: int, P: int) -> int:
+    """Fine rows a band_cr_factor thread block stages for a tile of P
+    positions of level n: the tile's and the left halo's (csrc/band.cu:
+    cr_factor_rows), the whole chain of T where the tile is the chain."""
+    return T if P == T >> n else (P << n) + (1 << n) - 1
+
+
+def _factor_smem(n: int, T: int, P: int, Db: int, last: bool) -> int:
+    """Shared memory of a band_cr_factor thread block (csrc/band.cu:
+    cr_factor_smem): the rows' D, A, C, and for a run that ends at one
+    position a chain the final group inversion's L and inverse."""
+    return 8 * (3 * _factor_rows(n, T, P) + 2 * last) * Db * Db
+
+
+def _factor_most_levels(Db: int) -> int:
+    """The deepest run of band_cr_factor whose tile of one position with
+    the halo (2^(n + 1) - 1 rows) fits the card's shared memory."""
+    n = 1
+    while n < _CR_MAX_LEVELS and _factor_smem(n + 1, 4 << n, 1, Db, False) <= _SMEM_MAX:
+        n += 1
+    return n
+
+
+def _factor_runs(Tp: int, Db: int, n_cr: int | None = None) -> list:
+    """The levels of each band_cr_factor launch of a factor of chains of Tp
+    through n_cr compacting levels (default :func:`cr_depth`), fine ->
+    coarse. Where the levels end at one block a chain, a chain of up to
+    2^``_FACTOR_WHOLE_LEVELS`` blocks is one run, a longer one ends with a
+    run of ``_FACTOR_CHAIN_LEVELS`` levels, a chain a thread block; the
+    levels before take the fewest runs of halo tiles that fit the shared
+    memory, as even as they come. The count depends on (Tp, Db, n_cr)
+    alone, never on the chains: a Monte-Carlo batch folds its trials into
+    them."""
+    n_cr = cr_depth(Tp) if n_cr is None else n_cr
+    runs, rest = [], n_cr
+    if n_cr and n_cr == num_levels(Tp):
+        runs.append(n_cr if n_cr <= _FACTOR_WHOLE_LEVELS else _FACTOR_CHAIN_LEVELS)
+        rest -= runs[0]
+    if rest:
+        k = -(-rest // _factor_most_levels(Db))
+        runs = [rest // k + (i < rest % k) for i in range(k)] + runs
+    return runs
+
+
+def _factor_tile(n: int, T: int, Db: int, C: int = 1, n_sm: int = _SM_COUNT) -> int:
+    """P, the positions of level n a band_cr_factor thread block owns on C
+    chains of T: 1 where the run ends at one position a chain (the tile is
+    the chain), else the largest power of two that leaves a thread block
+    for every SM and keeps its shared memory within two thread blocks an SM
+    (fewer tiles, less halo recomputed). Raises where one position does not
+    fit."""
+    Tn, P = T >> n, 1
+    while (2 * P <= Tn and C * (Tn // (2 * P)) >= n_sm
+           and _factor_smem(n, T, 2 * P, Db, False) <= _CHAIN_SMEM_TARGET):
+        P *= 2
+    smem = _factor_smem(n, T, P, Db, Tn == 1)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"band_cr_factor: {n} levels of {Db}-blocks on chains of {T} do not "
+                         f"fit a thread block: {smem} bytes of shared memory (max {_SMEM_MAX})")
+    return P
+
+
+def band_cr_factor(D, A, C, n: int, last: bool = False) -> CRRun:
+    """n compacting CR levels over all chains in ONE launch, from the band
+    (D, A, C), (C, T, Db, Db): a :class:`CRRun` of the n levels' blocks and
+    the band they leave (C, T >> n, Db, Db), or, with ``last`` (T = 2^n: the
+    run ends at one position a chain), that block's inverse in its place
+    (see :func:`band_cr_factor_plain`, ``band_cr_level_plain`` n times then
+    ``band_block_inv_plain``).
+
+    Replaces ``score_tpu/ops/pallas_pcr.py:_cr_level_kernel`` and its
+    caller's launch a level (:606-620) with ONE launch a run, and on the
+    factor's path ``_block_inv_kernel`` (the last level's inverse). Built
+    for Db = 6 (``_FACTOR_MAX_BLOCK``); a CUDA tensor of another block size
+    raises. What bounds it: a factor's bytes take 1.4-1.75 us of HBM time
+    on the 2D solves' bands (17.5 at the 2D fold), its time is the
+    dependent chain of its levels, an inversion of the odd blocks and
+    products a level, which the earlier kernel paid with a launch and an
+    HBM round trip of D', A', C' a level. A thread block owns a tile of P
+    positions of the run's last level (:func:`_factor_tile`) and stages the
+    fine rows they depend on, with the left halo of 2^n - 1 rows, in shared
+    memory; every level runs there in place, its odd blocks inverted side
+    by side (a group of Db threads a block, a row a thread, the group
+    inversion's operations in its order), then E, F and A', C', D' a thread
+    per row and 2 columns. Only the tile's own positions leave; a run that
+    ends at one position a chain is a chain a thread block, which inverts
+    the last D' with band_block_inv's function (csrc/band.cu). Sums run in
+    the plain version's order; only nvcc's contraction to FMAs differs.
+    band_factor takes it at Db = 6 (:func:`_factor_takes`): 0.52-0.54x the
+    per-level kernels' factor on Manhattan-4 and robot20 and 0.93x at the
+    2D fold (NVIDIA H100 80GB HBM3, profile_port.py --factor; PERF.md
+    §6)."""
+    _check_fine_band("band_cr_factor", D, A, C)
+    nC, T, Db, _ = D.shape
+    if not 1 <= n <= _CR_MAX_LEVELS or T % (1 << n):
+        raise ValueError(f"band_cr_factor: {n} levels on chains of {T} (1 to {_CR_MAX_LEVELS} "
+                         "levels that halve it)")
+    if last and T >> n != 1:
+        raise ValueError(f"band_cr_factor: {n} levels on chains of {T} end at {T >> n} "
+                         "positions, not one (last)")
+    if not _route("band_cr_factor", D, A, C):
+        return band_cr_factor_plain(D, A, C, n, last)
+    if Db > _FACTOR_MAX_BLOCK:
+        raise ValueError(f"band_cr_factor: the CUDA kernel is built for block size "
+                         f"{_FACTOR_MAX_BLOCK}, got {Db}")
+    from score_tpu_torch.ops.build import CrFactorLevels
+
+    levels = tuple(CRLevel(*[D.new_empty((nC, T >> (lev + 1), Db, Db)) for _ in range(5)])
+                   for lev in range(n))
+    Tn = T >> n
+    band_out = [None] * 3 if last else [D.new_empty((nC, Tn, Db, Db)) for _ in range(3)]
+    invD = D.new_empty((nC, 1, Db, Db)) if last else None
+    if nC == 0:
+        return CRRun(levels, *band_out, invD)
+    ptrs = CrFactorLevels()
+    for lev, lv in enumerate(levels):
+        ptrs.E[lev], ptrs.F[lev], ptrs.invD[lev], ptrs.A[lev], ptrs.C[lev] = (
+            t.data_ptr() for t in lv)
+    _check_aligned("band_cr_factor", D, A, C)
+    P = _factor_tile(n, T, Db, nC, _sm_count(D.device))
+    _launch(_lib(), "band_cr_factor", D, D.data_ptr(), A.data_ptr(), C.data_ptr(), ptrs,
+            *[None if t is None else t.data_ptr() for t in (*band_out, invD)],
+            n, nC, T, Db, P)
+    _count(band_cr_factor, Db, (T, n))
+    return CRRun(levels, *band_out, invD)
 
 
 def _backsub_narrow(K: int) -> bool:
@@ -1246,7 +1465,7 @@ def band_cr_backsub(levels, fine, x):
 
 
 KERNELS = (band_init_a, band_pcr_level, band_block_inv, band_pcr_solve,
-           band_cr_level, band_cr_reduce, band_cr_backsub)
+           band_cr_level, band_cr_factor, band_cr_reduce, band_cr_backsub)
 
 
 def reset_launch_counts() -> None:
@@ -1268,7 +1487,15 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
                 n_cr: int | None = None) -> BandFactors:
     """Factor C independent block-tridiagonal SPD systems (JAX band
     convention, see module docstring): ``n_cr`` compacting levels
-    (default :func:`cr_depth`), then PCR on the remainder."""
+    (default :func:`cr_depth`), then PCR on the remainder.
+
+    At Db = 6 the compacting levels run in :func:`band_cr_factor`
+    launches, a launch a run of :func:`_factor_runs` (one or two on the
+    cells); where they end at one block a chain (the default) the last run
+    inverts it and no ``band_block_inv`` runs, else ``band_block_inv``
+    opens the PCR levels. At Db = 12 (:func:`_factor_takes`) a
+    :func:`band_cr_level` launch a level, then ``band_block_inv``.
+    :func:`factor_launches` counts a factor's launches."""
     nC, Tp, Db, _ = D.shape
     if Tp != pad_length(Tp):
         raise ValueError(f"band_factor: chain length {Tp} is not a power of two")
@@ -1280,13 +1507,24 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
     D0 = D
     A = band_init_a(U)
     Cc = U
-    levels = []
-    for _ in range(n_cr):
-        E, F, invD, Ao, Co, D, A, Cc = band_cr_level(D, A, Cc)
-        levels.append(CRLevel(E=E, F=F, invD=invD, A=Ao, C=Co))
+    levels, invD, T = [], None, Tp
+    if _factor_takes(Db):  # a band_cr_factor launch a run
+        for n in _factor_runs(Tp, Db, n_cr):
+            run = band_cr_factor(D, A, Cc, n, last=T >> n == 1)
+            levels += run.levels
+            T >>= n
+            if run.invD is not None:
+                invD = run.invD
+            else:
+                D, A, Cc = run.D, run.A, run.C
+    else:  # a band_cr_level launch a level
+        for _ in range(n_cr):
+            E, F, invDo, Ao, Co, D, A, Cc = band_cr_level(D, A, Cc)
+            levels.append(CRLevel(E=E, F=F, invD=invDo, A=Ao, C=Co))
     Tb = Tp >> n_cr
     Es, Fs = [], []
-    invD = band_block_inv(D)
+    if invD is None:
+        invD = band_block_inv(D)
     for lev in range(num_levels(Tb)):
         E, F, D, A, Cc, invD = band_pcr_level(D, A, Cc, invD, 1 << lev)
         Es.append(E)
@@ -1296,6 +1534,22 @@ def band_factor(D: torch.Tensor, U: torch.Tensor,
     else:
         E = F = D.new_zeros((0, nC, Tb, Db, Db))
     return BandFactors(levels=tuple(levels), E=E, F=F, invD=invD, D=D0, U=U)
+
+
+def factor_launches(Tp: int, Db: int, n_cr: int | None = None) -> int:
+    """Kernel launches of :func:`band_factor` on chains of Tp with n_cr
+    compacting levels (default :func:`cr_depth`) at block size Db,
+    ``band_init_a`` aside: a ``band_cr_factor`` launch a run
+    (:func:`_factor_runs`; a ``band_cr_level`` launch a level where
+    :func:`_factor_takes` keeps them), one ``band_block_inv`` where the
+    levels stop above one block a chain (or there are none, or they ran
+    one a launch), and a ``band_pcr_level`` launch a PCR level."""
+    n_cr = cr_depth(Tp) if n_cr is None else n_cr
+    Tb = Tp >> n_cr
+    if not _factor_takes(Db):
+        return n_cr + 1 + num_levels(Tb)
+    runs = _factor_runs(Tp, Db, n_cr)
+    return len(runs) + (Tb > 1 or not runs) + num_levels(Tb)
 
 
 def band_matvec(D: torch.Tensor, U: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 
 __all__ = ["band_library", "blocks_library", "compile_all", "BUILD_DIR", "SOURCES",
-           "CR_MAX_LEVELS", "CrReduceLevels", "CrBacksubLevels"]
+           "CR_MAX_LEVELS", "CrReduceLevels", "CrBacksubLevels", "CrFactorLevels"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
@@ -130,9 +130,10 @@ def launch(lib: ctypes.CDLL, name: str, t, *args) -> None:
     raise_on(lib, name, err)
 
 
-# Levels a launch of band_cr_reduce / band_cr_backsub takes, and their
-# pointers as the C entries take them, by value (csrc/band.cu:
-# kCrMaxLevels, CrReduceLevels, CrBacksubLevels).
+# Levels a launch of band_cr_reduce / band_cr_backsub / band_cr_factor
+# takes, and their pointers as the C entries take them, by value
+# (csrc/band.cu: kCrMaxLevels, CrReduceLevels, CrBacksubLevels,
+# CrFactorLevels).
 CR_MAX_LEVELS = 8
 _Pointers = ctypes.c_void_p * CR_MAX_LEVELS
 
@@ -143,6 +144,11 @@ class CrReduceLevels(ctypes.Structure):
 
 class CrBacksubLevels(ctypes.Structure):
     _fields_ = [("invD", _Pointers), ("A", _Pointers), ("C", _Pointers), ("b", _Pointers)]
+
+
+class CrFactorLevels(ctypes.Structure):
+    _fields_ = [("E", _Pointers), ("F", _Pointers), ("invD", _Pointers), ("A", _Pointers),
+                ("C", _Pointers)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,7 +170,8 @@ def band_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.band_pcr_level.restype = i32
     lib.band_pcr_solve.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     lib.band_pcr_solve.restype = i32
-    lib.band_cr_level.argtypes = [vp] * 11 + [i32, i32, i32, vp]
+    # D, A, C, 8 outputs, nC, Th, Db, P, stream
+    lib.band_cr_level.argtypes = [vp] * 11 + [i32] * 4 + [vp]
     lib.band_cr_level.restype = i32
     # levels, b, n, nC, T, Db, K, P, Kc, stream
     lib.band_cr_reduce.argtypes = [CrReduceLevels, vp] + [i32] * 7 + [vp]
@@ -178,6 +185,9 @@ def band_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     # levels, xe, x, n, nC, Db, K, S, Kc, stream
     lib.band_cr_backsub_chain.argtypes = [CrBacksubLevels, vp, vp] + [i32] * 6 + [vp]
     lib.band_cr_backsub_chain.restype = i32
+    # D, A, C, levels, D2, A2, C2, invD, n, nC, T, Db, P, stream
+    lib.band_cr_factor.argtypes = [vp] * 3 + [CrFactorLevels] + [vp] * 4 + [i32] * 5 + [vp]
+    lib.band_cr_factor.restype = i32
     return lib
 
 

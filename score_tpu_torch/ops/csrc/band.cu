@@ -42,6 +42,16 @@ struct CrBacksubLevels {
   const double* b[kCrMaxLevels];     // b_l, the level's fine rhs: (C, T >> l, Db, K)
 };
 
+// The outputs of band_cr_factor's levels, level l: (C, T >> (l + 1), Db, Db)
+// each, as band_cr_level returns them.
+struct CrFactorLevels {
+  double* E[kCrMaxLevels];
+  double* F[kCrMaxLevels];
+  double* invD[kCrMaxLevels];  // the odd rows' inverses
+  double* A[kCrMaxLevels];     // the odd rows' couplings
+  double* C[kCrMaxLevels];
+};
+
 namespace {
 
 // The lane-group layout of the kernels that work on whole blocks
@@ -637,7 +647,10 @@ pcr_level_element_kernel(const double* __restrict__ D, const double* __restrict_
 // Bound: 7 blocks of traffic per fine position pair (1.6 MB at
 // Manhattan-4's first level, half a microsecond of HBM time), so latency
 // bounds a launch: the dependent f64 chain of a Cholesky, two
-// substitutions and two row-times-block products.
+// substitutions and two row-times-block products, 7.4-8.4 us a level on an
+// NVIDIA H100 80GB HBM3 at 700 W (profile_port.py --factor). No factor
+// runs it at Db = 6: band_cr_factor takes a factor's levels in one or two
+// launches (below); band_cr_level's callers do.
 // ---------------------------------------------------------------------
 
 template <int Db>
@@ -766,36 +779,41 @@ cr_level_kernel(const double* __restrict__ D, const double* __restrict__ A,
 // row-times-block products of 144 multiply-adds, in thread blocks of two
 // warps.
 //
-// Mapping: a thread block owns P = kCrLevelPositions consecutive coarse
-// positions t0 .. t0 + P - 1 (of all chains, laid end to end) and has
-// P + 1 groups of Db * Db threads; thread e = (r, c) of a group owns
-// element (r, c) of every block the group touches. Group g inverts odd
-// row 2t + 1 of t = t0 + g - 1 (group 0: the row before the first
-// position, when that position has a lower neighbour in its chain), all
-// groups side by side with element_inv_spd, each odd block once per thread
-// block. Thread e reads elements (r, c) and (c, c) of its odd D, and
-// element e of its position's even D, straight into registers; the blocks
-// that the products read by rows and columns (the odd rows' A and C, the
-// even row's A and C) are staged in shared memory by 16-byte cp.async,
-// issued before the inversion and waited for after it. Then group g >= 1
-// takes E = -A_{2t} invD_{2t-1} (group g - 1's inverse) and
-// F = -C_{2t} invD_{2t+1} (its own), a barrier, then A' = E A_{2t-1},
-// C' = F C_{2t+1} and D' = D_{2t} + (E C_{2t-1} + F A_{2t+1}); each
-// element a Db-term chain, k ascending from 0.0 as the plain version's
-// matmul. Every output leaves from the register that holds it, a block's
-// 144 elements on neighbouring addresses. With P = 1 a thread block is
-// one position and both its odd neighbours (288 threads; every odd block
-// is inverted by two thread blocks); a larger P repeats one inversion in
-// P + 1 (profile_port.py --kernels times P = 1 to 4, from builds with
-// -DBAND_CR_LEVEL_POSITIONS; PERF.md). A register cap keeps
-// kCrLevelThreadsPerSM threads on an SM, so that 3D 1x1000's first level
-// fits the card at once.
+// Mapping: a thread block owns P consecutive coarse positions t0 .. t0 +
+// P - 1 (of all chains, laid end to end) and has P + 1 groups of Db * Db
+// threads; thread e = (r, c) of a group owns element (r, c) of every block
+// the group touches. Group g inverts odd row 2t + 1 of t = t0 + g - 1
+// (group 0: the row before the first position, when that position has a
+// lower neighbour in its chain), all groups side by side with
+// element_inv_spd, each odd block once per thread block. Thread e reads
+// elements (r, c) and (c, c) of its odd D, and element e of its position's
+// even D, straight into registers; the blocks that the products read by
+// rows and columns (the odd rows' A and C, the even row's A and C) are
+// staged in shared memory by 16-byte cp.async, issued before the inversion
+// and waited for after it. Then group g >= 1 takes E = -A_{2t} invD_{2t-1}
+// (group g - 1's inverse) and F = -C_{2t} invD_{2t+1} (its own), a
+// barrier, then A' = E A_{2t-1}, C' = F C_{2t+1} and D' = D_{2t} + (E
+// C_{2t-1} + F A_{2t+1}); each element a Db-term chain, k ascending from
+// 0.0 as the plain version's matmul. Every output leaves from the register
+// that holds it, a block's 144 elements on neighbouring addresses. A
+// register cap keeps kCrLevelThreadsPerSM threads on an SM.
+//
+// P, by level (band._cr_level_tile, passed at launch; the outputs are the
+// same bits at every P): P = 1 (288 threads, four thread blocks an SM:
+// every odd block inverted by two thread blocks) where a level has fewer
+// than 1,024 positions, so that 3D 1x1000's first level fits the card at
+// once; P = 3 (576 threads, two an SM: six positions an SM where P = 1
+// holds four, one odd block in four inverted twice) from 1,024 positions,
+// the 3D fold's first four levels, which take several waves. At the 3D
+// fold's levels (C = 64; NVIDIA H100 80GB HBM3, 700 W; profile_port.py
+// --factor) P = 3 took 112.4, 61.5, 32.5, 18.9 us against P = 1's 131.4,
+// 68.8, 35.9, 19.6 from 8,192 down to 1,024 positions, and 12.6 against
+// 11.3 at 512: the factor 269 us against 299. P = 2 and 4 hold four
+// positions an SM, as P = 1, and were slower a factor (PERF.md). Every 3D
+// factor runs it a level; band_cr_factor is built for Db = 6 only
+// (band._factor_takes).
 // ---------------------------------------------------------------------
 
-#ifndef BAND_CR_LEVEL_POSITIONS
-#define BAND_CR_LEVEL_POSITIONS 1
-#endif
-constexpr int kCrLevelPositions = BAND_CR_LEVEL_POSITIONS;
 constexpr int kCrLevelThreadsPerSM = 1152;
 
 template <int Db, int P>
@@ -923,6 +941,368 @@ block_inv_element_kernel(const double* __restrict__ D, double* __restrict__ invD
   element_inv_spd<Db>(__ldg(D + o + e), __ldg(D + o + col * Db + col), sm[0], sm[1], rcp, e);
   __syncthreads();
   invD[o + e] = sm[1][e];
+}
+
+// ---------------------------------------------------------------------
+// band_cr_factor: a run of n compacting CR levels in ONE launch and, where
+// the run ends at one position a chain, the inverse of that block. Built
+// for Db = 6 (kFactorBlock) only: the 3D factor runs band_cr_level a level.
+//
+// Replaces pallas_pcr.py:_cr_level_kernel (:362), which the TPU caller
+// launched once a level (:606-620), and, on the factor's path,
+// _block_inv_kernel (:423): the run's last level inverts the one block a
+// chain it leaves. What bounds it on the card: not bytes. A factor reads D,
+// A, C once and writes every level's E, F, invD, A, C and the last invD
+// once: 1.4 us of HBM time on Manhattan-4's band, 1.75 on robot20's and
+// 17.5 at the 2D fold (3.35 TB/s, NVIDIA H100 80GB HBM3 at 700 W). Its
+// time is the dependent chain of its levels: a level inverts its odd
+// blocks (a Cholesky and two substitutions), then E, F and from them A',
+// C', D', which the next level inverts. The per-level kernel before this
+// one (cr_level_kernel, kept for band_cr_level) paid a launch and a round
+// trip of D', A', C' through HBM a level: 7.4-8.4 us a level up to 2,048
+// positions, and band_block_inv 5.5-6.4 us after the last (that card;
+// profile_port.py --factor).
+//
+// Mapping: a thread block owns a tile of P consecutive positions of the
+// run's coarsest level (level n) of one chain and stages the D, A, C of
+// every fine row they depend on in shared memory by 16-byte cp.async: the
+// tile's 2^n P rows and the left halo of 2^n - 1 rows (none before the
+// chain's start). The levels run there, in place: level l's position p in
+// the slot of fine row p << l, its odd rows at (2q + 1) << (l - 1). A
+// level (1) inverts all its odd blocks side by side in place over their D,
+// a group of Db threads a block (row_inv_spd: 48 blocks a pass), each odd
+// block once a thread block, (2) a thread per row and 2 columns of a
+// position's blocks forms E and F, Db-term chains on 16-byte loads, which
+// go over the even row's A and C, and (3) A' = E A_{2p-1}, C' = F C_{2p+1}
+// and D' = D_{2p} + (E C_{2p-1} + F A_{2p+1}) go over the even row's A, C
+// and D; positions in passes of 16, three block barriers a pass. The tile
+// also computes the halo's positions (2^(n-l) - 1 at level l), so that a
+// level reads nothing from another thread block; only its own positions'
+// E, F, invD, A, C leave, by 16-byte stores. Then the own positions' D',
+// A', C' leave for the next run, or, where the run ends at one position a
+// chain (P = 1, the whole chain, no halo), the thread block inverts that
+// D' with the function band_block_inv calls (group_inv_spd) and writes
+// invD. ops/band.py plans the runs (band._factor_runs: at most two
+// launches a factor on the cells, by Tp alone) and the tile
+// (band._factor_tile).
+//
+// Measured (that card, profile_port.py --factor, PERF.md §6): the 2D
+// factors take 0.52-0.54x the per-level kernels' time on Manhattan-4 and
+// robot20 and 0.93x at the 2D fold. A Db = 12 build (a row and 4 columns a
+// thread, element_inv_spd for the last block) measured slower than
+// band_cr_level a level on the 3D solves' bands (a 12 x 12 row inversion
+// ~6.5 us a level in one SM, products ~0.6 us a position) and was taken
+// out. Sums run in the plain version's order (products k ascending from
+// 0.0, the inversion in group_inv_spd's); only nvcc's contraction to FMAs
+// differs.
+// ---------------------------------------------------------------------
+
+// the block size it is built for, and the threads of a thread block: 48
+// inversion groups and 16 positions a products pass (576 threads, one
+// block an SM, measured slower at every 2D cell: PERF.md)
+constexpr int kFactorBlock = 6;
+constexpr int kFactorThreads = 288;
+
+// Inverse of an SPD Db x Db block in place by a group of Db threads, a
+// thread a row: on entry the shared block X holds it, after the caller's
+// next block barrier its inverse. The Cholesky goes over X's lower
+// triangle a column per block barrier: thread r keeps a copy of each pivot
+// D_cc it needs (c <= r) and subtracts L_rk L_ck and L_ck L_ck as column k
+// lands, element_inv_spd's operations in its order; the diagonal's thread
+// leaves 1 / L_kk rounded to nearest in the upper triangle (rcp_slot).
+// Thread c solves column c of L Y = I in registers as element_inv_spd's
+// thread c does, row k of Y right after column k lands (off the
+// Cholesky's chain: its threads c <= k have no pivot left to form), then
+// L^T X = Y, the quotients by markstein_div, and writes X over L after a
+// barrier. So the inverse is element_inv_spd's, bit for bit, with no
+// scratch and a twelfth of its threads. Every thread of the thread block
+// calls it (it holds block barriers); a group with no block passes on =
+// false and reads and writes nothing. -DBAND_LEVEL_NO_INVERSE compiles it
+// out.
+template <int Db>
+__device__ __forceinline__ int rcp_slot(int k) {
+  return k + 1 < Db ? k * Db + k + 1 : Db - 1;  // (k, k + 1), and (0, Db - 1) for the last
+}
+
+template <int Db>
+__device__ __forceinline__ void row_inv_spd(double* X, int r, bool on) {
+#ifndef BAND_LEVEL_NO_INVERSE
+  double a[Db], piv[Db], y[Db];
+#pragma unroll
+  for (int c = 0; c < Db; ++c) {
+    a[c] = on && c <= r ? X[r * Db + c] : 0.0;
+    piv[c] = on && c <= r ? X[c * Db + c] : 1.0;
+    y[c] = 0.0;
+  }
+  __syncthreads();  // every group has read its block: L goes over it
+#pragma unroll
+  for (int k = 0; k < Db; ++k) {
+    if (on && r >= k) {
+      const double l = a[k] / sqrt(piv[k]);
+      X[r * Db + k] = l;
+      if (r == k) X[rcp_slot<Db>(k)] = __drcp_rn(l);
+    }
+    __syncthreads();
+    if (on && r <= k) {  // row k of Y, column r
+      double v = (k == r) ? 1.0 : 0.0;
+#pragma unroll
+      for (int j = 0; j < k; ++j)
+        if (j >= r) v = v - X[k * Db + j] * y[j];
+      y[k] = markstein_div(v, X[k * Db + k], X[rcp_slot<Db>(k)]);
+    }
+    if (on && r > k) {
+      const double lrk = X[r * Db + k];
+#pragma unroll
+      for (int c = k + 1; c < Db; ++c) {
+        if (c <= r) {
+          const double lck = X[c * Db + k];
+          a[c] = a[c] - lrk * lck;
+          piv[c] = piv[c] - lck * lck;
+        }
+      }
+    }
+  }
+  if (on) {
+#pragma unroll
+    for (int q = Db - 1; q >= 0; --q) {
+      double v = y[q];
+#pragma unroll
+      for (int k = q + 1; k < Db; ++k) v = v - X[k * Db + q] * y[k];
+      y[q] = markstein_div(v, X[q * Db + q], X[rcp_slot<Db>(q)]);
+    }
+  }
+  __syncthreads();  // every group has read its L: the inverse goes over it
+  if (on) {
+#pragma unroll
+    for (int q = 0; q < Db; ++q) X[q * Db + r] = y[q];
+  }
+#endif
+}
+
+// Rows of a tile of P positions of level n, the left halo included (the
+// whole chain of T where the tile is the chain), and the shared memory of
+// its thread block: the rows' D, A and C, and where the run ends at one
+// position a chain (last) the final inversion's scratch, a block each for
+// the L and the inverse of group_inv_spd's group 0 (band._factor_smem
+// mirrors it).
+__host__ __device__ inline int cr_factor_rows(int n, int T, int P) {
+  return P == (T >> n) ? T : (P << n) + (1 << n) - 1;
+}
+
+inline long long cr_factor_smem(int n, int T, int P, int Db, bool last) {
+  long long d = 3LL * cr_factor_rows(n, T, P) * Db * Db;
+  if (last) d += 2 * Db * Db;
+  return d * (long long)sizeof(double);
+}
+
+// CW doubles at x to v, from v to p, from x to p, by 16-byte accesses
+// (x, p 16-byte aligned)
+template <int CW>
+__device__ __forceinline__ void load_units(const double* x, double* v) {
+#pragma unroll
+  for (int j = 0; j < CW; j += 2) {
+    const double2 u = *reinterpret_cast<const double2*>(x + j);
+    v[j] = u.x;
+    v[j + 1] = u.y;
+  }
+}
+
+template <int CW>
+__device__ __forceinline__ void store_units(double* p, const double* v) {
+#pragma unroll
+  for (int j = 0; j < CW; j += 2)
+    *reinterpret_cast<double2*>(p + j) = make_double2(v[j], v[j + 1]);
+}
+
+template <int CW>
+__device__ __forceinline__ void copy_units(double* p, const double* x) {
+#pragma unroll
+  for (int j = 0; j < CW; j += 2)
+    *reinterpret_cast<double2*>(p + j) = *reinterpret_cast<const double2*>(x + j);
+}
+
+#ifdef BAND_FACTOR_CLOCKS
+// thread 0 of thread block 0: 0 start, 1 rows staged, 2 + 2 (l - 1) level
+// l's odd blocks inverted, 3 + 2 (l - 1) its products, 31 end; written as
+// SM cycles since the start over its first level's E (a measurement build)
+#define FACTOR_CLOCK(i) \
+  if (threadIdx.x == 0 && blockIdx.x == 0) clk[i] = clock64();
+#else
+#define FACTOR_CLOCK(i)
+#endif
+
+// two thread blocks an SM
+template <int Db, int NT>
+__global__ void __launch_bounds__(NT, 2)
+cr_factor_kernel(const double* __restrict__ D, const double* __restrict__ A,
+                 const double* __restrict__ Cc, const CrFactorLevels lv,
+                 double* __restrict__ D2, double* __restrict__ A2, double* __restrict__ C2,
+                 double* __restrict__ invDn, int n, int T, int P) {
+  constexpr int BS = Db * Db;
+  // the products' register tile: a row and CW columns of a block a thread
+  // (one 16-byte unit), so that each element of a row block read from
+  // shared memory serves CW products (the reads, not the multiply-adds,
+  // bound the products; three rows a thread read less but spilled and took
+  // 5-10 % longer a factor: PERF.md)
+  constexpr int CW = 2;
+  constexpr int CQ = Db / CW;       // column groups of a block
+  constexpr int TP = CQ * Db;       // threads of a position in the products
+  constexpr int PP = NT / TP;       // positions a products pass
+  constexpr int NG = NT / Db;       // inversion groups
+  static_assert(NT % BS == 0 && NT % 32 == 0 && Db % CW == 0 && NT % TP == 0,
+                "groups of the thread block");
+#ifdef BAND_FACTOR_CLOCKS
+  long long clk[32] = {};
+#endif
+  FACTOR_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  const int rows = cr_factor_rows(n, T, P);
+  double* Ds = sm;
+  double* As = Ds + (long long)rows * BS;
+  double* Cs = As + (long long)rows * BS;
+  const int Tn = T >> n, tiles = Tn / P;
+  const int c = blockIdx.x / tiles;
+  const int j0 = (blockIdx.x - c * tiles) * P;
+  const int span = 1 << n;
+  const int lo = max(0, span * j0 - (span - 1));  // the tile's first fine row
+  {
+    const long long o = ((long long)c * T + lo) * BS;
+    const int units = (span * (j0 + P) - lo) * (BS / 2);
+    for (int u = threadIdx.x; u < units; u += NT) {
+      cp_async16(Ds + 2 * u, D + o + 2 * u);
+      cp_async16(As + 2 * u, A + o + 2 * u);
+      cp_async16(Cs + 2 * u, Cc + o + 2 * u);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  FACTOR_CLOCK(1)
+  const int g = threadIdx.x / Db, r = threadIdx.x - g * Db;  // inversion group and row
+  const int pg = threadIdx.x / TP, w = threadIdx.x - pg * TP;  // position of a pass
+  const int r0 = w / CQ, c0 = (w % CQ) * CW;  // its row and first column
+  for (int l = 1; l <= n; ++l) {
+    const int wl = n - l, step = 1 << (l - 1);
+    const int plo = max(0, (j0 << wl) - ((1 << wl) - 1)), phi = ((j0 + P) << wl) - 1;
+    const int own = j0 << wl;
+    const long long Th = T >> l;
+    // (1) the odd rows 2q + 1 of level l - 1 that positions plo .. phi read
+    const int q0 = plo > 0 ? plo - 1 : 0, nq = phi - q0 + 1;
+    for (int i0 = 0; i0 < nq; i0 += NG) {
+      const bool on = i0 + g < nq;
+      const int q = q0 + (on ? i0 + g : 0);
+      row_inv_spd<Db>(Ds + (long long)((2 * q + 1) * step - lo) * BS, r, on);
+    }
+    __syncthreads();
+    FACTOR_CLOCK(2 + 2 * (l - 1))
+    // (2) E, F; (3) A', C', D': row r0, columns c0 .. c0 + CW - 1 of a
+    // position
+    for (int p0 = plo; p0 <= phi; p0 += PP) {
+      const bool on = p0 + pg <= phi;
+      const int p = on ? p0 + pg : plo;
+      const bool dn = p > 0;  // has an odd row below in its chain
+      const long long ie = (long long)(2 * p * step - lo) * BS + r0 * Db;  // the even row's row r0
+      const long long iu = (long long)((2 * p + 1) * step - lo) * BS + c0;  // the odd rows' columns
+      const long long id = dn ? iu - 2LL * step * BS : iu;
+      double ev[CW] = {}, fv[CW] = {};
+      if (on) {
+#pragma unroll
+        for (int k = 0; k < Db; ++k) {
+          double xu[CW], xd[CW];
+          load_units<CW>(Ds + iu + k * Db, xu);
+          load_units<CW>(Ds + id + k * Db, xd);
+          const double ck = Cs[ie + k], ak = As[ie + k];
+#pragma unroll
+          for (int j = 0; j < CW; ++j) {
+            fv[j] += ck * xu[j];
+            ev[j] += ak * xd[j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CW; ++j) {
+          fv[j] = -fv[j];
+          ev[j] = dn ? -ev[j] : 0.0;
+        }
+        if (p >= own) {
+          const long long o = (c * Th + p) * BS + r0 * Db + c0, u = iu + r0 * Db;
+          store_units<CW>(lv.E[l - 1] + o, ev);
+          store_units<CW>(lv.F[l - 1] + o, fv);
+          copy_units<CW>(lv.invD[l - 1] + o, Ds + u);
+          copy_units<CW>(lv.A[l - 1] + o, As + u);
+          copy_units<CW>(lv.C[l - 1] + o, Cs + u);
+        }
+      }
+      __syncthreads();  // the pass's even rows' A and C are read
+      if (on) {
+        store_units<CW>(As + ie + c0, ev);
+        store_units<CW>(Cs + ie + c0, fv);
+      }
+      __syncthreads();  // E and F are whole
+      double a2[CW] = {}, c2[CW] = {}, d1[CW] = {}, d2[CW] = {};
+      if (on) {  // (E is zero where the position has no odd row below)
+#pragma unroll
+        for (int k = 0; k < Db; ++k) {
+          double cu[CW], au[CW], ad[CW], cd[CW];
+          load_units<CW>(Cs + iu + k * Db, cu);
+          load_units<CW>(As + iu + k * Db, au);
+          load_units<CW>(As + id + k * Db, ad);
+          load_units<CW>(Cs + id + k * Db, cd);
+          const double fk = Cs[ie + k], ek = As[ie + k];
+#pragma unroll
+          for (int j = 0; j < CW; ++j) {
+            c2[j] += fk * cu[j];
+            d2[j] += fk * au[j];
+            a2[j] += ek * ad[j];
+            d1[j] += ek * cd[j];
+          }
+        }
+      }
+      __syncthreads();  // E and F are read
+      if (on) {
+        double dv[CW];
+        load_units<CW>(Ds + ie + c0, dv);
+#pragma unroll
+        for (int j = 0; j < CW; ++j) dv[j] = dv[j] + (d1[j] + d2[j]);
+        store_units<CW>(Ds + ie + c0, dv);
+        store_units<CW>(As + ie + c0, a2);
+        store_units<CW>(Cs + ie + c0, c2);
+      }
+    }
+    __syncthreads();
+    FACTOR_CLOCK(3 + 2 * (l - 1))
+  }
+  if (invDn != nullptr) {
+    // the chain's one position, at row 0: its inverse, by band_block_inv's
+    // function, in the scratch after the rows. The other groups invert a
+    // block of ones plus the identity, whose quotients all stay on the f64
+    // division's fast path (an identity's zero numerators take its slow
+    // path); their results are not read.
+    double* fin = Cs + (long long)rows * BS;
+    constexpr int GL = Lanes<Db>::group;
+    const int lr = threadIdx.x & (GL - 1);
+    const bool row = threadIdx.x < GL && lr < Db;
+    double Dv[Db];
+#pragma unroll
+    for (int k = 0; k < Db; ++k) Dv[k] = row ? Ds[lr * Db + k] : (k == lr ? 2.0 : 1.0);
+    group_inv_spd<Db>(Dv, fin, fin + BS, lr, row);
+    __syncthreads();
+    for (int u = threadIdx.x; u < BS; u += NT) invDn[(long long)c * BS + u] = fin[BS + u];
+  } else {
+    // the own positions of level n leave for the next run
+    for (int u = threadIdx.x; u < P * BS; u += NT) {
+      const int j = u / BS, f = u - j * BS;
+      const long long i = (long long)(((j0 + j) << n) - lo) * BS + f;
+      const long long o = ((long long)c * Tn + j0 + j) * BS + f;
+      D2[o] = Ds[i];
+      A2[o] = As[i];
+      C2[o] = Cs[i];
+    }
+  }
+  FACTOR_CLOCK(31)
+#ifdef BAND_FACTOR_CLOCKS
+  __syncthreads();
+  if (threadIdx.x == 0 && blockIdx.x == 0)
+    for (int i = 0; i < 32; ++i) lv.E[0][i] = (double)(clk[i] ? clk[i] - clk[0] : -1);
+#endif
 }
 
 // ---------------------------------------------------------------------
@@ -3138,23 +3518,66 @@ cudaError_t launch_pcr_level(const double* D, const double* A, const double* Cc,
   return cudaGetLastError();
 }
 
+template <int Db, int P>
+void launch_cr_level_element(const double* D, const double* A, const double* Cc,
+                             double* E, double* F, double* invDo, double* Ao,
+                             double* Co, double* D2, double* A2, double* C2,
+                             int nC, int Th, cudaStream_t st) {
+  cr_level_element_kernel<Db, P><<<grid_for((long long)nC * Th, P), (P + 1) * Db * Db,
+                                    0, st>>>(
+      D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
+}
+
+// P: coarse positions a thread block at Db = 12, 1 or 3 (band._cr_level_tile);
+// 1 at Db = 6, whose thread block is 15 positions
 template <int Db>
 cudaError_t launch_cr_level(const double* D, const double* A, const double* Cc,
                             double* E, double* F, double* invDo, double* Ao,
                             double* Co, double* D2, double* A2, double* C2,
-                            int nC, int Th, cudaStream_t st) {
+                            int nC, int Th, int P, cudaStream_t st) {
   if constexpr (Db == 12) {
-    constexpr int P = kCrLevelPositions;
-    cr_level_element_kernel<Db, P><<<grid_for((long long)nC * Th, P), (P + 1) * Db * Db,
-                                      0, st>>>(
-        D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
+    if (P == 1)
+      launch_cr_level_element<Db, 1>(D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th, st);
+    else if (P == 3)
+      launch_cr_level_element<Db, 3>(D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th, st);
+    else
+      return cudaErrorInvalidValue;
   } else {
+    if (P != 1) return cudaErrorInvalidValue;
     constexpr int groups = Lanes<Db>::cr_groups;
     cr_level_kernel<Db><<<grid_for((long long)nC * Th, groups - 1),
                           groups * Lanes<Db>::group, 0, st>>>(
         D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2, nC, Th);
   }
   return cudaGetLastError();
+}
+
+// band_cr_factor: n levels (1 to kCrMaxLevels) of nC chains of T, tiles of
+// P positions of level n (a power of two dividing T >> n); invDn (only
+// where T >> n == 1) takes the last block's inverse, else D2, A2, C2 the
+// level-n band. A plan past the limits, or a block size other than
+// kFactorBlock, returns cudaErrorInvalidValue.
+template <int Db>
+cudaError_t launch_cr_factor(const double* D, const double* A, const double* Cc,
+                             const CrFactorLevels& lv, double* D2, double* A2, double* C2,
+                             double* invDn, int nC, int n, int T, int P, cudaStream_t st) {
+  if constexpr (Db != kFactorBlock) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n < 1 || n > kCrMaxLevels || T < 2 || T % (1 << n) || P < 1 || (P & (P - 1)) ||
+        (T >> n) % P || (invDn != nullptr && (T >> n) != 1) ||
+        (invDn == nullptr && (D2 == nullptr || A2 == nullptr || C2 == nullptr)))
+      return cudaErrorInvalidValue;
+    const long long blocks = (long long)nC * ((T >> n) / P);
+    const long long smem = cr_factor_smem(n, T, P, Db, invDn != nullptr);
+    if (blocks > 0x7fffffff || smem > 232448) return cudaErrorInvalidValue;
+    static bool allowed = false;
+    const cudaError_t err = allow_smem(cr_factor_kernel<Db, kFactorThreads>, &allowed);
+    if (err != cudaSuccess) return err;
+    cr_factor_kernel<Db, kFactorThreads><<<(unsigned)blocks, kFactorThreads, smem, st>>>(
+        D, A, Cc, lv, D2, A2, C2, invDn, n, T, P);
+    return cudaGetLastError();
+  }
 }
 
 // Shared memory of one thread block of band_cr_reduce: every level's E and
@@ -3494,14 +3917,30 @@ int band_pcr_level(const double* D, const double* A, const double* Cc,
 
 int band_cr_level(const double* D, const double* A, const double* Cc,
                   double* E, double* F, double* invDo, double* Ao, double* Co,
-                  double* D2, double* A2, double* C2, int nC, int Th, int Db,
+                  double* D2, double* A2, double* C2, int nC, int Th, int Db, int P,
                   void* stream) {
   const long long n = (long long)nC * Th;
   if (n == 0) return 0;
   if (n > 0x3fffffff) return (int)cudaErrorInvalidValue;  // 2t + 1 as an int
   cudaStream_t st = (cudaStream_t)stream;
   BAND_DISPATCH(Db, launch_cr_level<kDb>(D, A, Cc, E, F, invDo, Ao, Co, D2, A2, C2,
-                                         nC, Th, st))
+                                         nC, Th, P, st))
+}
+
+// A run of `levels` compacting levels of a factor in one launch (fine
+// length T, tiles of P positions of the run's last level, as
+// band._factor_tile planned them): each level's E, F, invD, A, C into lv;
+// the last level's band into D2, A2, C2, or, where it has one position a
+// chain, that block's inverse into invDn (D2, A2, C2 unused, may be null).
+// Db = 6 only.
+int band_cr_factor(const double* D, const double* A, const double* Cc, CrFactorLevels lv,
+                   double* D2, double* A2, double* C2, double* invDn, int levels, int nC,
+                   int T, int Db, int P, void* stream) {
+  if ((long long)nC * T == 0) return 0;
+  if ((long long)nC * T > 0x3fffffff) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  BAND_DISPATCH(Db, launch_cr_factor<kDb>(D, A, Cc, lv, D2, A2, C2, invDn, nC, levels, T, P,
+                                          st))
 }
 
 // Every compacting level of a solve in one launch: levels (1 to

@@ -196,7 +196,14 @@ def test_cpu_tensors_take_the_plain_versions():
         fine = (b,) + red[:-1]
         assert torch.equal(band.band_cr_backsub(levels, fine, red[-1]),
                            band.band_cr_backsub_plain(levels, fine, red[-1]))
-    assert [k.launches for k in band.KERNELS] == [0] * 7
+    # a factor's run of levels, ending at one block a chain and short of it
+    for n, last in ((3, True), (2, False)):
+        got = band.band_cr_factor(D, A, U, n, last)
+        want = band.band_cr_factor_plain(D, A, U, n, last)
+        assert all(torch.equal(g, w) for lg, lw in zip(got.levels, want.levels)
+                   for g, w in zip(lg, lw))
+        assert all(g is w is None or torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    assert [k.launches for k in band.KERNELS] == [0] * 8
 
 
 def test_wrappers_reject_bad_inputs():
@@ -241,6 +248,12 @@ def test_wrappers_reject_bad_inputs():
         band.band_cr_reduce(deep, bd)
     with pytest.raises(ValueError, match="levels"):
         band.band_cr_backsub(deep, (bd,) * n, bd[:, :1])
+    # a factor's run: 1 to 8 levels that halve the chain, ``last`` only where
+    # it ends at one block
+    Af = band.band_init_a(Ud)
+    for levels, last in ((0, False), (n, False), (n - 1, True)):
+        with pytest.raises(ValueError, match="band_cr_factor"):
+            band.band_cr_factor(Dd, Af, Ud, levels, last)
 
 
 # ------------------------------------------------------------------ #
@@ -948,3 +961,294 @@ def test_cr_chain_plans_of_the_cells():
     for n, Db, C in ((6, 6, 400), (8, 12, 64)):
         for K in (1, 18, 56):
             assert band.cr_solve_launches(n, Db, K, 1, C) == band.cr_solve_launches(n, Db, K, 1, 4)
+
+
+# ------------------------------------------------------------------ #
+# band_cr_factor: a run of compacting levels in one launch
+# ------------------------------------------------------------------ #
+
+# The band factors of the cells: (chains, chain length, block size) of
+# Manhattan-4, robot20, 3D 4x250, 3D 1x1000, the 2D and the 3D fold; the
+# first are those band_cr_factor takes (Db = 6, the size it is built for).
+_FACTOR_CELLS = [(4, 512, 6), (20, 128, 6), (4, 256, 12), (1, 1024, 12), (400, 64, 6),
+                 (64, 256, 12)]
+_FACTOR_CELLS_2D = [cell for cell in _FACTOR_CELLS if cell[2] == 6]
+
+
+def _rel0(a, b):
+    """_rel where b may be all zero (a chain's first E, the last level's A
+    and C): then the largest difference itself."""
+    return np.max(np.abs(np.asarray(a) - np.asarray(b))) / max(np.max(np.abs(np.asarray(b))),
+                                                             1e-300)
+
+
+def _random_band(C, Tp, Db, seed):
+    """A random SPD band (D, U) and A = band_init_a(U), in the band
+    convention."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((C, Tp, Db, Db))
+    D = torch.tensor(M @ np.swapaxes(M, -1, -2) + (2.0 + 4.0 * Db) * np.eye(Db))
+    U = 0.3 * rng.standard_normal((C, Tp, Db, Db))
+    U[:, -1] = 0.0
+    U = torch.tensor(U)
+    return D, band.band_init_a(U), U
+
+
+@pytest.mark.parametrize("Db", [6, 12])
+@pytest.mark.parametrize("T,n", [(2, 1), (8, 2), (16, 4), (64, 3)])
+def test_cr_factor_plain_is_the_per_level_composition(T, n, Db):
+    """band_cr_factor_plain is band_cr_level_plain n times, bit for bit,
+    and, where the run ends at one position a chain, band_block_inv_plain
+    of the last D' in place of the band it leaves."""
+    D, A, U = _random_band(3, T, Db, seed=T + n + Db)
+    Dl, Al, Cl, want = D, A, U, []
+    for _ in range(n):
+        out = band.band_cr_level_plain(Dl, Al, Cl)
+        want.append(out[:5])
+        Dl, Al, Cl = out[5:]
+    last = T >> n == 1
+    run = band.band_cr_factor_plain(D, A, U, n, last)
+    assert len(run.levels) == n
+    for got, w in zip(run.levels, want):
+        assert all(torch.equal(g, x) for g, x in zip(got, w))
+    if last:
+        assert run.D is None and torch.equal(run.invD, band.band_block_inv_plain(Dl))
+    else:
+        assert run.invD is None
+        assert all(torch.equal(g, x) for g, x in zip((run.D, run.A, run.C), (Dl, Al, Cl)))
+    # the wrapper on CPU tensors is the plain twin
+    got = band.band_cr_factor(D, A, U, n, last)
+    assert all(torch.equal(g, x) for g, x in zip(got.levels[-1], run.levels[-1]))
+
+
+def _cr_factor_replay(D, A, C, n, P, last):
+    """band_cr_factor replayed as csrc/band.cu cuts it: a thread block a tile
+    of P positions j0 .. j0 + P - 1 of level n of one chain, the fine rows
+    2^n j0 - (2^n - 1) .. 2^n (j0 + P) - 1 staged (the left halo; none
+    before the chain's start), every level in place (level l's position p in
+    the slot of fine row p << l): the odd rows (2q + 1) << (l - 1) inverted
+    over their D, then E, F, and A', C', D' over the even row's A, C, D, for
+    the tile's positions and the halo's; only the tile's own positions
+    written, then its level-n band or the last block's inverse."""
+    nC, T, Db, _ = D.shape
+    Tn, span = T >> n, 1 << n
+    nan = lambda *shape: torch.full(shape, float("nan"), dtype=D.dtype)
+    levels = [band.CRLevel(*(nan(nC, T >> (lev + 1), Db, Db) for _ in range(5)))
+              for lev in range(n)]
+    band_out = [nan(nC, Tn, Db, Db) for _ in range(3)]
+    invD = nan(nC, 1, Db, Db)
+    for c in range(nC):
+        for j0 in range(0, Tn, P):
+            lo, hi = max(0, span * j0 - (span - 1)), span * (j0 + P) - 1
+            Ds, As, Cs = (t[c, lo:hi + 1].clone() for t in (D, A, C))
+            for lev in range(1, n + 1):
+                w, step = n - lev, 1 << (lev - 1)
+                plo, phi = max(0, (j0 << w) - ((1 << w) - 1)), ((j0 + P) << w) - 1
+                odd = (2 * torch.arange(max(plo - 1, 0), phi + 1) + 1) * step - lo
+                Ds[odd] = band.band_block_inv_plain(Ds[odd])
+                p = torch.arange(plo, phi + 1)
+                ie, iu = 2 * p * step - lo, (2 * p + 1) * step - lo
+                dn = (p > 0).view(-1, 1, 1)
+                idn = torch.where(p > 0, ie - step, iu)
+                E = torch.where(dn, -(As[ie] @ Ds[idn]), torch.zeros_like(As[ie]))
+                F = -(Cs[ie] @ Ds[iu])
+                mine = p >= j0 << w
+                for lv, blk in zip(levels[lev - 1], (E, F, Ds[iu], As[iu], Cs[iu])):
+                    lv[c, p[mine]] = blk[mine]
+                D2 = Ds[ie] + (E @ Cs[idn] + F @ As[iu])
+                A2, C2 = E @ As[idn], F @ Cs[iu]
+                Ds[ie], As[ie], Cs[ie] = D2, A2, C2
+            if last:
+                invD[c] = band.band_block_inv_plain(Ds[:1])
+            else:
+                rows = (torch.arange(j0, j0 + P) << n) - lo
+                for o, t in zip(band_out, (Ds, As, Cs)):
+                    o[c, j0:j0 + P] = t[rows]
+    if last:
+        return band.CRRun(tuple(levels), None, None, None, invD)
+    return band.CRRun(tuple(levels), *band_out, None)
+
+
+def _factor_replayed(D, A, U, cell_C, n_sm=132):
+    """A factor's runs (band._factor_runs) replayed at the tiles the planner
+    gives the cell's chain count (band._factor_tile): (levels, last
+    invD)."""
+    nC, Tp, Db, _ = D.shape
+    levels, T = [], Tp
+    for n in band._factor_runs(Tp, Db):
+        last = T >> n == 1
+        run = _cr_factor_replay(D, A, U, n, band._factor_tile(n, T, Db, cell_C, n_sm), last)
+        levels += run.levels
+        T >>= n
+        if last:
+            return levels, run.invD
+        D, A, U = run.D, run.A, run.C
+    raise AssertionError("the runs do not end at one block a chain")
+
+
+@pytest.mark.parametrize("cell", _FACTOR_CELLS_2D)
+def test_cr_factor_partitioned_as_the_plan(cell):
+    """Every cell's factor replayed in PyTorch as band_cr_factor's launches
+    cut it at the cell's chain count (the runs, each run's tiles with their
+    halo, the levels in place), on 2 chains of the cell's length (3 for a
+    single chain), against the plain twins: 1e-15 relative."""
+    cell_C, Tp, Db = cell
+    D, A, U = _random_band(2 if cell_C > 1 else 3, Tp, Db, seed=Tp + Db)
+    levels, invD = _factor_replayed(D, A, U, cell_C)
+    want = band.band_factor(D, U)
+    assert len(levels) == len(want.levels) == band.num_levels(Tp)
+    for got, w in zip(levels, want.levels):
+        for g, x in zip(got, w):
+            assert _rel0(g, x) <= 1e-15
+    assert _rel0(invD, want.invD) <= 1e-15
+
+
+@pytest.mark.parametrize("n,T,P,last", [(1, 2, 1, True), (2, 4, 1, True), (1, 8, 2, False),
+                                        (3, 64, 2, False), (2, 64, 4, False), (3, 16, 1, False)])
+def test_cr_factor_partitioned_at_the_edges(n, T, P, last):
+    """The replayed tiles at the edges: chains of 2 and 4 (one launch, no
+    halo), tiles of several positions, a tile at every chain's start and
+    one after it, an odd chain count."""
+    D, A, U = _random_band(3, T, 6, seed=T + n + P)
+    got = _cr_factor_replay(D, A, U, n, P, last)
+    want = band.band_cr_factor_plain(D, A, U, n, last)
+    for g, w in zip(got.levels, want.levels):
+        assert all(_rel0(a, b) <= 1e-15 for a, b in zip(g, w))
+    tail = ("invD",) if last else ("D", "A", "C")
+    assert all(_rel0(getattr(got, f), getattr(want, f)) <= 1e-15 for f in tail)
+
+
+def test_cr_factor_plans_of_the_cells():
+    """The planner on the cells: at Db = 6, where band_factor takes
+    band_cr_factor, at most two launches a factor and no band_block_inv
+    (against log2(Tp) + 1 before); at Db = 12 a band_cr_level launch a
+    level and band_block_inv; the runs, the tiles and the launch count
+    depend on (Tp, Db) alone, whatever the chain count; every launch's
+    shared memory fits the card's 227 KB; the last run is a chain a thread
+    block."""
+    for C, Tp, Db in _FACTOR_CELLS:
+        assert band._factor_takes(Db) == (Db == band._FACTOR_MAX_BLOCK == 6)
+        if Db != 6:
+            assert band.factor_launches(Tp, Db) == band.num_levels(Tp) + 1
+            continue
+        runs = band._factor_runs(Tp, Db)
+        assert sum(runs) == band.num_levels(Tp) and len(runs) <= 2
+        assert band.factor_launches(Tp, Db) == len(runs)
+        T = Tp
+        for n in runs:
+            for chains in (1, 2, 3, 4, 64, 400, C):
+                P = band._factor_tile(n, T, Db, chains)
+                assert (T >> n) % P == 0
+                assert band._factor_smem(n, T, P, Db, T >> n == 1) <= band._SMEM_MAX
+            T >>= n
+        assert T == 1
+    # every chain length up to 2^16: a plan that fits, the chain count out
+    # of the count
+    for L in range(0, 17):
+        Tp = 1 << L
+        runs = band._factor_runs(Tp, 6)
+        assert sum(runs) == L and all(1 <= n <= 8 for n in runs)
+        assert band.factor_launches(Tp, 6) == max(len(runs), 1)
+        for n_cr in range(L + 1):
+            assert sum(band._factor_runs(Tp, 6, n_cr)) == n_cr
+        T = Tp
+        for n in runs:
+            for C in (1, 7, 400):
+                P = band._factor_tile(n, T, 6, C)
+                assert band._factor_smem(n, T, P, 6, T >> n == 1) <= band._SMEM_MAX
+            T >>= n
+
+
+def test_cr_level_tiles_of_the_cells():
+    """band_cr_level's positions a thread block at Db = 12: 3 on the 3D
+    fold's first four levels (8,192 down to 1,024 positions), 1 below and
+    on every level of the 3D solves (at most 512 positions); 1 at Db = 6;
+    the tile moves the grid only, so a factor's launches stay one a level."""
+    tiles = lambda C, Tp, Db: [band._cr_level_tile(C, Tp >> lev, Db)
+                               for lev in range(1, band.num_levels(Tp) + 1)]
+    assert tiles(64, 256, 12) == [3, 3, 3, 3, 1, 1, 1, 1]
+    assert tiles(4, 256, 12) == [1] * 8 and tiles(1, 1024, 12) == [1] * 10
+    assert tiles(400, 64, 6) == [1] * 6 and tiles(4, 512, 6) == [1] * 9
+    assert band._cr_level_tile(1, 1023, 12) == 1 and band._cr_level_tile(1, 1024, 12) == 3
+
+
+def _cr_level_replay(D, A, C, P):
+    """band_cr_level at Db = 12 replayed as csrc/band.cu's
+    cr_level_element_kernel cuts it: the coarse positions of all chains end
+    to end, a thread block P of them and P + 1 odd rows, the first the row
+    before its first position where that position has one below in its
+    chain (a tile may cross a chain's end); each odd block inverted where a
+    thread block wants it, the identity where not; then E, F, A', C', D' of
+    the tile's positions from the thread block's own inverses."""
+    nC, T, Db, _ = D.shape
+    Th, n = T // 2, nC * (T // 2)
+    flat = lambda t: t.reshape(n, 2, Db, Db)
+    Df, Af, Cf = flat(D), flat(A), flat(C)
+    eye = torch.eye(Db, dtype=D.dtype)
+    outs = [torch.full((n, Db, Db), float("nan"), dtype=D.dtype) for _ in range(8)]
+    for t0 in range(0, n, P):
+        inv = []
+        for g in range(P + 1):
+            t = t0 + g - 1
+            want = t < n and (g > 0 or (t >= 0 and (t + 1) % Th != 0))
+            inv.append(band.band_block_inv_plain(Df[t, 1]) if want else eye)
+        for g in range(1, P + 1):
+            t = t0 + g - 1
+            if t >= n:
+                break
+            dn = t % Th != 0
+            E = -(Af[t, 0] @ inv[g - 1]) if dn else torch.zeros_like(eye)
+            F = -(Cf[t, 0] @ inv[g])
+            Ad = Af[t - 1, 1] if dn else eye
+            Cd = Cf[t - 1, 1] if dn else eye
+            A2 = E @ Ad if dn else torch.zeros_like(eye)
+            d1 = E @ Cd if dn else torch.zeros_like(eye)
+            vals = (E, F, inv[g], Af[t, 1], Cf[t, 1], Df[t, 0] + (d1 + F @ Af[t, 1]), A2,
+                    F @ Cf[t, 1])
+            for o, v in zip(outs, vals):
+                o[t] = v
+    return tuple(o.reshape(nC, Th, Db, Db) for o in outs)
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("nC,T", [(3, 10), (5, 8), (2, 64), (7, 2)])
+def test_cr_level_partitioned_as_the_tiles(nC, T, P):
+    """band_cr_level replayed at P = 1 and 3 positions a thread block, with
+    tiles that end inside a chain, cross a chain's end and run past the
+    last position: the plain twin's outputs, 1e-15 relative."""
+    D, A, U = _random_band(nC, T, 12, seed=nC * T + P)
+    got = _cr_level_replay(D, A, U, P)
+    want = band.band_cr_level_plain(D, A, U)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel0(g, w) <= 1e-15
+
+
+@pytest.mark.parametrize("C", [1, 2, 3])
+def test_band_factor_launches_a_run_at_a_time(C, monkeypatch):
+    """band_factor calls band_cr_factor once a run of band._factor_runs at
+    Db = 6 (band_cr_level once a level at Db = 12: band._factor_takes), the
+    same calls at every chain count, and band_block_inv only where the
+    levels stop above one block a chain or ran one a launch
+    (band.factor_launches)."""
+    calls = []
+    run, inv = band.band_cr_factor, band.band_block_inv
+    monkeypatch.setattr(band, "band_cr_factor",
+                        lambda *a, **k: calls.append(("run", a[3], k.get("last"))) or run(*a, **k))
+    monkeypatch.setattr(band, "band_block_inv", lambda D: calls.append(("inv",)) or inv(D))
+    level = band.band_cr_level
+    monkeypatch.setattr(band, "band_cr_level",
+                        lambda *a: calls.append(("level",)) or level(*a))
+    for Tp, Db, n_cr in ((512, 6, None), (256, 12, None), (64, 6, 4), (1, 6, None),
+                         (128, 6, None), (64, 12, 3)):
+        calls.clear()
+        D, _, U = _random_band(C, Tp, Db, seed=Tp)
+        band.band_factor(D, U, n_cr=n_cr)
+        n_cr = band.cr_depth(Tp) if n_cr is None else n_cr
+        runs = band._factor_runs(Tp, Db, n_cr) if band._factor_takes(Db) else []
+        Tb = Tp >> n_cr
+        want = [("run", n, Tp >> sum(runs[:i + 1]) == 1) for i, n in enumerate(runs)]
+        if not band._factor_takes(Db):
+            want = [("level",)] * n_cr
+        want += [("inv",)] if Tb > 1 or not runs else []
+        assert calls == want
+        assert len(calls) + band.num_levels(Tb) == band.factor_launches(Tp, Db, n_cr)

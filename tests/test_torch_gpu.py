@@ -45,6 +45,18 @@ def _reference_data():
     return module
 
 
+def _off_the_default_path(Db):
+    """Names of the band kernels a band compacted to one block a chain does
+    not launch at block size Db: band_pcr_level (no PCR level), and
+    band_cr_level and band_block_inv where band_cr_factor takes the factor
+    (Db = 6: its last run inverts the one block a chain), band_cr_factor
+    where a band_cr_level launch a level does (Db = 12:
+    band._factor_takes)."""
+    if band._factor_takes(Db):
+        return {"band_pcr_level", "band_cr_level", "band_block_inv"}
+    return {"band_pcr_level", "band_cr_factor"}
+
+
 def _rel(a, b):
     """max |a - b| / max |b|; the absolute difference where b is all zero
     (the couplings A', C' after a chain's last PCR level)."""
@@ -92,8 +104,24 @@ def test_kernels_match_plain(cuda, K):
         levels.append(band.CRLevel(*lv[:5]))
         Dl, Al, Cl = lv[5:]
     _check_fused_cr(levels, b)
+    _check_factor_run(D, A, U, 2)
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in band.KERNELS)
+
+
+def _check_factor_run(D, A, C, n, last=False):
+    """band_cr_factor over n levels against its plain twin, 1e-12 on every
+    output, in one launch; returns the run."""
+    k0 = band.band_cr_factor.launches
+    run = band.band_cr_factor(D, A, C, n, last)
+    want = band.band_cr_factor_plain(D, A, C, n, last)
+    assert band.band_cr_factor.launches - k0 == 1 and len(run.levels) == n
+    for got, w in zip(run.levels, want.levels):
+        for g, x in zip(got, w):
+            assert g.shape == x.shape and _rel(g, x) <= 1e-12
+    for f in ("invD",) if last else ("D", "A", "C"):
+        assert _rel(getattr(run, f), getattr(want, f)) <= 1e-12
+    return run
 
 
 def _check_fused_cr(levels, b):
@@ -196,7 +224,9 @@ def test_cuda_solve_matches_cpu(cuda, monkeypatch):
     ))
     band.reset_launch_counts()
     gpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda"))
-    assert all(k.launches > 0 for k in band.KERNELS)
+    # the factor's levels run in band_cr_factor launches, not band_cr_level's
+    assert band.band_cr_level.launches == 0
+    assert all(k.launches > 0 for k in band.KERNELS if k is not band.band_cr_level)
     cpu = solve_score(fg, "SOCP", ScoreSolverParams(device="cpu"))
     assert gpu.solved and abs(gpu.iterations - cpu.iterations) <= 1
     assert abs(gpu.primal_objective - cpu.primal_objective) <= 1e-9 * abs(cpu.primal_objective)
@@ -449,7 +479,8 @@ def test_kernels_match_plain_3d(cuda, K):
     padded chains: the levels of a PCR factor, a PCR solve, and two
     compacting levels with their rhs reduction and back substitution (K = 1,
     a direction; K = 18, the 3D bench's panel; widths around it and a wide
-    one). Launches count at Db = 12."""
+    one). Launches count at Db = 12. band_cr_factor, built for Db = 6,
+    raises on a Db = 12 band and launches nothing."""
     D, U = _band(3, 32, 12, 70, (32, 20, 5), cuda)
     band.reset_launch_counts()
     A = band.band_init_a(U)
@@ -472,8 +503,12 @@ def test_kernels_match_plain_3d(cuda, K):
         levels.append(band.CRLevel(*lv[:5]))
         Dl, Al, Cl = lv[5:]
     _check_fused_cr(levels, b)
+    with pytest.raises(ValueError, match="band_cr_factor: the CUDA kernel is built for block"):
+        band.band_cr_factor(D, A, U, 2)
     torch.cuda.synchronize()
-    assert all(k.launches_by_size[12] == k.launches > 0 for k in band.KERNELS)
+    assert band.band_cr_factor.launches == 0
+    assert all(k.launches_by_size[12] == k.launches > 0 for k in band.KERNELS
+               if k is not band.band_cr_factor)
 
 
 @pytest.mark.parametrize(
@@ -753,7 +788,9 @@ def test_cuda_solve_3d_matches_cpu(cuda, relaxation, monkeypatch):
     with (a sharp optimum, objective ~5e3; without it the relaxation fits
     every range and the rounded poses of two solves differ by ~3e-5), on
     the card against the CPU path: the 3D band (chains of 32 compacted
-    twice, then PCR) launches all seven kernels at Db = 12; same iterations
+    twice, then PCR) launches every kernel of its path at Db = 12 (a
+    band_cr_level launch a level: band_cr_factor takes no 3D factor); same
+    iterations
     within 1, objectives within 1e-9 relative, rounded poses within 1e-5."""
     monkeypatch.setattr(band, "CR_BASE_LENGTH", 8)
     fg = simulate_3d_world(World3DParams(num_robots=2, num_poses_per_robot=30,
@@ -762,7 +799,8 @@ def test_cuda_solve_3d_matches_cpu(cuda, relaxation, monkeypatch):
         "A3", "A25", np.array([1.0, -2.0, 0.5]), np.eye(3), 100.0, 1000.0, 0.0))
     band.reset_launch_counts()
     gpu = solve_score(fg, relaxation, ScoreSolverParams(device="cuda"))
-    assert all(k.launches_by_size[12] > 0 for k in band.KERNELS)
+    assert band.band_cr_factor.launches == 0
+    assert all(k.launches_by_size[12] > 0 for k in band.KERNELS if k is not band.band_cr_factor)
     cpu = solve_score(fg, relaxation, ScoreSolverParams(device="cpu"))
     assert gpu.solved and cpu.solved and abs(gpu.iterations - cpu.iterations) <= 1
     assert abs(gpu.primal_objective - cpu.primal_objective) <= 1e-9 * abs(cpu.primal_objective)
@@ -1015,7 +1053,7 @@ def test_cuda_batch_matches_cpu(cuda):
     """An 8-trial batch on the card against the port's CPU batch, lane by
     lane: the same status, iterations within 1, pobj within 1e-9 relative,
     the trips within 1; the fold's band kernels launched (compacted to one
-    block: every kernel but band_pcr_level)."""
+    block: every kernel of that path, :func:`_off_the_default_path`)."""
     import dataclasses
 
     from score_tpu_torch.parallel.batch import _solve_batch_trips
@@ -1033,7 +1071,7 @@ def test_cuda_batch_matches_cpu(cuda):
     assert (gpu.iterations.cpu() - cpu.iterations).abs().max().item() <= 1
     assert abs(trips_g - trips_c) <= 1
     assert ((gpu.pobj.cpu() - cpu.pobj).abs() / cpu.pobj.abs()).max().item() <= 1e-9
-    assert set(launched) == {k.__name__ for k in band.KERNELS} - {"band_pcr_level"}
+    assert set(launched) == {k.__name__ for k in band.KERNELS} - _off_the_default_path(6)
 
 
 @pytest.mark.parametrize("C,Tp,Db,K", [(400, 64, 6, 56), (64, 256, 12, 18)])
@@ -1042,8 +1080,8 @@ def test_default_schedule_at_the_batch_folds(cuda, C, Tp, Db, K):
     folds of the 100-trial Monte-Carlo batch (C = 400 chains of 64, Db = 6,
     panel 56) and of the 16-trial 3D 4x250 batch (C = 64 chains of 256,
     Db = 12, panel 18): factor and solve on the card against the plain
-    twins on the CPU (1e-12 relative), every kernel but band_pcr_level
-    launched, and the band satisfied (1e-10)."""
+    twins on the CPU (1e-12 relative), every kernel of the path launched
+    (:func:`_off_the_default_path`), and the band satisfied (1e-10)."""
     D, U = _band(C, Tp, Db, 66, (Tp - 7,) * C, cuda)
     band.reset_launch_counts()
     f = band.band_factor(D, U)
@@ -1056,7 +1094,7 @@ def test_default_schedule_at_the_batch_folds(cuda, C, Tp, Db, K):
     torch.cuda.synchronize()
     assert len(f.levels) == band.num_levels(Tp) and f.E.shape[0] == 0
     assert {k.__name__ for k in band.KERNELS if k.launches_by_size[Db]} == (
-        {k.__name__ for k in band.KERNELS} - {"band_pcr_level"})
+        {k.__name__ for k in band.KERNELS} - _off_the_default_path(Db))
 
 
 def _f32_lanes_agree(gpu, cpu, trips, max_iter):
@@ -1136,7 +1174,7 @@ def test_cuda_3d_batch_matches_cpu(cuda, precision):
             torch.cuda.synchronize()
             if precision == "f64":
                 assert {k.__name__ for k in band.KERNELS if k.launches_by_size[12]} == (
-                    {k.__name__ for k in band.KERNELS} - {"band_pcr_level"})
+                    {k.__name__ for k in band.KERNELS} - _off_the_default_path(12))
             else:
                 assert all(k.launches == 0 for k in band.KERNELS)
                 _assert_fused_path()
@@ -1237,7 +1275,9 @@ def test_world2_gloo_chain_sharded_solve_on_one_card(cuda):
     tol = 1e-9 * abs(want.pobj)
     assert abs(got.pobj - want.pobj) <= (max(tol, want.gap) if abs(want.pobj) < 1e-3 else tol)
     assert (got.x - want.x.cpu()).abs().max().item() <= 1e-4
-    assert launches["band_cr_level"] > 0 and launches["band_cr_reduce"] > 0
+    # robot20's 2D factor runs in band_cr_factor launches
+    assert launches["band_cr_factor"] > 0 and launches["band_cr_reduce"] > 0
+    assert launches["band_cr_level"] == 0
 
 
 def test_kernels_launch_on_the_current_stream(cuda):
@@ -1281,3 +1321,137 @@ def test_kernels_launch_on_their_tensors_device(cuda):
     assert L.device == other
     assert _rel(L @ L.transpose(-1, -2), A) <= 1e-5
     assert torch.cuda.current_device() == 0
+
+
+# ------------------------------------------------------------------ #
+# band_cr_factor: a factor's compacting levels in one or two launches
+# ------------------------------------------------------------------ #
+
+# (chains, chain length, block size): the cells' factors (Manhattan-4,
+# robot20, 3D 4x250, 3D 1x1000, the 2D and 3D folds), then the edges:
+# chains of 2 and 4 (one run, no halo), one chain and an odd chain count,
+# chains of 2048 (two runs at Db = 6; at Db = 12 a level a launch, the
+# first ones 3 positions a thread block)
+_FACTOR_SHAPES = [(4, 512, 6), (20, 128, 6), (4, 256, 12), (1, 1024, 12), (400, 64, 6),
+                  (64, 256, 12), (3, 2, 6), (3, 2, 12), (1, 4, 6), (5, 4, 12), (7, 64, 12),
+                  (1, 2048, 6), (3, 2048, 12)]
+
+
+@pytest.mark.parametrize("C,Tp,Db", _FACTOR_SHAPES)
+def test_cr_factor_matches_plain(cuda, C, Tp, Db):
+    """Every run of band_cr_factor's plan of a factor (band._factor_runs:
+    at most two) against its plain twin on the same inputs, each fed the
+    kernel's outputs of the run before, 1e-12 on every output (each level's
+    E, F, invD, A, C, the band it leaves or the last invD); band_factor
+    against the CPU's, in the launches band.factor_launches counts: the
+    runs alone at Db = 6, a band_cr_level launch a level and band_block_inv
+    at Db = 12 (band._factor_takes)."""
+    D, U = _band(C, Tp, Db, 80 + Tp + Db, (Tp,) * C, cuda)
+    A = band.band_init_a(U)
+    runs = band._factor_runs(Tp, Db) if band._factor_takes(Db) else []
+    Dl, Al, Cl, T = D, A, U, Tp
+    for n in runs:
+        run = _check_factor_run(Dl, Al, Cl, n, last=T >> n == 1)
+        T >>= n
+        if T > 1:
+            Dl, Al, Cl = run.D, run.A, run.C
+    band.reset_launch_counts()
+    f = band.band_factor(D, U)
+    torch.cuda.synchronize()
+    counted = (band.band_cr_factor.launches_by_size[Db] + band.band_cr_level.launches_by_size[Db]
+               + band.band_block_inv.launches_by_size[Db])
+    assert counted == band.factor_launches(Tp, Db)
+    if band._factor_takes(Db):
+        assert band.band_cr_factor.launches == len(runs)
+        assert band.band_cr_level.launches == band.band_block_inv.launches == 0
+    else:
+        assert band.band_cr_factor.launches == 0
+        assert band.band_cr_level.launches == band.num_levels(Tp)
+    fc = band.band_factor(D.cpu(), U.cpu())
+    for got, want in zip(f.levels, fc.levels):
+        for g, w in zip(got, want):
+            assert _rel(g.cpu(), w) <= 1e-12
+    assert _rel(f.invD.cpu(), fc.invD) <= 1e-12
+
+
+@pytest.mark.parametrize("C,Tp,Db,n_cr", [(3, 64, 6, 3), (2, 128, 12, 4), (4, 512, 6, 8),
+                                          (1, 1024, 12, 9)])
+def test_cr_factor_short_of_one_block(cuda, C, Tp, Db, n_cr):
+    """Levels that stop above one block a chain: band_cr_factor's runs (a
+    band_cr_level launch a level at Db = 12) leave the band (1e-12 against
+    the CPU's factor), band_block_inv and the PCR levels take it, in the
+    launches band.factor_launches counts."""
+    D, U = _band(C, Tp, Db, 81 + Tp, (Tp,) * C, cuda)
+    band.reset_launch_counts()
+    f = band.band_factor(D, U, n_cr=n_cr)
+    torch.cuda.synchronize()
+    fc = band.band_factor(D.cpu(), U.cpu(), n_cr=n_cr)
+    for got, want in zip(f.levels, fc.levels):
+        assert all(_rel(g.cpu(), w) <= 1e-12 for g, w in zip(got, want))
+    for got, want in ((f.invD, fc.invD), (f.E, fc.E), (f.F, fc.F)):
+        assert _rel(got.cpu(), want) <= 1e-12
+    assert band.band_block_inv.launches == 1
+    assert band.band_cr_level.launches == (0 if band._factor_takes(Db) else n_cr)
+    assert (band.band_cr_factor.launches + band.band_cr_level.launches
+            + band.band_block_inv.launches + band.band_pcr_level.launches) == (
+        band.factor_launches(Tp, Db, n_cr))
+
+
+@pytest.mark.parametrize("C,Tp,Db", [(4, 512, 6), (400, 64, 6), (1, 2048, 6), (3, 4, 6),
+                                     (3, 2, 6)])
+def test_cr_factor_emits_band_block_inv(cuda, C, Tp, Db):
+    """The invD a run that ends at one block a chain emits is band_block_inv
+    of that run's last D', bit for bit (the same inversion function), and
+    the odd rows' inverses of its first level are band_block_inv of the odd
+    rows, bit for bit (the row inversion makes the element and group
+    inversions' operations in their order). Two factors in a row on one
+    stream give the same bits."""
+    D, U = _band(C, Tp, Db, 82 + Tp, (Tp,) * C, cuda)
+    A = band.band_init_a(U)
+    runs = band._factor_runs(Tp, Db)
+    Dl, Al, Cl = D, A, U
+    for n in runs[:-1]:
+        run = band.band_cr_factor(Dl, Al, Cl, n)
+        Dl, Al, Cl = run.D, run.A, run.C
+    n = runs[-1]
+    last = band.band_cr_factor(Dl, Al, Cl, n, last=True)
+    if n > 1:
+        # the same levels stopped one short, then the level before the last
+        # position in a launch of its own: the D' that run inverts
+        mid = band.band_cr_factor(Dl, Al, Cl, n - 1)
+        Dn = band.band_cr_factor(mid.D, mid.A, mid.C, 1).D
+    else:
+        Dn = band.band_cr_level(Dl, Al, Cl)[5]
+    assert torch.equal(last.invD, band.band_block_inv(Dn))
+    first = band.band_cr_factor(D, A, U, 1, last=Tp == 2)
+    assert torch.equal(first.levels[0].invD, band.band_block_inv(D[:, 1::2].contiguous()))
+    f1, f2 = band.band_factor(D, U), band.band_factor(D, U)
+    for a, b in zip(f1.levels, f2.levels):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(f1.invD, f2.invD)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("C,T", [(64, 512), (64, 256), (3, 2048), (7, 10), (5, 8), (1, 2)])
+def test_cr_level_tiles_match(cuda, C, T, monkeypatch):
+    """band_cr_level at Db = 12 at the tile its planner gives
+    (band._cr_level_tile: 3 positions a thread block from 1,024 positions)
+    and at P = 1 and P = 3 forced, on the 3D fold's first levels, a chain
+    of 2048, tiles that cross a chain's end and run past the last position:
+    the same bits at every P, and the plain twin's outputs, 1e-12; one
+    launch each."""
+    D, U = _band(C, T, 12, 90 + T, (T,) * C, cuda)
+    A = band.band_init_a(U)
+    want = band.band_cr_level_plain(D, A, U)
+    got = {}
+    for P in (None, 1, 3):
+        if P is not None:
+            monkeypatch.setattr(band, "_cr_level_tile", lambda nC, Th, Db, P=P: P)
+        k0 = band.band_cr_level.launches
+        got[P] = band.band_cr_level(D, A, U)
+        assert band.band_cr_level.launches - k0 == 1
+    torch.cuda.synchronize()
+    for P in (None, 3):
+        assert all(torch.equal(a, b) for a, b in zip(got[P], got[1]))
+    for g, w in zip(got[1], want):
+        assert _rel(g, w) <= 1e-12
