@@ -16,8 +16,9 @@ without printing a result line:
    ``cr_backsub_levels_kernel`` and, at Db = 12, ``cr_backsub_element_kernel``,
    and a one-level solve's ``cr_backsub_narrow_kernel`` and, at Db = 6,
    ``cr_backsub_wide_kernel``, for runs that end at more than one position
-   a chain, and the chain kernels ``cr_reduce_chain_kernel`` and
-   ``cr_backsub_chain_kernel`` for runs that end at one; ``block_inv_kernel`` and
+   a chain, and the chain kernels ``cr_reduce_tree_kernel`` and
+   ``cr_backsub_chain_kernel`` (``cr_backsub_lanes_kernel`` for K <= 4) for
+   runs that end at one; ``block_inv_kernel`` and
    ``cr_level_kernel`` at Db = 6, and at Db = 12 the element kernels
    ``block_inv_element_kernel``, ``cr_level_element_kernel`` and
    ``pcr_level_element_kernel``, a thread per block element),
@@ -59,10 +60,12 @@ without printing a result line:
    the three solve kernels (``band_cr_reduce``, ``band_pcr_solve``,
    ``band_cr_backsub``) at K = 1 beside the panel; ``band_cr_reduce`` and
    ``band_cr_backsub`` run a solve's compacting levels in runs of at most
-   8 (``band._cr_runs``: 9 levels as 5 and 4), a launch a run where the
-   shared memory holds it, the last run (which ends at one position a
-   chain) in one, in rows ``<name>[tail]`` of their own where a solve
-   takes two runs (Manhattan-4, 3D 1x1000); the f32 block kernels at the f32 batch's fold
+   10 (``band._cr_runs``), so every cell's pass is one run, one launch each
+   way; then a band-solve pass at every cell (``phase_pass``), K = 1 and
+   the panel: both kernels against their twins, device us, bound and
+   launches a pass (one each way), beside the same pass in runs of at most
+   8 levels under the old routing (this package's kernels), the ``pass_*``
+   keys of the two kernels' rows; the f32 block kernels at the f32 batch's fold
    (``mc-f32``: M = 12,800 blocks of 6 x 6, K = 56, 6, 1); then every band kernel
    at edge shapes of both block sizes: ``band_pcr_level`` and
    ``band_pcr_solve`` at one and two blocks per chain, one chain and rhs
@@ -77,10 +80,10 @@ without printing a result line:
    C = 1, 4, 20, coarsest lengths 1, 2, 64, 256 and K = 1, 2, 4, 5, 17,
    18, 19, 138 (and 258 at Db = 6), one launch each a call, and band
    solves of a Db = 6 chain with two and three compacting levels, then PCR
-   (C = 1, Tp = 1024 and 2048); a chain of 512 compacted 9 times (the compaction
-   floor at 1; a fused CR launch takes 8 levels) at both block sizes,
-   against a dense solve (<= 1e-11), two launches of each fused CR kernel
-   a solve; then each block kernel against its plain version in f32 at
+   (C = 1, Tp = 1024 and 2048); a chain of 2,048 compacted 11 times (the
+   compaction floor at 1; a fused CR launch takes 10 levels) at both block
+   sizes, against a dense solve (<= 1e-11), in two runs, the launches
+   ``band.cr_solve_launches`` counts; then each block kernel against its plain version in f32 at
    the shapes of the f32 path (max relative difference <= 1e-5, and
    reconstruction residuals ||L L^T - A|| / ||A||, ||L Y - B|| / ||B||,
    ||L L^T X - B|| / ||B|| <= 1e-5), with its time, its plain version's and
@@ -235,10 +238,9 @@ without printing a result line:
    exists, by events and in device time, ``library_us``): a row per kernel at
    the 2D shapes; for the band kernels but ``band_cr_factor`` a row
    ``<name>[Db=12]`` at 3D 1x1000's shapes with its launches per 3D 1x1000
-   SOCP solve; for the CR kernels rows ``<name>[tail]`` (the factor's and
-   the rhs kernels') and ``<name>[Db=12 tail]`` (the rhs kernels') at the
-   last run of Manhattan-4's and 3D 1x1000's solves, with that run's
-   launches per solve (``launches_by_run``); for the block kernels rows ``<name>[D=12]`` and
+   SOCP solve; ``band_cr_factor[tail]`` at the last run of Manhattan-4's
+   factor, with that run's launches per solve (``launches_by_run``; the CR
+   rhs kernels take a pass in one run on every cell); for the block kernels rows ``<name>[D=12]`` and
    ``<name>[D=3]`` at 3D 4x250's shapes with their launches per 3D 4x250
    f32 QCQP solve; rows ``<name>[mc]`` at the Monte-Carlo fold's
    shapes with their launches per 100-trial batch solve, ``<name>[mc3d]``
@@ -1002,16 +1004,18 @@ def phase_cr_levels(Db, device):
 
 
 def phase_past_a_launch(Db, device, gen):
-    """A chain of 512 with the compaction floor at 1: 9 compacting levels,
-    one more than a fused CR launch takes. The factor keeps all 9; a solve
-    runs ``band_cr_reduce`` and ``band_cr_backsub`` in two runs (5 and 4
-    levels, ``band._cr_runs``), two launches each a solve (and again for a
-    3D refinement step), and matches a dense solve on the card (<= 1e-11,
-    the compacted band tests' bound) at K = 1 and 18."""
+    """A chain of 2,048 with the compaction floor at 1: 11 compacting
+    levels, one more than a fused CR launch takes (10). The factor keeps
+    all 11; a solve runs ``band_cr_reduce`` and ``band_cr_backsub`` in two
+    runs (6 and 5 levels, ``band._cr_runs``: the first on the tile kernels,
+    in the launches their shared memory allows, the second one launch each
+    way), as ``band.cr_solve_launches`` counts them (again for a 3D
+    refinement step), and matches a dense solve on the card (<= 1e-11, the
+    compacted band tests' bound) at K = 1 and 18."""
     import torch
     from score_tpu_torch.ops import band
 
-    Tp, floor = 512, band.CR_BASE_LENGTH
+    Tp, floor = 2048, band.CR_BASE_LENGTH
     D, U = _random_band(1, Tp, Db, seed=Tp + 9, device=device)
     band.CR_BASE_LENGTH = 1
     try:
@@ -1032,11 +1036,119 @@ def phase_past_a_launch(Db, device, gen):
         xref = torch.linalg.solve(M, b[0].reshape(Tp * Db, K))
         rel = ((x[0].reshape(Tp * Db, K) - xref).abs().max() / xref.abs().max()).item()
         launches = (band.band_cr_reduce.launches, band.band_cr_backsub.launches)
-        _log(f"Db={Db} chain C=1 Tp={Tp} ({len(f.levels)} CR levels) K={K}: max_rel_diff to a "
-             f"dense solve {rel:.3e}, launches reduce/backsub {launches}")
-        if not (len(f.levels) == 9 and rel <= 1e-11 and launches == (2 * solves,) * 2):
-            raise AssertionError(f"Db={Db} Tp={Tp} 9 levels K={K}: {len(f.levels)} levels, "
-                                 f"max_rel_diff {rel:.3e}, launches {launches}")
+        want = tuple(solves * w for w in band.cr_solve_launches(
+            len(f.levels), Db, K, 1, 1, band._sm_count(device)))
+        _log(f"Db={Db} chain C=1 Tp={Tp} ({len(f.levels)} CR levels, runs "
+             f"{band._cr_runs(len(f.levels))}) K={K}: max_rel_diff to a dense solve {rel:.3e}, "
+             f"launches reduce/backsub {launches}")
+        if not (len(f.levels) == 11 and rel <= 1e-11 and launches == want
+                and len(band._cr_runs(11)) == 2):
+            raise AssertionError(f"Db={Db} Tp={Tp} 11 levels K={K}: {len(f.levels)} levels, "
+                                 f"max_rel_diff {rel:.3e}, launches {launches}, want {want}")
+    del M
+
+
+def _two_run_chain_takes(step, n, Db, K, C, n_sm):
+    """The routing of runs of at most 8 levels, before one launch took a
+    pass: the chain kernels where the parent's measured faster, the tile
+    kernels elsewhere. With it and ``band._CR_MAX_LEVELS`` = 8 this
+    package's kernels run a pass as two runs on Manhattan-4 and 3D 1x1000;
+    the parent's own chain kernels are not in this package (its times come
+    from ``profile_port.py --cr --pass --root``)."""
+    from score_tpu_torch.ops import band
+
+    T, wide = 1 << n, K >= band._REGISTER_ROWS_K
+    if step == "reduce":
+        return C >= n_sm or T >= 64 or (Db > band._WIDE_MAX_BLOCK and wide)
+    if Db <= band._WIDE_MAX_BLOCK:
+        return C >= n_sm and wide
+    return T <= 32 and wide
+
+
+def phase_pass(label, C, Tp, Db, K, device):
+    """One band-solve pass (``band._cr_runs``, as a solve makes it) at the
+    cell's band shape, K = 1 and the panel: its band_cr_reduce launches and
+    its band_cr_backsub launches against their plain twins (<= 1e-12),
+    each way's device us (a replayed CUDA graph), bound and launches a pass
+    (held to ``band.cr_solve_launches``: one each way on chains of up to
+    1,024), beside the same pass cut into runs of at most 8 levels under
+    the old routing (this package's kernels: :func:`_two_run_chain_takes`),
+    also held to the twins. Returns the keys for the two kernels' rows
+    (``pass_*``)."""
+    import torch
+    from score_tpu_torch.ops import band
+
+    D, U = _random_band(C, Tp, Db, seed=Tp + C + 1, device=device)
+    f = band.band_factor(D, U)
+    n = len(f.levels)
+    rng = np.random.default_rng(Tp + 5)
+    out = {"band_cr_reduce": {}, "band_cr_backsub": {}}
+
+    def spans():
+        first, got = 0, []
+        for d in band._cr_runs(n):
+            got.append((first, d))
+            first += d
+        return got
+
+    for k in (1, K):
+        b = torch.tensor(rng.standard_normal((C, Tp, Db, k)), device=device)
+        x = torch.tensor(rng.standard_normal((C, 1, Db, k)), device=device)
+        want = band.band_cr_reduce_plain(f.levels, b)
+        fine_all = (b,) + want[:-1]
+        want_x = band.band_cr_backsub_plain(f.levels, fine_all, x)
+        cost_r = _band_cost("band_cr_reduce", f.levels, b)
+        cost_b = _band_cost("band_cr_backsub", f.levels, fine_all, x)
+        row = {}
+        for design in ("", "two_run_"):
+            saved = band._CR_MAX_LEVELS, band._chain_takes
+            if design:
+                band._CR_MAX_LEVELS, band._chain_takes = 8, _two_run_chain_takes
+            try:
+                runs = spans()
+                fine = (b,)
+                band.reset_launch_counts()
+                for first, d in runs:
+                    fine += band.band_cr_reduce(f.levels[first:first + d], fine[-1])
+                xs = x
+                for first, d in reversed(runs):
+                    xs = band.band_cr_backsub(f.levels[first:first + d], fine[first:first + d], xs)
+                launches = (band.band_cr_reduce.launches, band.band_cr_backsub.launches)
+                _compare(f"{label} {design}pass band_cr_reduce K={k}", fine[1:], want)
+                _compare(f"{label} {design}pass band_cr_backsub K={k}", xs, want_x)
+
+                def red():
+                    src = b
+                    for first, d in runs:
+                        src = band.band_cr_reduce(f.levels[first:first + d], src)[-1]
+
+                def back():
+                    xx = x
+                    for first, d in reversed(runs):
+                        xx = band.band_cr_backsub(f.levels[first:first + d],
+                                                  fine[first:first + d], xx)
+
+                row[design] = (_device_us(red), _device_us(back), launches)
+            finally:
+                band._CR_MAX_LEVELS, band._chain_takes = saved
+        (r_us, b_us, launches), (pr_us, pb_us, plaunches) = row[""], row["two_run_"]
+        expect = band.cr_solve_launches(n, Db, k, 1, C, band._sm_count(device))
+        if launches != expect or (Tp <= 1024 and launches != (1, 1)):
+            raise AssertionError(f"{label} pass K={k}: launches {launches}, expected {expect}")
+        bounds = [_bound(*c, "f64")[0] * 1e3 for c in (cost_r, cost_b)]
+        tag = "k1" if k == 1 else "panel"
+        for name, us, pus, bound, i in (("band_cr_reduce", r_us, pr_us, bounds[0], 0),
+                                        ("band_cr_backsub", b_us, pb_us, bounds[1], 1)):
+            out[name].update({f"pass_{tag}_K": k, f"pass_{tag}_device_us": us,
+                              f"pass_{tag}_bound_us": bound,
+                              f"pass_{tag}_launches": launches[i],
+                              f"pass_{tag}_two_run_us": pus,
+                              f"pass_{tag}_two_run_launches": plaunches[i]})
+        _log(f"{label} pass K={k}: band_cr_reduce device_us={r_us:.2f} (bound {bounds[0]:.2f}, "
+             f"{launches[0]} launch; in runs of <= 8 levels {pr_us:.2f} in {plaunches[0]}) "
+             f"band_cr_backsub device_us={b_us:.2f} (bound {bounds[1]:.2f}, {launches[1]} launch; "
+             f"in runs of <= 8 levels {pb_us:.2f} in {plaunches[1]}), all held to their twins")
+    return out
 
 
 def _ptxas_report(log, kernel, Db=None):
@@ -1139,10 +1251,22 @@ def phase_blocks(device):
             _log(f"block_tri_lower_solve D={n} M={M} K={K}: ||L Y - B||/||B|| = {r:.3e}")
             if not r <= 1e-5:
                 raise AssertionError(f"block_tri_lower_solve D={n} M={M} K={K}: residual {r:.3e}")
+            first = "block_chol_solve" + tag not in chk.rows
             X = chk("block_chol_solve" + tag, lambda: blocks.block_chol_solve(L, B),
                     lambda: blocks.block_chol_solve_plain(L, B),
                     _blocks_cost("block_chol_solve", L, B),
                     library=lambda: torch.cholesky_solve(B, L))
+            if first and tag == "[mc-f32]":
+                # the fold's 36 MB fit the 50 MB L2, where the replayed graph
+                # finds them: also from HBM, four copies taking turns
+                copies = [(L.clone(), B.clone()) for _ in range(4)]
+                turn = iter(range(1 << 30))
+                cold = _device_us(lambda: blocks.block_chol_solve(*copies[next(turn) % 4]))
+                row = chk.rows["block_chol_solve" + tag]
+                row["cold_device_us"] = cold
+                _log(f"block_chol_solve D={n} M={M} K={K}: device_us={row['device_us']:.2f} "
+                     f"in L2, {cold:.2f} from HBM (four copies of L, B in turns)")
+                del copies
             r = _resid(L @ (L.transpose(-1, -2) @ X), B)
             us = _device_us(lambda: blocks.block_chol_solve(L, B))
             _log(f"block_chol_solve D={n} M={M} K={K}: ||L L^T X - B||/||B|| = {r:.3e} "
@@ -1579,6 +1703,7 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
     det(R) = +1) are required."""
     import torch
     from score_tpu_torch import ScoreSolverParams, solve_score
+    from score_tpu_torch.ops import band
 
     params = ScoreSolverParams(device="cuda", precision=precision)
     f32 = precision == "f32"
@@ -1598,11 +1723,13 @@ def phase_solve(label, fg, Tp, Db=6, relaxation="SOCP", precision="f64", referen
         if missing:
             raise AssertionError(f"{label}: kernels not launched by the solve: {missing}")
         # the compacting levels of a band solve in the fused CR kernels'
-        # runs (band._cr_runs: 8 levels a launch; at Db = 12 fewer where the
-        # shared memory ends), one band_pcr_solve launch a pass
+        # runs (band._cr_runs: a pass in one run on chains of up to 1,024,
+        # one launch each way), one band_pcr_solve launch a pass
         cr = (launches["band_cr_reduce"], launches["band_cr_backsub"])
         want = passes.cr_launches()
-        if cr != want or launches["band_pcr_solve"] != len(passes.calls):
+        one = all(c[0] <= band._CR_MAX_LEVELS and c[3] == 1 for c in passes.calls)
+        if (cr != want or launches["band_pcr_solve"] != len(passes.calls)
+                or (one and want != (len(passes.calls),) * 2)):
             raise AssertionError(f"{label}: band_cr_reduce / band_cr_backsub / band_pcr_solve "
                                  f"launches {cr} / {launches['band_pcr_solve']}, expected "
                                  f"{want} / {len(passes.calls)} for the solve's passes")
@@ -2780,7 +2907,7 @@ def main() -> int:
                                     ("band_cr_level", "cr_level_element_kernel"),
                                     ("band_cr_factor", "cr_factor_kernel"),
                                     ("band_cr_reduce", "cr_reduce_levels_kernel"),
-                                    ("band_cr_reduce", "cr_reduce_chain_kernel"),
+                                    ("band_cr_reduce", "cr_reduce_tree_kernel"),
                                     ("band_pcr_solve", "pcr_solve_wide_kernel"),
                                     ("band_pcr_solve", "pcr_solve_narrow_kernel"),
                                     ("band_pcr_solve", "pcr_solve_cluster_kernel"),
@@ -2788,7 +2915,8 @@ def main() -> int:
                                     ("band_cr_backsub", "cr_backsub_wide_kernel"),
                                     ("band_cr_backsub", "cr_backsub_levels_kernel"),
                                     ("band_cr_backsub", "cr_backsub_element_kernel"),
-                                    ("band_cr_backsub", "cr_backsub_chain_kernel"))
+                                    ("band_cr_backsub", "cr_backsub_chain_kernel"),
+                                    ("band_cr_backsub", "cr_backsub_lanes_kernel"))
               if only.get(kern, Db) == Db]
     checks += [("blocks", "block_chol", "chol_kernel", None)]
     checks += [("blocks", wrapper, kern, 12)
@@ -2830,6 +2958,13 @@ def main() -> int:
         rows[label] = phase_kernels(label, *shape, dev)
     rows["mc"] = phase_kernels("mc", *MC_BAND, 6, dev)  # the batch's fold
     rows["mc3d"] = phase_kernels("mc3d", *mc3d_band, dev)
+    # a band-solve pass at every cell, K = 1 and the panel, beside the
+    # parent's design
+    for label, shape in [(lb, sh) for lb, _, sh in cells + cells_3d] + [
+            ("mc", MC_BAND + (6,)), ("mc3d", mc3d_band)]:
+        C, Tp, K, Db = shape
+        for name, keys in phase_pass(label, C, Tp, Db, K, dev).items():
+            rows[label][name].update(keys)
     # band_pcr_level, on no solve path at the default schedule: held to its
     # twin and timed at the shapes of the earlier remainder (EARLIER_BASE)
     earlier = {label: phase_kernels(f"{label} remainder {EARLIER_BASE}", *shape, dev,
@@ -2914,8 +3049,11 @@ def main() -> int:
         timed[f"band_pcr_level{suffix}"] = dict(earlier[key]["band_pcr_level"],
                                                 note=PCR_LEVEL_NOTE)
     # band_cr_factor is built for Db = 6 only: no Db = 12 or mc3d row
-    tails = ([f"{k}[tail]" for k in ("band_cr_factor", "band_cr_reduce", "band_cr_backsub")]
-             + [f"{k}[Db=12 tail]" for k in ("band_cr_reduce", "band_cr_backsub")])
+    # a run's own row where a solve takes two: the Manhattan-4 factor's last
+    # (band_cr_reduce and band_cr_backsub take a pass in one run on every cell)
+    tails = [name for name in ("band_cr_factor[tail]", "band_cr_reduce[tail]",
+                               "band_cr_backsub[tail]", "band_cr_reduce[Db=12 tail]",
+                               "band_cr_backsub[Db=12 tail]") if name in timed]
     names = (list(REPLACES) + [f"{k.__name__}[Db=12]" for k in band.KERNELS
                                if k is not band.band_cr_factor] + tails
              + [f"{k}[D={D}]" for k in ("block_chol", "block_chol_solve") for D in (12, 3)]
@@ -2953,7 +3091,7 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], library_us=row["library_us"],
             **{k: v for k, v in row.items()
-               if k.startswith(("k1_", "factor_", "parent_")) or k == "note"}))
+               if k.startswith(("k1_", "factor_", "parent_", "pass_", "cold_")) or k == "note"}))
     _log(f"launch_floor_us={launch_floor_us:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

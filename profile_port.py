@@ -66,10 +66,26 @@ cells' solves (``_CR_SOLVE_SHAPES``: the Monte-Carlo folds, Manhattan-4's
 and 3D 1x1000's two runs, robot20, 3D 4x250; a direction and the panel):
 device us, event ms and launches a call; the reduce's layouts and the
 chain back substitution's rows a thread from measurement builds of
-``band.cu``; the clock build's phases (``_cr_clocks``); and, for a
-package with the chain kernels, each plan of ``_CHAIN_SWEEP`` beside the
-planner's and the tile kernels' at the same run. With ``--root`` in
-turns against another checkout (parent, change, change, parent).
+``band.cu``; the clock build's phases (``_cr_clocks``). With ``--root``
+in turns against another checkout (parent, change, change, parent).
+
+    python3 profile_port.py --cr --pass [--sweep] [--tally] [--clocks] [--root DIR] [--out FILE]
+
+times one band-solve pass at the default schedule (``band._cr_runs``, as
+``band._band_solve_once`` makes it) at ``_PASS_CELLS`` (Manhattan-4,
+robot20, 3D 4x250, 3D 1x1000, the 2D and 3D folds) at K = 1, 2 and the
+panel width: device us of the pass's ``band_cr_reduce`` launches
+together, its ``band_pcr_solve``, its ``band_cr_backsub`` launches, and
+each launch alone; launches a pass by kernel; the pass's bound (each
+kernel's bytes over 3.35 TB/s). With ``--sweep`` also the chain kernels'
+plans of ``_PASS_SWEEP`` (tree reduces, back-substitution segments)
+beside the planner's, and the reduce from the builds of ``_PASS_BUILDS``,
+each held to the twins. With ``--tally`` also the band-solve
+passes of a Manhattan-4, robot20, 3D 4x250 and 3D 1x1000 f64 SOCP solve
+by rhs width, and the CR kernels' launches a solve. With ``--clocks``
+also the clock build's phases (``-DBAND_CR_CLOCKS``) of each launch of the
+passes of ``_PASS_CLOCKS``. With ``--root`` in turns against another
+checkout (parent, change, change, parent: one process each).
 
     python3 profile_port.py --factor [--builds] [--root DIR] [--out FILE]
 
@@ -251,7 +267,8 @@ _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_level_element_kernel", 
                  "block_inv_element_kernel", "cr_reduce_kernel", "cr_backsub_kernel",
                  "cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
                  "cr_reduce_levels_kernel", "cr_backsub_levels_kernel",
-                 "cr_backsub_element_kernel",
+                 "cr_backsub_element_kernel", "cr_reduce_tree_kernel",
+                 "cr_backsub_chain_kernel", "cr_backsub_lanes_kernel",
                  "pcr_level_kernel", "block_inv_kernel", "pcr_solve_wide_kernel",
                  "pcr_solve_narrow_kernel", "pcr_level_element_kernel",
                  "pcr_solve_cluster_kernel", "chol_kernel", "chol_lanes_kernel",
@@ -264,9 +281,11 @@ _KERNEL_NAMES = ("init_a_kernel", "cr_level_kernel", "cr_level_element_kernel", 
 _BLOCK_WRAPPERS = {"block_chol": ("chol_kernel", "chol_lanes_kernel"),
                    "block_chol_solve": ("tri_solve_kernel", "tri_solve_tile_kernel",
                                         "tri_solve_lanes_kernel")}
-_CR_WRAPPERS = {"band_cr_reduce": ("cr_reduce_kernel", "cr_reduce_levels_kernel"),
+_CR_WRAPPERS = {"band_cr_reduce": ("cr_reduce_kernel", "cr_reduce_levels_kernel",
+                                   "cr_reduce_tree_kernel"),
                 "band_cr_backsub": ("cr_backsub_narrow_kernel", "cr_backsub_wide_kernel",
-                                    "cr_backsub_levels_kernel", "cr_backsub_element_kernel")}
+                                    "cr_backsub_levels_kernel", "cr_backsub_element_kernel",
+                                    "cr_backsub_chain_kernel", "cr_backsub_lanes_kernel")}
 # band_cr_level and band_block_inv: the lane-group kernels (Db = 6, and
 # Db = 12 in a checkout from before the element kernels) and the element
 # kernels at Db = 12
@@ -528,13 +547,14 @@ _CR_LEVEL_SHAPES_3D = ((1, 1024), (1, 512), (64, 256))
 _BLOCK_INV_SHAPES_3D = ((1, 256), (4, 256))
 _CR_LEVEL_TILINGS = (1, 3)
 _DINV_SHAPES = ((1024, 1), (1024, 6), (1024, 138), (1280, 258))
-# band_cr_reduce and band_cr_backsub at the launches of the cells' solves:
-# (label, chains, fine length of the run, block size, levels of the run,
-# rhs widths). Every solve compacts to one block a chain, in runs of at most
-# eight levels (band._cr_runs): the Monte-Carlo folds (100 trials of a 4 x
-# 50 world; 16 trials of 3D 4x250), Manhattan-4's two runs (the second, its
-# tail, ends at one position a chain), 3D 1x1000's two runs, robot20 and 3D
-# 4x250 in one run each.
+# band_cr_reduce and band_cr_backsub at the runs of the cells' solves as
+# they ran in runs of at most eight levels (before a pass took one launch
+# each way; --cr --pass times the default schedule's passes): (label,
+# chains, fine length of the run, block size, levels of the run, rhs
+# widths): the Monte-Carlo folds (100 trials of a 4 x 50 world; 16 trials
+# of 3D 4x250), Manhattan-4's two runs (the second, its tail, ends at one
+# position a chain), 3D 1x1000's two runs, robot20 and 3D 4x250 in one run
+# each.
 _CR_SOLVE_SHAPES = (("mc", 400, 64, 6, 6, (56, 1)), ("mc3d", 64, 256, 12, 8, (18, 1)),
                     ("manhattan4 run 1", 4, 512, 6, 5, (138, 1)),
                     ("manhattan4 tail", 4, 16, 6, 4, (138, 1)),
@@ -721,7 +741,10 @@ def _cr_clocks(band, lib, kernel, fn, n, T, Db, K, C, device):
     chain = getattr(band, "_cr_chain_plan", None)
     if chain is not None and T == 1 << n and chain(
             "reduce" if step == "reduce" else "backsub", n, Db, K, C, band._sm_count(device)):
-        count, ends = 64, [n]
+        # the tree reduce writes them over level 1's output (there are 64
+        # values at every shape), the chain reduce before it over the last
+        tree = "top" in band.ReducePlan._fields
+        count, ends = 64, [1 if step == "reduce" and tree else n]
     else:
         depths = band._cr_launch_depths(step, n, Db, K)
         if step == "reduce" and max(depths) <= 6:
@@ -826,70 +849,301 @@ def _cr_solve_times(device, layouts=True):
     return rows
 
 
-# plans of the chain kernels timed beside the planner's own (profile_port.py
-# --cr): (cell of _CR_SOLVE_SHAPES, K, reduce plans (m, Kf, Kc, stage),
-# back-substitution plans (S, Kc))
-_CHAIN_SWEEP = (
-    ("mc", 56, [None, (0, 56, 56, 0), (0, 56, 28, 1)], [None, (2, 28), (4, 56), (8, 56)]),
-    ("mc", 1, [None, (1, 1, 1, 1)], [None, (1, 1), (2, 1), (4, 1)]),
-    ("mc3d", 18, [None, (3, 18, 18, 0), (2, 18, 18, 0), (4, 9, 18, 1)],
-     [None, (16, 18), (32, 18), (64, 18)]),
-    ("mc3d", 1, [None, (3, 1, 1, 1), (5, 1, 1, 1)], [None, (8, 1), (16, 1), (32, 1)]),
-    ("manhattan4 tail", 138, [None, (2, 138, 138, 1), (0, 138, 46, 1)],
-     [None, (4, 138), (8, 138), (16, 138)]),
-    ("manhattan4 tail", 1, [None, (0, 1, 1, 1), (1, 1, 1, 1)], [None, (1, 1), (4, 1), (16, 1)]),
-    ("3d-1x1000 tail", 18, [None, (1, 18, 18, 1), (3, 18, 18, 1)],
-     [None, (4, 18), (8, 18), (32, 18)]),
-    ("3d-1x1000 tail", 1, [None, (0, 1, 1, 1), (1, 1, 1, 1)], [None, (2, 1), (4, 1), (32, 1)]),
-    ("robot20", 258, [None, (3, 86, 258, 1), (4, 43, 258, 1)],
-     [None, (8, 86), (16, 129), (32, 129)]),
-    ("robot20", 1, [None, (0, 1, 1, 1), (4, 1, 1, 1)], [None, (1, 1), (4, 1), (16, 1)]),
-    ("3d-4x250", 18, [None, (3, 18, 18, 0), (2, 18, 18, 0)], [None, (16, 18), (32, 18), (64, 18)]),
-    ("3d-4x250", 1, [None, (3, 1, 1, 1), (5, 1, 1, 1)], [None, (16, 1), (32, 1), (64, 1)]),
-)
+# a band-solve pass at the cells (profile_port.py --cr --pass): (label,
+# chains, chain length, block size, panel width)
+_PASS_CELLS = (("manhattan4", 4, 512, 6, 138), ("robot20", 20, 128, 6, 258),
+               ("3d-4x250", 4, 256, 12, 18), ("3d-1x1000", 1, 1024, 12, 18),
+               ("mc", 400, 64, 6, 56), ("mc3d", 64, 256, 12, 18))
+_HBM_BYTES_PER_US = 3.35e6  # H100 SXM, 3.35 TB/s
 
 
-def _chain_sweep(device):
-    """Device us of the chain kernels under each plan of ``_CHAIN_SWEEP``
-    and of the tile kernels at the same run (plan None), the planner
-    replaced for the call; a plan the card refuses is recorded as such."""
+def _pass_bytes(levels, C, T, Db, K):
+    """(reduce, backsub) bytes of a band-solve pass through ``levels``: every
+    level's E, F (reduce) or invD, A, C (backsub) read once, the fine rhs
+    read once and each level's reduced rhs written once (reduce), the odd
+    rows of each level's fine rhs and the coarsest x read once and the finest
+    x written once (backsub)."""
+    rows = sum(lv.E.shape[0] * lv.E.shape[1] for lv in levels)
+    red = 8 * (2 * rows * Db * Db + C * T * Db * K + rows * Db * K)
+    back = 8 * (3 * rows * Db * Db + rows * Db * K + C * (T >> len(levels)) * Db * K
+                + C * T * Db * K)
+    return red, back
+
+
+def _pass_times(device):
+    """One band-solve pass at ``_PASS_CELLS`` at K = 1, 2 and the panel: the
+    runs of ``band._cr_runs`` as ``band._band_solve_once`` calls the
+    wrappers, timed as a whole (reduce launches, band_pcr_solve, backsub
+    launches: device us from a replayed CUDA graph) and launch by launch,
+    with launches a pass and the bound."""
     import torch
     from chip_smoke import _device_us
     from score_tpu_torch.ops import band
 
-    shapes = {s[0]: s for s in _CR_SOLVE_SHAPES}
     rows = []
-    rng = np.random.default_rng(2)
-    planner = band._cr_chain_plan
-    for label, K, reduces, backsubs in _CHAIN_SWEEP:
-        _, C, T, Db, n, _ = shapes[label]
-        D, U = _random_band(C, T, Db, seed=T + C, device=device)
-        levels = band.band_factor(D, U, n_cr=n).levels
-        b = torch.tensor(rng.standard_normal((C, T, Db, K)), device=device)
-        red = band.band_cr_reduce(levels, b)
-        fine, x = (b,) + red[:-1], torch.tensor(rng.standard_normal(red[-1].shape),
-                                                device=device)
-        for kernel, fn, plans, make in (
-                ("band_cr_reduce", lambda: band.band_cr_reduce(levels, b), reduces,
-                 lambda p: band.ReducePlan(p[0], p[1], p[2], bool(p[3]))),
-                ("band_cr_backsub", lambda: band.band_cr_backsub(levels, fine, x), backsubs,
-                 lambda p: band.BacksubPlan(*p))):
-            for p in ["planner"] + plans:  # None: the tile kernels
-                plan = (planner("reduce" if kernel == "band_cr_reduce" else "backsub",
-                                n, Db, K, C, band._sm_count(device)) if p == "planner"
-                        else None if p is None else make(p))
-                band._cr_chain_plan = lambda *a, plan=plan: plan
-                try:
-                    us = _device_us(fn)
-                except RuntimeError as e:
-                    torch.cuda.synchronize()
-                    us = f"refused: {e}"
-                finally:
-                    band._cr_chain_plan = planner
-                rows.append(dict(cell=label, kernel=f"{kernel} sweep",
-                                 plan=str(plan) if plan is not None else "tile kernels",
-                                 planner=p == "planner", device_us=us))
+    rng = np.random.default_rng(3)
+    for label, C, Tp, Db, panel in _PASS_CELLS:
+        D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+        f = band.band_factor(D, U)
+        levels, runs = f.levels, band._cr_runs(len(f.levels))
+        for K in (1, 2, panel):
+            b = torch.tensor(rng.standard_normal((C, Tp, Db, K)), device=device)
+            spans, first = [], 0
+            for d in runs:
+                spans.append((first, d))
+                first += d
+            fine = (b,)
+            for first, d in spans:
+                fine += band.band_cr_reduce(levels[first:first + d], fine[-1])
+            xc = band.band_pcr_solve(f.E, f.F, f.invD, fine[-1])
+            xs = [xc]
+            for first, d in reversed(spans):
+                xs.append(band.band_cr_backsub(levels[first:first + d], fine[first:first + d],
+                                               xs[-1]))
+
+            def reduce_pass():
+                src = b
+                for first, d in spans:
+                    src = band.band_cr_reduce(levels[first:first + d], src)[-1]
+
+            def backsub_pass():
+                x = xc
+                for first, d in reversed(spans):
+                    x = band.band_cr_backsub(levels[first:first + d], fine[first:first + d], x)
+
+            solve = lambda: band.band_pcr_solve(f.E, f.F, f.invD, fine[-1])
+            band.reset_launch_counts()
+            reduce_pass()
+            solve()
+            backsub_pass()
+            counts = {k.__name__: k.launches for k in band.KERNELS if k.launches}
+            red_b, back_b = _pass_bytes(levels, C, Tp, Db, K)
+            row = dict(cell=label, K=K, C=C, Tp=Tp, Db=Db, runs=list(runs), launches=counts,
+                       reduce_us=_device_us(reduce_pass), pcr_solve_us=_device_us(solve),
+                       backsub_us=_device_us(backsub_pass),
+                       reduce_bound_us=red_b / _HBM_BYTES_PER_US,
+                       backsub_bound_us=back_b / _HBM_BYTES_PER_US, each=[])
+            for i, (first, d) in enumerate(spans):
+                group, src = levels[first:first + d], fine[first]
+                row["each"].append(dict(kernel="band_cr_reduce", levels=[first, first + d],
+                                        device_us=_device_us(
+                                            lambda: band.band_cr_reduce(group, src))))
+            for i, (first, d) in enumerate(reversed(spans)):
+                group, rhs, x = levels[first:first + d], fine[first:first + d], xs[i]
+                row["each"].append(dict(kernel="band_cr_backsub", levels=[first, first + d],
+                                        device_us=_device_us(
+                                            lambda: band.band_cr_backsub(group, rhs, x))))
+            rows.append(row)
     return rows
+
+
+# plans of the chain kernels timed beside the planner's own at a pass
+# (profile_port.py --cr --pass --sweep): (cell of _PASS_CELLS, K, tree
+# reduces as (levels, positions[, columns]) of their tile stage (0 levels:
+# none), back substitutions' segments S)
+_PASS_SWEEP = (
+    ("manhattan4", 1, [(3, 1), (4, 1), (5, 1)], [16, 32, 64]),
+    ("manhattan4", 138, [(4, 1), (5, 1), (5, 1, 36), (5, 1, 70)], [16, 32, 64]),
+    ("robot20", 1, [(0, 1)], [2, 4, 8]),
+    ("robot20", 258, [(3, 1), (4, 1), (4, 1, 86), (5, 1)], [16, 32]),
+    ("3d-4x250", 1, [(3, 1), (4, 1)], [16, 32, 64]),
+    ("3d-4x250", 18, [(3, 1), (4, 1), (5, 1), (5, 1, 6)], [16, 32, 64]),
+    ("3d-1x1000", 1, [(4, 1), (5, 1)], [32, 64, 128, 256]),
+    ("3d-1x1000", 18, [(3, 1), (4, 1), (5, 1), (5, 1, 6)], [64, 128]),
+    ("mc", 1, [(0, 1)], [1, 2, 4]),
+    ("mc", 56, [(0, 1)], [2, 4]),
+    ("mc3d", 1, [(3, 4), (3, 8), (4, 4)], [4, 8, 16]),
+    ("mc3d", 18, [(3, 4), (3, 2), (4, 1), (5, 1)], [8, 16]),
+)
+
+
+def _sweep_plan(band, n, Db, K, m, P, Kf=None):
+    """A ReducePlan with this tile stage (m levels, P positions a tile, Kf
+    columns a chunk, by default the widest the shared memory takes; m = 0:
+    none) and the widest whole-chain stage the shared memory takes, or
+    None."""
+    if m:
+        if Kf is None:
+            Kf = band._chunks(K, lambda kf: band._cr_smem_bytes("reduce", m, Db, P, kf)
+                              <= band._SMEM_MAX, K % 2 == 0)
+        if Kf is None or band._cr_smem_bytes("reduce", m, Db, P, Kf) > band._SMEM_MAX:
+            return None
+    else:
+        Kf = K
+    whole = band._whole_chain(n, Db, K, m, band._SMEM_MAX, Kf)
+    if whole is None:
+        return None
+    plan = band.ReducePlan(m, P, Kf, *whole)
+    return plan if band._tree_reduce_smem(n, Db, K, plan) <= band._SMEM_MAX else None
+
+
+def _pass_sweep(device):
+    """Device us of a pass's band_cr_reduce and band_cr_backsub under each
+    plan of ``_PASS_SWEEP`` beside the planner's (the tile kernels where
+    band._chain_takes keeps them), the planner replaced for the call and
+    the chain kernels taking the run; each held to the plain twins
+    (1e-12)."""
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band
+
+    cells = {c[0]: c for c in _PASS_CELLS}
+    rows = []
+    rng = np.random.default_rng(4)
+    planner, takes = band._chain_plan, band._chain_takes
+    for label, K, reduces, segments in _PASS_SWEEP:
+        _, C, Tp, Db, _ = cells[label]
+        D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+        f = band.band_factor(D, U)
+        levels, n = f.levels, len(f.levels)
+        b = torch.tensor(rng.standard_normal((C, Tp, Db, K)), device=device)
+        want = band.band_cr_reduce_plain(levels, b)
+        fine = (b,) + want[:-1]
+        x = torch.tensor(rng.standard_normal(want[-1].shape), device=device)
+        want_x = band.band_cr_backsub_plain(levels, fine, x)
+        plans = ([("reduce", "planner")] + [("reduce", r) for r in reduces]
+                 + [("backsub", "planner")] + [("backsub", S) for S in segments])
+        for step, spec in plans:
+            if spec == "planner":
+                plan = planner(step, n, Db, K, C, band._sm_count(device))
+            elif step == "reduce":
+                plan = _sweep_plan(band, n, Db, K, *spec)
+            elif band._backsub_narrow(K):
+                plan = band.BacksubPlan(spec, K) if spec <= 1 << n else None
+            else:
+                Kc = band._chunks(K, lambda kc: band._chain_backsub_shape(n, Db, spec, kc)[0]
+                                  <= band._SMEM_MAX, False)
+                plan = band.BacksubPlan(spec, Kc) if Kc and spec <= 1 << n else None
+            if plan is None:
+                rows.append(dict(cell=label, K=K, step=step, plan=str(spec), device_us="no fit"))
+                continue
+            band._chain_plan = lambda *a, plan=plan: plan
+            if spec != "planner":  # the chain kernels, where the routing keeps the tiles too
+                band._chain_takes = lambda *a: True
+            try:
+                if step == "reduce":
+                    fn = lambda: band.band_cr_reduce(levels, b)
+                    got = fn()
+                    err = max(((g - w).abs().max() / w.abs().max()).item()
+                              for g, w in zip(got, want))
+                else:
+                    fn = lambda: band.band_cr_backsub(levels, fine, x)
+                    err = ((fn() - want_x).abs().max() / want_x.abs().max()).item()
+                us = _device_us(fn) if err <= 1e-12 else f"wrong: {err:.3e}"
+            except RuntimeError as e:
+                torch.cuda.synchronize()
+                us = f"refused: {e}"
+            finally:
+                band._chain_plan, band._chain_takes = planner, takes
+            rows.append(dict(cell=label, K=K, step=step, plan=str(plan),
+                             planner=spec == "planner", device_us=us))
+    return rows
+
+
+# a band-solve pass's clock-build phases (profile_port.py --cr --pass
+# --clocks): (cell of _PASS_CELLS, K)
+_PASS_CLOCKS = (("manhattan4", 1), ("manhattan4", 138), ("robot20", 258), ("3d-1x1000", 1),
+                ("3d-1x1000", 18))
+
+
+def _pass_clocks(device):
+    """The clock build's phases (:func:`_cr_clocks`: SM cycles from the
+    start of the recording thread block) of each band_cr_reduce and
+    band_cr_backsub launch of one band-solve pass at ``_PASS_CLOCKS``, run
+    by run; None where the build records none (the tile kernels' lane-group
+    and wide steps)."""
+    import torch
+    from score_tpu_torch.ops import band
+
+    lib = _band_builds(["-DBAND_CR_CLOCKS"], "crclk")["-DBAND_CR_CLOCKS"]
+    cells = {c[0]: c for c in _PASS_CELLS}
+    rows = []
+    rng = np.random.default_rng(5)
+    for label, K in _PASS_CLOCKS:
+        _, C, Tp, Db, _ = cells[label]
+        D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+        f = band.band_factor(D, U)
+        src, first = torch.tensor(rng.standard_normal((C, Tp, Db, K)), device=device), 0
+        for d in band._cr_runs(len(f.levels)):
+            lv, T = f.levels[first:first + d], Tp >> first
+            red = band.band_cr_reduce(lv, src)
+            fine = (src,) + red[:-1]
+            x = torch.tensor(rng.standard_normal(red[-1].shape), device=device)
+            for kernel, fn in (("band_cr_reduce", lambda: band.band_cr_reduce(lv, src)),
+                               ("band_cr_backsub", lambda: band.band_cr_backsub(lv, fine, x))):
+                rows.append(dict(cell=label, K=K, kernel=kernel, levels=[first, first + d],
+                                 clocks=_cr_clocks(band, lib, kernel, fn, d, T, Db, K, C,
+                                                   device)))
+            src, first = red[-1], first + d
+    return rows
+
+
+# measurement builds of band.cu timed at a pass's band_cr_reduce (profile_port.py
+# --cr --pass --sweep): the tree kernel's thread blocks an SM, and the
+# (cell of _PASS_CELLS, K) it is timed at
+_PASS_BUILDS = ("-DBAND_CR_TREE_MIN_BLOCKS=1", "-DBAND_CR_TREE_MIN_BLOCKS=2",
+                "-DBAND_CR_TREE_MIN_BLOCKS=4")
+_PASS_BUILD_CELLS = (("mc", 1), ("manhattan4", 1), ("3d-1x1000", 1), ("mc", 56))
+
+
+def _pass_builds(device):
+    """Device us of a pass's band_cr_reduce at ``_PASS_BUILD_CELLS`` from
+    each build of ``_PASS_BUILDS`` beside the package's own, each held to
+    the plain twin (1e-12)."""
+    import torch
+    from chip_smoke import _device_us
+    from score_tpu_torch.ops import band
+
+    libs = _band_builds(list(_PASS_BUILDS), "crmin")
+    cells = {c[0]: c for c in _PASS_CELLS}
+    rows = []
+    rng = np.random.default_rng(6)
+    for label, K in _PASS_BUILD_CELLS:
+        _, C, Tp, Db, _ = cells[label]
+        D, U = _random_band(C, Tp, Db, seed=Tp + C, device=device)
+        levels = band.band_factor(D, U).levels
+        b = torch.tensor(rng.standard_normal((C, Tp, Db, K)), device=device)
+        want = band.band_cr_reduce_plain(levels, b)
+        fn = lambda: band.band_cr_reduce(levels, b)
+        for flag, lib in [("package", None)] + list(libs.items()):
+            run = (lambda f: f()) if lib is None else (lambda f, lib=lib: _through(lib, f))
+            err = max(((g - w).abs().max() / w.abs().max()).item()
+                      for g, w in zip(run(fn), want))
+            us = run(lambda: _device_us(fn)) if err <= 1e-12 else f"wrong: {err:.3e}"
+            rows.append(dict(cell=label, K=K, build=flag, device_us=us))
+    return rows
+
+
+def _pass_tally():
+    """The band-solve passes of a Manhattan-4, robot20, 3D 4x250 and 3D
+    1x1000 f64 SOCP solve (``chip_smoke._cells``, ``_cells_3d``) by rhs
+    width K, and the CR kernels' launches a solve."""
+    import collections
+
+    import torch
+    from chip_smoke import _cells, _cells_3d
+    from score_tpu_torch import ScoreSolverParams, solve_score
+    from score_tpu_torch.ops import band
+
+    out = {}
+    once = band._band_solve_once
+    for label, fg in list(_cells()) + list(_cells_3d()):
+        tally = collections.Counter()
+
+        def recording(factors, b):
+            tally[b.shape[-1]] += 1
+            return once(factors, b)
+
+        band._band_solve_once = recording
+        band.reset_launch_counts()
+        try:
+            res = solve_score(fg, "SOCP", ScoreSolverParams(device="cuda"))
+            torch.cuda.synchronize()
+        finally:
+            band._band_solve_once = once
+        out[label] = dict(iterations=res.iterations, passes_by_K=dict(sorted(tally.items())),
+                          launches={k.__name__: k.launches for k in band.KERNELS})
+    return out
 
 
 def _kernel_times(device):
@@ -1537,6 +1791,15 @@ def main() -> int:
     ap.add_argument("--cr", action="store_true",
                     help="band_cr_reduce and band_cr_backsub alone at the cells' runs, "
                          "with the clock build's phases")
+    ap.add_argument("--pass", dest="one_pass", action="store_true",
+                    help="with --cr: one band-solve pass at the cells, K = 1, 2, panel")
+    ap.add_argument("--sweep", action="store_true",
+                    help="with --cr --pass: the chain kernels' plans of _PASS_SWEEP")
+    ap.add_argument("--tally", action="store_true",
+                    help="with --cr --pass: the passes of four solves by rhs width")
+    ap.add_argument("--clocks", action="store_true",
+                    help="with --cr --pass: the clock build's phases of the passes of "
+                         "_PASS_CLOCKS")
     ap.add_argument("--factor", action="store_true",
                     help="the band factor alone at the cells: whole and launch by launch")
     ap.add_argument("--builds", action="store_true",
@@ -1621,6 +1884,45 @@ def main() -> int:
             out.parent.mkdir(parents=True, exist_ok=True)
             out.write_text(json.dumps(dict(card=smi, ablation=rows), indent=1))
         return 0
+    if args.cr and args.one_pass:
+        import score_tpu_torch
+
+        _log(f"package: {Path(score_tpu_torch.__file__).parent}")
+        report = dict(card=smi, passes=_pass_times(torch.device("cuda")))
+        for r in report["passes"]:
+            each = ", ".join(f"{e['kernel'][8:]}{e['levels']} {e['device_us']:.2f}"
+                             for e in r["each"])
+            _log(f"  pass {r['cell']:<10} K={r['K']:<4} reduce {r['reduce_us']:8.2f} us "
+                 f"(bound {r['reduce_bound_us']:.2f})  pcr_solve {r['pcr_solve_us']:6.2f}  "
+                 f"backsub {r['backsub_us']:8.2f} us (bound {r['backsub_bound_us']:.2f})  "
+                 f"launches {r['launches']}  each: {each}")
+        if args.sweep:
+            report["sweep"] = _pass_sweep(torch.device("cuda"))
+            for r in report["sweep"]:
+                _log(f"  sweep {r['cell']:<10} K={r['K']:<4} {r['step']:<8} {r['plan']:<70} "
+                     f"{'(planner) ' if r.get('planner') else ''}device {r['device_us']}")
+            report["builds"] = _pass_builds(torch.device("cuda"))
+            for r in report["builds"]:
+                _log(f"  build {r['cell']:<10} K={r['K']:<4} reduce {r['build']:<32} "
+                     f"device {r['device_us']}")
+        if args.clocks:
+            clocks = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True).stdout.strip()
+            _log(f"SM clocks (current, max): {clocks}")
+            report["clocks"] = _pass_clocks(torch.device("cuda"))
+            for r in report["clocks"]:
+                _log(f"  clocks {r['cell']:<10} K={r['K']:<4} {r['kernel']:<16} levels "
+                     f"{r['levels']}: {r['clocks']}")
+        if args.tally:
+            report["tally"] = _pass_tally()
+            for label, t in report["tally"].items():
+                _log(f"  tally {label}: {t}")
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(report, indent=1))
+        return 0
     if args.kernels or args.cr:
         import score_tpu_torch
 
@@ -1633,10 +1935,6 @@ def main() -> int:
                 else _kernel_times(torch.device("cuda")))
         from score_tpu_torch.ops import band
 
-        if args.cr and hasattr(band, "_cr_chain_plan"):
-            for r in _chain_sweep(torch.device("cuda")):
-                _log(f"  {r['cell']:<16} {r['kernel']:<24} {r['plan']:<58} "
-                     f"{'(planner) ' if r['planner'] else ''}device {r['device_us']}")
         _log(f"package: {Path(score_tpu_torch.__file__).parent}")
         for r in rows:
             if "clocks" in r:

@@ -64,19 +64,30 @@ Mapping of the TPU kernels (``score_tpu/ops/pallas_pcr.py``):
                                      levels of 1,024 positions and more
                                      (both also do the TPU caller's
                                      even/odd lane slicing)
-    _cr_reduce_kernel       :385  -> band_cr_reduce, every level of a
-                                     solve in one launch (the TPU caller
-                                     launched one a level)
-    _cr_backsub_kernel      :405  -> band_cr_backsub, every level in one
-                                     launch (also interleaves the odd rows
-                                     back, as the TPU caller does between
-                                     launches)
+    _cr_reduce_kernel       :385  -> band_cr_reduce: a band-solve pass's
+                                     every level in ONE launch on chains of
+                                     up to 1,024 blocks (the TPU caller
+                                     launched one a level), a tile stage
+                                     then the whole chain by the block
+                                     that takes its last ticket
+                                     (cr_reduce_tree_kernel); tile kernels
+                                     for runs that stop above one block
+    _cr_backsub_kernel      :405  -> band_cr_backsub: every level in ONE
+                                     launch, a thread block a segment of a
+                                     chain: for K <= 4 a lane group a
+                                     position, block rows from L2
+                                     (cr_backsub_lanes_kernel), else the
+                                     levels' blocks through a ring
+                                     (cr_backsub_chain_kernel); also
+                                     interleaves the odd rows back, as the
+                                     TPU caller does between launches
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -1088,16 +1099,56 @@ def _cr_launch_depths(step: str, n: int, Db: int, K: int) -> list:
 # thread block's shared memory within _CHAIN_SMEM_TARGET where it can, two
 # thread blocks an SM (228 KB an SM, 1 KB of it reserved a thread block).
 _CHAIN_SMEM_TARGET = 115712
+# the chain reduce (csrc/band.cu: cr_reduce_tree_kernel): a tile stage of
+# _STAGE_LEVELS[(K >= _REGISTER_ROWS_K, Db)] levels at most before the
+# whole chain's, which takes the last levels from a chain of
+# _chain_tail(n, Db, K) positions and stages their E, F (the fastest of the
+# plans profile_port.py --cr --pass --sweep timed at the cells, NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md §6)
+_STAGE_LEVELS = {(False, 6): 4, (False, 12): 3, (True, 6): 5, (True, 12): 3}
+# bytes of the tree reduce's shared memory before its stages' (csrc/band.cu:
+# kTreeHeader): the flag of a chain's last ticket, an mbarrier a level
+_TREE_HEADER = 8 * (2 + _CR_MAX_LEVELS)
+# the directions' chain back substitution (csrc/band.cu:
+# cr_backsub_lanes_kernel, lanes_max_k): a lane group a position of a
+# segment's widest level, at most _LANES_THREADS threads a thread block, up
+# to _LANES_MAX_K[Db] rhs columns (three levels' rows in registers); the
+# tile kernels keep the directions (in one launch) from _MANY_CHAINS chains
+# (PERF.md §6)
+_LANE_GROUP = {6: 8, 12: 16}
+_LANES_THREADS = 256
+_LANES_MAX_K = {6: 4, 12: 2}
+_MANY_CHAINS = 32
+
+
+def _chain_tail(n: int, Db: int, K: int) -> int:
+    """Positions of the chain the tree reduce's whole-chain stage starts
+    from: for a direction 2^(n - 4) (the tile stage four levels deep:
+    Manhattan-4 10.9 us against 11.3-11.7 at 3 and 5; at Db = 12 three,
+    the 3D fold 30.1 against 31.2, 3D 4x250 12.0 against 11.8, and 3D
+    1x1000 four where three levels leave more E, F than a thread block
+    holds), for a 2D panel 2^max(n - 5, 3) (robot20 8: 83.2 against 95-104;
+    Manhattan-4 16: 51.0 against 56-61), for a 3D panel 8 (the tile stage
+    then as deep as ``_STAGE_LEVELS`` allows); profile_port.py --cr --pass
+    --sweep, NVIDIA H100 80GB HBM3, 700 W."""
+    if K < _REGISTER_ROWS_K:
+        return 1 << max(n - 4, 1)
+    if Db <= _WIDE_MAX_BLOCK:
+        return 1 << max(n - 5, 3)
+    return 8
 
 
 class ReducePlan(NamedTuple):
-    """band_cr_reduce on a run that ends at one position a chain: ``m`` fine
-    levels computed a level-m position (and ``Kf`` columns) a thread block,
-    with the tile's halo; the levels m + 1 .. n over the whole chain by the
-    block that takes the chain's last ticket, in chunks of ``Kc`` columns;
-    ``stage``: the coarse levels' E, F kept in shared memory."""
+    """band_cr_reduce on a run that ends at one position a chain
+    (csrc/band.cu: cr_reduce_tree_kernel, CrReducePlan): a tile stage of
+    levels 1 .. ``top`` (0: none, a chain a thread block; then Kf = K) with
+    tiles of ``P`` positions of level top, in chunks of ``Kf`` columns; then
+    the whole chain from level top, a thread block each chunk of Kf columns,
+    in chunks of ``Kc`` columns, its E, F staged in shared memory where
+    ``stage``."""
 
-    m: int
+    top: int
+    P: int
     Kf: int
     Kc: int
     stage: bool
@@ -1105,22 +1156,27 @@ class ReducePlan(NamedTuple):
 
 class BacksubPlan(NamedTuple):
     """band_cr_backsub on a run that ends at one position a chain: ``S``
-    segments a chain, a thread block each, in chunks of ``Kc`` columns."""
+    segments a chain, a thread block each, in chunks of ``Kc`` columns (all
+    K for the directions' lane groups)."""
 
     S: int
     Kc: int
 
 
-def _chain_reduce_smem(n: int, Db: int, K: int, m: int, Kf: int, Kc: int, stage: bool) -> int:
-    """Shared memory of one thread block of the chain reduce (csrc/band.cu:
-    cr_chain_reduce_smem): the fine tile's (one level-m position, Kf
-    columns) or the coarse phase's (the coarse levels' E, F where staged,
-    and one or two chunks of Kc columns of the 2^(n - m) level-m rows),
-    whichever is more."""
-    Tc = (1 << n) >> m
-    chunks = -(-K // Kc)
-    d = 8 * ((2 if chunks > 1 else 1) * Tc * Db * Kc + (2 * (Tc - 1) * Db * Db if stage else 0))
-    return max(d, _cr_smem_bytes("reduce", m, Db, 1, Kf)) if m else d
+def _tree_reduce_smem(n: int, Db: int, K: int, plan: ReducePlan) -> int:
+    """Shared memory of one thread block of the tree reduce (csrc/band.cu:
+    cr_tree_reduce_smem): the more of its stages' (the tile's,
+    :func:`_cr_smem_bytes`; the whole chain's: its E, F where staged and one
+    or two chunks of Kc columns of its rows), and ``_TREE_HEADER`` bytes
+    for the flag of the chain's last ticket and the whole chain's
+    mbarriers."""
+    Tc = (1 << n) >> plan.top
+    chunks = -(-plan.Kf // plan.Kc)
+    d = 8 * ((2 if chunks > 1 else 1) * Tc * Db * plan.Kc
+             + (2 * (Tc - 1) * Db * Db if plan.stage else 0))
+    if plan.top:
+        d = max(d, _cr_smem_bytes("reduce", plan.top, Db, plan.P, plan.Kf))
+    return d + _TREE_HEADER
 
 
 def _chain_intervals(n: int, S: int, s: int) -> list:
@@ -1137,23 +1193,34 @@ def _chain_intervals(n: int, S: int, s: int) -> list:
     return out
 
 
+# the chain back substitution's ring of level slots (csrc/band.cu:
+# kBacksubRing): level l's blocks in slot (l - 1) % 3, issued two levels
+# ahead of the level computed
+_BACKSUB_RING = 3
+
+
 @functools.lru_cache(maxsize=None)
 def _chain_backsub_shape(n: int, Db: int, S: int, Kc: int) -> tuple:
     """(shared memory bytes, x buffer rows, most positions of a level) of
     the chain back substitution over S segments (csrc/band.cu:
-    cr_chain_backsub_shape): each segment's levels' invD, A, C and b at its
-    odd rows, and two buffers of the longest interval of x_l (l >= 1)."""
+    cr_chain_backsub_shape): the most over the segments of its ring of
+    ``_BACKSUB_RING`` level slots (fewer where the run has fewer levels),
+    each the widest of the levels it takes (their invD, A, C and b at the
+    odd rows; level l in slot (l - 1) % 3), and two buffers of the longest
+    interval of x_l (l >= 1)."""
+    D = min(n, _BACKSUB_RING)
     blocks, rows, items = 0, 1, 1
     for s in range(S):
         iv = _chain_intervals(n, S, s)
-        bl = 0
+        widest = [0] * D
         for lev in range(1, n + 1):
             lo, hi = iv[lev - 1]
             np_ = max((((hi - 1) >> 1) - (lo >> 1) + 1) if hi >= 1 else 0, 0)
-            bl += np_ * (3 * Db * Db + Db * Kc)
+            j = (lev - 1) % D
+            widest[j] = max(widest[j], np_ * (3 * Db * Db + Db * Kc))
             rows = max(rows, iv[lev][1] - iv[lev][0] + 1)
             items = max(items, (hi >> 1) - (lo >> 1) + 1)
-        blocks = max(blocks, bl)
+        blocks = max(blocks, sum(widest))
     return 8 * (blocks + 2 * rows * Db * Kc), rows, items
 
 
@@ -1169,26 +1236,23 @@ def _chunks(K: int, fits, even: bool) -> int | None:
 
 def _chain_takes(step: str, n: int, Db: int, K: int, C: int, n_sm: int) -> bool:
     """Whether a chain kernel takes a run of n levels that ends at one
-    position a chain, or the tile kernels keep it: where they measured
-    faster (profile_port.py --cr, NVIDIA H100 80GB HBM3; PERF.md §6). The
-    reduce: chains that fill the card (the folds), chains of 64 and more,
-    and 3D panels; the tile kernel keeps the short 2D tails and 3D
-    directions (Manhattan-4's last run, 3D 1x1000's at K = 1). The back
-    substitution: the 2D fold's panel and 3D panels on chains of up to 32
-    (3D 1x1000's tail); the tile kernels keep directions, the 3D fold and
-    robot20, where their per-level kernels with block rows from HBM
-    measured faster. A batch's trial count moves no launch count (the
-    launches a trip of a Monte-Carlo batch equal a 1-trial batch's): at
-    256-long 3D chains the back substitution stays on the tile kernels at
-    every chain count, where the chain kernel was faster at 4 chains (3D
-    4x250) and slower at 64 (the 3D fold)."""
-    T = 1 << n
-    wide = K >= _REGISTER_ROWS_K
+    position a chain (one launch each way: at the default schedule a whole
+    band-solve pass), or the tile kernels keep it, where they take it in one
+    launch too and measured faster: the 2D panel's back substitution on
+    chains of up to 128 (robot20: 69.8 us against 126) but on chains that
+    fill the card (the 2D fold: 117.5-128.6 against 128.2), and the
+    directions' (K <= 4) on ``_MANY_CHAINS`` chains and more (the folds:
+    the lane groups 15.6 us at one segment a chain and 11.4 at two against
+    11.9 at the 2D fold, 34.6-38.5 against 30.3 at the 3D fold); NVIDIA
+    H100 80GB HBM3, 700 W, profile_port.py --cr --pass --sweep, PERF.md
+    §6. The reduce always."""
     if step == "reduce":
-        return C >= n_sm or T >= 64 or (Db > _WIDE_MAX_BLOCK and wide)
-    if Db <= _WIDE_MAX_BLOCK:
-        return C >= n_sm and wide
-    return T <= 32 and wide
+        return True
+    if _backsub_narrow(K):
+        tiles = C >= _MANY_CHAINS
+    else:
+        tiles = Db <= _WIDE_MAX_BLOCK and n <= 7 and C < n_sm
+    return not (tiles and len(_cr_launch_depths(_backsub_step(Db, K), n, Db, K)) == 1)
 
 
 def _cr_chain_plan(step: str, n: int, Db: int, K: int, C: int = 1,
@@ -1199,6 +1263,39 @@ def _cr_chain_plan(step: str, n: int, Db: int, K: int, C: int = 1,
     return _chain_plan(step, n, Db, K, C, n_sm) if _chain_takes(step, n, Db, K, C, n_sm) else None
 
 
+def _whole_chain(n: int, Db: int, K: int, m: int, limit: int, W: int | None = None):
+    """(Kc, stage) of the whole-chain stage from level m (a chain of 2^(n -
+    m)) over W of the K columns (all by default; a tile stage's chunk),
+    within ``limit`` bytes of shared memory: all W at once before chunks,
+    its E, F staged before all W in chunks of two or more; None where not
+    one column fits. Rows written by the tile stage are read in 16-byte
+    units: for m > 0 a chunk is every column, or K and Kc even."""
+    W = K if W is None else W
+    plain = ReducePlan(0, 1, W, W, False)
+    for stage, chunked in ((True, False), (False, False), (True, True), (False, True)):
+        fits = lambda kc: (_tree_reduce_smem(n - m, Db, W, plain._replace(Kc=kc, stage=stage))
+                           - _TREE_HEADER <= limit)
+        if not chunked:
+            Kc = W if fits(W) and (not m or W == K or K % 2 == 0) else None
+        elif not m or K % 2 == 0:
+            Kc = _chunks(W, fits, K % 2 == 0)
+        else:
+            Kc = None
+        if Kc is not None:
+            return Kc, stage
+    return None
+
+
+def _lanes_segments(n: int, Db: int, S: int) -> int:
+    """The fewest segments from S (a power of two) whose widest level has a
+    lane group for each of its positions within ``_LANES_THREADS`` threads
+    (csrc/band.cu: cr_backsub_lanes_kernel)."""
+    while (S < 1 << n and _chain_backsub_shape(n, Db, S, 1)[2] * _LANE_GROUP[Db]
+           > _LANES_THREADS):
+        S *= 2
+    return S
+
+
 @functools.lru_cache(maxsize=None)
 def _chain_plan(step: str, n: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_COUNT):
     """The plan of a chain kernel for a run of n levels (1 to
@@ -1207,26 +1304,43 @@ def _chain_plan(step: str, n: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_
     takes ONE launch).
 
     Reduce (:class:`ReducePlan`): where the chains alone give every SM a
-    thread block (the folds), and for a direction whose chain's E, F fit
-    a thread block, m = 0: a chain a thread block, its E, F staged once and
-    the rhs whole or through a ring of two chunks. Otherwise the fine
-    levels spread over the card, a thread block a level-m position (m = 1
-    .. n - 1), the plan preferred that takes all K columns at once in the
-    coarse phase, then in the fine tiles, then with the coarse E, F staged
-    (a coarse level reading them from HBM took 5-10 us at Db = 12), then
-    the one that needs the least shared memory: within two thread blocks an
-    SM, or the card's 227 KB where the fine tiles fit one wave. Back
-    substitution (:class:`BacksubPlan`): S, the fewest segments a chain (a
-    power of two) that give every second SM a thread block, more where
-    that takes all K columns in one chunk (or the fewest chunks) within
-    the shared memory of two thread blocks an SM."""
+    thread block (the folds), and for a direction whose chain's E, F and rhs
+    fit a thread block, no tile stage: a chain a thread block, its E, F
+    staged once and the rhs whole or through a ring of two chunks.
+    Otherwise a tile stage of m levels (:func:`_tile_stage`) and the whole
+    chain from level m, a thread block a chain and chunk of columns: m
+    leaves the whole chain :func:`_chain_tail` positions, within
+    ``_STAGE_LEVELS``, the deepest below that where a level does not fit,
+    deeper where the whole chain's E, F do not fit with its rows (3D
+    1x1000's panel: five levels; the whole chain's E, F read through L1
+    from 64 or 128 positions took 39.3 and 52.9 us against 30.7).
+    Back substitution (:class:`BacksubPlan`): S, the
+    fewest segments a chain (a power of two) that give every second SM a
+    thread block; for the directions (K <= ``_LANES_MAX_K``) more where
+    the lane groups of a segment's widest level pass ``_LANES_THREADS``;
+    for the wider widths, where the chains alone fill the card, more until
+    two thread blocks fit an SM (the 2D fold's panel 117.7-118.1 us at S =
+    4 against 127.8-128.5 at 2), then more where that takes all K columns
+    in one chunk within the card's shared memory (the 3D fold's 117.3 at 8
+    against 117.8 at 16; Manhattan-4's 32.3 at 32 against 66.8 at 16 and
+    47.2 at 64; NVIDIA H100 80GB HBM3, 700 W, profile_port.py --cr --pass
+    --sweep), else the fewest chunks."""
     if not 1 <= n <= _CR_MAX_LEVELS:
         raise ValueError(f"chain CR launch: {n} levels (1 to {_CR_MAX_LEVELS})")
-    T, target, BS = 1 << n, _CHAIN_SMEM_TARGET, Db * Db
+    T, target = 1 << n, _CHAIN_SMEM_TARGET
     if step != "reduce":
         S = 1
         while S < T and 2 * C * S < n_sm:
             S *= 2
+        if K <= _LANES_MAX_K[Db]:
+            return BacksubPlan(_lanes_segments(n, Db, S), K)
+        if C >= n_sm:  # the chains fill the card: two thread blocks an SM
+            while S < T and _chain_backsub_shape(n, Db, S, K)[0] > target:
+                S *= 2
+        # the fewest segments from there that take all K columns at once
+        for S_all in (S << i for i in range(n + 1 - num_levels(S))):
+            if _chain_backsub_shape(n, Db, S_all, K)[0] <= _SMEM_MAX:
+                return BacksubPlan(S_all, K)
         best = None
         for limit in (target, _SMEM_MAX):
             while True:
@@ -1240,58 +1354,68 @@ def _chain_plan(step: str, n: int, Db: int, K: int, C: int = 1, n_sm: int = _SM_
                 return best
         raise ValueError(f"chain CR back substitution: {n} levels of {Db}-blocks do not fit "
                          "a thread block")
-    whole = C >= n_sm or (K < _REGISTER_ROWS_K and 8 * (2 * (T - 1) * BS + T * Db * K)
-                          <= _SMEM_MAX)
-    plans = []
-    for m in range(1 if whole else n):
-        # one wave of fine tiles (or a chain a thread block) may take the
-        # card's limit: occupancy buys nothing there
-        few = C * (T >> m) <= n_sm
-        fine_limit = _SMEM_MAX if few else target
-        Kf = K if not m else _chunks(
-            K, lambda kf: _cr_smem_bytes("reduce", m, Db, 1, kf) <= fine_limit, False)
-        if Kf is None:
-            continue
-        # all K at once before chunks; a chain a thread block's E, F staged
-        # before all K
-        order = ([(True, False), (True, True), (False, False), (False, True)] if not m else
-                 [(True, False), (False, False), (True, True), (False, True)])
-        for stage, chunked in order:
-            limit = _SMEM_MAX if few or (not m and not chunked) else target
-            fits = lambda kc: _chain_reduce_smem(n, Db, K, m, Kf, kc, stage) <= limit
-            Kc = None
-            if not chunked:
-                Kc = K if fits(K) else None
-            elif not m or K % 2 == 0:  # m > 0 reads the level-m rows back in 16-byte units
-                Kc = _chunks(K, fits, K % 2 == 0)
-            if Kc is not None:
-                plans.append(ReducePlan(m, Kf, Kc, stage))
-                break
-    fine = [p for p in plans if p.m]
-    if fine and not whole:
-        return min(fine, key=lambda p: (p.Kc < K, p.Kf < K, not p.stage,
-                                        _chain_reduce_smem(n, Db, K, *p), p.m))
-    if plans:
-        return plans[0]
-    raise ValueError(f"chain CR reduce: {n} levels of {Db}-blocks with {K} rhs columns do "
-                     "not fit a thread block")
+    whole = _whole_chain(n, Db, K, 0, _SMEM_MAX)
+    if whole is not None and (C >= n_sm or (K < _REGISTER_ROWS_K and whole[1] and whole[0] == K)):
+        return ReducePlan(0, 1, K, *whole)
+    deepest = _STAGE_LEVELS[(K >= _REGISTER_ROWS_K, Db)]
+    mc = min(n - num_levels(_chain_tail(n, Db, K)), n - 1, deepest)
+    for m in list(range(mc, 0, -1)) + list(range(max(mc, 0) + 1, n)):
+        plan = _tile_stage(n, m, Db, K, C, n_sm)
+        if plan is not None:
+            return plan
+    if whole is None:
+        raise ValueError(f"chain CR reduce: {n} levels of {Db}-blocks with {K} rhs columns "
+                         "do not fit a thread block")
+    return ReducePlan(0, 1, K, *whole)
+
+
+def _tile_stage(n: int, m: int, Db: int, K: int, C: int, n_sm: int):
+    """The tree reduce with a tile stage over levels 1 .. m and the whole
+    chain above (:func:`_chain_plan`), or None where either does not fit
+    the card or the whole chain's E, F do not fit with its rows. Tiles of
+    the most positions that leave a thread block an SM, all K columns
+    before a wider tile; the columns in the fewest chunks the card holds
+    (even chunks where K is even, one where it is odd: the whole chain's
+    thread block of a chunk reads its rows in 16-byte units). Fewer, wider
+    chunks measured faster: Manhattan-4's panel 40.0 us at 36 columns
+    against 50.4 at 18, robot20's 76.5 at 86 against 88.8 at 44."""
+    T = 1 << n
+    if _cr_smem_bytes("reduce", m, Db, 1, 1) > _SMEM_MAX:
+        return None
+    P = 1
+    while 2 * P <= T >> m and C * ((T >> m) // (2 * P)) >= n_sm:
+        P *= 2
+    while True:
+        fits = lambda kf: _cr_smem_bytes("reduce", m, Db, P, kf) <= _SMEM_MAX
+        Kf = _chunks(K, fits, True) if K % 2 == 0 else (K if fits(K) else None)
+        if Kf == K or P == 1:
+            break
+        P //= 2
+    if Kf is None:
+        return None
+    whole = _whole_chain(n, Db, K, m, _SMEM_MAX, Kf)
+    if whole is None or not whole[1]:
+        return None
+    plan = ReducePlan(m, P, Kf, *whole)
+    return plan if _tree_reduce_smem(n, Db, K, plan) <= _SMEM_MAX else None
 
 
 _TICKETS = {}
 
 
-def _tickets(t: torch.Tensor, C: int) -> torch.Tensor:
-    """The chain reduce's per-chain counters on t's device and current
-    stream: zero, and zero again after every launch (its last thread block
-    of a chain resets it), so allocated once a stream. Under CUDA graph
-    capture a fresh buffer whose zeroing the graph replays (never kept)."""
+def _tickets(t: torch.Tensor, count: int) -> torch.Tensor:
+    """The tree reduce's counters on t's device and current stream (at
+    least ``count``): zero, and zero again after every launch (the thread
+    block that takes a counter's last ticket resets it), so allocated once
+    a stream. Under CUDA graph capture a fresh buffer whose zeroing the
+    graph replays (never kept)."""
     with torch.cuda.device(t.device):
         if torch.cuda.is_current_stream_capturing():
-            return torch.zeros(C, dtype=torch.int32, device=t.device)
+            return torch.zeros(count, dtype=torch.int32, device=t.device)
         key = (t.device, torch.cuda.current_stream().cuda_stream)
     have = _TICKETS.get(key)
-    if have is None or have.numel() < C:
-        have = _TICKETS[key] = torch.zeros(max(C, 1024), dtype=torch.int32, device=t.device)
+    if have is None or have.numel() < count:
+        have = _TICKETS[key] = torch.zeros(max(count, 1024), dtype=torch.int32, device=t.device)
     return have
 
 
@@ -1325,27 +1449,29 @@ def band_cr_reduce(levels, b):
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_reduce_kernel`` with the
     caller's even/odd slices of the rhs (:789-790), and its launch a level
-    by ONE launch for all levels. A run that ends at one position a chain
-    (every solve's last run, the batch folds' only one) takes the chain
-    kernel (:func:`_cr_chain_plan`): the first m levels a level-m position
-    a thread block (with the tile's halo) over the card, each block taking
-    a ticket of its chain's counter (``_tickets``) once its rows are out,
-    and the block with the chain's last ticket running the levels above
-    over the whole chain with no halo, the coarse E, F staged once, the
-    columns through a ring of two chunks, each level in place in one
-    buffer (where the chains alone fill the card, m = 0: a chain a thread
-    block). Runs that end at more than one position: a thread block owns a
-    tile of coarsest positions of one chain and a chunk of columns
-    (:func:`_cr_plan`),
-    stages its E, F of every level and its fine rows with the left halo of
-    2^n - 1 rows in shared memory by 16-byte cp.async, and computes the
-    levels there, recomputing the halo positions of the tile before; each
-    level's own rows leave once. A thread owns one output row and column
-    (directions) or all Db rows of a position and column (the panel),
-    chosen by K in csrc/band.cu. What bounds it: bytes for a wide 2D panel
-    (each element of b read once from HBM, written once), a launch and the
-    levels' dependent chains otherwise. Sums run in the plain version's
-    order; only nvcc's contraction to FMAs differs."""
+    by ONE launch for all levels: at the default schedule a band-solve
+    pass's whole descent on chains of up to 2^``_CR_MAX_LEVELS`` = 1,024
+    blocks, at every rhs width. A run that ends at one position a chain
+    takes the tree kernel (:func:`_chain_plan`, :class:`ReducePlan`): a
+    tile stage over the card (a tile of a few positions of its last level
+    with the left halo, levels in shared memory), then the last levels over
+    the whole chain, with no halo, by the thread block that takes the last
+    of the chain's tickets (``_tickets``, one counter a chain; E, F staged
+    once, the columns through a ring of two chunks, each level in place);
+    where the chains alone fill the card, a chain a thread block. No
+    thread block waits for another. A run that ends at more than one position (a schedule that
+    stops above one block, the first run of a longer chain): a thread
+    block owns a tile of coarsest positions of one chain and a chunk of
+    columns (:func:`_cr_plan`), stages its E, F of every level and its fine
+    rows with the left halo of 2^n - 1 rows in shared memory by 16-byte
+    cp.async, and computes the levels there, recomputing the halo
+    positions of the tile before; each level's own rows leave once. A
+    thread owns one output row and column (directions) or several rows of
+    a position and column (the panel), chosen by K in csrc/band.cu. What
+    bounds it: bytes for a wide 2D panel and the folds (each element of b
+    read once from HBM, written once), a launch and the levels' dependent
+    chains otherwise (PERF.md §6 has each cell's pass). Sums run in the
+    plain version's order; only nvcc's contraction to FMAs differs."""
     nC, T, Db, K, n = _check_cr("band_cr_reduce", levels, b, ("E", "F"))
     _check("band_cr_reduce.b", b)
     if not _route("band_cr_reduce", levels[0].E,
@@ -1358,14 +1484,17 @@ def band_cr_reduce(levels, b):
     from score_tpu_torch.ops.build import CrReduceLevels
 
     plan = _cr_chain_plan("reduce", n, Db, K, nC, _sm_count(b.device)) if T == 1 << n else None
-    if plan is not None:  # the run ends at one position a chain: the chain kernel
+    if plan is not None:  # the run ends at one position a chain: the tree kernel
+        from score_tpu_torch.ops.build import CrReducePlan
+
         ptrs = CrReduceLevels()
         for lev, lv in enumerate(levels):
             ptrs.E[lev], ptrs.F[lev] = lv.E.data_ptr(), lv.F.data_ptr()
             ptrs.out[lev] = out[lev].data_ptr()
-        tickets = _tickets(b, nC).data_ptr() if plan.m else None
+        tickets = _tickets(b, nC * -(-K // plan.Kf)).data_ptr() if plan.top else None
+        cplan = CrReducePlan(plan.top, plan.P, plan.Kf, plan.Kc, int(plan.stage))
         _launch(_lib(), "band_cr_reduce_chain", b, ptrs, b.data_ptr(), tickets, n, nC, Db, K,
-                plan.m, plan.Kf, plan.Kc, int(plan.stage))
+                cplan)
         _count(band_cr_reduce, Db, (T, n))
         return out
     first, src = 0, b
@@ -1392,18 +1521,25 @@ def band_cr_backsub(levels, fine, x):
 
     Replaces ``score_tpu/ops/pallas_pcr.py:_cr_backsub_kernel`` with the
     caller's re-interleaving of even and odd rows (:809-810), and its launch
-    a level by ONE launch for all levels. A run that ends at one position a
-    chain takes the chain kernel (:func:`_cr_chain_plan`): a thread block a
+    a level by ONE launch for all levels: at the default schedule a
+    band-solve pass's whole ascent on chains of up to 1,024 blocks, at every
+    rhs width. A run that ends at one position a chain takes the chain
+    kernel (:func:`_chain_plan`, :class:`BacksubPlan`): a thread block a
     segment of the chain's fine rows, recomputing the one or two positions
-    of each coarse level its segment needs (no second phase), every level's
-    invD, A, C of its rows staged once by cp.async (a group a level,
-    coarsest first), the columns in chunks, a thread all Db rows of a
-    column (Db = 6) or one row (Db = 12, rv through shared memory). Runs
-    that end at more than one position:
-    a thread block owns a tile of
-    coarsest positions and a chunk of columns, reads the coarsest solution
-    of its tile and of the position after it, and fills each finer level's
-    odd rows in one shared buffer in the finest layout; only the finest x
+    of each coarse level its segment needs (no ticket, no wait). For K <=
+    4 a lane group a position of the segment's widest level (lane r a row,
+    the narrow step's layout), its rows of each level's A, C, invD and b
+    read from L2 into registers a level ahead, x_l through two shared
+    buffers, one barrier a level. For the panels the levels' invD, A, C and
+    odd rows of b stream through a ring of three level slots by cp.async (a
+    group a level, coarsest first, two levels ahead of the level computed:
+    the shared memory of the widest levels, not their sum), the columns in
+    chunks, a thread all Db rows (Db = 6) or three (Db = 12) of a column.
+    Runs that end
+    at more than one position: a thread block owns a tile of coarsest
+    positions and a chunk of columns, reads the coarsest solution of its
+    tile and of the position after it, and fills each finer level's odd
+    rows in one shared buffer in the finest layout; only the finest x
     leaves. Steps (:func:`_backsub_step`): a lane group per position for K
     <= 4 (lane r a row, rows of x and of the intermediate by shuffles); for
     the panel at Db = 6 a thread per position and column pair, block rows
@@ -1411,13 +1547,12 @@ def band_cr_backsub(levels, fine, x):
     rows and b from HBM); at Db = 12 a thread per three rows of a column,
     the levels' A, C, invD and odd rows of b staged in shared memory by
     cp.async, one block barrier between (b - A x) - C x and the invD
-    product. A solve of one level at K <= 4 or Db = 6 (Manhattan-4) runs
-    the per-level kernels' steps unchanged: the launch is the level's. A
-    solve deeper than the shared memory holds in one launch
-    (:func:`_cr_launch_depths`) takes one launch a run of levels. What bounds it: bytes for
-    the 2D panel, a launch and the levels' dependent chains otherwise. Sums
-    run in the plain version's order; only nvcc's contraction to FMAs
-    differs."""
+    product. A run of one level at K <= 4 or Db = 6 runs the per-level
+    kernels' steps unchanged; a run deeper than the shared memory holds in
+    one launch (:func:`_cr_launch_depths`) takes one launch a run of
+    levels. What bounds it: bytes for the 2D panel and the folds, a launch
+    and the levels' dependent chains otherwise. Sums run in the plain
+    version's order; only nvcc's contraction to FMAs differs."""
     nC, T, Db, K, n = _check_cr("band_cr_backsub", levels, x, ("invD", "A", "C"), coarse=True)
     if len(fine) != n:
         raise ValueError(f"band_cr_backsub: {len(fine)} fine rhs for {n} levels")
@@ -1575,9 +1710,9 @@ def band_solve(factors: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
 def _cr_runs(n: int) -> list:
     """The levels of each call of the fused CR wrappers in a solve of n
     compacting levels, fine -> coarse: all n in one call up to
-    ``_CR_MAX_LEVELS`` (a launch's depth), else the fewest runs of at most
-    that many, as even as they come (9 levels: 5 and 4, which both 3D
-    kernels' shared memory takes in one launch each)."""
+    ``_CR_MAX_LEVELS`` (a launch's depth: chains of up to 1,024 blocks, a
+    band-solve pass in one launch each way), else the fewest runs of at
+    most that many, as even as they come (11 levels: 6 and 5)."""
     runs = -(-n // _CR_MAX_LEVELS)
     return [n // runs + (r < n % runs) for r in range(runs)]
 

@@ -25,7 +25,8 @@ import time
 from pathlib import Path
 
 __all__ = ["band_library", "blocks_library", "compile_all", "BUILD_DIR", "SOURCES",
-           "CR_MAX_LEVELS", "CrReduceLevels", "CrBacksubLevels", "CrFactorLevels"]
+           "CR_MAX_LEVELS", "CrReduceLevels", "CrBacksubLevels",
+           "CrReducePlan", "CrFactorLevels"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
@@ -134,7 +135,7 @@ def launch(lib: ctypes.CDLL, name: str, t, *args) -> None:
 # takes, and their pointers as the C entries take them, by value
 # (csrc/band.cu: kCrMaxLevels, CrReduceLevels, CrBacksubLevels,
 # CrFactorLevels).
-CR_MAX_LEVELS = 8
+CR_MAX_LEVELS = 10
 _Pointers = ctypes.c_void_p * CR_MAX_LEVELS
 
 
@@ -144,6 +145,12 @@ class CrReduceLevels(ctypes.Structure):
 
 class CrBacksubLevels(ctypes.Structure):
     _fields_ = [("invD", _Pointers), ("A", _Pointers), ("C", _Pointers), ("b", _Pointers)]
+
+
+# The tree reduce's plan (csrc/band.cu: CrReducePlan).
+class CrReducePlan(ctypes.Structure):
+    _fields_ = [("top", ctypes.c_int), ("P", ctypes.c_int), ("Kf", ctypes.c_int),
+                ("Kc", ctypes.c_int), ("stage", ctypes.c_int)]
 
 
 class CrFactorLevels(ctypes.Structure):
@@ -179,8 +186,8 @@ def band_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     # levels, xe, x, n, nC, T, Db, K, P, Kc, stream
     lib.band_cr_backsub.argtypes = [CrBacksubLevels, vp, vp] + [i32] * 7 + [vp]
     lib.band_cr_backsub.restype = i32
-    # levels, b, tickets, n, nC, Db, K, m, Kf, Kc, stage, stream
-    lib.band_cr_reduce_chain.argtypes = [CrReduceLevels, vp, vp] + [i32] * 8 + [vp]
+    # levels, b, tickets, n, nC, Db, K, plan, stream
+    lib.band_cr_reduce_chain.argtypes = [CrReduceLevels, vp, vp] + [i32] * 4 + [CrReducePlan, vp]
     lib.band_cr_reduce_chain.restype = i32
     # levels, xe, x, n, nC, Db, K, S, Kc, stream
     lib.band_cr_backsub_chain.argtypes = [CrBacksubLevels, vp, vp] + [i32] * 6 + [vp]

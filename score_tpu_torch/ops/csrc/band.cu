@@ -27,7 +27,7 @@
 
 // The level pointers of band_cr_reduce and band_cr_backsub, passed to the
 // C entries by value (ops/build.py mirrors them as ctypes structures).
-constexpr int kCrMaxLevels = 8;  // levels a launch takes (ops/band.py)
+constexpr int kCrMaxLevels = 10;  // levels a launch takes (ops/band.py)
 
 struct CrReduceLevels {
   const double* E[kCrMaxLevels];  // level l: (C, T >> (l + 1), Db, Db)
@@ -40,6 +40,19 @@ struct CrBacksubLevels {
   const double* A[kCrMaxLevels];
   const double* C[kCrMaxLevels];
   const double* b[kCrMaxLevels];     // b_l, the level's fine rhs: (C, T >> l, Db, K)
+};
+
+// The plan of cr_reduce_tree_kernel (band._chain_plan, ops/build.py
+// mirrors it): a tile stage of levels 1 .. top (top = 0: none, a chain a
+// thread block) with tiles of P positions of level top, in chunks of Kf
+// columns (the grid); then the whole chain from level top in chunks of Kc
+// columns, its E, F staged in shared memory where `stage`.
+struct CrReducePlan {
+  int top;
+  int P;
+  int Kf;
+  int Kc;
+  int stage;
 };
 
 // The outputs of band_cr_factor's levels, level l: (C, T >> (l + 1), Db, Db)
@@ -149,6 +162,52 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     case 6: cp_async_wait<6>(); break;
     default: cp_async_wait<7>(); break;
   }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Waits on an mbarrier's phase. A wait that has not ended after ~2^32
+// clocks (seconds) traps: a fault, never a hang.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  const long long t0 = clock64();
+  while (true) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One thread: a 1D bulk copy (TMA) of `bytes` (a multiple of 16, both ends
+// 16-byte aligned) from global to shared memory, completing on `bar`
+// (whose expected transaction count the caller has raised).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ double2 ldg2(const double* p) {
@@ -1320,20 +1379,18 @@ cr_factor_kernel(const double* __restrict__ D, const double* __restrict__ A,
 // (no E term at a chain's first position, no C term at its last).
 //
 // Two designs, by where the run ends (ops/band.py routes):
-//   - a run that ends at more than one position a chain (a solve's first
-//     runs: Manhattan-4's 512 -> 16, 3D 1x1000's 1024 -> 32): the tile
-//     kernels below. A thread block owns a tile of P consecutive positions
-//     of the coarsest level (depth n) of one chain and a chunk of Kc rhs
-//     columns (grid y); band._cr_plan plans (P, Kc) so that the grid covers
-//     the card's SMs where the chain allows and the shared memory stays
-//     small enough for several blocks an SM. The reduce's tile is also the
-//     fine phase of the chain reduce;
-//   - a run that ends at ONE position a chain (every solve's last run since
-//     the band compacts to one block, and the Monte-Carlo folds' one run):
-//     the chain kernels (cr_reduce_chain_kernel, cr_backsub_chain_kernel,
-//     further down), where a tile would be the whole chain: no halo, the
-//     blocks staged once for all columns, the fine levels spread over the
-//     card, one launch for up to kCrMaxLevels levels at both block sizes.
+//   - a run that ends at more than one position a chain (a schedule that
+//     stops above one block a chain, and the first run of a chain longer
+//     than 2^kCrMaxLevels): the tile kernels below. A thread block owns a
+//     tile of P consecutive positions of the coarsest level (depth n) of
+//     one chain and a chunk of Kc rhs columns (grid y); band._cr_plan plans
+//     (P, Kc) so that the grid covers the card's SMs where the chain allows
+//     and the shared memory stays small enough for several blocks an SM.
+//     The reduce's tile is also each tile stage of the tree reduce;
+//   - a run that ends at ONE position a chain (a band-solve pass at the
+//     default schedule, whole on chains of up to 2^kCrMaxLevels): the chain
+//     kernels (cr_reduce_tree_kernel, cr_backsub_chain_kernel, further
+//     down), one launch each way at both block sizes.
 // A tile's dependencies between levels are local:
 //   - reduce: coarsest position j reads the fine rows 2^n j - (2^n - 1) ..
 //     2^n j + 2^n - 1, so a tile reads its own 2^n P fine rows and a left
@@ -1450,8 +1507,8 @@ __device__ __forceinline__ void rows_times_col(const double* M, const double* v,
 
 // ---------------------------------------------------------------------
 // band_cr_reduce on a run that ends at more than one position a chain
-// (cr_reduce_levels_kernel<Db, R>, its body reduce_tile), and the fine
-// phase of cr_reduce_chain_kernel.
+// (cr_reduce_levels_kernel<Db, R>, its body reduce_tile), and the tile
+// stages of cr_reduce_tree_kernel.
 //
 // A thread block stages its tile's E and F blocks of every level (with the
 // halo positions) and its fine rhs rows with the left halo in shared memory
@@ -1468,12 +1525,14 @@ __device__ __forceinline__ void rows_times_col(const double* M, const double* v,
 // 6.2 us at 3.35 TB/s); a launch and the dependent chains of the levels for
 // 3D and for directions. On a run that ends at one position a chain its
 // tile was the whole chain with a halo it never filled, its E, F staged
-// again for every column chunk: such runs take the chain kernel.
+// again for every column chunk: such runs take the tree kernel.
 // ---------------------------------------------------------------------
 
 // One tile of the reduce: P coarsest positions from j0 of chain c and the
-// columns k0 .. k0 + min(Kc, K - k0) - 1, n levels (the body of
-// cr_reduce_levels_kernel, and the fine phase of cr_reduce_chain_kernel).
+// columns k0 .. k0 + min(Kc, K - k0) - 1, n levels from level l0 (b: level
+// l0's rhs, T its chain length; the levels' blocks and outputs are lv's
+// l0 .. l0 + n - 1): the body of cr_reduce_levels_kernel (l0 = 0), and each
+// tile stage of cr_reduce_tree_kernel.
 // Ends without a barrier after its last level. clk: the clock slots of
 // -DBAND_CR_CLOCKS builds. GROUPS: the fine rows and level 1's E, F as one
 // cp.async group, each further level's E, F as one more, and a level starts
@@ -1481,9 +1540,9 @@ __device__ __forceinline__ void rows_times_col(const double* M, const double* v,
 // for every copy (the tile kernel, as measured).
 template <int Db, int R, bool GROUPS = false>
 __device__ __forceinline__ void reduce_tile(const CrReduceLevels& lv,
-                                            const double* __restrict__ b, int n, int T,
-                                            int K, int P, int Kc, int c, int j0, int k0,
-                                            double* sm, long long* clk) {
+                                            const double* __restrict__ b, int l0, int n,
+                                            int T, int K, int P, int Kc, int c, int j0,
+                                            int k0, double* sm, long long* clk) {
   constexpr int BS = Db * Db;
   constexpr int G = Db / R;  // threads a position and column
   const int kc = min(Kc, K - k0);
@@ -1514,8 +1573,8 @@ __device__ __forceinline__ void reduce_tile(const CrReduceLevels& lv,
       const int pbase = (j0 << (n - lev)) - ((1 << (n - lev)) - 1);
       const int plo = max(pbase, 0), phi = min((j0 + P) << (n - lev), Th);
       const long long g = ((long long)c * Th + plo) * BS;
-      stage_span(e + (plo - pbase) * BS, lv.E[lev - 1] + g, (phi - plo) * BS);
-      stage_span(e + (cnt + plo - pbase) * BS, lv.F[lev - 1] + g, (phi - plo) * BS);
+      stage_span(e + (plo - pbase) * BS, lv.E[l0 + lev - 1] + g, (phi - plo) * BS);
+      stage_span(e + (cnt + plo - pbase) * BS, lv.F[l0 + lev - 1] + g, (phi - plo) * BS);
       e += 2 * cnt * BS;
       if (GROUPS) cp_async_commit();
     }
@@ -1537,7 +1596,7 @@ __device__ __forceinline__ void reduce_tile(const CrReduceLevels& lv,
     const int pbase = (j0 << (n - lev)) - h;
     const double* in = buf[(lev - 1) & 1];
     double* nxt = buf[lev & 1];
-    double* out = lv.out[lev - 1];
+    double* out = lv.out[l0 + lev - 1];
     const int items = cnt * G * kc;
     for (int w = threadIdx.x; w < items; w += blockDim.x) {
       const int k = w % kc;
@@ -1588,7 +1647,7 @@ cr_reduce_levels_kernel(const CrReduceLevels lv, const double* __restrict__ b,
   const int tiles = ((T >> n) + P - 1) / P;
   const int c = blockIdx.x / tiles;
   const int j0 = (blockIdx.x - c * tiles) * P;  // first coarsest position
-  reduce_tile<Db, R>(lv, b, n, T, K, P, Kc, c, j0, blockIdx.y * Kc, sm, clk);
+  reduce_tile<Db, R>(lv, b, 0, n, T, K, P, Kc, c, j0, blockIdx.y * Kc, sm, clk);
   CR_CLOCKS_OUT(lv.out[n - 1])
 }
 
@@ -2152,71 +2211,84 @@ cr_backsub_element_kernel(const CrBacksubLevels lv, const double* __restrict__ x
 
 // ---------------------------------------------------------------------
 // band_cr_reduce and band_cr_backsub on a run that ends at ONE position a
-// chain (cr_reduce_chain_kernel, cr_backsub_chain_kernel): since the band
-// compacts to one block (band.CR_BASE_LENGTH = 1) every solve's last run
-// does, and so do the Monte-Carlo folds (one run each). They replace the
-// same TPU kernels as the tile kernels above (pallas_pcr.py:385
-// _cr_reduce_kernel, :405 _cr_backsub_kernel), which still take the runs
-// that end at more than one position (a solve's first runs).
+// chain (cr_reduce_tree_kernel, cr_backsub_chain_kernel). Since the band
+// compacts to one block (band.CR_BASE_LENGTH = 1) a band-solve pass is one
+// such run each way on every chain of up to 2^kCrMaxLevels = 1,024 blocks:
+// ONE launch each way (longer chains first take runs of the tile kernels
+// above). They replace the same TPU kernels as the tile kernels
+// (pallas_pcr.py:385 _cr_reduce_kernel, :405 _cr_backsub_kernel), which now
+// take only runs that end at more than one position a chain (a schedule no
+// solve uses).
 //
-// What held the tile kernels back on such a run: a tile of P = Tn = 1
-// position is the whole chain, but the reduce reserved and half filled a
-// left halo ((P + 1) 2^n - 1 rows and blocks, 196-222 KB: one thread block
-// an SM); every chunk of columns (grid y) staged every level's blocks again
-// (65 times a robot20 chain); a tail ran on 1-28 thread blocks of 132 SMs;
-// every copy was in flight before one wait, and the levels behind it.
+// What held the kernels before these back (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md §6): a pass was cut into runs of at most 8 levels, so
+// Manhattan-4 and 3D 1x1000 made two launches each way, the first on the
+// tile kernels with one coarsest position a thread block (32 and 64 thread
+// blocks for 132 SMs), each recomputing a left halo as long as its own rows
+// at every level; the tails' short levels a second launch from HBM (6.2-6.7
+// us at K = 1 against bounds of 0.01-0.03 us); the 3D back substitution
+// staged every level's blocks at once, so the 3D fold's panel took two
+// launches.
 //
 // The design:
-//   reduce: the chain is cut at level m (band._cr_chain_plan): the fine
-//     phase is the tile code above on one level-m position a thread block
-//     (with its halo: the fine levels of many chains spread over the card);
-//     each such block fences its rows and takes a ticket of its chain's
-//     counter (`tickets`: zero before the launch, zero again after it: the
-//     last block resets it); the block that takes the last ticket runs the
-//     coarse levels m + 1 .. n over the whole chain, with no halo, from the
-//     level-m rows the others wrote (16-byte cp.async.cg: read through L2,
-//     the point of coherence). m = 0 where the chains alone fill the card
-//     (the folds): no fine phase, no ticket. The coarse phase keeps its
-//     levels' E, F resident in shared memory (`stage`, staged once, one
-//     cp.async group a level, a level starting when its group has landed)
-//     or reads them through L1 where staging them would cost the fine
-//     phase's occupancy; the rhs moves in chunks of Kc columns through a
-//     ring of two buffers (chunk q + 1 in flight while chunk q computes),
-//     each level computed in place in the finest layout (level d's position
-//     j at row j << d: a position's own row is read and written only by its
-//     own threads, the odd rows only read), one barrier a level.
+//   reduce: a tile stage, then the whole chain (band._chain_plan plans it:
+//     CrReducePlan). The tile stage is the grid: a thread block a tile of P
+//     positions of level top (and a chunk of Kf columns) with its left
+//     halo, levels 1 .. top from b (reduce_tile). Each such block then takes
+//     a ticket of its chain's counter (`tickets`) once its rows are out;
+//     the block that takes the last runs the whole chain from level top,
+//     with no halo, reading the tiles' rows through L2 (cp.async.cg, after a
+//     fence): its E, F staged once (`stage`, a cp.async group a level) or
+//     read through L1, the rhs in chunks of Kc columns through a ring of two
+//     buffers, each level in place in the finest layout, one barrier a
+//     level. No thread block waits for another: a block that takes no last
+//     ticket ends; the one that does resets the counter, so every counter is
+//     zero before and after a launch. Where the chains alone fill the card
+//     (top = 0), a chain a thread block. The fine levels go over the card
+//     where their halo is short, the last few on one thread block a chain.
 //   backsub: a thread block owns a segment of T / S fine rows; the rows of
 //     x_l it needs form an interval at every level (x_{l-1}[2p] = x_l[p],
 //     x_{l-1}[2p + 1] from x_l[p], x_l[p + 1]): the whole chain for S = 1,
 //     one or two positions at the coarse levels and the segment at the fine
 //     ones otherwise. Each block recomputes its few coarse positions (no
-//     ticket, no second phase), with every level's invD, A, C and odd rows
-//     of b of its interval staged once (one cp.async group a level,
-//     coarsest first, issued two levels ahead of the level computed) and
-//     its columns looped in chunks through two compact x buffers; a thread
-//     owns Db rows of a column (Db = 6: rv = (b - A x) - C x_up and x =
-//     invD rv in registers) or one row (Db = 12: rv over the staged b, a
-//     barrier, then its row of invD rv); the finest x is written once.
+//     ticket, no wait). Directions (K <= 4 at Db = 6, K <= 2 at Db = 12:
+//     cr_backsub_lanes_kernel): the
+//     narrow tile step's layout, a lane group a position of the segment's
+//     widest level, lane r a row, its rows of a level's A, C, invD and b
+//     read from L2 into registers one level ahead, x_l in two shared
+//     buffers, one barrier a level. Panels (cr_backsub_chain_kernel): the
+//     levels' invD, A, C and odd rows of b stream through a ring of three
+//     level slots in shared memory (one cp.async group a level, coarsest
+//     first, issued two levels ahead of the level computed into the slot of
+//     the level just done): the shared memory of the widest levels, not the
+//     sum over all. Its columns go in chunks through two compact x buffers;
+//     a thread owns all six rows of a column (Db = 6: rv = (b - A x) - C
+//     x_up and x = invD rv in registers) or three (Db = 12, with a barrier
+//     between); the finest x is written once.
 // Arithmetic order is the plain twins': each block product summed over q
 // ascending from 0.0, b[2j] + (E b + F b), (b - A x) - C x; only nvcc's
-// contraction to FMAs differs. ops/band.py routes a run to these kernels
-// where they measured faster than the tile kernels (band._chain_takes).
-// Bound: bytes at the folds (each element of the rhs, the blocks and the
-// outputs moved once: the 100-trial fold's reduce 151 MB, 45 us at 3.35
-// TB/s; measured 85.5 us, 0.56x the tile kernel: a chain's 208 KB staged at
-// ~2 TB/s, then its six levels latency-bound on one thread block an SM);
-// a launch and the levels' dependent chains at the tails (PERF.md §6 has
-// each phase).
-// ---------------------------------------------------------------------
-
+// contraction to FMAs differs. Bound: bytes at the folds and the 2D panels
+// (each element of the rhs, the blocks and the outputs moved once: the
+// 100-trial fold's reduce 151 MB, 45 us at 3.35 TB/s); elsewhere a launch
+// and the levels' dependent chain: 10 levels in sequence on 3D 1x1000, a
+// barrier and product chains a level, and the reduce's hand-off to the
+// whole chain (a fence, an atomic, the chain's E, F into one SM). The clock
+// build, NVIDIA H100 80GB HBM3, 700 W (PERF.md §6): 3D 1x1000 at K = 1, the
+// reduce's tile stage 4.85 us, the hand-off 2.9 us, six levels 4.3 us; the
+// back substitution's ten levels 0.45-0.65 us each. Against the parent's
+// runs of at most 8 levels (PR 10's tiles and PR 19's chain kernels, in
+// turns): a pass's back substitution at K = 1 0.25-0.65x, the panels'
+// 0.68-0.83x but the 3D fold's (1.16x, one launch for two); the reduce
+// 0.86-1.02x at the panels, 0.94-1.09x at K = 1.
 // -DBAND_CR_CLOCKS: the thread block that finishes chain 0 (reduce) or
 // segment 0 of chain 0 (backsub) records kChainClocks clock64() values and
-// writes them over its output (measurement builds). Reduce: 0 start, 1
-// fine phase done, 2 last ticket, 3 coarse copies issued, 4 + 2 (d - 1) /
-// 5 + 2 (d - 1) coarse level d (chunk 0) begun / done, 31 end, 32.. the fine
-// tile's own (reduce_tile: 33 copies issued, 34 staged, 35 barrier, then
-// each level). Backsub: 0 start, 1 copies issued, 2 + 2 (n - l) / 3 + 2
-// (n - l) level l (chunk 0) begun / done, 31 end.
+// writes them over its output (the reduce: level 1's) (measurement builds).
+// Reduce: 0 start, 1 its
+// tile done, 24 the chain's last ticket taken, 3 the whole chain's copies
+// issued, 4 + 2 (d - 1) / 5 + 2 (d - 1) its level d (chunk 0) begun / done,
+// 31 end, 32.. its tile's own (reduce_tile: 33 copies issued, then each
+// level). Backsub: 0 start, 1 copies issued, 2 + 2 (n - l) / 3 + 2 (n - l)
+// level l (chunk 0) begun / done, 31 end.
 constexpr int kChainClocks = 64;
 #ifdef BAND_CR_CLOCKS
 #define CR_CHAIN_CLOCK(i) \
@@ -2247,7 +2319,7 @@ __device__ __forceinline__ void row_times_cols(const double* M, double (*x)[V],
   }
 }
 
-// Rows of a column a thread of cr_reduce_chain_kernel holds at the panel
+// Rows of a column a thread of cr_reduce_tree_kernel holds at the panel
 // (K >= kReduceRegisterRowsK): all six at Db = 6, a third at Db = 12; a
 // thread block is kCrThreads (a row a thread in 512 or 1024 threads read the
 // rhs Db times and ran the folds 1.3-1.8x slower; half the rows at Db = 6
@@ -2255,88 +2327,74 @@ __device__ __forceinline__ void row_times_cols(const double* M, double (*x)[V],
 template <int Db>
 constexpr int chain_rows() { return Db == 12 ? 4 : Db; }
 
+// The whole-chain stage of cr_reduce_tree_kernel: levels m + 1 .. n of chain
+// c from its level-m rows at src (2^(n - m) rows of Db x K, src at column
+// k0), columns k0 .. k0 + kw - 1 in chunks of Kc through a ring of two
+// buffers (chunk q + 1 in flight while chunk q computes), the levels' E, F
+// staged in shared memory (stage: staged once by bulk copies, a level's E
+// and F completing on its mbarrier of `bars`,
+// one cp.async group a level, a level starting when its group has landed) or
+// read through L1; each level computed in place in the finest layout (level
+// d's position j at row j << d: a position's own row is read and written only
+// by its own threads, the odd rows only read), one barrier a level.
 template <int Db, int R, int V>
-__global__ void __launch_bounds__(kCrThreads)
-cr_reduce_chain_kernel(const CrReduceLevels lv, const double* __restrict__ b,
-                       int* __restrict__ tickets, int n, int T, int K, int m, int Kf,
-                       int Kc, int stage) {
-#ifdef BAND_CR_CLOCKS
-  long long clk[kChainClocks];
-  if (threadIdx.x == 0)
-    for (int i = 0; i < kChainClocks; ++i) clk[i] = 0;
-#endif
-  CR_CHAIN_CLOCK(0)
-  extern __shared__ __align__(16) double sm[];
+__device__ __forceinline__ void reduce_chain(const CrReduceLevels& lv, const double* src, int c,
+                                             int m, int n, int K, int k0, int kw, int Kc,
+                                             int stage, double* sm, unsigned long long* bars,
+                                             long long* clk) {
   constexpr int BS = Db * Db;
   constexpr int G = Db / R;  // threads a position and column
-  const int Tc = T >> m;     // positions of level m: the coarse phase's input
-  int c = blockIdx.x, nC = gridDim.x;
-  if (m > 0) {
-    // the fine phase: levels 1 .. m of one level-m position and a chunk of
-    // Kf columns, with the tile's halo
-    const int chunks = (K + Kf - 1) / Kf, per = Tc * chunks;
-    c = blockIdx.x / per;
-    nC = gridDim.x / per;
-    const int r = blockIdx.x - c * per, tile = r / chunks;
-    reduce_tile<Db, R, true>(lv, b, m, T, K, 1, Kf, c, tile, (r - tile * chunks) * Kf, sm,
-                       CR_CHAIN_TILE_CLOCKS);
-    CR_CHAIN_CLOCK(1)
-    // every thread's rows out, then one ticket of the chain's; the last
-    // ticket runs the coarse levels
-    __threadfence();
-    __syncthreads();
-    int last = 0;
-    if (threadIdx.x == 0) {
-      last = atomicAdd(tickets + c, 1) == per - 1;
-      if (last) tickets[c] = 0;  // ready for the next launch
-    }
-    // (a barrier's OR, not a __shared__ flag: static shared memory would
-    // take from the dynamic shared memory the launch may ask for)
-    if (!__syncthreads_or(last)) return;
-    __threadfence();
-    CR_CHAIN_CLOCK(2)
-  }
-  // the coarse phase: levels m + 1 .. n of chain c, whole
+  const int Tc = 1 << (n - m);
   const int nc = n - m;
   const long long rs = (long long)Db * K;  // a position's stride in HBM
-  const double* src = (m ? lv.out[m - 1] : b) + (long long)c * Tc * rs;
-  const int chunks = (K + Kc - 1) / Kc;
-  const int RS = Db * Kc;       // a staged row
-  const int ring = Tc * RS;     // a chunk's rows
-  double* ef = sm;              // coarse level d's E, F (stage): after levels 1 .. d - 1's
+  const int chunks = (kw + Kc - 1) / Kc;
+  const int RS = Db * Kc;    // a staged row
+  const int ring = Tc * RS;  // a chunk's rows
+  double* ef = sm;           // level d's E, F (stage): after levels 1 .. d - 1's
   double* rows = sm + (stage ? 2 * (Tc - 1) * BS : 0);
-  // chunk 0's rows and level 1's E, F; one group a level; chunk 1's rows
-  stage_rhs(rows, RS, src, rs, Tc, Db, K, Kc, min(Kc, K));
-  for (int d = 1; d <= nc; ++d) {
-    if (stage) {
-      const int Th = Tc >> d;
-      const long long g = (long long)c * Th * BS;
-      double* e = ef + 2 * (Tc - (Tc >> (d - 1))) * BS;
-      stage_span(e, lv.E[m + d - 1] + g, Th * BS);
-      stage_span(e + Th * BS, lv.F[m + d - 1] + g, Th * BS);
+  // every level's E, F: two bulk copies a level, contiguous in HBM
+  if (stage) {
+    if (threadIdx.x == 0) {
+      for (int d = 1; d <= nc; ++d) mbar_init(bars + d - 1, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    cp_async_commit();
+    __syncthreads();  // the barriers are set, and every access of the stage before is done
+    if (threadIdx.x == 0) {
+      // the bulk copies (async proxy) after the generic accesses to this memory
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      for (int d = 1; d <= nc; ++d) {
+        const int Th = Tc >> d;
+        const long long g = (long long)c * Th * BS;
+        double* e = ef + 2 * (Tc - (Tc >> (d - 1))) * BS;
+        const unsigned bytes = (unsigned)(Th * BS * sizeof(double));
+        mbar_expect(bars + d - 1, 2 * bytes);
+        bulk_copy(e, lv.E[m + d - 1] + g, bytes, bars + d - 1);
+        bulk_copy(e + Th * BS, lv.F[m + d - 1] + g, bytes, bars + d - 1);
+      }
+    }
   }
-  int groups = nc;
+  // chunk 0's rows, then chunk 1's: a cp.async group each
+  stage_rhs(rows, RS, src, rs, Tc, Db, K, Kc, min(Kc, kw));
+  cp_async_commit();
   if (chunks > 1) {
-    stage_rhs(rows + ring, RS, src + Kc, rs, Tc, Db, K, Kc, min(Kc, K - Kc));
+    stage_rhs(rows + ring, RS, src + Kc, rs, Tc, Db, K, Kc, min(Kc, kw - Kc));
     cp_async_commit();
-    ++groups;
   }
   CR_CHAIN_CLOCK(3)
   for (int q = 0; q < chunks; ++q) {
-    const int k0 = q * Kc, kc = min(Kc, K - k0);
+    const int j0 = q * Kc, kc = min(Kc, kw - j0);
     double* buf = rows + (q & 1) * ring;
     if (q > 0) {
       __syncthreads();  // chunk q - 1 is done with the buffer chunk q + 1 takes
       if (q + 1 < chunks)
-        stage_rhs(rows + ((q + 1) & 1) * ring, RS, src + k0 + Kc, rs, Tc, Db, K, Kc,
-                  min(Kc, K - k0 - Kc));
+        stage_rhs(rows + ((q + 1) & 1) * ring, RS, src + j0 + Kc, rs, Tc, Db, K, Kc,
+                  min(Kc, kw - j0 - Kc));
       cp_async_commit();
       cp_async_wait<1>();  // chunk q has landed
     }
     for (int d = 1; d <= nc; ++d) {
-      if (q == 0) cp_async_wait_upto(groups - d);  // level d's E, F (and chunk 0)
+      if (q == 0 && d == 1) cp_async_wait_upto(chunks > 1 ? 1 : 0);  // chunk 0
+      if (q == 0 && stage) mbar_wait(bars + d - 1, 0);                // level d's E, F
       __syncthreads();
       if (q == 0) {
         CR_CHAIN_CLOCK(2 + 2 * d)
@@ -2350,7 +2408,7 @@ cr_reduce_chain_kernel(const CrReduceLevels lv, const double* __restrict__ b,
         E = lv.E[m + d - 1] + (long long)c * Th * BS;
         F = lv.F[m + d - 1] + (long long)c * Th * BS;
       }
-      double* out = lv.out[m + d - 1] + (long long)c * Th * rs + k0;
+      double* out = lv.out[m + d - 1] + (long long)c * Th * rs + k0 + j0;
       const int per = kc / V;  // column groups: kc is even where V = 2
       const int items = Th * G * per;
       for (int w = threadIdx.x; w < items; w += blockDim.x) {
@@ -2391,8 +2449,108 @@ cr_reduce_chain_kernel(const CrReduceLevels lv, const double* __restrict__ b,
       }
     }
   }
+}
+
+// The E and F of levels l0 + 1 .. n of chain c (fine length T) at the
+// positions that come from the level-l0 positions a .. b - 1, into L2 (one
+// prefetch a 128-byte line): the whole-chain stage's cp.async copies of
+// them then find them in L2. The tiles issue them before their own copies.
+template <int Db>
+__device__ __forceinline__ void prefetch_levels(const CrReduceLevels& lv, int c, int T, int l0,
+                                                int n, int a, int b) {
+  constexpr long long BS = Db * Db;
+  for (int l = l0 + 1; l <= n; ++l) {
+    const int lo = a >> (l - l0), hi = (b - 1) >> (l - l0);
+    const long long g = ((long long)c * (T >> l) + lo) * BS;
+    const char* e = reinterpret_cast<const char*>(lv.E[l - 1] + g);
+    const char* f = reinterpret_cast<const char*>(lv.F[l - 1] + g);
+    const int bytes = (hi - lo + 1) * (int)BS * 8;
+    for (int o = threadIdx.x * 128; o < bytes; o += blockDim.x * 128) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(e + o));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(f + o));
+    }
+  }
+}
+
+// Doubles of cr_reduce_tree_kernel's shared memory before its stages': the
+// flag of the chain's last ticket, and an mbarrier a whole-chain level.
+constexpr int kTreeHeader = 2 + kCrMaxLevels;
+
+// Thread blocks an SM the tree kernel is compiled for: two (at most 128
+// registers a thread) but where ptxas spilled at that cap, the panel
+// instances with a tile stage and the 3D panel's column pairs without
+// (ptxas -v, sm_90a; a spill fails chip_smoke.py), and four for the
+// directions' whole-chain kernel (the 2D fold's 400 chains in one wave);
+// with no bound ptxas took 80 registers and spilled too.
+// (-DBAND_CR_TREE_MIN_BLOCKS=b takes b at every instance: measurement
+// builds, profile_port.py --cr --pass --sweep.)
+constexpr int tree_min_blocks(int Db, int R, int V, bool TILES) {
+#ifdef BAND_CR_TREE_MIN_BLOCKS
+  return BAND_CR_TREE_MIN_BLOCKS;
+#else
+  return R > 1 && (TILES || (Db == 12 && V == 2)) ? 1 : (TILES || R > 1 ? 2 : 4);
+#endif
+}
+
+// TILES: the plan has a tile stage (else a chain a thread block: a kernel of
+// its own, so that its registers are the whole-chain stage's alone).
+template <int Db, int R, int V, bool TILES>
+__global__ void __launch_bounds__(kCrThreads, tree_min_blocks(Db, R, V, TILES))
+cr_reduce_tree_kernel(const CrReduceLevels lv, const double* __restrict__ b,
+                      int* __restrict__ tickets, int n, int K, const CrReducePlan plan) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[kChainClocks];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kChainClocks; ++i) clk[i] = 0;
+#else
+  long long* clk = nullptr;
+#endif
+  CR_CHAIN_CLOCK(0)
+  extern __shared__ __align__(16) double smem[];
+  // whether this block took its chain's last ticket, the whole chain's
+  // mbarriers, then the stages' own shared memory
+  int* last = reinterpret_cast<int*>(smem);
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + 2);
+  double* sm = smem + kTreeHeader;
+  const int T = 1 << n;
+  const long long rs = (long long)Db * K;  // a position's stride in HBM
+  if constexpr (!TILES) {  // a chain a thread block
+    const int c = blockIdx.x;
+    reduce_chain<Db, R, V>(lv, b + (long long)c * T * rs, c, 0, n, K, 0, K, plan.Kc, plan.stage,
+                           sm, bars, clk);
+    CR_CHAIN_CLOCK(31)
+    CR_CHAIN_CLOCKS_OUT(c == 0, lv.out[0], (long long)gridDim.x * (T >> 1) * Db * K)
+    return;
+  }
+  // the tile stage: the grid, a tile and chunk of Kf columns a thread block
+  const int chunks = (K + plan.Kf - 1) / plan.Kf;
+  const int tiles = (T >> plan.top) / plan.P;
+  const int per = tiles * chunks;  // thread blocks a chain
+  const int nC = gridDim.x / per;
+  const int c = blockIdx.x / per;
+  const int r = blockIdx.x - c * per, u = r / chunks, q = r - u * chunks;
+  if (q == 0)  // chunk 0: the whole chain's E, F from this tile's positions
+    prefetch_levels<Db>(lv, c, T, plan.top, n, u * plan.P, (u + 1) * plan.P);
+  reduce_tile<Db, R, true>(lv, b, 0, plan.top, T, K, plan.P, plan.Kf, c, u * plan.P,
+                           q * plan.Kf, sm, CR_CHAIN_TILE_CLOCKS);
+  CR_CHAIN_CLOCK(1)
+  __threadfence();
+  __syncthreads();  // every thread's rows of the tile are out
+  if (threadIdx.x == 0) {
+    int* k = tickets + c * chunks + q;  // the chain's chunk q
+    *last = atomicAdd(k, 1) == tiles - 1;
+    if (*last) *k = 0;  // zero again for the next launch
+  }
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();  // the rows of every tile of the chain's chunk are visible
+  CR_CHAIN_CLOCK(24)
+  const int k0 = q * plan.Kf;
+  reduce_chain<Db, R, V>(lv, lv.out[plan.top - 1] + (long long)c * (T >> plan.top) * rs + k0, c,
+                         plan.top, n, K, k0, min(plan.Kf, K - k0), plan.Kc, plan.stage, sm, bars,
+                         clk);
   CR_CHAIN_CLOCK(31)
-  CR_CHAIN_CLOCKS_OUT(c == 0, lv.out[n - 1], (long long)nC * Db * K)
+  CR_CHAIN_CLOCKS_OUT(c == 0 && q == 0, lv.out[0], (long long)nC * (T >> 1) * Db * K)
 }
 
 // The rows of x_l that segment s of S of a chain of T = 2^n fine rows
@@ -2418,34 +2576,64 @@ __host__ __device__ inline void chain_odd(int lo, int hi, int* plo, int* np) {
 }
 
 // Rows of a column a thread of the chain back substitution computes, and
-// the threads of a thread block. Db = 6: all six, rv and x = invD rv in
-// registers, no barrier between (a row a thread read x six times and ran
-// the 100-trial fold 1.7x slower). Db = 12: one, rv over the staged b, a
-// barrier, then the thread's row of invD rv (a thread a whole column ran a
-// level's three dependent 12 x 12 products on 216 16-byte loads of its
-// own: 1.8 us a level, 1.2-2x slower on the 3D runs it takes). Measured by
-// profile_port.py --cr, whose build -DBAND_CR_CHAIN_BACKSUB_ROWS=n takes
-// n rows a thread at both sizes (0: Db).
+// the threads of a thread block, by the rhs width. Narrow widths (4 < K <
+// kReduceRegisterRowsK; K <= 4 takes cr_backsub_lanes_kernel): one, rv over
+// the staged b, a barrier, then the thread's row of invD rv (all Db rows a
+// thread ran Manhattan-4's direction pass 15.7 us against 14.3 before the
+// lane-group kernel took the directions). Panels: all six at Db = 6, rv and x
+// = invD rv in registers, no barrier between (a row a thread: 42.0 us
+// against 32.4 at Manhattan-4's panel, 172 against 129 at the 2D fold);
+// three at Db = 12 (the 3D fold's panel 118 us against 154 at one row and
+// 163 at all twelve; 3D 1x1000's 21.0 against 24.8). NVIDIA H100 80GB
+// HBM3, 700 W, builds of -DBAND_CR_CHAIN_BACKSUB_ROWS=n, which takes n rows
+// a thread at both sizes and widths (0: Db).
 template <int Db>
-constexpr int chain_backsub_rows() {
+constexpr int chain_backsub_rows(bool panel) {
 #ifdef BAND_CR_CHAIN_BACKSUB_ROWS
   return BAND_CR_CHAIN_BACKSUB_ROWS > 0 ? BAND_CR_CHAIN_BACKSUB_ROWS : Db;
 #else
-  return Db == 12 ? 1 : Db;
+  return panel ? (Db == 12 ? 3 : Db) : 1;
 #endif
 }
 template <int R>
 constexpr int chain_backsub_threads() { return R == 1 ? 512 : 256; }
 
-// The back substitution's shared memory: level l's invD, A, C of its odd
-// positions plo .. plo + np - 1 and their rows of b (a chunk of columns),
-// level n first; then the two x buffers.
+// The back substitution's level slots: level l's invD, A, C of its odd
+// positions plo .. plo + np - 1 and their rows of b (a chunk of columns) in
+// slot (l - 1) % D of a ring of D = min(n, kBacksubRing) slots; then the two
+// x buffers. (A ring as deep as the levels, every level's copies in flight
+// at once, measured slower at every cell, 1.0-1.7x: the shared memory of
+// more levels for fewer thread blocks an SM; profile_port.py --cr --pass
+// --sweep, NVIDIA H100 80GB HBM3, 700 W.)
+constexpr int kBacksubRing = 3;
 __host__ __device__ inline int chain_level_doubles(int np, int Db, int Kc) {
   return np > 0 ? np * (3 * Db * Db + Db * Kc) : 0;
 }
 
+// Level l's copies for the back substitution into q, one cp.async group:
+// the invD, A, C blocks of the odd positions of the interval lo .. hi of
+// x_{l-1} and their rows of b (columns k0 .. k0 + kc - 1 of a Kc chunk).
+template <int Db>
+__device__ __forceinline__ void chain_issue(const CrBacksubLevels& lv, double* q, int lo, int hi,
+                                            int l, int c, int T, int K, int Kc, int kc, int k0) {
+  constexpr int BS = Db * Db;
+  int plo, np;
+  chain_odd(lo, hi, &plo, &np);
+  if (np > 0) {
+    const long long rs = (long long)Db * K;
+    const long long g = ((long long)c * (T >> l) + plo) * BS;
+    stage_span(q, lv.invD[l - 1] + g, np * BS);
+    stage_span(q + np * BS, lv.A[l - 1] + g, np * BS);
+    stage_span(q + 2 * np * BS, lv.C[l - 1] + g, np * BS);
+    stage_rhs(q + 3 * np * BS, Db * Kc,
+              lv.b[l - 1] + ((long long)c * (T >> (l - 1)) + 2 * plo + 1) * rs + k0, 2 * rs, np,
+              Db, K, Kc, kc);
+  }
+  cp_async_commit();
+}
+
 template <int Db, int R, int V>
-__global__ void __launch_bounds__(chain_backsub_threads<R>())
+__global__ void __launch_bounds__(chain_backsub_threads<R>(), 2)
 cr_backsub_chain_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
                         double* __restrict__ x, int n, int K, int S, int Kc, int rows) {
 #ifdef BAND_CR_CLOCKS
@@ -2463,42 +2651,28 @@ cr_backsub_chain_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
   const int RS = Db * Kc;                  // a staged row
   int lo[kCrMaxLevels + 1], hi[kCrMaxLevels + 1];
   chain_intervals(n, S, s, lo, hi);
-  // level l's region: at base[l], level n first
-  int base[kCrMaxLevels + 1];
-  int levels_doubles = 0;
-  for (int l = n; l >= 1; --l) {
-    int plo, np;
-    chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
-    base[l] = levels_doubles;
-    levels_doubles += chain_level_doubles(np, Db, Kc);
+  // the ring: level l in slot (l - 1) % D, each slot the widest of this
+  // segment's levels it takes; off[j] its start, off[D] the x buffers'
+  const int D = min(n, kBacksubRing);
+  int off[kBacksubRing + 1];
+  off[0] = 0;
+  for (int j = 0; j < D; ++j) {
+    int widest = 0;
+    for (int l = j + 1; l <= n; l += D) {
+      int plo, np;
+      chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
+      widest = max(widest, chain_level_doubles(np, Db, Kc));
+    }
+    off[j + 1] = off[j] + widest;
   }
-  double* xa = sm + levels_doubles;  // x_l over its interval: two buffers of `rows` positions
+  double* xa = sm + off[D];  // x_l over its interval: two buffers of `rows`
   double* xb = xa + rows * RS;
   for (int k0 = 0; k0 < K; k0 += Kc) {
     const int kc = min(Kc, K - k0);
-    // level l's copies, a cp.async group: its blocks (first chunk) and its
-    // odd rows of b. Issued two levels ahead of the level computed, level
-    // n first: the coarse levels start while the fine ones' copies (most of
-    // the bytes) are still in flight.
-    auto issue = [&](int l) {
-      int plo, np;
-      chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
-      if (np > 0) {
-        double* q = sm + base[l];
-        if (k0 == 0) {
-          const long long g = ((long long)c * (T >> l) + plo) * BS;
-          stage_span(q, lv.invD[l - 1] + g, np * BS);
-          stage_span(q + np * BS, lv.A[l - 1] + g, np * BS);
-          stage_span(q + 2 * np * BS, lv.C[l - 1] + g, np * BS);
-        }
-        stage_rhs(q + 3 * np * BS, RS,
-                  lv.b[l - 1] + ((long long)c * (T >> (l - 1)) + 2 * plo + 1) * rs + k0, 2 * rs,
-                  np, Db, K, Kc, kc);
-      }
-      cp_async_commit();
-    };
-    int issued = 0;  // levels n .. n - issued + 1 issued
-    for (; issued < 2 && issued < n; ++issued) issue(n - issued);
+    // level l's copies into its slot, a cp.async group: its blocks and its
+    // odd rows of b; levels n .. n - D + 1 at once, then one a level
+    for (int l = n; l > n - D; --l)
+      chain_issue<Db>(lv, sm + off[(l - 1) % D], lo[l - 1], hi[l - 1], l, c, T, K, Kc, kc, k0);
     if (k0 == 0) {
       CR_CHAIN_CLOCK(1)
     }
@@ -2513,9 +2687,14 @@ cr_backsub_chain_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
       const int Tl = T >> l, ilo = lo[l - 1], ihi = hi[l - 1], xlo = lo[l];
       int plo, np;
       chain_odd(ilo, ihi, &plo, &np);
-      if (issued < n) issue(n - issued++);
-      cp_async_wait_upto(issued - (n - l) - 1);  // level l's blocks and b rows have landed
-      __syncthreads();                           // and x_l is in the buffer
+      // level l's group has landed (the levels issued after it may fly: D -
+      // 1 of the first batch, then D - 2)
+      cp_async_wait_upto(l == n ? min(D - 1, l - 1) : min(D - 2, l - 1));
+      __syncthreads();  // and x_l is in the buffer, level l + 1's slot is free
+      const int ahead = l - D + 1;  // into level l + 1's slot
+      if (l < n && ahead >= 1)
+        chain_issue<Db>(lv, sm + off[(ahead - 1) % D], lo[ahead - 1], hi[ahead - 1], ahead, c, T,
+                        K, Kc, kc, k0);
       if (k0 == 0) {
         CR_CHAIN_CLOCK(2 + 2 * (n - l))
       }
@@ -2531,7 +2710,7 @@ cr_backsub_chain_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
       }
       // x_{l-1}[2p + 1] = invD ((b - A x_l[p]) - C x_l[p + 1]): R rows of a
       // column a thread
-      double* blk = sm + base[l];
+      double* blk = sm + off[(l - 1) % D];
       const double* Vb = blk;
       const double* Ab = blk + np * BS;
       const double* Cb = blk + 2 * np * BS;
@@ -2598,10 +2777,196 @@ cr_backsub_chain_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
       cur = nxt;
       nxt = t;
     }
-    __syncthreads();  // the buffers and the staged b are free for the next chunk
+    __syncthreads();  // the buffers and the slots are free for the next chunk
   }
   CR_CHAIN_CLOCK(31)
   CR_CHAIN_CLOCKS_OUT(blockIdx.x == 0, x, (long long)(gridDim.x / S) * T * rs)
+}
+
+// The directions' chain back substitution (K <= lanes_max_k): the
+// narrow tile step's layout over a segment's whole ascent. A lane group a
+// position (lane r a row, Lanes<Db>::group lanes), a group for each
+// position of the segment's widest level, so a group takes at most one odd
+// and one even position a level; its rows of that level's A, C, invD and b
+// are read from L2 into registers (no staging), two levels ahead of the
+// level computed. x_l over the segment's interval lies in one of two
+// shared buffers; a lane reads the Db rows of x_l[p] and x_l[p + 1] there
+// (broadcasts), and gathers the rows of (b - A x) - C x for its row of
+// invD by shuffles of the group. One barrier a level. K is a template
+// argument: every index is a constant but the level's.
+template <int Db, int K>
+struct LaneRows {
+  double A[Db], C[Db], V[Db], b[K];
+};
+
+// Level l's rows of lane r of the group at odd position p (none where !on:
+// zeros; no C where !up).
+template <int Db, int K>
+__device__ __forceinline__ void lanes_rows(const CrBacksubLevels& lv, int l, int c, int T, int p,
+                                           bool on, bool up, int r, LaneRows<Db, K>& w) {
+  constexpr int BS = Db * Db;
+#pragma unroll
+  for (int q = 0; q < Db; ++q) w.A[q] = w.C[q] = w.V[q] = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) w.b[k] = 0.0;
+  if (!on) return;
+  const long long o = ((long long)c * (T >> l) + p) * BS + r * Db;
+#pragma unroll
+  for (int q = 0; q < Db; q += 2) {
+    const double2 a = ldg2(lv.A[l - 1] + o + q);
+    const double2 v = ldg2(lv.invD[l - 1] + o + q);
+    w.A[q] = a.x;
+    w.A[q + 1] = a.y;
+    w.V[q] = v.x;
+    w.V[q + 1] = v.y;
+    if (up) {
+      const double2 m = ldg2(lv.C[l - 1] + o + q);
+      w.C[q] = m.x;
+      w.C[q + 1] = m.y;
+    }
+  }
+  const double* bs = lv.b[l - 1] + ((long long)c * (T >> (l - 1)) + 2 * p + 1) * Db * K + r * K;
+#pragma unroll
+  for (int k = 0; k < K; ++k) w.b[k] = __ldg(bs + k);
+}
+
+// The interval lo .. hi of x_l that a segment of fine rows lo0 .. hi0 of a
+// chain of T needs (chain_intervals in closed form: no array).
+__device__ __forceinline__ void lanes_interval(int lo0, int hi0, int T, int l, int* lo, int* hi) {
+  *lo = lo0 >> l;
+  *hi = min((hi0 + (1 << l) - 1) >> l, (T >> l) - 1);
+}
+
+// Issues level l's rows of this lane (l >= 1 and a position of the group at
+// that level; else zeros).
+template <int Db, int K>
+__device__ __forceinline__ void lanes_issue(const CrBacksubLevels& lv, int l, int c, int T,
+                                            int lo0, int hi0, int g, int r, LaneRows<Db, K>& w) {
+  int plo = 0, np = 0;
+  if (l >= 1) {
+    int lo, hi;
+    lanes_interval(lo0, hi0, T, l - 1, &lo, &hi);
+    chain_odd(lo, hi, &plo, &np);
+  }
+  lanes_rows<Db, K>(lv, l, c, T, plo + g, l >= 1 && r < Db && g < np,
+                    l >= 1 && plo + g + 1 < (T >> l), r, w);
+}
+
+// Level l of cr_backsub_lanes_kernel: x_{l-1} over its interval from x_l
+// (cur) into nxt, or into x in HBM at l = 1, with this lane's rows w (C
+// zero where x_l[p + 1] is past the chain: the plain twin's C x_up with
+// x_up = 0 subtracts +0.0 too). The K columns' chains are independent.
+template <int Db, int K>
+__device__ __forceinline__ void lanes_level(const LaneRows<Db, K>& w, const double* cur,
+                                            double* nxt, double* x, int l, int c, int T,
+                                            int lo0, int hi0, int g, int r) {
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int RS = Db * K;  // a position's rows, in HBM and in the buffers
+  int ilo, ihi, xlo, xhi, plo, np;
+  lanes_interval(lo0, hi0, T, l - 1, &ilo, &ihi);
+  lanes_interval(lo0, hi0, T, l, &xlo, &xhi);
+  chain_odd(ilo, ihi, &plo, &np);
+  double* out = l > 1 ? nxt + r * K - (long long)ilo * RS : x + ((long long)c * T) * RS + r * K;
+  // x_{l-1}[2p] = x_l[p], a group a position
+  const int e = ((ilo + 1) >> 1) + g;
+  if (r < Db && 2 * e <= ihi) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[2 * e * RS + k] = cur[(e - xlo) * RS + r * K + k];
+  }
+  // x_{l-1}[2p + 1] = invD ((b - A x_l[p]) - C x_l[p + 1]), lane r row r
+  const int p = plo + g;
+  const bool on = r < Db && g < np;
+  const double* xs = cur + (on ? p - xlo : 0) * RS;
+  const double* xu = on && p + 1 <= xhi ? xs + RS : xs;
+  double rv[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) rv[k] = 0.0;
+  if (on) {
+    double a[K] = {}, u[K] = {};
+#pragma unroll
+    for (int q = 0; q < Db; ++q) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        a[k] += w.A[q] * xs[q * K + k];
+        u[k] += w.C[q] * xu[q * K + k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) rv[k] = (w.b[k] - a[k]) - u[k];
+  }
+  double o[K] = {};
+#pragma unroll
+  for (int q = 0; q < Db; ++q) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) o[k] += w.V[q] * __shfl_sync(0xffffffffu, rv[k], q, GL);
+  }
+  if (on) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[(2 * p + 1) * RS + k] = o[k];
+  }
+}
+
+// Threads of a cr_backsub_lanes_kernel block at most (three levels' rows
+// in registers take more than the 128 registers a thread of 512 threads:
+// ptxas spilled), and the most rhs columns it takes: 4 at Db = 6, 2 at Db =
+// 12 (ptxas spilled at 3 and 4; cr_backsub_chain_kernel takes those).
+constexpr int kLanesMaxThreads = 256;
+template <int Db>
+constexpr int lanes_max_k() { return Db == 12 ? 2 : kBacksubNarrowK; }
+
+template <int Db, int K>
+__global__ void __launch_bounds__(kLanesMaxThreads)
+cr_backsub_lanes_kernel(const CrBacksubLevels lv, const double* __restrict__ xe,
+                        double* __restrict__ x, int n, int S, int rows) {
+#ifdef BAND_CR_CLOCKS
+  long long clk[kChainClocks];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kChainClocks; ++i) clk[i] = 0;
+#endif
+  CR_CHAIN_CLOCK(0)
+  extern __shared__ __align__(16) double sm[];
+  constexpr int GL = Lanes<Db>::group;
+  constexpr int RS = Db * K;
+  const int T = 1 << n;
+  const int c = blockIdx.x / S, s = blockIdx.x - c * S;
+  const int g = threadIdx.x / GL, r = threadIdx.x & (GL - 1);
+  const int lo0 = s * (T / S), hi0 = lo0 + T / S - 1;  // the segment's fine rows
+  double* xa = sm;  // x_l over its interval: level l reads one, writes the other
+  double* xb = sm + rows * RS;
+  // level l's rows in w[(n - l) % 3]: levels n and n - 1 now, then each
+  // level issues the one two below it into the set of the level above
+  LaneRows<Db, K> w0, w1, w2;
+  lanes_issue<Db, K>(lv, n, c, T, lo0, hi0, g, r, w0);
+  lanes_issue<Db, K>(lv, n - 1, c, T, lo0, hi0, g, r, w1);
+  for (int i = threadIdx.x; i < RS; i += blockDim.x) xa[i] = xe[(long long)c * RS + i];
+  CR_CHAIN_CLOCK(1)
+  __syncthreads();
+  // three levels an iteration, so that each set of rows keeps its registers
+  for (int l = n; l >= 1; l -= 3) {
+    lanes_issue<Db, K>(lv, l - 2, c, T, lo0, hi0, g, r, w2);
+    CR_CHAIN_CLOCK(2 + 2 * (n - l))
+    lanes_level<Db, K>(w0, xa, xb, x, l, c, T, lo0, hi0, g, r);
+    CR_CHAIN_CLOCK(3 + 2 * (n - l))
+    __syncthreads();  // x_{l-1} is whole, x_l free
+    if (l == 1) break;
+    lanes_issue<Db, K>(lv, l - 3, c, T, lo0, hi0, g, r, w0);
+    CR_CHAIN_CLOCK(2 + 2 * (n - l + 1))
+    lanes_level<Db, K>(w1, xb, xa, x, l - 1, c, T, lo0, hi0, g, r);
+    CR_CHAIN_CLOCK(3 + 2 * (n - l + 1))
+    __syncthreads();
+    if (l == 2) break;
+    lanes_issue<Db, K>(lv, l - 4, c, T, lo0, hi0, g, r, w1);
+    CR_CHAIN_CLOCK(2 + 2 * (n - l + 2))
+    lanes_level<Db, K>(w2, xa, xb, x, l - 2, c, T, lo0, hi0, g, r);
+    CR_CHAIN_CLOCK(3 + 2 * (n - l + 2))
+    __syncthreads();
+    // x_{l-3} is in xb: the next iteration reads xa
+    double* t = xa;
+    xa = xb;
+    xb = t;
+  }
+  CR_CHAIN_CLOCK(31)
+  CR_CHAIN_CLOCKS_OUT(blockIdx.x == 0, x, (long long)(gridDim.x / S) * T * RS)
 }
 
 // ---------------------------------------------------------------------
@@ -3042,9 +3407,6 @@ constexpr int kClusterWide = 96;
 constexpr int kClusterRing = 2;
 constexpr int kClusterItems = 4;  // (position, row group, column) a thread
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
 
 // Stage `lev` of the ring (slot lev % R): the owned positions' E and F of
 // level lev, or after the last level their invD, as 1D bulk copies that
@@ -3105,30 +3467,6 @@ __device__ __forceinline__ void cluster_barrier_arrive() {
 
 __device__ __forceinline__ void cluster_barrier_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Waits on an mbarrier's phase. A wait that has not ended after ~2^32
-// clocks (seconds) traps: a fault, never a hang.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  const unsigned addr = smem_addr(bar);
-  const long long t0 = clock64();
-  while (true) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1LL << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
 }
 
 template <int Db, int RG>
@@ -3717,96 +4055,120 @@ cudaError_t launch_cr_backsub(const CrBacksubLevels& lv, const double* xe, doubl
   }
 }
 
-// Shared memory of cr_reduce_chain_kernel: the fine tile's (m > 0, one
-// level-m position and Kf columns: cr_reduce_smem) or the coarse phase's,
-// whichever is more: the coarse levels' E, F where staged, and a ring of
-// two chunks of Kc columns of the level-m rows (one where one chunk holds K).
-inline long long cr_chain_reduce_smem(int n, int Db, int K, int m, int Kf, int Kc, int stage) {
-  const long long Tc = (1LL << n) >> m;
-  const int chunks = (K + Kc - 1) / Kc;
-  long long d = ((chunks > 1 ? 2 : 1) * Tc * Db * Kc + (stage ? 2 * (Tc - 1) * Db * Db : 0)) *
+// Shared memory of cr_reduce_tree_kernel: the more of its stages' (the
+// tile's, cr_reduce_smem; the whole chain's: its E, F where staged, and one
+// or two chunks of Kc columns of its rows), and kTreeHeader doubles for the
+// flag of the chain's last ticket and the whole chain's mbarriers.
+inline long long cr_tree_reduce_smem(int n, int Db, int K, const CrReducePlan& p) {
+  const long long Tc = (1LL << n) >> p.top;
+  const int chunks = ((p.top ? p.Kf : K) + p.Kc - 1) / p.Kc;
+  long long d = ((chunks > 1 ? 2 : 1) * Tc * Db * p.Kc + (p.stage ? 2 * (Tc - 1) * Db * Db : 0)) *
                 (long long)sizeof(double);
-  if (m > 0) {
-    const long long f = cr_reduce_smem(m, Db, 1, Kf);
+  if (p.top) {
+    const long long f = cr_reduce_smem(p.top, Db, p.P, p.Kf);
     if (f > d) d = f;
   }
-  return d;
+  return d + kTreeHeader * (long long)sizeof(double);
 }
 
-// cr_backsub_chain_kernel over S segments of a chain of 2^n: the most
-// shared memory a segment takes (its levels' blocks and odd rows of b, two
-// x buffers of `rows` positions of Kc columns), `rows` (the longest
-// interval of x_l, l >= 1) and the most positions p of a level.
+// A plan the tree kernel takes: a tile stage below n levels with tiles of a
+// power of two of positions, chunks of 1 to K columns (the whole chain's
+// within the tile stage's), and, where the whole chain's rows come from the
+// tile stage, 16-byte reads (every column, or K, Kf and Kc even).
+inline bool cr_tree_plan_ok(int n, int K, const CrReducePlan& p) {
+  if (n < 1 || n > kCrMaxLevels || p.top < 0 || p.top >= n || p.Kc < 1 || p.Kc > K)
+    return false;
+  if (p.top == 0) return true;
+  return p.Kf >= 1 && p.Kf <= K && p.Kc <= p.Kf && p.P >= 1 && (p.P & (p.P - 1)) == 0 &&
+         p.P <= ((1 << n) >> p.top) &&
+         (p.Kc == K || (K % 2 == 0 && p.Kf % 2 == 0 && p.Kc % 2 == 0));
+}
+
+template <int Db, int R, int V, bool TILES>
+cudaError_t launch_cr_reduce_tree_rows(const CrReduceLevels& lv, const double* b, int* tickets,
+                                       int nC, int n, int K, const CrReducePlan& p,
+                                       long long smem, cudaStream_t st) {
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(cr_reduce_tree_kernel<Db, R, V, TILES>, &allowed);
+  if (err != cudaSuccess) return err;
+  constexpr int G = Db / R;
+  const int T = 1 << n;
+  const long long blocks =
+      p.top ? (long long)nC * ((T >> p.top) / p.P) * ((K + p.Kf - 1) / p.Kf) : nC;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  // the most items of a stage's first level: the whole chain's, the tile's
+  const int W = p.top ? p.Kf : K;  // the whole chain's columns a thread block
+  long long items = (long long)((T >> p.top) >> 1) * G * ((W < p.Kc ? W : p.Kc) / V);
+  if (p.top) {
+    const long long t = (long long)(((p.P + 1) << (p.top - 1)) - 1) * G * (K < p.Kf ? K : p.Kf);
+    if (t > items) items = t;
+  }
+  cr_reduce_tree_kernel<Db, R, V, TILES><<<(unsigned)blocks, cr_threads(items, kCrThreads), smem,
+                                           st>>>(lv, b, tickets, n, K, p);
+  return cudaGetLastError();
+}
+
+template <int Db, int R, int V>
+cudaError_t launch_cr_reduce_tree_tiles(const CrReduceLevels& lv, const double* b, int* tickets,
+                                        int nC, int n, int K, const CrReducePlan& p,
+                                        long long smem, cudaStream_t st) {
+  if (p.top)
+    return launch_cr_reduce_tree_rows<Db, R, V, true>(lv, b, tickets, nC, n, K, p, smem, st);
+  return launch_cr_reduce_tree_rows<Db, R, V, false>(lv, b, tickets, nC, n, K, p, smem, st);
+}
+
+// band_cr_reduce on a run of n levels that ends at one position a chain, as
+// band._chain_plan planned it (CrReducePlan). The rows that one stage
+// writes and another reads move in 16-byte units through L2 (cp.async.cg).
+template <int Db>
+cudaError_t launch_cr_reduce_tree(const CrReduceLevels& lv, const double* b, int* tickets,
+                                  int nC, int n, int K, const CrReducePlan& p, cudaStream_t st) {
+  if (!cr_tree_plan_ok(n, K, p) || (p.top > 0 && tickets == nullptr))
+    return cudaErrorInvalidValue;
+  const long long smem = cr_tree_reduce_smem(n, Db, K, p);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  // the panel: several rows a thread, and column pairs (double2) where
+  // every chunk's width falls on 16-byte boundaries (half the rows a thread
+  // at Db = 6: all six by two columns took more than 128 registers)
+  if (K >= kReduceRegisterRowsK && K % 2 == 0 && p.Kc % 2 == 0)
+    return launch_cr_reduce_tree_tiles<Db, Db == 6 ? 3 : chain_rows<Db>(), 2>(lv, b, tickets, nC,
+                                                                              n, K, p, smem, st);
+  if (K >= kReduceRegisterRowsK)
+    return launch_cr_reduce_tree_tiles<Db, chain_rows<Db>(), 1>(lv, b, tickets, nC, n, K, p,
+                                                                smem, st);
+  return launch_cr_reduce_tree_tiles<Db, 1, 1>(lv, b, tickets, nC, n, K, p, smem, st);
+}
+
+// cr_backsub_chain_kernel over S segments of a chain of 2^n: the shared
+// memory (the most over the segments of its ring's slots, each the widest of
+// the levels it takes, and two x buffers of `rows` positions of Kc columns),
+// `rows` (the longest interval of x_l, l >= 1) and the most positions p of
+// a level.
 inline void cr_chain_backsub_shape(int n, int Db, int S, int Kc, long long* smem, int* rows,
                                    int* items) {
+  const int D = n < kBacksubRing ? n : kBacksubRing;
   long long blocks = 0;
   int r = 1, it = 1;
   for (int s = 0; s < S; ++s) {
     int lo[kCrMaxLevels + 1], hi[kCrMaxLevels + 1];
     chain_intervals(n, S, s, lo, hi);
-    long long bl = 0;
+    int widest[kBacksubRing] = {};
     for (int l = 1; l <= n; ++l) {
       int plo, np;
       chain_odd(lo[l - 1], hi[l - 1], &plo, &np);
-      bl += chain_level_doubles(np, Db, Kc);
+      const int d = chain_level_doubles(np, Db, Kc);
+      if (d > widest[(l - 1) % D]) widest[(l - 1) % D] = d;
       if (hi[l] - lo[l] + 1 > r) r = hi[l] - lo[l] + 1;
       const int its = (hi[l - 1] >> 1) - (lo[l - 1] >> 1) + 1;
       if (its > it) it = its;
     }
+    long long bl = 0;
+    for (int j = 0; j < D; ++j) bl += widest[j];
     if (bl > blocks) blocks = bl;
   }
   *rows = r;
   *items = it;
   *smem = (blocks + 2LL * r * Db * Kc) * (long long)sizeof(double);
-}
-
-template <int Db, int R, int V>
-cudaError_t launch_cr_reduce_chain_rows(const CrReduceLevels& lv, const double* b, int* tickets,
-                                        int nC, int n, int K, int m, int Kf, int Kc, int stage,
-                                        long long smem, cudaStream_t st) {
-  static bool allowed = false;
-  const cudaError_t err = allow_smem(cr_reduce_chain_kernel<Db, R, V>, &allowed);
-  if (err != cudaSuccess) return err;
-  const int T = 1 << n, Tc = T >> m;
-  const long long blocks = m ? (long long)nC * Tc * ((K + Kf - 1) / Kf) : nC;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  // the first coarse level's items, and the fine tile's first level's
-  long long items = (long long)(Tc >> 1) * (Db / R) * ((K < Kc ? K : Kc) / V);
-  if (m > 0) {
-    const long long fine = (long long)((2 << (m - 1)) - 1) * (Db / R) * (K < Kf ? K : Kf);
-    if (fine > items) items = fine;
-  }
-  cr_reduce_chain_kernel<Db, R, V><<<(unsigned)blocks, cr_threads(items, kCrThreads), smem,
-                                     st>>>(
-      lv, b, tickets, n, T, K, m, Kf, Kc, stage);
-  return cudaGetLastError();
-}
-
-// band_cr_reduce on a run of n levels that ends at one position a chain, as
-// band._cr_chain_plan planned it: m fine levels a level-m position (and Kf
-// columns) a thread block, the rest over the whole chain in chunks of Kc
-// columns, the coarse E, F staged or not. The level-m rows are read back in
-// 16-byte units (whole rows, or K and Kc even), through L2 (cp.async.cg).
-template <int Db>
-cudaError_t launch_cr_reduce_chain(const CrReduceLevels& lv, const double* b, int* tickets,
-                                   int nC, int n, int K, int m, int Kf, int Kc, int stage,
-                                   cudaStream_t st) {
-  if (n < 1 || n > kCrMaxLevels || m < 0 || m >= n || Kf < 1 || Kf > K || Kc < 1 || Kc > K ||
-      (m > 0 && tickets == nullptr) || (m > 0 && Kc != K && (K % 2 || Kc % 2)))
-    return cudaErrorInvalidValue;
-  const long long smem = cr_chain_reduce_smem(n, Db, K, m, Kf, Kc, stage);
-  if (smem > 232448) return cudaErrorInvalidValue;
-  // the panel: several rows a thread, and column pairs (double2) where
-  // every chunk's width falls on 16-byte boundaries (half the rows a thread
-  // at Db = 6: all six by two columns took more than 128 registers)
-  if (K >= kReduceRegisterRowsK && K % 2 == 0 && Kc % 2 == 0)
-    return launch_cr_reduce_chain_rows<Db, Db == 6 ? 3 : chain_rows<Db>(), 2>(
-        lv, b, tickets, nC, n, K, m, Kf, Kc, stage, smem, st);
-  if (K >= kReduceRegisterRowsK)
-    return launch_cr_reduce_chain_rows<Db, chain_rows<Db>(), 1>(lv, b, tickets, nC, n, K, m,
-                                                                Kf, Kc, stage, smem, st);
-  return launch_cr_reduce_chain_rows<Db, 1, 1>(lv, b, tickets, nC, n, K, m, Kf, Kc, stage,
-                                               smem, st);
 }
 
 template <int Db, int R, int V>
@@ -3824,6 +4186,23 @@ cudaError_t launch_cr_backsub_chain_cols(const CrBacksubLevels& lv, const double
   return cudaGetLastError();
 }
 
+// cr_backsub_lanes_kernel: a lane group for each of the `items` positions
+// of a segment's widest level (at most kLanesMaxThreads), two x buffers of
+// `rows` positions.
+template <int Db, int K>
+cudaError_t launch_cr_backsub_lanes(const CrBacksubLevels& lv, const double* xe, double* x,
+                                    int nC, int n, int S, int rows, int items, cudaStream_t st) {
+  const long long lanes = (long long)items * Lanes<Db>::group;
+  const long long smem = 2LL * rows * Db * K * (long long)sizeof(double);
+  if (lanes > kLanesMaxThreads || smem > 232448) return cudaErrorInvalidValue;
+  static bool allowed = false;
+  const cudaError_t err = allow_smem(cr_backsub_lanes_kernel<Db, K>, &allowed);
+  if (err != cudaSuccess) return err;
+  cr_backsub_lanes_kernel<Db, K><<<nC * S, cr_threads(lanes, kLanesMaxThreads), smem, st>>>(
+      lv, xe, x, n, S, rows);
+  return cudaGetLastError();
+}
+
 // band_cr_backsub on a run of n levels that ends at one position a chain:
 // S segments a chain (a power of two up to 2^n), chunks of Kc columns.
 template <int Db>
@@ -3835,8 +4214,20 @@ cudaError_t launch_cr_backsub_chain(const CrBacksubLevels& lv, const double* xe,
   long long smem;
   int rows, items;
   cr_chain_backsub_shape(n, Db, S, Kc, &smem, &rows, &items);
+  if (K <= lanes_max_k<Db>()) {  // the directions: a lane group a position
+    if (Kc != K) return cudaErrorInvalidValue;
+    if (K == 1) return launch_cr_backsub_lanes<Db, 1>(lv, xe, x, nC, n, S, rows, items, st);
+    if (K == 2) return launch_cr_backsub_lanes<Db, 2>(lv, xe, x, nC, n, S, rows, items, st);
+    if constexpr (lanes_max_k<Db>() == 4) {
+      if (K == 3) return launch_cr_backsub_lanes<Db, 3>(lv, xe, x, nC, n, S, rows, items, st);
+      return launch_cr_backsub_lanes<Db, 4>(lv, xe, x, nC, n, S, rows, items, st);
+    }
+  }
   if (smem > 232448) return cudaErrorInvalidValue;
-  constexpr int R = chain_backsub_rows<Db>();
+  constexpr int R = chain_backsub_rows<Db>(true);
+  if (K < kReduceRegisterRowsK)
+    return launch_cr_backsub_chain_cols<Db, chain_backsub_rows<Db>(false), 1>(
+        lv, xe, x, nC, n, K, S, Kc, rows, smem, items, st);
   // column pairs (double2) where a thread holds all Db rows and every
   // chunk's width and the output's columns fall on 16-byte boundaries
   if constexpr (R == Db) {
@@ -3963,17 +4354,15 @@ int band_cr_backsub(CrBacksubLevels lv, const double* xe, double* x, int levels,
 }
 
 // band_cr_reduce / band_cr_backsub on a run that ends at one position a
-// chain (levels halve the chain 2^levels to 1), by the plan of
-// band._cr_chain_plan: the reduce's fine levels m, their chunk Kf, the
-// coarse chunk Kc and whether the coarse E, F are staged, with `tickets`
-// (nC ints, zero; zero again after the launch; unused for m = 0); the back
-// substitution's segments S a chain and chunk Kc.
+// chain (levels halve the chain 2^levels to 1): the reduce by the plan of
+// band._chain_plan (CrReducePlan) with `tickets` (zero, as many as the
+// plan's counters; zero again after the launch; unused without tile
+// stages); the back substitution's segments S a chain and chunk Kc.
 int band_cr_reduce_chain(CrReduceLevels lv, const double* b, int* tickets, int levels, int nC,
-                         int Db, int K, int m, int Kf, int Kc, int stage, void* stream) {
+                         int Db, int K, CrReducePlan plan, void* stream) {
   if ((long long)nC * K == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  BAND_DISPATCH(Db, launch_cr_reduce_chain<kDb>(lv, b, tickets, nC, levels, K, m, Kf, Kc, stage,
-                                                st))
+  BAND_DISPATCH(Db, launch_cr_reduce_tree<kDb>(lv, b, tickets, nC, levels, K, plan, st))
 }
 
 int band_cr_backsub_chain(CrBacksubLevels lv, const double* xe, double* x, int levels, int nC,

@@ -91,11 +91,16 @@ def test_compacted_band_matches_dense(C, T, Db, K, active, n_cr):
 
 @pytest.mark.parametrize("Db,K", [(6, 1), (6, 138), (12, 1), (12, 18)])
 def test_band_past_a_launch_of_compacting_levels(Db, K, monkeypatch):
-    """With the compaction floor at 1 a chain of 512 compacts 9 times, one
-    level more than a fused CR launch takes: the factor keeps every level,
-    the solve runs the fused wrappers in two runs (5 and 4 levels) and
-    matches a dense solve (1e-11) at a direction and a panel width."""
+    """A launch takes 10 levels (chains of up to 1,024), so a chain of
+    2,048 solves in two runs (6 and 5 levels); with a launch cut to 8
+    levels a chain of 512, which compacts 9 times, does the same (5 and 4):
+    the factor keeps every level, the solve runs the fused wrappers in two
+    runs and matches a dense solve (1e-11) at a direction and a panel
+    width."""
+    assert band._CR_MAX_LEVELS == 10
+    assert band._cr_runs(10) == [10] and band._cr_runs(11) == [6, 5]
     monkeypatch.setattr(band, "CR_BASE_LENGTH", 1)
+    monkeypatch.setattr(band, "_CR_MAX_LEVELS", 8)
     T = 512
     D, U = _chains(1, T, Db, 95)
     rhs = np.random.default_rng(6).standard_normal((1, T, Db, K))
@@ -765,24 +770,30 @@ def test_cr_plan(n, Tn, K, Db):
 
 
 def _cr_reduce_chain_replay(levels, b, plan):
-    """band_cr_reduce's chain kernel replayed (band.ReducePlan): the fine
-    levels 1 .. m as the tile kernel cuts them (one level-m position a
-    tile, chunks of Kf columns, with the halo), then the coarse levels
-    m + 1 .. n over each whole chain from the level-m rows, in chunks of Kc
-    columns, each level computed in place in the finest layout (level d's
-    position j at row j << d, its input's rows 2j -+ 1 at (2j -+ 1) << (d - 1))."""
+    """band_cr_reduce's tree kernel replayed (band.ReducePlan): the tile
+    stage as the tile kernel cuts it (tiles of P positions of level top with
+    their halo, chunks of Kf columns) from b, then the levels top + 1 .. n
+    over each whole chain from the level-top rows, a chunk of Kf columns at
+    a time in chunks of Kc columns,
+    each level computed in place in the finest layout (level d's position j
+    at row j << d, its input's rows 2j -+ 1 at (2j -+ 1) << (d - 1))."""
     n = len(levels)
     C, T, Db, K = b.shape
-    m = plan.m
     outs = [torch.full((C, T >> (lev + 1), Db, K), float("nan"), dtype=b.dtype)
             for lev in range(n)]
+    src, m = b, plan.top
     if m:
-        for lev, o in enumerate(_cr_reduce_tiled(levels[:m], b, 1, plan.Kf)):
+        for lev, o in enumerate(_cr_reduce_tiled(levels[:m], b, plan.P, plan.Kf)):
             outs[lev] = o
-    src = outs[m - 1] if m else b
+        src = outs[m - 1]
+    # a whole chain a chunk of Kf columns (all K without a tile stage), in
+    # chunks of Kc within it
+    spans = [(j, k0) for j in range(0, K, plan.Kf)
+             for k0 in range(j, min(j + plan.Kf, K), plan.Kc)]
     Tc = T >> m
-    for k0 in range(0, K, plan.Kc):
-        buf = src[..., k0:k0 + plan.Kc].clone()
+    for j, k0 in spans:
+        k1 = min(k0 + plan.Kc, j + plan.Kf, K)
+        buf = src[..., k0:k1].clone()
         for d in range(1, n - m + 1):
             lv, sh, Th = levels[m + d - 1], d - 1, Tc >> d
             s = torch.arange(Th)
@@ -791,8 +802,31 @@ def _cr_reduce_chain_replay(levels, b, plan):
             E = lv.E * (s > 0).view(1, Th, 1, 1).to(b.dtype)
             new = buf[:, own] + (E @ buf[:, down] + lv.F @ buf[:, up])
             buf[:, own] = new
-            outs[m + d - 1][..., k0:k0 + plan.Kc] = new
+            outs[m + d - 1][..., k0:k1] = new
     return tuple(outs)
+
+
+def _tree_tickets_replayed(plan, n, C, chunks, order):
+    """The tree reduce's tickets (csrc/band.cu: cr_reduce_tree_kernel) with
+    the tile stage's thread blocks arriving in ``order``: each block runs
+    its tile and chunk of columns, then takes a ticket of the counter of
+    its chain and chunk; the one that takes the last runs the whole chain
+    for that chunk and zeroes the counter. Returns the (chain, chunk)
+    whole chains run, in the order they ran, with the tiles of that chain
+    and chunk that had run by then, and the counters after the launch."""
+    tiles = ((1 << n) >> plan.top) // plan.P
+    counters = [[0] * chunks for _ in range(C)]
+    done = [[set() for _ in range(chunks)] for _ in range(C)]
+    ran = []
+    for blk in order:
+        c, r = divmod(blk, tiles * chunks)
+        u, q = divmod(r, chunks)
+        done[c][q].add(u)
+        counters[c][q] += 1
+        if counters[c][q] == tiles:
+            counters[c][q] = 0
+            ran.append((c, q, set(done[c][q])))
+    return ran, counters
 
 
 def _cr_backsub_chain_replay(levels, fine, x, plan):
@@ -828,13 +862,17 @@ def _cr_backsub_chain_replay(levels, fine, x, plan):
     return out
 
 
-# The runs of the cells that end at one position a chain: (chains of the
-# cell, levels, block size, rhs widths): the Monte-Carlo folds (100 trials
-# of 4 x 50; 16 trials of 3D 4x250), Manhattan-4's and 3D 1x1000's last
-# runs (their tails), robot20, 3D 4x250, a chain of two positions
-_CHAIN_RUNS = [(400, 6, 6, (56, 1)), (64, 8, 12, (18, 1)), (4, 4, 6, (138, 1)),
-               (1, 5, 12, (18, 1)), (20, 7, 6, (258, 1)), (4, 8, 12, (18, 1)),
-               (3, 1, 6, (5, 1)), (1, 1, 12, (19,))]
+# A band-solve pass of the cells, one run that ends at one position a
+# chain: (chains of the cell, levels, block size, rhs widths): the
+# Monte-Carlo folds (100 trials of 4 x 50; 16 trials of 3D 4x250),
+# Manhattan-4, 3D 1x1000, robot20, 3D 4x250, chains of two and four
+# positions
+_CHAIN_RUNS = [(400, 6, 6, (56, 1)), (64, 8, 12, (18, 1, 2)), (4, 9, 6, (138, 1, 2)),
+               (1, 10, 12, (18, 1, 2)), (20, 7, 6, (258, 1)), (4, 8, 12, (18, 1)),
+               (3, 1, 6, (5, 1)), (1, 1, 12, (19,)), (3, 2, 12, (3, 4))]
+# the cells' band-solve passes: (chains, chain length, block size, panel width)
+_PASS_CELLS = [(4, 512, 6, 138), (20, 128, 6, 258), (4, 256, 12, 18), (1, 1024, 12, 18),
+               (400, 64, 6, 56), (64, 256, 12, 18)]
 
 
 def _cr_run_replayed(levels, b, x, C, n_sm=132):
@@ -871,11 +909,11 @@ def _cr_run_replayed(levels, b, x, C, n_sm=132):
 
 @pytest.mark.parametrize("cell_C,n,Db,Ks", _CHAIN_RUNS)
 def test_cr_cells_runs_replayed(cell_C, n, Db, Ks):
-    """Every run of the cells that ends at one position a chain, replayed
-    in PyTorch as the wrappers cut it at the cell's chain count (the chain
-    kernels' segments, tickets' phases and chunks, or the tile kernels'
-    tiles where they keep the run), on 2 chains, against the plain twins:
-    1e-15 relative (the same products in the same grouping)."""
+    """Every cell's band-solve pass (one run to one position a chain),
+    replayed in PyTorch as the wrappers cut it at the cell's chain count
+    (the tree reduce's tile stage and chunks; the back
+    substitution's segments and chunks), on 2 chains, against the plain
+    twins: 1e-15 relative (the same products in the same grouping)."""
     C, T = 2, 1 << n
     levels = _cr_levels(C, T, Db, n, seed=n + Db)
     rng = np.random.default_rng(n + Db)
@@ -888,8 +926,7 @@ def test_cr_cells_runs_replayed(cell_C, n, Db, Ks):
             assert _rel(g, w) <= 1e-15
         fine = (b,) + want[:-1]
         assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-15
-        # and the chain kernels' cuts at 1 and 400 chains, where the routing
-        # keeps the tile kernels too
+        # and the plans at 1 and 400 chains
         for C_ in (1, 400):
             plan = band._chain_plan("reduce", n, Db, K, C_)
             for g, w in zip(_cr_reduce_chain_replay(levels, b, plan), want):
@@ -899,68 +936,141 @@ def test_cr_cells_runs_replayed(cell_C, n, Db, Ks):
             assert _rel(got, band.band_cr_backsub_plain(levels, fine, x)) <= 1e-15
 
 
+@pytest.mark.parametrize("C,Tp,Db,panel", _PASS_CELLS)
+def test_cr_tree_tickets_take_every_tile_once(C, Tp, Db, panel):
+    """The tree reduce's tickets at every cell's plans (K = 1, 2, the
+    panel), its tile stage's thread blocks arriving in order, in reverse and
+    in two random orders on 3 chains: the whole-chain stage of every chain
+    and chunk of columns runs exactly once, after every tile of that chain
+    and chunk, and every counter is zero after the launch."""
+    n = band.num_levels(Tp)
+    for K in (1, 2, panel):
+        plan = band._chain_plan("reduce", n, Db, K, C)
+        if not plan.top:
+            continue
+        chunks, C3 = -(-K // plan.Kf), 3
+        tiles = (Tp >> plan.top) // plan.P
+        blocks = C3 * tiles * chunks
+        rng = np.random.default_rng(K)
+        for order in (range(blocks), range(blocks - 1, -1, -1), rng.permutation(blocks),
+                      rng.permutation(blocks)):
+            ran, counters = _tree_tickets_replayed(plan, n, C3, chunks, list(order))
+            assert sorted((c, q) for c, q, _ in ran) == [
+                (c, q) for c in range(C3) for q in range(chunks)]
+            for c, q, had in ran:
+                assert had == set(range(tiles))
+            assert counters == [[0] * chunks for _ in range(C3)]
+
+
 @pytest.mark.parametrize("Db", [6, 12])
-@pytest.mark.parametrize("n", range(1, 9))
+@pytest.mark.parametrize("n", range(1, 11))
 def test_cr_chain_plan(n, Db):
     """The chain kernels' plans at every run length a launch takes, at the
-    widths of directions, 3D and 2D panels and robot20: a plan exactly
-    where band._chain_takes routes the run to a chain kernel, within the
-    card's 227 KB; a whole-chain tile (m = 0, S = 1) holds no halo: its
-    shared memory is exactly its E, F (reduce) or invD, A, C and b rows
-    (back substitution) and its rhs chunks; the fine levels spread over
-    the card where the chains do not fill it; a back substitution's thread
-    blocks give every second SM one where the chain allows."""
+    widths of directions, 3D and 2D panels and robot20: the reduce's plan
+    takes every run, the back substitution's all but those the tile kernels
+    keep in one launch (band._chain_takes), every direction's (K <= 4);
+    within the card's 227 KB (the tree reduce's flag and mbarriers included); a tile
+    stage below n levels; a whole-chain stage (no tile stage) holds no
+    halo: its shared memory is exactly its E, F and its rhs chunks; the
+    tile stage only where the chains do not fill the card or the whole
+    chain does not fit a thread block; a back substitution's thread blocks
+    give every second SM one where the chain allows, the directions' a lane
+    group for each position of a segment's widest level within
+    band._LANES_THREADS."""
     T, BS = 1 << n, Db * Db
     for C in (1, 4, 20, 64, 400):
         for K in (1, 2, 5, 18, 19, 56, 138, 258):
-            assert (band._cr_chain_plan("reduce", n, Db, K, C) is not None) == (
-                band._chain_takes("reduce", n, Db, K, C, 132))
+            assert band._chain_takes("reduce", n, Db, K, C, 132)
             r = band._chain_plan("reduce", n, Db, K, C)
-            if r is not None:
-                smem = band._chain_reduce_smem(n, Db, K, *r)
-                assert smem <= band._SMEM_MAX and 0 <= r.m < n and 1 <= r.Kc <= K
-                assert r.m == 0 or r.Kc == K or (K % 2 == 0 and r.Kc % 2 == 0)
-                if r.m == 0:
-                    ring = (2 if r.Kc < K else 1) * T * Db * r.Kc
-                    assert smem == 8 * (ring + (2 * (T - 1) * BS if r.stage else 0))
-                assert r.m == 0 or C < 132
-            assert (band._cr_chain_plan("backsub", n, Db, K, C) is not None) == (
-                band._chain_takes("backsub", n, Db, K, C, 132))
+            smem = band._tree_reduce_smem(n, Db, K, r)
+            assert smem <= band._SMEM_MAX and 1 <= r.Kc <= K and 1 <= r.Kf <= K
+            assert 0 <= r.top < n and r.P >= 1 and T >> r.top >= r.P
+            assert not r.top or r.Kc == K or (K % 2 == 0 and r.Kc % 2 == 0)
+            # a whole chain a chunk of the tile stage, read in 16-byte units
+            assert not r.top or (r.Kc <= r.Kf and (r.Kf == K or r.Kf % 2 == 0))
+            if not r.top:
+                ring = (2 if r.Kc < K else 1) * T * Db * r.Kc
+                assert smem == 8 * (ring + (2 * (T - 1) * BS if r.stage else 0)) + band._TREE_HEADER
+            assert not r.top or C < 132 or band._whole_chain(n, Db, K, 0, band._SMEM_MAX) is None
+            # the tile kernels keep a back substitution only where they take
+            # it in one launch
+            assert band._chain_takes("backsub", n, Db, K, C, 132) or (
+                len(band._cr_launch_depths(band._backsub_step(Db, K), n, Db, K)) == 1)
+            assert band._chain_takes("backsub", n, Db, K, C, 132) or K > 4 or (
+                C >= band._MANY_CHAINS)
             bk = band._chain_plan("backsub", n, Db, K, C)
-            if bk is not None:
-                smem, rows, _ = band._chain_backsub_shape(n, Db, bk.S, bk.Kc)
-                assert smem <= band._SMEM_MAX and 1 <= bk.Kc <= K and T % bk.S == 0
-                if bk.S == 1:
-                    assert smem == 8 * ((T - 1) * (3 * BS + Db * bk.Kc) + 2 * (T // 2) * Db * bk.Kc)
+            smem, rows, items = band._chain_backsub_shape(n, Db, bk.S, bk.Kc)
+            if K <= band._LANES_MAX_K[Db]:  # a lane group a position: two x buffers of K
+                most = band._LANES_THREADS
+                assert bk.Kc == K and items * band._LANE_GROUP[Db] <= most
+                assert 16 * rows * Db * K <= band._SMEM_MAX
+                assert bk.S in (1, T) or band._chain_backsub_shape(
+                    n, Db, bk.S // 2, K)[2] * band._LANE_GROUP[Db] > most or 2 * C * bk.S < 264
                 assert 2 * C * bk.S >= min(132, 2 * C * T)
+                continue
+            assert smem <= band._SMEM_MAX and 1 <= bk.Kc <= K and T % bk.S == 0
+            if bk.S == 1:  # the ring's slots: the three widest levels
+                widest = [(T >> (lev + 1)) * (3 * BS + Db * bk.Kc) for lev in range(min(n, 3))]
+                assert smem == 8 * (sum(widest) + 2 * (T // 2) * Db * bk.Kc)
+            assert 2 * C * bk.S >= min(132, 2 * C * T)
 
 
 def test_cr_chain_plans_of_the_cells():
-    """The thread blocks of the cells' last runs: the 100-trial fold's
-    reduce a chain a thread block (400, its E, F staged once, all 56
-    columns) and its back substitution 4 segments a chain (1,600); the
-    16-trial 3D fold's reduce over 2,048 fine thread blocks in one launch
-    (two launches of 1,024 + 64 before); 3D 1x1000's tail 8 and 32 (2 and 1
-    before); the tile kernels keep Manhattan-4's tail and the 3D fold's
-    back substitution. Launches a solve pass never rise."""
-    blocks = lambda r, C, n, K: C * ((1 << n) >> r.m) * -(-K // r.Kf) if r.m else C
-    for C, n, Db, K, want in ((400, 6, 6, 56, (400, 1600)), (64, 8, 12, 18, (2048, None)),
-                              (4, 4, 6, 138, (None, None)), (1, 5, 12, 18, (8, 32))):
+    """The thread blocks of the cells' passes: the 100-trial fold's reduce a
+    chain a thread block (400, its E, F staged once, all 56 columns) and its
+    back substitution 4 segments a chain (1,600, two thread blocks an SM); 3D 1x1000's reduce a tile
+    stage of 64 positions at K = 1 and of 32 positions by two chunks of
+    columns at the panel, which leaves 32 positions to the whole-chain
+    stage, a thread block a chunk; its back substitution 128 segments. One
+    launch each way a
+    pass on every cell and width, at any trial count (the launches a trip
+    of a Monte-Carlo batch equal a 1-trial batch's)."""
+    blocks = lambda r, C, n, K: (C * ((1 << n) >> r.top) // r.P * -(-K // r.Kf)
+                                 if r.top else C)
+    for C, n, Db, K, want in ((400, 6, 6, 56, (400, 1600)), (1, 10, 12, 18, (64, 128)),
+                              (1, 10, 12, 1, (64, 128))):
         r = band._cr_chain_plan("reduce", n, Db, K, C)
         bk = band._cr_chain_plan("backsub", n, Db, K, C)
-        assert (r and blocks(r, C, n, K), bk and C * bk.S) == want
+        assert (blocks(r, C, n, K), C * bk.S) == want
     assert band._cr_chain_plan("reduce", 6, 6, 56, 400).stage
-    # (reduce, back substitution) launches a pass, before: (2, 2) at the 3D
-    # fold, (2, 2) on a chain of 512 (9 levels: runs of 5 and 4)
-    assert band.cr_solve_launches(8, 12, 18, 1, 64) == band.cr_solve_launches(8, 12, 18, 1, 4)
-    assert band.cr_solve_launches(8, 12, 18, 1, 64) == (1, 2)
-    assert band.cr_solve_launches(9, 6, 138, 1, 4) == (2, 2)
+    assert band._cr_chain_plan("reduce", 10, 12, 18, 1)[:3] == (5, 1, 10)
+    # (reduce, back substitution) launches a pass: (2, 2) on Manhattan-4 and
+    # 3D 1x1000 before (runs of 5 + 4 and 5 + 5), (1, 2) at the 3D fold's
+    # panel
+    for C, Tp, Db, panel in _PASS_CELLS:
+        n = band.num_levels(Tp)
+        for K in (1, 2, 4, panel):
+            assert band.cr_solve_launches(n, Db, K, 1, C) == (1, 1)
+            for C_ in (1, 3, 4, 16, 100, 400, 1600):
+                assert band.cr_solve_launches(n, Db, K, 1, C_) == (1, 1)
     assert band.cr_solve_launches(8, 12, 18, Tn=4) == (2, 2)
-    # a batch's trial count moves no launch count: the folds against their
-    # 1-trial batches (4 chains)
-    for n, Db, C in ((6, 6, 400), (8, 12, 64)):
-        for K in (1, 18, 56):
-            assert band.cr_solve_launches(n, Db, K, 1, C) == band.cr_solve_launches(n, Db, K, 1, 4)
+    assert band.cr_solve_launches(11, 12, 18, 1, 1) == (3, 3)
+
+
+def test_band_solve_bits_of_the_per_level_composition():
+    """band_solve on the CPU (the plain twins, one run of every level to
+    one block a chain) gives the bits of the per-level composition that a
+    solve cut into runs of at most 8 levels gave: each level's reduction,
+    x = invD b on the one block, each level's back substitution, and the
+    3D refinement step."""
+    for C, T, Db, K in ((2, 512, 6, 3), (1, 1024, 12, 2)):
+        D, U = (torch.tensor(a) for a in _chains(C, T, Db, T + Db))
+        rhs = torch.tensor(np.random.default_rng(T).standard_normal((C, T, Db, K)))
+        f = band.band_factor(D, U)
+
+        def once(b):
+            fine = [b]
+            for lv in f.levels:
+                fine.append(band._cr_reduce_level(lv.E, lv.F, fine[-1]))
+            x = f.invD @ fine[-1]
+            for lv, bf in zip(reversed(f.levels), reversed(fine[:-1])):
+                x = band._cr_backsub_level(lv.invD, lv.A, lv.C, bf, x)
+            return x
+
+        want = once(rhs)
+        for _ in range(band.refine_steps(Db)):
+            want = want + once(rhs - band.band_matvec(D, U, want))
+        assert torch.equal(band.band_solve(f, rhs), want)
 
 
 # ------------------------------------------------------------------ #

@@ -673,6 +673,61 @@ def test_cr_kernels_at_the_cells_runs(cuda, C, T, n, Db, K):
     torch.cuda.synchronize()
 
 
+# A band-solve pass of each cell (chains, chain length, block size, panel
+# width), then the edges: chains of 2 and 4, one and an odd count of
+# chains, and a chain of 2,048 (two runs: the tile kernels, then the chain
+# kernels)
+_PASS_CELLS = [(4, 512, 6, 138), (20, 128, 6, 258), (4, 256, 12, 18), (1, 1024, 12, 18),
+               (400, 64, 6, 56), (64, 256, 12, 18)]
+_PASS_EDGES = [(1, 2, 6, 5), (3, 2, 12, 19), (1, 4, 12, 18), (5, 4, 6, 7), (3, 2048, 6, 138),
+               (1, 2048, 12, 18), (7, 1024, 6, 19), (3, 32, 12, 17)]
+
+
+@pytest.mark.parametrize("C,Tp,Db,panel", _PASS_CELLS + _PASS_EDGES)
+def test_cr_pass_matches_plain(cuda, C, Tp, Db, panel):
+    """One band-solve pass through every level (band._cr_runs: one run on
+    chains of up to 1,024) at K = 1, 2, 4, an odd width and the panel:
+    band_cr_reduce and band_cr_backsub against their plain twins (1e-12),
+    in the launches band.cr_solve_launches counts (one each way where a
+    run takes the whole pass), and a second pass on the same stream gives
+    the same bits (the tree reduce's counters are zero again after each
+    launch)."""
+    D, U = _band(C, Tp, Db, 57 + Tp + C, (Tp,) * C, cuda)
+    f = band.band_factor(D, U)
+    n = len(f.levels)
+    runs = band._cr_runs(n)
+    gen = torch.Generator(device=cuda).manual_seed(C + Tp + Db)
+
+    def one_pass(b, x):
+        fine, first = (b,), 0
+        for d in runs:
+            fine += band.band_cr_reduce(f.levels[first:first + d], fine[-1])
+            first += d
+        out = x
+        for d in reversed(runs):
+            first -= d
+            out = band.band_cr_backsub(f.levels[first:first + d], fine[first:first + d], out)
+        return fine[1:], out
+
+    for K in sorted({1, 2, 4, 3, panel}):
+        b = torch.randn(C, Tp, Db, K, generator=gen, dtype=torch.float64, device=cuda)
+        x = torch.randn(C, 1, Db, K, generator=gen, dtype=torch.float64, device=cuda)
+        band.reset_launch_counts()
+        red, got = one_pass(b, x)
+        assert (band.band_cr_reduce.launches, band.band_cr_backsub.launches) == (
+            band.cr_solve_launches(n, Db, K, 1, C, band._sm_count(cuda)))
+        if Tp <= 1024:
+            assert (band.band_cr_reduce.launches, band.band_cr_backsub.launches) == (1, 1)
+        want = band.band_cr_reduce_plain(f.levels, b)
+        assert all(_rel(g, w) <= 1e-12 for g, w in zip(red, want))
+        fine = (b,) + want[:-1]
+        assert _rel(got, band.band_cr_backsub_plain(f.levels, fine, x)) <= 1e-12
+        red2, got2 = one_pass(b, x)
+        assert all(torch.equal(g, w) for g, w in zip(red2, red)) and torch.equal(got2, got)
+        assert all(int(t.abs().sum()) == 0 for t in band._TICKETS.values())
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("C,Tp,Db,K", [(400, 64, 6, 56), (64, 256, 12, 18), (4, 512, 6, 138),
                                        (1, 1024, 12, 18), (20, 128, 6, 258), (4, 256, 12, 18)])
 def test_band_solve_launches_as_counted(cuda, C, Tp, Db, K):
@@ -729,12 +784,14 @@ def test_band_solve_at_two_and_three_levels(cuda, Db, C, Tp, n_cr):
 
 @pytest.mark.parametrize("Db", [6, 12])
 def test_band_solve_past_a_launch_of_levels(cuda, Db, monkeypatch):
-    """With the compaction floor at 1 a chain of 512 compacts 9 times, one
-    level more than a fused CR launch takes: the solve runs the reduce and
-    the back substitution twice each (5 and 4 levels; again for a 3D
+    """With the compaction floor at 1 and a launch cut to 8 levels (it takes
+    10), a chain of 512 compacts 9 times, one level more than a launch
+    takes: the solve runs the reduce and the back substitution twice each
+    (5 and 4 levels, the first on the tile kernels; again for a 3D
     refinement step) and matches a dense solve (1e-11) at a direction and
     the 3D panel's width."""
     monkeypatch.setattr(band, "CR_BASE_LENGTH", 1)
+    monkeypatch.setattr(band, "_CR_MAX_LEVELS", 8)
     Tp = 512
     D, U = _band(1, Tp, Db, 77, (Tp,), cuda)
     f = band.band_factor(D, U)
